@@ -1,0 +1,519 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`deeplearning4j_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # every default phase
+    python3 chip_smoke.py --phases kernels   # a subset; `profile` is extra
+
+Always first:
+
+1. identity — card name and power limit (nvidia-smi), torch and CUDA
+   versions.  Exits non-zero, printing no result, without a CUDA device.
+2. build — compiles every ``csrc/*.cu`` of the checkout (one nvcc per
+   source, in parallel) and prints ptxas' register / spill report.
+
+Then the phases:
+
+3. kernels — each hand-written kernel against its plain PyTorch version
+   at the serving path's shapes, bf16 and f32: max |kernel - plain|
+   against a stated tolerance, kernel / plain / library times (CUDA
+   events, cold L2, median of 10) and the kernel's lower bound.
+4. serve — the full-width flagship `TransformerEncoder` (vocab 32000,
+   d 1024, 8 heads, 8 layers, chunked head, seed 123, bf16 compute) in a
+   `GenerationEngine` (8 slots, 16-row pages, 512 pages, 160-wide
+   tables): 8 concurrent streams of 32 tokens, one with a 2000-token
+   prompt and one sampled.  Launch counters are zeroed just before and
+   read just after; both kernels must have run.
+5. parity — an f32-compute engine against the port's dense `generate`
+   on 4 greedy streams: token agreement >= 0.95, first token identical.
+6. int8 — the same streams through an int8-KV engine, gated against
+   the same reference as the JAX package gates int8 pages (>= 0.9).
+7. profile (only when asked for) — the serve pass under torch.profiler:
+   device busy share and device time by kernel.
+8. report — one ``{"kernels": [...]}`` JSON line, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Every phase that fails raises; nothing is caught on the way to exit 0.
+Details also go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+PHASES = ("kernels", "serve", "parity", "int8")
+EXTRA_PHASES = ("profile",)
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+
+VOCAB, D_MODEL, HEADS, LAYERS = 32000, 1024, 8, 8
+ENGINE = dict(slots=8, page_size=16, num_pages=512, max_pages_per_seq=160)
+
+TOL = {  # max |kernel - plain| allowed, with the reason
+    "flash_fwd/f32": 2e-4,    # f32 both sides, different summation order
+    "flash_fwd/bf16": 1.6e-2, # one bf16 rounding of an O(1) output (ulp 2^-7 at 1..2)
+    "paged_attention_fwd": 1e-4,       # f32 both sides, order of the sums
+    "paged_attention_fwd_int8": 1e-4,  # same int8 values dequantised both sides
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Kernel time with CUDA events, cold L2: before each launch the GPU
+    sleeps while the host enqueues an L2 flush and the launch, so host
+    overhead never lands between the events."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 * 2**20, dtype=torch.int8, device="cuda")
+
+    def __call__(self, fn, iters: int = 10) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for a, b in ev:
+            torch.cuda._sleep(20_000_000)
+            self.flush.zero_()
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def bound_ms(n_bytes: float, n_ops: float, kind: str):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- kernel phase -------------------------------------------------------------
+
+def flash_case(torch, timer, t, dtype, causal=True):
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        flash_fwd,
+        flash_fwd_plain,
+    )
+    import torch.nn.functional as F
+
+    bh, d = HEADS, D_MODEL // HEADS
+    g = torch.Generator(device="cuda").manual_seed(t)
+    q, k, v = (torch.randn((bh, t, d), generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    out, lse = flash_fwd(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = max((out.float() - ref.float()).abs().max().item(),
+              (lse - ref_lse).abs().max().item())
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+    eb = q.element_size()
+    b_ms, b_by = bound_ms(4 * bh * t * d * eb + bh * t * 4, 4 * d * pairs, kind)
+    qs, ks, vs = (x[None] for x in (q, k, v))        # (1, BH, T, D) for sdpa
+    row = {
+        "name": "flash_fwd", "dtype": kind, "shape": [bh, t, d],
+        "causal": causal, "max_abs_err": err, "tol": TOL[f"flash_fwd/{kind}"],
+        "ms": timer(lambda: flash_fwd(q, k, v, causal=causal)),
+        "plain_ms": timer(lambda: flash_fwd_plain(q, k, v, causal=causal)),
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    return row
+
+
+def paged_case(torch, timer, quant: bool):
+    from deeplearning4j_tpu_torch.ops.paged_attention import (
+        paged_attention_fwd,
+        paged_attention_plain,
+    )
+    from deeplearning4j_tpu_torch.serving.kv_cache import quantize_page_rows
+
+    s, h, dh = ENGINE["slots"], HEADS, D_MODEL // HEADS
+    ps, mp, n_pages = ENGINE["page_size"], ENGINE["max_pages_per_seq"], ENGINE["num_pages"]
+    # the serve phase's mix: one long stream, short ones, one idle slot
+    lens = [2017, 20, 150, 300, 5, 64, 0, 90]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    perm = (torch.randperm(n_pages - 1, generator=g, device="cuda") + 1).int()
+    tbl = torch.zeros((s, mp), dtype=torch.int32, device="cuda")
+    used = 0
+    for i, n in enumerate(lens):
+        k_n = -(-n // ps)
+        tbl[i, :k_n] = perm[used:used + k_n]
+        used += k_n
+    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((s, h, dh), generator=g, device="cuda")
+    kp = torch.randn((n_pages, ps, h, dh), generator=g, device="cuda")
+    vp = torch.randn((n_pages, ps, h, dh), generator=g, device="cuda")
+    ksc = vsc = None
+    if quant:
+        kp, ksc = quantize_page_rows(kp)
+        vp, vsc = quantize_page_rows(vp)
+    out = paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)
+    ref = paged_attention_plain(q, kp, vp, tbl, seq, ksc, vsc)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if out[lens.index(0)].abs().max().item() != 0.0:
+        raise AssertionError("paged attention: idle slot output is not exact zero")
+    live = sum(lens)
+    eb = kp.element_size()
+    n_bytes = (q.numel() * 4 + 2 * live * h * dh * eb
+               + (2 * live * h * 4 if quant else 0)
+               + sum(-(-n // ps) for n in lens) * 4 + s * 4 + out.numel() * 4)
+    n_ops = 4 * live * h * dh + (2 * live * h * dh if quant else 0)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
+    name = "paged_attention_fwd_int8" if quant else "paged_attention_fwd"
+    return {
+        "name": name, "dtype": "int8" if quant else "f32",
+        "shape": [s, h, dh, ps, mp], "seq_lens": lens,
+        "max_abs_err": err, "tol": TOL[name],
+        "ms": timer(lambda: paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)),
+        "plain_ms": timer(lambda: paged_attention_plain(q, kp, vp, tbl, seq, ksc, vsc)),
+        "library_ms": None,     # no single PyTorch call attends over a page table
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def phase_kernels(torch, timer):
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (2048, 2000, 144):
+            rows.append(flash_case(torch, timer, t, dtype))
+    for quant in (False, True):
+        rows.append(paged_case(torch, timer, quant))
+    bad = []
+    for r in rows:
+        log(f"[kernels] {r['name']:26s} {r['dtype']:4s} shape={r['shape']} "
+            f"err={r['max_abs_err']:.3e} (tol {r['tol']:.1e}) ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        if not r["max_abs_err"] <= r["tol"]:
+            bad.append(r)
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    return rows
+
+
+# -- serving phases -------------------------------------------------------------
+
+def _prompts(np, seed, lengths):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, VOCAB, n).astype(np.int32) for n in lengths]
+
+
+def _check_streams(np, prompts, outs, max_new):
+    for p, o in zip(prompts, outs):
+        o = np.asarray(o)
+        if o.shape != (len(p) + max_new,) or not np.array_equal(o[:len(p)], p):
+            raise AssertionError(f"stream shape {o.shape} for a {len(p)}-token prompt")
+        gen = o[len(p):]
+        if gen.min() < 0 or gen.max() >= VOCAB:
+            raise AssertionError(f"out-of-vocab token in {gen}")
+
+
+def _flagship(torch, bf16=None):
+    from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+
+    model = TransformerEncoder(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=LAYERS,
+        causal=True, chunked_vocab_loss=True, vocab_chunk=8192, seed=123,
+        bf16_compute=bf16,
+    ).init_model(device="cuda")
+    torch.cuda.synchronize()
+    return model
+
+
+def phase_profile(torch, np):
+    """The serve phase's streams again, under torch.profiler: device
+    busy share and the kernels that take the device time.  Not part of
+    the default run (the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.serving.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    model = _flagship(torch)
+    eng = GenerationEngine(model, GenerationConfig(**ENGINE)).start()
+    try:
+        _serve_pass(torch, np, eng, seed=2)                 # meet every shape
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, st = _serve_pass(torch, np, eng, seed=4)
+    finally:
+        eng.stop()
+    wall = st["wall_s"]
+    rows = prof.key_averages()
+    dev = [(getattr(e, "self_device_time_total", 0.0), e.key) for e in rows]
+    busy_us = sum(t for t, _ in dev)
+    top = sorted(dev, reverse=True)[:15]
+    res = {
+        "wall_s": wall, "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "prefill_s": st["prefill_seconds"], "prefills": st["prefills"],
+        "decode_s": st["decode_seconds"], "decode_steps": st["decode_steps"],
+        "top_device_kernels_ms": [[k, t / 1e3] for t, k in top],
+    }
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_serve.txt"), "w") as f:
+        f.write(rows.table(sort_by="self_device_time_total", row_limit=40))
+        f.write("\n\n")
+        f.write(rows.table(sort_by="self_cpu_time_total", row_limit=40))
+    log(f"[profile] wall {wall:.3f}s (profiled), device busy {res['device_busy_s']:.3f}s "
+        f"= {res['device_busy_share']:.3f}; prefill {res['prefill_s']:.3f}s over "
+        f"{res['prefills']} prompts; decode {res['decode_s']:.3f}s over "
+        f"{res['decode_steps']} steps")
+    for k, ms in res["top_device_kernels_ms"]:
+        log(f"[profile]   {ms:10.3f} ms  {k[:110]}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+SERVE_LENGTHS = [2000, 5, 40, 97, 150, 233, 300, 64]   # the last one samples
+
+
+def _serve_pass(torch, np, eng, seed, max_new=32):
+    """The 8 concurrent streams; returns prompts, requests, outputs, wall
+    seconds and the engine's prefill / decode totals for the pass."""
+    prompts = _prompts(np, seed, SERVE_LENGTHS)
+    base = eng.stats()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new) for p in prompts[:-1]]
+    reqs.append(eng.submit(prompts[-1], max_new, temperature=0.8, top_k=50,
+                           seed=11))
+    outs = [r.result(timeout=600) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    _check_streams(np, prompts, outs, max_new)
+    ttft = [r.ttft_s for r in reqs]
+    res = {
+        "streams": len(reqs), "max_new_tokens": max_new,
+        "tokens": len(reqs) * max_new, "wall_s": wall,
+        "tokens_per_s": len(reqs) * max_new / wall,
+        "mean_ttft_s": sum(ttft) / len(ttft), "ttft_s": ttft,
+        "long_prompt_ttft_s": ttft[0],
+    }
+    for k in ("decode_steps", "decode_seconds", "prefills", "prefill_seconds"):
+        res[k] = st[k] - base[k]
+    return prompts, outs, res
+
+
+def _log_pass(name, res):
+    log(f"[serve] {name}: {res['tokens']} tokens in {res['wall_s']:.3f}s = "
+        f"{res['tokens_per_s']:.1f} tokens/s; mean TTFT {res['mean_ttft_s']*1e3:.1f} ms "
+        f"(2000-token prompt {res['long_prompt_ttft_s']*1e3:.1f} ms); "
+        f"{res['prefills']} prefills {res['prefill_seconds']:.3f}s, "
+        f"{res['decode_steps']} decode steps {res['decode_seconds']:.3f}s")
+
+
+def phase_serve(torch, np, kernels):
+    """Two passes of the same 8-stream mix on one engine: the first meets
+    every prefill shape for the first time (cuBLAS picks and loads its
+    kernels then), the second is the measured main path, with the launch
+    counters zeroed just before it and read just after."""
+    from deeplearning4j_tpu_torch.ops.generation import generate
+    from deeplearning4j_tpu_torch.serving.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    t0 = time.perf_counter()
+    model = _flagship(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] model: {n_params} params, compute {model.compute_dtype}, "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    eng = GenerationEngine(model, GenerationConfig(**ENGINE)).start()
+    try:
+        _, _, cold = _serve_pass(torch, np, eng, seed=2)
+        _log_pass("first pass (new shapes)", cold)
+        kernels.reset_launches()
+        prompts, outs, res = _serve_pass(torch, np, eng, seed=4)
+        counts = kernels.launches()
+        _log_pass("measured pass", res)
+        if eng.kv.leak_check() is not None:
+            raise AssertionError(eng.kv.leak_check())
+    finally:
+        eng.stop()
+    log(f"[serve] launches in the measured pass: {counts}")
+    for name in ("flash_fwd", "paged_attention_fwd"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the main path: {counts}")
+    # the long stream's first token against the dense reference (the same
+    # prefill through the same kernels)
+    dense_first = int(generate(model, prompts[0][None], 1)[0, -1])
+    if dense_first != int(outs[0][len(prompts[0])]):
+        raise AssertionError("first token of the 2000-token stream differs "
+                             "from the dense reference")
+    if not bool(torch.isfinite(model.output(prompts[1][None])).all()):
+        raise AssertionError("non-finite hidden states")
+    res["launches"] = counts
+    res["first_pass"] = cold
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _agreement(np, prompts, outs, refs):
+    agree = total = 0
+    first_ok = True
+    for p, o, r in zip(prompts, outs, refs):
+        a, b = np.asarray(o)[len(p):], np.asarray(r)[len(p):]
+        first_ok &= bool(a[0] == b[0])
+        agree += int((a == b).sum())
+        total += len(a)
+    return agree / total, first_ok
+
+
+def phase_parity(torch, np, kernels, kv_dtype="f32", gate=0.95, refs=None):
+    from deeplearning4j_tpu_torch.ops.generation import generate
+    from deeplearning4j_tpu_torch.serving.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    model = _flagship(torch, bf16=False)
+    prompts = _prompts(np, 3, [600, 150, 64, 17])
+    max_new = 32
+    if refs is None:
+        refs = [generate(model, p[None], max_new)[0].cpu().numpy() for p in prompts]
+    eng = GenerationEngine(model, GenerationConfig(**ENGINE, kv_dtype=kv_dtype)).start()
+    try:
+        kernels.reset_launches()
+        reqs = [eng.submit(p, max_new) for p in prompts]
+        outs = [r.result(timeout=600) for r in reqs]
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+    finally:
+        eng.stop()
+    _check_streams(np, prompts, outs, max_new)
+    agree, first_ok = _agreement(np, prompts, outs, refs)
+    log(f"[{'int8' if kv_dtype == 'int8' else 'parity'}] kv {kv_dtype}, f32 compute: "
+        f"greedy agreement with dense generate {agree:.4f} (gate {gate}), "
+        f"first tokens identical: {first_ok}, launches {counts}")
+    if agree < gate or not first_ok:
+        raise AssertionError(f"engine ({kv_dtype} pages) disagrees with dense generate")
+    del model
+    torch.cuda.empty_cache()
+    return {"agreement": agree, "first_token_identical": first_ok, "gate": gate,
+            "launches": counts}, refs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma list out of {PHASES + EXTRA_PHASES}")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    if any(p not in PHASES + EXTRA_PHASES for p in phases):
+        ap.error(f"unknown phase in {phases}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this script "
+              "measures the GPU and has no CPU mode", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.runtime import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    log(smi)
+    log(f"[identity] {kind}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
+        f"capability {torch.cuda.get_device_capability(0)}; python {sys.version.split()[0]}")
+    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    t0 = time.perf_counter()
+    paths = kernels.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[build] {len(paths)} libraries in {report['build_s']:.1f}s")
+    for stem, path in paths.items():
+        logf = path.with_suffix(".log")
+        if logf.exists():
+            for line in logf.read_text(errors="replace").splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[build] {stem}: {line.strip()}")
+
+    timer = Timer(torch)
+    rows = phase_kernels(torch, timer) if "kernels" in phases else []
+    report["kernel_phase"] = rows
+    if "serve" in phases:
+        report["serve"] = phase_serve(torch, np, kernels)
+    if "profile" in phases:
+        report["profile"] = phase_profile(torch, np)
+    refs = None
+    if "parity" in phases:
+        report["parity"], refs = phase_parity(torch, np, kernels)
+    if "int8" in phases:
+        report["int8"], _ = phase_parity(torch, np, kernels, kv_dtype="int8",
+                                         gate=0.9, refs=refs)
+
+    entries = []
+    main_rows = {
+        "flash_fwd": next((r for r in rows if r["name"] == "flash_fwd"
+                           and r["dtype"] == "bf16" and r["shape"][1] == 2000), None),
+        "paged_attention_fwd": next((r for r in rows if r["name"] == "paged_attention_fwd"), None),
+        "paged_attention_fwd_int8": next(
+            (r for r in rows if r["name"] == "paged_attention_fwd_int8"), None),
+    }
+    sources = {
+        "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
+                      "deeplearning4j_tpu/ops/flash_attention.py:35"),
+        "paged_attention_fwd": ("deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+                                "deeplearning4j_tpu/ops/paged_attention.py:121"),
+        "paged_attention_fwd_int8": ("deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+                                     "deeplearning4j_tpu/ops/paged_attention.py:121"),
+    }
+    run_counts = {}
+    run_counts.update(report.get("serve", {}).get("launches", {}))
+    if "int8" in report:
+        run_counts["paged_attention_fwd_int8"] = report["int8"]["launches"].get(
+            "paged_attention_fwd_int8", 0)
+    for name, r in main_rows.items():
+        if r is None:
+            continue
+        src, replaces = sources[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": run_counts.get(name, 0), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    if "int8" in report and run_counts.get("paged_attention_fwd_int8", 0) <= 0:
+        raise AssertionError("the int8 engine never launched the int8 kernel")
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    log(json.dumps({"kernels": entries}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,26 @@
+"""Carry weights from the JAX package into the port.
+
+The JAX model's parameters are a nested dict keyed by layer name::
+
+    {"layer0": {"W"},
+     "layer2": {"attn": {"Wq", "Wk", "Wv", "Wo"}, "ln1": {"gamma", "beta"},
+                "ln2": {...}, "W1", "b1", "W2", "b2"},
+     "layer10": {"W", "b"}}
+
+`params_from_jax` loads such a tree (leaves as numpy arrays, e.g.
+``jax.tree.map(np.asarray, model.params)`` on the JAX side) into a port
+model built from the same configuration.  Layouts are kept as they are:
+dense weights stay (n_in, n_out) and are applied as ``x @ W``.  The
+model itself is needed because the tree does not say everything the
+stack is (head count, causality, head type).
+"""
+
+from __future__ import annotations
+
+from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+
+
+def params_from_jax(tree: dict, model: SequentialModel) -> SequentialModel:
+    """Install ``tree`` into ``model`` (names and shapes checked) and
+    return the model."""
+    return model.load_params(tree)

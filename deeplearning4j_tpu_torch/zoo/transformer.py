@@ -1,0 +1,86 @@
+"""TransformerEncoder — the zoo's causal LM, as in
+`deeplearning4j_tpu/zoo/transformer.py`: token embedding + sinusoidal
+positions + N pre-LN encoder blocks + a per-token vocab head."""
+
+from __future__ import annotations
+
+from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+from deeplearning4j_tpu_torch.nn.conf.attention import (
+    PositionalEncoding,
+    TransformerEncoderBlock,
+)
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    XAVIER,
+    ChunkedSoftmaxOutputLayer,
+    Embedding,
+)
+from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+    NeuralNetConfiguration,
+)
+from deeplearning4j_tpu_torch.nn.conf.recurrent import RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.activations import Activation
+
+
+class TransformerEncoder:
+    NAME = "transformer_encoder"
+
+    def __init__(
+        self,
+        vocab_size: int = 1000,
+        d_model: int = 128,
+        n_heads: int = 4,
+        n_layers: int = 2,
+        d_ff: int = 0,
+        causal: bool = True,
+        seq_parallel: str = "none",
+        seed: int = 123,
+        learning_rate: float = 3e-4,
+        moe_experts: int = 0,
+        moe_top_k: int = 2,
+        chunked_vocab_loss: bool = False,
+        vocab_chunk: int = 8192,
+        bf16_compute=None,
+    ):
+        if seq_parallel != "none":
+            raise NotImplementedError(
+                "sequence parallelism arrives with the parallelism slice")
+        if moe_experts:
+            raise NotImplementedError("MoE layers are not ported yet")
+        self.vocab_size = vocab_size
+        self.d_model = d_model
+        self.n_heads = n_heads
+        self.n_layers = n_layers
+        self.d_ff = d_ff
+        self.causal = causal
+        self.seed = seed
+        self.learning_rate = learning_rate      # read by fit(), a later slice
+        self.moe_top_k = moe_top_k
+        self.chunked_vocab_loss = chunked_vocab_loss
+        self.vocab_chunk = vocab_chunk
+        self.bf16_compute = bf16_compute
+
+    def conf(self):
+        b = (
+            NeuralNetConfiguration.builder()
+            .seed(self.seed)
+            .weight_init(XAVIER)
+            .bf16_compute(self.bf16_compute)
+            .list()
+            .layer(Embedding(n_in=self.vocab_size, n_out=self.d_model))
+            .layer(PositionalEncoding())
+        )
+        for _ in range(self.n_layers):
+            b.layer(TransformerEncoderBlock(
+                d_model=self.d_model, n_heads=self.n_heads, d_ff=self.d_ff,
+                causal=self.causal))
+        if self.chunked_vocab_loss:
+            head = ChunkedSoftmaxOutputLayer(n_out=self.vocab_size,
+                                             chunk=self.vocab_chunk)
+        else:
+            head = RnnOutputLayer(n_out=self.vocab_size, loss="mcxent",
+                                  activation=Activation.SOFTMAX)
+        return b.layer(head).build()
+
+    def init_model(self, device=None) -> SequentialModel:
+        """Build and randomly initialise on ``device`` (CUDA by default)."""
+        return SequentialModel(self.conf(), device=device).init()

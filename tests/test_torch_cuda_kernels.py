@@ -1,0 +1,102 @@
+"""The port's hand-written CUDA kernels against their plain versions, on
+the card.  Without a CUDA device every test here skips (the CPU suite
+holds the plain versions against the JAX package instead).  On the card:
+
+    python -m pytest --noconftest -m torch_port tests/test_torch_cuda_kernels.py
+
+(``--noconftest`` skips the suite's conftest, which sets JAX up: a CUDA
+environment need not have JAX.)
+
+Tolerances: f32 kernels within 2e-4 (flash) and 1e-4 (paged) absolute —
+the same arithmetic in another summation order; the bf16 flash output
+within 1.6e-2, one bf16 rounding of an O(1) value.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+from deeplearning4j_tpu_torch.ops.generation import generate
+from deeplearning4j_tpu_torch.ops.paged_attention import (
+    paged_attention_fwd,
+    paged_attention_plain,
+)
+from deeplearning4j_tpu_torch.runtime import kernels
+from deeplearning4j_tpu_torch.serving.generation import (
+    GenerationConfig,
+    GenerationEngine,
+)
+from deeplearning4j_tpu_torch.serving.kv_cache import quantize_page_rows
+from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+
+pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (hand-written kernels run only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("t", [16, 144, 2000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_kernel_matches_plain(cuda, t, d, causal, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(t * d)
+    q, k, v = (torch.randn((3, t, d), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    before = kernels.launches().get("flash_fwd", 0)
+    out, lse = flash_fwd(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launches()["flash_fwd"] == before + 1
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_kernel_matches_plain(cuda, quant):
+    s, h, dh, n_pages, ps, mp = 5, 4, 128, 40, 16, 12
+    g = torch.Generator(device=cuda).manual_seed(1)
+    lens = torch.tensor([0, 1, 17, 190, 64], dtype=torch.int32, device=cuda)
+    tbl = torch.randint(1, n_pages, (s, mp), generator=g, device=cuda,
+                        dtype=torch.int32)
+    q = torch.randn((s, h, dh), generator=g, device=cuda)
+    kp = torch.randn((n_pages, ps, h, dh), generator=g, device=cuda)
+    vp = torch.randn((n_pages, ps, h, dh), generator=g, device=cuda)
+    ks = vs = None
+    if quant:
+        kp, ks = quantize_page_rows(kp)
+        vp, vs = quantize_page_rows(vp)
+    out = paged_attention_fwd(q, kp, vp, tbl, lens, ks, vs)
+    ref = paged_attention_plain(q, kp, vp, tbl, lens, ks, vs)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.all(out[0] == 0)
+
+
+def test_engine_on_the_card_matches_dense_generate(cuda):
+    """f32 compute, greedy: paged decode through both kernels agrees with
+    the dense reference token for token at a small width."""
+    model = TransformerEncoder(vocab_size=97, d_model=256, n_heads=2,
+                               n_layers=2, chunked_vocab_loss=True,
+                               bf16_compute=False).init_model(device=cuda)
+    prompts = [np.random.default_rng(n).integers(0, 97, n) for n in (5, 33, 80)]
+    refs = [generate(model, p[None], 12)[0].cpu().numpy() for p in prompts]
+    eng = GenerationEngine(model, GenerationConfig(
+        slots=4, page_size=16, num_pages=32, max_pages_per_seq=8)).start()
+    try:
+        kernels.reset_launches()
+        outs = [r.result(120) for r in [eng.submit(p, 12) for p in prompts]]
+    finally:
+        eng.stop()
+    counts = kernels.launches()
+    assert counts.get("flash_fwd", 0) > 0 and counts.get("paged_attention_fwd", 0) > 0
+    for out, ref in zip(outs, refs):
+        np.testing.assert_array_equal(out, ref)

@@ -1,0 +1,176 @@
+"""Rules the port keeps, checked without a GPU.
+
+- The port never imports jax or the JAX package (a fresh interpreter
+  imports it and runs the CPU engine, then lists its modules).
+- Entry points default to CUDA and raise when there is none; only an
+  explicit ``device="cpu"`` runs on the CPU.
+- A kernel wrapper never answers a CUDA tensor with its plain version:
+  it launches the kernel or raises.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.ops import paged_attention as pa
+from deeplearning4j_tpu_torch.runtime import backend, kernels
+from deeplearning4j_tpu_torch.serving.kv_cache import PagedKVCache
+from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+
+# small shapes: one intra-op thread keeps these files from competing with
+# the multi-process tests that share the host under pytest-xdist
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import deeplearning4j_tpu_torch
+        from deeplearning4j_tpu_torch.convert import params_from_jax
+        from deeplearning4j_tpu_torch.ops.generation import generate
+        from deeplearning4j_tpu_torch.serving.generation import (
+            GenerationConfig, GenerationEngine)
+        from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+        m = TransformerEncoder(vocab_size=17, d_model=32, n_heads=2, n_layers=1,
+                               chunked_vocab_loss=True).init_model(device="cpu")
+        eng = GenerationEngine(m, GenerationConfig(
+            slots=2, page_size=8, num_pages=8, max_pages_per_seq=2)).start()
+        try:
+            out = eng.generate(np.arange(5) % 17, 3, timeout=60)
+        finally:
+            eng.stop()
+        assert out.shape == (8,)
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
+        print("FORBIDDEN", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "FORBIDDEN []" in res.stdout, res.stdout
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        backend.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransformerEncoder(vocab_size=11, d_model=32, n_heads=2,
+                           n_layers=1).init_model()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(n_layers=1, n_heads=2, head_dim=16, num_pages=4,
+                     page_size=8)
+    assert backend.resolve_device("cpu").type == "cpu"
+    assert not backend.backend("cpu").is_cuda
+
+
+def test_compute_dtype_follows_the_device():
+    conf = TransformerEncoder(vocab_size=11, d_model=32, n_heads=2,
+                              n_layers=1).conf()
+    assert SequentialModel(conf, device="cpu").compute_dtype == torch.float32
+    assert backend.backend("cpu").compute_dtype == torch.float32
+
+
+def test_route_sends_cuda_to_the_kernel_and_cpu_to_the_plain_version():
+    assert kernels.route(torch.device("cpu")) == "plain"
+    assert kernels.route(torch.device("cuda")) == "kernel"
+    with pytest.raises(ValueError):
+        kernels.route(torch.device("meta"))
+
+
+class _FakeLib:
+    """Stands in for a loaded kernel library: records calls, returns a
+    given cudaError_t."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append(name)
+            return self.rc
+        return fn
+
+
+@pytest.fixture
+def claims_cuda(monkeypatch):
+    """Every tensor routes to the kernel; the plain versions explode."""
+    monkeypatch.setattr(kernels, "route", lambda device: "kernel")
+    monkeypatch.setattr(kernels, "current_stream", lambda device: 0)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", boom)
+    monkeypatch.setattr(pa, "paged_attention_plain", boom)
+
+
+def _paged_args(quant=False):
+    pools = (torch.zeros((4, 8, 2, 32), dtype=torch.int8 if quant else torch.float32)
+             for _ in range(2))
+    args = [torch.zeros((2, 2, 32)), *pools,
+            torch.zeros((2, 3), dtype=torch.int32),
+            torch.tensor([3, 0], dtype=torch.int32)]
+    if quant:
+        args += [torch.ones((4, 8, 2)), torch.ones((4, 8, 2))]
+    return args
+
+
+def test_wrappers_launch_for_cuda_tensors(claims_cuda, monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    before = kernels.launches()
+    q = torch.zeros((2, 16, 32))
+    out, lse = fa.flash_fwd(q, q, q, causal=True)
+    assert out.shape == q.shape and lse.shape == (2, 16)
+    pa.paged_attention_fwd(*_paged_args())
+    pa.paged_attention_fwd(*_paged_args(quant=True))
+    assert lib.calls == ["dl4j_flash_fwd", "dl4j_paged_attention",
+                         "dl4j_paged_attention"]
+    after = kernels.launches()
+    for name in ("flash_fwd", "paged_attention_fwd", "paged_attention_fwd_int8"):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+
+
+def test_wrappers_raise_instead_of_falling_back(claims_cuda, monkeypatch):
+    q = torch.zeros((2, 16, 32))
+    monkeypatch.setattr(kernels, "library", lambda stem: _FakeLib(rc=98))
+    with pytest.raises(RuntimeError, match="error 98"):
+        fa.flash_fwd(q, q, q, causal=False)
+    with pytest.raises(RuntimeError, match="error 98"):
+        pa.paged_attention_fwd(*_paged_args())
+
+    def no_nvcc(stem):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kernels, "library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa.flash_fwd(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros((2, 16, 24))
+        fa.flash_fwd(x, x, x, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((2, 32, 16)).transpose(1, 2)
+        fa.flash_fwd(t, t, t, causal=True)
+
+
+def test_a_host_without_nvcc_cannot_build(monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernels.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.nvcc_path()
