@@ -14,22 +14,33 @@ Always first:
 Then the phases:
 
 3. kernels — each hand-written kernel against its plain PyTorch version
-   at the serving path's shapes, bf16 and f32: max |kernel - plain|
-   against a stated tolerance, kernel / plain / library times (CUDA
-   events, cold L2, median of 10) and the kernel's lower bound.
-4. serve — the full-width flagship `TransformerEncoder` (vocab 32000,
+   at the shapes of the training and serving paths, bf16 and f32: max
+   |kernel - plain| against a stated tolerance, kernel / plain / library
+   times (CUDA events, cold L2, median of 10) and the kernel's lower
+   bound.  The flash backward (dQ and dK/dV kernels) at the training
+   shape (BH 32, T 2048 and 2000, D 128), against `flash_bwd_plain` and
+   the backward of `scaled_dot_product_attention`.
+4. train — the full-width flagship (below) trained with Adam (lr 3e-4)
+   through the chunked vocab loss on one fixed batch of 4 x 2048 token
+   ids (numpy seed 3, int64): 2 warm-up and 6 measured `fit_batch`
+   steps.  Prints step ms, tokens/s and every loss; gates on finite,
+   falling loss and on exactly 8 launches a step of each of flash_fwd,
+   flash_bwd_dq and flash_bwd_dkdv (counters zeroed just before the
+   measured steps and read just after).
+5. serve — the full-width flagship `TransformerEncoder` (vocab 32000,
    d 1024, 8 heads, 8 layers, chunked head, seed 123, bf16 compute) in a
    `GenerationEngine` (8 slots, 16-row pages, 512 pages, 160-wide
    tables): 8 concurrent streams of 32 tokens, one with a 2000-token
    prompt and one sampled.  Launch counters are zeroed just before and
    read just after; both kernels must have run.
-5. parity — an f32-compute engine against the port's dense `generate`
+6. parity — an f32-compute engine against the port's dense `generate`
    on 4 greedy streams: token agreement >= 0.95, first token identical.
-6. int8 — the same streams through an int8-KV engine, gated against
+7. int8 — the same streams through an int8-KV engine, gated against
    the same reference as the JAX package gates int8 pages (>= 0.9).
-7. profile (only when asked for) — the serve pass under torch.profiler:
-   device busy share and device time by kernel.
-8. report — one ``{"kernels": [...]}`` JSON line, then the last line
+8. profile (only when asked for) — two training steps and the serve
+   pass under torch.profiler: device busy share and device time by
+   kernel.
+9. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -46,7 +57,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "serve", "parity", "int8")
+PHASES = ("kernels", "train", "serve", "parity", "int8")
 EXTRA_PHASES = ("profile",)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -55,11 +66,18 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 
 VOCAB, D_MODEL, HEADS, LAYERS = 32000, 1024, 8, 8
 ENGINE = dict(slots=8, page_size=16, num_pages=512, max_pages_per_seq=160)
+# bench.py bench_longctx's training batch: 4 sequences of 2048 tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 2048, 2, 6
 
 TOL = {  # max |kernel - plain| allowed, with the reason
     "flash_fwd/f32": 2e-4,    # f32 both sides, different summation order
     "flash_fwd/bf16": 1.6e-2, # one bf16 rounding of an O(1) output (ulp 2^-7 at 1..2)
     "paged_attention_fwd": 1e-4,       # f32 both sides, order of the sums
+    # flash backward, relative to max |plain| of each gradient: f32 sums
+    # of up to T products in another order; in bf16, one rounding of each
+    # stored gradient element (2^-8 of it) on either side
+    "flash_bwd/f32": 1e-4,
+    "flash_bwd/bf16": 8e-3,
     "paged_attention_fwd_int8": 1e-4,  # same int8 values dequantised both sides
 }
 
@@ -108,14 +126,14 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str):
 
 # -- kernel phase -------------------------------------------------------------
 
-def flash_case(torch, timer, t, dtype, causal=True):
+def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
     from deeplearning4j_tpu_torch.ops.flash_attention import (
         flash_fwd,
         flash_fwd_plain,
     )
     import torch.nn.functional as F
 
-    bh, d = HEADS, D_MODEL // HEADS
+    d = D_MODEL // HEADS
     g = torch.Generator(device="cuda").manual_seed(t)
     q, k, v = (torch.randn((bh, t, d), generator=g, device="cuda").to(dtype)
                for _ in range(3))
@@ -139,6 +157,71 @@ def flash_case(torch, timer, t, dtype, causal=True):
         "bound_ms": b_ms, "bound_by": b_by,
     }
     return row
+
+
+def flash_bwd_cases(torch, timer, t, dtype, causal=True):
+    """Rows for kernels B2 (dQ) and B3 (dK/dV) at the training shape:
+    each against `flash_bwd_plain` on the same inputs; plain and library
+    times cover both kernels together (the plain version and the sdpa
+    backward compute dq, dk and dv in one call)."""
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        flash_bwd_plain,
+        flash_fwd,
+        launch_bwd_dkdv,
+        launch_bwd_dq,
+    )
+    import torch.nn.functional as F
+
+    bh, d = TRAIN_BATCH * HEADS, D_MODEL // HEADS
+    gen = torch.Generator(device="cuda").manual_seed(t + 1)
+    q, k, v, g = (torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
+                  for _ in range(4))
+    out, lse = flash_fwd(q, k, v, causal=causal)
+    delta = (g.float() * out.float()).sum(-1)
+    dq = launch_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = launch_bwd_dkdv(q, k, v, g, lse, delta, causal)
+    rq, rk, rv = flash_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+
+    def rel_err(a, b):
+        diff = (a.float() - b.float()).abs().max().item()
+        return diff, diff / b.float().abs().max().item()
+
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    plain_ms = timer(lambda: flash_bwd_plain(q, k, v, out, lse, g, causal=causal))
+    qs, ks, vs = (x.detach()[None].requires_grad_(True) for x in (q, k, v))
+    gs = g[None]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), gs)
+
+    # the backward alone: forward + backward minus the forward
+    library_ms = timer(sdpa_fwd_bwd) - timer(sdpa_fwd)
+    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+    eb = q.element_size()
+    in_bytes = 4 * bh * t * d * eb + 2 * bh * t * 4       # q, k, v, g, lse, delta
+    rows = []
+    for name, n_out, n_ops, fn, errs in (
+            ("flash_bwd_dq", 1, 6 * d * pairs,
+             lambda: launch_bwd_dq(q, k, v, g, lse, delta, causal),
+             [rel_err(dq, rq)]),
+            ("flash_bwd_dkdv", 2, 8 * d * pairs,
+             lambda: launch_bwd_dkdv(q, k, v, g, lse, delta, causal),
+             [rel_err(dk, rk), rel_err(dv, rv)])):
+        b_ms, b_by = bound_ms(in_bytes + n_out * bh * t * d * eb, n_ops, kind)
+        rows.append({
+            "name": name, "dtype": kind, "shape": [bh, t, d], "causal": causal,
+            "max_abs_err": max(e[0] for e in errs),
+            "rel_err": max(e[1] for e in errs), "tol": TOL[f"flash_bwd/{kind}"],
+            "ms": timer(fn), "plain_ms": plain_ms, "library_ms": library_ms,
+            "plain_and_library_cover": "dq, dk and dv together",
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    del qs, ks, vs
+    return rows
 
 
 def paged_case(torch, timer, quant: bool):
@@ -198,15 +281,21 @@ def phase_kernels(torch, timer):
     for dtype in (torch.bfloat16, torch.float32):
         for t in (2048, 2000, 144):
             rows.append(flash_case(torch, timer, t, dtype))
+        rows.append(flash_case(torch, timer, TRAIN_SEQ, dtype,
+                               bh=TRAIN_BATCH * HEADS))
+        for t in (TRAIN_SEQ, 2000):
+            rows.extend(flash_bwd_cases(torch, timer, t, dtype))
     for quant in (False, True):
         rows.append(paged_case(torch, timer, quant))
     bad = []
     for r in rows:
+        err = r.get("rel_err", r["max_abs_err"])
         log(f"[kernels] {r['name']:26s} {r['dtype']:4s} shape={r['shape']} "
-            f"err={r['max_abs_err']:.3e} (tol {r['tol']:.1e}) ms={r['ms']:.4f} "
+            f"err={err:.3e} ({'relative, ' if 'rel_err' in r else ''}tol "
+            f"{r['tol']:.1e}) ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
-        if not r["max_abs_err"] <= r["tol"]:
+        if not err <= r["tol"]:
             bad.append(r)
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -242,49 +331,146 @@ def _flagship(torch, bf16=None):
     return model
 
 
-def phase_profile(torch, np):
-    """The serve phase's streams again, under torch.profiler: device
-    busy share and the kernels that take the device time.  Not part of
-    the default run (the profiler slows the host)."""
+def _profiled(torch, name, fn):
+    """Run ``fn`` under torch.profiler: its wall time, the device busy
+    share and the kernels that take the device time; the full tables go
+    to ``chiprun_out/profile_<name>.txt``.  Busy time sums the device
+    events only: a CPU op's row also carries its kernels' device time,
+    and summing both counts each kernel twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        extra = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    dev = [(e.self_device_time_total, e.key, e.count) for e in rows
+           if e.device_type == DeviceType.CUDA]
+    busy_us = sum(t for t, _, _ in dev)
+    top = sorted(dev, reverse=True)[:15]
+    res = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+           "device_busy_share": busy_us / 1e6 / wall,
+           "top_device_kernels_ms": [[k, t / 1e3, n] for t, k, n in top]}
+    res.update(extra or {})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", f"profile_{name}.txt"), "w") as f:
+        f.write(rows.table(sort_by="self_device_time_total", row_limit=40))
+        f.write("\n\n")
+        f.write(rows.table(sort_by="self_cpu_time_total", row_limit=40))
+    log(f"[profile] {name}: wall {wall:.3f}s (profiled), device busy "
+        f"{res['device_busy_s']:.3f}s = {res['device_busy_share']:.3f}")
+    for k, ms, n in res["top_device_kernels_ms"]:
+        log(f"[profile]   {ms:10.3f} ms  {n:6d}x  {k[:100]}")
+    return res
+
+
+def phase_profile(torch, np):
+    """Two training steps and the serve phase's streams again, under
+    torch.profiler.  Not part of the default run (the profiler slows the
+    host)."""
     from deeplearning4j_tpu_torch.serving.generation import (
         GenerationConfig,
         GenerationEngine,
     )
 
+    out = {}
+    model = _flagship(torch)
+    batch = _train_batch(np)
+    for _ in range(TRAIN_WARMUP):
+        model.fit_batch(batch)
+
+    def train():
+        for _ in range(2):
+            model.fit_batch(batch)
+        return {"steps": 2}
+
+    out["train"] = _profiled(torch, "train", train)
+    del model, batch
+    torch.cuda.empty_cache()
+
     model = _flagship(torch)
     eng = GenerationEngine(model, GenerationConfig(**ENGINE)).start()
     try:
         _serve_pass(torch, np, eng, seed=2)                 # meet every shape
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, _, st = _serve_pass(torch, np, eng, seed=4)
+
+        def serve():
+            st = _serve_pass(torch, np, eng, seed=4)[2]
+            return {k: st[k] for k in ("prefill_seconds", "prefills",
+                                       "decode_seconds", "decode_steps")}
+
+        out["serve"] = _profiled(torch, "serve", serve)
     finally:
         eng.stop()
-    wall = st["wall_s"]
-    rows = prof.key_averages()
-    dev = [(getattr(e, "self_device_time_total", 0.0), e.key) for e in rows]
-    busy_us = sum(t for t, _ in dev)
-    top = sorted(dev, reverse=True)[:15]
-    res = {
-        "wall_s": wall, "device_busy_s": busy_us / 1e6,
-        "device_busy_share": busy_us / 1e6 / wall,
-        "prefill_s": st["prefill_seconds"], "prefills": st["prefills"],
-        "decode_s": st["decode_seconds"], "decode_steps": st["decode_steps"],
-        "top_device_kernels_ms": [[k, t / 1e3] for t, k in top],
-    }
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_serve.txt"), "w") as f:
-        f.write(rows.table(sort_by="self_device_time_total", row_limit=40))
-        f.write("\n\n")
-        f.write(rows.table(sort_by="self_cpu_time_total", row_limit=40))
-    log(f"[profile] wall {wall:.3f}s (profiled), device busy {res['device_busy_s']:.3f}s "
-        f"= {res['device_busy_share']:.3f}; prefill {res['prefill_s']:.3f}s over "
-        f"{res['prefills']} prompts; decode {res['decode_s']:.3f}s over "
-        f"{res['decode_steps']} steps")
-    for k, ms in res["top_device_kernels_ms"]:
-        log(f"[profile]   {ms:10.3f} ms  {k[:110]}")
     del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_batch(np):
+    """bench_longctx's ids (numpy seed 3), fed as int64: the next-token
+    labels of a causal LM."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+    ids = np.random.default_rng(3).integers(0, VOCAB, (TRAIN_BATCH, TRAIN_SEQ))
+    return DataSet(ids.astype(np.int64), np.roll(ids, -1, axis=1).astype(np.int64))
+
+
+def phase_train(torch, np, kernels):
+    """`fit_batch` of the full-width flagship on one fixed batch: warm-up
+    steps, then the measured steps with the launch counters zeroed just
+    before and read just after."""
+    t0 = time.perf_counter()
+    model = _flagship(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] model: {n_params} params (f32 masters), compute "
+        f"{model.compute_dtype}, Adam lr {model.conf.updater.learning_rate}, "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    batch = _train_batch(np)
+    losses = []
+    for i in range(TRAIN_WARMUP):
+        t1 = time.perf_counter()
+        model.fit_batch(batch)
+        losses.append(model.score_value)
+        log(f"[train] warm-up step {i}: loss {losses[-1]:.5f}, "
+            f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_ms = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        model.fit_batch(batch)
+        losses.append(model.score_value)           # synchronises
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        log(f"[train] step {i}: loss {losses[-1]:.5f}, {step_ms[-1]:.1f} ms")
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    res = {
+        "params": n_params, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS, "losses": losses,
+        "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts,
+    }
+    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
+        f"{wall:.3f}s = {res['tokens_per_s']:.1f} tokens/s; median step "
+        f"{res['median_step_ms']:.1f} ms; peak memory "
+        f"{res['peak_memory_gib']:.2f} GiB; launches {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    want = LAYERS * TRAIN_STEPS
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        if counts.get(name, 0) != want:
+            raise AssertionError(f"{name} launched {counts.get(name, 0)} times "
+                                 f"in {TRAIN_STEPS} steps, want {want}: {counts}")
+    del model, batch
     torch.cuda.empty_cache()
     return res
 
@@ -461,6 +647,8 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     rows = phase_kernels(torch, timer) if "kernels" in phases else []
     report["kernel_phase"] = rows
+    if "train" in phases:
+        report["train"] = phase_train(torch, np, kernels)
     if "serve" in phases:
         report["serve"] = phase_serve(torch, np, kernels)
     if "profile" in phases:
@@ -473,23 +661,35 @@ def main(argv=None) -> int:
                                          gate=0.9, refs=refs)
 
     entries = []
+    def row(name, dtype="bf16", t=None):
+        return next((r for r in rows if r["name"] == name and r["dtype"] == dtype
+                     and (t is None or r["shape"][1] == t)), None)
+
     main_rows = {
-        "flash_fwd": next((r for r in rows if r["name"] == "flash_fwd"
-                           and r["dtype"] == "bf16" and r["shape"][1] == 2000), None),
-        "paged_attention_fwd": next((r for r in rows if r["name"] == "paged_attention_fwd"), None),
-        "paged_attention_fwd_int8": next(
-            (r for r in rows if r["name"] == "paged_attention_fwd_int8"), None),
+        "flash_fwd": row("flash_fwd", t=2000),
+        "flash_bwd_dq": row("flash_bwd_dq", t=TRAIN_SEQ),
+        "flash_bwd_dkdv": row("flash_bwd_dkdv", t=TRAIN_SEQ),
+        "paged_attention_fwd": row("paged_attention_fwd", dtype="f32"),
+        "paged_attention_fwd_int8": row("paged_attention_fwd_int8", dtype="int8"),
     }
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),
+        "flash_bwd_dq": ("deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+                         "deeplearning4j_tpu/ops/flash_attention.py:141"),
+        "flash_bwd_dkdv": ("deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+                           "deeplearning4j_tpu/ops/flash_attention.py:189"),
         "paged_attention_fwd": ("deeplearning4j_tpu_torch/csrc/paged_attention.cu",
                                 "deeplearning4j_tpu/ops/paged_attention.py:121"),
         "paged_attention_fwd_int8": ("deeplearning4j_tpu_torch/csrc/paged_attention.cu",
                                      "deeplearning4j_tpu/ops/paged_attention.py:121"),
     }
+    # launches on the main paths: the measured training steps and the
+    # measured serve pass, each counted from zero
     run_counts = {}
-    run_counts.update(report.get("serve", {}).get("launches", {}))
+    for path in ("train", "serve"):
+        for name, n in report.get(path, {}).get("launches", {}).items():
+            run_counts[name] = run_counts.get(name, 0) + n
     if "int8" in report:
         run_counts["paged_attention_fwd_int8"] = report["int8"]["launches"].get(
             "paged_attention_fwd_int8", 0)

@@ -12,15 +12,23 @@ The JAX model's parameters are a nested dict keyed by layer name::
 model built from the same configuration.  Layouts are kept as they are:
 dense weights stay (n_in, n_out) and are applied as ``x @ W``.  The
 model itself is needed because the tree does not say everything the
-stack is (head count, causality, head type).
+stack is (head count, causality, head type).  `params_to_numpy` is the
+inverse: the port model's f32 tree as numpy arrays, for comparing trees
+after training on both sides.
 """
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+from deeplearning4j_tpu_torch.models.sequential import SequentialModel, _tree_map
 
 
 def params_from_jax(tree: dict, model: SequentialModel) -> SequentialModel:
     """Install ``tree`` into ``model`` (names and shapes checked) and
     return the model."""
     return model.load_params(tree)
+
+
+def params_to_numpy(model: SequentialModel) -> dict:
+    """The model's f32 parameter tree as numpy arrays (copies, on the
+    host), keyed as the JAX package keys it."""
+    return _tree_map(lambda t: t.detach().cpu().numpy().copy(), model.params)

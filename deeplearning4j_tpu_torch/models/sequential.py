@@ -1,14 +1,21 @@
-"""A minimal `SequentialModel` — the inference side of
-`deeplearning4j_tpu/models/sequential.py` for the transformer stack.
+"""`SequentialModel` — `deeplearning4j_tpu/models/sequential.py` for the
+transformer stack: inference (``output``) and training (``fit``,
+``fit_batch``).
 
 The model is an `nn.Module` on one explicit device.  Its parameters keep
 the JAX package's tree: ``model.params["layer2"]["attn"]["Wq"]`` is the
 same (n_in, n_out) array there and here, so weights carry across by
-layer name (`convert.params_from_jax`).  They are stored in f32; the
-compute dtype (bf16 on CUDA, f32 on the CPU, or ``conf.bf16_compute``)
-applies to a cast copy made once and cached (`compute_params`), instead
-of a cast of every weight at every step.  ``fit()`` arrives with the
-training slice.
+layer name (`convert.params_from_jax`).  They are f32 master weights.
+The compute dtype (bf16 on CUDA, f32 on the CPU, or
+``conf.bf16_compute``) applies to a cast of the tree: for inference a
+detached copy made once and cached (`compute_params`); for training a
+cast inside the autograd graph at every step, so the gradients land on
+the f32 masters.
+
+A training step is the JAX step written out eagerly: forward, data loss
+(the output layer's own loss, or the fused log-softmax of
+`nn/losses.py`), plus the l1 / l2 penalty, backward, clipping and the
+updater (`nn/updaters.py`, optax's arithmetic), applied in place.
 """
 
 from __future__ import annotations
@@ -17,12 +24,24 @@ import numpy as np
 import torch
 from torch import nn
 
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.iterator import (
+    DataSetIterator,
+    ExistingDataSetIterator,
+    NumpyDataSetIterator,
+)
+from deeplearning4j_tpu_torch.models._common import (
+    regularization_loss,
+    resolve_output_spec,
+)
+from deeplearning4j_tpu_torch.nn import losses
+from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
 from deeplearning4j_tpu_torch.runtime.backend import backend, resolve_device
 
 
 class ParamTree(nn.Module):
-    """A nested parameter dict as a module: tensors become (frozen)
-    parameters, dicts become child modules."""
+    """A nested parameter dict as a module: tensors become parameters,
+    dicts become child modules."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -30,8 +49,7 @@ class ParamTree(nn.Module):
             if isinstance(val, dict):
                 self.add_module(key, ParamTree(val))
             else:
-                self.register_parameter(
-                    key, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(key, nn.Parameter(val))
 
     def tree(self) -> dict:
         out = dict(self._parameters)
@@ -52,6 +70,22 @@ def _tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def _as_iterator(data, batch_size: int | None) -> DataSetIterator:
+    if isinstance(data, DataSetIterator):
+        return data
+    if isinstance(data, DataSet):
+        if batch_size:
+            return ExistingDataSetIterator(data.split_batches(batch_size))
+        return ExistingDataSetIterator([data])
+    if isinstance(data, tuple) and len(data) == 2:
+        return NumpyDataSetIterator(data[0], data[1], batch_size or 32)
+    if isinstance(data, list) and data and all(
+            isinstance(b, DataSet) for b in data):
+        # non-empty only: fit([]) stays a loud error, not zero-batch training
+        return ExistingDataSetIterator(data)
+    raise TypeError(f"cannot interpret {type(data)} as training data")
+
+
 class SequentialModel(nn.Module):
     """Sequential layer stack on one device (``"cuda"`` by default)."""
 
@@ -61,8 +95,14 @@ class SequentialModel(nn.Module):
         self.device = resolve_device(device)
         self._bf16 = (conf.bf16_compute if conf.bf16_compute is not None
                       else backend(self.device).is_cuda)
+        self._tx = with_gradient_clipping(
+            conf.updater, conf.gradient_clip_value, conf.gradient_clip_norm)
         self.layers = nn.ModuleDict()
         self._compute = None
+        self.opt_state = None
+        self.iteration = 0
+        self.epoch = 0
+        self._last_score = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -125,14 +165,26 @@ class SequentialModel(nn.Module):
         self.layers = nn.ModuleDict(
             {name: ParamTree(p) for name, p in tree.items()})
         self._compute = None
+        self.opt_state = None          # moments belong to the old tensors
 
     def compute_params(self) -> dict:
-        """The parameter tree in the compute dtype (cached; rebuilt after
-        `init` / `load_params`)."""
+        """The parameter tree in the compute dtype, detached (cached;
+        rebuilt after `init`, `load_params` and every training step)."""
         if self._compute is None:
             dt = self.compute_dtype
             self._compute = _tree_map(lambda t: t.detach().to(dt), self.params)
         return self._compute
+
+    def _forward(self, params: dict, features) -> torch.Tensor:
+        """The layer stack on ``params`` (already in the compute dtype).
+        Float features take the compute dtype, as the JAX package's
+        ``entry_cast`` does; integer ids pass through."""
+        x = as_tensor(features, self.device)
+        if x.is_floating_point():
+            x = x.to(self.compute_dtype)
+        for layer in self.conf.layers:
+            x = layer.apply(params.get(layer.name, {}), x)
+        return x
 
     @torch.no_grad()
     def output(self, features) -> torch.Tensor:
@@ -143,10 +195,96 @@ class SequentialModel(nn.Module):
         loss)."""
         if self.params is None:
             self.init()
-        params = self.compute_params()
-        x = as_tensor(features, self.device)
-        if x.is_floating_point():
-            x = x.to(self.compute_dtype)
-        for layer in self.conf.layers:
-            x = layer.apply(params.get(layer.name, {}), x)
+        x = self._forward(self.compute_params(), features)
         return self.conf.layers[-1].output_activation()(x.float())
+
+    # -- training -------------------------------------------------------------
+
+    def _check_trainable(self) -> None:
+        for layer in self.conf.layers:
+            if layer.dropout_rate:
+                raise NotImplementedError(
+                    f"layer {layer.name!r}: dropout is not ported yet "
+                    "(ROADMAP A1: runtime/rng.py)")
+            if layer.frozen:
+                raise NotImplementedError(
+                    f"layer {layer.name!r}: frozen layers are not ported yet "
+                    "(ROADMAP A9: masked updates, train/transfer.py)")
+        last = self.conf.layers[-1]
+        if not hasattr(last, "compute_loss_with_params"):
+            resolve_output_spec(last)
+
+    def _reg_loss(self, params: dict):
+        return regularization_loss(params,
+                                   [(l.name, l) for l in self.conf.layers])
+
+    def _step_loss(self, params: dict, features, labels, lmask=None):
+        """Forward + data loss + l1 / l2 penalty on the f32 master tree
+        ``params``: the layers see it cast to the compute dtype inside
+        the graph; the output layer's own loss (the chunked head) and the
+        penalty see the masters, as the JAX package's do."""
+        dt = self.compute_dtype
+        out = self._forward(_tree_map(lambda t: t.to(dt), params), features)
+        last = self.conf.layers[-1]
+        labels = as_tensor(labels, self.device)
+        if lmask is not None:
+            lmask = as_tensor(lmask, self.device)
+        if hasattr(last, "compute_loss_with_params"):
+            data_loss = last.compute_loss_with_params(
+                params.get(last.name, {}), out, labels, lmask)
+        else:
+            data_loss = losses.compute(resolve_output_spec(last), out,
+                                       labels, lmask)
+        return data_loss + self._reg_loss(params)
+
+    def fit_batch(self, batch: DataSet) -> None:
+        """One optimizer step on ``batch``."""
+        if self.params is None:
+            self.init()
+        self._check_trainable()
+        if batch.features_mask is not None:
+            raise NotImplementedError(
+                "features masks (key masks in attention) are not ported to "
+                "training yet (ROADMAP A5: SelfAttentionLayer)")
+        plist = list(self.parameters())
+        if self.opt_state is None:
+            self.opt_state = self._tx.init(plist)
+        with torch.enable_grad():
+            loss = self._step_loss(self.params, batch.features, batch.labels,
+                                   batch.labels_mask)
+            grads = torch.autograd.grad(loss, plist, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(plist, grads)]
+        updates, self.opt_state = self._tx.update(grads, self.opt_state)
+        with torch.no_grad():
+            for p, u in zip(plist, updates):
+                p.add_(u.to(p.dtype))
+        self._compute = None           # output() and the engine read new weights
+        self._last_score = loss.detach()
+        self.iteration += 1
+
+    def fit(self, data, epochs: int = 1, batch_size: int | None = None,
+            steps_per_execution: int = 1) -> None:
+        """``epochs`` passes over ``data``: a DataSetIterator, a DataSet
+        (split by ``batch_size`` when given), a list of DataSets or a
+        (features, labels) tuple of arrays."""
+        if steps_per_execution != 1:
+            raise NotImplementedError(
+                "steps_per_execution > 1 is not ported yet (ROADMAP A3: "
+                "models/sequential.py grouped steps)")
+        if self.params is None:
+            self.init()
+        iterator = _as_iterator(data, batch_size)
+        for _ in range(epochs):
+            for batch in iterator:
+                self.fit_batch(batch)
+            self.epoch += 1
+            iterator.reset()
+
+    @property
+    def score_value(self) -> float:
+        """Last training loss, penalty included (reference
+        `Model.score()`); synchronises with the device."""
+        if self._last_score is None:
+            return float("nan")
+        return float(self._last_score)

@@ -44,6 +44,7 @@ class PositionalEncoding(LayerConfig):
 
     learned: bool = False
     max_length: int = 0
+    REGULARIZED = ()
 
     def init(self, gen, n_in, device):
         if not self.learned:
@@ -84,6 +85,12 @@ class TransformerEncoderBlock(LayerConfig):
 
     def _dff(self) -> int:
         return self.d_ff if self.d_ff > 0 else 4 * self.d_model
+
+    def regularizable_params(self, lp):
+        out = [lp[p] for p in ("W1", "W2") if p in lp]
+        attn = lp.get("attn", {})
+        out.extend(attn[p] for p in ("Wq", "Wk", "Wv", "Wo") if p in attn)
+        return out
 
     def output_size(self, n_in: int) -> int:
         if n_in != self.d_model:

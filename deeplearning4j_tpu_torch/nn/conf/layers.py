@@ -1,6 +1,7 @@
 """Layer configs — the part of `deeplearning4j_tpu/nn/conf/layers.py` the
-transformer slice uses: the `LayerConfig` base, `Embedding`, `LayerNorm`
-and the logits side of `ChunkedSoftmaxOutputLayer`.
+transformer slices use: the `LayerConfig` base (with its l1 / l2
+penalties), `Embedding`, `LayerNorm` and `ChunkedSoftmaxOutputLayer`
+(logits for inference, the chunked loss for training).
 
 A config is a frozen dataclass, as in the JAX package.  ``init`` draws
 its parameters from an explicit `torch.Generator` (the JAX package draws
@@ -44,6 +45,15 @@ class LayerConfig:
     name: Optional[str] = None
     activation: Optional[Activation] = None
     weight_init: Optional[str] = None
+    l1: Optional[float] = None
+    l2: Optional[float] = None
+    # probability of dropping; fit() refuses it until runtime/rng.py is ported
+    dropout_rate: Optional[float] = None
+    # excluded from updates; fit() refuses it until masked updates are ported
+    frozen: bool = False
+
+    # which parameters the l1 / l2 penalty applies to
+    REGULARIZED = ("W",)
 
     def __post_init__(self):
         if self.activation is not None:
@@ -57,6 +67,17 @@ class LayerConfig:
 
     def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def regularizable_params(self, lp: dict) -> list:
+        """Arrays the l1 / l2 penalty applies to."""
+        return [lp[p] for p in self.REGULARIZED if p in lp]
+
+    def regularization_terms(self, lp: dict) -> list:
+        """(l1, l2, array) triples."""
+        l1, l2 = self.l1 or 0.0, self.l2 or 0.0
+        if not l1 and not l2:
+            return []
+        return [(l1, l2, w) for w in self.regularizable_params(lp)]
 
     def _act(self, default=Activation.IDENTITY) -> Activation:
         return self.activation if self.activation is not None else default
@@ -90,6 +111,7 @@ class LayerNorm(LayerConfig):
     """Layer normalization over the last dim, computed in f32."""
 
     epsilon: float = 1e-5
+    REGULARIZED = ()
 
     def init(self, gen, n_in, device):
         return {"gamma": torch.ones(n_in, device=device),
@@ -106,9 +128,10 @@ class LayerNorm(LayerConfig):
 
 @dataclasses.dataclass(frozen=True)
 class ChunkedSoftmaxOutputLayer(LayerConfig):
-    """LM head whose training loss streams the vocab in chunks.  For
-    inference ``apply`` passes hidden states through and ``logits``
-    projects them densely; the chunked loss arrives with training."""
+    """LM head whose training loss streams the vocab in chunks
+    (`ops/chunked_xent.py`), so the (N, vocab) logits never exist.
+    ``apply`` passes hidden states through and the loss owns the
+    projection; for inference ``logits`` projects them densely."""
 
     n_out: int = 0
     chunk: int = 8192
@@ -132,3 +155,27 @@ class ChunkedSoftmaxOutputLayer(LayerConfig):
 
     def output_activation(self) -> Activation:
         return Activation.IDENTITY
+
+    def compute_loss_with_params(self, lp, preds, labels, mask=None):
+        """Chunked cross-entropy of (..., D) hidden states ``preds`` against
+        int ids (...,) or one-hot labels (..., n_out), told apart by
+        element count as in the JAX package (a sequence as long as the
+        vocab would otherwise read (B, T) ids as (B, V) one-hot)."""
+        from deeplearning4j_tpu_torch.ops.chunked_xent import chunked_softmax_xent
+
+        d = preds.shape[-1]
+        h = preds.reshape(-1, d)
+        n = h.shape[0]
+        if labels.numel() == n * self.n_out:
+            labels = labels.reshape(n, self.n_out).argmax(dim=-1)   # one-hot
+        elif labels.numel() != n:
+            raise ValueError(
+                f"labels with {labels.numel()} elements fit neither int ids "
+                f"({n}) nor one-hot ({n}x{self.n_out})")
+        ids = labels.reshape(-1).long()
+        w = (mask.reshape(-1).float() if mask is not None
+             else torch.ones((n,), dtype=torch.float32, device=h.device))
+        b = lp.get("b")
+        if b is None:
+            b = torch.zeros((self.n_out,), dtype=torch.float32, device=h.device)
+        return chunked_softmax_xent(h, lp["W"], b, ids, w, self.chunk)

@@ -1,17 +1,24 @@
-"""Flash attention forward — the counterpart of
-`deeplearning4j_tpu/ops/flash_attention.py`'s forward kernel.
+"""Flash attention — the counterpart of
+`deeplearning4j_tpu/ops/flash_attention.py`: forward and backward kernels
+and the autograd wiring around them.
 
-`flash_fwd` is the kernel wrapper: (BH, T, D) q, k, v in f32 or bf16 ->
-``(out, lse)`` with ``out`` in q's dtype and ``lse`` (BH, T) f32.  On a
-CUDA tensor it launches ``csrc/flash_fwd.cu`` (or raises); on a CPU
-tensor it runs `flash_fwd_plain`, the dense softmax of
-`ops.attention.mha` that also returns the logsumexp.  The backward
-kernels (dQ, dK/dV) arrive with the training slice.
+`flash_fwd` is the forward wrapper: (BH, T, D) q, k, v in f32 or bf16 ->
+``(out, lse)`` with ``out`` in q's dtype and ``lse`` (BH, T) f32.
+`flash_bwd` is the backward wrapper: the forward's q, k, v, out, lse and
+the output cotangent g -> ``(dq, dk, dv)`` in the inputs' dtype.  On a
+CUDA tensor each launches its kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``) or raises; on a CPU tensor each runs its plain
+version (`flash_fwd_plain`, `flash_bwd_plain`), dense f32 torch.
+
+`FlashAttention` is the `torch.autograd.Function` of the JAX package's
+``custom_vjp`` `_flash_core`: forward through `flash_fwd`, backward
+through `flash_bwd`.  `flash_attention` goes through it, so `mha` is
+differentiable on both devices.
 
 `mha` sends every unmasked, offset-free call here.  The JAX package only
 takes its kernel from T >= 2048, a threshold measured on a TPU v5e; the
-port does not carry it over, so every prefill runs the kernel on the
-card.
+port does not carry it over, so every prefill and every training step
+runs the kernels on the card.
 """
 
 from __future__ import annotations
@@ -22,9 +29,14 @@ import torch
 
 from deeplearning4j_tpu_torch.runtime import kernels
 
-#: head dims the CUDA kernel is instantiated for
+#: head dims the CUDA kernels are instantiated for
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _causal_mask(t_q: int, t_k: int, device) -> torch.Tensor:
+    """True above the diagonal: the keys a causal query must not see."""
+    return torch.ones((t_q, t_k), dtype=torch.bool, device=device).triu(1)
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool):
@@ -33,26 +45,56 @@ def flash_fwd_plain(q, k, v, *, causal: bool):
     d = q.shape[-1]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
     if causal:
-        t_q, t_k = s.shape[-2], s.shape[-1]
-        above = torch.ones((t_q, t_k), dtype=torch.bool,
-                           device=s.device).triu(1)
-        s = s.masked_fill(above, float("-inf"))
+        s = s.masked_fill(_causal_mask(s.shape[-2], s.shape[-1], s.device),
+                          float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     out = torch.matmul(torch.softmax(s, dim=-1), v.float())
     return out.to(q.dtype), lse
 
 
-def _check(q, k, v) -> None:
+def flash_bwd_plain(q, k, v, out, lse, g, *, causal: bool):
+    """Dense reference of the backward — `_flash_bwd_bhtd` of the JAX
+    package in f32 without its KV blocking:
+        P = exp(Q K^T * scale - lse);  dV = P^T g;  dP = g V^T
+        dS = P * (dP - delta), delta = rowsum(g * out)
+        dQ = dS K * scale;  dK = dS^T (Q * scale)
+    delta comes from ``out`` as the forward stored it (its dtype)."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float() * scale
+    kf, vf, gf = k.float(), v.float(), g.float()
+    delta = (gf * out.float()).sum(-1)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) - lse[..., None])
+    if causal:
+        p = p.masked_fill(_causal_mask(p.shape[-2], p.shape[-1], p.device), 0.0)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q, k, v, name="flash_fwd") -> None:
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
-            f"flash_fwd wants q, k, v of one (BH, T, D) shape; got "
+            f"{name} wants q, k, v of one (BH, T, D) shape; got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_fwd wants f32 or bf16 q, k, v of one dtype; got "
+            f"{name} wants f32 or bf16 q, k, v of one dtype; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
-        raise ValueError("flash_fwd: q, k, v on different devices")
+        raise ValueError(f"{name}: q, k, v on different devices")
+
+
+def _check_kernel_args(name, *tensors) -> None:
+    bh, _, d = tensors[0].shape
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {FLASH_HEAD_DIMS}")
+    if bh > 65535:
+        raise ValueError(f"{name}: BH {bh} exceeds the grid's 65535")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
 
 
 def flash_fwd(q, k, v, *, causal: bool):
@@ -66,12 +108,7 @@ def flash_fwd(q, k, v, *, causal: bool):
 
 def _flash_fwd_kernel(q, k, v, causal: bool):
     bh, t, d = q.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {d} not in {FLASH_HEAD_DIMS}")
-    if bh > 65535:
-        raise ValueError(f"flash_fwd: BH {bh} exceeds the grid's 65535")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd: q, k, v must be contiguous")
+    _check_kernel_args("flash_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     lib = kernels.library("flash_fwd")
@@ -84,6 +121,86 @@ def _flash_fwd_kernel(q, k, v, causal: bool):
     return out, lse
 
 
+def flash_bwd(q, k, v, out, lse, g, *, causal: bool):
+    """The forward's (BH, T, D) q, k, v, out, its (BH, T) f32 lse and the
+    cotangent g of out -> (dq, dk, dv).  CPU tensors take the plain
+    version; CUDA tensors launch the dQ and dK/dV kernels or raise."""
+    _check(q, k, v, "flash_bwd")
+    if out.shape != q.shape or g.shape != q.shape:
+        raise ValueError(
+            f"flash_bwd wants out and g of q's shape {tuple(q.shape)}; got "
+            f"{tuple(out.shape)}, {tuple(g.shape)}")
+    if lse.shape != q.shape[:2] or lse.dtype != torch.float32:
+        raise ValueError(f"flash_bwd wants an f32 lse of shape "
+                         f"{tuple(q.shape[:2])}; got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if kernels.route(q.device) == "plain":
+        return flash_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    return _flash_bwd_kernel(q, k, v, out, lse, g, causal)
+
+
+def _flash_bwd_kernel(q, k, v, out, lse, g, causal: bool):
+    g = g.to(q.dtype)
+    _check_kernel_args("flash_bwd", q, k, v, g, lse)
+    # delta outside the kernels, as the JAX package computes it outside
+    # Pallas (`_flash_bwd_pallas` :253-255): from the stored out, in f32
+    delta = (g.float() * out.float()).sum(-1)
+    dq = launch_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = launch_bwd_dkdv(q, k, v, g, lse, delta, causal)
+    return dq, dk, dv
+
+
+def _bwd_args(q, k, v, g, lse, delta, causal):
+    bh, t, d = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    common = (bh, t, d, int(bool(causal)), int(q.dtype == torch.bfloat16),
+              1.0 / math.sqrt(d), kernels.current_stream(q.device))
+    return ptrs, common
+
+
+def launch_bwd_dq(q, k, v, g, lse, delta, causal: bool):
+    """Kernel B2 alone on checked CUDA tensors (`flash_bwd` checks them):
+    dq from q, k, v, g in one dtype and the (BH, T) f32 lse and delta."""
+    ptrs, common = _bwd_args(q, k, v, g, lse, delta, causal)
+    dq = torch.empty_like(q)
+    rc = kernels.library("flash_bwd").dl4j_flash_bwd_dq(
+        *ptrs, dq.data_ptr(), *common)
+    kernels.check_launch("flash_bwd_dq", rc)
+    return dq
+
+
+def launch_bwd_dkdv(q, k, v, g, lse, delta, causal: bool):
+    """Kernel B3 alone, as `launch_bwd_dq`: (dk, dv)."""
+    ptrs, common = _bwd_args(q, k, v, g, lse, delta, causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = kernels.library("flash_bwd").dl4j_flash_bwd_dkdv(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *common)
+    kernels.check_launch("flash_bwd_dkdv", rc)
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """(BH, T, D) q, k, v -> (out, lse), differentiable in q, k, v: the
+    counterpart of `_flash_core`'s ``custom_vjp``.  lse is a residual,
+    not an output anyone differentiates."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, g.contiguous(),
+                               causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False):
     """FlashAttention over (B, T, H, D) tensors (the `mha` layout)."""
     b, t, h, d = q.shape
@@ -91,7 +208,7 @@ def flash_attention(q, k, v, *, causal: bool = False):
     def bhtd(x):
         return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
 
-    out, _ = flash_fwd(bhtd(q), bhtd(k), bhtd(v), causal=causal)
+    out, _ = FlashAttention.apply(bhtd(q), bhtd(k), bhtd(v), causal)
     return out.reshape(b, h, t, d).permute(0, 2, 1, 3)
 
 

@@ -48,6 +48,15 @@ SIGNATURES = {
         # q, k, v, out, lse, bh, t, d, causal, bf16, sm_scale, stream
         "dl4j_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
+    "flash_bwd": {
+        # q, k, v, g, lse, delta, dq, bh, t, d, causal, bf16, sm_scale, stream
+        "dl4j_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, g, lse, delta, dk, dv, bh, t, d, causal, bf16, sm_scale,
+        # stream
+        "dl4j_flash_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _F, _P],
+    },
     "paged_attention": {
         # q, k_pages, v_pages, k_scale, v_scale, page_tbl, seq_lens, out,
         # slots, heads, head_dim, num_pages, page_size, max_pages,

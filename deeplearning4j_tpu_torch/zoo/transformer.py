@@ -19,6 +19,7 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
 )
 from deeplearning4j_tpu_torch.nn.conf.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.activations import Activation
+from deeplearning4j_tpu_torch.nn.updaters import Adam
 
 
 class TransformerEncoder:
@@ -53,7 +54,7 @@ class TransformerEncoder:
         self.d_ff = d_ff
         self.causal = causal
         self.seed = seed
-        self.learning_rate = learning_rate      # read by fit(), a later slice
+        self.learning_rate = learning_rate
         self.moe_top_k = moe_top_k
         self.chunked_vocab_loss = chunked_vocab_loss
         self.vocab_chunk = vocab_chunk
@@ -63,6 +64,7 @@ class TransformerEncoder:
         b = (
             NeuralNetConfiguration.builder()
             .seed(self.seed)
+            .updater(Adam(self.learning_rate))
             .weight_init(XAVIER)
             .bf16_compute(self.bf16_compute)
             .list()

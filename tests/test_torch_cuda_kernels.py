@@ -9,14 +9,23 @@ environment need not have JAX.)
 
 Tolerances: f32 kernels within 2e-4 (flash) and 1e-4 (paged) absolute —
 the same arithmetic in another summation order; the bf16 flash output
-within 1.6e-2, one bf16 rounding of an O(1) value.
+within 1.6e-2, one bf16 rounding of an O(1) value.  The flash backward
+is held relative to the largest gradient element: 1e-4 in f32 (sums of
+up to T products in another order), 1.6e-2 in bf16 (one rounding of
+each stored gradient, plus the bf16 inputs the two sides share).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from deeplearning4j_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    flash_bwd,
+    flash_bwd_plain,
+    flash_fwd,
+    flash_fwd_plain,
+)
 from deeplearning4j_tpu_torch.ops.generation import generate
 from deeplearning4j_tpu_torch.ops.paged_attention import (
     paged_attention_fwd,
@@ -58,6 +67,56 @@ def test_flash_fwd_kernel_matches_plain(cuda, t, d, causal, dtype, tol):
     assert out.dtype == dtype
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("t", [16, 144, 2000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_match_plain(cuda, t, d, causal, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(t * d + 1)
+    q, k, v, go = (torch.randn((3, t, d), generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    out, lse = flash_fwd_plain(q, k, v, causal=causal)
+    before = kernels.launches()
+    got = flash_bwd(q, k, v, out, lse, go, causal=causal)
+    ref = flash_bwd_plain(q, k, v, out, lse, go, causal=causal)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        assert after[name] == before.get(name, 0) + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+def test_training_on_the_card_matches_the_cpu(cuda):
+    """f32 compute, 3 Adam steps of a small transformer on the card
+    (every kernel, forward and backward) against the same steps on the
+    CPU (the plain versions): losses within 1e-4."""
+    kw = dict(vocab_size=97, d_model=256, n_heads=2, n_layers=2,
+              chunked_vocab_loss=True, vocab_chunk=32, bf16_compute=False)
+    card = TransformerEncoder(**kw).init_model(device=cuda)
+    cpu = TransformerEncoder(**kw).init_model(device="cpu")
+    cpu.load_params(_to_cpu(card.params))
+    rng = np.random.default_rng(0)
+    kernels.reset_launches()
+    for _ in range(3):
+        ids = rng.integers(0, 97, (2, 144))
+        batch = DataSet(ids, np.roll(ids, -1, axis=1))
+        card.fit_batch(batch)
+        cpu.fit_batch(batch)
+        assert abs(card.score_value - cpu.score_value) <= 1e-4
+    counts = kernels.launches()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        assert counts.get(name, 0) == 2 * 3, counts
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.detach().cpu()
+            for k, v in tree.items()}
 
 
 @pytest.mark.parametrize("quant", [False, True])

@@ -102,7 +102,8 @@ def test_params_from_jax_checks_names_and_shapes(jmodel):
         params_from_jax({k: v for k, v in tree.items() if k != "layer0"}, model)
     params_from_jax(tree, model)
     np.testing.assert_array_equal(
-        model.params["layer2"]["attn"]["Wq"].numpy(), tree["layer2"]["attn"]["Wq"])
+        model.params["layer2"]["attn"]["Wq"].detach().numpy(),
+        tree["layer2"]["attn"]["Wq"])
 
 
 def test_dense_generate_matches_jax(model, refs):

@@ -1,7 +1,8 @@
 """Rules the port keeps, checked without a GPU.
 
 - The port never imports jax or the JAX package (a fresh interpreter
-  imports it and runs the CPU engine, then lists its modules).
+  imports it, takes a training step and runs the CPU engine, then lists
+  its modules).
 - Entry points default to CUDA and raise when there is none; only an
   explicit ``device="cpu"`` runs on the CPU.
 - A kernel wrapper never answers a CUDA tensor with its plain version:
@@ -36,12 +37,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         import numpy as np
         import deeplearning4j_tpu_torch
         from deeplearning4j_tpu_torch.convert import params_from_jax
+        from deeplearning4j_tpu_torch.data.dataset import DataSet
         from deeplearning4j_tpu_torch.ops.generation import generate
         from deeplearning4j_tpu_torch.serving.generation import (
             GenerationConfig, GenerationEngine)
         from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
         m = TransformerEncoder(vocab_size=17, d_model=32, n_heads=2, n_layers=1,
                                chunked_vocab_loss=True).init_model(device="cpu")
+        ids = np.arange(12).reshape(2, 6) % 17
+        m.fit_batch(DataSet(ids, np.roll(ids, -1, axis=1)))
+        assert np.isfinite(m.score_value) and m.iteration == 1
         eng = GenerationEngine(m, GenerationConfig(
             slots=2, page_size=8, num_pages=8, max_pages_per_seq=2)).start()
         try:
@@ -116,6 +121,7 @@ def claims_cuda(monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
 
     monkeypatch.setattr(fa, "flash_fwd_plain", boom)
+    monkeypatch.setattr(fa, "flash_bwd_plain", boom)
     monkeypatch.setattr(pa, "paged_attention_plain", boom)
 
 
@@ -166,6 +172,51 @@ def test_wrappers_raise_instead_of_falling_back(claims_cuda, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros((2, 32, 16)).transpose(1, 2)
         fa.flash_fwd(t, t, t, causal=True)
+
+
+def _bwd_args(t=16, d=32):
+    q = torch.zeros((2, t, d))
+    return q, q, q, q, torch.zeros((2, t)), torch.ones((2, t, d))
+
+
+def test_flash_bwd_launches_both_kernels_for_cuda_tensors(claims_cuda,
+                                                          monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    before = kernels.launches()
+    dq, dk, dv = fa.flash_bwd(*_bwd_args(), causal=True)
+    assert dq.shape == dk.shape == dv.shape == (2, 16, 32)
+    assert lib.calls == ["dl4j_flash_bwd_dq", "dl4j_flash_bwd_dkdv"]
+    after = kernels.launches()
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+    # the autograd Function reaches both kernels through its backward
+    q = torch.zeros((2, 16, 32), requires_grad=True)
+    out, _ = fa.FlashAttention.apply(q, q, q, True)
+    out.sum().backward()
+    assert lib.calls[2:] == ["dl4j_flash_fwd", "dl4j_flash_bwd_dq",
+                             "dl4j_flash_bwd_dkdv"]
+
+
+def test_flash_bwd_raises_instead_of_falling_back(claims_cuda, monkeypatch):
+    lib = _FakeLib(rc=98)
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq.*error 98"):
+        fa.flash_bwd(*_bwd_args(), causal=False)
+    assert lib.calls == ["dl4j_flash_bwd_dq"]
+
+    def no_nvcc(stem):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kernels, "library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa.flash_bwd(*_bwd_args(), causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_bwd(*_bwd_args(d=24), causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        q, k, v, out, lse, g = _bwd_args()
+        fa.flash_bwd(q, k, v.transpose(1, 2).contiguous().transpose(1, 2),
+                     out, lse, g, causal=True)
 
 
 def test_a_host_without_nvcc_cannot_build(monkeypatch):
