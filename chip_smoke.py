@@ -37,10 +37,31 @@ Then the phases:
    on 4 greedy streams: token agreement >= 0.95, first token identical.
 7. int8 — the same streams through an int8-KV engine, gated against
    the same reference as the JAX package gates int8 pages (>= 0.9).
-8. profile (only when asked for) — two training steps and the serve
-   pass under torch.profiler: device busy share and device time by
-   kernel.
-9. report — one ``{"kernels": [...]}`` JSON line, then the last line
+8. quant — int8 post-training quantization and quantized inference.
+   Kernel rows first: the dequant-matmul kernel (B5) against
+   `dequant_matmul_plain` at the six product shapes (M, K, N) =
+   (4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024),
+   (4096, 1024, 32000), (8, 1024, 4096) and (1, 4096, 4096), within
+   1e-5 (K 1024) or 2e-5 (K 4096) of max |plain|, plus the ragged
+   (5, 100, 72) for correctness; the library yardstick is cuBLAS f32 on
+   the dequantized weight (and ``torch._weight_int8pack_mm`` where this
+   PyTorch has it for CUDA); and B1's f32 row at BH 16, T 2048.  Then
+   the path: the flagship with its default `RnnOutputLayer` softmax head
+   (vocab 32000, d 1024, 8 heads, 8 layers, seed 123), `quantize`d
+   (its tree must shrink, by `quantized_bytes`), runs 1 warm-up and 3
+   measured `output()` calls on 2 x 2048 ids (numpy seed 3), launch
+   counters zeroed just before the measured calls and read just after:
+   exactly 49 dequant_matmul launches (8 layers x 6 products + the
+   head) and 8 f32 flash_fwd launches a call.  Its probabilities are
+   held against an f32 model built from `dequantize_tree` of the same
+   tree (cuBLAS f32 products, the same f32 B1): argmax agreement >= 0.99
+   and max |dp| <= 1e-4 of max p.  The unquantized model's bf16
+   ``output()`` time and the int8-vs-f32-weights argmax agreement are
+   printed as information.
+9. profile (only when asked for) — two training steps, the serve pass
+   and two quantized ``output()`` calls under torch.profiler: device
+   busy share and device time by kernel.
+10. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -57,7 +78,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "train", "serve", "parity", "int8")
+PHASES = ("kernels", "train", "serve", "parity", "int8", "quant")
 EXTRA_PHASES = ("profile",)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -79,7 +100,21 @@ TOL = {  # max |kernel - plain| allowed, with the reason
     "flash_bwd/f32": 1e-4,
     "flash_bwd/bf16": 8e-3,
     "paged_attention_fwd_int8": 1e-4,  # same int8 values dequantised both sides
+    # dequant-matmul, relative to max |plain|: f32 sums of K products in
+    # another order (and the scale once after the sum, not in each
+    # weight); the error grows as sqrt(K)
+    "dequant_matmul/K1024": 1e-5,
+    "dequant_matmul/K4096": 2e-5,
 }
+# the quant path: 2 x 2048 ids through the flagship with its softmax head
+QUANT_BATCH, QUANT_SEQ, QUANT_WARMUP, QUANT_CALLS = 2, 2048, 1, 3
+DM_SHAPES = [(4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024),
+             (4096, 1024, VOCAB), (8, 1024, 4096), (1, 4096, 4096)]
+DM_RAGGED = (5, 100, 72)
+# the quantized model against the f32 model of the same dequantized
+# weights: argmax agreement, and max |dp| relative to max p (f32 both
+# sides, the products summed in another order: a few 1e-6 of each logit)
+QUANT_AGREEMENT, QUANT_DP_REL = 0.99, 1e-4
 
 
 def log(*a):
@@ -287,10 +322,16 @@ def phase_kernels(torch, timer):
             rows.extend(flash_bwd_cases(torch, timer, t, dtype))
     for quant in (False, True):
         rows.append(paged_case(torch, timer, quant))
+    return check_rows("kernels", rows)
+
+
+def check_rows(tag, rows):
+    """Print each kernel row and fail if any disagrees with its plain
+    version beyond its tolerance."""
     bad = []
     for r in rows:
         err = r.get("rel_err", r["max_abs_err"])
-        log(f"[kernels] {r['name']:26s} {r['dtype']:4s} shape={r['shape']} "
+        log(f"[{tag}] {r['name']:26s} {r['dtype']:4s} shape={r['shape']} "
             f"err={err:.3e} ({'relative, ' if 'rel_err' in r else ''}tol "
             f"{r['tol']:.1e}) ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
@@ -367,9 +408,9 @@ def _profiled(torch, name, fn):
 
 
 def phase_profile(torch, np):
-    """Two training steps and the serve phase's streams again, under
-    torch.profiler.  Not part of the default run (the profiler slows the
-    host)."""
+    """Two training steps, the serve phase's streams again and two
+    quantized ``output()`` calls, under torch.profiler.  Not part of the
+    default run (the profiler slows the host)."""
     from deeplearning4j_tpu_torch.serving.generation import (
         GenerationConfig,
         GenerationEngine,
@@ -404,6 +445,25 @@ def phase_profile(torch, np):
     finally:
         eng.stop()
     del model
+    torch.cuda.empty_cache()
+
+    from deeplearning4j_tpu_torch.quant import quantize
+    from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+
+    qmodel = quantize(TransformerEncoder(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=LAYERS,
+        causal=True, seed=123).init_model(device="cuda"))
+    ids = np.random.default_rng(3).integers(
+        0, VOCAB, (QUANT_BATCH, QUANT_SEQ)).astype(np.int64)
+    qmodel.output(ids)                                      # warm-up
+
+    def quant():
+        for _ in range(2):
+            qmodel.output(ids)
+        return {"calls": 2}
+
+    out["quant"] = _profiled(torch, "quant", quant)
+    del qmodel
     torch.cuda.empty_cache()
     return out
 
@@ -605,6 +665,181 @@ def phase_parity(torch, np, kernels, kv_dtype="f32", gate=0.95, refs=None):
             "launches": counts}, refs
 
 
+# -- quant phase ------------------------------------------------------------------
+
+def int8pack_case(torch, timer, x, q, scale, ref):
+    """PyTorch's own int8-weight product, ``torch._weight_int8pack_mm``
+    with f32 activations, where this build has it for CUDA tensors:
+    (ms, relative error, note).  A second yardstick only; the port never
+    calls it."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, None, "this torch has no _weight_int8pack_mm"
+    w_nk = q.t().contiguous()
+    try:
+        y = fn(x, w_nk, scale)
+        torch.cuda.synchronize()
+    except RuntimeError as e:          # not built for CUDA or for f32
+        return None, None, str(e).splitlines()[0][:200]
+    rel = (y - ref).abs().max().item() / ref.abs().max().item()
+    # median of 3: it takes up to ~0.3 s a call at the head's shape
+    return timer(lambda: fn(x, w_nk, scale), iters=3), rel, "f32 activations"
+
+
+def dm_case(torch, timer, m, k, n):
+    """Kernel B5 against `dequant_matmul_plain` at (M, K, N): random f32
+    activations, int8 weights in [-127, 127] and positive scales."""
+    from deeplearning4j_tpu_torch.ops.dequant_matmul import (
+        dequant_matmul,
+        dequant_matmul_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(7 * m + 3 * k + n)
+    x = torch.randn((m, k), generator=g, device="cuda")
+    q = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.rand((n,), generator=g, device="cuda") / 127 + 1e-4
+    y = dequant_matmul(x, q, scale)
+    ref = dequant_matmul_plain(x, q, scale)
+    torch.cuda.synchronize()
+    diff = (y - ref).abs().max().item()
+    w = q.float() * scale                  # the library's dequantized weight
+    b_ms, b_by = bound_ms(m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * k * n,
+                          "f32")
+    pack_ms, pack_err, pack_note = int8pack_case(torch, timer, x, q, scale, ref)
+    return {
+        "name": "dequant_matmul", "dtype": "int8", "shape": [m, k, n],
+        "max_abs_err": diff, "rel_err": diff / ref.abs().max().item(),
+        "tol": TOL["dequant_matmul/K1024" if k <= 1024 else "dequant_matmul/K4096"],
+        "ms": timer(lambda: dequant_matmul(x, q, scale)),
+        "plain_ms": timer(lambda: dequant_matmul_plain(x, q, scale)),
+        "library_ms": timer(lambda: torch.matmul(x, w)),
+        "library": "cuBLAS f32 (torch.matmul) on the dequantized weight",
+        "int8pack_ms": pack_ms, "int8pack_rel_err": pack_err,
+        "int8pack": pack_note,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def _outputs(torch, model, ids, kernels=None):
+    """``QUANT_WARMUP`` then ``QUANT_CALLS`` timed ``output()`` calls; with
+    ``kernels``, the launch counters are zeroed just before the timed
+    calls and read just after.  Returns (ms per call, counts, last out)."""
+    for _ in range(QUANT_WARMUP):
+        model.output(ids)
+    torch.cuda.synchronize()
+    if kernels is not None:
+        kernels.reset_launches()
+    ms = []
+    for _ in range(QUANT_CALLS):
+        t0 = time.perf_counter()
+        out = model.output(ids)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launches() if kernels is not None else None
+    return ms, counts, out
+
+
+def _argmax_agreement(a, b) -> float:
+    return (a.argmax(dim=-1) == b.argmax(dim=-1)).float().mean().item()
+
+
+def phase_quant(torch, np, kernels, timer):
+    """B5's kernel rows and B1's f32 row, then `quantize` of the
+    full-width flagship with its softmax head and the measured quantized
+    ``output()`` calls, held against the f32 model of the same weights."""
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.quant import (
+        dequantize_tree,
+        quantize,
+        quantized_bytes,
+    )
+    from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+
+    rows = [dm_case(torch, timer, *shape) for shape in DM_SHAPES + [DM_RAGGED]]
+    rows.append(flash_case(torch, timer, QUANT_SEQ, torch.float32,
+                           bh=QUANT_BATCH * HEADS))
+    check_rows("quant", rows)
+    for r in rows[:-1]:
+        log(f"[quant] int8pack_mm at {r['shape']}: ms={r['int8pack_ms']} "
+            f"rel_err={r['int8pack_rel_err']} ({r['int8pack']})")
+
+    def zoo(bf16):
+        # bench_longctx_quant's model (default RnnOutputLayer softmax head)
+        # at the flagship widths
+        return TransformerEncoder(vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
+                                  n_layers=LAYERS, causal=True, seed=123,
+                                  bf16_compute=bf16)
+
+    ids = np.random.default_rng(3).integers(
+        0, VOCAB, (QUANT_BATCH, QUANT_SEQ)).astype(np.int64)
+    tokens = QUANT_BATCH * QUANT_SEQ
+    model = zoo(None).init_model(device="cuda")      # bf16 compute, as served today
+    bf16_ms, _, _ = _outputs(torch, model, ids)
+    t0 = time.perf_counter()
+    qmodel = quantize(model)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    f32_bytes = quantized_bytes(model.params)["tree_bytes"]
+    qb = quantized_bytes(qmodel.params)
+    log(f"[quant] quantize: {quantize_s:.2f}s; tree {f32_bytes} -> "
+        f"{qb['tree_bytes']} bytes ({qb['tree_bytes'] / f32_bytes:.4f}); "
+        f"quantized weights {qb['quantized_bytes']} of {qb['f32_equiv_bytes']} "
+        f"f32 bytes, ratio {qb['ratio']:.4f}; compute {qmodel.compute_dtype}")
+    if not qb["tree_bytes"] < f32_bytes or qmodel.compute_dtype != torch.float32:
+        raise AssertionError("the quantized model is not smaller, or not f32")
+
+    q_ms, counts, p_q = _outputs(torch, qmodel, ids, kernels)
+    want = {"dequant_matmul": (6 * LAYERS + 1) * QUANT_CALLS,
+            "flash_fwd": LAYERS * QUANT_CALLS}
+    log(f"[quant] int8 output(): {['%.2f' % t for t in q_ms]} ms a call, "
+        f"{tokens / (statistics.median(q_ms) / 1e3):.1f} tokens/s; launches "
+        f"{counts} (want {want})")
+    log(f"[quant] unquantized bf16 output() (as the port serves it today, for "
+        f"comparison): {['%.2f' % t for t in bf16_ms]} ms a call, "
+        f"{tokens / (statistics.median(bf16_ms) / 1e3):.1f} tokens/s")
+    if {k: counts.get(k, 0) for k in want} != want:
+        raise AssertionError(f"quantized output() launches {counts}, want {want}")
+    if tuple(p_q.shape) != (QUANT_BATCH, QUANT_SEQ, VOCAB) or \
+            not bool(torch.isfinite(p_q).all()):
+        raise AssertionError(f"quantized output {tuple(p_q.shape)} not finite")
+    row_sum_err = (p_q.sum(-1) - 1).abs().max().item()
+    if row_sum_err > 1e-3:
+        raise AssertionError(f"probabilities sum to 1 +- {row_sum_err}")
+
+    # the same int8 weights, dequantized into an f32 model: cuBLAS f32
+    # products and the same f32 flash forward
+    ref = SequentialModel(zoo(False).conf(), device="cuda").load_params(
+        dequantize_tree(qmodel.params))
+    p_ref = ref.output(ids)
+    agree = _argmax_agreement(p_q, p_ref)
+    dp = (p_q - p_ref).abs().max().item()
+    p_max = p_ref.max().item()
+    del ref, p_ref
+    # the original f32 weights in f32: what int8 costs (information only)
+    f32w = SequentialModel(zoo(False).conf(), device="cuda").load_params(model.params)
+    agree_w = _argmax_agreement(p_q, f32w.output(ids))
+    log(f"[quant] vs the f32 model of the dequantized weights: argmax "
+        f"agreement {agree:.5f} (gate {QUANT_AGREEMENT}), max |dp| {dp:.3e} "
+        f"of max p {p_max:.3e} (gate {QUANT_DP_REL:.0e} of max p); vs the "
+        f"original f32 weights (information): agreement {agree_w:.5f}")
+    if agree < QUANT_AGREEMENT or dp > QUANT_DP_REL * p_max:
+        raise AssertionError("the quantized model disagrees with its dequantized "
+                             "f32 twin")
+    del model, qmodel, f32w, p_q
+    torch.cuda.empty_cache()
+    return {
+        "kernel_rows": rows, "batch": [QUANT_BATCH, QUANT_SEQ],
+        "quantize_s": quantize_s, "f32_tree_bytes": f32_bytes,
+        "quantized_bytes": qb, "output_ms": q_ms,
+        "tokens_per_s": tokens / (statistics.median(q_ms) / 1e3),
+        "bf16_unquantized_output_ms": bf16_ms, "launches": counts,
+        "agreement_vs_dequantized_f32": agree, "max_abs_dp": dp, "max_p": p_max,
+        "probability_row_sum_err": row_sum_err,
+        "agreement_vs_f32_weights": agree_w,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -645,25 +880,47 @@ def main(argv=None) -> int:
                     log(f"[build] {stem}: {line.strip()}")
 
     timer = Timer(torch)
-    rows = phase_kernels(torch, timer) if "kernels" in phases else []
+    report["phase_s"] = phase_s = {}
+    clock = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        log(f"[time] {name}: {phase_s[name]:.1f}s")
+
+    rows = []
+    if "kernels" in phases:
+        rows = phase_kernels(torch, timer)
+        done("kernels")
     report["kernel_phase"] = rows
     if "train" in phases:
         report["train"] = phase_train(torch, np, kernels)
+        done("train")
     if "serve" in phases:
         report["serve"] = phase_serve(torch, np, kernels)
+        done("serve")
     if "profile" in phases:
         report["profile"] = phase_profile(torch, np)
+        done("profile")
     refs = None
     if "parity" in phases:
         report["parity"], refs = phase_parity(torch, np, kernels)
+        done("parity")
     if "int8" in phases:
         report["int8"], _ = phase_parity(torch, np, kernels, kv_dtype="int8",
                                          gate=0.9, refs=refs)
+        done("int8")
+    if "quant" in phases:
+        report["quant"] = phase_quant(torch, np, kernels, timer)
+        rows = rows + report["quant"]["kernel_rows"]
+        done("quant")
 
     entries = []
-    def row(name, dtype="bf16", t=None):
+    def row(name, dtype="bf16", t=None, shape=None):
         return next((r for r in rows if r["name"] == name and r["dtype"] == dtype
-                     and (t is None or r["shape"][1] == t)), None)
+                     and (t is None or r["shape"][1] == t)
+                     and (shape is None or r["shape"] == shape)), None)
 
     main_rows = {
         "flash_fwd": row("flash_fwd", t=2000),
@@ -671,6 +928,9 @@ def main(argv=None) -> int:
         "flash_bwd_dkdv": row("flash_bwd_dkdv", t=TRAIN_SEQ),
         "paged_attention_fwd": row("paged_attention_fwd", dtype="f32"),
         "paged_attention_fwd_int8": row("paged_attention_fwd_int8", dtype="int8"),
+        # the W1 product of the quantized flagship
+        "dequant_matmul": row("dequant_matmul", dtype="int8",
+                              shape=[QUANT_BATCH * QUANT_SEQ, D_MODEL, 4 * D_MODEL]),
     }
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
@@ -683,11 +943,14 @@ def main(argv=None) -> int:
                                 "deeplearning4j_tpu/ops/paged_attention.py:121"),
         "paged_attention_fwd_int8": ("deeplearning4j_tpu_torch/csrc/paged_attention.cu",
                                      "deeplearning4j_tpu/ops/paged_attention.py:121"),
+        "dequant_matmul": ("deeplearning4j_tpu_torch/csrc/dequant_matmul.cu",
+                           "deeplearning4j_tpu/ops/dequant_matmul.py:146"),
     }
-    # launches on the main paths: the measured training steps and the
-    # measured serve pass, each counted from zero
+    # launches on the main paths: the measured training steps, the
+    # measured serve pass and the measured quantized output() calls, each
+    # counted from zero
     run_counts = {}
-    for path in ("train", "serve"):
+    for path in ("train", "serve", "quant"):
         for name, n in report.get(path, {}).get("launches", {}).items():
             run_counts[name] = run_counts.get(name, 0) + n
     if "int8" in report:

@@ -13,13 +13,20 @@ model built from the same configuration.  Layouts are kept as they are:
 dense weights stay (n_in, n_out) and are applied as ``x @ W``.  The
 model itself is needed because the tree does not say everything the
 stack is (head count, causality, head type).  `params_to_numpy` is the
-inverse: the port model's f32 tree as numpy arrays, for comparing trees
+inverse: the port model's tree as numpy arrays, for comparing trees
 after training on both sides.
+
+Quantized trees carry across too.  On the JAX side a `QuantizedTensor`
+is a pytree node, so ``jax.tree.map(np.asarray, qmodel.params)`` leaves
+an object with numpy ``.q`` (int8) and ``.scale`` (f32) arrays;
+`params_from_jax` installs those bit for bit, and `params_to_numpy`
+hands a quantized leaf back as a `QuantizedTensor` of numpy arrays.
 """
 
 from __future__ import annotations
 
 from deeplearning4j_tpu_torch.models.sequential import SequentialModel, _tree_map
+from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 
 
 def params_from_jax(tree: dict, model: SequentialModel) -> SequentialModel:
@@ -29,6 +36,12 @@ def params_from_jax(tree: dict, model: SequentialModel) -> SequentialModel:
 
 
 def params_to_numpy(model: SequentialModel) -> dict:
-    """The model's f32 parameter tree as numpy arrays (copies, on the
-    host), keyed as the JAX package keys it."""
-    return _tree_map(lambda t: t.detach().cpu().numpy().copy(), model.params)
+    """The model's parameter tree as numpy arrays (copies, on the host),
+    keyed as the JAX package keys it; a quantized leaf becomes a
+    `QuantizedTensor` of its numpy ``q`` and ``scale``."""
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+
+    return _tree_map(
+        lambda t: QuantizedTensor(host(t.q), host(t.scale))
+        if isinstance(t, QuantizedTensor) else host(t), model.params)

@@ -12,6 +12,13 @@ detached copy made once and cached (`compute_params`); for training a
 cast inside the autograd graph at every step, so the gradients land on
 the f32 masters.
 
+A quantized model (`quant.quantize`, or `load_params` of a tree with
+`QuantizedTensor` leaves) holds each int8 weight and its f32 scales as
+buffers and computes in f32, whatever the bf16 setting says: that is
+what the JAX package computes, since its quantized embedding returns f32
+rows and every later layer follows ``x.dtype``.  It takes no training
+step.
+
 A training step is the JAX step written out eagerly: forward, data loss
 (the output layer's own loss, or the fused log-softmax of
 `nn/losses.py`), plus the l1 / l2 penalty, backward, clipping and the
@@ -36,18 +43,36 @@ from deeplearning4j_tpu_torch.models._common import (
 )
 from deeplearning4j_tpu_torch.nn import losses
 from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
+from deeplearning4j_tpu_torch.quant.ptq import SCHEME
+from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 from deeplearning4j_tpu_torch.runtime.backend import backend, resolve_device
+
+
+class QuantizedLeaf(nn.Module):
+    """One `QuantizedTensor` of the tree: int8 ``q`` and f32 ``scale`` as
+    buffers (an int8 tensor cannot be a parameter that requires grad)."""
+
+    def __init__(self, qt: QuantizedTensor):
+        super().__init__()
+        self.register_buffer("q", qt.q)
+        self.register_buffer("scale", qt.scale)
+
+    def tree(self) -> QuantizedTensor:
+        return QuantizedTensor(self.q, self.scale)
 
 
 class ParamTree(nn.Module):
     """A nested parameter dict as a module: tensors become parameters,
-    dicts become child modules."""
+    `QuantizedTensor` leaves `QuantizedLeaf` buffers, dicts child
+    modules."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for key, val in tree.items():
             if isinstance(val, dict):
                 self.add_module(key, ParamTree(val))
+            elif isinstance(val, QuantizedTensor):
+                self.add_module(key, QuantizedLeaf(val))
             else:
                 self.register_parameter(key, nn.Parameter(val))
 
@@ -68,6 +93,26 @@ def as_tensor(x, device) -> torch.Tensor:
 def _tree_map(fn, tree: dict) -> dict:
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def _has_quantized(tree: dict) -> bool:
+    return any(_has_quantized(v) if isinstance(v, dict)
+               else isinstance(v, QuantizedTensor) for v in tree.values())
+
+
+def _as_quantized(leaf, path: str) -> QuantizedTensor:
+    """A host `QuantizedTensor` from any leaf with ``.q`` and ``.scale``
+    arrays, its bits unchanged: ``q`` must be int8 and ``scale`` f32 of
+    shape ``(q.shape[-1],)``."""
+    q, scale = (x.detach().cpu() if isinstance(x, torch.Tensor)
+                else torch.from_numpy(np.array(x)) for x in (leaf.q, leaf.scale))
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"{path}: a quantized leaf needs int8 q and f32 scale, "
+                        f"got {q.dtype} and {scale.dtype}")
+    if q.dim() < 1 or tuple(scale.shape) != (q.shape[-1],):
+        raise ValueError(f"{path}: scale shape {tuple(scale.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    return QuantizedTensor(q.contiguous(), scale.contiguous())
 
 
 def _as_iterator(data, batch_size: int | None) -> DataSetIterator:
@@ -99,6 +144,7 @@ class SequentialModel(nn.Module):
             conf.updater, conf.gradient_clip_value, conf.gradient_clip_norm)
         self.layers = nn.ModuleDict()
         self._compute = None
+        self._quantized = None         # the scheme marker of a quantized tree
         self.opt_state = None
         self.iteration = 0
         self.epoch = 0
@@ -106,11 +152,14 @@ class SequentialModel(nn.Module):
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self._bf16 else torch.float32
+        if self._bf16 and self._quantized is None:
+            return torch.bfloat16
+        return torch.float32
 
     @property
     def params(self):
-        """The f32 parameter tree (None before `init`)."""
+        """The parameter tree: f32 tensors, and `QuantizedTensor` leaves
+        in a quantized model (None before `init`)."""
         if not self.layers:
             return None
         return {name: m.tree() for name, m in self.layers.items()}
@@ -133,7 +182,10 @@ class SequentialModel(nn.Module):
     @torch.no_grad()
     def load_params(self, tree: dict) -> "SequentialModel":
         """Install a parameter tree of array-likes, checked name for name
-        and shape for shape against what `init` would create."""
+        and shape for shape against what `init` would create.  A leaf
+        with ``.q`` and ``.scale`` arrays (a `QuantizedTensor`, or the
+        JAX package's after ``jax.tree.map(np.asarray, ...)``) is
+        installed bit for bit as an int8 weight and its f32 scales."""
         if self.params is None:
             self.init()
         want = self.params
@@ -150,29 +202,39 @@ class SequentialModel(nn.Module):
                     out[k] = walk(v, got[k], p)
                     continue
                 t = got[k]
-                t = (t.detach().float() if isinstance(t, torch.Tensor)
-                     else torch.from_numpy(np.array(t, dtype=np.float32)))
+                if hasattr(t, "q") and hasattr(t, "scale"):
+                    t = _as_quantized(t, p)
+                else:
+                    t = (t.detach().float() if isinstance(t, torch.Tensor)
+                         else torch.from_numpy(np.array(t, dtype=np.float32))
+                         ).contiguous()
                 if tuple(t.shape) != tuple(v.shape):
                     raise ValueError(f"{p}: shape {tuple(t.shape)} != "
                                      f"{tuple(v.shape)}")
-                out[k] = t.to(self.device).contiguous()
+                out[k] = t
             return out
 
         self._install(walk(want, tree, ""))
         return self
 
     def _install(self, tree: dict) -> None:
+        tree = _tree_map(lambda t: t.to(self.device), tree)
         self.layers = nn.ModuleDict(
             {name: ParamTree(p) for name, p in tree.items()})
         self._compute = None
         self.opt_state = None          # moments belong to the old tensors
+        self._quantized = ({"scheme": SCHEME} if _has_quantized(tree)
+                           else None)
 
     def compute_params(self) -> dict:
         """The parameter tree in the compute dtype, detached (cached;
-        rebuilt after `init`, `load_params` and every training step)."""
+        rebuilt after `init`, `load_params` and every training step).
+        `QuantizedTensor` leaves stay as they are."""
         if self._compute is None:
             dt = self.compute_dtype
-            self._compute = _tree_map(lambda t: t.detach().to(dt), self.params)
+            self._compute = _tree_map(
+                lambda t: t if isinstance(t, QuantizedTensor)
+                else t.detach().to(dt), self.params)
         return self._compute
 
     def _forward(self, params: dict, features) -> torch.Tensor:
@@ -241,6 +303,10 @@ class SequentialModel(nn.Module):
         """One optimizer step on ``batch``."""
         if self.params is None:
             self.init()
+        if self._quantized is not None:
+            raise RuntimeError(
+                "this model is int8-quantized for inference and takes no "
+                "training step; train the f32 model, then quantize it again")
         self._check_trainable()
         if batch.features_mask is not None:
             raise NotImplementedError(

@@ -20,6 +20,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     init_weight,
 )
 from deeplearning4j_tpu_torch.ops.attention import mha
+from deeplearning4j_tpu_torch.quant import functional as quantf
 
 
 def sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -120,14 +121,14 @@ class TransformerEncoderBlock(LayerConfig):
         b, t, _ = x.shape
         h_, dh = self.n_heads, self.d_model // self.n_heads
         h = ln.apply(params["ln1"], x)
-        q = (h @ ap["Wq"].to(x.dtype)).reshape(b, t, h_, dh)
-        k = (h @ ap["Wk"].to(x.dtype)).reshape(b, t, h_, dh)
-        v = (h @ ap["Wv"].to(x.dtype)).reshape(b, t, h_, dh)
+        q = quantf.matmul(h, ap["Wq"]).reshape(b, t, h_, dh)
+        k = quantf.matmul(h, ap["Wk"]).reshape(b, t, h_, dh)
+        v = quantf.matmul(h, ap["Wv"]).reshape(b, t, h_, dh)
         out = mha(q, k, v, causal=self.causal).reshape(b, t, h_ * dh)
-        x = x + out @ ap["Wo"].to(x.dtype)
+        x = x + quantf.matmul(out, ap["Wo"])
         h = ln.apply(params["ln2"], x)
-        h = self.ffn_activation(h @ params["W1"].to(x.dtype)
+        h = self.ffn_activation(quantf.matmul(h, params["W1"])
                                 + params["b1"].to(x.dtype))
-        h = h @ params["W2"].to(x.dtype) + params["b2"].to(x.dtype)
+        h = quantf.matmul(h, params["W2"]) + params["b2"].to(x.dtype)
         return x + h
 

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.activations import Activation
+from deeplearning4j_tpu_torch.quant import functional as quantf
 
 XAVIER = "xavier"
 NORMAL = "normal"
@@ -103,7 +104,8 @@ class Embedding(LayerConfig):
                                  self.n_out, self._winit(), device)}
 
     def apply(self, params, x):
-        return self._act()(params["W"][x.long()])
+        # a quantized table gathers int8 rows and returns them in f32
+        return self._act()(quantf.embedding_lookup(params["W"], x.long()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +150,7 @@ class ChunkedSoftmaxOutputLayer(LayerConfig):
         return x
 
     def logits(self, params, h):
-        y = h @ params["W"].to(h.dtype)
+        y = quantf.matmul(h, params["W"])
         if self.has_bias:
             y = y + params["b"].to(h.dtype)
         return y

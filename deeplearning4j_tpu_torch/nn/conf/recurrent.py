@@ -10,6 +10,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf.layers import LayerConfig, init_weight
+from deeplearning4j_tpu_torch.quant import functional as quantf
 
 #: output activation a loss implies when the layer declares none
 CANONICAL_ACTIVATION = {
@@ -39,7 +40,7 @@ class RnnOutputLayer(LayerConfig):
         return p
 
     def apply(self, params, x):
-        y = x @ params["W"].to(x.dtype)
+        y = quantf.matmul(x, params["W"])
         if self.has_bias:
             y = y + params["b"].to(x.dtype)
         return y

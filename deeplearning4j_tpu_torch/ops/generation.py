@@ -35,12 +35,19 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 )
 from deeplearning4j_tpu_torch.nn.conf.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.ops.attention import mha
+from deeplearning4j_tpu_torch.quant.ptq import is_quantized
 
 _MASK64 = (1 << 64) - 1
 
 
 def _plan(model):
-    """Validate the stack shape; returns (embed, pos, blocks, head)."""
+    """Validate the stack shape; returns (embed, pos, blocks, head).
+    Shared by `generate` and the paged engine."""
+    if is_quantized(model):
+        raise NotImplementedError(
+            "generation over an int8-quantized model is not ported yet "
+            "(ROADMAP A7: the JAX engine dequantizes every weight at each "
+            "step); generate with the f32 model")
     layers = list(model.conf.layers)
     if not layers or not isinstance(layers[0], Embedding):
         raise ValueError("generate() needs an Embedding first layer")

@@ -64,6 +64,10 @@ SIGNATURES = {
         "dl4j_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
+    "dequant_matmul": {
+        # x, q, scale, y, m, n, k, stream
+        "dl4j_dequant_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 _BUILD_LOCK = threading.Lock()

@@ -12,14 +12,25 @@ the same arithmetic in another summation order; the bf16 flash output
 within 1.6e-2, one bf16 rounding of an O(1) value.  The flash backward
 is held relative to the largest gradient element: 1e-4 in f32 (sums of
 up to T products in another order), 1.6e-2 in bf16 (one rounding of
-each stored gradient, plus the bf16 inputs the two sides share).
+each stored gradient, plus the bf16 inputs the two sides share).  The
+dequant-matmul is held relative to max |plain|: 1e-5 (f32 sums of K <=
+1024 products in another order, the scale applied after the sum), and a
+quantized transformer's probabilities on the card within 2e-5 of max p
+of the same model on the CPU (f32 both sides, every product and the
+attention summed in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.convert import params_to_numpy
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+from deeplearning4j_tpu_torch.ops.dequant_matmul import (
+    dequant_matmul,
+    dequant_matmul_plain,
+)
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_bwd,
     flash_bwd_plain,
@@ -31,6 +42,7 @@ from deeplearning4j_tpu_torch.ops.paged_attention import (
     paged_attention_fwd,
     paged_attention_plain,
 )
+from deeplearning4j_tpu_torch.quant import quantize
 from deeplearning4j_tpu_torch.runtime import kernels
 from deeplearning4j_tpu_torch.serving.generation import (
     GenerationConfig,
@@ -159,3 +171,39 @@ def test_engine_on_the_card_matches_dense_generate(cuda):
     assert counts.get("flash_fwd", 0) > 0 and counts.get("paged_attention_fwd", 0) > 0
     for out, ref in zip(outs, refs):
         np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 1024, 4096), (8, 1024, 4096),
+                                   (5, 100, 72)])
+def test_dequant_matmul_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    q = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    scale = torch.rand((n,), generator=g, device=cuda) / 127 + 1e-4
+    before = kernels.launches().get("dequant_matmul", 0)
+    y = dequant_matmul(x, q, scale)
+    ref = dequant_matmul_plain(x, q, scale)
+    torch.cuda.synchronize()
+    assert kernels.launches()["dequant_matmul"] == before + 1
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_quantized_output_on_the_card_matches_the_cpu(cuda):
+    """A 2-layer quantized transformer with its softmax head: ``output()``
+    on the card (B5 and f32 B1) against the same int8 tree on the CPU
+    (the plain versions)."""
+    kw = dict(vocab_size=97, d_model=256, n_heads=2, n_layers=2)
+    cpu = quantize(TransformerEncoder(**kw).init_model(device="cpu"))
+    card = SequentialModel(TransformerEncoder(**kw).conf(), device=cuda)
+    card.load_params(params_to_numpy(cpu))
+    assert card.compute_dtype == torch.float32          # bf16 default ignored
+    ids = np.random.default_rng(0).integers(0, 97, (2, 144))
+    kernels.reset_launches()
+    got = card.output(ids)
+    torch.cuda.synchronize()
+    assert kernels.launches() == {"dequant_matmul": 2 * 6 + 1, "flash_fwd": 2}
+    ref = cpu.output(ids)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert (got.cpu() - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()

@@ -1,8 +1,8 @@
 """Rules the port keeps, checked without a GPU.
 
 - The port never imports jax or the JAX package (a fresh interpreter
-  imports it, takes a training step and runs the CPU engine, then lists
-  its modules).
+  imports every module of it, takes a training step, runs the CPU
+  engine and a quantized ``output()``, then lists its modules).
 - Entry points default to CUDA and raise when there is none; only an
   explicit ``device="cpu"`` runs on the CPU.
 - A kernel wrapper never answers a CUDA tensor with its plain version:
@@ -18,8 +18,10 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+from deeplearning4j_tpu_torch.ops import dequant_matmul as dm
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops import paged_attention as pa
+from deeplearning4j_tpu_torch.quant import quantize
 from deeplearning4j_tpu_torch.runtime import backend, kernels
 from deeplearning4j_tpu_torch.serving.kv_cache import PagedKVCache
 from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
@@ -33,9 +35,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     script = textwrap.dedent("""
+        import importlib
+        import pkgutil
         import sys
         import numpy as np
         import deeplearning4j_tpu_torch
+        mods = [m.name for m in pkgutil.walk_packages(
+            deeplearning4j_tpu_torch.__path__, "deeplearning4j_tpu_torch.")]
+        for name in mods:
+            importlib.import_module(name)
+        assert "deeplearning4j_tpu_torch.quant.ptq" in mods, mods
+        from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
         from deeplearning4j_tpu_torch.data.dataset import DataSet
         from deeplearning4j_tpu_torch.ops.generation import generate
@@ -54,6 +64,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         finally:
             eng.stop()
         assert out.shape == (8,)
+        p = quantize(m).output(ids)
+        assert p.shape == (2, 6, 32) and bool(np.isfinite(p.numpy()).all())
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
         print("FORBIDDEN", bad)
@@ -123,6 +135,7 @@ def claims_cuda(monkeypatch):
     monkeypatch.setattr(fa, "flash_fwd_plain", boom)
     monkeypatch.setattr(fa, "flash_bwd_plain", boom)
     monkeypatch.setattr(pa, "paged_attention_plain", boom)
+    monkeypatch.setattr(dm, "dequant_matmul_plain", boom)
 
 
 def _paged_args(quant=False):
@@ -225,3 +238,49 @@ def test_a_host_without_nvcc_cannot_build(monkeypatch):
     monkeypatch.setattr(kernels.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.nvcc_path()
+
+
+def _dm_args(m=5, k=32, n=24):
+    return (torch.zeros((2, m, k)), torch.zeros((k, n), dtype=torch.int8),
+            torch.ones(n))
+
+
+def test_dequant_matmul_launches_for_cuda_tensors(claims_cuda, monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    before = kernels.launches().get("dequant_matmul", 0)
+    y = dm.dequant_matmul(*_dm_args())
+    assert y.shape == (2, 5, 24) and y.dtype == torch.float32
+    assert lib.calls == ["dl4j_dequant_matmul"]
+    assert kernels.launches()["dequant_matmul"] == before + 1
+
+
+def test_quantized_output_launches_one_dequant_matmul_per_product(
+        claims_cuda, monkeypatch):
+    """The chip check's count: six products a block plus the head, one
+    flash forward a block; the quantized embedding launches nothing."""
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    model = quantize(TransformerEncoder(
+        vocab_size=23, d_model=32, n_heads=2, n_layers=3).init_model(device="cpu"))
+    kernels.reset_launches()
+    model.output(torch.zeros((2, 7), dtype=torch.int64))
+    assert kernels.launches() == {"dequant_matmul": 6 * 3 + 1, "flash_fwd": 3}
+
+
+def test_dequant_matmul_raises_instead_of_falling_back(claims_cuda, monkeypatch):
+    monkeypatch.setattr(kernels, "library", lambda stem: _FakeLib(rc=98))
+    before = kernels.launches().get("dequant_matmul", 0)
+    with pytest.raises(RuntimeError, match="dequant_matmul.*error 98"):
+        dm.dequant_matmul(*_dm_args())
+    assert kernels.launches().get("dequant_matmul", 0) == before
+
+    def no_nvcc(stem):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kernels, "library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        dm.dequant_matmul(*_dm_args())
+    with pytest.raises(ValueError, match="contiguous"):
+        x, q, scale = _dm_args()
+        dm.dequant_matmul(x, q.t().contiguous().t(), scale)
