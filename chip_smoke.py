@@ -9,7 +9,9 @@ Always first:
 1. identity — card name and power limit (nvidia-smi), torch and CUDA
    versions.  Exits non-zero, printing no result, without a CUDA device.
 2. build — compiles every ``csrc/*.cu`` of the checkout (one nvcc per
-   source, in parallel) and prints ptxas' register / spill report.
+   source, in parallel) and prints ptxas' register / spill report, then
+   counts the tensor-core MMAs (HGMMA, HMMA) of each flash-backward
+   kernel in ``cuobjdump -sass``: fails if a bf16 one has none.
 
 Then the phases:
 
@@ -18,8 +20,10 @@ Then the phases:
    |kernel - plain| against a stated tolerance, kernel / plain / library
    times (CUDA events, cold L2, median of 10) and the kernel's lower
    bound.  The flash backward (dQ and dK/dV kernels) at the training
-   shape (BH 32, T 2048 and 2000, D 128), against `flash_bwd_plain` and
-   the backward of `scaled_dot_product_attention`.
+   shape (BH 32, T 2048 and 2000, D 128, causal), and in bf16 also
+   non-causal at T 2048, at T 144 (a serve bucket) and at D 64, against
+   `flash_bwd_plain` and the backward of `scaled_dot_product_attention`;
+   a second launch of each must give the same bits.
 4. train — the full-width flagship (below) trained with Adam (lr 3e-4)
    through the chunked vocab loss on one fixed batch of 4 x 2048 token
    ids (numpy seed 3, int64): 2 warm-up and 6 measured `fit_batch`
@@ -32,7 +36,9 @@ Then the phases:
    `GenerationEngine` (8 slots, 16-row pages, 512 pages, 160-wide
    tables): 8 concurrent streams of 32 tokens, one with a 2000-token
    prompt and one sampled.  Launch counters are zeroed just before and
-   read just after; both kernels must have run.
+   read just after; both kernels must have run.  Then the host time to
+   sample one token from a (1, 32000) row, top-k 50 and top-k 0, with
+   the port's sampler and with two yardsticks it does not call.
 6. parity — an f32-compute engine against the port's dense `generate`
    on 4 greedy streams: token agreement >= 0.95, first token identical.
 7. int8 — the same streams through an int8-KV engine, gated against
@@ -95,8 +101,10 @@ TOL = {  # max |kernel - plain| allowed, with the reason
     "flash_fwd/bf16": 1.6e-2, # one bf16 rounding of an O(1) output (ulp 2^-7 at 1..2)
     "paged_attention_fwd": 1e-4,       # f32 both sides, order of the sums
     # flash backward, relative to max |plain| of each gradient: f32 sums
-    # of up to T products in another order; in bf16, one rounding of each
-    # stored gradient element (2^-8 of it) on either side
+    # of up to T products in another order; in bf16 the plain version
+    # rounds Q * scale, P and dS where the kernels do, so the f32 sums'
+    # order can still move a stored gradient by one bf16 ulp, at most
+    # 2^-7 (7.8e-3) of the largest
     "flash_bwd/f32": 1e-4,
     "flash_bwd/bf16": 8e-3,
     "paged_attention_fwd_int8": 1e-4,  # same int8 values dequantised both sides
@@ -159,6 +167,38 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sass_mma_counts(lib_path) -> dict:
+    """Tensor-core MMA instructions (HGMMA: wgmma; HMMA: mma.sync) in
+    each kernel of a built library, from ``cuobjdump -sass``."""
+    from deeplearning4j_tpu_torch.runtime.kernels import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[fn][op] += 1
+    return counts
+
+
+def check_tensor_cores(paths):
+    """The bf16 flash-backward kernels must issue tensor-core MMAs."""
+    counts = sass_mma_counts(paths["flash_bwd"])
+    tc = {fn: c for fn, c in counts.items() if "wgmma" in fn}
+    for fn, c in counts.items():
+        log(f"[sass] flash_bwd {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+    if not tc or any(c["HGMMA"] + c["HMMA"] == 0 for c in tc.values()):
+        raise AssertionError(f"bf16 flash-backward kernels without tensor-core "
+                             f"MMAs in their SASS: {counts}")
+    return counts
+
+
 # -- kernel phase -------------------------------------------------------------
 
 def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
@@ -194,11 +234,12 @@ def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
     return row
 
 
-def flash_bwd_cases(torch, timer, t, dtype, causal=True):
-    """Rows for kernels B2 (dQ) and B3 (dK/dV) at the training shape:
-    each against `flash_bwd_plain` on the same inputs; plain and library
-    times cover both kernels together (the plain version and the sdpa
-    backward compute dq, dk and dv in one call)."""
+def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
+    """Rows for kernels B2 (dQ) and B3 (dK/dV) at BH 32 (the training
+    batch's heads): each against `flash_bwd_plain` on the same inputs,
+    and a second launch of each against the first, bit for bit; plain
+    and library times cover both kernels together (the plain version and
+    the sdpa backward compute dq, dk and dv in one call)."""
     from deeplearning4j_tpu_torch.ops.flash_attention import (
         flash_bwd_plain,
         flash_fwd,
@@ -207,8 +248,8 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True):
     )
     import torch.nn.functional as F
 
-    bh, d = TRAIN_BATCH * HEADS, D_MODEL // HEADS
-    gen = torch.Generator(device="cuda").manual_seed(t + 1)
+    bh = TRAIN_BATCH * HEADS
+    gen = torch.Generator(device="cuda").manual_seed(t + d + 1)
     q, k, v, g = (torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
                   for _ in range(4))
     out, lse = flash_fwd(q, k, v, causal=causal)
@@ -216,7 +257,13 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True):
     dq = launch_bwd_dq(q, k, v, g, lse, delta, causal)
     dk, dv = launch_bwd_dkdv(q, k, v, g, lse, delta, causal)
     rq, rk, rv = flash_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    again = (launch_bwd_dq(q, k, v, g, lse, delta, causal),
+             *launch_bwd_dkdv(q, k, v, g, lse, delta, causal))
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+        raise AssertionError(f"flash backward at {[bh, t, d]} causal={causal}: "
+                             "a second launch gave other bits")
+    del again
 
     def rel_err(a, b):
         diff = (a.float() - b.float()).abs().max().item()
@@ -251,6 +298,7 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True):
             "name": name, "dtype": kind, "shape": [bh, t, d], "causal": causal,
             "max_abs_err": max(e[0] for e in errs),
             "rel_err": max(e[1] for e in errs), "tol": TOL[f"flash_bwd/{kind}"],
+            "second_launch_identical": True,
             "ms": timer(fn), "plain_ms": plain_ms, "library_ms": library_ms,
             "plain_and_library_cover": "dq, dk and dv together",
             "bound_ms": b_ms, "bound_by": b_by,
@@ -320,6 +368,11 @@ def phase_kernels(torch, timer):
                                bh=TRAIN_BATCH * HEADS))
         for t in (TRAIN_SEQ, 2000):
             rows.extend(flash_bwd_cases(torch, timer, t, dtype))
+    # the tensor-core (bf16) backward off the training shape: non-causal,
+    # a serve bucket, and a head dim of 64
+    rows.extend(flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, causal=False))
+    rows.extend(flash_bwd_cases(torch, timer, 144, torch.bfloat16))
+    rows.extend(flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, d=64))
     for quant in (False, True):
         rows.append(paged_case(torch, timer, quant))
     return check_rows("kernels", rows)
@@ -615,9 +668,66 @@ def phase_serve(torch, np, kernels):
         raise AssertionError("non-finite hidden states")
     res["launches"] = counts
     res["first_pass"] = cold
+    res["sample_ms"] = sample_cost(torch)
     del model
     torch.cuda.empty_cache()
     return res
+
+
+def sample_cost(torch):
+    """Host ms to sample one token from a (1, VOCAB) row of logits on the
+    card (temperature 0.8, as the serve mix's sampled stream), top-k 50
+    and top-k 0; each call ends in a sync, median of 5 rounds of 20.
+    Beside the port's `_sample` (jax's noise for the finite candidates
+    only, on the host), two yardsticks of the same rule that the port
+    does not call: jax's noise over the whole vocabulary on the card, and
+    noise from a `torch.Generator` on the card (a few launches, other
+    bits than jax's)."""
+    from deeplearning4j_tpu_torch.ops.generation import _sample
+    from deeplearning4j_tpu_torch.runtime import rng
+
+    def top_k_mask(scaled, top_k):
+        if top_k <= 0:
+            return scaled
+        kth = torch.sort(scaled, dim=-1, descending=True).values[..., top_k - 1:top_k]
+        return scaled.masked_fill(scaled < kth, float("-inf"))
+
+    def jax_bits_on_card(logits, top_k, g):
+        scaled = top_k_mask(logits.float() / 0.8, top_k)
+        key = rng.fold_in(rng.key(11), g)
+        return torch.argmax(scaled + rng.gumbel(key, scaled.shape, "cuda"), dim=-1)
+
+    def torch_generator(logits, top_k, g):
+        scaled = top_k_mask(logits.float() / 0.8, top_k)
+        gen = torch.Generator(device="cuda").manual_seed(11 * 2**32 + g)
+        e = torch.empty(scaled.shape, device="cuda").exponential_(generator=gen)
+        return torch.argmax(scaled - torch.log(e), dim=-1)
+
+    samplers = {
+        "port": lambda x, k, g: _sample(x, temperature=0.8, top_k=k, seed=11, g=g),
+        "jax_bits_on_card": jax_bits_on_card,
+        "torch_generator": torch_generator,
+    }
+    logits = torch.randn((1, VOCAB), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(5))
+    out = {}
+    for top_k in (50, 0):
+        want = [int(_sample(logits, temperature=0.8, top_k=top_k, seed=11, g=g)[0])
+                for g in range(20)]
+        if [int(jax_bits_on_card(logits, top_k, g)[0]) for g in range(20)] != want:
+            raise AssertionError("the whole-vocabulary draw on the card gives "
+                                 "other tokens than the port's sampler")
+        for name, fn in samplers.items():
+            rounds = []
+            for _ in range(6):   # the first round warms up
+                t0 = time.perf_counter()
+                for g in range(20):
+                    int(fn(logits, top_k, g)[0])
+                rounds.append((time.perf_counter() - t0) / 20 * 1e3)
+            out[f"{name}/top_k_{top_k}"] = statistics.median(rounds[1:])
+    log(f"[serve] sampling a token from a (1, {VOCAB}) row, host ms (median of "
+        "5 x 20, synced): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
 
 
 def _agreement(np, prompts, outs, refs):
@@ -876,8 +986,10 @@ def main(argv=None) -> int:
         logf = path.with_suffix(".log")
         if logf.exists():
             for line in logf.read_text(errors="replace").splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "warning" in line.lower()):
                     log(f"[build] {stem}: {line.strip()}")
+    report["sass_mma"] = check_tensor_cores(paths)
 
     timer = Timer(torch)
     report["phase_s"] = phase_s = {}
@@ -917,15 +1029,17 @@ def main(argv=None) -> int:
         done("quant")
 
     entries = []
-    def row(name, dtype="bf16", t=None, shape=None):
+    def row(name, dtype="bf16", t=None, shape=None, causal=True):
         return next((r for r in rows if r["name"] == name and r["dtype"] == dtype
                      and (t is None or r["shape"][1] == t)
-                     and (shape is None or r["shape"] == shape)), None)
+                     and (shape is None or r["shape"] == shape)
+                     and r.get("causal", True) == causal), None)
 
+    train_bhtd = [TRAIN_BATCH * HEADS, TRAIN_SEQ, D_MODEL // HEADS]
     main_rows = {
         "flash_fwd": row("flash_fwd", t=2000),
-        "flash_bwd_dq": row("flash_bwd_dq", t=TRAIN_SEQ),
-        "flash_bwd_dkdv": row("flash_bwd_dkdv", t=TRAIN_SEQ),
+        "flash_bwd_dq": row("flash_bwd_dq", shape=train_bhtd),
+        "flash_bwd_dkdv": row("flash_bwd_dkdv", shape=train_bhtd),
         "paged_attention_fwd": row("paged_attention_fwd", dtype="f32"),
         "paged_attention_fwd_int8": row("paged_attention_fwd_int8", dtype="int8"),
         # the W1 product of the quantized flagship
@@ -956,16 +1070,25 @@ def main(argv=None) -> int:
     if "int8" in report:
         run_counts["paged_attention_fwd_int8"] = report["int8"]["launches"].get(
             "paged_attention_fwd_int8", 0)
+    designs = {   # the bf16 kernels the training step runs
+        "flash_bwd_dq": "flash_bwd_dq_wgmma: wgmma bf16 -> f32, 2 warpgroups "
+                        "x 64 query rows, cp.async ring of 2 K/V stages",
+        "flash_bwd_dkdv": "flash_bwd_dkdv_wgmma: wgmma bf16 -> f32, 2 warpgroups "
+                          "x 64 key rows, cp.async ring of 2 Q/g stages",
+    }
     for name, r in main_rows.items():
         if r is None:
             continue
         src, replaces = sources[name]
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": run_counts.get(name, 0), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        }
+        if name in designs:
+            entry["design"] = designs[name]
+        entries.append(entry)
     if "int8" in report and run_counts.get("paged_attention_fwd_int8", 0) <= 0:
         raise AssertionError("the int8 engine never launched the int8 kernel")
 

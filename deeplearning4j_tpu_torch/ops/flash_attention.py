@@ -54,21 +54,28 @@ def flash_fwd_plain(q, k, v, *, causal: bool):
 
 def flash_bwd_plain(q, k, v, out, lse, g, *, causal: bool):
     """Dense reference of the backward — `_flash_bwd_bhtd` of the JAX
-    package in f32 without its KV blocking:
+    package without its KV blocking:
         P = exp(Q K^T * scale - lse);  dV = P^T g;  dP = g V^T
         dS = P * (dP - delta), delta = rowsum(g * out)
         dQ = dS K * scale;  dK = dS^T (Q * scale)
-    delta comes from ``out`` as the forward stored it (its dtype)."""
+    delta comes from ``out`` as the forward stored it (its dtype).  f32
+    inputs stay f32 throughout.  bf16 inputs round where the Pallas
+    kernels round with ``mxu_f32=False``: Q * scale, P and dS are bf16
+    operands of their products, which sum in f32."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    qf = q.float() * scale
+
+    def operand(x):
+        return x.to(torch.bfloat16).float() if q.dtype == torch.bfloat16 else x
+
+    qf = operand(q.float() * scale)
     kf, vf, gf = k.float(), v.float(), g.float()
     delta = (gf * out.float()).sum(-1)
     p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) - lse[..., None])
     if causal:
         p = p.masked_fill(_causal_mask(p.shape[-2], p.shape[-1], p.device), 0.0)
-    dv = torch.matmul(p.transpose(-1, -2), gf)
-    ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta[..., None])
+    dv = torch.matmul(operand(p).transpose(-1, -2), gf)
+    ds = operand(p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta[..., None]))
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -142,6 +149,8 @@ def flash_bwd(q, k, v, out, lse, g, *, causal: bool):
 def _flash_bwd_kernel(q, k, v, out, lse, g, causal: bool):
     g = g.to(q.dtype)
     _check_kernel_args("flash_bwd", q, k, v, g, lse)
+    if any(x.data_ptr() % 16 for x in (q, k, v, g)):   # 16-byte cp.async rows
+        raise ValueError("flash_bwd: q, k, v, g must start on 16-byte boundaries")
     # delta outside the kernels, as the JAX package computes it outside
     # Pallas (`_flash_bwd_pallas` :253-255): from the stored out, in f32
     delta = (g.float() * out.float()).sum(-1)

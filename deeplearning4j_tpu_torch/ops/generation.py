@@ -7,14 +7,14 @@ per-position math (`_block_step`'s f32 attention with -inf masking, the
 sampling rule of `_sample`) is the contract the paged engine in
 `serving/generation.py` is held to: greedy decode token for token.
 
-Sampling.  The JAX package draws with ``fold_in(key(seed), g)`` (g = the
-index of the generated token) and `jax.random.categorical`.  The port
-keeps the rule — greedy argmax of the unscaled logits, a temperature
-scale, a top-k threshold at the k-th largest scaled logit — but draws
-Gumbel noise from a `torch.Generator` seeded from ``(seed, g)`` alone,
-so a stream's sampled tokens depend on nothing but its own seed and
-position, never on its slot or its neighbours.  It does not reproduce
-jax's random bits (a deliberate divergence; greedy is unaffected).
+Sampling.  As the JAX package: greedy argmax of the unscaled logits, or
+a temperature scale and a top-k threshold at the k-th largest scaled
+logit, then `jax.random.categorical` — argmax of the logits plus Gumbel
+noise drawn with the key ``fold_in(key(seed), g)``, g the index of the
+generated token.  `runtime.rng` gives the same noise bit for bit, so a
+seeded sampled stream has the JAX package's tokens, and depends on
+nothing but its own seed and position, never on its slot or its
+neighbours.
 """
 
 from __future__ import annotations
@@ -36,8 +36,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 from deeplearning4j_tpu_torch.nn.conf.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.ops.attention import mha
 from deeplearning4j_tpu_torch.quant.ptq import is_quantized
-
-_MASK64 = (1 << 64) - 1
+from deeplearning4j_tpu_torch.runtime import rng
 
 
 def _plan(model):
@@ -139,28 +138,11 @@ def _head_logits(head, lp, h):
     return head.logits(lp, h)
 
 
-def _stream_seed(seed: int, g: int) -> int:
-    """SplitMix64 of (seed, g): the generator seed for the g-th token of
-    a stream seeded ``seed``."""
-    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(g) & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & ((1 << 63) - 1)
-
-
-def gumbel_noise(seed: int, g: int, shape, device) -> torch.Tensor:
-    """Standard Gumbel noise from a generator seeded by (seed, g) only."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_stream_seed(seed, g))
-    e = torch.empty(shape, dtype=torch.float32, device=device)
-    return -torch.log(e.exponential_(generator=gen))
-
-
 def _sample(logits, *, temperature: float, top_k: int, seed: int, g: int):
     """(B, V) logits -> (B,) int64 tokens.  Greedy argmaxes the unscaled
     logits; otherwise Gumbel-argmax over the temperature-scaled logits
-    with everything below the k-th largest masked out."""
+    with everything below the k-th largest masked out, the noise of the
+    whole (B, V) batch drawn with one key (jax's categorical)."""
     logits = logits.float()
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
@@ -169,8 +151,15 @@ def _sample(logits, *, temperature: float, top_k: int, seed: int, g: int):
         k = min(int(top_k), scaled.shape[-1])
         kth = torch.sort(scaled, dim=-1, descending=True).values[..., k - 1:k]
         scaled = scaled.masked_fill(scaled < kth, float("-inf"))
-    noise = gumbel_noise(seed, g, scaled.shape, scaled.device)
-    return torch.argmax(scaled + noise, dim=-1)
+    # Only finite logits can win, and an element's noise depends on its
+    # flat index alone: after one copy of the logits to the host, draw it
+    # for those candidates only (some 150 small host ops at top-k 50; the
+    # whole vocabulary on the card takes some 250 launches).
+    host = scaled.cpu().flatten()
+    cand = torch.nonzero(host > float("-inf")).flatten()
+    noisy = torch.full_like(host, float("-inf"))
+    noisy[cand] = host[cand] + rng.gumbel_at(rng.fold_in(rng.key(seed), g), cand)
+    return torch.argmax(noisy.view(scaled.shape), dim=-1).to(scaled.device)
 
 
 @torch.no_grad()

@@ -20,10 +20,10 @@
 
 Numerics: greedy decode is token-identical to `ops.generation.generate`
 at f32 on the CPU (same per-position math), and sampled streams draw on
-the same ``(seed, g)`` schedule, so a stream's tokens do not depend on
-its slot or its neighbours.  Not ported yet: speculative decoding, the
-step watchdog, the flight recorder, tracing and SLO counters, and the
-``server=`` / hot-swap attachment.
+the same ``(seed, g)`` schedule with the JAX engine's random bits, so a
+stream's tokens do not depend on its slot or its neighbours.  Not ported
+yet: speculative decoding, the step watchdog, the flight recorder,
+tracing and SLO counters, and the ``server=`` / hot-swap attachment.
 """
 
 from __future__ import annotations
@@ -145,7 +145,9 @@ class GenerationRequest:
 
 def _sample_token(logits, temp: float, top_k: int, seed: int, g: int) -> int:
     """`ops.generation._sample` for one (V,) logits row with this
-    stream's parameters; ``g`` is the index of the token generated."""
+    stream's parameters; ``g`` is the index of the token generated.  The
+    (1, V) noise is the JAX engine's (V,) noise: threefry's partitionable
+    layout numbers the elements the same way in both shapes."""
     return int(_sample(logits[None], temperature=temp, top_k=top_k,
                        seed=seed, g=g)[0])
 

@@ -11,8 +11,12 @@ Tolerances: f32 kernels within 2e-4 (flash) and 1e-4 (paged) absolute —
 the same arithmetic in another summation order; the bf16 flash output
 within 1.6e-2, one bf16 rounding of an O(1) value.  The flash backward
 is held relative to the largest gradient element: 1e-4 in f32 (sums of
-up to T products in another order), 1.6e-2 in bf16 (one rounding of
-each stored gradient, plus the bf16 inputs the two sides share).  The
+up to T products in another order), 8e-3 in bf16 (the plain version
+rounds Q * scale, P and dS where the kernels do, so what differs is the
+f32 summation order, which can move a stored gradient by one bf16 ulp:
+at most 2^-7 of the largest), and two launches on the same inputs give
+the same bits (one writer per element, no atomics).  `runtime.rng`
+draws the same bits on the card as on the CPU.  The
 dequant-matmul is held relative to max |plain|: 1e-5 (f32 sums of K <=
 1024 products in another order, the scale applied after the sum), and a
 quantized transformer's probabilities on the card within 2e-5 of max p
@@ -37,13 +41,13 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_fwd,
     flash_fwd_plain,
 )
-from deeplearning4j_tpu_torch.ops.generation import generate
+from deeplearning4j_tpu_torch.ops.generation import _sample, generate
 from deeplearning4j_tpu_torch.ops.paged_attention import (
     paged_attention_fwd,
     paged_attention_plain,
 )
 from deeplearning4j_tpu_torch.quant import quantize
-from deeplearning4j_tpu_torch.runtime import kernels
+from deeplearning4j_tpu_torch.runtime import kernels, rng
 from deeplearning4j_tpu_torch.serving.generation import (
     GenerationConfig,
     GenerationEngine,
@@ -82,9 +86,9 @@ def test_flash_fwd_kernel_matches_plain(cuda, t, d, causal, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("d", [16, 128])
-@pytest.mark.parametrize("t", [16, 144, 2000])
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("t", [1, 16, 63, 65, 144, 2000])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_kernels_match_plain(cuda, t, d, causal, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(t * d + 1)
@@ -101,7 +105,42 @@ def test_flash_bwd_kernels_match_plain(cuda, t, d, causal, dtype, tol):
     for a, b in zip(got, ref):
         assert a.dtype == dtype
         scale = b.float().abs().max().item()
-        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+        # at T = 1 dq and dk vanish (dP = delta exactly), and each side
+        # reaches 0 only to the f32 cancellation error of dP - delta
+        floor = 1e-5 if t == 1 else 0.0
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale + floor
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_are_deterministic(cuda, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, go = (torch.randn((4, 300, 128), generator=g, device=cuda)
+                   .to(dtype) for _ in range(4))
+    out, lse = flash_fwd(q, k, v, causal=causal)
+    first = flash_bwd(q, k, v, out, lse, go, causal=causal)
+    second = flash_bwd(q, k, v, out, lse, go, causal=causal)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_random_bits_on_the_card_are_the_cpu_bits(cuda):
+    """`runtime.rng` on CUDA tensors gives the bits and Gumbel values the
+    CPU gives (and the CPU's are jax's, `tests/test_torch_rng.py`); a
+    token sampled from card logits is the one sampled from the same
+    logits on the CPU."""
+    key = rng.fold_in(rng.key(11), 3)
+    assert torch.equal(rng.random_bits(key, (2, 32000), cuda).cpu(),
+                       rng.random_bits(key, (2, 32000)))
+    assert torch.equal(rng.gumbel(key, (2, 32000), cuda).cpu(),
+                       rng.gumbel(key, (2, 32000)))
+    logits = torch.randn((2, 32000), generator=torch.Generator().manual_seed(5))
+    for top_k in (50, 0):
+        for g in range(4):
+            kw = dict(temperature=0.8, top_k=top_k, seed=11, g=g)
+            assert torch.equal(_sample(logits.to(cuda), **kw).cpu(),
+                               _sample(logits, **kw))
 
 
 def test_training_on_the_card_matches_the_cpu(cuda):

@@ -8,6 +8,14 @@ package, and its autograd wiring.
   seed.  Tolerance atol 2e-5, rtol 1e-4: f32 on both sides; the JAX
   kernels sum dQ, dK and dV block by block, the plain version in one
   product, so the sums differ in order over up to 128 terms of O(1).
+- On bf16 inputs, `flash_bwd_plain` against the same Pallas kernels with
+  bf16 matmuls (``mxu_f32=False``, interpret mode): both round Q * scale,
+  P and dS to bf16 before their products and sum in f32, so they differ
+  only in the order of the f32 sums (blocks of 64 against one product).
+  That can move a stored gradient across one bf16 rounding boundary: at
+  most one bf16 ulp, 2^-7 of the largest element, hence a tolerance of
+  8e-3 of max |JAX|, and at least 99% of the elements bit-identical (the
+  plain version without the kernels' rounding matches ~60% of them).
 - The `FlashAttention` Function's gradients against torch autograd of
   the dense `flash_fwd_plain`, at a ragged T (144, D 16) that no 64-row
   tile divides: atol 1e-5 (f32, two formulas of one gradient).
@@ -60,6 +68,28 @@ def test_plain_flash_bwd_matches_jax_pallas_kernels(t, causal):
     got = _port_bwd(q, k, v, out, lse, g, causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         np.testing.assert_allclose(a, np.asarray(b), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [16, 128])
+def test_plain_bf16_flash_bwd_matches_jax_pallas_bf16_kernels(t, causal):
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _inputs((2, t, 32), seed=20 + t + int(causal)))
+    out, lse = fa.flash_fwd_plain(q, k, v, causal=causal)     # bf16 out
+    block = min(64, t)
+    ref = _flash_bwd_pallas(
+        *(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+          for x in (q, k, v, out)),
+        jnp.asarray(lse.numpy()),
+        jnp.asarray(g.float().numpy()).astype(jnp.bfloat16),
+        causal=causal, block_q=block, block_k=block, interpret=True,
+        mxu_f32=False)
+    got = fa.flash_bwd(q, k, v, out, lse, g, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16
+        a, b = a.float().numpy(), np.asarray(b.astype(jnp.float32))
+        assert np.abs(a - b).max() <= 8e-3 * np.abs(b).max(), name
+        assert (a == b).mean() >= 0.99, name
 
 
 @pytest.mark.parametrize("causal", [True, False])
