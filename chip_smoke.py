@@ -10,8 +10,10 @@ Always first:
    versions.  Exits non-zero, printing no result, without a CUDA device.
 2. build — compiles every ``csrc/*.cu`` of the checkout (one nvcc per
    source, in parallel) and prints ptxas' register / spill report, then
-   counts the tensor-core MMAs (HGMMA, HMMA) of each flash-backward
-   kernel in ``cuobjdump -sass``: fails if a bf16 one has none.
+   counts the tensor-core MMAs (HGMMA, HMMA) and TMA loads (UTMALDG) of
+   each flash kernel in ``cuobjdump -sass``: fails if a bf16 backward
+   kernel has no MMA, the bf16 forward kernel no HGMMA or no UTMALDG, or
+   ptxas reports that it serialised a kernel's wgmma pipeline.
 
 Then the phases:
 
@@ -19,7 +21,16 @@ Then the phases:
    at the shapes of the training and serving paths, bf16 and f32: max
    |kernel - plain| against a stated tolerance, kernel / plain / library
    times (CUDA events, cold L2, median of 10) and the kernel's lower
-   bound.  The flash backward (dQ and dK/dV kernels) at the training
+   bound.  The flash forward (B1) at BH 8, T 2048, 2000 (the serve
+   prefill) and 144, and at BH 32, T 2048 (the training step), causal:
+   out and lse each against their own tolerance (bf16 out both against
+   the largest element and row by row), and a second launch must give
+   the same bits, and a copy of the bf16 kernel with a planted fault in
+   P V (its consumers read V from the next ring stage) must fail the
+   row-by-row out check at the training and serve shapes; then
+   `flash_attention` on the (B, T, H, D)
+   training layout against the kernel alone (its layout copies).  The
+   flash backward (dQ and dK/dV kernels) at the training
    shape (BH 32, T 2048 and 2000, D 128, causal), and in bf16 also
    non-causal at T 2048, at T 144 (a serve bucket) and at D 64, against
    `flash_bwd_plain` and the backward of `scaled_dot_product_attention`;
@@ -79,6 +90,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -97,8 +109,28 @@ ENGINE = dict(slots=8, page_size=16, num_pages=512, max_pages_per_seq=160)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 2048, 2, 6
 
 TOL = {  # max |kernel - plain| allowed, with the reason
-    "flash_fwd/f32": 2e-4,    # f32 both sides, different summation order
-    "flash_fwd/bf16": 1.6e-2, # one bf16 rounding of an O(1) output (ulp 2^-7 at 1..2)
+    # flash forward out, f32: f32 both sides, different summation order
+    "flash_fwd/f32": 2e-4,
+    # flash forward out, bf16, relative to max |plain|: the plain version
+    # rounds Q * scale and P to bf16 where the kernel does, but the kernel
+    # rounds P against the running max of its 128-key tiles and the plain
+    # version against the row's max, so a stored element can land one bf16
+    # rounding away: at most 2^-7 of the largest
+    "flash_fwd/bf16": 2**-7,
+    # the same, row by row: max |kernel - plain| of each query row relative
+    # to that row's max |plain|, so rows whose outputs are small (a row that
+    # averages n keys is ~sqrt(e/n)) are held to their own scale; one bf16
+    # ulp of the row's largest element from the stored rounding (read up
+    # to 2^-7 on the CPU against the Pallas kernel, and on the card) plus
+    # the f32 sums' order: 2^-6.  V read from the wrong ring stage reads
+    # 2.6 (`flash_fwd_fault_case`)
+    "flash_fwd_row/bf16": 2**-6,
+    # flash forward lse, absolute: f32 sums of up to T exponentials in
+    # another order (and exp2 with log2(e) folded into the scores in bf16:
+    # measured up to 1.9e-6 on the card); in bf16 an unrounded Q * scale
+    # would move it by ~2e-3
+    "flash_fwd_lse/f32": 2e-4,
+    "flash_fwd_lse/bf16": 1e-5,
     "paged_attention_fwd": 1e-4,       # f32 both sides, order of the sums
     # flash backward, relative to max |plain| of each gradient: f32 sums
     # of up to T products in another order; in bf16 the plain version
@@ -167,9 +199,13 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
+
+
 def sass_mma_counts(lib_path) -> dict:
-    """Tensor-core MMA instructions (HGMMA: wgmma; HMMA: mma.sync) in
-    each kernel of a built library, from ``cuobjdump -sass``."""
+    """Tensor-core MMA instructions (HGMMA: wgmma; HMMA: mma.sync) and
+    TMA loads (UTMALDG) in each kernel of a built library, from
+    ``cuobjdump -sass``."""
     from deeplearning4j_tpu_torch.runtime.kernels import nvcc_path
 
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
@@ -179,33 +215,51 @@ def sass_mma_counts(lib_path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn is not None:
-            for op in ("HGMMA", "HMMA"):
+            for op in SASS_OPS:
                 if f" {op}." in line or f" {op} " in line:
                     counts[fn][op] += 1
     return counts
 
 
 def check_tensor_cores(paths):
-    """The bf16 flash-backward kernels must issue tensor-core MMAs."""
-    counts = sass_mma_counts(paths["flash_bwd"])
-    tc = {fn: c for fn, c in counts.items() if "wgmma" in fn}
-    for fn, c in counts.items():
-        log(f"[sass] flash_bwd {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
-    if not tc or any(c["HGMMA"] + c["HMMA"] == 0 for c in tc.values()):
+    """The bf16 flash-backward kernels must issue tensor-core MMAs; the
+    bf16 flash-forward kernel wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    out = {}
+    for stem in ("flash_fwd", "flash_bwd"):
+        out[stem] = counts = sass_mma_counts(paths[stem])
+        for fn, c in counts.items():
+            log(f"[sass] {stem} {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
+    bwd = [c for fn, c in out["flash_bwd"].items() if "wgmma" in fn]
+    if not bwd or any(c["HGMMA"] + c["HMMA"] == 0 for c in bwd):
         raise AssertionError(f"bf16 flash-backward kernels without tensor-core "
-                             f"MMAs in their SASS: {counts}")
-    return counts
+                             f"MMAs in their SASS: {out['flash_bwd']}")
+    fwd = [c for fn, c in out["flash_fwd"].items() if "flash_fwd_wgmma" in fn]
+    if not fwd or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in fwd):
+        raise AssertionError(f"bf16 flash-forward kernels without HGMMA or TMA "
+                             f"loads in their SASS: {out['flash_fwd']}")
+    return out
 
 
 # -- kernel phase -------------------------------------------------------------
 
+def out_errors(out, ref) -> dict:
+    """max |out - ref|; the same relative to max |ref|; and the largest of
+    each row's max |out - ref| relative to that row's max |ref| (rows
+    along every axis but the last)."""
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    return {"max_abs_err": diff.max().item(),
+            "rel_err": (diff.max() / mag.max()).item(),
+            "row_err": (diff.amax(-1) / mag.amax(-1).clamp_min(1e-30)).max().item()}
+
+
 def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
-    from deeplearning4j_tpu_torch.ops.flash_attention import (
-        flash_fwd,
-        flash_fwd_plain,
-    )
+    """Kernel B1 against `flash_fwd_plain` at (BH, T, D 128): out and lse
+    each against its tolerance (bf16 out relative to max |plain| and row
+    by row), a second launch bit for bit."""
+    from deeplearning4j_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
     import torch.nn.functional as F
 
     d = D_MODEL // HEADS
@@ -213,25 +267,64 @@ def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
     q, k, v = (torch.randn((bh, t, d), generator=g, device="cuda").to(dtype)
                for _ in range(3))
     out, lse = flash_fwd(q, k, v, causal=causal)
+    again = flash_fwd(q, k, v, causal=causal)
     ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    err = max((out.float() - ref.float()).abs().max().item(),
-              (lse - ref_lse).abs().max().item())
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"flash forward at {[bh, t, d]}: a second launch "
+                             "gave other bits")
+    del again
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    errs = out_errors(out, ref)
     pairs = bh * (t * (t + 1) // 2 if causal else t * t)
     eb = q.element_size()
     b_ms, b_by = bound_ms(4 * bh * t * d * eb + bh * t * 4, 4 * d * pairs, kind)
     qs, ks, vs = (x[None] for x in (q, k, v))        # (1, BH, T, D) for sdpa
     row = {
-        "name": "flash_fwd", "dtype": kind, "shape": [bh, t, d],
-        "causal": causal, "max_abs_err": err, "tol": TOL[f"flash_fwd/{kind}"],
+        "name": "flash_fwd",
+        "kernel": "flash_fwd_wgmma" if kind == "bf16" else "flash_fwd_fma",
+        "dtype": kind, "shape": [bh, t, d], "causal": causal,
+        "max_abs_err": errs["max_abs_err"], "tol": TOL[f"flash_fwd/{kind}"],
+        "lse_err": (lse - ref_lse).abs().max().item(),
+        "lse_tol": TOL[f"flash_fwd_lse/{kind}"],
+        "second_launch_identical": True,
         "ms": timer(lambda: flash_fwd(q, k, v, causal=causal)),
         "plain_ms": timer(lambda: flash_fwd_plain(q, k, v, causal=causal)),
         "library_ms": timer(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=causal)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    if kind == "bf16":
+        row.update(rel_err=errs["rel_err"], row_err=errs["row_err"],
+                   row_tol=TOL["flash_fwd_row/bf16"])
     return row
+
+
+def layout_case(torch, timer):
+    """`flash_attention` on the training step's (B, T, H, D) bf16 layout
+    against kernel B1 alone on the same values: the difference is the
+    (B, T, H, D) <-> (BH, T, D) copies around the kernel."""
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_fwd,
+    )
+
+    b, t, h, d = TRAIN_BATCH, TRAIN_SEQ, HEADS, D_MODEL // HEADS
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    bhtd = [x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous() for x in (q, k, v)]
+    res = {
+        "shape_bthd": [b, t, h, d],
+        "flash_attention_ms": timer(lambda: flash_attention(q, k, v, causal=True)
+                                    .reshape(b, t, h * d)),
+        "kernel_ms": timer(lambda: flash_fwd(*bhtd, causal=True)),
+    }
+    res["layout_copies_ms"] = res["flash_attention_ms"] - res["kernel_ms"]
+    log(f"[kernels] flash_attention (B, T, H, D) = {[b, t, h, d]} bf16, with its "
+        f"layout copies: {res['flash_attention_ms']:.4f} ms; B1 alone "
+        f"{res['kernel_ms']:.4f} ms; copies {res['layout_copies_ms']:.4f} ms")
+    return res
 
 
 def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
@@ -375,7 +468,63 @@ def phase_kernels(torch, timer):
     rows.extend(flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, d=64))
     for quant in (False, True):
         rows.append(paged_case(torch, timer, quant))
-    return check_rows("kernels", rows)
+    return check_rows("kernels", rows), layout_case(torch, timer)
+
+
+# the planted fault of `flash_fwd_fault_case`: P_j V_j reads V from the
+# ring stage after tile j's
+FLASH_FWD_FAULT = ("const uint32_t vs = sm_s + OS + (j % NSTAGE) * STAGE + KB;",
+                   "const uint32_t vs = sm_s + OS + ((j + 1) % NSTAGE) * STAGE + KB;")
+
+
+def flash_fwd_fault_case(torch):
+    """Build `flash_fwd_wgmma` with the planted P V fault into
+    ``build/fault/``, run it in place of the kernel (causal, bf16) at the
+    training and serve-prefill shapes on `flash_case`'s inputs, and fail
+    unless the row-by-row out tolerance rejects what it gives."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+    from deeplearning4j_tpu_torch.runtime import kernels
+
+    src = (kernels.CSRC / "flash_fwd.cu").read_text()
+    if src.count(FLASH_FWD_FAULT[0]) != 1:
+        raise AssertionError("fault: the line to break is not once in csrc/flash_fwd.cu")
+    work = kernels.build_dir().parent / "fault"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(kernels.CSRC, work)
+    (work / "flash_fwd.cu").write_text(src.replace(*FLASH_FWD_FAULT))
+    lib_path = work / "flash_fwd_fault.so"
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib_path),
+                    str(work / "flash_fwd.cu")], check=True, capture_output=True, timeout=600)
+    broken = ctypes.CDLL(str(lib_path))
+    broken.dl4j_flash_fwd.argtypes = kernels.SIGNATURES["flash_fwd"]["dl4j_flash_fwd"]
+    broken.dl4j_flash_fwd.restype = ctypes.c_int
+    sound = kernels.library("flash_fwd")
+    d, rows = D_MODEL // HEADS, []
+    for bh, t in ((TRAIN_BATCH * HEADS, TRAIN_SEQ), (HEADS, SERVE_LENGTHS[0])):
+        g = torch.Generator(device="cuda").manual_seed(t)
+        q, k, v = (torch.randn((bh, t, d), generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        ref, ref_lse = flash_fwd_plain(q, k, v, causal=True)
+        kernels._LIBS["flash_fwd"] = broken
+        try:
+            out, lse = flash_fwd(q, k, v, causal=True)
+            torch.cuda.synchronize()
+        finally:
+            kernels._LIBS["flash_fwd"] = sound
+        r = {"shape": [bh, t, d], **out_errors(out, ref),
+             "lse_err": (lse - ref_lse).abs().max().item()}
+        r["caught_by_max"] = not r["rel_err"] <= TOL["flash_fwd/bf16"]
+        r["caught_by_rows"] = not r["row_err"] <= TOL["flash_fwd_row/bf16"]
+        log(f"[fault] V from the next stage, shape={r['shape']}: rel_err={r['rel_err']:.3e} "
+            f"(tol {TOL['flash_fwd/bf16']:.1e}, caught {r['caught_by_max']}) "
+            f"row_err={r['row_err']:.3e} (tol {TOL['flash_fwd_row/bf16']:.1e}, caught "
+            f"{r['caught_by_rows']}) lse_err={r['lse_err']:.3e}")
+        rows.append(r)
+    if not all(r["caught_by_rows"] for r in rows):
+        raise AssertionError(f"the row-by-row out tolerance let a P V fault through: {rows}")
+    return rows
 
 
 def check_rows(tag, rows):
@@ -384,12 +533,18 @@ def check_rows(tag, rows):
     bad = []
     for r in rows:
         err = r.get("rel_err", r["max_abs_err"])
+        extra = ""
+        if "lse_err" in r:
+            extra += f" lse_err={r['lse_err']:.3e} (tol {r['lse_tol']:.1e})"
+        if "row_err" in r:
+            extra += f" row_err={r['row_err']:.3e} (tol {r['row_tol']:.1e})"
         log(f"[{tag}] {r['name']:26s} {r['dtype']:4s} shape={r['shape']} "
             f"err={err:.3e} ({'relative, ' if 'rel_err' in r else ''}tol "
             f"{r['tol']:.1e}) ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
-            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
-        if not err <= r["tol"]:
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
+        if (not err <= r["tol"] or not r.get("lse_err", 0.0) <= r.get("lse_tol", 0.0)
+                or not r.get("row_err", 0.0) <= r.get("row_tol", 0.0)):
             bad.append(r)
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -982,13 +1137,18 @@ def main(argv=None) -> int:
     paths = kernels.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(paths)} libraries in {report['build_s']:.1f}s")
+    serialized = []
     for stem, path in paths.items():
         logf = path.with_suffix(".log")
         if logf.exists():
             for line in logf.read_text(errors="replace").splitlines():
                 if ("registers" in line or "spill" in line
-                        or "warning" in line.lower()):
+                        or "warning" in line.lower() or "Performance Loss" in line):
                     log(f"[build] {stem}: {line.strip()}")
+                if "wgmma.mma_async instructions are serialized" in line:
+                    serialized.append(f"{stem}: {line.strip()}")
+    if serialized:   # every product would wait for the one before it
+        raise AssertionError("ptxas serialised the wgmma pipeline:\n" + "\n".join(serialized))
     report["sass_mma"] = check_tensor_cores(paths)
 
     timer = Timer(torch)
@@ -1003,7 +1163,8 @@ def main(argv=None) -> int:
 
     rows = []
     if "kernels" in phases:
-        rows = phase_kernels(torch, timer)
+        rows, report["flash_attention_layout"] = phase_kernels(torch, timer)
+        report["flash_fwd_fault"] = flash_fwd_fault_case(torch)
         done("kernels")
     report["kernel_phase"] = rows
     if "train" in phases:
@@ -1035,17 +1196,22 @@ def main(argv=None) -> int:
                      and (shape is None or r["shape"] == shape)
                      and r.get("causal", True) == causal), None)
 
-    train_bhtd = [TRAIN_BATCH * HEADS, TRAIN_SEQ, D_MODEL // HEADS]
-    main_rows = {
-        "flash_fwd": row("flash_fwd", t=2000),
-        "flash_bwd_dq": row("flash_bwd_dq", shape=train_bhtd),
-        "flash_bwd_dkdv": row("flash_bwd_dkdv", shape=train_bhtd),
-        "paged_attention_fwd": row("paged_attention_fwd", dtype="f32"),
-        "paged_attention_fwd_int8": row("paged_attention_fwd_int8", dtype="int8"),
+    dh = D_MODEL // HEADS
+    train_bhtd = [TRAIN_BATCH * HEADS, TRAIN_SEQ, dh]
+    # each main-path row with the path whose measured run counted its
+    # launches (counters zeroed just before that run, read just after)
+    main_rows = [
+        (row("flash_fwd", shape=train_bhtd), "train"),
+        (row("flash_fwd", shape=[HEADS, SERVE_LENGTHS[0], dh]), "serve"),  # the long prefill
+        (row("flash_fwd", dtype="f32", shape=[QUANT_BATCH * HEADS, QUANT_SEQ, dh]), "quant"),
+        (row("flash_bwd_dq", shape=train_bhtd), "train"),
+        (row("flash_bwd_dkdv", shape=train_bhtd), "train"),
+        (row("paged_attention_fwd", dtype="f32"), "serve"),
+        (row("paged_attention_fwd_int8", dtype="int8"), "int8"),
         # the W1 product of the quantized flagship
-        "dequant_matmul": row("dequant_matmul", dtype="int8",
-                              shape=[QUANT_BATCH * QUANT_SEQ, D_MODEL, 4 * D_MODEL]),
-    }
+        (row("dequant_matmul", dtype="int8",
+             shape=[QUANT_BATCH * QUANT_SEQ, D_MODEL, 4 * D_MODEL]), "quant"),
+    ]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),
@@ -1060,36 +1226,38 @@ def main(argv=None) -> int:
         "dequant_matmul": ("deeplearning4j_tpu_torch/csrc/dequant_matmul.cu",
                            "deeplearning4j_tpu/ops/dequant_matmul.py:146"),
     }
-    # launches on the main paths: the measured training steps, the
-    # measured serve pass and the measured quantized output() calls, each
-    # counted from zero
-    run_counts = {}
-    for path in ("train", "serve", "quant"):
-        for name, n in report.get(path, {}).get("launches", {}).items():
-            run_counts[name] = run_counts.get(name, 0) + n
-    if "int8" in report:
-        run_counts["paged_attention_fwd_int8"] = report["int8"]["launches"].get(
-            "paged_attention_fwd_int8", 0)
-    designs = {   # the bf16 kernels the training step runs
+    designs = {   # the kernels redesigned for Hopper
+        "flash_fwd_wgmma": "warp-specialised: a TMA producer warpgroup keeps a 3-stage "
+                           "K/V mbarrier ring full; 2 consumer warpgroups x 64 query "
+                           "rows run S by wgmma m64n128k16 from shared memory and P V "
+                           "with P in registers, taking turns on named barriers "
+                           "(ping-pong)",
+        "flash_fwd_fma": "f32 FMA tiles (not redesigned): 64 query rows a block, "
+                         "64-key tiles",
         "flash_bwd_dq": "flash_bwd_dq_wgmma: wgmma bf16 -> f32, 2 warpgroups "
                         "x 64 query rows, cp.async ring of 2 K/V stages",
         "flash_bwd_dkdv": "flash_bwd_dkdv_wgmma: wgmma bf16 -> f32, 2 warpgroups "
                           "x 64 key rows, cp.async ring of 2 Q/g stages",
     }
-    for name, r in main_rows.items():
+    for r, path in main_rows:
         if r is None:
             continue
+        name = r["name"]
         src, replaces = sources[name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": run_counts.get(name, 0), "max_abs_err": r["max_abs_err"],
+            "launches": report.get(path, {}).get("launches", {}).get(name, 0),
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "path": path, "dtype": r["dtype"], "shape": r["shape"],
         }
-        if name in designs:
-            entry["design"] = designs[name]
+        design = designs.get(r.get("kernel", name))
+        if design is not None:
+            entry["kernel"] = r.get("kernel", name)
+            entry["design"] = design
         entries.append(entry)
-    if "int8" in report and run_counts.get("paged_attention_fwd_int8", 0) <= 0:
+    if "int8" in report and report["int8"]["launches"].get("paged_attention_fwd_int8", 0) <= 0:
         raise AssertionError("the int8 engine never launched the int8 kernel")
 
     os.makedirs("chiprun_out", exist_ok=True)

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -361,60 +363,11 @@ int launch_dkdv_fma(const void* q, const void* k, const void* v, const void* g,
 // bf16: tensor-core kernels
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int WG = 128;             // threads of a warpgroup
 constexpr int TILE = 64;            // rows of a warpgroup's tile and of a streamed tile
 constexpr int NWG = 2;              // warpgroups a block
 constexpr int WNT = NWG * WG;       // threads a block
 constexpr int OWN = NWG * TILE;     // rows a block owns
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Shared-memory geometry of a bf16 tile of R rows and D columns.  Each row is
-// cut into column blocks of RB bytes (64 columns at D >= 64); column block c
-// of the tile is R rows of RB bytes at offset c * R * RB, and the 16-byte
-// chunks of row r are permuted by the swizzle wgmma's descriptor names
-// (128B: chunk ^= r % 8; 64B and 32B: the same on the address bits 7+).  Read
-// with rows as M or N and columns as K, the tile is wgmma's K-major layout;
-// read with rows as K and columns as N, its MN-major (transposed) layout.
-template <int D>
-struct Geo {
-  static constexpr int RB = D >= 64 ? 128 : 2 * D;         // bytes of a swizzled row
-  static constexpr int CB = 2 * D / RB;                    // column blocks
-  static constexpr int NB = RB / 2;                        // columns of a column block
-  static constexpr int KPB = RB / 32;                      // k16 steps in a column block
-  static constexpr uint32_t SW_MASK = RB / 16 - 1;         // swizzle bits
-  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
-  static constexpr int CHUNKS = 2 * D / 16;                // 16-byte chunks a row
-
-  // byte offset of chunk cc (of the whole row) of row r, in an R-row tile
-  static __device__ __forceinline__ uint32_t offset(int rows, int r, int cc) {
-    const int c = cc / (RB / 16), j = cc % (RB / 16);
-    uint32_t o = r * RB + j * 16;
-    o ^= ((o >> 7) & SW_MASK) << 4;
-    return c * rows * RB + o;
-  }
-  // wgmma shared-memory descriptor: start address, leading and stride byte
-  // offsets (16-byte units), swizzle mode
-  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-           ((uint64_t)(sbo >> 4) << 32) | (LAYOUT << 62);
-  }
-  // K-major operand: rows [r0, r0 + 64) (A) or the tile's first 64 rows (B)
-  // of an R-row tile, columns [16 kk, 16 kk + 16)
-  static __device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows, int r0, int kk) {
-    return desc(tile + (kk / KPB) * rows * RB + r0 * RB + (kk % KPB) * 32, 16, 8 * RB);
-  }
-  // MN-major B operand: rows [16 kk, 16 kk + 16) as K, column block c as N
-  static __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int kk, int c) {
-    return desc(tile + c * rows * RB + kk * 16 * RB, rows * RB, 8 * RB);
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
@@ -429,99 +382,6 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
-// this thread's generic-proxy writes to shared memory (cp.async, st.shared)
-// become visible to wgmma's async-proxy reads (after the block's barrier)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// d (+)= A B: A 64 x 16 and B 16 x 64 from shared memory, both K-major
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, "
-      "0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d += A B: A 64 x 16 from registers, B 16 x N from shared memory, MN-major
-template <int N> struct MmaRs;
-template <> struct MmaRs<16> {
-  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-template <> struct MmaRs<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-template <> struct MmaRs<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // rows [r0, r0 + rows) of a (T, D) bf16 matrix into a swizzled tile, by
 // cp.async; rows past t are zero-filled
 template <int D>
@@ -553,11 +413,6 @@ __device__ __forceinline__ void scale_tile(uint8_t* tile, int rows, float scale)
     *p = u;
   }
 }
-
-// Accumulator layout of a wgmma m64nN f32 tile, thread `lane` of warp `w` of
-// the warpgroup: element 4 j + e is row 16 w + lane / 4 + 8 (e / 2), column
-// 8 j + 2 (lane % 4) + e % 2.  Elements 8 kk .. 8 kk + 7, rounded to bf16 in
-// pairs, are the register A fragment of k16 step kk of the next product.
 
 // dQ: one block per (bh, 128-row query tile); loops over 64-row K/V tiles.
 template <int D>

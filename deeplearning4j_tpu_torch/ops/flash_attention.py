@@ -8,7 +8,8 @@ and the autograd wiring around them.
 the output cotangent g -> ``(dq, dk, dv)`` in the inputs' dtype.  On a
 CUDA tensor each launches its kernels (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``) or raises; on a CPU tensor each runs its plain
-version (`flash_fwd_plain`, `flash_bwd_plain`), dense f32 torch.
+version (`flash_fwd_plain`, `flash_bwd_plain`): dense torch with f32
+sums, rounding bf16 operands where the Pallas kernels round them.
 
 `FlashAttention` is the `torch.autograd.Function` of the JAX package's
 ``custom_vjp`` `_flash_core`: forward through `flash_fwd`, backward
@@ -39,17 +40,37 @@ def _causal_mask(t_q: int, t_k: int, device) -> torch.Tensor:
     return torch.ones((t_q, t_k), dtype=torch.bool, device=device).triu(1)
 
 
+def _operand(dtype):
+    """How an operand of a product is rounded: bf16 inputs round it to
+    bf16, as the Pallas kernels do with ``mxu_f32=False`` (the JAX
+    package's default); f32 inputs stay exact.  Every product sums in
+    f32."""
+    if dtype == torch.bfloat16:
+        return lambda x: x.to(torch.bfloat16).float()
+    return lambda x: x
+
+
 def flash_fwd_plain(q, k, v, *, causal: bool):
-    """Dense reference: softmax(q k^T / sqrt(D)) v in f32, plus the
-    row logsumexp.  q, k, v: (BH, T, D)."""
+    """Dense reference of the forward, `_fwd_kernel` of the JAX package
+    without its KV blocking: softmax(Q K^T * scale) V and the row
+    logsumexp, for (BH, T, D) q, k, v.  f32 inputs stay f32.  bf16
+    inputs round where the Pallas kernel rounds: Q * scale is a bf16
+    operand of S, and P a bf16 operand of P V; the max, the normaliser
+    l and lse = m + log(l) come from the unrounded f32 P, so the lse
+    is the one the backward's recomputed P (`flash_bwd_plain`, kernels
+    B2 and B3) normalises to rows that sum to 1."""
     d = q.shape[-1]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    operand = _operand(q.dtype)
+    s = torch.matmul(operand(q.float() * (1.0 / math.sqrt(d))),
+                     k.float().transpose(-1, -2))
     if causal:
         s = s.masked_fill(_causal_mask(s.shape[-2], s.shape[-1], s.device),
                           float("-inf"))
-    lse = torch.logsumexp(s, dim=-1)
-    out = torch.matmul(torch.softmax(s, dim=-1), v.float())
-    return out.to(q.dtype), lse
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.matmul(operand(p), v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
 def flash_bwd_plain(q, k, v, out, lse, g, *, causal: bool):
@@ -64,10 +85,7 @@ def flash_bwd_plain(q, k, v, out, lse, g, *, causal: bool):
     operands of their products, which sum in f32."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-
-    def operand(x):
-        return x.to(torch.bfloat16).float() if q.dtype == torch.bfloat16 else x
-
+    operand = _operand(q.dtype)
     qf = operand(q.float() * scale)
     kf, vf, gf = k.float(), v.float(), g.float()
     delta = (gf * out.float()).sum(-1)
@@ -114,16 +132,22 @@ def flash_fwd(q, k, v, *, causal: bool):
 
 
 def _flash_fwd_kernel(q, k, v, causal: bool):
+    """Kernel B1 on contiguous CUDA tensors: bf16 runs `flash_fwd_wgmma`,
+    whose TMA loads need each of q, k, v to start on a 16-byte boundary
+    (its rows, D >= 16 bf16 elements, then are too); f32 runs
+    `flash_fwd_fma`."""
     bh, t, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
     _check_kernel_args("flash_fwd", q, k, v)
+    if bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_fwd: TMA reads bf16 q, k, v only from "
+                         "16-byte aligned starts")
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
-    lib = kernels.library("flash_fwd")
-    rc = lib.dl4j_flash_fwd(
+    rc = kernels.library("flash_fwd").dl4j_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, t, d, int(bool(causal)),
-        int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
-        kernels.current_stream(q.device))
+        lse.data_ptr(), bh, t, d, int(bool(causal)), int(bf16),
+        1.0 / math.sqrt(d), kernels.current_stream(q.device))
     kernels.check_launch("flash_fwd", rc)
     return out, lse
 

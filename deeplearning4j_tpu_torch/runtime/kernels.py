@@ -6,8 +6,10 @@ no PyTorch headers, so a build takes seconds, not the minutes a
 ``torch/extension.h`` translation unit costs.  All sources are built
 together, in parallel, the first time any kernel is asked for; the
 libraries land in ``build/torch_kernels/`` of the checkout (listed in
-``.gitignore``) under a name that hashes the source and the flags, so a
-later process in the same checkout reuses them.
+``.gitignore``) under a name that hashes the source, the headers it
+includes (``csrc/*.cuh``) and the flags, so a later process in the same
+checkout reuses them and an edited header rebuilds every library that
+includes it.
 
 Nothing here runs at import: a CPU-only host has no ``nvcc``, and its
 tests import every module.
@@ -23,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -90,10 +93,33 @@ def nvcc_path() -> str:
                        "are built where the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def sources(stem: str) -> list[Path]:
+    """``csrc/<stem>.cu`` and every header it includes with quotes,
+    recursively, each once."""
+    found: list[Path] = []
+
+    def visit(path: Path) -> None:
+        if path in found:
+            return
+        found.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            visit(path.parent / name.decode())
+
+    visit(CSRC / f"{stem}.cu")
+    return found
+
+
 def _lib_path(stem: str) -> Path:
-    src = (CSRC / f"{stem}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"{stem}-{h}.so"
+    """The library's name hashes its source, every header the source
+    includes, and the flags: an edited header rebuilds its users."""
+    h = hashlib.sha256()
+    for path in sources(stem):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, Path]:

@@ -9,7 +9,18 @@ environment need not have JAX.)
 
 Tolerances: f32 kernels within 2e-4 (flash) and 1e-4 (paged) absolute —
 the same arithmetic in another summation order; the bf16 flash output
-within 1.6e-2, one bf16 rounding of an O(1) value.  The flash backward
+within 1.6e-2, one bf16 rounding of an O(1) value.  The bf16 flash
+forward (`flash_fwd_wgmma`) against its plain version, which rounds
+Q * scale and P to bf16 where the kernel does: out within 2^-7 of
+max |plain| (one bf16 ulp of the largest element: the kernel rounds P
+against the running max of its 128-key tiles, the plain version against
+the row's max) and, row by row, within 2^-6 of each query row's own
+max |plain| (that ulp plus the f32 sums' order; a row that averages n
+keys has outputs of ~sqrt(e/n), which the first measure cannot see),
+lse within 1e-5 absolute (f32 sums of up to T
+exponentials in another order, and exp2 with log2(e) folded into the
+scores; a Q * scale left unrounded moves it by ~2e-3), and two launches
+on the same inputs give the same bits.  The flash backward
 is held relative to the largest gradient element: 1e-4 in f32 (sums of
 up to T products in another order), 8e-3 in bf16 (the plain version
 rounds Q * scale, P and dS where the kernels do, so what differs is the
@@ -83,6 +94,52 @@ def test_flash_fwd_kernel_matches_plain(cuda, t, d, causal, dtype, tol):
     assert out.dtype == dtype
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 2e-4
+
+
+def _bf16_qkv(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def _fwd_errors(out, lse, ref, ref_lse):
+    """(max |out - ref| relative to max |ref|, the largest of each query
+    row's max |out - ref| relative to that row's max |ref|,
+    max |lse - ref_lse|)."""
+    diff, mag = (out.float() - ref.float()).abs(), ref.float().abs()
+    return ((diff.max() / mag.max()).item(),
+            (diff.amax(-1) / mag.amax(-1).clamp_min(1e-30)).max().item(),
+            (lse - ref_lse).abs().max().item())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 63, 65, 127, 129, 144, 2000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_fwd_kernel_matches_rounding_plain(cuda, t, d, causal):
+    q, k, v = _bf16_qkv((3, t, d), t * d + 2, cuda)
+    before = kernels.launches().get("flash_fwd", 0)
+    out, lse = flash_fwd(q, k, v, causal=causal)
+    again = flash_fwd(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launches()["flash_fwd"] == before + 2
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    rel, row, lse_err = _fwd_errors(out, lse, ref, ref_lse)
+    assert rel <= 2**-7 and row <= 2**-6 and lse_err <= 1e-5, (rel, row, lse_err)
+
+
+def test_bf16_flash_fwd_rejects_views_tma_cannot_read(cuda):
+    q, k, v = _bf16_qkv((2, 64, 32), 8, cuda)
+    flat = torch.zeros(2 * 64 * 32 + 1, dtype=torch.bfloat16, device=cuda)
+    off = flat[1:].view(2, 64, 32)                              # 2 bytes off
+    rows = torch.zeros((2, 64, 36), dtype=torch.bfloat16, device=cuda)[..., :32]
+    before = kernels.launches().get("flash_fwd", 0)
+    for bad, match in ((off, "16-byte"), (rows, "contiguous")):
+        for args in ((bad, k, v), (q, bad, v), (q, k, bad)):
+            with pytest.raises(ValueError, match=match):
+                flash_fwd(*args, causal=True)
+    assert kernels.launches().get("flash_fwd", 0) == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

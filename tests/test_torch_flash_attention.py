@@ -1,9 +1,21 @@
 """The port's flash-forward plain version and `mha` against the JAX
 package.
 
-The JAX side runs its Pallas forward kernel in interpret mode with f32
-matmuls (``mxu_f32=True``), as its own CPU tests do.  Tolerance: atol
-and rtol 1e-5 — both sides are f32 and differ only in summation order.
+- f32: the JAX side runs its Pallas forward kernel in interpret mode
+  with f32 matmuls (``mxu_f32=True``), as its own CPU tests do.
+  Tolerance: atol and rtol 1e-5 — both sides are f32 and differ only in
+  summation order.
+- bf16: the Pallas kernel as the JAX package runs it, with bf16 matmuls
+  (``mxu_f32=False``, interpret mode).  Both sides round Q * scale and P
+  to bf16 before their products and keep the max, the normaliser and
+  the sums in f32.  Tolerances: lse within 1e-5 (f32 sums in another
+  order); out within 2^-7 of max |JAX|, one bf16 ulp of the largest
+  element — the kernel rounds P against the running max of its KV
+  blocks, the plain version against the row's max, so a stored element
+  can land one rounding boundary away; and row by row within 2^-6 of
+  each query row's own max |JAX| (that ulp, read here up to 2^-7, with
+  room for the f32 sums' order), so that rows of small outputs are held
+  to their own scale.
 """
 
 import numpy as np
@@ -43,6 +55,48 @@ def test_plain_flash_fwd_matches_jax_kernel(t, causal):
     assert out.dtype == torch.float32 and lse.shape == (2, t)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **TOL)
+
+
+def _bf16_qkv(shape, seed):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(shape, seed)]
+
+
+def _as_jax_bf16(x):
+    return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 144, 256])
+@pytest.mark.parametrize("d", [64, 128])
+def test_plain_bf16_flash_fwd_matches_jax_pallas_bf16_kernel(d, t, causal):
+    q, k, v = _bf16_qkv((2, t, d), seed=d + t + int(causal))
+    block = 16 if t % 128 else 128      # the JAX kernel's blocks must tile T
+    ref_out, ref_lse = _flash_fwd_bhtd(
+        *(_as_jax_bf16(x) for x in (q, k, v)), causal=causal,
+        block_q=block, block_k=block, interpret=True, mxu_f32=False)
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    assert out.dtype == torch.bfloat16 and ref_out.dtype == jnp.bfloat16
+    ref = np.asarray(ref_out.astype(jnp.float32))
+    diff = np.abs(out.float().numpy() - ref)
+    assert diff.max() <= 2**-7 * np.abs(ref).max()
+    assert (diff.max(-1) / np.abs(ref).max(-1)).max() <= 2**-6
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_bf16_lse_normalises_the_backward_p(causal):
+    """The forward's lse against the P that the backward recomputes from
+    it, exp(round(Q * scale) K^T - lse): rows sum to 1 within 1e-5 (f32
+    sums of 256 terms)."""
+    t, d = 256, 128
+    q, k, v = _bf16_qkv((2, t, d), seed=31 + int(causal))
+    _, lse = fa.flash_fwd_plain(q, k, v, causal=causal)
+    qs = (q.float() * (1.0 / np.sqrt(d))).to(torch.bfloat16).float()
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    if causal:
+        s = s.masked_fill(torch.ones(t, t, dtype=torch.bool).triu(1), float("-inf"))
+    rows = torch.exp(s - lse[..., None]).sum(-1)
+    assert (rows - 1).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("causal", [True, False])

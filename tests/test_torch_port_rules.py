@@ -6,7 +6,9 @@
 - Entry points default to CUDA and raise when there is none; only an
   explicit ``device="cpu"`` runs on the CPU.
 - A kernel wrapper never answers a CUDA tensor with its plain version:
-  it launches the kernel or raises.
+  it launches the kernel or raises.  The bf16 flash forward reads its
+  inputs through TMA and raises on inputs TMA cannot read.
+- A kernel library's name hashes every header its source includes.
 """
 
 import os
@@ -185,6 +187,45 @@ def test_wrappers_raise_instead_of_falling_back(claims_cuda, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros((2, 32, 16)).transpose(1, 2)
         fa.flash_fwd(t, t, t, causal=True)
+
+
+def test_bf16_flash_fwd_takes_the_views_tma_reads(claims_cuda, monkeypatch):
+    """bf16 B1 reads q, k, v through TMA: contiguous, from 16-byte aligned
+    starts; anything else raises before a launch."""
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    bf = torch.bfloat16
+    q = torch.zeros((2, 16, 32), dtype=bf)
+    out, lse = fa.flash_fwd(q, q, q, causal=True)
+    assert out.shape == (2, 16, 32) and out.is_contiguous() and lse.shape == (2, 16)
+    assert lib.calls == ["dl4j_flash_fwd"]
+    off = torch.zeros(2 * 16 * 32 + 1, dtype=bf)[1:].view(2, 16, 32)   # 2 bytes off
+    rows = torch.zeros((2, 16, 40), dtype=bf)[..., :32]                 # padded rows
+    cols = torch.zeros((2, 32, 16), dtype=bf).transpose(1, 2)
+    for bad, match in ((off, "16-byte"), (rows, "contiguous"), (cols, "contiguous")):
+        for args in ((bad, q, q), (q, bad, q), (q, q, bad)):
+            with pytest.raises(ValueError, match=match):
+                fa.flash_fwd(*args, causal=False)
+    assert lib.calls == ["dl4j_flash_fwd"]
+    # f32 reads plain loads: a 4-byte aligned start is enough
+    x = torch.zeros(2 * 16 * 32 + 1)[1:].view(2, 16, 32)
+    fa.flash_fwd(x, x, x, causal=True)
+    assert lib.calls == ["dl4j_flash_fwd"] * 2
+
+
+def test_library_name_hashes_the_headers_its_source_includes(tmp_path,
+                                                            monkeypatch):
+    assert kernels.sources("flash_fwd")[1:] == [kernels.CSRC / "wgmma.cuh"]
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include <stdint.h>\n#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n #  include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text('#include "h.cuh"\nint g;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    assert kernels.sources("a") == [tmp_path / n for n in ("a.cu", "h.cuh", "g.cuh")]
+    before = {stem: kernels._lib_path(stem) for stem in ("a", "b")}
+    (tmp_path / "g.cuh").write_text('#include "h.cuh"\nint g = 1;\n')
+    assert kernels._lib_path("a") != before["a"]
+    assert kernels._lib_path("b") == before["b"]
 
 
 def _bwd_args(t=16, d=32):
