@@ -11,9 +11,10 @@ Always first:
 2. build — compiles every ``csrc/*.cu`` of the checkout (one nvcc per
    source, in parallel) and prints ptxas' register / spill report, then
    counts the tensor-core MMAs (HGMMA, HMMA) and TMA loads (UTMALDG) of
-   each flash kernel in ``cuobjdump -sass``: fails if a bf16 backward
-   kernel has no MMA, the bf16 forward kernel no HGMMA or no UTMALDG, or
-   ptxas reports that it serialised a kernel's wgmma pipeline.
+   each flash and dequant-matmul kernel in ``cuobjdump -sass``: fails if a
+   bf16 backward kernel has no MMA, a forward kernel (bf16 or f32) or the
+   large-M dequant-matmul kernel no HGMMA or no UTMALDG, or ptxas reports
+   that it serialised a kernel's wgmma pipeline.
 
 Then the phases:
 
@@ -60,9 +61,13 @@ Then the phases:
    (4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024),
    (4096, 1024, 32000), (8, 1024, 4096) and (1, 4096, 4096), within
    1e-5 (K 1024) or 2e-5 (K 4096) of max |plain|, plus the ragged
-   (5, 100, 72) for correctness; the library yardstick is cuBLAS f32 on
-   the dequantized weight (and ``torch._weight_int8pack_mm`` where this
-   PyTorch has it for CUDA); and B1's f32 row at BH 16, T 2048.  Then
+   (5, 100, 72) and (200, 100, 48) for correctness, each on the route
+   the wrapper picks by shape (the tensor cores above 64 rows, f32 FMAs
+   split over K below) and then on the other route where TMA can read
+   the weights; a second launch must give the same bits; the library
+   yardstick is cuBLAS f32 on the dequantized weight (and
+   ``torch._weight_int8pack_mm`` where this PyTorch has it for CUDA);
+   and B1's f32 row at BH 16, T 2048.  Then
    the path: the flagship with its default `RnnOutputLayer` softmax head
    (vocab 32000, d 1024, 8 heads, 8 layers, seed 123), `quantize`d
    (its tree must shrink, by `quantized_bytes`), runs 1 warm-up and 3
@@ -109,7 +114,9 @@ ENGINE = dict(slots=8, page_size=16, num_pages=512, max_pages_per_seq=160)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 2048, 2, 6
 
 TOL = {  # max |kernel - plain| allowed, with the reason
-    # flash forward out, f32: f32 both sides, different summation order
+    # flash forward out, f32: f32 both sides, different summation order;
+    # the kernel also drops each operand's bits past two bf16 parts and
+    # the lo x lo part product (~2^-16 of a product)
     "flash_fwd/f32": 2e-4,
     # flash forward out, bf16, relative to max |plain|: the plain version
     # rounds Q * scale and P to bf16 where the kernel does, but the kernel
@@ -142,7 +149,10 @@ TOL = {  # max |kernel - plain| allowed, with the reason
     "paged_attention_fwd_int8": 1e-4,  # same int8 values dequantised both sides
     # dequant-matmul, relative to max |plain|: f32 sums of K products in
     # another order (and the scale once after the sum, not in each
-    # weight); the error grows as sqrt(K)
+    # weight); the error grows as sqrt(K).  The tensor-core route also
+    # drops x's bits past its two bf16 parts (~2^-17 of each product):
+    # the CPU emulation (tests/test_torch_split_precision.py) reads
+    # 2.0e-6 to 2.4e-6 of max |plain| at K 1024 and 4096
     "dequant_matmul/K1024": 1e-5,
     "dequant_matmul/K4096": 2e-5,
 }
@@ -151,6 +161,12 @@ QUANT_BATCH, QUANT_SEQ, QUANT_WARMUP, QUANT_CALLS = 2, 2048, 1, 3
 DM_SHAPES = [(4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024),
              (4096, 1024, VOCAB), (8, 1024, 4096), (1, 4096, 4096)]
 DM_RAGGED = (5, 100, 72)
+# B4's head dims besides the flagship's 128: 32 lanes hold Dh / 32 values
+# each where 32 divides Dh, else strided lanes
+PAGED_CHECK_DIMS = (16, 48, 80, 96, 192, 256)
+# ragged in M, K and N for the tensor-core route, whose TMA loads need N a
+# multiple of 16 (72 is not: that shape takes the rows route alone)
+DM_RAGGED_TMA = (200, 100, 48)
 # the quantized model against the f32 model of the same dequantized
 # weights: argmax agreement, and max |dp| relative to max p (f32 both
 # sides, the products summed in another order: a few 1e-6 of each logit)
@@ -194,6 +210,9 @@ class Timer:
 
 
 def bound_ms(n_bytes: float, n_ops: float, kind: str):
+    """The least time the card could take: the larger of ``n_bytes`` over
+    HBM's rate and ``n_ops`` (the function's own operations) over the
+    ``kind`` peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -225,9 +244,10 @@ def sass_mma_counts(lib_path) -> dict:
 
 def check_tensor_cores(paths):
     """The bf16 flash-backward kernels must issue tensor-core MMAs; the
-    bf16 flash-forward kernel wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    flash-forward kernels (bf16 and f32) wgmma (HGMMA) and TMA loads
+    (UTMALDG); the large-M dequant-matmul kernel wgmma and TMA loads."""
     out = {}
-    for stem in ("flash_fwd", "flash_bwd"):
+    for stem in ("flash_fwd", "flash_bwd", "dequant_matmul"):
         out[stem] = counts = sass_mma_counts(paths[stem])
         for fn, c in counts.items():
             log(f"[sass] {stem} {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
@@ -235,10 +255,13 @@ def check_tensor_cores(paths):
     if not bwd or any(c["HGMMA"] + c["HMMA"] == 0 for c in bwd):
         raise AssertionError(f"bf16 flash-backward kernels without tensor-core "
                              f"MMAs in their SASS: {out['flash_bwd']}")
-    fwd = [c for fn, c in out["flash_fwd"].items() if "flash_fwd_wgmma" in fn]
-    if not fwd or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in fwd):
-        raise AssertionError(f"bf16 flash-forward kernels without HGMMA or TMA "
-                             f"loads in their SASS: {out['flash_fwd']}")
+    for stem, names in (("flash_fwd", ("flash_fwd_wgmma", "flash_fwd_split")),
+                        ("dequant_matmul", ("dequant_matmul_wgmma",))):
+        for name in names:
+            found = [c for fn, c in out[stem].items() if name in fn]
+            if not found or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in found):
+                raise AssertionError(f"{name} missing, or without HGMMA or TMA loads "
+                                     f"in its SASS: {out[stem]}")
     return out
 
 
@@ -278,11 +301,14 @@ def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
     errs = out_errors(out, ref)
     pairs = bh * (t * (t + 1) // 2 if causal else t * t)
     eb = q.element_size()
-    b_ms, b_by = bound_ms(4 * bh * t * d * eb + bh * t * 4, 4 * d * pairs, kind)
+    n_bytes = 4 * bh * t * d * eb + bh * t * 4
+    # the function's multiply-adds on the bf16 peak, in f32 too: the card
+    # reaches f32 accuracy on bf16 tensor cores (by split parts)
+    b_ms, b_by = bound_ms(n_bytes, 4 * d * pairs, "bf16")
     qs, ks, vs = (x[None] for x in (q, k, v))        # (1, BH, T, D) for sdpa
     row = {
         "name": "flash_fwd",
-        "kernel": "flash_fwd_wgmma" if kind == "bf16" else "flash_fwd_fma",
+        "kernel": "flash_fwd_wgmma" if kind == "bf16" else "flash_fwd_split",
         "dtype": kind, "shape": [bh, t, d], "causal": causal,
         "max_abs_err": errs["max_abs_err"], "tol": TOL[f"flash_fwd/{kind}"],
         "lse_err": (lse - ref_lse).abs().max().item(),
@@ -297,6 +323,12 @@ def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
     if kind == "bf16":
         row.update(rel_err=errs["rel_err"], row_err=errs["row_err"],
                    row_tol=TOL["flash_fwd_row/bf16"])
+    else:
+        # log only: the split design's own floor, three bf16 part products
+        # (hi hi, hi lo, lo hi) for each product, and the f32-FMA bound of
+        # the CUDA-core kernel it replaced
+        row["part_floor_ms"] = bound_ms(n_bytes, 3 * 4 * d * pairs, "bf16")[0]
+        row["f32_fma_bound_ms"] = bound_ms(n_bytes, 4 * d * pairs, "f32")[0]
     return row
 
 
@@ -400,14 +432,16 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
     return rows
 
 
-def paged_case(torch, timer, quant: bool):
+def paged_case(torch, timer, quant: bool, dh=D_MODEL // HEADS):
+    """Kernel B4 against `paged_attention_plain` over the serve phase's
+    page tables, at head dim ``dh``; timed only at the flagship's."""
     from deeplearning4j_tpu_torch.ops.paged_attention import (
         paged_attention_fwd,
         paged_attention_plain,
     )
     from deeplearning4j_tpu_torch.serving.kv_cache import quantize_page_rows
 
-    s, h, dh = ENGINE["slots"], HEADS, D_MODEL // HEADS
+    s, h = ENGINE["slots"], HEADS
     ps, mp, n_pages = ENGINE["page_size"], ENGINE["max_pages_per_seq"], ENGINE["num_pages"]
     # the serve phase's mix: one long stream, short ones, one idle slot
     lens = [2017, 20, 150, 300, 5, 64, 0, 90]
@@ -433,6 +467,14 @@ def paged_case(torch, timer, quant: bool):
     err = (out - ref).abs().max().item()
     if out[lens.index(0)].abs().max().item() != 0.0:
         raise AssertionError("paged attention: idle slot output is not exact zero")
+    name = "paged_attention_fwd_int8" if quant else "paged_attention_fwd"
+    row = {
+        "name": name, "dtype": "int8" if quant else "f32",
+        "shape": [s, h, dh, ps, mp], "seq_lens": lens,
+        "max_abs_err": err, "tol": TOL[name],
+    }
+    if dh != D_MODEL // HEADS:
+        return row
     live = sum(lens)
     eb = kp.element_size()
     n_bytes = (q.numel() * 4 + 2 * live * h * dh * eb
@@ -440,16 +482,13 @@ def paged_case(torch, timer, quant: bool):
                + sum(-(-n // ps) for n in lens) * 4 + s * 4 + out.numel() * 4)
     n_ops = 4 * live * h * dh + (2 * live * h * dh if quant else 0)
     b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
-    name = "paged_attention_fwd_int8" if quant else "paged_attention_fwd"
-    return {
-        "name": name, "dtype": "int8" if quant else "f32",
-        "shape": [s, h, dh, ps, mp], "seq_lens": lens,
-        "max_abs_err": err, "tol": TOL[name],
+    row.update({
         "ms": timer(lambda: paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)),
         "plain_ms": timer(lambda: paged_attention_plain(q, kp, vp, tbl, seq, ksc, vsc)),
         "library_ms": None,     # no single PyTorch call attends over a page table
         "bound_ms": b_ms, "bound_by": b_by,
-    }
+    })
+    return row
 
 
 def phase_kernels(torch, timer):
@@ -468,6 +507,10 @@ def phase_kernels(torch, timer):
     rows.extend(flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, d=64))
     for quant in (False, True):
         rows.append(paged_case(torch, timer, quant))
+    # B4 at head dims the flagship does not serve, every multiple of 16 on
+    # one lane mapping or the other: checked, not timed
+    check_rows("kernels", [paged_case(torch, timer, quant, dh)
+                           for dh in PAGED_CHECK_DIMS for quant in (False, True)])
     return check_rows("kernels", rows), layout_case(torch, timer)
 
 
@@ -538,11 +581,15 @@ def check_rows(tag, rows):
             extra += f" lse_err={r['lse_err']:.3e} (tol {r['lse_tol']:.1e})"
         if "row_err" in r:
             extra += f" row_err={r['row_err']:.3e} (tol {r['row_tol']:.1e})"
-        log(f"[{tag}] {r['name']:26s} {r['dtype']:4s} shape={r['shape']} "
+        for key in ("part_floor_ms", "f32_fma_bound_ms"):
+            if key in r:
+                extra += f" {key}={r[key]:.5f}"
+        timed = (f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                 f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
+                 f"({r['bound_by']})" if "ms" in r else "checked, not timed")
+        log(f"[{tag}] {r.get('kernel', r['name']):26s} {r['dtype']:4s} shape={r['shape']} "
             f"err={err:.3e} ({'relative, ' if 'rel_err' in r else ''}tol "
-            f"{r['tol']:.1e}) ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
-            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
+            f"{r['tol']:.1e}) {timed}{extra}")
         if (not err <= r["tol"] or not r.get("lse_err", 0.0) <= r.get("lse_tol", 0.0)
                 or not r.get("row_err", 0.0) <= r.get("row_tol", 0.0)):
             bad.append(r)
@@ -951,12 +998,17 @@ def int8pack_case(torch, timer, x, q, scale, ref):
     return timer(lambda: fn(x, w_nk, scale), iters=3), rel, "f32 activations"
 
 
-def dm_case(torch, timer, m, k, n):
+def dm_case(torch, timer, m, k, n, route=None):
     """Kernel B5 against `dequant_matmul_plain` at (M, K, N): random f32
-    activations, int8 weights in [-127, 127] and positive scales."""
+    activations, int8 weights in [-127, 127] and positive scales.  With
+    ``route`` None, through `dequant_matmul` (the route it picks by shape,
+    the main path's), timed; else through that route alone, checked and
+    not timed.  A second launch must give the same bits."""
     from deeplearning4j_tpu_torch.ops.dequant_matmul import (
         dequant_matmul,
         dequant_matmul_plain,
+        kernel_route,
+        launch_dequant_matmul,
     )
 
     g = torch.Generator(device="cuda").manual_seed(7 * m + 3 * k + n)
@@ -964,26 +1016,64 @@ def dm_case(torch, timer, m, k, n):
     q = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
                       dtype=torch.int8)
     scale = torch.rand((n,), generator=g, device="cuda") / 127 + 1e-4
-    y = dequant_matmul(x, q, scale)
+    timed = route is None
+    route = kernel_route(m, n, k, q) if route is None else route
+
+    def fn():
+        return dequant_matmul(x, q, scale) if timed else \
+            launch_dequant_matmul(x, q, scale, route)
+
+    y = fn()
+    again = fn()
     ref = dequant_matmul_plain(x, q, scale)
     torch.cuda.synchronize()
+    if not torch.equal(y, again):
+        raise AssertionError(f"dequant_matmul {route} at {[m, k, n]}: a second "
+                             "launch gave other bits")
+    del again
     diff = (y - ref).abs().max().item()
-    w = q.float() * scale                  # the library's dequantized weight
-    b_ms, b_by = bound_ms(m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * k * n,
-                          "f32")
-    pack_ms, pack_err, pack_note = int8pack_case(torch, timer, x, q, scale, ref)
-    return {
+    row = {
         "name": "dequant_matmul", "dtype": "int8", "shape": [m, k, n],
+        "kernel": f"dequant_matmul_{route}", "route": route,
         "max_abs_err": diff, "rel_err": diff / ref.abs().max().item(),
         "tol": TOL["dequant_matmul/K1024" if k <= 1024 else "dequant_matmul/K4096"],
-        "ms": timer(lambda: dequant_matmul(x, q, scale)),
+        "second_launch_identical": True,
+    }
+    if not timed:
+        return row
+    w = q.float() * scale                  # the library's dequantized weight
+    n_bytes = m * k * 4 + k * n + n * 4 + m * n * 4
+    # the function's multiply-adds on the bf16 peak, whatever the route
+    b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n, "bf16")
+    row.update({
+        "ms": timer(fn),
         "plain_ms": timer(lambda: dequant_matmul_plain(x, q, scale)),
         "library_ms": timer(lambda: torch.matmul(x, w)),
         "library": "cuBLAS f32 (torch.matmul) on the dequantized weight",
-        "int8pack_ms": pack_ms, "int8pack_rel_err": pack_err,
-        "int8pack": pack_note,
         "bound_ms": b_ms, "bound_by": b_by,
-    }
+        # log only: the f32-FMA bound of the CUDA-core kernel the
+        # tensor-core route replaced, and that route's own floor, two bf16
+        # part products (x_hi q, x_lo q) for each multiply-add
+        "f32_fma_bound_ms": bound_ms(n_bytes, 2 * m * k * n, "f32")[0],
+    })
+    if route == "wgmma":
+        row["part_floor_ms"] = bound_ms(n_bytes, 2 * 2 * m * k * n, "bf16")[0]
+    row["int8pack_ms"], row["int8pack_rel_err"], row["int8pack"] = int8pack_case(
+        torch, timer, x, q, scale, ref)
+    return row
+
+
+def dm_rows(torch, timer):
+    """B5 at every shape on the route the wrapper picks, timed; and the
+    other route, where TMA can describe the weights (N a multiple of 16),
+    checked against the plain version."""
+    rows, other_rows = [], []
+    for m, k, n in DM_SHAPES + [DM_RAGGED, DM_RAGGED_TMA]:
+        rows.append(dm_case(torch, timer, m, k, n))
+        other = "rows" if rows[-1]["route"] == "wgmma" else "wgmma"
+        if other == "rows" or n % 16 == 0:
+            other_rows.append(dm_case(torch, timer, m, k, n, route=other))
+    return rows, other_rows
 
 
 def _outputs(torch, model, ids, kernels=None):
@@ -1021,13 +1111,14 @@ def phase_quant(torch, np, kernels, timer):
     )
     from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
-    rows = [dm_case(torch, timer, *shape) for shape in DM_SHAPES + [DM_RAGGED]]
+    rows, other_rows = dm_rows(torch, timer)
     rows.append(flash_case(torch, timer, QUANT_SEQ, torch.float32,
                            bh=QUANT_BATCH * HEADS))
-    check_rows("quant", rows)
-    for r in rows[:-1]:
-        log(f"[quant] int8pack_mm at {r['shape']}: ms={r['int8pack_ms']} "
-            f"rel_err={r['int8pack_rel_err']} ({r['int8pack']})")
+    check_rows("quant", rows + other_rows)
+    for r in rows:
+        if "int8pack" in r:
+            log(f"[quant] int8pack_mm at {r['shape']}: ms={r['int8pack_ms']} "
+                f"rel_err={r['int8pack_rel_err']} ({r['int8pack']})")
 
     def zoo(bf16):
         # bench_longctx_quant's model (default RnnOutputLayer softmax head)
@@ -1094,7 +1185,8 @@ def phase_quant(torch, np, kernels, timer):
     del model, qmodel, f32w, p_q
     torch.cuda.empty_cache()
     return {
-        "kernel_rows": rows, "batch": [QUANT_BATCH, QUANT_SEQ],
+        "kernel_rows": rows, "other_route_rows": other_rows,
+        "batch": [QUANT_BATCH, QUANT_SEQ],
         "quantize_s": quantize_s, "f32_tree_bytes": f32_bytes,
         "quantized_bytes": qb, "output_ms": q_ms,
         "tokens_per_s": tokens / (statistics.median(q_ms) / 1e3),
@@ -1232,8 +1324,16 @@ def main(argv=None) -> int:
                            "rows run S by wgmma m64n128k16 from shared memory and P V "
                            "with P in registers, taking turns on named barriers "
                            "(ping-pong)",
-        "flash_fwd_fma": "f32 FMA tiles (not redesigned): 64 query rows a block, "
-                         "64-key tiles",
+        "flash_fwd_split": "f32 at f32 accuracy on bf16 wgmma: a pre-pass splits "
+                           "Q * scale, K, V into bf16 hi/lo parts; the bf16 "
+                           "kernel's TMA producer, ping-pong consumers and 2-stage "
+                           "ring of 64-key tiles; S and P V each as three part "
+                           "products (hi hi, hi lo, lo hi), P split in registers",
+        "dequant_matmul_wgmma": "x split into bf16 hi/lo parts by a pre-pass; TMA "
+                                "4-stage ring of x parts and int8 q; 3 converter "
+                                "warps widen q to bf16 in shared memory; 2 consumer "
+                                "warpgroups run wgmma m64n128k16 a part, each K "
+                                "slab's sum added to f32 registers",
         "flash_bwd_dq": "flash_bwd_dq_wgmma: wgmma bf16 -> f32, 2 warpgroups "
                         "x 64 query rows, cp.async ring of 2 K/V stages",
         "flash_bwd_dkdv": "flash_bwd_dkdv_wgmma: wgmma bf16 -> f32, 2 warpgroups "

@@ -15,9 +15,13 @@
 //
 // What this design does about it: one thread block per (slot, head) reads
 // its own page-table row and seq_len (the TPU kernel's scalar prefetch).
-// Eight warps stride over the slot's live positions; a lane holds Dh/32
-// contiguous elements of q and of the accumulator, so one K or V row is a
-// single coalesced 128-element read by the warp.  Each warp issues the K
+// Eight warps stride over the slot's live positions; a lane holds its
+// share of q and of the accumulator, so one K or V row is one coalesced
+// read by the warp.  Every head dim that is a multiple of 16 from 16 to
+// 256 is instantiated: where 32 divides Dh a lane holds Dh/32 contiguous
+// elements (one 16-byte load at Dh 128); otherwise (16, 48, 80, ...) a
+// lane holds elements lane, lane + 32, ... and the lanes past the row's
+// end of its last stride sit out, so no row is padded.  Each warp issues the K
 // and V rows of 8 positions before it uses any of them, to keep many loads
 // in flight, and keeps its own online softmax (running max, normaliser,
 // accumulator in f32).  The eight partial softmaxes are merged once through
@@ -35,25 +39,49 @@ constexpr int NW = 8;           // warps per block
 constexpr int U = 8;            // positions in flight per warp
 constexpr float NEG = -1e30f;
 
-template <int VPT>
-__device__ __forceinline__ void load_row(const float* __restrict__ p, float* dst) {
-  if constexpr (VPT == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+// Which elements of a Dh-wide row lane `lane` holds: NE of them, element e
+// at idx(lane, e), present where ok(lane, e).
+template <int DH>
+struct Lanes {
+  static constexpr bool CONTIG = DH % 32 == 0;
+  static constexpr int NE = CONTIG ? DH / 32 : DH / 32 + 1;
+  static __device__ __forceinline__ int idx(int lane, int e) {
+    return CONTIG ? lane * NE + e : e * 32 + lane;
+  }
+  static __device__ __forceinline__ bool ok(int lane, int e) {
+    return CONTIG || e * 32 + lane < DH;
+  }
+};
+
+// this lane's elements of the row at p (absent ones read as 0)
+template <int DH>
+__device__ __forceinline__ void load_row(const float* __restrict__ p, int lane, float* dst) {
+  using L = Lanes<DH>;
+  if constexpr (L::CONTIG && L::NE % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < L::NE; e += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + L::idx(lane, e));
+      dst[e] = x.x; dst[e + 1] = x.y; dst[e + 2] = x.z; dst[e + 3] = x.w;
+    }
   } else {
 #pragma unroll
-    for (int e = 0; e < VPT; ++e) dst[e] = p[e];
+    for (int e = 0; e < L::NE; ++e) dst[e] = L::ok(lane, e) ? p[L::idx(lane, e)] : 0.f;
   }
 }
 
-template <int VPT>
-__device__ __forceinline__ void load_row(const int8_t* __restrict__ p, float* dst) {
-  if constexpr (VPT == 4) {
-    const char4 x = *reinterpret_cast<const char4*>(p);
-    dst[0] = (float)x.x; dst[1] = (float)x.y; dst[2] = (float)x.z; dst[3] = (float)x.w;
+template <int DH>
+__device__ __forceinline__ void load_row(const int8_t* __restrict__ p, int lane, float* dst) {
+  using L = Lanes<DH>;
+  if constexpr (L::CONTIG && L::NE % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < L::NE; e += 4) {
+      const char4 x = *reinterpret_cast<const char4*>(p + L::idx(lane, e));
+      dst[e] = (float)x.x; dst[e + 1] = (float)x.y; dst[e + 2] = (float)x.z;
+      dst[e + 3] = (float)x.w;
+    }
   } else {
 #pragma unroll
-    for (int e = 0; e < VPT; ++e) dst[e] = (float)p[e];
+    for (int e = 0; e < L::NE; ++e) dst[e] = L::ok(lane, e) ? (float)p[L::idx(lane, e)] : 0.f;
   }
 }
 
@@ -64,7 +92,8 @@ paged_attention_kernel(const float* __restrict__ q, const KT* __restrict__ kp,
                        const float* __restrict__ vsc, const int* __restrict__ tbl,
                        const int* __restrict__ lens, float* __restrict__ out,
                        int heads, int ps, int max_pages, float sm_scale) {
-  constexpr int VPT = DH / 32;
+  using L = Lanes<DH>;
+  constexpr int VPT = L::NE;
   __shared__ float sm_m[NW], sm_l[NW];
   __shared__ float sm_acc[NW][DH];
 
@@ -79,7 +108,7 @@ paged_attention_kernel(const float* __restrict__ q, const KT* __restrict__ kp,
   const int* row_tbl = tbl + (size_t)s * max_pages;
 
   float qv[VPT];
-  load_row<VPT>(q + ((size_t)s * heads + h) * DH + lane * VPT, qv);
+  load_row<DH>(q + ((size_t)s * heads + h) * DH, lane, qv);
 
   float m = NEG, l = 0.f, acc[VPT];
 #pragma unroll
@@ -92,9 +121,9 @@ paged_attention_kernel(const float* __restrict__ q, const KT* __restrict__ kp,
       const int p = p0 + u;
       if (p < len) {
         const size_t rowi = (size_t)row_tbl[p / ps] * ps + (p % ps);
-        const size_t off = (rowi * heads + h) * DH + lane * VPT;
-        load_row<VPT>(kp + off, kv[u]);
-        load_row<VPT>(vp + off, vv[u]);
+        const size_t off = (rowi * heads + h) * DH;
+        load_row<DH>(kp + off, lane, kv[u]);
+        load_row<DH>(vp + off, lane, vv[u]);
         if constexpr (QUANT) {
           const float a = ks[rowi * heads + h], b = vsc[rowi * heads + h];
 #pragma unroll
@@ -133,7 +162,8 @@ paged_attention_kernel(const float* __restrict__ q, const KT* __restrict__ kp,
 
   if (lane == 0) { sm_m[warp] = m; sm_l[warp] = l; }
 #pragma unroll
-  for (int e = 0; e < VPT; ++e) sm_acc[warp][lane * VPT + e] = acc[e];
+  for (int e = 0; e < VPT; ++e)
+    if (L::ok(lane, e)) sm_acc[warp][L::idx(lane, e)] = acc[e];
   __syncthreads();
   for (int i = threadIdx.x; i < DH; i += NW * 32) {
     float big = NEG;
@@ -163,9 +193,13 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks, const 
       static_cast<const int*>(lens), static_cast<float*>(out), heads, ps, max_pages, \
       sm_scale)
   switch (dh) {
-    case 32: DL4J_PA_LAUNCH(32); break;
-    case 64: DL4J_PA_LAUNCH(64); break;
-    case 128: DL4J_PA_LAUNCH(128); break;
+#define DL4J_PA_CASE(D) \
+  case D: DL4J_PA_LAUNCH(D); break;
+    DL4J_PA_CASE(16) DL4J_PA_CASE(32) DL4J_PA_CASE(48) DL4J_PA_CASE(64)
+    DL4J_PA_CASE(80) DL4J_PA_CASE(96) DL4J_PA_CASE(112) DL4J_PA_CASE(128)
+    DL4J_PA_CASE(144) DL4J_PA_CASE(160) DL4J_PA_CASE(176) DL4J_PA_CASE(192)
+    DL4J_PA_CASE(208) DL4J_PA_CASE(224) DL4J_PA_CASE(240) DL4J_PA_CASE(256)
+#undef DL4J_PA_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DL4J_PA_LAUNCH

@@ -1,13 +1,17 @@
 // wgmma.cuh — shared pieces of the Hopper (sm_90a) tensor-core kernels:
 // the swizzled bf16 tile geometry and its wgmma descriptors, the wgmma
-// instructions (shared-memory and register A operands), their fences, and
-// bf16 packing.  Included by flash_fwd.cu and flash_bwd.cu;
+// instructions (shared-memory and register A operands), their fences, bf16
+// packing and the split of an f32 value into two bf16 parts, mbarriers,
+// named barriers and TMA loads with the host-side tensor-map encoder.
+// Included by flash_fwd.cu, flash_bwd.cu and dequant_matmul.cu;
 // runtime/kernels.py hashes it into the name of every library whose source
 // includes it.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -102,7 +106,9 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t 
       : "l"(a), "l"(b), "r"(acc));
 }
 
-// d (+)= A B: A 64 x 16 and B 16 x 128 from shared memory, both K-major
+// d (+)= A B: A 64 x 16 (K-major) and B 16 x 128 from shared memory; B is
+// K-major when TB is 0, MN-major (rows of N contiguous) when 1
+template <int TB = 0>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -110,7 +116,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -122,7 +128,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
+      : "l"(a), "l"(b), "r"(acc), "n"(TB));
 }
 
 // d += A B: A 64 x 16 from registers, B 16 x N from shared memory, MN-major
@@ -175,6 +181,116 @@ template <> struct MmaRs<64> {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// (a, b) = hi + lo in two bf16 parts: hi = bf16(x), lo = bf16(x - hi); the
+// pair carries ~16 significant bits, and hi * y + lo * y is x * y to ~2^-16
+// (every bf16 x bf16 product is exact in f32)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// -- mbarriers, named barriers, TMA ------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// spin until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+// box (c0, c1, c2) of a 3-D tensor map into shared memory; completes bytes
+// on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda link)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// 3-D tensor map over a dense (d2, d1, d0) array (d0 fastest) of `elem`-byte
+// elements at `base`, read in (b0, b1, 1) boxes with the given swizzle
+// (0: none; else the swizzle span in bytes: 32, 64 or 128); out-of-bounds
+// elements read as zeros
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                               int elem, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0,
+                               uint32_t b1, int swizzle_bytes) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * elem, d0 * d1 * elem};   // bytes
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                           : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// setmaxnreg only moves registers within the block's allocation: a block
+// launched with fewer than its roles' total would wait forever
+template <typename K>
+inline cudaError_t check_reg_budget(K kernel, int threads, int budget) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs * threads < budget ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
 // Accumulator layout of a wgmma m64nN f32 tile, thread `lane` of warp `w` of

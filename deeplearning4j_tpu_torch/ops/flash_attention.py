@@ -43,8 +43,15 @@ def _causal_mask(t_q: int, t_k: int, device) -> torch.Tensor:
 def _operand(dtype):
     """How an operand of a product is rounded: bf16 inputs round it to
     bf16, as the Pallas kernels do with ``mxu_f32=False`` (the JAX
-    package's default); f32 inputs stay exact.  Every product sums in
-    f32."""
+    package's default); f32 inputs stay exact, as the Pallas kernels
+    compute with ``mxu_f32=True``.  That f32 choice is deliberate: the
+    TPU rounds f32 operands to bf16 only because bf16 is its default
+    matmul precision, while the JAX package on the CPU, PyTorch's own f32
+    products (TF32 off) and the quantized model's 1e-5 parity with the
+    JAX package are all exact f32.  On the card the f32 forward reaches
+    the tensor cores without changing that answer: each f32 operand is
+    split into two bf16 parts and three of the four part products are
+    summed in f32.  Every product sums in f32."""
     if dtype == torch.bfloat16:
         return lambda x: x.to(torch.bfloat16).float()
     return lambda x: x
@@ -53,7 +60,8 @@ def _operand(dtype):
 def flash_fwd_plain(q, k, v, *, causal: bool):
     """Dense reference of the forward, `_fwd_kernel` of the JAX package
     without its KV blocking: softmax(Q K^T * scale) V and the row
-    logsumexp, for (BH, T, D) q, k, v.  f32 inputs stay f32.  bf16
+    logsumexp, for (BH, T, D) q, k, v.  f32 inputs stay f32: the
+    Pallas kernel with ``mxu_f32=True``, on purpose (`_operand`).  bf16
     inputs round where the Pallas kernel rounds: Q * scale is a bf16
     operand of S, and P a bf16 operand of P V; the max, the normaliser
     l and lse = m + log(l) come from the unrounded f32 P, so the lse
@@ -135,7 +143,9 @@ def _flash_fwd_kernel(q, k, v, causal: bool):
     """Kernel B1 on contiguous CUDA tensors: bf16 runs `flash_fwd_wgmma`,
     whose TMA loads need each of q, k, v to start on a 16-byte boundary
     (its rows, D >= 16 bf16 elements, then are too); f32 runs
-    `flash_fwd_fma`."""
+    `flash_fwd_split`, whose pre-pass reads q, k, v with plain loads and
+    writes their bf16 hi and lo parts into ``parts``, (3, 2, BH, T, D)
+    scratch allocated here, which the kernel then reads through TMA."""
     bh, t, d = q.shape
     bf16 = q.dtype == torch.bfloat16
     _check_kernel_args("flash_fwd", q, k, v)
@@ -144,10 +154,13 @@ def _flash_fwd_kernel(q, k, v, causal: bool):
                          "16-byte aligned starts")
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
+    parts = None if bf16 else torch.empty((3, 2, bh, t, d), dtype=torch.bfloat16,
+                                          device=q.device)
     rc = kernels.library("flash_fwd").dl4j_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, t, d, int(bool(causal)), int(bf16),
-        1.0 / math.sqrt(d), kernels.current_stream(q.device))
+        lse.data_ptr(), None if bf16 else parts.data_ptr(), bh, t, d,
+        int(bool(causal)), int(bf16), 1.0 / math.sqrt(d),
+        kernels.current_stream(q.device))
     kernels.check_launch("flash_fwd", rc)
     return out, lse
 

@@ -22,8 +22,9 @@ import torch
 
 from deeplearning4j_tpu_torch.runtime import kernels
 
-#: head dims the CUDA kernel is instantiated for
-PAGED_HEAD_DIMS = (32, 64, 128)
+#: head dims the CUDA kernel is instantiated for: every multiple of 16
+#: from 16 to 256
+PAGED_HEAD_DIMS = tuple(range(16, 257, 16))
 
 
 def _gather_pages(pages, page_tbl):
@@ -100,7 +101,9 @@ def _paged_attention_kernel(tensors, quant: bool):
     k_scale, v_scale = tensors[5:] if quant else (None, None)
     s, h, dh = q.shape
     if dh not in PAGED_HEAD_DIMS:
-        raise ValueError(f"paged_attention: head dim {dh} not in {PAGED_HEAD_DIMS}")
+        raise ValueError(f"paged_attention: head dim {dh} is not a multiple "
+                         f"of 16 from 16 to 256, the dims the kernel is "
+                         f"built for")
     if h > 65535:
         raise ValueError(f"paged_attention: {h} heads exceed the grid's 65535")
     if not all(t.is_contiguous() for t in tensors):

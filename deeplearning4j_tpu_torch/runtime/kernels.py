@@ -48,8 +48,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: returns the cudaError_t of its launch as an int (0 = success)
 SIGNATURES = {
     "flash_fwd": {
-        # q, k, v, out, lse, bh, t, d, causal, bf16, sm_scale, stream
-        "dl4j_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, out, lse, parts, bh, t, d, causal, bf16, sm_scale, stream
+        "dl4j_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
     "flash_bwd": {
         # q, k, v, g, lse, delta, dq, bh, t, d, causal, bf16, sm_scale, stream
@@ -68,8 +68,8 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "dequant_matmul": {
-        # x, q, scale, y, m, n, k, stream
-        "dl4j_dequant_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # x, q, scale, y, x_parts, partial, m, n, k, route, splits, stream
+        "dl4j_dequant_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

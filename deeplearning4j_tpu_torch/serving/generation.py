@@ -320,6 +320,12 @@ class GenerationEngine:
         return torch.stack(ks).float(), torch.stack(vs).float(), first
 
     def _run_prefill(self, req: GenerationRequest):
+        # the JAX engine holds seeds as uint32 and converts this one
+        # inside its prefill ``try``: outside [0, 2^32) the stream ends
+        # there, as a prefill error
+        if not 0 <= req.seed < 2**32:
+            raise OverflowError(
+                f"Python integer {req.seed} out of bounds for uint32")
         t_p = req.prompt.shape[0]
         t_b = bucket_length(t_p, self._quantum)
         pad = np.zeros((1, t_b), np.int64)

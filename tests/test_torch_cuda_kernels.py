@@ -32,7 +32,13 @@ dequant-matmul is held relative to max |plain|: 1e-5 (f32 sums of K <=
 1024 products in another order, the scale applied after the sum), and a
 quantized transformer's probabilities on the card within 2e-5 of max p
 of the same model on the CPU (f32 both sides, every product and the
-attention summed in another order).
+attention summed in another order).  Both of its routes are held at
+any M: the tensor-core route (x split into two bf16 parts) within the
+same 1e-5, and 2e-5 at K 4096, as the f32 FMAs.  The f32 flash forward
+(`flash_fwd_split`, bf16 parts on the tensor cores) is held to the same
+2e-4 as before, out and lse, and gives the same bits twice.  The paged
+attention kernel is held at every head dim family it is built for:
+multiples of 32 (contiguous lanes) and the others (strided lanes).
 """
 
 import numpy as np
@@ -45,6 +51,8 @@ from deeplearning4j_tpu_torch.models.sequential import SequentialModel
 from deeplearning4j_tpu_torch.ops.dequant_matmul import (
     dequant_matmul,
     dequant_matmul_plain,
+    kernel_route,
+    launch_dequant_matmul,
 )
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_bwd,
@@ -228,9 +236,11 @@ def _to_cpu(tree):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-def test_paged_attention_kernel_matches_plain(cuda, quant):
-    s, h, dh, n_pages, ps, mp = 5, 4, 128, 40, 16, 12
-    g = torch.Generator(device=cuda).manual_seed(1)
+@pytest.mark.parametrize("dh", [16, 48, 80, 96, 128, 192, 256])
+def test_paged_attention_kernel_matches_plain(cuda, quant, dh):
+    s, h, n_pages, ps, mp = 5, 4, 40, 16, 12
+    # seed 1 at dh 128, the inputs this test ran before it took other dims
+    g = torch.Generator(device=cuda).manual_seed(1 if dh == 128 else dh)
     lens = torch.tensor([0, 1, 17, 190, 64], dtype=torch.int32, device=cuda)
     tbl = torch.randint(1, n_pages, (s, mp), generator=g, device=cuda,
                         dtype=torch.int32)
@@ -284,6 +294,60 @@ def test_dequant_matmul_kernel_matches_plain(cuda, m, k, n):
     assert kernels.launches()["dequant_matmul"] == before + 1
     assert y.dtype == torch.float32 and y.shape == (m, n)
     assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("route", ["wgmma", "rows"])
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 4096), (8, 1024, 4096),
+                                   (64, 1024, 4096), (65, 1024, 4096),
+                                   (4096, 1024, 4096), (4096, 4096, 1024),
+                                   (200, 100, 48), (5, 100, 72)])
+def test_dequant_matmul_routes_match_plain(cuda, m, k, n, route):
+    """Both routes of B5 at any M: within 1e-5 (K 1024) or 2e-5 (K 4096) of
+    max |plain|, the same bits from a second launch.  N 72 is no multiple
+    of 16, so TMA cannot read it: the tensor-core route refuses it."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    q = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    scale = torch.rand((n,), generator=g, device=cuda) / 127 + 1e-4
+    if route == "wgmma" and n % 16:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            launch_dequant_matmul(x, q, scale, route)
+        return
+    before = kernels.launches().get("dequant_matmul", 0)
+    y = launch_dequant_matmul(x, q, scale, route)
+    again = launch_dequant_matmul(x, q, scale, route)
+    ref = dequant_matmul_plain(x, q, scale)
+    torch.cuda.synchronize()
+    assert kernels.launches()["dequant_matmul"] == before + 2
+    assert torch.equal(y, again)
+    tol = 1e-5 if k <= 1024 else 2e-5
+    assert (y - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_dequant_matmul_picks_the_route_by_shape(cuda):
+    q = torch.zeros((64, 48), dtype=torch.int8, device=cuda)
+    assert kernel_route(64, 48, 64, q) == "rows"
+    assert kernel_route(65, 48, 64, q) == "wgmma"
+    assert kernel_route(65, 40, 64, q) == "rows"          # TMA: N % 16
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 17, 144, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_flash_fwd_split_kernel_matches_plain(cuda, t, d, causal):
+    """f32 B1 on the tensor cores (split bf16 parts) against the exact f32
+    plain version: out and lse within 2e-4, the same bits again."""
+    g = torch.Generator(device=cuda).manual_seed(t * d + 3)
+    q, k, v = (torch.randn((3, t, d), generator=g, device=cuda) for _ in range(3))
+    out, lse = flash_fwd(q, k, v, causal=causal)
+    again = flash_fwd(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert (out - ref).abs().max().item() <= 2e-4
+    assert (lse - ref_lse).abs().max().item() <= 2e-4
 
 
 def test_quantized_output_on_the_card_matches_the_cpu(cuda):

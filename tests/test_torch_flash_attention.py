@@ -57,6 +57,24 @@ def test_plain_flash_fwd_matches_jax_kernel(t, causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_plain_f32_flash_fwd_keeps_exact_f32_as_the_mxu_f32_kernel(d, causal):
+    """The port's f32 decision (ROADMAP C7): f32 inputs follow the Pallas
+    kernel with ``mxu_f32=True``, not its bf16 default, at every head
+    dim the card's kernel takes from 16 to 128."""
+    t = 144
+    q, k, v = _qkv((2, t, d), seed=d + int(causal))
+    ref_out, ref_lse = _flash_fwd_bhtd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=16, block_k=16, interpret=True, mxu_f32=True)
+    out, lse = fa.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=causal)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **TOL)
+
+
 def _bf16_qkv(shape, seed):
     return [torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(shape, seed)]
 

@@ -325,3 +325,61 @@ def test_dequant_matmul_raises_instead_of_falling_back(claims_cuda, monkeypatch)
     with pytest.raises(ValueError, match="contiguous"):
         x, q, scale = _dm_args()
         dm.dequant_matmul(x, q.t().contiguous().t(), scale)
+
+
+def test_paged_attention_takes_every_multiple_of_16_head_dim(claims_cuda,
+                                                             monkeypatch):
+    """B4 is built for every head dim that is a multiple of 16 from 16 to
+    256; any other raises before a launch, and says why."""
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    assert pa.PAGED_HEAD_DIMS == tuple(range(16, 257, 16))
+    for dh in (16, 48, 80, 256):
+        pools = [torch.zeros((4, 8, 2, dh)) for _ in range(2)]
+        pa.paged_attention_fwd(torch.zeros((2, 2, dh)), *pools,
+                               torch.zeros((2, 3), dtype=torch.int32),
+                               torch.tensor([3, 0], dtype=torch.int32))
+    assert lib.calls == ["dl4j_paged_attention"] * 4
+    for dh in (8, 24, 272):
+        pools = [torch.zeros((4, 8, 2, dh)) for _ in range(2)]
+        with pytest.raises(ValueError, match="multiple of 16"):
+            pa.paged_attention_fwd(torch.zeros((2, 2, dh)), *pools,
+                                   torch.zeros((2, 3), dtype=torch.int32),
+                                   torch.tensor([3, 0], dtype=torch.int32))
+    assert lib.calls == ["dl4j_paged_attention"] * 4
+
+
+class _ArgLib:
+    """A fake kernel library that keeps each call's arguments."""
+
+    def __init__(self):
+        self.args = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.args.append(args)
+            return 0
+        return fn
+
+
+@pytest.mark.parametrize("m,n,route", [(64, 48, 0), (65, 48, 1), (65, 40, 0),
+                                       (200, 320, 1), (1, 4096, 0)])
+def test_dequant_matmul_picks_its_route_by_shape(claims_cuda, monkeypatch,
+                                                 m, n, route):
+    """More than 64 rows with N a multiple of 16 (TMA's row stride) take
+    the tensor-core route with x's bf16 parts as scratch; the rest take
+    the rows route, with partial sums as scratch when K is split."""
+    lib = _ArgLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    k = 64
+    y = dm.dequant_matmul(torch.zeros((m, k)), torch.zeros((k, n), dtype=torch.int8),
+                          torch.ones(n))
+    assert y.shape == (m, n)
+    (args,) = lib.args
+    x_parts, partial, mm, nn, kk, got, splits = args[4:11]
+    assert (mm, nn, kk, got) == (m, n, k, route)
+    if route:
+        assert x_parts is not None and partial is None and splits == 1
+    else:
+        assert x_parts is None and splits == dm.row_splits(m, n, k)
+        assert (partial is not None) == (splits > 1)
