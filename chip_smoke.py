@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                 # every default phase
     python3 chip_smoke.py --phases kernels   # a subset; `profile` is extra
+    python3 chip_smoke.py --phases paged,serve,int8,profile --package-root DIR
+        # the same phases over the port in another checkout DIR (a parent
+        # commit unpacked with `git archive`): two trees in one call
 
 Always first:
 
@@ -10,11 +13,13 @@ Always first:
    versions.  Exits non-zero, printing no result, without a CUDA device.
 2. build — compiles every ``csrc/*.cu`` of the checkout (one nvcc per
    source, in parallel) and prints ptxas' register / spill report, then
-   counts the tensor-core MMAs (HGMMA, HMMA) and TMA loads (UTMALDG) of
-   each flash and dequant-matmul kernel in ``cuobjdump -sass``: fails if a
-   bf16 backward kernel has no MMA, a forward kernel (bf16 or f32) or the
-   large-M dequant-matmul kernel no HGMMA or no UTMALDG, or ptxas reports
-   that it serialised a kernel's wgmma pipeline.
+   counts the tensor-core MMAs (HGMMA, HMMA), TMA loads (UTMALDG) and bulk
+   copies (UBLKCP) of each flash, dequant-matmul and paged-attention
+   kernel in ``cuobjdump -sass``: fails if a bf16 backward kernel has no
+   MMA, a forward kernel (bf16 or f32) or the large-M dequant-matmul
+   kernel no HGMMA or no UTMALDG, a paged-attention kernel no UTMALDG
+   (whole pages) or no UBLKCP (partial pages, int8 scales), or ptxas
+   reports that it serialised a kernel's wgmma pipeline.
 
 Then the phases:
 
@@ -35,7 +40,14 @@ Then the phases:
    shape (BH 32, T 2048 and 2000, D 128, causal), and in bf16 also
    non-causal at T 2048, at T 144 (a serve bucket) and at D 64, against
    `flash_bwd_plain` and the backward of `scaled_dot_product_attention`;
-   a second launch of each must give the same bits.
+   a second launch of each must give the same bits.  The paged attention
+   (B4), f32 and int8 pages, against `paged_attention_plain` within 1e-4:
+   the serve mix (8 slots of lengths 2017 ... 0 over 160-wide tables),
+   timed; the full pool (8 slots x 1008 positions, 504 of the 511 usable
+   pages), timed; head dims 16 ... 256 on the serve mix, checked.  Each
+   must give the same bits on a second launch, and the idle slot exact
+   zeros.  The Timer's own floor (the event pair alone, and around one
+   empty kernel launch) is timed beside them.
 4. train — the full-width flagship (below) trained with Adam (lr 3e-4)
    through the chunked vocab loss on one fixed batch of 4 x 2048 token
    ids (numpy seed 3, int64): 2 warm-up and 6 measured `fit_batch`
@@ -55,6 +67,8 @@ Then the phases:
    on 4 greedy streams: token agreement >= 0.95, first token identical.
 7. int8 — the same streams through an int8-KV engine, gated against
    the same reference as the JAX package gates int8 pages (>= 0.9).
+   serve, parity and int8 make seven measured passes of their streams
+   and print each pass's tokens/s and the medians.
 8. quant — int8 post-training quantization and quantized inference.
    Kernel rows first: the dequant-matmul kernel (B5) against
    `dequant_matmul_plain` at the six product shapes (M, K, N) =
@@ -80,10 +94,16 @@ Then the phases:
    and max |dp| <= 1e-4 of max p.  The unquantized model's bf16
    ``output()`` time and the int8-vs-f32-weights argmax agreement are
    printed as information.
-9. profile (only when asked for) — two training steps, the serve pass
-   and two quantized ``output()`` calls under torch.profiler: device
-   busy share and device time by kernel.
-10. report — one ``{"kernels": [...]}`` JSON line, then the last line
+9. paged (only when asked for, and part of kernels) — B4's timed rows
+   and the Timer's floor alone.  stages (only when asked for) — B4 built
+   with time stamps at each stage of a block's work, on the same inputs:
+   where its time goes (`stages_case`).
+10. profile (only when asked for) — two training steps, the serve pass,
+   the int8-KV engine's streams and two quantized ``output()`` calls
+   under torch.profiler: device busy share, device time by kernel, and
+   the paged-attention kernel's own device time in the serve and int8
+   passes.
+11. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -102,7 +122,7 @@ import sys
 import time
 
 PHASES = ("kernels", "train", "serve", "parity", "int8", "quant")
-EXTRA_PHASES = ("profile",)
+EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -164,6 +184,11 @@ DM_RAGGED = (5, 100, 72)
 # B4's head dims besides the flagship's 128: 32 lanes hold Dh / 32 values
 # each where 32 divides Dh, else strided lanes
 PAGED_CHECK_DIMS = (16, 48, 80, 96, 192, 256)
+PAGED_DIMS = tuple(range(16, 257, 16))       # every instantiated head dim
+# B4's timed mixes: the serve phase's (one long stream, short ones, one
+# idle slot), and the full pool (504 of the 511 usable pages, 8 x 1008
+# positions: ~66 MB of f32 K/V, past the 50 MB L2)
+PAGED_MIXES = {"serve": [2017, 20, 150, 300, 5, 64, 0, 90], "full_pool": [1008] * 8}
 # ragged in M, K and N for the tensor-core route, whose TMA loads need N a
 # multiple of 16 (72 is not: that shape takes the rows route alone)
 DM_RAGGED_TMA = (200, 100, 48)
@@ -187,13 +212,17 @@ def nvidia_smi() -> str:
 class Timer:
     """Kernel time with CUDA events, cold L2: before each launch the GPU
     sleeps while the host enqueues an L2 flush and the launch, so host
-    overhead never lands between the events."""
+    overhead never lands between the events.  The flush writes 64 MB, so
+    the L2 the kernel finds is full of dirty lines that its own reads must
+    write back; ``clean=True`` flushes by reading 64 MB instead (the L2 then
+    holds clean lines), for bandwidth-bound kernels whose bound counts
+    their reads alone."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 * 2**20, dtype=torch.int8, device="cuda")
 
-    def __call__(self, fn, iters: int = 10) -> float:
+    def __call__(self, fn, iters: int = 10, clean: bool = False) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
@@ -201,7 +230,10 @@ class Timer:
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for a, b in ev:
             torch.cuda._sleep(20_000_000)
-            self.flush.zero_()
+            if clean:
+                self.flush.sum()
+            else:
+                self.flush.zero_()
             a.record()
             fn()
             b.record()
@@ -218,13 +250,13 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
 def sass_mma_counts(lib_path) -> dict:
-    """Tensor-core MMA instructions (HGMMA: wgmma; HMMA: mma.sync) and
-    TMA loads (UTMALDG) in each kernel of a built library, from
-    ``cuobjdump -sass``."""
+    """Tensor-core MMA instructions (HGMMA: wgmma; HMMA: mma.sync), TMA
+    loads (UTMALDG) and bulk copies (UBLKCP) in each kernel of a built
+    library, from ``cuobjdump -sass``."""
     from deeplearning4j_tpu_torch.runtime.kernels import nvcc_path
 
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
@@ -242,12 +274,14 @@ def sass_mma_counts(lib_path) -> dict:
     return counts
 
 
-def check_tensor_cores(paths):
+def check_sass(paths):
     """The bf16 flash-backward kernels must issue tensor-core MMAs; the
     flash-forward kernels (bf16 and f32) wgmma (HGMMA) and TMA loads
-    (UTMALDG); the large-M dequant-matmul kernel wgmma and TMA loads."""
+    (UTMALDG); the large-M dequant-matmul kernel wgmma and TMA loads; every
+    paged-attention kernel TMA loads (whole pages) and bulk copies (a
+    slot's partial last page, int8 scales)."""
     out = {}
-    for stem in ("flash_fwd", "flash_bwd", "dequant_matmul"):
+    for stem in ("flash_fwd", "flash_bwd", "dequant_matmul", "paged_attention"):
         out[stem] = counts = sass_mma_counts(paths[stem])
         for fn, c in counts.items():
             log(f"[sass] {stem} {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
@@ -262,6 +296,11 @@ def check_tensor_cores(paths):
             if not found or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in found):
                 raise AssertionError(f"{name} missing, or without HGMMA or TMA loads "
                                      f"in its SASS: {out[stem]}")
+    paged = [c for fn, c in out["paged_attention"].items() if "paged_split_kernel" in fn]
+    if len(paged) != 2 * len(PAGED_DIMS) or any(
+            c["UTMALDG"] == 0 or c["UBLKCP"] == 0 for c in paged):
+        raise AssertionError(f"paged-attention kernels missing, or without TMA loads or "
+                             f"bulk copies in their SASS: {out['paged_attention']}")
     return out
 
 
@@ -432,28 +471,22 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
     return rows
 
 
-def paged_case(torch, timer, quant: bool, dh=D_MODEL // HEADS):
-    """Kernel B4 against `paged_attention_plain` over the serve phase's
-    page tables, at head dim ``dh``; timed only at the flagship's."""
-    from deeplearning4j_tpu_torch.ops.paged_attention import (
-        paged_attention_fwd,
-        paged_attention_plain,
-    )
+def paged_inputs(torch, quant: bool, dh, mix):
+    """q, pools, table, lengths and (int8) scales over the engine's pool
+    for one of `PAGED_MIXES`: each live slot its own pages, seed 7."""
     from deeplearning4j_tpu_torch.serving.kv_cache import quantize_page_rows
 
     s, h = ENGINE["slots"], HEADS
     ps, mp, n_pages = ENGINE["page_size"], ENGINE["max_pages_per_seq"], ENGINE["num_pages"]
-    # the serve phase's mix: one long stream, short ones, one idle slot
-    lens = [2017, 20, 150, 300, 5, 64, 0, 90]
     g = torch.Generator(device="cuda").manual_seed(7)
     perm = (torch.randperm(n_pages - 1, generator=g, device="cuda") + 1).int()
     tbl = torch.zeros((s, mp), dtype=torch.int32, device="cuda")
     used = 0
-    for i, n in enumerate(lens):
+    for i, n in enumerate(PAGED_MIXES[mix]):
         k_n = -(-n // ps)
         tbl[i, :k_n] = perm[used:used + k_n]
         used += k_n
-    seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    seq = torch.tensor(PAGED_MIXES[mix], dtype=torch.int32, device="cuda")
     q = torch.randn((s, h, dh), generator=g, device="cuda")
     kp = torch.randn((n_pages, ps, h, dh), generator=g, device="cuda")
     vp = torch.randn((n_pages, ps, h, dh), generator=g, device="cuda")
@@ -461,17 +494,38 @@ def paged_case(torch, timer, quant: bool, dh=D_MODEL // HEADS):
     if quant:
         kp, ksc = quantize_page_rows(kp)
         vp, vsc = quantize_page_rows(vp)
+    return q, kp, vp, tbl, seq, ksc, vsc
+
+
+def paged_case(torch, timer, quant: bool, dh=D_MODEL // HEADS, mix="serve"):
+    """Kernel B4 against `paged_attention_plain` over the engine's pool and
+    160-wide page tables, at head dim ``dh`` and one of `PAGED_MIXES`; a
+    second launch must give the same bits, an idle slot exact zeros.  Timed
+    only at the flagship's head dim."""
+    from deeplearning4j_tpu_torch.ops.paged_attention import (
+        paged_attention_fwd,
+        paged_attention_plain,
+    )
+
+    s, h = ENGINE["slots"], HEADS
+    ps, mp = ENGINE["page_size"], ENGINE["max_pages_per_seq"]
+    lens = PAGED_MIXES[mix]
+    q, kp, vp, tbl, seq, ksc, vsc = paged_inputs(torch, quant, dh, mix)
     out = paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)
+    again = paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)
     ref = paged_attention_plain(q, kp, vp, tbl, seq, ksc, vsc)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    if out[lens.index(0)].abs().max().item() != 0.0:
-        raise AssertionError("paged attention: idle slot output is not exact zero")
     name = "paged_attention_fwd_int8" if quant else "paged_attention_fwd"
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} {mix} at head dim {dh}: a second launch gave "
+                             "other bits")
+    if any(out[i].abs().max().item() != 0.0 for i, n in enumerate(lens) if n == 0):
+        raise AssertionError(f"{name} {mix}: idle slot output is not exact zero")
     row = {
-        "name": name, "dtype": "int8" if quant else "f32",
+        "name": name, "dtype": "int8" if quant else "f32", "mix": mix,
         "shape": [s, h, dh, ps, mp], "seq_lens": lens,
-        "max_abs_err": err, "tol": TOL[name],
+        "max_abs_err": err, "tol": TOL[name], "second_launch_identical": True,
     }
     if dh != D_MODEL // HEADS:
         return row
@@ -482,13 +536,46 @@ def paged_case(torch, timer, quant: bool, dh=D_MODEL // HEADS):
                + sum(-(-n // ps) for n in lens) * 4 + s * 4 + out.numel() * 4)
     n_ops = 4 * live * h * dh + (2 * live * h * dh if quant else 0)
     b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
+
+    def fn():
+        return paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)
+
     row.update({
-        "ms": timer(lambda: paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)),
+        "ms": timer(fn),
         "plain_ms": timer(lambda: paged_attention_plain(q, kp, vp, tbl, seq, ksc, vsc)),
         "library_ms": None,     # no single PyTorch call attends over a page table
         "bound_ms": b_ms, "bound_by": b_by,
+        # log only: the same launch after an L2 flush that leaves no dirty
+        # lines, and the host's time to enqueue one call (a decode step
+        # makes one a layer and waits on the host)
+        "clean_l2_ms": timer(fn, clean=True),
+        "host_ms": host_ms(torch, fn),
     })
     return row
+
+
+def host_ms(torch, fn, calls: int = 200) -> float:
+    """Host milliseconds a call spends enqueueing ``fn`` (no sync between
+    calls; the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def timer_floor(torch, timer) -> dict:
+    """What the Timer reads around nothing (its event pair) and around one
+    empty kernel launch: the part of a short kernel's row that is not the
+    kernel's work."""
+    res = {"events_only_ms": timer(lambda: None),
+           "empty_launch_ms": timer(lambda: torch.cuda._sleep(0))}
+    log(f"[kernels] Timer floor: event pair alone {res['events_only_ms']:.4f} ms, "
+        f"around one empty launch {res['empty_launch_ms']:.4f} ms")
+    return res
 
 
 def phase_kernels(torch, timer):
@@ -505,13 +592,30 @@ def phase_kernels(torch, timer):
     rows.extend(flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, causal=False))
     rows.extend(flash_bwd_cases(torch, timer, 144, torch.bfloat16))
     rows.extend(flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, d=64))
-    for quant in (False, True):
-        rows.append(paged_case(torch, timer, quant))
     # B4 at head dims the flagship does not serve, every multiple of 16 on
     # one lane mapping or the other: checked, not timed
     check_rows("kernels", [paged_case(torch, timer, quant, dh)
                            for dh in PAGED_CHECK_DIMS for quant in (False, True)])
-    return check_rows("kernels", rows), layout_case(torch, timer)
+    rows = check_rows("kernels", rows)
+    paged, floor = phase_paged(torch, timer)
+    return rows + paged, layout_case(torch, timer), floor
+
+
+def phase_paged(torch, timer):
+    """B4's timed rows (both page types, every mix of `PAGED_MIXES`) and the
+    Timer's floor: part of the kernels phase, and alone a phase of its own
+    for comparing two trees."""
+    rows = [paged_case(torch, timer, quant, mix=mix)
+            for mix in PAGED_MIXES for quant in (False, True)]
+    return check_rows("paged", rows), timer_floor(torch, timer)
+
+
+B4_DESIGN = ("flash-decoding: (slot, chunk of 2 f32 or 4 int8 pages, 2-head group) "
+             "items, walked by twice as many blocks as the card holds, with no host "
+             "read of seq_lens; whole pages by TMA box, a slot's partial last page by "
+             "cp.async.bulk rows, into shared memory, one mbarrier a page; f32 online "
+             "softmax per warp; the last block of a (slot, group), by ticket, merges "
+             "the chunks' partials in chunk order through shared memory")
 
 
 # the planted fault of `flash_fwd_fault_case`: P_j V_j reads V from the
@@ -570,6 +674,115 @@ def flash_fwd_fault_case(torch):
     return rows
 
 
+# `stages_case`: where kernel B4's time goes.  Each insertion goes right
+# after its anchor line of csrc/paged_attention.cu (each anchor must be there
+# once): block b stamps %globaltimer into stamp[b][0..6] at its start, when
+# the slots' lengths are counted, and for its first item when every copy is
+# issued, the last page has landed, the pages are computed, its ticket is
+# taken (chunked slots) and the item is done (merged, where it merged).
+STAGE_MARKS = (
+    ("namespace {\n",
+     "__device__ unsigned long long stamp[8192][8];\n"
+     "__device__ __forceinline__ unsigned long long now_ns() {\n"
+     "  unsigned long long t; asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t));\n"
+     "  return t;\n}\n"),
+    ("paged_split_kernel(const __grid_constant__ Args a) {\n",
+     "  const unsigned long long t_start = now_ns();\n"
+     "  const bool rec = threadIdx.x == 0 && blockIdx.x < 8192;\n  bool first = true;\n"),
+    ("  const int n_items = carry;\n",
+     "  if (rec) { stamp[blockIdx.x][0] = t_start; stamp[blockIdx.x][1] = now_ns(); }\n"),
+    ("    // this warp's head, and its turn among the head's team\n",
+     "    if (rec && first) stamp[blockIdx.x][2] = now_ns();\n"),
+    ("      mbar_wait(smem_addr(&bars[j]), (phase >> j) & 1);\n",
+     "      if (rec && first && j == np - 1) stamp[blockIdx.x][3] = now_ns();\n"),
+    ("    phase ^= (1u << np) - 1;\n",
+     "    if (rec && first) stamp[blockIdx.x][4] = now_ns();\n"),
+    ("        const int t = atomicAdd(ticket, 1);\n",
+     "        if (rec && first) stamp[blockIdx.x][5] = now_ns();\n"),
+    ("    __syncthreads();   // the next item's copies reuse the page buffers\n",
+     "    if (rec && first) stamp[blockIdx.x][6] = now_ns();\n    first = false;\n"),
+)
+STAGE_READ = """
+extern "C" int dl4j_stamps(void* dst, int clear) {
+  static unsigned long long zero[8192][8];
+  return (int)(clear ? cudaMemcpyToSymbol(stamp, zero, sizeof(zero))
+                     : cudaMemcpyFromSymbol(dst, stamp, sizeof(zero)));
+}
+"""
+
+
+def stages_case(torch, timer):
+    """Build kernel B4 with `STAGE_MARKS` into ``build/stages/``, launch it
+    in place of the kernel on `paged_case`'s inputs after the Timer's L2
+    flush, and print, in us from the first block's start: when the blocks
+    start and finish counting lengths, and for the items (medians, and the
+    last) when copies are issued, pages land, pages are computed, tickets
+    are taken and items are done.  A diagnostic: its times include the
+    stamps' own stores."""
+    import ctypes
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops.paged_attention import paged_attention_fwd
+    from deeplearning4j_tpu_torch.runtime import kernels
+
+    src = (kernels.CSRC / "paged_attention.cu").read_text()
+    for anchor, text in STAGE_MARKS:
+        if src.count(anchor) != 1:
+            raise AssertionError(f"stages: anchor not once in paged_attention.cu: {anchor!r}")
+        src = src.replace(anchor, anchor + text)
+    work = kernels.build_dir().parent / "stages"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(kernels.CSRC, work)
+    (work / "paged_attention.cu").write_text(src + STAGE_READ)
+    lib_path = work / "paged_attention_stages.so"
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib_path),
+                    str(work / "paged_attention.cu")], check=True, capture_output=True,
+                   timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.dl4j_paged_attention.argtypes = \
+        kernels.SIGNATURES["paged_attention"]["dl4j_paged_attention"]
+    lib.dl4j_paged_attention.restype = ctypes.c_int
+    sound = kernels.library("paged_attention")
+    buf = np.zeros((8192, 8), np.uint64)
+    out = {}
+    for mix in PAGED_MIXES:
+        for quant in (False, True):
+            q, kp, vp, tbl, seq, ksc, vsc = paged_inputs(torch, quant, D_MODEL // HEADS, mix)
+            kernels._LIBS["paged_attention"] = lib
+            try:
+                paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)
+                torch.cuda.synchronize()
+                lib.dl4j_stamps(None, 1)
+                torch.cuda._sleep(20_000_000)
+                timer.flush.zero_()
+                paged_attention_fwd(q, kp, vp, tbl, seq, ksc, vsc)
+                torch.cuda.synchronize()
+                lib.dl4j_stamps(buf.ctypes.data, 0)
+            finally:
+                kernels._LIBS["paged_attention"] = sound
+            blocks = buf[buf[:, 0] > 0].astype(np.int64)
+            t = (blocks - blocks[:, 0].min()) / 1e3
+            items = t[blocks[:, 2] > 0]
+            ticketed = items[items[:, 5] > 0]
+
+            def at(col, rows=items):
+                return [float(np.median(rows[:, col])), float(rows[:, col].max())]
+
+            r = {"blocks": len(blocks), "items_timed": len(items),
+                 "block_start": at(0, t), "lengths_counted": at(1, t),
+                 "copies_issued": at(2), "last_page_landed": at(3), "computed": at(4),
+                 "ticket": at(5, ticketed) if len(ticketed) else None,
+                 "item_done": at(6)}
+            name = f"{mix}/{'int8' if quant else 'f32'}"
+            out[name] = r
+            log(f"[stages] {name}: {r['blocks']} blocks; us from the first block's start "
+                f"(median, last): " + "; ".join(
+                    f"{k} {v[0]:.2f}, {v[1]:.2f}" for k, v in r.items()
+                    if isinstance(v, list)))
+    return out
+
+
 def check_rows(tag, rows):
     """Print each kernel row and fail if any disagrees with its plain
     version beyond its tolerance."""
@@ -581,13 +794,14 @@ def check_rows(tag, rows):
             extra += f" lse_err={r['lse_err']:.3e} (tol {r['lse_tol']:.1e})"
         if "row_err" in r:
             extra += f" row_err={r['row_err']:.3e} (tol {r['row_tol']:.1e})"
-        for key in ("part_floor_ms", "f32_fma_bound_ms"):
+        for key in ("part_floor_ms", "f32_fma_bound_ms", "clean_l2_ms", "host_ms"):
             if key in r:
                 extra += f" {key}={r[key]:.5f}"
         timed = (f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                  f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
                  f"({r['bound_by']})" if "ms" in r else "checked, not timed")
-        log(f"[{tag}] {r.get('kernel', r['name']):26s} {r['dtype']:4s} shape={r['shape']} "
+        mix = f" {r['mix']}" if "mix" in r else ""
+        log(f"[{tag}] {r.get('kernel', r['name']):26s} {r['dtype']:4s}{mix} shape={r['shape']} "
             f"err={err:.3e} ({'relative, ' if 'rel_err' in r else ''}tol "
             f"{r['tol']:.1e}) {timed}{extra}")
         if (not err <= r["tol"] or not r.get("lse_err", 0.0) <= r.get("lse_tol", 0.0)
@@ -646,9 +860,13 @@ def _profiled(torch, name, fn):
            if e.device_type == DeviceType.CUDA]
     busy_us = sum(t for t, _, _ in dev)
     top = sorted(dev, reverse=True)[:15]
+    paged = [(t, n) for t, k, n in dev if "paged" in k]
     res = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
            "device_busy_share": busy_us / 1e6 / wall,
-           "top_device_kernels_ms": [[k, t / 1e3, n] for t, k, n in top]}
+           "top_device_kernels_ms": [[k, t / 1e3, n] for t, k, n in top],
+           # kernel B4's own device time and launches
+           "paged_attention_device_ms": sum(t for t, _ in paged) / 1e3,
+           "paged_attention_launches": sum(n for _, n in paged)}
     res.update(extra or {})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"profile_{name}.txt"), "w") as f:
@@ -656,16 +874,19 @@ def _profiled(torch, name, fn):
         f.write("\n\n")
         f.write(rows.table(sort_by="self_cpu_time_total", row_limit=40))
     log(f"[profile] {name}: wall {wall:.3f}s (profiled), device busy "
-        f"{res['device_busy_s']:.3f}s = {res['device_busy_share']:.3f}")
+        f"{res['device_busy_s']:.3f}s = {res['device_busy_share']:.3f}; paged attention "
+        f"{res['paged_attention_device_ms']:.3f} ms in {res['paged_attention_launches']} "
+        f"launches")
     for k, ms, n in res["top_device_kernels_ms"]:
         log(f"[profile]   {ms:10.3f} ms  {n:6d}x  {k[:100]}")
     return res
 
 
 def phase_profile(torch, np):
-    """Two training steps, the serve phase's streams again and two
-    quantized ``output()`` calls, under torch.profiler.  Not part of the
-    default run (the profiler slows the host)."""
+    """Two training steps, the serve phase's streams again, the int8-KV
+    engine's streams again and two quantized ``output()`` calls, under
+    torch.profiler.  Not part of the default run (the profiler slows the
+    host)."""
     from deeplearning4j_tpu_torch.serving.generation import (
         GenerationConfig,
         GenerationEngine,
@@ -697,6 +918,25 @@ def phase_profile(torch, np):
                                        "decode_seconds", "decode_steps")}
 
         out["serve"] = _profiled(torch, "serve", serve)
+    finally:
+        eng.stop()
+    del model
+    torch.cuda.empty_cache()
+
+    model = _flagship(torch, bf16=False)
+    prompts = _prompts(np, 3, PARITY_LENGTHS)
+    eng = GenerationEngine(model, GenerationConfig(**ENGINE, kv_dtype="int8")).start()
+    try:
+        _parity_streams(eng, prompts, 32)                  # meet every shape
+
+        def int8():
+            base = eng.stats()
+            _parity_streams(eng, prompts, 32)
+            st = eng.stats()
+            return {k: st[k] - base[k] for k in ("prefill_seconds", "prefills",
+                                                 "decode_seconds", "decode_steps")}
+
+        out["int8"] = _profiled(torch, "int8", int8)
     finally:
         eng.stop()
     del model
@@ -820,6 +1060,24 @@ def _serve_pass(torch, np, eng, seed, max_new=32):
     return prompts, outs, res
 
 
+# measured passes a serving phase makes of its streams: one pass of the
+# host-bound decode step swings +-30% between runs of one tree; the first
+# counts the launches, and all give the medians
+PASSES = 7
+
+
+def _log_medians(tag, passes, res):
+    """Medians over repeated measured passes, into ``res``."""
+    tps = [p["tokens_per_s"] for p in passes]
+    dec = [p["decode_seconds"] for p in passes]
+    res.update(passes_tokens_per_s=tps, passes_decode_seconds=dec,
+               median_tokens_per_s=statistics.median(tps),
+               median_decode_seconds=statistics.median(dec))
+    log(f"[{tag}] {len(passes)} measured passes: median {res['median_tokens_per_s']:.1f} "
+        f"tokens/s (" + ", ".join(f"{t:.1f}" for t in tps) + "), median decode "
+        f"{res['median_decode_seconds']:.4f}s")
+
+
 def _log_pass(name, res):
     log(f"[serve] {name}: {res['tokens']} tokens in {res['wall_s']:.3f}s = "
         f"{res['tokens_per_s']:.1f} tokens/s; mean TTFT {res['mean_ttft_s']*1e3:.1f} ms "
@@ -829,10 +1087,11 @@ def _log_pass(name, res):
 
 
 def phase_serve(torch, np, kernels):
-    """Two passes of the same 8-stream mix on one engine: the first meets
+    """Passes of the same 8-stream mix on one engine: the first meets
     every prefill shape for the first time (cuBLAS picks and loads its
     kernels then), the second is the measured main path, with the launch
-    counters zeroed just before it and read just after."""
+    counters zeroed just before it and read just after, and it and the
+    `PASSES` - 1 after it give the medians."""
     from deeplearning4j_tpu_torch.ops.generation import generate
     from deeplearning4j_tpu_torch.serving.generation import (
         GenerationConfig,
@@ -852,6 +1111,8 @@ def phase_serve(torch, np, kernels):
         prompts, outs, res = _serve_pass(torch, np, eng, seed=4)
         counts = kernels.launches()
         _log_pass("measured pass", res)
+        more = [_serve_pass(torch, np, eng, seed=4)[2] for _ in range(PASSES - 1)]
+        _log_medians("serve", [res] + more, res)
         if eng.kv.leak_check() is not None:
             raise AssertionError(eng.kv.leak_check())
     finally:
@@ -951,30 +1212,59 @@ def phase_parity(torch, np, kernels, kv_dtype="f32", gate=0.95, refs=None):
     )
 
     model = _flagship(torch, bf16=False)
-    prompts = _prompts(np, 3, [600, 150, 64, 17])
+    prompts = _prompts(np, 3, PARITY_LENGTHS)
     max_new = 32
     if refs is None:
         refs = [generate(model, p[None], max_new)[0].cpu().numpy() for p in prompts]
     eng = GenerationEngine(model, GenerationConfig(**ENGINE, kv_dtype=kv_dtype)).start()
     try:
+        _parity_streams(eng, prompts, max_new)             # meet every shape
+        base = eng.stats()
         kernels.reset_launches()
-        reqs = [eng.submit(p, max_new) for p in prompts]
-        outs = [r.result(timeout=600) for r in reqs]
+        t0 = time.perf_counter()
+        outs = _parity_streams(eng, prompts, max_new)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         counts = kernels.launches()
+        st = eng.stats()
+        more = []
+        for _ in range(PASSES - 1):
+            b, t1 = eng.stats(), time.perf_counter()
+            _parity_streams(eng, prompts, max_new)
+            torch.cuda.synchronize()
+            e = eng.stats()
+            more.append({"tokens_per_s": len(prompts) * max_new / (time.perf_counter() - t1),
+                         "decode_seconds": e["decode_seconds"] - b["decode_seconds"]})
     finally:
         eng.stop()
     _check_streams(np, prompts, outs, max_new)
     agree, first_ok = _agreement(np, prompts, outs, refs)
-    log(f"[{'int8' if kv_dtype == 'int8' else 'parity'}] kv {kv_dtype}, f32 compute: "
+    timing = {"wall_s": wall, "tokens_per_s": len(prompts) * max_new / wall}
+    for k in ("decode_steps", "decode_seconds", "prefills", "prefill_seconds"):
+        timing[k] = st[k] - base[k]
+    tag = "int8" if kv_dtype == "int8" else "parity"
+    log(f"[{tag}] kv {kv_dtype}, f32 compute: "
         f"greedy agreement with dense generate {agree:.4f} (gate {gate}), "
         f"first tokens identical: {first_ok}, launches {counts}")
+    log(f"[{tag}] {len(prompts)} streams x {max_new} tokens in {wall:.3f}s = "
+        f"{timing['tokens_per_s']:.1f} tokens/s; {timing['decode_steps']} decode steps "
+        f"{timing['decode_seconds']:.3f}s, {timing['prefills']} prefills "
+        f"{timing['prefill_seconds']:.3f}s (second pass of the same streams)")
+    _log_medians(tag, [timing] + more, timing)
     if agree < gate or not first_ok:
         raise AssertionError(f"engine ({kv_dtype} pages) disagrees with dense generate")
     del model
     torch.cuda.empty_cache()
     return {"agreement": agree, "first_token_identical": first_ok, "gate": gate,
-            "launches": counts}, refs
+            "launches": counts, **timing}, refs
+
+
+PARITY_LENGTHS = [600, 150, 64, 17]
+
+
+def _parity_streams(eng, prompts, max_new):
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    return [r.result(timeout=600) for r in reqs]
 
 
 # -- quant phase ------------------------------------------------------------------
@@ -1201,10 +1491,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list out of {PHASES + EXTRA_PHASES}")
+    ap.add_argument("--package-root", default=None,
+                    help="run the port found in this checkout (another commit "
+                         "unpacked with git archive) instead of this one")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in PHASES + EXTRA_PHASES for p in phases):
         ap.error(f"unknown phase in {phases}")
+    if args.package_root is not None:
+        root = os.path.abspath(args.package_root)
+        if not os.path.isdir(os.path.join(root, "deeplearning4j_tpu_torch")):
+            ap.error(f"no deeplearning4j_tpu_torch package under {root}")
+        sys.path.insert(0, root)
 
     import torch
 
@@ -1223,7 +1521,9 @@ def main(argv=None) -> int:
     log(smi)
     log(f"[identity] {kind}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
         f"capability {torch.cuda.get_device_capability(0)}; python {sys.version.split()[0]}")
-    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "package": os.path.dirname(os.path.dirname(os.path.abspath(kernels.__file__)))}
+    log(f"[identity] port under test: {report['package']}")
 
     t0 = time.perf_counter()
     paths = kernels.build_all()
@@ -1241,7 +1541,10 @@ def main(argv=None) -> int:
                     serialized.append(f"{stem}: {line.strip()}")
     if serialized:   # every product would wait for the one before it
         raise AssertionError("ptxas serialised the wgmma pipeline:\n" + "\n".join(serialized))
-    report["sass_mma"] = check_tensor_cores(paths)
+    if args.package_root is None:
+        report["sass"] = check_sass(paths)
+    else:   # another tree's kernels, compared, not held to this tree's SASS
+        log("[build] SASS checks skipped: --package-root runs another tree's port")
 
     timer = Timer(torch)
     report["phase_s"] = phase_s = {}
@@ -1255,9 +1558,16 @@ def main(argv=None) -> int:
 
     rows = []
     if "kernels" in phases:
-        rows, report["flash_attention_layout"] = phase_kernels(torch, timer)
+        rows, report["flash_attention_layout"], report["timer_floor"] = phase_kernels(
+            torch, timer)
         report["flash_fwd_fault"] = flash_fwd_fault_case(torch)
         done("kernels")
+    elif "paged" in phases:
+        rows, report["timer_floor"] = phase_paged(torch, timer)
+        done("paged")
+    if "stages" in phases:
+        report["stages"] = stages_case(torch, timer)
+        done("stages")
     report["kernel_phase"] = rows
     if "train" in phases:
         report["train"] = phase_train(torch, np, kernels)
@@ -1282,11 +1592,12 @@ def main(argv=None) -> int:
         done("quant")
 
     entries = []
-    def row(name, dtype="bf16", t=None, shape=None, causal=True):
+    def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):
         return next((r for r in rows if r["name"] == name and r["dtype"] == dtype
                      and (t is None or r["shape"][1] == t)
                      and (shape is None or r["shape"] == shape)
-                     and r.get("causal", True) == causal), None)
+                     and r.get("causal", True) == causal
+                     and r.get("mix") == mix), None)
 
     dh = D_MODEL // HEADS
     train_bhtd = [TRAIN_BATCH * HEADS, TRAIN_SEQ, dh]
@@ -1298,8 +1609,8 @@ def main(argv=None) -> int:
         (row("flash_fwd", dtype="f32", shape=[QUANT_BATCH * HEADS, QUANT_SEQ, dh]), "quant"),
         (row("flash_bwd_dq", shape=train_bhtd), "train"),
         (row("flash_bwd_dkdv", shape=train_bhtd), "train"),
-        (row("paged_attention_fwd", dtype="f32"), "serve"),
-        (row("paged_attention_fwd_int8", dtype="int8"), "int8"),
+        (row("paged_attention_fwd", dtype="f32", mix="serve"), "serve"),
+        (row("paged_attention_fwd_int8", dtype="int8", mix="serve"), "int8"),
         # the W1 product of the quantized flagship
         (row("dequant_matmul", dtype="int8",
              shape=[QUANT_BATCH * QUANT_SEQ, D_MODEL, 4 * D_MODEL]), "quant"),
@@ -1338,6 +1649,8 @@ def main(argv=None) -> int:
                         "x 64 query rows, cp.async ring of 2 K/V stages",
         "flash_bwd_dkdv": "flash_bwd_dkdv_wgmma: wgmma bf16 -> f32, 2 warpgroups "
                           "x 64 key rows, cp.async ring of 2 Q/g stages",
+        "paged_attention_fwd": B4_DESIGN,
+        "paged_attention_fwd_int8": B4_DESIGN,
     }
     for r, path in main_rows:
         if r is None:

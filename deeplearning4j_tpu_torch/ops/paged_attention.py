@@ -12,10 +12,20 @@ CPU tensor it runs `paged_attention_plain`, the JAX package's
 gather-then-attend reference (`_xla_paged_attention`), whose masked
 positions contribute exact zeros.  The speculative-verify chunk variant
 (`paged_attention_chunk`) arrives with speculative decoding.
+
+The kernel splits each slot's positions into chunks of
+``pages_per_chunk`` pages and each slot's heads into groups, as
+`split_plan` decides from the shapes alone; its blocks walk the live
+(slot, chunk, group) items, and the chunks' partial softmaxes are merged
+on the card in chunk order.  The wrapper allocates the partials'
+workspace and keeps the ticket counters, which the kernel leaves at
+zero, per (device, stream); it never reads ``seq_lens`` and never
+synchronises.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,6 +35,38 @@ from deeplearning4j_tpu_torch.runtime import kernels
 #: head dims the CUDA kernel is instantiated for: every multiple of 16
 #: from 16 to 256
 PAGED_HEAD_DIMS = tuple(range(16, 257, 16))
+#: shared memory a block may fill with its chunk's pages
+#: (``SMEM_PAGES`` in ``csrc/paged_attention.cu``), and what a chunk of
+#: several pages may take
+SMEM_PAGE_BYTES = 200 * 1024
+CHUNK_PAGE_BYTES = 64 * 1024
+#: slots whose lengths the kernel keeps in shared memory (``MAX_SLOTS``)
+PAGED_MAX_SLOTS = 2048
+
+
+@functools.lru_cache(maxsize=64)
+def split_plan(heads: int, head_dim: int, page_size: int, quant: bool):
+    """(head_group, pages_per_chunk) of the kernel's split: the largest of
+    4, 2, 1 heads that divides ``heads`` with group x head_dim <= 256
+    elements, and the most of 4, 2, 1 pages a chunk whose group slices (K
+    and V rows, and with int8 pages the pages' K and V scales) fit in
+    `CHUNK_PAGE_BYTES`, so that three blocks share an SM; else one page,
+    where it fits in `SMEM_PAGE_BYTES`.  A page slice that does not fit
+    raises."""
+    hg = next(g for g in (4, 2, 1) if heads % g == 0 and g * head_dim <= 256)
+    elem = 1 if quant else 4
+    rows = -(-page_size * hg * head_dim * elem // 128) * 128
+    page = 2 * rows + (2 * page_size * heads * 4 if quant else 0)
+    page = -(-page // 128) * 128
+    for ppc in (4, 2):
+        if ppc * page <= CHUNK_PAGE_BYTES:
+            return hg, ppc
+    if page <= SMEM_PAGE_BYTES:
+        return hg, 1
+    raise ValueError(
+        f"paged_attention: one page's slice for a head group ({page} bytes at "
+        f"page size {page_size}, {hg} of {heads} heads of {head_dim}) exceeds the "
+        f"{SMEM_PAGE_BYTES} bytes of shared memory the kernel copies pages into")
 
 
 def _gather_pages(pages, page_tbl):
@@ -96,27 +138,66 @@ def paged_attention_fwd(q, k_pages, v_pages, page_tbl, seq_lens,
     return _paged_attention_kernel(tensors, k_scale is not None)
 
 
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream, n: int):
+    """The ticket counters of (device, stream): zeros once, and zero again
+    after every launch (the last block of a slot's head group resets its
+    own), so no call pays for a memset.  Launches on one stream run in
+    order, so none finds another's counts."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = _TICKETS[(device, stream)] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                                     device=device)
+    return t
+
+
 def _paged_attention_kernel(tensors, quant: bool):
     q, k_pages, v_pages, page_tbl, seq_lens = tensors[:5]
     k_scale, v_scale = tensors[5:] if quant else (None, None)
     s, h, dh = q.shape
+    ps, mp = k_pages.shape[1], page_tbl.shape[1]
     if dh not in PAGED_HEAD_DIMS:
         raise ValueError(f"paged_attention: head dim {dh} is not a multiple "
                          f"of 16 from 16 to 256, the dims the kernel is "
                          f"built for")
-    if h > 65535:
-        raise ValueError(f"paged_attention: {h} heads exceed the grid's 65535")
+    if s > PAGED_MAX_SLOTS:
+        raise ValueError(f"paged_attention: {s} slots exceed the "
+                         f"{PAGED_MAX_SLOTS} whose lengths the kernel keeps in "
+                         f"shared memory")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: inputs must be contiguous")
+    if ps > 256:
+        raise ValueError(f"paged_attention: page size {ps} passes the 256 rows "
+                         f"of a TMA box")
+    if quant and (ps * h) % 4:
+        raise ValueError(f"paged_attention: int8 pages need page_size x heads "
+                         f"({ps} x {h}) a multiple of 4: a page's scales are "
+                         f"copied in 16-byte units")
+    aligned = [q, k_pages, v_pages] + ([k_scale, v_scale] if quant else [])
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError("paged_attention: q, the pools and the scales must start "
+                         "16-byte aligned: the kernel copies pages with "
+                         "cp.async.bulk, which reads 16-byte units")
+    hg, ppc = split_plan(h, dh, ps, quant)
+    chunks = -(-mp // ppc)
+    if s * chunks * (h // hg) >= 2**31:
+        raise ValueError(f"paged_attention: {s} slots x {chunks} chunks x "
+                         f"{h // hg} head groups pass 2^31 - 1 items")
+    stream = kernels.current_stream(q.device)
     out = torch.empty_like(q)
+    ws = torch.empty(s * chunks * h * (dh + 2), dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, stream, s * (h // hg))
     lib = kernels.library("paged_attention")
     rc = lib.dl4j_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         page_tbl.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        s, h, dh, k_pages.shape[0], k_pages.shape[1], page_tbl.shape[1],
-        int(quant), 1.0 / math.sqrt(dh), kernels.current_stream(q.device))
+        ws.data_ptr(), tickets.data_ptr(),
+        s, h, dh, k_pages.shape[0], ps, mp, hg, ppc,
+        int(quant), 1.0 / math.sqrt(dh), stream)
     kernels.check_launch(
         "paged_attention_fwd_int8" if quant else "paged_attention_fwd", rc)
     return out

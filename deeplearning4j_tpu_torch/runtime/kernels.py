@@ -62,10 +62,10 @@ SIGNATURES = {
     },
     "paged_attention": {
         # q, k_pages, v_pages, k_scale, v_scale, page_tbl, seq_lens, out,
-        # slots, heads, head_dim, num_pages, page_size, max_pages,
-        # int8, sm_scale, stream
-        "dl4j_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # ws, tickets, slots, heads, head_dim, num_pages, page_size,
+        # max_pages, head_group, pages_per_chunk, int8, sm_scale, stream
+        "dl4j_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "dequant_matmul": {
         # x, q, scale, y, x_parts, partial, m, n, k, route, splits, stream

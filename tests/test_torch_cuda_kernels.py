@@ -38,7 +38,13 @@ same 1e-5, and 2e-5 at K 4096, as the f32 FMAs.  The f32 flash forward
 (`flash_fwd_split`, bf16 parts on the tensor cores) is held to the same
 2e-4 as before, out and lse, and gives the same bits twice.  The paged
 attention kernel is held at every head dim family it is built for:
-multiples of 32 (contiguous lanes) and the others (strided lanes).
+multiples of 32 (contiguous lanes) and the others (strided lanes), and,
+at the flagship's widths (8 heads of 128, 16-row pages, 160-wide
+tables), where it splits each slot into chunks of pages merged in a
+fixed order: one long slot alone, lengths on chunk boundaries and one
+off them, pages shared between slots, the same bits from a second
+launch (1e-4 against plain, both page types), and a pool view that
+`cp.async.bulk` cannot read raising before a launch.
 """
 
 import numpy as np
@@ -64,6 +70,7 @@ from deeplearning4j_tpu_torch.ops.generation import _sample, generate
 from deeplearning4j_tpu_torch.ops.paged_attention import (
     paged_attention_fwd,
     paged_attention_plain,
+    split_plan,
 )
 from deeplearning4j_tpu_torch.quant import quantize
 from deeplearning4j_tpu_torch.runtime import kernels, rng
@@ -256,6 +263,94 @@ def test_paged_attention_kernel_matches_plain(cuda, quant, dh):
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 1e-4
     assert torch.all(out[0] == 0)
+
+
+FLAG_H, FLAG_DH, FLAG_PS, FLAG_MP = 8, 128, 16, 160
+
+
+def _flagship_pages(cuda, quant, lens, seed, tbl=None, n_pages=None):
+    """q, pools and table at the flagship's widths; each live slot gets its
+    own pages unless ``tbl`` is given."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    s = len(lens)
+    if tbl is None:
+        need = [-(-n // FLAG_PS) for n in lens]
+        n_pages = n_pages or sum(need) + 1
+        perm = (torch.randperm(n_pages - 1, generator=g, device=cuda) + 1).int()
+        tbl = torch.zeros((s, FLAG_MP), dtype=torch.int32, device=cuda)
+        used = 0
+        for i, k in enumerate(need):
+            tbl[i, :k] = perm[used:used + k]
+            used += k
+    q = torch.randn((s, FLAG_H, FLAG_DH), generator=g, device=cuda)
+    kp = torch.randn((n_pages, FLAG_PS, FLAG_H, FLAG_DH), generator=g, device=cuda)
+    vp = torch.randn((n_pages, FLAG_PS, FLAG_H, FLAG_DH), generator=g, device=cuda)
+    ks = vs = None
+    if quant:
+        kp, ks = quantize_page_rows(kp)
+        vp, vs = quantize_page_rows(vp)
+    seq = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, kp, vp, tbl, seq, ks, vs
+
+
+def _paged_against_plain(args, idle=()):
+    out = paged_attention_fwd(*args)
+    ref = paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+    for i in idle:
+        assert torch.all(out[i] == 0)
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_one_long_slot_alone(cuda, quant):
+    """Slot 2 fills its whole 160-page table (80 chunks merged by the last
+    block); every other slot is idle."""
+    lens = [0, 0, FLAG_MP * FLAG_PS, 0]
+    _paged_against_plain(_flagship_pages(cuda, quant, lens, seed=21), idle=(0, 1, 3))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_lengths_on_chunk_boundaries(cuda, quant):
+    _, ppc = split_plan(FLAG_H, FLAG_DH, FLAG_PS, quant)
+    span = ppc * FLAG_PS
+    lens = [span - 1, span, span + 1, 2 * span - 1, 2 * span, 2 * span + 1, 0, 1]
+    _paged_against_plain(_flagship_pages(cuda, quant, lens, seed=22), idle=(6,))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_pages_shared_between_slots(cuda, quant):
+    """Tables that name the same pages in several slots and twice in one
+    slot (a shared prompt prefix; the kernel only reads the pool)."""
+    n_pages = 12
+    g = torch.Generator(device=cuda).manual_seed(23)
+    tbl = torch.randint(1, n_pages, (5, FLAG_MP), generator=g, device=cuda,
+                        dtype=torch.int32)
+    tbl[1] = tbl[0]
+    tbl[2, 10:20] = tbl[2, :10]
+    lens = [300, 300, 333, 0, 40]
+    _paged_against_plain(_flagship_pages(cuda, quant, lens, seed=23, tbl=tbl,
+                                         n_pages=n_pages), idle=(3,))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_second_launch_gives_the_same_bits(cuda, quant):
+    """Which block merges a slot's chunks varies between launches; what it
+    computes must not."""
+    args = _flagship_pages(cuda, quant, [2017, 20, 150, 300, 5, 64, 0, 90], seed=24)
+    first = _paged_against_plain(args, idle=(6,))
+    for _ in range(3):
+        assert torch.equal(paged_attention_fwd(*args), first)
+
+
+def test_paged_attention_rejects_a_misaligned_pool(cuda):
+    q, kp, vp, tbl, seq, _, _ = _flagship_pages(cuda, False, [40, 0], seed=25)
+    flat = torch.empty(kp.numel() + 1, device=cuda)
+    shifted = flat[1:].view(kp.shape)            # contiguous, 4 bytes off
+    shifted.copy_(kp)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attention_fwd(q, shifted, vp, tbl, seq)
 
 
 def test_engine_on_the_card_matches_dense_generate(cuda):

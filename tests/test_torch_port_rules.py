@@ -383,3 +383,40 @@ def test_dequant_matmul_picks_its_route_by_shape(claims_cuda, monkeypatch,
     else:
         assert x_parts is None and splits == dm.row_splits(m, n, k)
         assert (partial is not None) == (splits > 1)
+
+
+def test_paged_attention_passes_its_split_and_workspace(claims_cuda, monkeypatch):
+    """B4's wrapper hands the kernel `split_plan`'s head group and chunk,
+    a partials workspace of S x chunks x H x (Dh + 2) floats and the ticket
+    counters, without reading seq_lens."""
+    lib = _ArgLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    for quant in (False, True):
+        args = _paged_args(quant)
+        pa.paged_attention_fwd(*args)
+        (call,) = lib.args[-1:]
+        s, h, dh, n_pages, ps, mp, hg, ppc, int8 = call[10:19]
+        assert (s, h, dh, n_pages, ps, mp, int8) == (2, 2, 32, 4, 8, 3, int(quant))
+        assert (hg, ppc) == pa.split_plan(2, 32, 8, quant)
+        assert call[8] is not None and call[9] is not None
+
+
+def test_paged_attention_rejects_what_the_copies_cannot_read(claims_cuda, monkeypatch):
+    """Pools, scales and q must start 16-byte aligned (cp.async.bulk and
+    TMA read 16-byte units); int8 pools need page_size x heads a multiple
+    of 4 (a page's scales in 16-byte units); pages of more than 256 rows
+    pass a TMA box."""
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    q, kp, vp, tbl, lens = _paged_args()
+    shifted = torch.zeros(kp.numel() + 1)[1:].view(kp.shape)     # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attention_fwd(q, shifted, vp, tbl, lens)
+    pools = [torch.zeros((4, 6, 3, 32), dtype=torch.int8) for _ in range(2)]
+    scales = [torch.ones((4, 6, 3)) for _ in range(2)]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pa.paged_attention_fwd(torch.zeros((2, 3, 32)), *pools, tbl, lens, *scales)
+    pools = [torch.zeros((2, 264, 2, 32)) for _ in range(2)]
+    with pytest.raises(ValueError, match="TMA box"):
+        pa.paged_attention_fwd(q, *pools, tbl, lens)
+    assert lib.calls == []
