@@ -94,16 +94,33 @@ Then the phases:
    and max |dp| <= 1e-4 of max p.  The unquantized model's bf16
    ``output()`` time and the int8-vs-f32-weights argmax agreement are
    printed as information.
-9. paged (only when asked for, and part of kernels) — B4's timed rows
+9. ckpt — the checkpoint zip (`train/checkpoint.py`) on the card.  The
+   full-width flagship with its softmax head trains 3 steps (bf16, Adam)
+   on the train batch; `ModelSerializer.write_model` (with the updater),
+   `verify` and `restore` (built on the card) are timed and the zip's
+   bytes printed.  Held bit for bit: every parameter, the Adam state
+   (counts, mu, nu), iteration and epoch of the restored model against
+   the live one; ``output()`` of 2 x 2048 ids; the 4 greedy streams of
+   the parity phase's prompts from an engine over each.  Then 3 more
+   steps of the live model, twice from one state (their largest loss
+   difference is the spread), and of the restored model, whose losses
+   must stay within that spread of the live run's, with exactly 8
+   launches a step of each of B1, B2 and B3.  Then the live model is
+   `quantize`d, saved, verified and restored (through
+   `requantize_structure`): its int8 and scale leaves and the quantized
+   ``output()`` of the quant phase's 2 x 2048 ids bit for bit, with
+   exactly 49 B5 and 8 B1 launches in the restored model's call.  The
+   zips go to ``build/ckpt/`` and are removed after.
+10. paged (only when asked for, and part of kernels) — B4's timed rows
    and the Timer's floor alone.  stages (only when asked for) — B4 built
    with time stamps at each stage of a block's work, on the same inputs:
    where its time goes (`stages_case`).
-10. profile (only when asked for) — two training steps, the serve pass,
+11. profile (only when asked for) — two training steps, the serve pass,
    the int8-KV engine's streams and two quantized ``output()`` calls
    under torch.profiler: device busy share, device time by kernel, and
    the paged-attention kernel's own device time in the serve and int8
    passes.
-11. report — one ``{"kernels": [...]}`` JSON line, then the last line
+12. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -121,7 +138,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "train", "serve", "parity", "int8", "quant")
+PHASES = ("kernels", "train", "serve", "parity", "int8", "quant", "ckpt")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -829,12 +846,12 @@ def _check_streams(np, prompts, outs, max_new):
             raise AssertionError(f"out-of-vocab token in {gen}")
 
 
-def _flagship(torch, bf16=None):
+def _flagship(torch, bf16=None, chunked=True):
     from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
     model = TransformerEncoder(
         vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=LAYERS,
-        causal=True, chunked_vocab_loss=True, vocab_chunk=8192, seed=123,
+        causal=True, chunked_vocab_loss=chunked, vocab_chunk=8192, seed=123,
         bf16_compute=bf16,
     ).init_model(device="cuda")
     torch.cuda.synchronize()
@@ -1487,6 +1504,201 @@ def phase_quant(torch, np, kernels, timer):
     }
 
 
+# -- ckpt phase -------------------------------------------------------------------
+
+CKPT_STEPS = 3                             # steps before the save, and resumed after
+CKPT_DIR = os.path.join("build", "ckpt")   # inside the checkout; removed after
+
+
+def _steps(model, batch, n):
+    out = []
+    for _ in range(n):
+        model.fit_batch(batch)
+        out.append(model.score_value)             # synchronises
+    return out
+
+
+def _snapshot(torch, model):
+    """Copies of the model's parameters, optimizer state and step."""
+    from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+    from deeplearning4j_tpu_torch.nn.updaters import state_leaves
+
+    return ([p.detach().clone() for p in tree_leaves(model.params)],
+            [x.clone() if isinstance(x, torch.Tensor) else x
+             for x in state_leaves(model.opt_state)], model.iteration)
+
+
+def _load_snapshot(torch, model, snap):
+    from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+    from deeplearning4j_tpu_torch.nn.updaters import load_state_leaves
+
+    params, opt, it = snap
+    with torch.no_grad():
+        for p, s in zip(tree_leaves(model.params), params):
+            p.copy_(s)
+    model.opt_state = load_state_leaves(model.opt_state, opt)
+    model.iteration = it
+    model._compute = None
+
+
+def _state_diffs(torch, a, b) -> list:
+    """Where two models' parameters, optimizer states and counters
+    differ in any bit."""
+    from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+    from deeplearning4j_tpu_torch.nn.updaters import state_leaves
+
+    bad = []
+    for name, x, y in (("params", tree_leaves(a.params), tree_leaves(b.params)),
+                       ("updater", state_leaves(a.opt_state or ()),
+                        state_leaves(b.opt_state or ()))):
+        if len(x) != len(y):
+            bad.append(f"{name}: {len(x)} leaves against {len(y)}")
+            continue
+        for i, (u, v) in enumerate(zip(x, y)):
+            same = (torch.equal(u, v) if isinstance(u, torch.Tensor)
+                    else int(u) == int(v))
+            if not same:
+                bad.append(f"{name} leaf {i}")
+    for k in ("iteration", "epoch"):
+        if getattr(a, k) != getattr(b, k):
+            bad.append(f"{k} {getattr(a, k)} != {getattr(b, k)}")
+    return bad
+
+
+def _zip_times(torch, model, path):
+    """write_model, verify, restore: their seconds and the zip's bytes."""
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+
+    t0 = time.perf_counter()
+    ModelSerializer.write_model(model, path)
+    t1 = time.perf_counter()
+    meta = ModelSerializer.verify(path)
+    t2 = time.perf_counter()
+    restored = ModelSerializer.restore(path)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    res = {"bytes": os.path.getsize(path), "write_s": t1 - t0,
+           "verify_s": t2 - t1, "restore_s": t3 - t2, "meta": meta}
+    if restored.device != model.device:      # restore's default is the card
+        raise AssertionError(f"restore built the model on {restored.device}")
+    return restored, res
+
+
+def phase_ckpt(torch, np, kernels):
+    """The checkpoint zip on the card: train, save, verify, restore; the
+    restored model's state, output and greedy streams against the live
+    model's, bit for bit; 3 resumed steps against the live model's within
+    the spread of two runs of the live model from one state; then the
+    quantized model saved and restored (int8 and scale leaves and its
+    ``output()`` bit for bit)."""
+    from deeplearning4j_tpu_torch.quant import quantize
+    from deeplearning4j_tpu_torch.serving.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    smi = nvidia_smi()
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    res = {"card": smi, "steps": CKPT_STEPS, "layers": LAYERS}
+    try:
+        # the softmax head (the JAX zoo's default, as in the quant phase):
+        # its quantized output() runs the head's product through B5 too
+        model = _flagship(torch, chunked=False)
+        batch = _train_batch(np)
+        res["losses_before_save"] = _steps(model, batch, CKPT_STEPS)
+        restored, res["trained_zip"] = _zip_times(
+            torch, model, os.path.join(CKPT_DIR, "trained.zip"))
+        bad = _state_diffs(torch, model, restored)
+        ids = batch.features[:QUANT_BATCH]
+        same_out = torch.equal(model.output(ids), restored.output(ids))
+        log(f"[ckpt] trained zip: {res['trained_zip']}; restored state "
+            f"differs at {bad or 'no leaf'}; output() bit-identical: {same_out}")
+        if bad or not same_out:
+            raise AssertionError(f"the restored model is not the saved one: {bad}, "
+                                 f"output identical {same_out}")
+
+        prompts = _prompts(np, 3, PARITY_LENGTHS)
+
+        def serve(m):
+            eng = GenerationEngine(m, GenerationConfig(**ENGINE)).start()
+            try:
+                return _parity_streams(eng, prompts, 32)
+            finally:
+                eng.stop()
+
+        live_tokens = serve(model)
+        kernels.reset_launches()
+        rest_tokens = serve(restored)
+        res["serve_launches"] = kernels.launches()
+        same_tokens = all(np.array_equal(np.asarray(a), np.asarray(b))
+                          for a, b in zip(live_tokens, rest_tokens))
+        _check_streams(np, prompts, rest_tokens, 32)
+        log(f"[ckpt] restored engine, {len(prompts)} greedy streams: tokens "
+            f"identical to the live model's: {same_tokens}; launches "
+            f"{res['serve_launches']}")
+        if not same_tokens or min(res["serve_launches"].get(k, 0) for k in (
+                "flash_fwd", "paged_attention_fwd")) <= 0:
+            raise AssertionError("the restored engine's streams differ, or it "
+                                 "skipped a kernel")
+
+        snap = _snapshot(torch, model)
+        live = _steps(model, batch, CKPT_STEPS)
+        _load_snapshot(torch, model, snap)
+        again = _steps(model, batch, CKPT_STEPS)
+        del snap
+        kernels.reset_launches()
+        resumed = _steps(restored, batch, CKPT_STEPS)
+        counts = kernels.launches()
+        spread = max(abs(a - b) for a, b in zip(live, again))
+        dev = max(abs(a - b) for a, b in zip(live, resumed))
+        res.update(live_losses=live, live_again_losses=again,
+                   resumed_losses=resumed, spread=spread, deviation=dev,
+                   resume_launches=counts)
+        log(f"[ckpt] resumed {CKPT_STEPS} steps: live {live}, live again "
+            f"{again} (spread {spread}), restored {resumed} (deviation "
+            f"{dev}); launches {counts}")
+        if dev > spread:
+            raise AssertionError("the resumed run left the live model's spread")
+        want = LAYERS * CKPT_STEPS
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+            if counts.get(name, 0) != want:
+                raise AssertionError(f"{name} launched {counts.get(name, 0)} "
+                                     f"times in the resumed steps, want {want}")
+        del restored
+
+        qmodel = quantize(model)
+        del model
+        torch.cuda.empty_cache()
+        rq, res["quantized_zip"] = _zip_times(
+            torch, qmodel, os.path.join(CKPT_DIR, "quantized.zip"))
+        bad = _state_diffs(torch, qmodel, rq)
+        qids = np.random.default_rng(3).integers(
+            0, VOCAB, (QUANT_BATCH, QUANT_SEQ)).astype(np.int64)
+        p_live = qmodel.output(qids)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        p_rest = rq.output(qids)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        same_p = torch.equal(p_live, p_rest)
+        res["quantized_launches"] = counts
+        want = {"dequant_matmul": 6 * LAYERS + 1, "flash_fwd": LAYERS}
+        log(f"[ckpt] quantized zip: {res['quantized_zip']}; restored leaves "
+            f"differ at {bad or 'no leaf'}; output() of {QUANT_BATCH}x{QUANT_SEQ} "
+            f"ids bit-identical: {same_p}; launches {counts} (want {want})")
+        if bad or not same_p or {k: counts.get(k, 0) for k in want} != want:
+            raise AssertionError("the restored quantized model is not the saved one")
+        del qmodel, rq, p_live, p_rest
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    for name in ("trained_zip", "quantized_zip"):
+        z = res[name]
+        log(f"[ckpt] {name}: {z['bytes']} bytes; write_model {z['write_s']:.2f}s, "
+            f"verify {z['verify_s']:.2f}s, restore {z['restore_s']:.2f}s ({smi})")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1590,6 +1802,9 @@ def main(argv=None) -> int:
         report["quant"] = phase_quant(torch, np, kernels, timer)
         rows = rows + report["quant"]["kernel_rows"]
         done("quant")
+    if "ckpt" in phases:
+        report["ckpt"] = phase_ckpt(torch, np, kernels)
+        done("ckpt")
 
     entries = []
     def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):

@@ -1,4 +1,8 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights from the JAX package into the port, in memory.
+
+Files go through the JAX package's checkpoint zip instead:
+`train/checkpoint.py` `ModelSerializer` reads and writes it (the
+configuration, the parameters, the optimizer state and the counters).
 
 The JAX model's parameters are a nested dict keyed by layer name::
 

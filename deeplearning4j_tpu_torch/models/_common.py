@@ -4,6 +4,7 @@ penalty."""
 
 from __future__ import annotations
 
+from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf.recurrent import CANONICAL_ACTIVATION
 from deeplearning4j_tpu_torch.nn.losses import FUSED_ACTIVATION_LOSSES
 
@@ -11,19 +12,18 @@ from deeplearning4j_tpu_torch.nn.losses import FUSED_ACTIVATION_LOSSES
 AUX_LOSS_KEY = "__aux_loss__"
 
 
-def resolve_output_spec(layer) -> str:
-    """The loss an output layer trains with.  Only the fused path is
-    ported: the loss runs on logits through a numerically stable
-    log-softmax because the declared activation IS the loss's canonical
-    one (softmax for mcxent)."""
+def resolve_output_spec(layer):
+    """(loss, output activation, fused) of an output layer.  Fused: the
+    declared activation is the loss's canonical one, so the loss runs on
+    logits through a stable log-softmax / log-sigmoid; otherwise the
+    activation is applied first and the loss sees what ``output()``
+    serves."""
     loss = getattr(layer, "loss", None)
-    if (loss not in FUSED_ACTIVATION_LOSSES
-            or layer.output_activation() != CANONICAL_ACTIVATION[loss]):
-        raise NotImplementedError(
-            f"output layer {layer.name!r}: only a {FUSED_ACTIVATION_LOSSES} "
-            "loss with its canonical activation is ported (ROADMAP A2: "
-            "nn/losses.py)")
-    return loss
+    if loss is None:
+        raise ValueError("the last layer must declare a loss (an output layer)")
+    canonical = CANONICAL_ACTIVATION.get(loss, Activation.IDENTITY)
+    act = layer.activation if layer.activation is not None else canonical
+    return loss, act, loss in FUSED_ACTIVATION_LOSSES and act == canonical
 
 
 def pop_aux_losses(new_state: dict):

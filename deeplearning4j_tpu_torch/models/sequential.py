@@ -20,9 +20,16 @@ rows and every later layer follows ``x.dtype``.  It takes no training
 step.
 
 A training step is the JAX step written out eagerly: forward, data loss
-(the output layer's own loss, or the fused log-softmax of
-`nn/losses.py`), plus the l1 / l2 penalty, backward, clipping and the
-updater (`nn/updaters.py`, optax's arithmetic), applied in place.
+(the output layer's own loss, or a loss of `nn/losses.py`), plus the
+l1 / l2 penalty, backward, clipping and the updater (`nn/updaters.py`,
+optax's arithmetic), applied in place.
+
+Random bits follow the JAX package's `SeedStream` (`runtime/rng.py`):
+layer ``name`` initialises from ``stream.key("init/<name>")``, and step
+``i`` drops out with ``fold_in(fold(root, i), layer index)``, so a seed
+gives the JAX package's weights and masks.  The parameter list the
+updater sees is in ``jax.tree.leaves`` order (dict keys sorted at every
+level), the order of the optax state's leaves in a checkpoint.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from deeplearning4j_tpu_torch.nn import losses
 from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
 from deeplearning4j_tpu_torch.quant.ptq import SCHEME
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
+from deeplearning4j_tpu_torch.runtime import rng
 from deeplearning4j_tpu_torch.runtime.backend import backend, resolve_device
 
 
@@ -95,6 +103,17 @@ def _tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in ``jax.tree.leaves`` order: keys
+    sorted at every level, a `QuantizedTensor` as its ``q`` then its
+    ``scale``."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, QuantizedTensor):
+        return [tree.q, tree.scale]
+    return [tree]
+
+
 def _has_quantized(tree: dict) -> bool:
     return any(_has_quantized(v) if isinstance(v, dict)
                else isinstance(v, QuantizedTensor) for v in tree.values())
@@ -136,12 +155,15 @@ class SequentialModel(nn.Module):
 
     def __init__(self, conf, device=None):
         super().__init__()
+        conf.check_supported()
         self.conf = conf
         self.device = resolve_device(device)
         self._bf16 = (conf.bf16_compute if conf.bf16_compute is not None
                       else backend(self.device).is_cuda)
         self._tx = with_gradient_clipping(
-            conf.updater, conf.gradient_clip_value, conf.gradient_clip_norm)
+            conf.updater.to_tx(conf.steps_per_epoch), conf.gradient_clip_value,
+            conf.gradient_clip_norm)
+        self._stream = rng.SeedStream(conf.seed)
         self.layers = nn.ModuleDict()
         self._compute = None
         self._quantized = None         # the scheme marker of a quantized tree
@@ -166,14 +188,13 @@ class SequentialModel(nn.Module):
 
     @torch.no_grad()
     def init(self) -> "SequentialModel":
-        """Random weights from ``conf.seed`` (a `torch.Generator` on the
-        model's device)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.conf.seed)
+        """Random weights from ``conf.seed``, drawn on the model's device:
+        the JAX package's, bit for bit."""
         tree = {}
         sizes = self.conf.layer_input_sizes()
         for layer, n_in in zip(self.conf.layers, sizes):
-            p = layer.init(gen, n_in, self.device)
+            p = layer.init(self._stream.key(f"init/{layer.name}"), n_in,
+                           self.device)
             if p:
                 tree[layer.name] = p
         self._install(tree)
@@ -237,15 +258,19 @@ class SequentialModel(nn.Module):
                 else t.detach().to(dt), self.params)
         return self._compute
 
-    def _forward(self, params: dict, features) -> torch.Tensor:
+    def _forward(self, params: dict, features, *, training: bool = False,
+                 key=None) -> torch.Tensor:
         """The layer stack on ``params`` (already in the compute dtype).
         Float features take the compute dtype, as the JAX package's
-        ``entry_cast`` does; integer ids pass through."""
+        ``entry_cast`` does; integer ids pass through.  In training,
+        layer i draws its dropout from ``fold_in(key, i)``."""
         x = as_tensor(features, self.device)
         if x.is_floating_point():
             x = x.to(self.compute_dtype)
-        for layer in self.conf.layers:
-            x = layer.apply(params.get(layer.name, {}), x)
+        for i, layer in enumerate(self.conf.layers):
+            lkey = rng.fold_in(key, i) if key is not None else None
+            x = layer.apply(params.get(layer.name, {}), x, training=training,
+                            rng=lkey)
         return x
 
     @torch.no_grad()
@@ -264,10 +289,6 @@ class SequentialModel(nn.Module):
 
     def _check_trainable(self) -> None:
         for layer in self.conf.layers:
-            if layer.dropout_rate:
-                raise NotImplementedError(
-                    f"layer {layer.name!r}: dropout is not ported yet "
-                    "(ROADMAP A1: runtime/rng.py)")
             if layer.frozen:
                 raise NotImplementedError(
                     f"layer {layer.name!r}: frozen layers are not ported yet "
@@ -280,13 +301,14 @@ class SequentialModel(nn.Module):
         return regularization_loss(params,
                                    [(l.name, l) for l in self.conf.layers])
 
-    def _step_loss(self, params: dict, features, labels, lmask=None):
+    def _step_loss(self, params: dict, features, labels, lmask=None, key=None):
         """Forward + data loss + l1 / l2 penalty on the f32 master tree
         ``params``: the layers see it cast to the compute dtype inside
         the graph; the output layer's own loss (the chunked head) and the
         penalty see the masters, as the JAX package's do."""
         dt = self.compute_dtype
-        out = self._forward(_tree_map(lambda t: t.to(dt), params), features)
+        out = self._forward(_tree_map(lambda t: t.to(dt), params), features,
+                            training=True, key=key)
         last = self.conf.layers[-1]
         labels = as_tensor(labels, self.device)
         if lmask is not None:
@@ -295,8 +317,11 @@ class SequentialModel(nn.Module):
             data_loss = last.compute_loss_with_params(
                 params.get(last.name, {}), out, labels, lmask)
         else:
-            data_loss = losses.compute(resolve_output_spec(last), out,
-                                       labels, lmask)
+            loss, act, fused = resolve_output_spec(last)
+            if not fused:
+                out = act(out.float())
+            data_loss = losses.compute(loss, out, labels, lmask,
+                                       from_logits=fused)
         return data_loss + self._reg_loss(params)
 
     def fit_batch(self, batch: DataSet) -> None:
@@ -312,16 +337,17 @@ class SequentialModel(nn.Module):
             raise NotImplementedError(
                 "features masks (key masks in attention) are not ported to "
                 "training yet (ROADMAP A5: SelfAttentionLayer)")
-        plist = list(self.parameters())
+        plist = tree_leaves(self.params)
         if self.opt_state is None:
             self.opt_state = self._tx.init(plist)
+        key = rng.SeedStream.fold(self._stream.root, self.iteration)
         with torch.enable_grad():
             loss = self._step_loss(self.params, batch.features, batch.labels,
-                                   batch.labels_mask)
+                                   batch.labels_mask, key=key)
             grads = torch.autograd.grad(loss, plist, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(plist, grads)]
-        updates, self.opt_state = self._tx.update(grads, self.opt_state)
+        updates, self.opt_state = self._tx.update(grads, self.opt_state, plist)
         with torch.no_grad():
             for p, u in zip(plist, updates):
                 p.add_(u.to(p.dtype))

@@ -1,9 +1,11 @@
 """Attention layer configs — `PositionalEncoding` and the pre-LN
 `TransformerEncoderBlock` of `deeplearning4j_tpu/nn/conf/attention.py`.
 
-Sequence parallelism (ring / Ulysses) is a later slice; these blocks
-attend on one device through `ops.attention.mha`, which sends unmasked
-calls to the flash-forward kernel on CUDA.
+Sequence parallelism (``seq_parallel`` "ring" / "ulysses") waits for the
+parallelism slice (ROADMAP A11): a block that asks for it loads from a
+configuration and raises when a model is built.  These blocks attend on
+one device through `ops.attention.mha`, which sends unmasked calls to
+the flash-forward kernel on CUDA.
 """
 
 from __future__ import annotations
@@ -14,13 +16,16 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    NORMAL,
     LayerConfig,
     LayerNorm,
-    init_weight,
+    _coerce_enum,
+    _dropout,
 )
+from deeplearning4j_tpu_torch.nn.weights import WeightInit
 from deeplearning4j_tpu_torch.ops.attention import mha
 from deeplearning4j_tpu_torch.quant import functional as quantf
+from deeplearning4j_tpu_torch.runtime import rng as rng_mod
+from deeplearning4j_tpu_torch.utils import serde
 
 
 def sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -38,6 +43,20 @@ def sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
     return pe
 
 
+def init_qkv_params(key, wi: WeightInit, n_in: int, hd: int, n_out: int,
+                    device) -> dict:
+    """Wq / Wk / Wv into n_heads * head_size (= hd) and Wo back out, from
+    the four subkeys of ``key`` in that order (the JAX package's)."""
+    kq, kk, kv, ko = rng_mod.split(key, 4)
+    return {
+        "Wq": wi.init(kq, (n_in, hd), fan_in=n_in, fan_out=hd, device=device),
+        "Wk": wi.init(kk, (n_in, hd), fan_in=n_in, fan_out=hd, device=device),
+        "Wv": wi.init(kv, (n_in, hd), fan_in=n_in, fan_out=hd, device=device),
+        "Wo": wi.init(ko, (hd, n_out), fan_in=hd, fan_out=n_out, device=device),
+    }
+
+
+@serde.register
 @dataclasses.dataclass(frozen=True)
 class PositionalEncoding(LayerConfig):
     """Additive positions: sinusoidal (no params) or learned
@@ -47,15 +66,16 @@ class PositionalEncoding(LayerConfig):
     max_length: int = 0
     REGULARIZED = ()
 
-    def init(self, gen, n_in, device):
+    def init(self, key, n_in, device):
         if not self.learned:
             return {}
         if self.max_length <= 0:
             raise ValueError("learned PositionalEncoding requires max_length")
-        return {"P": init_weight(gen, (self.max_length, n_in), n_in, n_in,
-                                 self._winit(NORMAL), device)}
+        wi = self._winit(WeightInit.NORMAL)
+        return {"P": wi.init(key, (self.max_length, n_in), fan_in=n_in,
+                             fan_out=n_in, device=device)}
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, training=False, rng=None):
         t, d = x.shape[1], x.shape[2]
         if self.learned:
             if t > self.max_length:
@@ -66,23 +86,33 @@ class PositionalEncoding(LayerConfig):
         return x + sinusoid_rows(pos, d).to(x.dtype)
 
 
+@serde.register
 @dataclasses.dataclass(frozen=True)
 class TransformerEncoderBlock(LayerConfig):
-    """Pre-LN block: x + MHA(LN(x)), then x + FFN(LN(x))."""
+    """Pre-LN block: x + MHA(LN(x)), then x + FFN(LN(x)).  Dropout drops
+    the FFN's input; the attention sub-layer takes none (the JAX block
+    builds it without a rate)."""
 
     d_model: int = 0
     n_heads: int = 1
     d_ff: int = 0                        # default 4 * d_model
     causal: bool = False
+    seq_parallel: str = "none"
     ffn_activation: Activation = Activation.GELU
 
     def __post_init__(self):
         super().__post_init__()
         object.__setattr__(self, "ffn_activation",
-                           Activation(self.ffn_activation))
+                           _coerce_enum(self.ffn_activation, Activation))
         if self.d_model % self.n_heads:
             raise ValueError(
                 f"d_model {self.d_model} not divisible by n_heads {self.n_heads}")
+
+    def check_supported(self):
+        if self.seq_parallel != "none":
+            raise NotImplementedError(
+                f"layer {self.name!r}: seq_parallel={self.seq_parallel!r} is "
+                "not ported yet (ROADMAP A11: ring and Ulysses attention)")
 
     def _dff(self) -> int:
         return self.d_ff if self.d_ff > 0 else 4 * self.d_model
@@ -100,22 +130,21 @@ class TransformerEncoderBlock(LayerConfig):
                 f"feature size is {n_in}")
         return self.d_model
 
-    def init(self, gen, n_in, device):
+    def init(self, key, n_in, device):
+        k_attn, k1, k2 = rng_mod.split(key, 3)
         d, dff, wi = self.d_model, self._dff(), self._winit()
-        attn = {nm: init_weight(gen, (d, d), d, d, wi, device)
-                for nm in ("Wq", "Wk", "Wv", "Wo")}
         ln = LayerNorm()
         return {
-            "attn": attn,
-            "ln1": ln.init(gen, d, device),
-            "ln2": ln.init(gen, d, device),
-            "W1": init_weight(gen, (d, dff), d, dff, wi, device),
+            "attn": init_qkv_params(k_attn, wi, d, d, d, device),
+            "ln1": ln.init(None, d, device),
+            "ln2": ln.init(None, d, device),
+            "W1": wi.init(k1, (d, dff), fan_in=d, fan_out=dff, device=device),
             "b1": torch.zeros(dff, device=device),
-            "W2": init_weight(gen, (dff, d), dff, d, wi, device),
+            "W2": wi.init(k2, (dff, d), fan_in=dff, fan_out=d, device=device),
             "b2": torch.zeros(d, device=device),
         }
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, training=False, rng=None):
         ln = LayerNorm()
         ap = params["attn"]
         b, t, _ = x.shape
@@ -127,8 +156,12 @@ class TransformerEncoderBlock(LayerConfig):
         out = mha(q, k, v, causal=self.causal).reshape(b, t, h_ * dh)
         x = x + quantf.matmul(out, ap["Wo"])
         h = ln.apply(params["ln2"], x)
+        if training and rng is not None:
+            # the JAX block splits its key for the attention sub-layer
+            # (r1, unused without a rate) and the FFN (r2)
+            h = _dropout(h, self.dropout_rate or 0.0, training,
+                         rng_mod.split(rng, 2)[1])
         h = self.ffn_activation(quantf.matmul(h, params["W1"])
                                 + params["b1"].to(x.dtype))
         h = quantf.matmul(h, params["W2"]) + params["b2"].to(x.dtype)
         return x + h
-

@@ -1,41 +1,61 @@
 """Layer configs — the part of `deeplearning4j_tpu/nn/conf/layers.py` the
-transformer slices use: the `LayerConfig` base (with its l1 / l2
-penalties), `Embedding`, `LayerNorm` and `ChunkedSoftmaxOutputLayer`
-(logits for inference, the chunked loss for training).
+transformer slices use: the `LayerConfig` base (l1 / l2 penalties,
+dropout on the layer input), `Embedding`, `LayerNorm` and
+`ChunkedSoftmaxOutputLayer` (logits for inference, the chunked loss for
+training).
 
-A config is a frozen dataclass, as in the JAX package.  ``init`` draws
-its parameters from an explicit `torch.Generator` (the JAX package draws
-from threefry keys, so the two never share bits — parity tests copy
-weights across with `convert.params_from_jax`).  ``apply`` is a plain
-function of a parameter dict and a tensor.  Dense weights keep the JAX
-layout (n_in, n_out) and are applied as ``x @ W``.
+A config is a frozen dataclass registered for serde under the JAX
+package's tag, with its fields, defaults and enum values.  ``init``
+draws from a threefry key (`nn/weights.py`) as the JAX layer does, so a
+seed gives the JAX package's weights.  ``apply`` is a plain function of
+a parameter dict and a tensor; in training it takes the layer's step key
+for dropout.  Dense weights keep the JAX layout (n_in, n_out) and are
+applied as ``x @ W``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.activations import Activation
+from deeplearning4j_tpu_torch.nn.losses import Loss
+from deeplearning4j_tpu_torch.nn.weights import WeightInit
 from deeplearning4j_tpu_torch.quant import functional as quantf
+from deeplearning4j_tpu_torch.runtime import rng as rng_mod
+from deeplearning4j_tpu_torch.utils import serde
 
-XAVIER = "xavier"
-NORMAL = "normal"
+
+def _coerce_enum(v, enum_cls):
+    """An enum member from a member, its value ("relu"), its NAME
+    ("RELU") or an alias of the enum's ``_ALIASES_`` table."""
+    if isinstance(v, enum_cls):
+        return v
+    s = str(v).lower()
+    s = getattr(enum_cls, "_ALIASES_", {}).get(s, s)
+    try:
+        return enum_cls(s)
+    except ValueError:
+        pass
+    try:
+        return enum_cls[str(v).upper()]
+    except KeyError:
+        raise ValueError(f"{v!r} is not a valid {enum_cls.__name__}; "
+                         f"options: {[e.value for e in enum_cls]}") from None
 
 
-def init_weight(gen: torch.Generator, shape: tuple, fan_in: int,
-                fan_out: int, scheme: str, device) -> torch.Tensor:
-    """``xavier``: N(0, 2 / (fan_in + fan_out)); ``normal``:
-    N(0, 1) / sqrt(fan_in) — the JAX package's WeightInit formulas."""
-    z = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    if scheme == XAVIER:
-        return z * math.sqrt(2.0 / (fan_in + fan_out))
-    if scheme == NORMAL:
-        return z / math.sqrt(fan_in)
-    raise ValueError(f"unsupported weight init {scheme!r}")
+def _dropout(x: torch.Tensor, rate: float, training: bool, key) -> torch.Tensor:
+    """Inverted dropout on a layer's input, the JAX package's mask: kept
+    where ``bernoulli(key, 1 - rate)``, scaled by a division by the keep
+    probability (taken in x's dtype, as jax takes a Python scalar)."""
+    if not training or rate <= 0.0 or key is None:
+        return x
+    keep = 1.0 - rate
+    mask = rng_mod.bernoulli(key, keep, tuple(x.shape), device=x.device)
+    return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),
+                       0.0).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +65,10 @@ class LayerConfig:
 
     name: Optional[str] = None
     activation: Optional[Activation] = None
-    weight_init: Optional[str] = None
+    weight_init: Optional[WeightInit] = None
     l1: Optional[float] = None
     l2: Optional[float] = None
-    # probability of dropping; fit() refuses it until runtime/rng.py is ported
-    dropout_rate: Optional[float] = None
+    dropout_rate: Optional[float] = None   # probability of dropping
     # excluded from updates; fit() refuses it until masked updates are ported
     frozen: bool = False
 
@@ -58,15 +77,28 @@ class LayerConfig:
 
     def __post_init__(self):
         if self.activation is not None:
-            object.__setattr__(self, "activation", Activation(self.activation))
+            object.__setattr__(self, "activation",
+                               _coerce_enum(self.activation, Activation))
+        if self.weight_init is not None:
+            object.__setattr__(self, "weight_init",
+                               _coerce_enum(self.weight_init, WeightInit))
+        loss = getattr(self, "loss", None)
+        if loss is not None:
+            object.__setattr__(self, "loss", _coerce_enum(loss, Loss))
+
+    def check_supported(self) -> None:
+        """Raise `NotImplementedError`, naming the ROADMAP item, for a
+        field value this port cannot honour yet (called when a model is
+        built, never when a configuration loads)."""
 
     def output_size(self, n_in: int) -> int:
         return n_in
 
-    def init(self, gen: torch.Generator, n_in: int, device) -> dict:
+    def init(self, key, n_in: int, device) -> dict:
         return {}
 
-    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: dict, x: torch.Tensor, *, training: bool = False,
+              rng=None) -> torch.Tensor:
         raise NotImplementedError
 
     def regularizable_params(self, lp: dict) -> list:
@@ -83,10 +115,11 @@ class LayerConfig:
     def _act(self, default=Activation.IDENTITY) -> Activation:
         return self.activation if self.activation is not None else default
 
-    def _winit(self, default=XAVIER) -> str:
+    def _winit(self, default=WeightInit.XAVIER) -> WeightInit:
         return self.weight_init if self.weight_init is not None else default
 
 
+@serde.register
 @dataclasses.dataclass(frozen=True)
 class Embedding(LayerConfig):
     """Token ids (B, T) -> vectors (B, T, n_out)."""
@@ -97,17 +130,19 @@ class Embedding(LayerConfig):
     def output_size(self, n_in: int) -> int:
         return self.n_out
 
-    def init(self, gen, n_in, device):
+    def init(self, key, n_in, device):
         if self.n_in <= 0:
             raise ValueError("Embedding.n_in (vocab size) must be set explicitly")
-        return {"W": init_weight(gen, (self.n_in, self.n_out), self.n_in,
-                                 self.n_out, self._winit(), device)}
+        return {"W": self._winit().init(key, (self.n_in, self.n_out),
+                                        fan_in=self.n_in, fan_out=self.n_out,
+                                        device=device)}
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, training=False, rng=None):
         # a quantized table gathers int8 rows and returns them in f32
         return self._act()(quantf.embedding_lookup(params["W"], x.long()))
 
 
+@serde.register
 @dataclasses.dataclass(frozen=True)
 class LayerNorm(LayerConfig):
     """Layer normalization over the last dim, computed in f32."""
@@ -115,11 +150,11 @@ class LayerNorm(LayerConfig):
     epsilon: float = 1e-5
     REGULARIZED = ()
 
-    def init(self, gen, n_in, device):
+    def init(self, key, n_in, device):
         return {"gamma": torch.ones(n_in, device=device),
                 "beta": torch.zeros(n_in, device=device)}
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, training=False, rng=None):
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
@@ -128,26 +163,28 @@ class LayerNorm(LayerConfig):
         return self._act()(y.to(x.dtype))
 
 
+@serde.register
 @dataclasses.dataclass(frozen=True)
 class ChunkedSoftmaxOutputLayer(LayerConfig):
     """LM head whose training loss streams the vocab in chunks
     (`ops/chunked_xent.py`), so the (N, vocab) logits never exist.
-    ``apply`` passes hidden states through and the loss owns the
-    projection; for inference ``logits`` projects them densely."""
+    ``apply`` passes hidden states through (dropped out in training) and
+    the loss owns the projection; for inference ``logits`` projects them
+    densely."""
 
     n_out: int = 0
     chunk: int = 8192
     has_bias: bool = True
 
-    def init(self, gen, n_in, device):
-        p = {"W": init_weight(gen, (n_in, self.n_out), n_in, self.n_out,
-                              self._winit(), device)}
+    def init(self, key, n_in, device):
+        p = {"W": self._winit().init(key, (n_in, self.n_out), fan_in=n_in,
+                                     fan_out=self.n_out, device=device)}
         if self.has_bias:
             p["b"] = torch.zeros(self.n_out, device=device)
         return p
 
-    def apply(self, params, x):
-        return x
+    def apply(self, params, x, *, training=False, rng=None):
+        return _dropout(x, self.dropout_rate or 0.0, training, rng)
 
     def logits(self, params, h):
         y = quantf.matmul(h, params["W"])

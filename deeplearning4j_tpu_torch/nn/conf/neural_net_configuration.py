@@ -1,12 +1,13 @@
-"""The ``builder().list().layer(...)`` subset of
-`deeplearning4j_tpu/nn/conf/neural_net_configuration.py`, with the
-training settings: updater (`Sgd` by default, as there), gradient
-clipping and steps per epoch.
+"""`SequentialConfiguration` and its ``builder().list().layer(...)`` DSL —
+`deeplearning4j_tpu/nn/conf/neural_net_configuration.py`.
 
-Layers left unnamed get ``layer{i}`` — parameter trees (and so
-`convert.params_from_jax`) key on those names, exactly as in the JAX
-package.  The input type is implied: the stack starts with an
-`Embedding`, whose ``n_out`` sets every later layer's input size.
+The configuration has the JAX class's fields and round-trips through
+the same JSON (`to_json` / `from_json`, `utils/serde.py`).  Model-level
+defaults (activation, weight init, l1, l2, dropout) flow into layers
+that did not set their own; layers left unnamed get ``layer{i}``, the
+names parameter trees key on.  Fields the port cannot honour yet load
+all the same and raise when a model is built (`SequentialModel`): TBPTT
+(ROADMAP A8) and convolutional input types (A3).
 """
 
 from __future__ import annotations
@@ -14,25 +15,64 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from deeplearning4j_tpu_torch.nn.activations import Activation
+from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import LayerConfig
 from deeplearning4j_tpu_torch.nn.updaters import Sgd, Updater
+from deeplearning4j_tpu_torch.nn.weights import WeightInit
+from deeplearning4j_tpu_torch.utils import serde
 
 
+@serde.register
 @dataclasses.dataclass(frozen=True)
 class SequentialConfiguration:
-    layers: tuple = ()
+    layers: tuple[LayerConfig, ...] = ()
+    input_type: Optional[InputType] = None
     updater: Updater = dataclasses.field(default_factory=Sgd)
     seed: int = 0
     gradient_clip_value: Optional[float] = None
     gradient_clip_norm: Optional[float] = None
     # None = auto: bf16 compute on CUDA, f32 on the CPU
     bf16_compute: Optional[bool] = None
-    # iterations per epoch, for epoch-based LR schedules (not ported yet)
+    # iterations per epoch, for epoch-based learning-rate schedules
     steps_per_epoch: int = 1
+    # "standard" or "tbptt" (truncated BPTT, ROADMAP A8)
+    backprop_type: str = "standard"
+    tbptt_length: int = 0
+
+    def to_json(self) -> str:
+        return serde.dumps(self)
+
+    @staticmethod
+    def from_json(s: str) -> "SequentialConfiguration":
+        cfg = serde.loads(s)
+        if not isinstance(cfg, SequentialConfiguration):
+            raise TypeError(
+                f"JSON did not decode to SequentialConfiguration: {type(cfg)}")
+        return cfg
+
+    def check_supported(self) -> None:
+        """Raise `NotImplementedError`, naming the ROADMAP item, for a
+        setting this port cannot honour yet."""
+        if self.backprop_type == "tbptt" and self.tbptt_length > 0:
+            raise NotImplementedError(
+                "truncated BPTT is not ported yet (ROADMAP A8: recurrent "
+                "layers and TBPTT)")
+        it = self.input_type
+        if it is not None and it.kind not in (InputType.KIND_FF, InputType.KIND_RNN):
+            raise NotImplementedError(
+                f"input type {it} is not ported yet (ROADMAP A3: the LeNet "
+                "slice, convolutional layers)")
+        for layer in self.layers:
+            layer.check_supported()
 
     def layer_input_sizes(self) -> list[int]:
-        """Feature size each layer sees (0 for the id-consuming first)."""
-        sizes, cur = [], 0
+        """Feature size each layer sees: the input type's, then each
+        layer's output (an `Embedding` ignores its input's)."""
+        it = self.input_type
+        cur = it.size if it is not None and it.kind in (
+            InputType.KIND_FF, InputType.KIND_RNN) else 0
+        sizes = []
         for layer in self.layers:
             sizes.append(cur)
             cur = layer.output_size(cur)
@@ -49,18 +89,26 @@ class NeuralNetConfiguration:
                 .layer(PositionalEncoding())
                 .layer(TransformerEncoderBlock(d_model=d, n_heads=h))
                 .layer(ChunkedSoftmaxOutputLayer(n_out=vocab))
+                .set_input_type(InputType.recurrent(1))
                 .build())
     """
 
     def __init__(self):
         self._seed = 0
         self._updater: Updater = Sgd()
-        self._weight_init: Optional[str] = None
+        self._activation: Optional[Activation] = None
+        self._weight_init: Optional[WeightInit] = None
+        self._l1: Optional[float] = None
+        self._l2: Optional[float] = None
+        self._dropout: Optional[float] = None
         self._clip_value: Optional[float] = None
         self._clip_norm: Optional[float] = None
         self._bf16: Optional[bool] = None
         self._steps_per_epoch = 1
+        self._backprop_type = "standard"
+        self._tbptt_length = 0
         self._layers: list[LayerConfig] = []
+        self._input_type: Optional[InputType] = None
 
     @staticmethod
     def builder() -> "NeuralNetConfiguration":
@@ -74,8 +122,24 @@ class NeuralNetConfiguration:
         self._updater = u
         return self
 
-    def weight_init(self, w: str):
+    def activation(self, a: Activation):
+        self._activation = a
+        return self
+
+    def weight_init(self, w: WeightInit):
         self._weight_init = w
+        return self
+
+    def l1(self, v: float):
+        self._l1 = v
+        return self
+
+    def l2(self, v: float):
+        self._l2 = v
+        return self
+
+    def dropout(self, rate: float):
+        self._dropout = rate
         return self
 
     def gradient_clip(self, value: float | None = None,
@@ -88,27 +152,45 @@ class NeuralNetConfiguration:
         return self
 
     def steps_per_epoch(self, n: int):
-        """Iterations per epoch — read by per-epoch LR schedules."""
+        """Iterations per epoch, read by per-epoch learning-rate schedules."""
         self._steps_per_epoch = max(1, int(n))
         return self
 
     def tbptt(self, length: int):
-        raise NotImplementedError(
-            "truncated BPTT is not ported yet (ROADMAP A8: recurrent layers "
-            "and TBPTT)")
+        """Truncated BPTT windows (a model built from it raises: ROADMAP A8)."""
+        self._backprop_type = "tbptt"
+        self._tbptt_length = int(length)
+        return self
 
     def list(self):
         return self
 
+    def set_input_type(self, itype: InputType):
+        self._input_type = itype
+        return self
+
     def layer(self, layer: LayerConfig):
+        self._layers.append(self._fill_defaults(layer))
+        return self
+
+    def _fill_defaults(self, layer: LayerConfig) -> LayerConfig:
         updates = {}
+        # the global activation never reaches an output layer: its
+        # activation follows from its loss
+        if (layer.activation is None and self._activation is not None
+                and not hasattr(layer, "loss")):
+            updates["activation"] = self._activation
         if layer.weight_init is None and self._weight_init is not None:
             updates["weight_init"] = self._weight_init
+        if layer.l1 is None and self._l1 is not None:
+            updates["l1"] = self._l1
+        if layer.l2 is None and self._l2 is not None:
+            updates["l2"] = self._l2
+        if layer.dropout_rate is None and self._dropout is not None:
+            updates["dropout_rate"] = self._dropout
         if layer.name is None:
             updates["name"] = f"layer{len(self._layers)}"
-        self._layers.append(
-            dataclasses.replace(layer, **updates) if updates else layer)
-        return self
+        return dataclasses.replace(layer, **updates) if updates else layer
 
     def build(self) -> SequentialConfiguration:
         if not self._layers:
@@ -118,7 +200,10 @@ class NeuralNetConfiguration:
         if dupes:
             raise ValueError(f"duplicate layer names {sorted(dupes)}")
         return SequentialConfiguration(
-            layers=tuple(self._layers), updater=self._updater,
-            seed=self._seed, gradient_clip_value=self._clip_value,
+            layers=tuple(self._layers), input_type=self._input_type,
+            updater=self._updater, seed=self._seed,
+            gradient_clip_value=self._clip_value,
             gradient_clip_norm=self._clip_norm, bf16_compute=self._bf16,
-            steps_per_epoch=self._steps_per_epoch)
+            steps_per_epoch=self._steps_per_epoch,
+            backprop_type=self._backprop_type,
+            tbptt_length=self._tbptt_length)

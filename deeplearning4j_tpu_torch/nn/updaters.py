@@ -1,58 +1,352 @@
-"""Updaters (optimizers) — `Updater`, `Sgd`, `Adam` and
-`with_gradient_clipping` of `deeplearning4j_tpu/nn/updaters.py`.
+"""Updaters (optimizers) — `deeplearning4j_tpu/nn/updaters.py`: the twelve
+updater configs, and `with_gradient_clipping`.
 
-The JAX package lowers each updater config to an optax transformation.
-The port has no optax: each config here is plain tensor code over a list
-of gradients that carries optax's formula, so that the same gradients
-give the same updates (the parity tests run both):
+The JAX package lowers each config to an optax transformation.  The port
+has no optax: `to_tx` builds the same chain out of the transforms below,
+each optax's arithmetic on a list of gradients in PyTorch (`_foreach`
+ops, one f32 rounding an operation):
 
-- `Sgd`: ``optax.sgd(lr)``, update = -lr * g.
-- `Adam`: ``optax.adam(lr, b1, b2, eps)``:
-  m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2;  count += 1;
-  update = -lr * (m / (1 - b1^count)) / (sqrt(v / (1 - b2^count)) + eps).
-- `with_gradient_clipping`: ``optax.clip(value)`` (elementwise), then
-  ``optax.clip_by_global_norm(norm)``, then the updater.
+- ``sgd`` = trace (Momentum, Nesterovs) -> the learning rate;
+- ``adam`` / ``nadam`` = scale_by_adam -> lr; ``adamw`` inserts
+  add_decayed_weights; ``adamax``, ``amsgrad``, ``adagrad`` (scale_by_rss),
+  ``adadelta`` (no learning rate), ``rmsprop`` (scale_by_rms) likewise;
+- NoOp = set_to_zero;
+- the learning rate, constant or a `Schedule`, is scale_by_schedule,
+  which counts its own steps (the JAX package lowers a constant through
+  `FixedSchedule` too).
 
-`init(params)` makes the state for a list of parameters; `update(grads,
-state)` returns the additive updates and the new state (moments are
-updated in place: the port keeps one copy of them, where JAX's immutable
-arrays make a new one each step).  A learning rate that is a schedule
-raises until `schedules.py` is ported (ROADMAP A2).
+A state is a tuple in optax's field order: Python int counts (int32 in
+a checkpoint), lists of tensors (one per parameter, in the order of the
+parameter list, which the model keeps in ``jax.tree.leaves`` order), and
+nested tuples for a chain.  `state_leaves` flattens it in the order
+``jax.tree.leaves`` flattens optax's state, `load_state_leaves` writes
+such a list back: the positional ``updater.npz`` of a checkpoint.
+Tensors of a state are updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import numbers
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn.schedules import ScheduleLike, as_schedule
+from deeplearning4j_tpu_torch.utils import serde
+
+_INT32_MAX = 2**31 - 1
+
+
+def _f32(v) -> float:
+    """A Python float holding ``v`` rounded to f32: how jax takes a
+    Python constant next to an f32 array."""
+    return float(np.float32(v))
+
+
+def _bump(count: int) -> int:
+    """optax's ``safe_increment`` of an int32 count."""
+    return min(count + 1, _INT32_MAX)
+
+
+class Transform(NamedTuple):
+    """An optax ``GradientTransformation``: ``init(params) -> state``,
+    ``update(grads, state, params) -> (updates, state)``."""
+
+    init: Callable
+    update: Callable
+
+
+def _zeros(params):
+    return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+
+
+def _empty_init(params):
+    return ()
+
+
+def chain(*txs) -> Transform:
+    def init(params):
+        return tuple(t.init(params) for t in txs)
+
+    def update(grads, state, params=None):
+        new = []
+        for t, s in zip(txs, state):
+            grads, s = t.update(grads, s, params)
+            new.append(s)
+        return grads, tuple(new)
+
+    return Transform(init, update)
+
+
+def identity() -> Transform:
+    return Transform(_empty_init, lambda g, s, p=None: (g, s))
+
+
+def _moment(grads, moments, decay: float, order: int) -> None:
+    """moments <- (1 - decay) g^order + decay moments, in place."""
+    g = grads if order == 1 else torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(moments, _f32(decay))
+    torch._foreach_add_(moments, torch._foreach_mul(g, _f32(1 - decay)))
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    # 1 - decay^count in f32, on the host: the count is a host integer
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+def _sqrt(xs):
+    return torch._foreach_sqrt(xs)
+
+
+def scale_by_schedule(fn) -> Transform:
+    """updates * fn(count), the count its own state."""
+    def update(grads, state, params=None):
+        (count,) = state
+        return torch._foreach_mul(grads, float(np.float32(fn(count)))), (_bump(count),)
+
+    return Transform(lambda params: (0,), update)
+
+
+def trace(decay: float, nesterov: bool = False) -> Transform:
+    def update(grads, state, params=None):
+        (tr,) = state
+        torch._foreach_mul_(tr, _f32(decay))
+        torch._foreach_add_(tr, grads)                  # g + decay t
+        if nesterov:
+            out = torch._foreach_add(grads, torch._foreach_mul(tr, _f32(decay)))
+        else:
+            out = list(tr)                              # the next transform copies
+        return out, (tr,)
+
+    return Transform(lambda params: (_zeros(params),), update)
+
+
+def scale_by_adam(b1: float, b2: float, eps: float, nesterov: bool = False) -> Transform:
+    def update(grads, state, params=None):
+        count, mu, nu = state
+        grads = [g.float() for g in grads]
+        _moment(grads, mu, b1, 1)
+        _moment(grads, nu, b2, 2)
+        count = _bump(count)
+        if nesterov:
+            m = torch._foreach_mul(
+                torch._foreach_div(mu, _bias_correction(b1, _bump(count))), _f32(b1))
+            torch._foreach_add_(m, torch._foreach_mul(
+                torch._foreach_div(grads, _bias_correction(b1, count)), _f32(1 - b1)))
+        else:
+            m = torch._foreach_div(mu, _bias_correction(b1, count))
+        v = torch._foreach_div(nu, _bias_correction(b2, count))
+        den = _sqrt(v)
+        torch._foreach_add_(den, _f32(eps))
+        return torch._foreach_div(m, den), (count, mu, nu)
+
+    return Transform(lambda params: (0, _zeros(params), _zeros(params)), update)
+
+
+def scale_by_adamax(b1: float, b2: float, eps: float) -> Transform:
+    def update(grads, state, params=None):
+        count, mu, nu = state
+        grads = [g.float() for g in grads]
+        count = _bump(count)
+        _moment(grads, mu, b1, 1)
+        for n, g in zip(nu, grads):                      # max(|g| + eps, b2 nu)
+            torch.maximum(g.abs() + _f32(eps), n * _f32(b2), out=n)
+        m = torch._foreach_div(mu, _bias_correction(b1, count))
+        return torch._foreach_div(m, nu), (count, mu, nu)
+
+    return Transform(lambda params: (0, _zeros(params), _zeros(params)), update)
+
+
+def scale_by_amsgrad(b1: float, b2: float, eps: float) -> Transform:
+    def update(grads, state, params=None):
+        count, mu, nu, nu_max = state
+        grads = [g.float() for g in grads]
+        _moment(grads, mu, b1, 1)
+        _moment(grads, nu, b2, 2)
+        count = _bump(count)
+        m = torch._foreach_div(mu, _bias_correction(b1, count))
+        v = torch._foreach_div(nu, _bias_correction(b2, count))
+        torch._foreach_maximum_(nu_max, v)
+        den = _sqrt(nu_max)
+        torch._foreach_add_(den, _f32(eps))
+        return torch._foreach_div(m, den), (count, mu, nu, nu_max)
+
+    return Transform(
+        lambda params: (0, _zeros(params), _zeros(params), _zeros(params)), update)
+
+
+def scale_by_rss(initial: float, eps: float) -> Transform:
+    def update(grads, state, params=None):
+        (ss,) = state
+        grads = [g.float() for g in grads]
+        torch._foreach_add_(ss, torch._foreach_mul(grads, grads))
+        out = []
+        for t, g in zip(ss, grads):
+            inv = torch.where(t > 0, torch.rsqrt(t + _f32(eps)), 0.0)
+            out.append(inv * g)
+        return out, (ss,)
+
+    def init(params):
+        return ([torch.full_like(p, _f32(initial), dtype=torch.float32)
+                 for p in params],)
+
+    return Transform(init, update)
+
+
+def scale_by_adadelta(rho: float, eps: float) -> Transform:
+    def update(grads, state, params=None):
+        e_g, e_x = state
+        grads = [g.float() for g in grads]
+        _moment(grads, e_g, rho, 2)
+        num = _sqrt(torch._foreach_add(e_x, _f32(eps)))
+        den = _sqrt(torch._foreach_add(e_g, _f32(eps)))
+        upd = torch._foreach_mul(torch._foreach_div(num, den), grads)
+        _moment(upd, e_x, rho, 2)
+        return upd, (e_g, e_x)
+
+    return Transform(lambda params: (_zeros(params), _zeros(params)), update)
+
+
+def scale_by_rms(decay: float, eps: float) -> Transform:
+    def update(grads, state, params=None):
+        (nu,) = state
+        grads = [g.float() for g in grads]
+        _moment(grads, nu, decay, 2)
+        scaling = torch._foreach_rsqrt(torch._foreach_add(nu, _f32(eps)))
+        return torch._foreach_mul(scaling, grads), (nu,)
+
+    return Transform(lambda params: (_zeros(params),), update)
+
+
+def add_decayed_weights(weight_decay: float) -> Transform:
+    def update(grads, state, params=None):
+        if not weight_decay:                  # g + 0 p is g
+            return grads, state
+        if params is None:
+            raise ValueError("add_decayed_weights needs the parameters")
+        return torch._foreach_add(
+            grads, torch._foreach_mul([p.detach().float() for p in params],
+                                      _f32(weight_decay))), state
+
+    return Transform(_empty_init, update)
+
+
+def set_to_zero() -> Transform:
+    return Transform(_empty_init,
+                     lambda g, s, p=None: ([torch.zeros_like(x) for x in g], s))
+
+
+def clip(max_delta: float) -> Transform:
+    return Transform(_empty_init, lambda g, s, p=None: (
+        [x.clamp(-max_delta, max_delta) for x in g], s))
+
+
+def clip_by_global_norm(max_norm: float) -> Transform:
+    def update(grads, state, params=None):
+        norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+        # a select, as optax does: no host sync on the norm
+        keep = norm < max_norm
+        return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
+                for g in grads], state
+
+    return Transform(_empty_init, update)
+
+
+def state_leaves(state) -> list:
+    """The state's leaves in ``jax.tree.leaves`` order of optax's state:
+    counts as int32 numpy scalars, tensors as they are."""
+    out = []
+    for s in state:
+        if isinstance(s, (tuple, list)):
+            out.extend(state_leaves(s))
+        elif isinstance(s, int):
+            out.append(np.int32(s))
+        else:
+            out.append(s)
+    return out
+
+
+def load_state_leaves(state, leaves):
+    """``state`` with its leaves replaced, in order, by ``leaves``
+    (tensors or array-likes): counts become ints, tensors are copied in
+    place.  Raises `ValueError` on a count or shape mismatch."""
+    it = iter(leaves)
+
+    def walk(s):
+        if isinstance(s, tuple):
+            return tuple(walk(x) for x in s)
+        if isinstance(s, list):
+            return [walk(x) for x in s]
+        try:
+            leaf = next(it)
+        except StopIteration:
+            raise ValueError("fewer saved updater leaves than the updater "
+                             "state holds") from None
+        if isinstance(s, int):
+            return int(leaf)
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
+        if tuple(t.shape) != tuple(s.shape):
+            raise ValueError(f"updater leaf shape {tuple(t.shape)} != "
+                             f"{tuple(s.shape)}")
+        s.copy_(t.to(s.dtype))
+        return s
+
+    new = walk(state)
+    if next(it, None) is not None:
+        raise ValueError("more saved updater leaves than the updater state holds")
+    return new
+
 
 @dataclasses.dataclass(frozen=True)
 class Updater:
-    """Base updater config."""
+    """Base updater config.  ``learning_rate`` is a float or a `Schedule`.
+    A config is itself a transform (steps counted per iteration):
+    ``init`` / ``update`` of ``to_tx()``."""
 
-    learning_rate: float = 1e-3
+    learning_rate: ScheduleLike = 1e-3
 
     def __post_init__(self):
-        if not isinstance(self.learning_rate, numbers.Real):
-            raise NotImplementedError(
-                "learning-rate schedules are not ported yet (ROADMAP A2: "
-                f"nn/schedules.py); got {self.learning_rate!r}")
+        as_schedule(self.learning_rate)
 
-    def init(self, params: list) -> dict:
-        return {}
+    def _lr(self, steps_per_epoch: int) -> Transform:
+        # the JAX package hands optax a function even for a constant
+        # rate, so every updater with a rate counts its steps twice
+        fn = as_schedule(self.learning_rate).to_fn(steps_per_epoch)
+        return scale_by_schedule(lambda count: -np.float32(fn(count)))
 
-    def update(self, grads: list, state: dict) -> tuple[list, dict]:
+    def to_tx(self, steps_per_epoch: int = 1) -> Transform:
         raise NotImplementedError
+
+    def init(self, params):
+        return self.to_tx().init(params)
+
+    def update(self, grads, state, params=None):
+        return self.to_tx().update(grads, state, params)
 
 
 @dataclasses.dataclass(frozen=True)
 class Sgd(Updater):
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(identity(), self._lr(steps_per_epoch))
 
-    def update(self, grads, state):
-        return [g * -self.learning_rate for g in grads], state
+
+@dataclasses.dataclass(frozen=True)
+class Nesterovs(Updater):
+    learning_rate: ScheduleLike = 0.1
+    momentum: float = 0.9
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(trace(self.momentum, nesterov=True), self._lr(steps_per_epoch))
+
+
+@dataclasses.dataclass(frozen=True)
+class Momentum(Updater):
+    learning_rate: ScheduleLike = 0.1
+    momentum: float = 0.9
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(trace(self.momentum), self._lr(steps_per_epoch))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,59 +355,113 @@ class Adam(Updater):
     beta2: float = 0.999
     epsilon: float = 1e-8
 
-    def init(self, params):
-        return {"count": 0,
-                "mu": [torch.zeros_like(p, dtype=torch.float32) for p in params],
-                "nu": [torch.zeros_like(p, dtype=torch.float32) for p in params]}
-
-    @torch.no_grad()
-    def update(self, grads, state):
-        b1, b2 = self.beta1, self.beta2
-        count = state["count"] + 1
-        # optax: 1 - decay**count in f32.  Host floats holding those f32
-        # values: a CPU tensor moved to the card would synchronise the
-        # stream once per parameter
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
-        updates = []
-        for g, mu, nu in zip(grads, state["mu"], state["nu"]):
-            g = g.float()
-            mu.mul_(b1).add_(g, alpha=1.0 - b1)
-            nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.epsilon)
-            updates.append(u.mul_(-self.learning_rate))
-        return updates, {**state, "count": count}
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(scale_by_adam(self.beta1, self.beta2, self.epsilon),
+                     self._lr(steps_per_epoch))
 
 
 @dataclasses.dataclass(frozen=True)
-class _Clipped:
-    """An updater behind gradient clipping (same `init` / `update`)."""
+class AdamW(Updater):
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+    weight_decay: float = 0.01
 
-    inner: Updater
-    clip_value: float | None
-    clip_norm: float | None
-
-    def init(self, params):
-        return self.inner.init(params)
-
-    @torch.no_grad()
-    def update(self, grads, state):
-        if self.clip_value is not None:
-            grads = [g.clamp(-self.clip_value, self.clip_value) for g in grads]
-        if self.clip_norm is not None:
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-            # a select, as optax does: no host sync on the norm
-            grads = [torch.where(norm < self.clip_norm, g,
-                                 g / norm.to(g.dtype) * self.clip_norm)
-                     for g in grads]
-        return self.inner.update(grads, state)
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(scale_by_adam(self.beta1, self.beta2, self.epsilon),
+                     add_decayed_weights(self.weight_decay),
+                     self._lr(steps_per_epoch))
 
 
-def with_gradient_clipping(tx: Updater, clip_value: float | None = None,
-                           clip_norm: float | None = None):
+@dataclasses.dataclass(frozen=True)
+class AdaMax(Updater):
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(scale_by_adamax(self.beta1, self.beta2, self.epsilon),
+                     self._lr(steps_per_epoch))
+
+
+@dataclasses.dataclass(frozen=True)
+class Nadam(Updater):
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(scale_by_adam(self.beta1, self.beta2, self.epsilon,
+                                   nesterov=True),
+                     self._lr(steps_per_epoch))
+
+
+@dataclasses.dataclass(frozen=True)
+class AmsGrad(Updater):
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(scale_by_amsgrad(self.beta1, self.beta2, self.epsilon),
+                     self._lr(steps_per_epoch))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaGrad(Updater):
+    epsilon: float = 1e-6
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        # optax.adagrad's initial accumulator value
+        return chain(scale_by_rss(0.1, self.epsilon), self._lr(steps_per_epoch))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaDelta(Updater):
+    rho: float = 0.95
+    epsilon: float = 1e-6
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        # the reference's AdaDelta ignores the learning rate; optax.adadelta
+        # adds a weight decay of 0.0 first, a no-op with no state
+        return chain(add_decayed_weights(0.0), scale_by_adadelta(self.rho, self.epsilon),
+                     identity())
+
+
+@dataclasses.dataclass(frozen=True)
+class RmsProp(Updater):
+    decay: float = 0.95
+    epsilon: float = 1e-8
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        return chain(scale_by_rms(self.decay, self.epsilon),
+                     self._lr(steps_per_epoch), identity())
+
+
+@dataclasses.dataclass(frozen=True)
+class NoOp(Updater):
+    """Frozen parameters (the reference's NoOp updater)."""
+
+    def to_tx(self, steps_per_epoch: int = 1):
+        return set_to_zero()
+
+
+for _cls in (Sgd, Nesterovs, Momentum, Adam, AdamW, AdaMax, Nadam, AmsGrad,
+             AdaGrad, AdaDelta, RmsProp, NoOp):
+    serde.register(_cls)
+
+
+def with_gradient_clipping(tx, clip_value: float | None = None,
+                           clip_norm: float | None = None) -> Transform:
     """Elementwise clip to [-clip_value, clip_value], then rescale to a
-    global L2 norm of at most clip_norm, then ``tx`` — the optax chain
-    the JAX package builds."""
-    if clip_value is None and clip_norm is None:
-        return tx
-    return _Clipped(tx, clip_value, clip_norm)
+    global L2 norm of at most clip_norm, then ``tx`` (a `Transform` or an
+    `Updater`): the optax chain the JAX package builds, a chain even
+    with no clipping."""
+    if isinstance(tx, Updater):
+        tx = tx.to_tx()
+    txs = []
+    if clip_value is not None:
+        txs.append(clip(clip_value))
+    if clip_norm is not None:
+        txs.append(clip_by_global_norm(clip_norm))
+    return chain(*txs, tx)

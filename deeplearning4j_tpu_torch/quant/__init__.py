@@ -20,6 +20,7 @@ from deeplearning4j_tpu_torch.quant.ptq import (
     parity_check,
     quantize,
     quantized_bytes,
+    requantize_structure,
 )
 
 __all__ = [
@@ -30,4 +31,5 @@ __all__ = [
     "parity_check",
     "quantize",
     "quantized_bytes",
+    "requantize_structure",
 ]

@@ -12,9 +12,10 @@ attention projections).
 
 The transform is inference-only: the optimizer state is dropped (an int8
 tree takes no updates, and `fit_batch` refuses a quantized model) and
-``model._quantized`` carries the scheme marker.  A quantized model
-computes in f32, as the JAX package's does (`models/sequential.py`).
-`requantize_structure` waits with the checkpoint zip (ROADMAP A1).
+``model._quantized`` carries the scheme marker, which a checkpoint's
+``meta.json`` records.  A quantized model computes in f32, as the JAX
+package's does (`models/sequential.py`).  `requantize_structure`
+rebuilds the quantized tree's structure when a checkpoint restores.
 """
 
 from __future__ import annotations
@@ -116,6 +117,22 @@ def quantize(model, *, min_elements: int = 0, copy: bool = True):
     target._install(qparams)              # drops opt_state and the compute cache
     target._quantized = {"scheme": SCHEME, "min_elements": min_elements}
     return target
+
+
+def requantize_structure(model, meta: dict | None = None):
+    """Rebuild the quantized tree's structure on a freshly initialised
+    model (checkpoint restore: structure from code, data from the file).
+    The values quantized here are placeholders that the positional load
+    overwrites; ``meta`` is the checkpoint's recorded quantization, whose
+    ``min_elements`` decides which weights are int8 (another value
+    would misalign the leaves).  An unknown scheme raises."""
+    meta = meta or {}
+    scheme = meta.get("scheme", SCHEME)
+    if scheme != SCHEME:
+        raise ValueError(f"checkpoint quantization scheme {scheme!r} is not "
+                         f"supported by this build (expected {SCHEME!r})")
+    return quantize(model, copy=False,
+                    min_elements=int(meta.get("min_elements", 0)))
 
 
 def _leaves(params):

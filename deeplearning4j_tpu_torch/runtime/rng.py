@@ -22,15 +22,27 @@ jax.
 - `uniform(key, shape, minval, maxval)`: f32, jax's mantissa trick.
 - `gumbel(key, shape)`: f32 standard Gumbel in jax's mode "low";
   `gumbel_at(key, index)` its values at chosen flat indices, on the host.
+- `split(key, n)`: jax's partitionable split, subkey i the two words of
+  ``threefry2x32(key, (hi(i), lo(i)))``.
+- `normal(key, shape)`: f32 ``jax.random.normal``, sqrt(2) erfinv(u) of
+  a uniform u on (nextafter(-1, 0), 1), with XLA's erfinv (below).
+- `bernoulli(key, p, shape)`: ``uniform < p``.
+- `SeedStream`: named (``init/<layer>``) and sequential subkeys of one
+  root seed, and the per-step fold that dropout draws from.
 
-`SeedStream` (named and sequential subkeys for layer init and dropout)
-is not ported yet: the port's init draws from `torch.Generator`s.
+XLA's CPU backend contracts a product feeding a single add into one
+fused multiply-add (uniform's scale and shift, the polynomials of log
+and erfinv); `_fma` gives that single rounding on any device.  Every
+other operation is one f32 rounding, as XLA's.  `normal` equals
+``jax.random.normal`` bit for bit on all 2^23 uniform values it can
+draw (the tests hold every one).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -94,7 +106,7 @@ def _uniform(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
     one = (bits >> 9) | 0x3F800000
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = (torch.tensor(x, dtype=torch.float32) for x in (minval, maxval))
-    return torch.clamp_min(floats * (hi - lo).item() + lo.item(), lo.item())
+    return torch.clamp_min(_fma(floats, (hi - lo).item(), lo.item()), lo.item())
 
 
 def uniform(k: tuple[int, int], shape, minval: float = 0.0, maxval: float = 1.0,
@@ -117,12 +129,22 @@ _LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), _f32(0.693359375)
 
 
 def _fma(a, b, c):
-    """f32 a * b + c as a fused multiply-add gives it: the product is
-    exact in f64, the sum is rounded to f64 and then to f32.  Those two
-    roundings differ from a single f32 one only where the f64 sum lands
-    on an f32 tie; none of the values the tests compare with jax does."""
-    a, b = (x.double() if isinstance(x, torch.Tensor) else x for x in (a, b))
-    return (a * b + c).float()
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product of two f32 values is exact in f64; their f64 sum is made
+    round-to-odd (from its exact error, Knuth's two-sum), and an f64
+    rounded to odd rounds to the correctly rounded f32.  ``a`` is a
+    tensor; ``b`` and ``c`` tensors or Python floats holding f32 values."""
+    a, b, c = (x.double() if isinstance(x, torch.Tensor) else x
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)        # s + err == p + c exactly
+    bits = s.view(torch.int64)
+    away = (err > 0) == (s > 0)            # the exact sum lies beyond s
+    nudge = torch.where(away, bits + 1, bits - 1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), nudge, bits)
+    return bits.view(torch.float64).float()
 
 
 def _log(x: torch.Tensor) -> torch.Tensor:
@@ -164,3 +186,130 @@ def gumbel_at(k: tuple[int, int], index: torch.Tensor) -> torch.Tensor:
     whose ~170 array operations on a handful of elements cost a tenth of
     as many torch calls."""
     return _gumbel(torch.from_numpy(bits_at(k, index.numpy())))
+
+
+def split(k: tuple[int, int], n: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.split(key, n)`` in jax's partitionable layout: subkey
+    i is the two output words of threefry on the 64-bit count i."""
+    return [threefry2x32(k[0], k[1], i >> 32, i & _M32) for i in range(n)]
+
+
+# XLA's f32 erfinv (Giles, "Approximating the erfinv function", GPU Gems
+# 4, 2011): w = -log1p(-x^2), a degree-8 polynomial in w - 2.5 below
+# w = 5 and in sqrt(w) - 3 above
+_ERFINV_LT5 = [_f32(v) for v in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)]
+_ERFINV_GE5 = [_f32(v) for v in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)]
+# XLA's log1p below |x| = sqrt(2) - 1: x - x^2 / 2 + x^3 P(x) / Q(x)
+# (Cephes' rational approximation), log(1 + x) above
+_LOG1P_P = [_f32(v) for v in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1)]
+_LOG1P_Q = [_f32(v) for v in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1)]
+_SQRT2 = _f32(math.sqrt(2.0))
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    p = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        p = _fma(p, x, c)
+    return p
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    # correctly rounded: the CPU's vectorised f32 sqrt is not, and an f64
+    # square root of an f32 rounds to the right f32
+    return torch.sqrt(x.double()).float()
+
+
+def _log1p_of_negative_square(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``log1p(-x * x)`` for x in (-1, 1)."""
+    t = x * -x
+    big = _log(t + 1.0)
+    t2 = t * t
+    small = t + (t2 * -0.5 + (t * t2) * (_horner(t, _LOG1P_P)
+                                          / _horner(t, _LOG1P_Q)))
+    return torch.where(t.abs() < _f32(math.sqrt(2.0) - 1.0), small, big)
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    w = -_log1p_of_negative_square(x)
+    lt = w < 5.0
+    s = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, s, torch.where(lt, a, b))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(k: tuple[int, int], shape, device=None) -> torch.Tensor:
+    """f32 standard normal: sqrt(2) erfinv(u), u uniform on
+    (nextafter(-1, 0), 1) — ``jax.random.normal``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return _SQRT2 * _erfinv(_uniform(random_bits(k, shape, device), lo, 1.0))
+
+
+def bernoulli(k: tuple[int, int], p: float, shape, device=None) -> torch.Tensor:
+    """bool tensor, True where a uniform draw is below ``p`` (taken as
+    f32) — ``jax.random.bernoulli``."""
+    return uniform(k, shape, device=device) < _f32(p)
+
+
+def _stable_hash(name: str) -> int:
+    """FNV-1a of the name's bytes, held to 31 bits: the JAX package's
+    name hash (Python's `hash` is salted per process)."""
+    h = 0xCBF29CE484222325
+    for b in name.encode():
+        h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h & 0x7FFFFFFF
+
+
+class SeedStream:
+    """Subkeys of one root seed, as the JAX package's `SeedStream` hands
+    them out:
+
+    - ``stream.key(name)``: a stable named key (``init/<layer name>``);
+    - ``stream.next()``: sequential keys, 1, 2, ... folded into the root;
+    - ``SeedStream.fold(key, step)``: the key of a training step.
+
+    ``seed`` is an int or a key's two 32-bit words."""
+
+    def __init__(self, seed=0):
+        if isinstance(seed, (tuple, list, np.ndarray)):
+            words = [int(w) for w in np.asarray(seed).reshape(-1)]
+            if len(words) != 2:
+                raise TypeError(f"a key has two 32-bit words, got {seed!r}")
+            self._key = (words[0] & _M32, words[1] & _M32)
+        else:
+            self._key = key(seed)
+        self._count = 0
+
+    @property
+    def root(self) -> tuple[int, int]:
+        return self._key
+
+    def key(self, name: str) -> tuple[int, int]:
+        return fold_in(self._key, _stable_hash(name))
+
+    def next(self) -> tuple[int, int]:
+        self._count += 1
+        return fold_in(self._key, self._count)
+
+    def state_dict(self) -> dict:
+        return {"key_data": list(self._key), "count": self._count}
+
+    def load_state_dict(self, d: dict) -> None:
+        self._key = tuple(int(w) & _M32 for w in d["key_data"])
+        self._count = int(d["count"])
+
+    @staticmethod
+    def fold(k: tuple[int, int], step: int) -> tuple[int, int]:
+        return fold_in(k, step)

@@ -9,8 +9,8 @@ from deeplearning4j_tpu_torch.nn.conf.attention import (
     PositionalEncoding,
     TransformerEncoderBlock,
 )
+from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    XAVIER,
     ChunkedSoftmaxOutputLayer,
     Embedding,
 )
@@ -19,7 +19,9 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
 )
 from deeplearning4j_tpu_torch.nn.conf.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.activations import Activation
+from deeplearning4j_tpu_torch.nn.losses import Loss
 from deeplearning4j_tpu_torch.nn.updaters import Adam
+from deeplearning4j_tpu_torch.nn.weights import WeightInit
 
 
 class TransformerEncoder:
@@ -42,17 +44,16 @@ class TransformerEncoder:
         vocab_chunk: int = 8192,
         bf16_compute=None,
     ):
-        if seq_parallel != "none":
-            raise NotImplementedError(
-                "sequence parallelism arrives with the parallelism slice")
         if moe_experts:
-            raise NotImplementedError("MoE layers are not ported yet")
+            raise NotImplementedError(
+                "MoE layers are not ported yet (ROADMAP A5: attention, the rest)")
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.n_heads = n_heads
         self.n_layers = n_layers
         self.d_ff = d_ff
         self.causal = causal
+        self.seq_parallel = seq_parallel
         self.seed = seed
         self.learning_rate = learning_rate
         self.moe_top_k = moe_top_k
@@ -65,7 +66,7 @@ class TransformerEncoder:
             NeuralNetConfiguration.builder()
             .seed(self.seed)
             .updater(Adam(self.learning_rate))
-            .weight_init(XAVIER)
+            .weight_init(WeightInit.XAVIER)
             .bf16_compute(self.bf16_compute)
             .list()
             .layer(Embedding(n_in=self.vocab_size, n_out=self.d_model))
@@ -74,14 +75,14 @@ class TransformerEncoder:
         for _ in range(self.n_layers):
             b.layer(TransformerEncoderBlock(
                 d_model=self.d_model, n_heads=self.n_heads, d_ff=self.d_ff,
-                causal=self.causal))
+                causal=self.causal, seq_parallel=self.seq_parallel))
         if self.chunked_vocab_loss:
             head = ChunkedSoftmaxOutputLayer(n_out=self.vocab_size,
                                              chunk=self.vocab_chunk)
         else:
-            head = RnnOutputLayer(n_out=self.vocab_size, loss="mcxent",
+            head = RnnOutputLayer(n_out=self.vocab_size, loss=Loss.MCXENT,
                                   activation=Activation.SOFTMAX)
-        return b.layer(head).build()
+        return b.layer(head).set_input_type(InputType.recurrent(1)).build()
 
     def init_model(self, device=None) -> SequentialModel:
         """Build and randomly initialise on ``device`` (CUDA by default)."""

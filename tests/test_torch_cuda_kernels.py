@@ -27,7 +27,9 @@ rounds Q * scale, P and dS where the kernels do, so what differs is the
 f32 summation order, which can move a stored gradient by one bf16 ulp:
 at most 2^-7 of the largest), and two launches on the same inputs give
 the same bits (one writer per element, no atomics).  `runtime.rng`
-draws the same bits on the card as on the CPU.  The
+draws the same bits on the card as on the CPU (uniform, Gumbel, normal
+and bernoulli), and a checkpoint zip written on the card restores on
+the CPU bit for bit.  The
 dequant-matmul is held relative to max |plain|: 1e-5 (f32 sums of K <=
 1024 products in another order, the scale applied after the sum), and a
 quantized transformer's probabilities on the card within 2e-5 of max p
@@ -47,13 +49,16 @@ launch (1e-4 against plain, both page types), and a pool view that
 `cp.async.bulk` cannot read raising before a launch.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from deeplearning4j_tpu_torch.convert import params_to_numpy
 from deeplearning4j_tpu_torch.data.dataset import DataSet
-from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+from deeplearning4j_tpu_torch.models.sequential import SequentialModel, tree_leaves
+from deeplearning4j_tpu_torch.nn.updaters import state_leaves
 from deeplearning4j_tpu_torch.ops.dequant_matmul import (
     dequant_matmul,
     dequant_matmul_plain,
@@ -79,6 +84,7 @@ from deeplearning4j_tpu_torch.serving.generation import (
     GenerationEngine,
 )
 from deeplearning4j_tpu_torch.serving.kv_cache import quantize_page_rows
+from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
 from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
 pytestmark = pytest.mark.torch_port
@@ -213,6 +219,55 @@ def test_random_bits_on_the_card_are_the_cpu_bits(cuda):
             kw = dict(temperature=0.8, top_k=top_k, seed=11, g=g)
             assert torch.equal(_sample(logits.to(cuda), **kw).cpu(),
                                _sample(logits, **kw))
+
+
+def test_normal_and_bernoulli_bits_on_the_card_are_the_cpu_bits(cuda):
+    """`runtime.rng`'s normal (XLA's erfinv, its multiply-adds rounded
+    once) and bernoulli draws on the card equal the CPU's (which equal
+    jax's, `tests/test_torch_init_rng.py`), at odd and even sizes; so a
+    model initialised on the card has the CPU's, and the JAX package's,
+    weights bit for bit."""
+    for seed, shape in ((3, (2, 32000)), (11, (7, 333)), (-1, (1024, 1025))):
+        key = rng.fold_in(rng.key(seed), 5)
+        assert torch.equal(rng.normal(key, shape, cuda).cpu(),
+                           rng.normal(key, shape))
+        assert torch.equal(rng.bernoulli(key, 0.9, shape, cuda).cpu(),
+                           rng.bernoulli(key, 0.9, shape))
+    kw = dict(vocab_size=97, d_model=256, n_heads=2, n_layers=2)
+    card = TransformerEncoder(**kw).init_model(device=cuda)
+    cpu = TransformerEncoder(**kw).init_model(device="cpu")
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_zip_written_on_the_card_restores_on_the_cpu(cuda, tmp_path):
+    """A model trained on the card (bf16 compute, Adam, dropout 0.1) and
+    written with its updater restores on the CPU with every parameter,
+    optimizer leaf and counter bit for bit, and back on the card."""
+    kw = dict(vocab_size=97, d_model=256, n_heads=2, n_layers=2,
+              chunked_vocab_loss=True, vocab_chunk=32)
+    conf = TransformerEncoder(**kw).conf()
+    conf = dataclasses.replace(conf, layers=tuple(
+        dataclasses.replace(l, dropout_rate=0.1) for l in conf.layers))
+    card = SequentialModel(conf, device=cuda).init()
+    ids = np.random.default_rng(0).integers(0, 97, (2, 144))
+    for _ in range(2):
+        card.fit_batch(DataSet(ids, np.roll(ids, -1, axis=1)))
+    path = str(tmp_path / "card.zip")
+    ModelSerializer.write_model(card, path)
+    for device in ("cpu", cuda):
+        back = ModelSerializer.restore(path, device=device)
+        assert back.device.type == torch.device(device).type
+        assert back.iteration == 2 and back.epoch == 0
+        for a, b in zip(tree_leaves(card.params), tree_leaves(back.params)):
+            assert torch.equal(a.cpu(), b.cpu())
+        got, want = (state_leaves(m.opt_state) for m in (back, card))
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a.cpu(), b.cpu())
+            else:
+                assert int(a) == int(b)
 
 
 def test_training_on_the_card_matches_the_cpu(cuda):

@@ -1,10 +1,12 @@
 """Rules the port keeps, checked without a GPU.
 
-- The port never imports jax or the JAX package (a fresh interpreter
-  imports every module of it, takes a training step, runs the CPU
-  engine and a quantized ``output()``, then lists its modules).
-- Entry points default to CUDA and raise when there is none; only an
-  explicit ``device="cpu"`` runs on the CPU.
+- The port never imports jax, optax or the JAX package (a fresh
+  interpreter imports every module of it, `utils/` and `train/`
+  included, takes a training step, runs the CPU engine and a quantized
+  ``output()``, writes and restores a checkpoint zip of each model,
+  then lists its modules).
+- Entry points default to CUDA and raise when there is none, checkpoint
+  restore included; only an explicit ``device="cpu"`` runs on the CPU.
 - A kernel wrapper never answers a CUDA tensor with its plain version:
   it launches the kernel or raises.  The bf16 flash forward reads its
   inputs through TMA and raises on inputs TMA cannot read.
@@ -26,6 +28,7 @@ from deeplearning4j_tpu_torch.ops import paged_attention as pa
 from deeplearning4j_tpu_torch.quant import quantize
 from deeplearning4j_tpu_torch.runtime import backend, kernels
 from deeplearning4j_tpu_torch.serving.kv_cache import PagedKVCache
+from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
 from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
 # small shapes: one intra-op thread keeps these files from competing with
@@ -46,7 +49,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             deeplearning4j_tpu_torch.__path__, "deeplearning4j_tpu_torch.")]
         for name in mods:
             importlib.import_module(name)
-        assert "deeplearning4j_tpu_torch.quant.ptq" in mods, mods
+        for need in ("quant.ptq", "train.checkpoint", "utils.serde",
+                     "nn.weights", "nn.schedules"):
+            assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
         from deeplearning4j_tpu_torch.data.dataset import DataSet
@@ -66,10 +71,19 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         finally:
             eng.stop()
         assert out.shape == (8,)
-        p = quantize(m).output(ids)
+        q = quantize(m)
+        p = q.output(ids)
         assert p.shape == (2, 6, 32) and bool(np.isfinite(p.numpy()).all())
+        import os, tempfile
+        from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+        for i, model in enumerate((m, q)):
+            path = os.path.join(tempfile.mkdtemp(), f"m{i}.zip")
+            ModelSerializer.write_model(model, path)
+            back = ModelSerializer.restore(path, device="cpu")
+            assert back.iteration == 1
         bad = sorted(n for n in sys.modules
-                     if n.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
+                     if n.split(".")[0] in ("jax", "jaxlib", "optax",
+                                            "deeplearning4j_tpu"))
         print("FORBIDDEN", bad)
     """)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -84,7 +98,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_default_device_is_cuda_and_raises_without_it(no_cuda):
+def test_default_device_is_cuda_and_raises_without_it(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         backend.resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -93,6 +107,12 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedKVCache(n_layers=1, n_heads=2, head_dim=16, num_pages=4,
                      page_size=8)
+    model = TransformerEncoder(vocab_size=11, d_model=32, n_heads=2,
+                               n_layers=1).init_model(device="cpu")
+    path = str(tmp_path / "m.zip")
+    ModelSerializer.write_model(model, path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelSerializer.restore(path)
     assert backend.resolve_device("cpu").type == "cpu"
     assert not backend.backend("cpu").is_cuda
 

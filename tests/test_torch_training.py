@@ -186,8 +186,14 @@ def test_adam_defaults_are_optax_defaults():
 
 
 def test_schedule_learning_rate_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A2"):
+    """Schedules are ported now (`nn/schedules.py`): a `Schedule` is a
+    learning rate, a bare function still is not (it does not serialize)."""
+    from deeplearning4j_tpu_torch.nn.schedules import StepSchedule
+
+    with pytest.raises(TypeError, match="Schedule"):
         updaters.Adam(learning_rate=lambda step: 1e-3)
+    sched = StepSchedule(initial=0.05, decay_rate=0.5, step=2.0)
+    assert updaters.Adam(learning_rate=sched).learning_rate is sched
 
 
 # -- training-step pieces ---------------------------------------------------------
@@ -292,6 +298,11 @@ def test_builder_sets_the_training_settings():
 
 
 def test_what_the_slice_does_not_train_raises():
+    """Dropout trains now (the JAX package's masks,
+    `tests/test_torch_init_rng.py`); frozen layers, grouped steps, feature
+    masks, TBPTT and data parallelism still raise, naming their ROADMAP
+    items.  TBPTT loads as configuration data and raises when a model is
+    built from it."""
     ids, y = _batches(one_hot=False, n=1)[0]
     batch = DataSet(ids, y)
     model = _zoo(TransformerEncoder).init_model(device="cpu")
@@ -299,16 +310,16 @@ def test_what_the_slice_does_not_train_raises():
         model.fit(batch, steps_per_execution=2)
     with pytest.raises(NotImplementedError, match="features masks"):
         model.fit_batch(DataSet(ids, y, features_mask=np.ones_like(ids)))
-    for field, match in (("dropout_rate", "dropout"), ("frozen", "frozen")):
-        conf = _zoo(TransformerEncoder).conf()
-        conf = dataclasses.replace(conf, layers=(
-            dataclasses.replace(conf.layers[0], **{field: 0.5 if field ==
-                                                   "dropout_rate" else True}),
-        ) + conf.layers[1:])
-        with pytest.raises(NotImplementedError, match=match):
-            SequentialModel(conf, device="cpu").fit_batch(batch)
+    conf = _zoo(TransformerEncoder).conf()
+    conf = dataclasses.replace(conf, layers=(
+        dataclasses.replace(conf.layers[0], frozen=True),) + conf.layers[1:])
+    with pytest.raises(NotImplementedError, match="frozen"):
+        SequentialModel(conf, device="cpu").fit_batch(batch)
+    tbptt = (NeuralNetConfiguration.builder().tbptt(16).list()
+             .layer(_zoo(TransformerEncoder).conf().layers[0]).build())
+    assert (tbptt.backprop_type, tbptt.tbptt_length) == ("tbptt", 16)
     with pytest.raises(NotImplementedError, match="A8"):
-        NeuralNetConfiguration.builder().tbptt(16)
+        SequentialModel(tbptt, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         distribute(model)
     assert model.iteration == 0
