@@ -16,10 +16,11 @@ Always first:
    counts the tensor-core MMAs (HGMMA, HMMA), TMA loads (UTMALDG) and bulk
    copies (UBLKCP) of each flash, dequant-matmul and paged-attention
    kernel in ``cuobjdump -sass``: fails if a bf16 backward kernel has no
-   MMA, a forward kernel (bf16 or f32) or the large-M dequant-matmul
-   kernel no HGMMA or no UTMALDG, a paged-attention kernel no UTMALDG
-   (whole pages) or no UBLKCP (partial pages, int8 scales), or ptxas
-   reports that it serialised a kernel's wgmma pipeline.
+   MMA, a forward kernel (bf16 or f32), an f32 backward kernel or the
+   large-M dequant-matmul kernel no HGMMA or no UTMALDG, an f32-FMA flash
+   backward kernel is still in the library, a paged-attention kernel no
+   UTMALDG (whole pages) or no UBLKCP (partial pages, int8 scales), or
+   ptxas reports that it serialised a kernel's wgmma pipeline.
 
 Then the phases:
 
@@ -40,7 +41,10 @@ Then the phases:
    shape (BH 32, T 2048 and 2000, D 128, causal), and in bf16 also
    non-causal at T 2048, at T 144 (a serve bucket) and at D 64, against
    `flash_bwd_plain` and the backward of `scaled_dot_product_attention`;
-   a second launch of each must give the same bits.  The paged attention
+   a second launch of each must give the same bits.  An f32 row's time
+   includes the split pre-pass its call runs; the kernel alone on split
+   parts and the pair as a backward runs it (one split, both kernels) are
+   timed beside it.  The paged attention
    (B4), f32 and int8 pages, against `paged_attention_plain` within 1e-4:
    the serve mix (8 slots of lengths 2017 ... 0 over 160-wide tables),
    timed; the full pool (8 slots x 1008 positions, 504 of the 511 usable
@@ -54,7 +58,11 @@ Then the phases:
    steps.  Prints step ms, tokens/s and every loss; gates on finite,
    falling loss and on exactly 8 launches a step of each of flash_fwd,
    flash_bwd_dq and flash_bwd_dkdv (counters zeroed just before the
-   measured steps and read just after).
+   measured steps and read just after).  train_f32 — the same with the
+   flagship built with ``bf16_compute=False``: f32 compute, the JAX
+   package's CPU arithmetic, through B1 f32 (`flash_fwd_split`) and the
+   f32 backward (`flash_bwd_dq_split`, `flash_bwd_dkdv_split`), with the
+   same gates.
 5. serve — the full-width flagship `TransformerEncoder` (vocab 32000,
    d 1024, 8 heads, 8 layers, chunked head, seed 123, bf16 compute) in a
    `GenerationEngine` (8 slots, 16-row pages, 512 pages, 160-wide
@@ -138,7 +146,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "train", "serve", "parity", "int8", "quant", "ckpt")
+PHASES = ("kernels", "train", "train_f32", "serve", "parity", "int8", "quant", "ckpt")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -293,8 +301,9 @@ def sass_mma_counts(lib_path) -> dict:
 
 def check_sass(paths):
     """The bf16 flash-backward kernels must issue tensor-core MMAs; the
-    flash-forward kernels (bf16 and f32) wgmma (HGMMA) and TMA loads
-    (UTMALDG); the large-M dequant-matmul kernel wgmma and TMA loads; every
+    flash-forward kernels (bf16 and f32), the f32 flash-backward kernels
+    and the large-M dequant-matmul kernel wgmma (HGMMA) and TMA loads
+    (UTMALDG), and no f32-FMA flash-backward kernel may be left; every
     paged-attention kernel TMA loads (whole pages) and bulk copies (a
     slot's partial last page, int8 scales)."""
     out = {}
@@ -306,7 +315,11 @@ def check_sass(paths):
     if not bwd or any(c["HGMMA"] + c["HMMA"] == 0 for c in bwd):
         raise AssertionError(f"bf16 flash-backward kernels without tensor-core "
                              f"MMAs in their SASS: {out['flash_bwd']}")
+    if any("_fma" in fn for fn in out["flash_bwd"]):
+        raise AssertionError(f"an f32-FMA flash-backward kernel is still built: "
+                             f"{list(out['flash_bwd'])}")
     for stem, names in (("flash_fwd", ("flash_fwd_wgmma", "flash_fwd_split")),
+                        ("flash_bwd", ("flash_bwd_dq_split", "flash_bwd_dkdv_split")),
                         ("dequant_matmul", ("dequant_matmul_wgmma",))):
         for name in names:
             found = [c for fn, c in out[stem].items() if name in fn]
@@ -415,12 +428,26 @@ def layout_case(torch, timer):
     return res
 
 
+def split_backward(fa) -> bool:
+    """Whether the port under test runs the f32 backward on split parts
+    (its launchers take the split scratch), or the f32-FMA kernels of an
+    older tree (``--package-root``)."""
+    import inspect
+
+    return "parts" in inspect.signature(fa.launch_bwd_dq).parameters
+
+
 def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
     """Rows for kernels B2 (dQ) and B3 (dK/dV) at BH 32 (the training
     batch's heads): each against `flash_bwd_plain` on the same inputs,
     and a second launch of each against the first, bit for bit; plain
     and library times cover both kernels together (the plain version and
-    the sdpa backward compute dq, dk and dv in one call)."""
+    the sdpa backward compute dq, dk and dv in one call).  In f32 a
+    launcher's call also splits the inputs and computes delta from them;
+    the kernel alone on split parts (``kernel_ms``) and the backward as
+    `flash_bwd` runs it, one split for both kernels (``pair_ms``), are
+    timed beside it."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops.flash_attention import (
         flash_bwd_plain,
         flash_fwd,
@@ -435,11 +462,24 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
                   for _ in range(4))
     out, lse = flash_fwd(q, k, v, causal=causal)
     delta = (g.float() * out.float()).sum(-1)
-    dq = launch_bwd_dq(q, k, v, g, lse, delta, causal)
-    dk, dv = launch_bwd_dkdv(q, k, v, g, lse, delta, causal)
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    split = kind == "f32" and split_backward(fa)
+    if split:   # each call splits the inputs and writes its own delta
+        def dq_call():
+            return launch_bwd_dq(q, k, v, g, lse, torch.empty_like(delta), causal, out=out)
+
+        def dkdv_call():
+            return launch_bwd_dkdv(q, k, v, g, lse, torch.empty_like(delta), causal, out=out)
+    else:
+        def dq_call():
+            return launch_bwd_dq(q, k, v, g, lse, delta, causal)
+
+        def dkdv_call():
+            return launch_bwd_dkdv(q, k, v, g, lse, delta, causal)
+    dq = dq_call()
+    dk, dv = dkdv_call()
     rq, rk, rv = flash_bwd_plain(q, k, v, out, lse, g, causal=causal)
-    again = (launch_bwd_dq(q, k, v, g, lse, delta, causal),
-             *launch_bwd_dkdv(q, k, v, g, lse, delta, causal))
+    again = (dq_call(), *dkdv_call())
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
         raise AssertionError(f"flash backward at {[bh, t, d]} causal={causal}: "
@@ -450,7 +490,6 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
         diff = (a.float() - b.float()).abs().max().item()
         return diff, diff / b.float().abs().max().item()
 
-    kind = "bf16" if dtype == torch.bfloat16 else "f32"
     plain_ms = timer(lambda: flash_bwd_plain(q, k, v, out, lse, g, causal=causal))
     qs, ks, vs = (x.detach()[None].requires_grad_(True) for x in (q, k, v))
     gs = g[None]
@@ -466,24 +505,46 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
     pairs = bh * (t * (t + 1) // 2 if causal else t * t)
     eb = q.element_size()
     in_bytes = 4 * bh * t * d * eb + 2 * bh * t * 4       # q, k, v, g, lse, delta
+    kernel = {"bf16": "wgmma", "f32": "split" if split else "fma"}[kind]
+    extra = {}
+    if split:
+        parts, d_split = fa.bwd_parts(q), torch.empty_like(delta)
+        launch_bwd_dq(q, k, v, g, lse, d_split, causal, parts, out=out)
+        extra = {
+            "flash_bwd_dq": {"kernel_ms": timer(lambda: launch_bwd_dq(
+                q, k, v, g, lse, d_split, causal, parts))},
+            "flash_bwd_dkdv": {"kernel_ms": timer(lambda: launch_bwd_dkdv(
+                q, k, v, g, lse, d_split, causal, parts))},
+        }
+        pair_ms = timer(lambda: fa.flash_bwd(q, k, v, out, lse, g, causal=causal))
+        for e in extra.values():
+            e["pair_ms"] = pair_ms
     rows = []
     for name, n_out, n_ops, fn, errs in (
-            ("flash_bwd_dq", 1, 6 * d * pairs,
-             lambda: launch_bwd_dq(q, k, v, g, lse, delta, causal),
-             [rel_err(dq, rq)]),
-            ("flash_bwd_dkdv", 2, 8 * d * pairs,
-             lambda: launch_bwd_dkdv(q, k, v, g, lse, delta, causal),
+            ("flash_bwd_dq", 1, 6 * d * pairs, dq_call, [rel_err(dq, rq)]),
+            ("flash_bwd_dkdv", 2, 8 * d * pairs, dkdv_call,
              [rel_err(dk, rk), rel_err(dv, rv)])):
-        b_ms, b_by = bound_ms(in_bytes + n_out * bh * t * d * eb, n_ops, kind)
-        rows.append({
-            "name": name, "dtype": kind, "shape": [bh, t, d], "causal": causal,
+        n_bytes = in_bytes + n_out * bh * t * d * eb
+        # the function's multiply-adds on the bf16 peak, in f32 too: the card
+        # reaches f32 accuracy on bf16 tensor cores (by split parts)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
+        row = {
+            "name": name, "kernel": f"{name}_{kernel}", "dtype": kind,
+            "shape": [bh, t, d], "causal": causal,
             "max_abs_err": max(e[0] for e in errs),
             "rel_err": max(e[1] for e in errs), "tol": TOL[f"flash_bwd/{kind}"],
             "second_launch_identical": True,
             "ms": timer(fn), "plain_ms": plain_ms, "library_ms": library_ms,
             "plain_and_library_cover": "dq, dk and dv together",
-            "bound_ms": b_ms, "bound_by": b_by,
-        })
+            "bound_ms": b_ms, "bound_by": b_by, **extra.get(name, {}),
+        }
+        if kind == "f32":
+            # log only: the split design's floor, three bf16 part products a
+            # product, and the f32-FMA bound of the CUDA-core kernels it
+            # replaced
+            row["part_floor_ms"] = bound_ms(n_bytes, 3 * n_ops, "bf16")[0]
+            row["f32_fma_bound_ms"] = bound_ms(n_bytes, n_ops, "f32")[0]
+        rows.append(row)
     del qs, ks, vs
     return rows
 
@@ -811,7 +872,8 @@ def check_rows(tag, rows):
             extra += f" lse_err={r['lse_err']:.3e} (tol {r['lse_tol']:.1e})"
         if "row_err" in r:
             extra += f" row_err={r['row_err']:.3e} (tol {r['row_tol']:.1e})"
-        for key in ("part_floor_ms", "f32_fma_bound_ms", "clean_l2_ms", "host_ms"):
+        for key in ("kernel_ms", "pair_ms", "part_floor_ms", "f32_fma_bound_ms",
+                    "clean_l2_ms", "host_ms"):
             if key in r:
                 extra += f" {key}={r[key]:.5f}"
         timed = (f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -989,23 +1051,27 @@ def _train_batch(np):
     return DataSet(ids.astype(np.int64), np.roll(ids, -1, axis=1).astype(np.int64))
 
 
-def phase_train(torch, np, kernels):
+def phase_train(torch, np, kernels, f32=False):
     """`fit_batch` of the full-width flagship on one fixed batch: warm-up
     steps, then the measured steps with the launch counters zeroed just
-    before and read just after."""
+    before and read just after.  ``f32``: the flagship built with
+    ``bf16_compute=False`` (the train_f32 phase)."""
+    tag = "train_f32" if f32 else "train"
     t0 = time.perf_counter()
-    model = _flagship(torch)
+    model = _flagship(torch, bf16=False if f32 else None)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[train] model: {n_params} params (f32 masters), compute "
+    log(f"[{tag}] model: {n_params} params (f32 masters), compute "
         f"{model.compute_dtype}, Adam lr {model.conf.updater.learning_rate}, "
         f"built in {time.perf_counter() - t0:.1f}s")
+    if f32 and model.compute_dtype != torch.float32:
+        raise AssertionError(f"bf16_compute=False built a {model.compute_dtype} model")
     batch = _train_batch(np)
     losses = []
     for i in range(TRAIN_WARMUP):
         t1 = time.perf_counter()
         model.fit_batch(batch)
         losses.append(model.score_value)
-        log(f"[train] warm-up step {i}: loss {losses[-1]:.5f}, "
+        log(f"[{tag}] warm-up step {i}: loss {losses[-1]:.5f}, "
             f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1017,19 +1083,20 @@ def phase_train(torch, np, kernels):
         model.fit_batch(batch)
         losses.append(model.score_value)           # synchronises
         step_ms.append((time.perf_counter() - t1) * 1e3)
-        log(f"[train] step {i}: loss {losses[-1]:.5f}, {step_ms[-1]:.1f} ms")
+        log(f"[{tag}] step {i}: loss {losses[-1]:.5f}, {step_ms[-1]:.1f} ms")
     wall = time.perf_counter() - t0
     counts = kernels.launches()
     tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
     res = {
-        "params": n_params, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "compute": str(model.compute_dtype), "params": n_params,
+        "batch": [TRAIN_BATCH, TRAIN_SEQ],
         "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS, "losses": losses,
         "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
         "wall_s": wall, "tokens_per_s": tokens / wall,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts,
     }
-    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
+    log(f"[{tag}] {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
         f"{wall:.3f}s = {res['tokens_per_s']:.1f} tokens/s; median step "
         f"{res['median_step_ms']:.1f} ms; peak memory "
         f"{res['peak_memory_gib']:.2f} GiB; launches {counts}")
@@ -1784,6 +1851,9 @@ def main(argv=None) -> int:
     if "train" in phases:
         report["train"] = phase_train(torch, np, kernels)
         done("train")
+    if "train_f32" in phases:
+        report["train_f32"] = phase_train(torch, np, kernels, f32=True)
+        done("train_f32")
     if "serve" in phases:
         report["serve"] = phase_serve(torch, np, kernels)
         done("serve")
@@ -1824,6 +1894,10 @@ def main(argv=None) -> int:
         (row("flash_fwd", dtype="f32", shape=[QUANT_BATCH * HEADS, QUANT_SEQ, dh]), "quant"),
         (row("flash_bwd_dq", shape=train_bhtd), "train"),
         (row("flash_bwd_dkdv", shape=train_bhtd), "train"),
+        # f32 training (bf16_compute=False)
+        (row("flash_fwd", dtype="f32", shape=train_bhtd), "train_f32"),
+        (row("flash_bwd_dq", dtype="f32", shape=train_bhtd), "train_f32"),
+        (row("flash_bwd_dkdv", dtype="f32", shape=train_bhtd), "train_f32"),
         (row("paged_attention_fwd", dtype="f32", mix="serve"), "serve"),
         (row("paged_attention_fwd_int8", dtype="int8", mix="serve"), "int8"),
         # the W1 product of the quantized flagship
@@ -1860,10 +1934,24 @@ def main(argv=None) -> int:
                                 "warps widen q to bf16 in shared memory; 2 consumer "
                                 "warpgroups run wgmma m64n128k16 a part, each K "
                                 "slab's sum added to f32 registers",
-        "flash_bwd_dq": "flash_bwd_dq_wgmma: wgmma bf16 -> f32, 2 warpgroups "
-                        "x 64 query rows, cp.async ring of 2 K/V stages",
-        "flash_bwd_dkdv": "flash_bwd_dkdv_wgmma: wgmma bf16 -> f32, 2 warpgroups "
-                          "x 64 key rows, cp.async ring of 2 Q/g stages",
+        "flash_bwd_dq_wgmma": "wgmma bf16 -> f32, 2 warpgroups x 64 query rows, "
+                              "cp.async ring of 2 K/V stages",
+        "flash_bwd_dkdv_wgmma": "wgmma bf16 -> f32, 2 warpgroups x 64 key rows, "
+                                "cp.async ring of 2 Q/g stages",
+        "flash_bwd_dq_split": "f32 at f32 accuracy on bf16 wgmma: the dQ call's pre-pass "
+                              "splits Q * scale, K, V, g into bf16 hi/lo parts and "
+                              "computes delta with the same split; 2 warpgroups x 64 "
+                              "query rows, a 3-stage TMA ring of 32-key K/V part tiles "
+                              "refilled by the last warp to release a stage; S and dP "
+                              "as three m64n32k16 part products from shared memory, dS "
+                              "split in registers, dQ += dS K as three part products, "
+                              "each tile's sum added in f32 registers",
+        "flash_bwd_dkdv_split": "f32 at f32 accuracy on bf16 wgmma: the dQ call's split "
+                                "parts and delta; 2 warpgroups x 64 key rows, a 3-stage "
+                                "TMA ring of 32-query Q/g part tiles; S^T and dP^T as "
+                                "three m64n32k16 part products, P^T and dS^T split in "
+                                "registers, dV += P^T g and dK += dS^T Q as three part "
+                                "products, each column block's sum added in f32 registers",
         "paged_attention_fwd": B4_DESIGN,
         "paged_attention_fwd_int8": B4_DESIGN,
     }

@@ -54,8 +54,9 @@
 // (~16 significant bits together), and each product keeps three of the four
 // part products, a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, summed in the f32
 // accumulators (the dropped a_lo b_lo is ~2^-16 of a b).
-//   - A pre-pass kernel (`split_qkv`) writes Q * scale, K and V as hi and
-//     lo bf16 parts, (3, 2, BH, T, D), into scratch the wrapper allocates;
+//   - A pre-pass kernel (`split_parts`, wgmma.cuh, shared with the f32
+//     backward) writes Q * scale, K and V as hi and lo bf16 parts,
+//     (3, 2, BH, T, D), into scratch the wrapper allocates;
 //     so the f32 inputs need only be contiguous, and the main kernel reads
 //     bf16 parts through TMA exactly as the bf16 kernel reads its inputs.
 //   - Work split and roles as the bf16 kernel: 128 query rows a block, a
@@ -327,15 +328,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       if (row[h] < t) lse[(size_t)bh * t + row[h]] = m[h] * LN2 + logf(l[h]);
 }
 
-// 3-D map (D, T, heads) of contiguous bf16 (heads, T, D) at base; a box is
-// one column block of `rows` rows of one head, swizzled as `Geo<D>`
-template <int D>
-cudaError_t make_map(CUtensorMap* map, const void* base, int heads, int t, int rows) {
-  using G = Geo<D>;
-  return make_map_3d(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, t, heads, G::NB, rows,
-                     G::RB);
-}
-
 template <int D>
 constexpr size_t wgmma_smem() {
   return 1024 + FBQ * D * 2 + NSTAGE * 2 * FBK * D * 2 + 8 * (1 + 2 * NSTAGE);
@@ -346,9 +338,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
                  int t, int causal, float sm_scale, cudaStream_t stream) {
   static_assert(FBQ == FBK, "Q and K/V boxes share one row count");
   CUtensorMap mq, mk, mv;
-  cudaError_t err = make_map<D>(&mq, q, bh, t, FBQ);
-  if (err == cudaSuccess) err = make_map<D>(&mk, k, bh, t, FBK);
-  if (err == cudaSuccess) err = make_map<D>(&mv, v, bh, t, FBK);
+  cudaError_t err = make_tile_map<D>(&mq, q, bh, t, FBQ);
+  if (err == cudaSuccess) err = make_tile_map<D>(&mk, k, bh, t, FBK);
+  if (err == cudaSuccess) err = make_tile_map<D>(&mv, v, bh, t, FBK);
   if (err == cudaSuccess)
     err = check_reg_budget(flash_fwd_wgmma<D>, FNT,
                            PRODUCER_REGS * FWG + CONSUMER_REGS * 2 * FWG);
@@ -369,26 +361,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
 
 constexpr int SBK = 64;             // keys a K/V tile
 constexpr int SSTAGE = 2;           // K/V stages in flight
-
-// (q * scale, k, v), each n f32 elements -> parts (3, 2, n) bf16: tensor w's
-// hi part at (2 w) n, its lo part at (2 w + 1) n; one thread a pair
-__global__ void split_qkv(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, bf16* __restrict__ parts, size_t n,
-                          float sm_scale) {
-  const size_t pairs = n / 2;
-  uint32_t* out = reinterpret_cast<uint32_t*>(parts);
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < 3 * pairs;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int w = (int)(i / pairs);
-    const size_t p = i - w * pairs;
-    const float* src = w == 0 ? q : w == 1 ? k : v;
-    const float f = w == 0 ? sm_scale : 1.f;
-    uint32_t hi, lo;
-    split_bf16(src[2 * p] * f, src[2 * p + 1] * f, hi, lo);
-    out[2 * w * pairs + p] = hi;
-    out[(2 * w + 1) * pairs + p] = lo;
-  }
-}
 
 // One block per (bh, 128-row query tile).  The maps read the parts as
 // (D, T, 2 BH): head bh's hi part at bh, its lo part at BH + bh.  Shared
@@ -625,15 +597,13 @@ int launch_split(const void* q, const void* k, const void* v, void* out, float* 
                  int bh, int t, int causal, float sm_scale, cudaStream_t stream) {
   const size_t n = (size_t)bh * t * D;
   bf16* p = static_cast<bf16*>(parts);
-  const size_t blocks = (3 * n / 2 + 255) / 256;
-  split_qkv<<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      p, n, sm_scale);
-  cudaError_t err = cudaGetLastError();
+  const SplitSrcs<3> src{{static_cast<const float*>(q), static_cast<const float*>(k),
+                          static_cast<const float*>(v)}};
+  cudaError_t err = launch_split_parts<3>(src, p, n, sm_scale, stream);
   CUtensorMap mq, mk, mv;
-  if (err == cudaSuccess) err = make_map<D>(&mq, p, 2 * bh, t, FBQ);
-  if (err == cudaSuccess) err = make_map<D>(&mk, p + 2 * n, 2 * bh, t, SBK);
-  if (err == cudaSuccess) err = make_map<D>(&mv, p + 4 * n, 2 * bh, t, SBK);
+  if (err == cudaSuccess) err = make_tile_map<D>(&mq, p, 2 * bh, t, FBQ);
+  if (err == cudaSuccess) err = make_tile_map<D>(&mk, p + 2 * n, 2 * bh, t, SBK);
+  if (err == cudaSuccess) err = make_tile_map<D>(&mv, p + 4 * n, 2 * bh, t, SBK);
   if (err == cudaSuccess)
     err = check_reg_budget(flash_fwd_split<D>, FNT,
                            PRODUCER_REGS * FWG + CONSUMER_REGS * 2 * FWG);

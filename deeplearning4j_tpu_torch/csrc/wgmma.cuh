@@ -1,8 +1,9 @@
 // wgmma.cuh — shared pieces of the Hopper (sm_90a) tensor-core kernels:
 // the swizzled bf16 tile geometry and its wgmma descriptors, the wgmma
 // instructions (shared-memory and register A operands), their fences, bf16
-// packing and the split of an f32 value into two bf16 parts, mbarriers,
-// named barriers and TMA loads with the host-side tensor-map encoder.
+// packing, the split of an f32 value into two bf16 parts and the pre-pass
+// kernel that splits whole f32 tensors, mbarriers, named barriers and TMA
+// loads with the host-side tensor-map encoder.
 // Included by flash_fwd.cu, flash_bwd.cu and dequant_matmul.cu;
 // runtime/kernels.py hashes it into the name of every library whose source
 // includes it.
@@ -89,6 +90,19 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
+// d (+)= A B: A 64 x 16 and B 16 x 32 from shared memory, both K-major
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, "
+      "1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // d (+)= A B: A 64 x 16 and B 16 x 64 from shared memory, both K-major
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
   asm volatile(
@@ -131,23 +145,24 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(acc), "n"(TB));
 }
 
-// d += A B: A 64 x 16 from registers, B 16 x N from shared memory, MN-major
+// d (+)= A B: A 64 x 16 from registers, B 16 x N from shared memory, MN-major;
+// d is overwritten, not added to, when acc is 0
 template <int N> struct MmaRs;
 template <> struct MmaRs<16> {
   static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct MmaRs<32> {
   static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -156,12 +171,12 @@ template <> struct MmaRs<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 template <> struct MmaRs<64> {
   static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -174,7 +189,7 @@ template <> struct MmaRs<64> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 
@@ -191,6 +206,45 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   const float2 f = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// The f32 kernels' pre-pass: W contiguous f32 tensors of n elements each
+// (n even), the first times scale0, into parts (W, 2, n) bf16: tensor w's hi
+// part at (2 w) n, its lo part at (2 w + 1) n.  One thread a pair, plain
+// loads, so the f32 tensors need only be 4-byte aligned.
+template <int W>
+struct SplitSrcs {
+  const float* a[W];
+};
+
+template <int W>
+__global__ void split_parts(const SplitSrcs<W> src, bf16* __restrict__ parts, size_t n,
+                            float scale0) {
+  const size_t pairs = n / 2;
+  uint32_t* out = reinterpret_cast<uint32_t*>(parts);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < W * pairs;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int w = (int)(i / pairs);
+    const size_t p = i - w * pairs;
+    const float* a = src.a[0];
+#pragma unroll
+    for (int x = 1; x < W; ++x)
+      if (w == x) a = src.a[x];
+    const float f = w == 0 ? scale0 : 1.f;
+    uint32_t hi, lo;
+    split_bf16(a[2 * p] * f, a[2 * p + 1] * f, hi, lo);
+    out[2 * w * pairs + p] = hi;
+    out[(2 * w + 1) * pairs + p] = lo;
+  }
+}
+
+template <int W>
+inline cudaError_t launch_split_parts(const SplitSrcs<W>& src, bf16* parts, size_t n,
+                                      float scale0, cudaStream_t stream) {
+  const size_t blocks = (W * n / 2 + 255) / 256;
+  split_parts<W><<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, stream>>>(
+      src, parts, n, scale0);
+  return cudaGetLastError();
 }
 
 // -- mbarriers, named barriers, TMA ------------------------------------------
@@ -281,6 +335,15 @@ inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDa
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// 3-D map (D, T, heads) of contiguous bf16 (heads, T, D) at base; a box is
+// one column block of `rows` rows of one head, swizzled as `Geo<D>`
+template <int D>
+cudaError_t make_tile_map(CUtensorMap* map, const void* base, int heads, int t, int rows) {
+  using G = Geo<D>;
+  return make_map_3d(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, t, heads, G::NB, rows,
+                     G::RB);
 }
 
 // setmaxnreg only moves registers within the block's allocation: a block

@@ -48,10 +48,10 @@ def _operand(dtype):
     TPU rounds f32 operands to bf16 only because bf16 is its default
     matmul precision, while the JAX package on the CPU, PyTorch's own f32
     products (TF32 off) and the quantized model's 1e-5 parity with the
-    JAX package are all exact f32.  On the card the f32 forward reaches
-    the tensor cores without changing that answer: each f32 operand is
-    split into two bf16 parts and three of the four part products are
-    summed in f32.  Every product sums in f32."""
+    JAX package are all exact f32.  On the card the f32 forward and
+    backward reach the tensor cores without changing that answer: each
+    f32 operand is split into two bf16 parts and three of the four part
+    products are summed in f32.  Every product sums in f32."""
     if dtype == torch.bfloat16:
         return lambda x: x.to(torch.bfloat16).float()
     return lambda x: x
@@ -186,42 +186,72 @@ def flash_bwd(q, k, v, out, lse, g, *, causal: bool):
 def _flash_bwd_kernel(q, k, v, out, lse, g, causal: bool):
     g = g.to(q.dtype)
     _check_kernel_args("flash_bwd", q, k, v, g, lse)
-    if any(x.data_ptr() % 16 for x in (q, k, v, g)):   # 16-byte cp.async rows
-        raise ValueError("flash_bwd: q, k, v, g must start on 16-byte boundaries")
-    # delta outside the kernels, as the JAX package computes it outside
-    # Pallas (`_flash_bwd_pallas` :253-255): from the stored out, in f32
-    delta = (g.float() * out.float()).sum(-1)
-    dq = launch_bwd_dq(q, k, v, g, lse, delta, causal)
-    dk, dv = launch_bwd_dkdv(q, k, v, g, lse, delta, causal)
-    return dq, dk, dv
+    if q.dtype == torch.bfloat16:
+        if any(x.data_ptr() % 16 for x in (q, k, v, g)):   # 16-byte cp.async rows
+            raise ValueError("flash_bwd: bf16 q, k, v, g must start on 16-byte boundaries")
+        # delta outside the kernels, as the JAX package computes it outside
+        # Pallas (`_flash_bwd_pallas` :253-255): from the stored out, in f32
+        delta = (g.float() * out.float()).sum(-1)
+        return (launch_bwd_dq(q, k, v, g, lse, delta, causal),
+                *launch_bwd_dkdv(q, k, v, g, lse, delta, causal))
+    out = out.float().contiguous()
+    # f32: the dQ call splits q * scale, k, v and g into ``parts`` and
+    # writes delta from g and out; the dK/dV call reads both
+    parts = bwd_parts(q)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    dq = launch_bwd_dq(q, k, v, g, lse, delta, causal, parts, out=out)
+    return (dq, *launch_bwd_dkdv(q, k, v, g, lse, delta, causal, parts))
 
 
-def _bwd_args(q, k, v, g, lse, delta, causal):
+def bwd_parts(q):
+    """Scratch for the f32 backward's split inputs: (4, 2, BH, T, D) bf16,
+    the hi and lo parts of q * scale, k, v and g in that order."""
+    return torch.empty((4, 2, *q.shape), dtype=torch.bfloat16, device=q.device)
+
+
+def _bwd_args(q, k, v, g, lse, delta, causal, parts, out):
+    """The pointer and size arguments of both backward calls, and the f32
+    split scratch (allocated here when a call splits into none), which the
+    caller holds until the launch is enqueued."""
     bh, t, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    if not bf16 and parts is None:
+        if out is None:
+            raise ValueError("flash_bwd: an f32 call without out reads the split "
+                             "parts and delta of an earlier call; pass them")
+        parts = bwd_parts(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            None if bf16 or out is None else out.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
-    common = (bh, t, d, int(bool(causal)), int(q.dtype == torch.bfloat16),
-              1.0 / math.sqrt(d), kernels.current_stream(q.device))
-    return ptrs, common
+    common = (bh, t, d, int(bool(causal)), int(bf16), 1.0 / math.sqrt(d),
+              kernels.current_stream(q.device))
+    return ptrs, parts, common
 
 
-def launch_bwd_dq(q, k, v, g, lse, delta, causal: bool):
+def launch_bwd_dq(q, k, v, g, lse, delta, causal: bool, parts=None, out=None):
     """Kernel B2 alone on checked CUDA tensors (`flash_bwd` checks them):
-    dq from q, k, v, g in one dtype and the (BH, T) f32 lse and delta."""
-    ptrs, common = _bwd_args(q, k, v, g, lse, delta, causal)
+    dq from q, k, v, g in one dtype and the (BH, T) f32 lse and delta.
+    bf16 reads delta = rowsum(g * out).  f32 reads q * scale, k, v and g
+    as bf16 hi and lo parts from ``parts`` (`bwd_parts`): given the
+    forward's ``out``, the call first writes them there (into new scratch
+    when ``parts`` is None) and writes ``delta``, rowsum(g * out) with g
+    and out split as the kernels split g and V in dP = g V^T; without
+    ``out``, both hold what an earlier call wrote."""
+    ptrs, parts, common = _bwd_args(q, k, v, g, lse, delta, causal, parts, out)
     dq = torch.empty_like(q)
     rc = kernels.library("flash_bwd").dl4j_flash_bwd_dq(
-        *ptrs, dq.data_ptr(), *common)
+        *ptrs, dq.data_ptr(), None if parts is None else parts.data_ptr(), *common)
     kernels.check_launch("flash_bwd_dq", rc)
     return dq
 
 
-def launch_bwd_dkdv(q, k, v, g, lse, delta, causal: bool):
+def launch_bwd_dkdv(q, k, v, g, lse, delta, causal: bool, parts=None, out=None):
     """Kernel B3 alone, as `launch_bwd_dq`: (dk, dv)."""
-    ptrs, common = _bwd_args(q, k, v, g, lse, delta, causal)
+    ptrs, parts, common = _bwd_args(q, k, v, g, lse, delta, causal, parts, out)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = kernels.library("flash_bwd").dl4j_flash_bwd_dkdv(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *common)
+        *ptrs, dk.data_ptr(), dv.data_ptr(), None if parts is None else parts.data_ptr(),
+        *common)
     kernels.check_launch("flash_bwd_dkdv", rc)
     return dk, dv
 

@@ -52,12 +52,13 @@ SIGNATURES = {
         "dl4j_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
     "flash_bwd": {
-        # q, k, v, g, lse, delta, dq, bh, t, d, causal, bf16, sm_scale, stream
-        "dl4j_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P,
+        # q, k, v, g, out, lse, delta, dq, parts, bh, t, d, causal, bf16,
+        # sm_scale, stream
+        "dl4j_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _F, _P],
-        # q, k, v, g, lse, delta, dk, dv, bh, t, d, causal, bf16, sm_scale,
-        # stream
-        "dl4j_flash_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P,
+        # q, k, v, g, out, lse, delta, dk, dv, parts, bh, t, d, causal, bf16,
+        # sm_scale, stream
+        "dl4j_flash_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _P],
     },
     "paged_attention": {

@@ -9,7 +9,10 @@ environment need not have JAX.)
 
 Tolerances: f32 kernels within 2e-4 (flash) and 1e-4 (paged) absolute —
 the same arithmetic in another summation order; the bf16 flash output
-within 1.6e-2, one bf16 rounding of an O(1) value.  The bf16 flash
+within 1.6e-2, one bf16 rounding of an O(1) value.  The f32 flash
+backward (`flash_bwd_dq_split`, `flash_bwd_dkdv_split`: bf16 parts on the
+tensor cores) at every head dim it is built for, and views from a 4-byte
+offset start read as the aligned ones while padded rows raise.  The bf16 flash
 forward (`flash_fwd_wgmma`) against its plain version, which rounds
 Q * scale and P to bf16 where the kernel does: out within 2^-7 of
 max |plain| (one bf16 ulp of the largest element: the kernel rounds P
@@ -165,7 +168,7 @@ def test_bf16_flash_fwd_rejects_views_tma_cannot_read(cuda):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 8e-3)])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("t", [1, 16, 63, 65, 144, 2000])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_kernels_match_plain(cuda, t, d, causal, dtype, tol):
@@ -187,6 +190,36 @@ def test_flash_bwd_kernels_match_plain(cuda, t, d, causal, dtype, tol):
         # reaches 0 only to the f32 cancellation error of dP - delta
         floor = 1e-5 if t == 1 else 0.0
         assert (a.float() - b.float()).abs().max().item() <= tol * scale + floor
+
+
+def test_f32_flash_bwd_rejects_views_tma_cannot_read(cuda):
+    """f32 B2 / B3 read q * scale, k, v and g through TMA maps over the
+    bf16 parts their pre-pass writes, and the pre-pass reads the f32
+    inputs as flat arrays with plain loads: a contiguous view from any
+    4-byte aligned start goes and gives the aligned inputs' bits; padded
+    rows, or a head dim no kernel is built for, raise before a launch."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, go = (torch.randn((2, 64, 32), generator=g, device=cuda) for _ in range(4))
+    out, lse = flash_fwd_plain(q, k, v, causal=True)
+    rows = torch.zeros((2, 64, 36), device=cuda)[..., :32]
+    wide = torch.zeros((2, 64, 48), device=cuda)
+    names = ("flash_bwd_dq", "flash_bwd_dkdv")
+    before = [kernels.launches().get(n, 0) for n in names]
+    args = [q, k, v, out, lse, go]
+    for i in (0, 1, 2, 5):
+        bad = list(args)
+        bad[i] = rows
+        with pytest.raises(ValueError, match="contiguous"):
+            flash_bwd(*bad, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_bwd(wide, wide, wide, wide, lse, wide, causal=True)
+    assert [kernels.launches().get(n, 0) for n in names] == before
+    off = torch.zeros(2 * 64 * 32 + 1, device=cuda)[1:].view(2, 64, 32)   # 4 bytes off
+    off.copy_(q)
+    got = flash_bwd(off, k, v, out, lse, go, causal=True)
+    want = flash_bwd(q, k, v, out, lse, go, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
