@@ -50,7 +50,11 @@ Then the phases:
    timed; the full pool (8 slots x 1008 positions, 504 of the 511 usable
    pages), timed; head dims 16 ... 256 on the serve mix, checked.  Each
    must give the same bits on a second launch, and the idle slot exact
-   zeros.  The Timer's own floor (the event pair alone, and around one
+   zeros.  B4 at the speculative verify's shape (`paged_attention_chunk`:
+   8 slots x 5 rows of the serve mix, row j attending seq_len + j + 1
+   positions, i.e. 40 pseudo-slots over the same pages), f32 and int8
+   pages, within 1e-4, timed, its bound counting each slot's pages once.
+   The Timer's own floor (the event pair alone, and around one
    empty kernel launch) is timed beside them.
 4. train — the full-width flagship (below) trained with Adam (lr 3e-4)
    through the chunked vocab loss on one fixed batch of 4 x 2048 token
@@ -67,17 +71,37 @@ Then the phases:
    d 1024, 8 heads, 8 layers, chunked head, seed 123, bf16 compute) in a
    `GenerationEngine` (8 slots, 16-row pages, 512 pages, 160-wide
    tables): 8 concurrent streams of 32 tokens, one with a 2000-token
-   prompt and one sampled.  Launch counters are zeroed just before and
-   read just after; both kernels must have run.  Then the host time to
+   prompt and one sampled.  The decode step is one CUDA graph replay
+   (captured in the first pass).  Launch counters are zeroed just before
+   and read just after: both kernels must have run, B4 exactly 248 times
+   (31 steps x 8 layers, counted across replays).  Then the host time to
    sample one token from a (1, 32000) row, top-k 50 and top-k 0, with
    the port's sampler and with two yardsticks it does not call.
-6. parity — an f32-compute engine against the port's dense `generate`
+6. spec — speculative decoding on the flagship: the serve engine with
+   ``spec_k`` 4 and the n-gram drafter against a plain engine, the serve
+   prompts with 100 new tokens a stream (the last sampled), one warm-up
+   pass each, then 3 interleaved rounds: tokens/s of each, acceptance,
+   tokens a verify dispatch, verify and plain dispatches, and the
+   launches of the spec engine's first measured pass, which must be
+   exactly 8 a dispatch of the verify's B4 (`paged_attention_chunk`) and
+   of the plain step's.  Then with f32 compute: the spec engine's streams
+   against the plain engine's (agreement >= 0.95, first tokens
+   identical: the parity rule; the byte-identical streams counted, the
+   first divergence's position and top-2 logit gap printed), the same
+   with every draft corrupted (``serving.draft:corrupt:every=1``), a
+   spec engine over int8 pages (>= 0.9 against the f32 pages, first
+   tokens identical: the int8 rule; exactly 8 int8 B4 launches a
+   dispatch), and no page left in use; and the captured plain and verify
+   steps against the eager ones on the same state (8 admitted streams, 3
+   dispatches each): the same logits, bit for bit.
+7. parity — an f32-compute engine against the port's dense `generate`
    on 4 greedy streams: token agreement >= 0.95, first token identical.
-7. int8 — the same streams through an int8-KV engine, gated against
+8. int8 — the same streams through an int8-KV engine, gated against
    the same reference as the JAX package gates int8 pages (>= 0.9).
    serve, parity and int8 make seven measured passes of their streams
-   and print each pass's tokens/s and the medians.
-8. quant — int8 post-training quantization and quantized inference.
+   and print each pass's tokens/s and the medians; their engines' steps
+   are captured graphs too.
+9. quant — int8 post-training quantization and quantized inference.
    Kernel rows first: the dequant-matmul kernel (B5) against
    `dequant_matmul_plain` at the six product shapes (M, K, N) =
    (4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024),
@@ -102,7 +126,7 @@ Then the phases:
    and max |dp| <= 1e-4 of max p.  The unquantized model's bf16
    ``output()`` time and the int8-vs-f32-weights argmax agreement are
    printed as information.
-9. ckpt — the checkpoint zip (`train/checkpoint.py`) on the card.  The
+10. ckpt — the checkpoint zip (`train/checkpoint.py`) on the card.  The
    full-width flagship with its softmax head trains 3 steps (bf16, Adam)
    on the train batch; `ModelSerializer.write_model` (with the updater),
    `verify` and `restore` (built on the card) are timed and the zip's
@@ -119,16 +143,16 @@ Then the phases:
    ``output()`` of the quant phase's 2 x 2048 ids bit for bit, with
    exactly 49 B5 and 8 B1 launches in the restored model's call.  The
    zips go to ``build/ckpt/`` and are removed after.
-10. paged (only when asked for, and part of kernels) — B4's timed rows
+11. paged (only when asked for, and part of kernels) — B4's timed rows
    and the Timer's floor alone.  stages (only when asked for) — B4 built
    with time stamps at each stage of a block's work, on the same inputs:
    where its time goes (`stages_case`).
-11. profile (only when asked for) — two training steps, the serve pass,
+12. profile (only when asked for) — two training steps, the serve pass,
    the int8-KV engine's streams and two quantized ``output()`` calls
    under torch.profiler: device busy share, device time by kernel, and
    the paged-attention kernel's own device time in the serve and int8
    passes.
-12. report — one ``{"kernels": [...]}`` JSON line, then the last line
+13. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -146,7 +170,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "train", "train_f32", "serve", "parity", "int8", "quant", "ckpt")
+PHASES = ("kernels", "train", "train_f32", "serve", "spec", "parity", "int8", "quant",
+          "ckpt")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -214,6 +239,8 @@ PAGED_DIMS = tuple(range(16, 257, 16))       # every instantiated head dim
 # idle slot), and the full pool (504 of the 511 usable pages, 8 x 1008
 # positions: ~66 MB of f32 K/V, past the 50 MB L2)
 PAGED_MIXES = {"serve": [2017, 20, 150, 300, 5, 64, 0, 90], "full_pool": [1008] * 8}
+# the speculative verify: k drafts a stream, so C = k + 1 rows a slot
+SPEC_K = 4
 # ragged in M, K and N for the tensor-core route, whose TMA loads need N a
 # multiple of 16 (72 is not: that shape takes the rows route alone)
 DM_RAGGED_TMA = (200, 100, 48)
@@ -632,6 +659,59 @@ def paged_case(torch, timer, quant: bool, dh=D_MODEL // HEADS, mix="serve"):
     return row
 
 
+def chunk_case(torch, timer, quant: bool):
+    """B4 at the verify's shape through `paged_attention_chunk` (S x C
+    pseudo-slots, each slot's table row repeated C times) against
+    `paged_attention_chunk_plain`, over the serve mix with each slot's
+    pages holding C more rows; a second launch must give the same bits,
+    the idle slot exact zeros.  The bound counts each slot's K/V rows
+    once, though the pseudo-slots read them C times."""
+    from deeplearning4j_tpu_torch.ops.paged_attention import (
+        paged_attention_chunk,
+        paged_attention_chunk_plain,
+    )
+
+    s, h, dh, c = ENGINE["slots"], HEADS, D_MODEL // HEADS, SPEC_K + 1
+    ps, mp = ENGINE["page_size"], ENGINE["max_pages_per_seq"]
+    lens = PAGED_MIXES["serve"]
+    _, kp, vp, tbl, seq, ksc, vsc = paged_inputs(torch, quant, dh, "serve")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((s, c, h, dh), generator=g, device="cuda")
+    attend = torch.where(seq[:, None] > 0,
+                         seq[:, None] + torch.arange(1, c + 1, device="cuda"), 0).int()
+
+    def fn():
+        return paged_attention_chunk(q, kp, vp, tbl, attend, k_scale=ksc, v_scale=vsc)
+
+    out, again = fn(), fn()
+    ref = paged_attention_chunk_plain(q, kp, vp, tbl, attend, ksc, vsc)
+    torch.cuda.synchronize()
+    name = "paged_attention_chunk_int8" if quant else "paged_attention_chunk"
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: a second launch gave other bits")
+    if any(out[i].abs().max().item() != 0.0 for i, n in enumerate(lens) if n == 0):
+        raise AssertionError(f"{name}: idle slot output is not exact zero")
+    uniq = sum(n + c for n in lens if n)            # each slot's rows, once
+    rows = int(attend.sum())                        # what the rows attend
+    eb = kp.element_size()
+    n_bytes = (2 * q.numel() * 4 + 2 * uniq * h * dh * eb
+               + (2 * uniq * h * 4 if quant else 0)
+               + sum(-(-(n + c) // ps) for n in lens if n) * 4 + s * c * 4)
+    n_ops = 4 * rows * h * dh + (2 * rows * h * dh if quant else 0)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
+    return {
+        "name": name, "kernel": "paged_attention_chunk", "dtype": "int8" if quant else "f32",
+        "mix": "verify", "shape": [s, c, h, dh, ps, mp], "seq_lens": lens,
+        "max_abs_err": (out - ref).abs().max().item(), "tol": TOL["paged_attention_fwd"],
+        "second_launch_identical": True,
+        "ms": timer(fn),
+        "plain_ms": timer(lambda: paged_attention_chunk_plain(q, kp, vp, tbl, attend,
+                                                              ksc, vsc)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "clean_l2_ms": timer(fn, clean=True), "host_ms": host_ms(torch, fn),
+    }
+
+
 def host_ms(torch, fn, calls: int = 200) -> float:
     """Host milliseconds a call spends enqueueing ``fn`` (no sync between
     calls; the card runs behind)."""
@@ -685,6 +765,12 @@ def phase_paged(torch, timer):
     for comparing two trees."""
     rows = [paged_case(torch, timer, quant, mix=mix)
             for mix in PAGED_MIXES for quant in (False, True)]
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
+
+    if hasattr(pa, "paged_attention_chunk"):
+        rows += [chunk_case(torch, timer, quant) for quant in (False, True)]
+    else:           # a --package-root tree from before the verify
+        log("[paged] no paged_attention_chunk in this tree: verify rows skipped")
     return check_rows("paged", rows), timer_floor(torch, timer)
 
 
@@ -1141,6 +1227,9 @@ def _serve_pass(torch, np, eng, seed, max_new=32):
     }
     for k in ("decode_steps", "decode_seconds", "prefills", "prefill_seconds"):
         res[k] = st[k] - base[k]
+    # graphs captured during the pass (None: a tree without captured steps)
+    res["graph_captures"] = (st["graph_captures"] - base["graph_captures"]
+                             if "graph_captures" in st else None)
     return prompts, outs, res
 
 
@@ -1201,10 +1290,17 @@ def phase_serve(torch, np, kernels):
             raise AssertionError(eng.kv.leak_check())
     finally:
         eng.stop()
-    log(f"[serve] launches in the measured pass: {counts}")
+    log(f"[serve] launches in the measured pass: {counts}; graph captures "
+        f"{res['graph_captures']}")
     for name in ("flash_fwd", "paged_attention_fwd"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on the main path: {counts}")
+    # one B4 launch a layer a decode step, counted across graph replays
+    want = LAYERS * (32 - 1)
+    if res["decode_steps"] != 32 - 1 or counts["paged_attention_fwd"] != want:
+        raise AssertionError(f"{res['decode_steps']} decode steps and "
+                             f"{counts['paged_attention_fwd']} B4 launches in the "
+                             f"measured pass, want 31 and {want}")
     # the long stream's first token against the dense reference (the same
     # prefill through the same kernels)
     dense_first = int(generate(model, prompts[0][None], 1)[0, -1])
@@ -1275,6 +1371,235 @@ def sample_cost(torch):
     log(f"[serve] sampling a token from a (1, {VOCAB}) row, host ms (median of "
         "5 x 20, synced): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
     return out
+
+
+# -- spec phase ---------------------------------------------------------------------
+
+SPEC_MAX_NEW, SPEC_ROUNDS = 100, 3
+SPEC_GATE = 0.95        # the parity phase's rule, for f32 spec against plain
+
+
+def _spec_pass(torch, eng, prompts, max_new=SPEC_MAX_NEW):
+    """The serve prompts (the last sampled, as in the serve phase) through
+    ``eng``: outputs, wall seconds, and the engine's counters for the
+    pass."""
+    base = eng.stats()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new) for p in prompts[:-1]]
+    reqs.append(eng.submit(prompts[-1], max_new, temperature=0.8, top_k=50, seed=11))
+    outs = [r.result(timeout=600) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    res = {"wall_s": wall, "tokens_per_s": len(reqs) * max_new / wall}
+    for k in ("decode_steps", "decode_seconds", "prefills", "prefill_seconds"):
+        res[k] = st[k] - base[k]
+    for k in ("drafted", "accepted", "rejected", "bonus", "verify_dispatches",
+              "plain_dispatches", "fallbacks"):
+        res[k] = st["speculative"][k] - base["speculative"][k]
+    res["acceptance_ratio"] = res["accepted"] / res["drafted"] if res["drafted"] else 0.0
+    res["per_stream_drafted_accepted"] = [[r.spec_drafted, r.spec_accepted] for r in reqs]
+    # a verify dispatch emits its accepted drafts and one token of its own
+    res["tokens_per_verify_dispatch"] = (
+        (res["accepted"] + res["bonus"]) / res["verify_dispatches"]
+        if res["verify_dispatches"] else 0.0)
+    return outs, res
+
+
+def _first_divergence(torch, np, model, prompts, outs, refs):
+    """Position and top-2 logit gap of the first token where a stream of
+    ``outs`` leaves its reference: the reference's logits there, from a
+    dense forward of the prompt and the reference's tokens before it."""
+    from deeplearning4j_tpu_torch.ops.generation import _plan
+
+    for i, (p, o, r) in enumerate(zip(prompts, outs, refs)):
+        o, r = np.asarray(o), np.asarray(r)
+        diff = np.flatnonzero(o != r)
+        if not diff.size:
+            continue
+        at = int(diff[0])
+        head = _plan(model)[3]
+        params = model.compute_params()
+        ids = torch.from_numpy(r[None, :at].astype(np.int64)).cuda()
+        with torch.no_grad():
+            h = model._forward(params, ids)[0, -1]
+            logits = head.logits(params[model.conf.layers[-1].name], h).float()
+        top = torch.topk(logits, 2).values
+        return {"stream": i, "position": at - len(p), "token": int(o[at]),
+                "reference_token": int(r[at]), "top2_gap": float(top[0] - top[1])}
+    return None
+
+
+def graph_check(torch, np, model, kernels):
+    """The captured plain and verify steps against the eager ones, on the
+    same state: 8 streams admitted into a spec engine (not started), 3
+    dispatches of each width; logits and argmax bit for bit, and each
+    replay counting 8 launches of its B4 route."""
+    from deeplearning4j_tpu_torch.serving.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    eng = GenerationEngine(model, GenerationConfig(**ENGINE, spec_k=SPEC_K))
+    rng = np.random.default_rng(6)
+    for slot, p in enumerate(_prompts(np, 4, SERVE_LENGTHS)):
+        eng.submit(p, 64)
+        eng._admit_to_slot(eng._loop_gen, slot, eng.queue.take_batch(1, 0.0, eng._stop)[0])
+    res = {}
+    for c, name in ((1, "paged_attention_fwd"), (SPEC_K + 1, "paged_attention_chunk")):
+        same, counted = True, []
+        for _ in range(3):
+            toks = np.concatenate([eng._last_tok[:, None],
+                                   rng.integers(0, VOCAB, (ENGINE["slots"], c - 1))],
+                                  axis=1).astype(np.int32)
+            args = (c, eng._page_tbl.copy(), eng._seq_lens.copy(), toks)
+            logits, greedy = (t.clone() for t in eng._program_eager(*args))
+            before = kernels.launches().get(name, 0)
+            got, got_greedy = eng._program_captured(*args)
+            torch.cuda.synchronize()
+            counted.append(kernels.launches().get(name, 0) - before)
+            same &= bool(torch.equal(got, logits) and torch.equal(got_greedy, greedy))
+            nxt = greedy.view(ENGINE["slots"], c)[:, 0].cpu().numpy()
+            eng._seq_lens += 1
+            eng._last_tok[:] = nxt
+        res[f"c{c}"] = {"bit_identical": same, "launches_per_dispatch": counted}
+        log(f"[spec] graph check, {c} row(s) a slot: captured == eager bit for bit: "
+            f"{same}; {name} launches a dispatch {counted} (the first includes the "
+            "capture's warm-up)")
+        if not same or counted[1:] != [LAYERS] * 2:
+            raise AssertionError(f"captured step ({c} rows) differs from the eager one "
+                                 f"or miscounts its launches: {res}")
+    for req in eng._slot_req:
+        eng.kv.release(req.rid)
+    return res
+
+
+def phase_spec(torch, np, kernels):
+    """Speculative decoding on the flagship; see the module docstring."""
+    from deeplearning4j_tpu_torch.runtime import faults
+    from deeplearning4j_tpu_torch.serving.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    prompts = _prompts(np, 4, SERVE_LENGTHS)
+    model = _flagship(torch)
+    plain = GenerationEngine(model, GenerationConfig(**ENGINE, spec_k=0)).start()
+    spec = GenerationEngine(model, GenerationConfig(**ENGINE, spec_k=SPEC_K,
+                                                    spec_drafter="ngram")).start()
+    res = {"spec_k": SPEC_K, "drafter": "ngram", "max_new_tokens": SPEC_MAX_NEW}
+    try:
+        _spec_pass(torch, plain, prompts)                  # warm-up: every shape
+        _spec_pass(torch, spec, prompts)
+        rounds = {"plain": [], "spec": []}
+        for r in range(SPEC_ROUNDS):
+            rounds["plain"].append(_spec_pass(torch, plain, prompts)[1])
+            if r == 0:
+                kernels.reset_launches()
+            outs, one = _spec_pass(torch, spec, prompts)
+            if r == 0:
+                counts = kernels.launches()
+                bf16_outs = outs
+            rounds["spec"].append(one)
+        for eng in (plain, spec):
+            if eng.kv.leak_check() is not None or eng.kv.used_pages:
+                raise AssertionError(f"pages left after the passes: {eng.kv.stats()}")
+    finally:
+        plain.stop()
+        spec.stop()
+    first = rounds["spec"][0]
+    res.update(rounds=rounds, launches=counts,
+               plain_tokens_per_s=[x["tokens_per_s"] for x in rounds["plain"]],
+               spec_tokens_per_s=[x["tokens_per_s"] for x in rounds["spec"]])
+    res["median_plain_tokens_per_s"] = statistics.median(res["plain_tokens_per_s"])
+    res["median_spec_tokens_per_s"] = statistics.median(res["spec_tokens_per_s"])
+    log(f"[spec] bf16, spec_k {SPEC_K} ngram, {len(prompts)} streams x {SPEC_MAX_NEW} "
+        f"tokens: plain {res['median_plain_tokens_per_s']:.1f} tokens/s ("
+        + ", ".join(f"{t:.1f}" for t in res["plain_tokens_per_s"]) + "), spec "
+        f"{res['median_spec_tokens_per_s']:.1f} tokens/s ("
+        + ", ".join(f"{t:.1f}" for t in res["spec_tokens_per_s"]) + ")")
+    log(f"[spec] first measured spec pass: drafted {first['drafted']}, accepted "
+        f"{first['accepted']} ({first['acceptance_ratio']:.4f}), bonus {first['bonus']}, "
+        f"{first['tokens_per_verify_dispatch']:.4f} tokens a verify dispatch, "
+        f"{first['verify_dispatches']} verify and {first['plain_dispatches']} plain "
+        f"dispatches, decode {first['decode_seconds']:.3f}s; launches {counts}; per "
+        f"stream (drafted, accepted) {first['per_stream_drafted_accepted']}")
+    if not (first["drafted"] > 0 and first["accepted"] > 0
+            and first["verify_dispatches"] > 0):
+        raise AssertionError(f"speculative decode did not run: {first}")
+    if (counts.get("paged_attention_chunk", 0) != LAYERS * first["verify_dispatches"]
+            or counts.get("paged_attention_fwd", 0) != LAYERS * first["plain_dispatches"]):
+        raise AssertionError(f"B4 launches {counts} do not match {LAYERS} a layer for "
+                             f"{first['verify_dispatches']} verify and "
+                             f"{first['plain_dispatches']} plain dispatches")
+    del model, plain, spec
+    torch.cuda.empty_cache()
+
+    # f32 compute: the spec engine against the plain engine, the parity rule
+    model = _flagship(torch, bf16=False)
+    plain = GenerationEngine(model, GenerationConfig(**ENGINE, spec_k=0)).start()
+    spec = GenerationEngine(model, GenerationConfig(**ENGINE, spec_k=SPEC_K)).start()
+    try:
+        refs, _ = _spec_pass(torch, plain, prompts)
+        for tag in ("f32", "f32_corrupt"):
+            if tag == "f32_corrupt":
+                faults.arm("serving.draft:corrupt:every=1")
+            try:
+                outs, one = _spec_pass(torch, spec, prompts)
+            finally:
+                faults.disarm()
+            agree, first_ok = _agreement(np, prompts, outs, refs)
+            same = sum(bool(np.array_equal(o, r)) for o, r in zip(outs, refs))
+            div = _first_divergence(torch, np, model, prompts, outs, refs)
+            res[tag] = {"agreement": agree, "first_token_identical": first_ok,
+                        "byte_identical_streams": same, "first_divergence": div,
+                        **{k: one[k] for k in ("drafted", "accepted", "acceptance_ratio",
+                                               "verify_dispatches", "plain_dispatches",
+                                               "tokens_per_s")}}
+            log(f"[spec] {tag}: agreement with the plain engine {agree:.4f} (gate "
+                f"{SPEC_GATE}), first tokens identical {first_ok}, byte-identical "
+                f"streams {same} of {len(prompts)}, first divergence {div}; drafted "
+                f"{one['drafted']}, accepted {one['accepted']}, "
+                f"{one['verify_dispatches']} verify dispatches")
+            if agree < SPEC_GATE or not first_ok or one["verify_dispatches"] <= 0:
+                raise AssertionError(f"f32 spec engine ({tag}) fails the parity rule")
+            if tag == "f32_corrupt" and one["acceptance_ratio"] >= 0.5:
+                raise AssertionError(f"corrupt drafts accepted: {one}")
+        # int8 pages: the verify's int8 B4, held as the int8 phase holds
+        # int8 pages (>= 0.9 against f32 pages), launches counted
+        spec8 = GenerationEngine(model, GenerationConfig(**ENGINE, kv_dtype="int8",
+                                                         spec_k=SPEC_K)).start()
+        try:
+            _spec_pass(torch, spec8, prompts)              # meet every shape
+            kernels.reset_launches()
+            outs, one = _spec_pass(torch, spec8, prompts)
+            counts8 = kernels.launches()
+        finally:
+            spec8.stop()
+        agree, first_ok = _agreement(np, prompts, outs, refs)
+        res["int8"] = {"agreement": agree, "first_token_identical": first_ok,
+                       "launches": counts8, **one}
+        log(f"[spec] int8 pages, f32 compute: agreement with the f32-page plain engine "
+            f"{agree:.4f} (gate 0.9), first tokens identical {first_ok}; drafted "
+            f"{one['drafted']}, accepted {one['accepted']}, {one['verify_dispatches']} "
+            f"verify and {one['plain_dispatches']} plain dispatches; launches {counts8}")
+        if agree < 0.9 or not first_ok or one["verify_dispatches"] <= 0:
+            raise AssertionError("int8-page spec engine fails the int8 rule")
+        if (counts8.get("paged_attention_chunk_int8", 0) != LAYERS * one["verify_dispatches"]
+                or counts8.get("paged_attention_fwd_int8", 0)
+                != LAYERS * one["plain_dispatches"]):
+            raise AssertionError(f"int8 B4 launches {counts8} do not match the dispatches")
+        for eng in (plain, spec, spec8):
+            if not eng.drain(60) or eng.kv.leak_check() is not None or eng.kv.used_pages:
+                raise AssertionError(f"pages left after the f32 passes: {eng.kv.stats()}")
+    finally:
+        plain.stop()
+        spec.stop()
+    res["bf16_vs_f32_plain_agreement"] = _agreement(np, prompts, bf16_outs, refs)[0]
+    res["graph_check"] = graph_check(torch, np, model, kernels)
+    del model, plain, spec
+    torch.cuda.empty_cache()
+    return res
 
 
 def _agreement(np, prompts, outs, refs):
@@ -1857,6 +2182,9 @@ def main(argv=None) -> int:
     if "serve" in phases:
         report["serve"] = phase_serve(torch, np, kernels)
         done("serve")
+    if "spec" in phases:
+        report["spec"] = phase_spec(torch, np, kernels)
+        done("spec")
     if "profile" in phases:
         report["profile"] = phase_profile(torch, np)
         done("profile")
@@ -1899,6 +2227,9 @@ def main(argv=None) -> int:
         (row("flash_bwd_dq", dtype="f32", shape=train_bhtd), "train_f32"),
         (row("flash_bwd_dkdv", dtype="f32", shape=train_bhtd), "train_f32"),
         (row("paged_attention_fwd", dtype="f32", mix="serve"), "serve"),
+        # the verify's B4 on pseudo-slots
+        (row("paged_attention_chunk", dtype="f32", mix="verify"), "spec"),
+        (row("paged_attention_chunk_int8", dtype="int8", mix="verify"), "spec/int8"),
         (row("paged_attention_fwd_int8", dtype="int8", mix="serve"), "int8"),
         # the W1 product of the quantized flagship
         (row("dequant_matmul", dtype="int8",
@@ -1915,6 +2246,10 @@ def main(argv=None) -> int:
                                 "deeplearning4j_tpu/ops/paged_attention.py:121"),
         "paged_attention_fwd_int8": ("deeplearning4j_tpu_torch/csrc/paged_attention.cu",
                                      "deeplearning4j_tpu/ops/paged_attention.py:121"),
+        "paged_attention_chunk": ("deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+                                  "deeplearning4j_tpu/ops/paged_attention.py:121"),
+        "paged_attention_chunk_int8": ("deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+                                       "deeplearning4j_tpu/ops/paged_attention.py:121"),
         "dequant_matmul": ("deeplearning4j_tpu_torch/csrc/dequant_matmul.cu",
                            "deeplearning4j_tpu/ops/dequant_matmul.py:146"),
     }
@@ -1954,15 +2289,20 @@ def main(argv=None) -> int:
                                 "products, each column block's sum added in f32 registers",
         "paged_attention_fwd": B4_DESIGN,
         "paged_attention_fwd_int8": B4_DESIGN,
+        "paged_attention_chunk": B4_DESIGN + "; the verify's chunk as S x C pseudo-slots, "
+                                 "each slot's table row repeated C times",
     }
     for r, path in main_rows:
         if r is None:
             continue
         name = r["name"]
         src, replaces = sources[name]
+        ran = report
+        for part in path.split("/"):          # "spec/int8": a run inside a phase
+            ran = ran.get(part, {})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": report.get(path, {}).get("launches", {}).get(name, 0),
+            "launches": ran.get("launches", {}).get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

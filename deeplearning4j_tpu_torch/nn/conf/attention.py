@@ -32,10 +32,11 @@ def sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
     """Sinusoidal encoding rows for positions ``pos`` (N,) -> (N, d) f32:
     sin on even columns, cos on odd ones, the JAX package's formula with
     its f32 constants (``-log(10000) / d`` is taken in f32 there too)."""
-    c = -torch.log(torch.tensor(10000.0, dtype=torch.float32)) / d
+    # the f32 constant as a Python float (exact): no host-to-device copy,
+    # so a CUDA graph can capture the rows
+    c = float(-torch.log(torch.tensor(10000.0, dtype=torch.float32)) / d)
     div = torch.exp(
-        torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
-        * c.to(pos.device))
+        torch.arange(0, d, 2, dtype=torch.float32, device=pos.device) * c)
     ang = pos.to(torch.float32)[:, None]
     pe = torch.zeros((pos.shape[0], d), dtype=torch.float32, device=pos.device)
     pe[:, 0::2] = torch.sin(ang * div)

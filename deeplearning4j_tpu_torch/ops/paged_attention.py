@@ -10,8 +10,16 @@ pool page holding positions ``[j*page_size, (j+1)*page_size)`` of slot
 launches ``csrc/paged_attention.cu`` (f32 or int8 pages) or raises; on a
 CPU tensor it runs `paged_attention_plain`, the JAX package's
 gather-then-attend reference (`_xla_paged_attention`), whose masked
-positions contribute exact zeros.  The speculative-verify chunk variant
-(`paged_attention_chunk`) arrives with speculative decoding.
+positions contribute exact zeros.
+
+`paged_attention_chunk` is the speculative verify's variant: a chunk of
+C query rows per slot, row ``j`` attending ``attend_lens[s, j]``
+positions.  On the CPU it runs `paged_attention_chunk_plain` (the JAX
+package's `_xla_paged_attention_chunk`: one gather per slot shared by
+the C rows); on a CUDA tensor it expands the chunk into S x C
+pseudo-slots (each slot's table row repeated C times, the lengths
+flattened) and launches the same kernel, as the JAX package's Pallas
+route does — no new kernel.
 
 The kernel splits each slot's positions into chunks of
 ``pages_per_chunk`` pages and each slot's heads into groups, as
@@ -25,8 +33,10 @@ synchronises.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 
 import torch
 
@@ -98,6 +108,31 @@ def paged_attention_plain(q, k_pages, v_pages, page_tbl, seq_lens,
     return torch.einsum("shl,slhd->shd", p, v)
 
 
+def paged_attention_chunk_plain(q, k_pages, v_pages, page_tbl, attend_lens,
+                                k_scale=None, v_scale=None):
+    """Chunk-native gather-then-attend in f32: each slot's pages gathered
+    once, all C rows attend against them.  q: (S, C, H, Dh);
+    ``attend_lens``: (S, C).  A row with ``attend_lens == 0`` gives zeros.
+    Returns (S, C, H, Dh)."""
+    dh = q.shape[-1]
+    k = _gather_pages(k_pages, page_tbl).float()
+    v = _gather_pages(v_pages, page_tbl).float()
+    if k_scale is not None:
+        k = k * _gather_pages(k_scale, page_tbl)[..., None]
+    if v_scale is not None:
+        v = v * _gather_pages(v_scale, page_tbl)[..., None]
+    ell = k.shape[1]
+    scores = torch.einsum("schd,slhd->schl", q.float(), k) / math.sqrt(dh)
+    lens = attend_lens.long()
+    live = (torch.arange(ell, device=q.device)[None, None, None, :]
+            < lens[:, :, None, None])
+    scores = scores.masked_fill(~live, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    # an idle row (attend_len 0) softmaxes a row of -inf into nans
+    p = torch.where(lens[:, :, None, None] > 0, p, torch.zeros_like(p))
+    return torch.einsum("schl,slhd->schd", p, v)
+
+
 def _check(q, k_pages, v_pages, page_tbl, seq_lens, k_scale, v_scale):
     if q.dim() != 3 or q.dtype != torch.float32:
         raise TypeError(f"q must be (S, H, Dh) f32, got {tuple(q.shape)} {q.dtype}")
@@ -139,13 +174,48 @@ def paged_attention_fwd(q, k_pages, v_pages, page_tbl, seq_lens,
 
 
 _TICKETS: dict = {}
+_SCOPE = threading.local()
+
+
+def tickets_needed(slots: int, heads: int, head_dim: int, page_size: int,
+                   quant: bool) -> int:
+    """Ticket counters a launch over ``slots`` (pseudo-)slots uses: one
+    a (slot, head group)."""
+    return slots * (heads // split_plan(heads, head_dim, page_size, quant)[0])
+
+
+@contextlib.contextmanager
+def ticket_scope(tickets):
+    """Launches made by this thread inside the scope use ``tickets`` (a
+    zeroed int32 tensor of at least `tickets_needed`) instead of their
+    stream's: a captured CUDA graph keeps counters of its own, which no
+    eager launch and no other graph touches."""
+    prev = getattr(_SCOPE, "tickets", None)
+    _SCOPE.tickets = tickets
+    try:
+        yield tickets
+    finally:
+        _SCOPE.tickets = prev
 
 
 def _tickets(device, stream, n: int):
     """The ticket counters of (device, stream): zeros once, and zero again
     after every launch (the last block of a slot's head group resets its
     own), so no call pays for a memset.  Launches on one stream run in
-    order, so none finds another's counts."""
+    order, so none finds another's counts.  Inside `ticket_scope`, the
+    scope's counters; while this thread captures a CUDA graph, nothing
+    else (a graph must not bake in counters that a later, larger launch
+    on its stream would replace and free)."""
+    scoped = getattr(_SCOPE, "tickets", None)
+    if scoped is not None:
+        if scoped.numel() < n or scoped.device != device:
+            raise ValueError(f"paged_attention: the scope's {scoped.numel()} "
+                             f"ticket counters on {scoped.device} do not cover "
+                             f"{n} on {device}")
+        return scoped
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("paged_attention: a CUDA graph capture needs ticket "
+                           "counters of its own (ticket_scope)")
     t = _TICKETS.get((device, stream))
     if t is None or t.numel() < n:
         t = _TICKETS[(device, stream)] = torch.zeros(max(n, 256), dtype=torch.int32,
@@ -153,7 +223,7 @@ def _tickets(device, stream, n: int):
     return t
 
 
-def _paged_attention_kernel(tensors, quant: bool):
+def _paged_attention_kernel(tensors, quant: bool, name: str = "paged_attention_fwd"):
     q, k_pages, v_pages, page_tbl, seq_lens = tensors[:5]
     k_scale, v_scale = tensors[5:] if quant else (None, None)
     s, h, dh = q.shape
@@ -198,8 +268,7 @@ def _paged_attention_kernel(tensors, quant: bool):
         ws.data_ptr(), tickets.data_ptr(),
         s, h, dh, k_pages.shape[0], ps, mp, hg, ppc,
         int(quant), 1.0 / math.sqrt(dh), stream)
-    kernels.check_launch(
-        "paged_attention_fwd_int8" if quant else "paged_attention_fwd", rc)
+    kernels.check_launch(f"{name}_int8" if quant else name, rc)
     return out
 
 
@@ -213,3 +282,35 @@ def paged_attention(q, k_pages, v_pages, page_tbl, seq_lens, *,
         raise ValueError("int8 pages need BOTH k_scale and v_scale")
     return paged_attention_fwd(q, k_pages, v_pages, page_tbl, seq_lens,
                                k_scale, v_scale)
+
+
+def paged_attention_chunk(q, k_pages, v_pages, page_tbl, attend_lens, *,
+                          k_scale=None, v_scale=None):
+    """Speculative verify-once attention: a C-row chunk per slot against
+    the paged pools.  ``q``: (S, C, H, Dh) f32 — row ``j`` of slot ``s``
+    is the query at position ``seq_len + j``; ``attend_lens``: (S, C)
+    int32, ``seq_len + j + 1`` for a live row (the caller writes all C
+    K/V rows first, so row ``j`` sees what ``j`` plain steps would have
+    seen) and 0 for an idle one.  Returns (S, C, H, Dh) f32.
+
+    On a CUDA tensor the kernel runs on S x C pseudo-slots and counts as
+    ``paged_attention_chunk`` (``_int8``); it raises rather than fall
+    back.  Each slot's pages are read C times there: a chunk-native
+    kernel is a later item."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 pages need BOTH k_scale and v_scale")
+    if q.dim() != 4:
+        raise TypeError(f"q must be (S, C, H, Dh), got {tuple(q.shape)}")
+    s, c, h, dh = q.shape
+    if attend_lens.shape != (s, c) or attend_lens.dtype != torch.int32:
+        raise ValueError(f"attend_lens must be ({s}, {c}) int32")
+    # pseudo-slots: row s * C + j of the expanded table is slot s's row
+    tbl = page_tbl[:, None, :].expand(s, c, page_tbl.shape[-1]).reshape(s * c, -1)
+    tensors = _check(q.reshape(s * c, h, dh), k_pages, v_pages, tbl,
+                     attend_lens.reshape(s * c), k_scale, v_scale)
+    if kernels.route(q.device) == "plain":
+        return paged_attention_chunk_plain(q, k_pages, v_pages, page_tbl,
+                                           attend_lens, k_scale, v_scale)
+    out = _paged_attention_kernel(tensors, k_scale is not None,
+                                  name="paged_attention_chunk")
+    return out.reshape(s, c, h, dh)

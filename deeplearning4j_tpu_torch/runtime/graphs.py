@@ -1,0 +1,63 @@
+"""Fixed-shape programs captured as CUDA graphs — the port's counterpart
+of `jax.jit` for the generation engine's decode and verify steps.
+
+A decode step is some 340 small launches whose host cost dwarfs their
+device time.  `CapturedProgram` runs ``fn(*inputs)`` once eagerly on a
+side stream (cuBLAS handles, kernel attributes and workspaces come into
+being there), captures it as a CUDA graph on that stream, and from then
+on every call is one `replay`.
+
+- ``inputs`` are static device tensors the graph reads: the caller
+  fills them (``copy_``, outside the graph) before each replay.  A
+  pageable host-to-device copy cannot be captured, so nothing inside
+  ``fn`` may copy from the host.
+- `outputs` are the tensors ``fn`` returned at capture; every replay
+  overwrites them in place.
+- ``keep`` holds what the graph read at capture (parameter tensors,
+  kernel scratch): a graph replayed over freed memory reads garbage, so
+  the owner re-captures when those objects change, and holds them until
+  then.
+- Capture runs with ``capture_error_mode="thread_local"``: other threads
+  may use the card meanwhile.  It leaves the allocator's cache as it is.
+- Launch counters: the kernels a capture enqueues are held, not counted
+  (they do not run then), and each replay counts them once.
+- Nothing falls back: a failing capture or replay raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_tpu_torch.runtime import kernels
+
+
+class CapturedProgram:
+    """``fn(*inputs)`` as one CUDA graph; see the module docstring."""
+
+    def __init__(self, fn, inputs, *, keep=()):
+        self.inputs = tuple(inputs)
+        self.keep = tuple(keep)
+        device = self.inputs[0].device
+        self.stream = torch.cuda.Stream(device)
+        current = torch.cuda.current_stream(device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            fn(*self.inputs)               # warm-up: it runs, and counts
+        # capture_begin / capture_end, not the `torch.cuda.graph` context:
+        # that one empties the allocator's cache first, and every eager
+        # allocation after it (the next prefills) pays cudaMalloc again
+        self.graph = torch.cuda.CUDAGraph()
+        with kernels.holding_launches() as held, torch.cuda.stream(self.stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.outputs = fn(*self.inputs)
+            finally:
+                self.graph.capture_end()
+        self.held = held
+        current.wait_stream(self.stream)
+
+    def replay(self):
+        """Run the graph on the current stream; returns `outputs`."""
+        self.graph.replay()
+        kernels.count_replay(self.held)
+        return self.outputs

@@ -17,11 +17,15 @@ tests import every module.
 Launch counters: every kernel wrapper calls `check_launch` right after
 its kernel launched, and nowhere else, so a run can prove that its main
 path went through the kernels (`reset_launches` before, `launches`
-after).
+after).  A CUDA graph capture enqueues kernels without running them:
+inside `holding_launches` this thread's launches are held, not counted,
+and every replay of the graph counts them (`count_replay`), so the
+counters still say how many times each kernel ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -191,11 +195,39 @@ def current_stream(device: torch.device) -> int:
 
 def check_launch(name: str, rc: int) -> None:
     """Raise on a non-zero ``cudaGetLastError`` from a launch, else count
-    the launch."""
+    the launch (or hold it, inside `holding_launches`)."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    held = getattr(_HOLD, "launches", None)
+    if held is not None:
+        held[name] = held.get(name, 0) + 1
+        return
     with _COUNT_LOCK:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+_HOLD = threading.local()
+
+
+@contextlib.contextmanager
+def holding_launches():
+    """Launches this thread makes inside the block go into the yielded
+    dict instead of the counters: a graph capture enqueues kernels that
+    do not run until the graph replays."""
+    if getattr(_HOLD, "launches", None) is not None:
+        raise RuntimeError("holding_launches does not nest")
+    _HOLD.launches = held = {}
+    try:
+        yield held
+    finally:
+        _HOLD.launches = None
+
+
+def count_replay(held: dict) -> None:
+    """Count the launches a captured graph holds: it ran them once."""
+    with _COUNT_LOCK:
+        for name, n in held.items():
+            _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
 
 
 def launches() -> dict[str, int]:

@@ -18,12 +18,37 @@
 - **the ladder** — admission is a bounded queue (429 when full) and
   KV-pool exhaustion is an explicit ``kv_exhausted`` 429.
 
+- **speculative decoding** (``spec_k`` > 0) — a drafter
+  (`serving/speculative.py`) proposes up to k tokens a stream; one
+  verify-once dispatch scores the (k + 1)-row chunk of every slot
+  through the same pools (`ops.paged_attention.paged_attention_chunk`,
+  the paged-attention kernel on S x C pseudo-slots on CUDA) and emits
+  the accepted prefix plus the target's own token at the first
+  mismatch.  Row ``j`` samples with the plain step's key
+  ``fold_in(key(seed), gen_count + j)``, so the output is plain
+  decode's token for token.  A drafter that raises latches its stream
+  to plain decode; the ``serving.draft`` and ``serving.prefill`` fault
+  sites (`runtime/faults.py`) make those paths provokable.
+- **the prefill handoff** — `prefill_detached` runs only the prefill and
+  returns K/V as host f32 arrays with the first token and the sampling
+  state; `join_prefilled` on another engine (f32 or int8 pages) decodes
+  the stream on from there.
+- **captured steps** — on CUDA the plain step and the verify step are
+  each one CUDA graph (`runtime/graphs.py`), captured at the first
+  dispatch (again when the model's compute parameters are rebuilt) and
+  replayed after: the step's inputs are copied into the graph's static
+  buffers, and the tokens, and the host sampler's rows, are read from
+  its outputs.  Prefill stays eager (its bucket varies).  On the CPU
+  both steps run eagerly.
+
 Numerics: greedy decode is token-identical to `ops.generation.generate`
 at f32 on the CPU (same per-position math), and sampled streams draw on
 the same ``(seed, g)`` schedule with the JAX engine's random bits, so a
 stream's tokens do not depend on its slot or its neighbours.  Not ported
-yet: speculative decoding, the step watchdog, the flight recorder,
-tracing and SLO counters, and the ``server=`` / hot-swap attachment.
+yet: the step watchdog (and its per-token normalisation of a verify
+dispatch), the flight recorder, tracing and SLO counters (the
+``dl4jtpu_spec_*`` families, the ``serving.decode`` site, trace context
+on the handoff), and the ``server=`` / hot-swap attachment.
 """
 
 from __future__ import annotations
@@ -45,8 +70,15 @@ from deeplearning4j_tpu_torch.ops.generation import (
     _plan,
     _sample,
 )
-from deeplearning4j_tpu_torch.ops.paged_attention import paged_attention
+from deeplearning4j_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_chunk,
+    ticket_scope,
+    tickets_needed,
+)
+from deeplearning4j_tpu_torch.runtime import faults, kernels
 from deeplearning4j_tpu_torch.runtime.flags import bucket_length
+from deeplearning4j_tpu_torch.runtime.graphs import CapturedProgram
 from deeplearning4j_tpu_torch.serving.admission import (
     AdmissionQueue,
     ServingError,
@@ -58,6 +90,7 @@ from deeplearning4j_tpu_torch.serving.kv_cache import (
     KVPoolExhausted,
     PagedKVCache,
 )
+from deeplearning4j_tpu_torch.serving import speculative
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -76,6 +109,12 @@ class GenerationConfig:
     max_queue: int = 128
     default_max_new: int = 32
     poll_s: float = 0.02           # idle-queue poll granularity
+    # speculative decoding: draft length per stream per step (0 = off;
+    # None = DL4J_TPU_SPEC_K), the drafter (None = DL4J_TPU_SPEC_DRAFTER,
+    # default "ngram"), and the small zoo model the "model" drafter runs
+    spec_k: Optional[int] = None
+    spec_drafter: Optional[str] = None
+    spec_draft_model: object = None
 
 
 class GenerationRequest:
@@ -86,7 +125,7 @@ class GenerationRequest:
 
     def __init__(self, prompt, max_new: int, *, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, stop_tokens: tuple = (),
-                 on_token=None):
+                 on_token=None, prefilled=None, spec_k: Optional[int] = None):
         with GenerationRequest._next_lock:
             GenerationRequest._next[0] += 1
             self.rid = f"gen-{GenerationRequest._next[0]}"
@@ -97,6 +136,14 @@ class GenerationRequest:
         self.seed = int(seed)
         self.stop_tokens = tuple(int(t) for t in stop_tokens)
         self.on_token = on_token
+        self.prefilled = prefilled     # the `prefill_detached` handoff
+        self.pages = 0                 # KV pages funded at admission
+        # speculative decode: this stream's draft length (None = the
+        # engine's, 0 = plain), the fallback latch, acceptance counts
+        self.spec_k = None if spec_k is None else max(0, int(spec_k))
+        self.spec_disabled = False
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self.tokens: list[int] = []
         self.error: Optional[BaseException] = None
         self.cancelled = False
@@ -204,6 +251,24 @@ class GenerationEngine:
         self._seeds = np.zeros(s, np.int64)
         self._slot_req: list[Optional[GenerationRequest]] = [None] * s
 
+        # speculative decode: the engine's draft length and drafter,
+        # resolved once; spec_k 0 keeps the verify program unbuilt
+        k = (cfg.spec_k if cfg.spec_k is not None
+             else speculative.spec_k_from_env(0))
+        self.spec_k = max(0, int(k))
+        self.drafter: Optional[speculative.DraftSource] = None
+        if self.spec_k > 0:
+            self.drafter = speculative.make_drafter(
+                cfg.spec_drafter or speculative.drafter_from_env(),
+                draft_model=cfg.spec_draft_model)
+        self._spec_counts = {"drafted": 0, "accepted": 0, "rejected": 0,
+                             "bonus": 0, "emitted": 0,
+                             "verify_dispatches": 0,
+                             "plain_dispatches": 0, "fallbacks": 0}
+        # chunk width -> (CapturedProgram, pinned host inputs); CUDA only
+        self._captured: dict = {}
+        self._captures = 0
+
         self.queue = AdmissionQueue(cfg.max_queue)
         self._mu = threading.Lock()        # slot state + loop generation
         self._stop = threading.Event()
@@ -247,21 +312,29 @@ class GenerationEngine:
     # -- admission ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None, *,
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-               stop_tokens: tuple = (), on_token=None) -> GenerationRequest:
+               stop_tokens: tuple = (), on_token=None,
+               spec_k: Optional[int] = None) -> GenerationRequest:
         """Admit one stream.  Raises `ServingRejected` on a full queue;
-        a stream longer than the page table holds is a `ValueError`."""
+        a stream longer than the page table holds is a `ValueError`.
+        ``spec_k`` lowers the engine's draft length for this stream (0 =
+        plain decode; never above the engine's: the verify chunk's width
+        is fixed)."""
         max_new = int(max_new_tokens if max_new_tokens is not None
                       else self.config.default_max_new)
         req = GenerationRequest(
             prompt, max_new, temperature=temperature, top_k=top_k,
-            seed=seed, stop_tokens=stop_tokens, on_token=on_token)
+            seed=seed, stop_tokens=stop_tokens, on_token=on_token,
+            spec_k=spec_k)
         self._validate(req)
+        self._offer(req)
+        return req
+
+    def _offer(self, req: GenerationRequest) -> None:
         if not self.queue.offer(req):
             self._count_outcome("queue_full")
             raise ServingRejected(
                 "queue_full",
                 f"generation queue at capacity ({self.queue.max_queue})")
-        return req
 
     def _validate(self, req: GenerationRequest) -> None:
         t_p = req.prompt.shape[0]
@@ -294,6 +367,52 @@ class GenerationEngine:
         return self.submit(
             prompt, max_new_tokens, temperature=temperature, top_k=top_k,
             seed=seed, stop_tokens=stop_tokens).result(timeout)
+
+    # -- the prefill handoff between engines --------------------------------
+    def prefill_detached(self, prompt, max_new_tokens: int, *,
+                         temperature: float = 0.0, top_k: int = 0,
+                         seed: int = 0, stop_tokens: tuple = (),
+                         spec_k: Optional[int] = None) -> dict:
+        """Run only the prefill here, in the caller's thread, and return
+        the handoff another engine's `join_prefilled` resumes the stream
+        from: the prompt's K/V rows as host f32 arrays (n_layers,
+        t_bucket, H, Dh), the first token and the sampling state.  K/V
+        land in whatever pages the decoding engine keeps, so an f32
+        engine can prefill for an int8-page one.  Fault site
+        ``serving.prefill``: ``raise`` is a `ServingError`."""
+        req = GenerationRequest(
+            prompt, int(max_new_tokens), temperature=temperature,
+            top_k=top_k, seed=seed, stop_tokens=stop_tokens)
+        self._validate(req)
+        try:
+            faults.maybe_fail("serving.prefill")
+        except Exception as exc:
+            raise ServingError(f"injected prefill fault: {exc}") from exc
+        k, v, first = self._run_prefill(req)
+        out = {
+            "prompt": req.prompt, "k": k.cpu().numpy(), "v": v.cpu().numpy(),
+            "first_token": int(first), "max_new": req.max_new,
+            "temperature": req.temperature, "top_k": req.top_k,
+            "seed": req.seed, "stop_tokens": req.stop_tokens,
+            "t_submit": req.t_submit,      # the stream's TTFT counts from here
+        }
+        if spec_k is not None:
+            out["spec_k"] = max(0, int(spec_k))
+        return out
+
+    def join_prefilled(self, handoff: dict, on_token=None) -> GenerationRequest:
+        """Admit a stream whose prefill ran elsewhere (`prefill_detached`);
+        its first token is already in the handoff."""
+        req = GenerationRequest(
+            handoff["prompt"], handoff["max_new"],
+            temperature=handoff["temperature"], top_k=handoff["top_k"],
+            seed=handoff["seed"], stop_tokens=handoff["stop_tokens"],
+            on_token=on_token, prefilled=handoff,
+            spec_k=handoff.get("spec_k"))
+        req.t_submit = handoff.get("t_submit", req.t_submit)
+        self._validate(req)
+        self._offer(req)
+        return req
 
     # -- device programs ---------------------------------------------------
     @torch.no_grad()
@@ -332,22 +451,44 @@ class GenerationEngine:
         pad[0, :t_p] = req.prompt
         return self._prefill(torch.from_numpy(pad).to(self.device), t_p, req)
 
+    def _inputs(self, page_tbl, seq_lens, toks) -> np.ndarray:
+        """The host side of a step of C = ``toks.shape[1]`` rows a slot:
+        one int32 vector of positions, pages, rows, tokens and attended
+        lengths (each S x C, row s * C + j), then the (S, maxP) table.
+        Row ``j`` of slot ``s`` writes position ``seq_len + j``; a row
+        past the table's capacity writes row 0 of the scratch page
+        (never a clamped index into a live page — only rejected draft
+        rows get there), and an idle slot attends nothing."""
+        s, c = toks.shape
+        mp, ps = page_tbl.shape[1], self.kv.page_size
+        cap = mp * ps
+        pos2 = seq_lens.astype(np.int64)[:, None] + np.arange(c)[None, :]
+        pos = pos2.reshape(-1)
+        ok = pos < cap
+        page_of = np.where(
+            ok, page_tbl[np.repeat(np.arange(s), c), np.minimum(pos // ps, mp - 1)],
+            SCRATCH_PAGE)
+        row_of = np.where(ok, pos % ps, 0)
+        attend = np.where((seq_lens > 0)[:, None], np.minimum(pos2 + 1, cap), 0)
+        return np.concatenate([pos, page_of, row_of, toks.reshape(-1),
+                               attend.reshape(-1),
+                               page_tbl.reshape(-1)]).astype(np.int32)
+
     @torch.no_grad()
-    def _step(self, page_tbl, seq_lens, last_tok, seeds, gen_counts, temps,
-              top_ks) -> np.ndarray:
-        """One token for every slot; the pools are appended in place.
-        Arguments are host copies of the slot state."""
+    def _program(self, params, buf, c: int):
+        """The device side of a step: ``buf`` is `_inputs` on the device;
+        every slot's C rows go through the stack, each layer writing all
+        of them into the pools before it attends.  C = 1 is the plain
+        step (`paged_attention`), C > 1 the verify (`paged_attention_chunk`).
+        Returns (logits (S * C, V) f32, their argmax).  Reads nothing
+        from the host, so it can be captured."""
         embed, pos, blocks, head = self._stack
-        params = self.model.compute_params()
-        dev, n_slots = self.device, self.config.slots
-        h_, dh, ps = self._n_heads, self._head_dim, self.kv.page_size
+        n_slots, mp = self.config.slots, self.config.max_pages_per_seq
+        n = n_slots * c
+        h_, dh = self._n_heads, self._head_dim
         quant = self.kv.kv_dtype == "int8"
-        active = seq_lens > 0
-        page_of = page_tbl[np.arange(n_slots), seq_lens // ps]
-        host = np.stack([seq_lens, seq_lens + 1, page_of, seq_lens % ps,
-                         last_tok]).astype(np.int32)
-        pos_idx, attend, page_of, row_of, tok = torch.from_numpy(host).to(dev)
-        tbl = torch.from_numpy(page_tbl).to(dev)
+        pos_idx, page_of, row_of, tok, attend = buf[:5 * n].view(5, n)
+        tbl = buf[5 * n:].view(n_slots, mp)
         E = params[self._embed_name]["W"]
         x_t = embed._act()(E[tok.long()])
         x_t = x_t + _pe_rows(pos, params.get(self._pos_name, {}), pos_idx,
@@ -357,21 +498,82 @@ class GenerationEngine:
             lp = params[cfg_b.name]
             ap = lp["attn"]
             hh = _ln(lp["ln1"], x_t)
-            q = (hh @ ap["Wq"]).reshape(n_slots, h_, dh)
-            k_t = (hh @ ap["Wk"]).reshape(n_slots, h_, dh)
-            v_t = (hh @ ap["Wv"]).reshape(n_slots, h_, dh)
+            q = (hh @ ap["Wq"]).reshape(n, h_, dh)
+            k_t = (hh @ ap["Wk"]).reshape(n, h_, dh)
+            v_t = (hh @ ap["Wv"]).reshape(n, h_, dh)
             self.kv.write_rows(li, *idx, k_t, v_t)
-            attn = paged_attention(
-                q.float().contiguous(), self.kv.k_pages[li],
-                self.kv.v_pages[li], tbl, attend,
-                k_scale=self.kv.k_scales[li] if quant else None,
-                v_scale=self.kv.v_scales[li] if quant else None)
-            x_t = x_t + attn.reshape(n_slots, h_ * dh).to(x_t.dtype) @ ap["Wo"]
+            pools = (self.kv.k_pages[li], self.kv.v_pages[li])
+            scales = dict(k_scale=self.kv.k_scales[li] if quant else None,
+                          v_scale=self.kv.v_scales[li] if quant else None)
+            if c == 1:
+                attn = paged_attention(q.float().contiguous(), *pools, tbl,
+                                       attend, **scales)
+            else:
+                attn = paged_attention_chunk(
+                    q.float().reshape(n_slots, c, h_, dh).contiguous(), *pools,
+                    tbl, attend.view(n_slots, c), **scales)
+            x_t = x_t + attn.reshape(n, h_ * dh).to(x_t.dtype) @ ap["Wo"]
             hh = _ln(lp["ln2"], x_t)
             hh = cfg_b.ffn_activation(hh @ lp["W1"] + lp["b1"])
             x_t = x_t + (hh @ lp["W2"] + lp["b2"])
         logits = _head_logits(head, params[self._head_name], x_t).float()
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+        return logits, torch.argmax(logits, dim=-1)
+
+    def _program_eager(self, c: int, page_tbl, seq_lens, toks):
+        """One step of C rows a slot, run eagerly; (logits, argmax)."""
+        buf = torch.from_numpy(self._inputs(page_tbl, seq_lens, toks))
+        return self._program(self.model.compute_params(), buf.to(self.device), c)
+
+    def _program_captured(self, c: int, page_tbl, seq_lens, toks):
+        """The same step as one CUDA graph replay.  The graph is captured
+        at the first call for C, and again when the model's compute
+        parameters are other tensors than the ones it read (`init`,
+        `load_params` and every training step rebuild them); it keeps
+        ticket counters of its own for the paged-attention kernel.  The
+        returned tensors are the graph's outputs: the next replay
+        overwrites them."""
+        host = self._inputs(page_tbl, seq_lens, toks)
+        params = self.model.compute_params()
+        entry = self._captured.get(c)
+        if entry is not None and entry[0].keep[0] is not params:
+            del self._captured[c]          # frees the stale graph first
+            entry = None
+        if entry is not None:
+            prog, pinned = entry
+            pinned.numpy()[:] = host
+            prog.inputs[0].copy_(pinned)
+            return prog.replay()
+        static = torch.from_numpy(host).to(self.device)
+        tickets = torch.zeros(
+            tickets_needed(self.config.slots * c, self._n_heads,
+                           self._head_dim, self.kv.page_size,
+                           self.kv.kv_dtype == "int8"),
+            dtype=torch.int32, device=self.device)
+
+        def fn(buf):
+            with ticket_scope(tickets):
+                return self._program(params, buf, c)
+
+        prog = CapturedProgram(fn, [static], keep=(params, tickets))
+        pinned = torch.empty(host.shape, dtype=torch.int32, pin_memory=True)
+        self._captured[c] = (prog, pinned)
+        self._captures += 1
+        return prog.replay()
+
+    def _logits(self, c: int, page_tbl, seq_lens, toks):
+        """A step's (logits, argmax) on device: one graph replay on
+        CUDA, the eager program on the CPU."""
+        if kernels.route(self.device) == "kernel":
+            return self._program_captured(c, page_tbl, seq_lens, toks)
+        return self._program_eager(c, page_tbl, seq_lens, toks)
+
+    def _step(self, page_tbl, seq_lens, last_tok, seeds, gen_counts, temps,
+              top_ks) -> np.ndarray:
+        """One token for every slot; the pools are appended in place.
+        Arguments are host copies of the slot state."""
+        logits, greedy = self._logits(1, page_tbl, seq_lens, last_tok[:, None])
+        nxt = greedy.cpu().numpy().astype(np.int32)
+        active = seq_lens > 0
         for s in np.flatnonzero(active & (temps > 0.0)):
             nxt[s] = _sample_token(logits[s], float(temps[s]), int(top_ks[s]),
                                    int(seeds[s]), int(gen_counts[s]))
@@ -424,20 +626,34 @@ class GenerationEngine:
     def _admit_to_slot(self, my_gen: int, slot: int,
                        req: GenerationRequest) -> None:
         t_p = req.prompt.shape[0]
-        span = max(bucket_length(t_p, self._quantum), t_p + req.max_new)
+        t_b = (bucket_length(t_p, self._quantum) if req.prefilled is None
+               else int(req.prefilled["k"].shape[1]))
+        span = max(t_b, t_p + req.max_new)
         try:
             self.kv.alloc(req.rid, self.kv.pages_for(span))
         except KVPoolExhausted as exc:
             self._finish(req, "kv_exhausted",
                          ServingRejected("kv_exhausted", str(exc)))
             return
+        req.pages = self.kv.pages_for(span)
+        if self._req_spec_k(req) > 0:
+            # best-effort overhang so draft rows land in real pages; a
+            # short pool sends them to the scratch page instead, never a 429
+            table_cap = self.config.max_pages_per_seq * self.kv.page_size
+            self.kv.reserve_speculative(
+                req.rid, min(span + self.spec_k, table_cap))
         try:
-            t0 = time.perf_counter()
-            k, v, first = self._run_prefill(req)
+            if req.prefilled is None:
+                faults.maybe_fail("serving.prefill")
+                t0 = time.perf_counter()
+                k, v, first = self._run_prefill(req)
+                with self._stats_lock:
+                    self._prefills += 1
+                    self._prefill_s += time.perf_counter() - t0
+            else:
+                k, v = req.prefilled["k"], req.prefilled["v"]
+                first = int(req.prefilled["first_token"])
             tbl = self.kv.write_prefill(req.rid, k, v)
-            with self._stats_lock:
-                self._prefills += 1
-                self._prefill_s += time.perf_counter() - t0
         except Exception as exc:
             log.exception("prefill failed")
             self.kv.release(req.rid)
@@ -467,8 +683,16 @@ class GenerationEngine:
             self._slot_req[slot] = req
 
     def _decode_step(self, my_gen: int) -> None:
-        """One token for every live slot, then harvest: stop conditions,
-        page release, slot free."""
+        """One dispatch for every live slot — a verify of drafted chunks
+        when any stream drafted, else one plain token — then harvest:
+        stop conditions, page release, slot free."""
+        if self.drafter is not None:
+            drafts = self._gather_drafts(my_gen)
+            if drafts is not None:
+                self._verify_step(my_gen, drafts)
+                return
+            with self._stats_lock:
+                self._spec_counts["plain_dispatches"] += 1
         with self._mu:
             if self._loop_gen != my_gen:
                 return
@@ -481,11 +705,7 @@ class GenerationEngine:
         try:
             nxt = self._step(*args)
         except Exception as exc:
-            log.exception("generation decode step failed")
-            with self._mu:
-                if self._loop_gen == my_gen:
-                    self._fail_active_locked(
-                        ServingError(f"decode step failed: {exc}"))
+            self._step_failed(my_gen, exc)
             return
         with self._stats_lock:
             self._decode_s += time.perf_counter() - t0
@@ -511,6 +731,16 @@ class GenerationEngine:
                     self._clear_slot(s)
                     finished.append((req, True))
         self._count_tokens(n_live)
+        self._settle(finished)
+
+    def _step_failed(self, my_gen: int, exc: BaseException) -> None:
+        log.exception("generation decode step failed")
+        with self._mu:
+            if self._loop_gen == my_gen:
+                self._fail_active_locked(
+                    ServingError(f"decode step failed: {exc}"))
+
+    def _settle(self, finished) -> None:
         for req, ok in finished:
             self.kv.release(req.rid)
             if ok:
@@ -518,6 +748,168 @@ class GenerationEngine:
             else:
                 self._finish(req, "cancelled",
                              ServingRejected("shutdown", "cancelled"))
+
+    # -- speculative decode ------------------------------------------------
+    def _req_spec_k(self, req: GenerationRequest) -> int:
+        """A stream's draft length: the engine's, lowered per request,
+        zeroed by the fallback latch."""
+        if self.drafter is None or req.spec_disabled:
+            return 0
+        k = self.spec_k if req.spec_k is None else min(req.spec_k, self.spec_k)
+        return max(0, k)
+
+    def _gather_drafts(self, my_gen: int) -> Optional[list]:
+        """Draft proposals for every live slot (engine thread, between
+        dispatches): a per-slot list of int32 arrays, or None when no
+        stream drafted.  Fault site ``serving.draft``, once per drafting
+        stream: ``raise`` latches the stream to plain decode and gives
+        back its overhang pages; ``corrupt`` swaps the proposal for
+        deterministic garbage the verify must reject."""
+        with self._mu:
+            if self._loop_gen != my_gen:
+                return None
+            live = list(enumerate(self._slot_req))
+            gens = self._gen_counts.copy()
+        drafts: list = [None] * self.config.slots
+        any_draft = False
+        for s, req in live:
+            if req is None or req.cancelled:
+                continue
+            # a draft past the remaining budget could never be emitted
+            k = min(self._req_spec_k(req), req.max_new - int(gens[s]) - 1)
+            if k <= 0:
+                continue
+            try:
+                action = faults.maybe_fail("serving.draft")
+            except Exception as exc:
+                log.warning("drafter disabled for %s: %s", req.rid, exc)
+                self._disable_spec(s, req)
+                continue
+            hist = np.concatenate(
+                [req.prompt, np.asarray(req.tokens_so_far(), np.int32)])
+            if action == "corrupt":
+                d = ((int(hist[-1]) + 1 + np.arange(k, dtype=np.int32) * 17)
+                     % self._vocab()).astype(np.int32)
+            else:
+                try:
+                    d = np.asarray(self.drafter.draft(hist, k),
+                                   np.int32).reshape(-1)[:k]
+                except Exception as exc:
+                    log.warning("drafter failed for %s: %s", req.rid, exc)
+                    self._disable_spec(s, req)
+                    continue
+            if d.size:
+                drafts[s] = d
+                any_draft = True
+        return drafts if any_draft else None
+
+    def _disable_spec(self, s: int, req: GenerationRequest) -> None:
+        """Latch one stream to plain decode and give back its overhang
+        pages."""
+        req.spec_disabled = True
+        with self._stats_lock:
+            self._spec_counts["fallbacks"] += 1
+        freed = self.kv.truncate_to(req.rid, req.pages * self.kv.page_size)
+        if freed:
+            with self._mu:
+                if self._slot_req[s] is req:
+                    self._page_tbl[s, req.pages:] = SCRATCH_PAGE
+
+    def _verify_step(self, my_gen: int, drafts: list) -> None:
+        """One verify-once dispatch: score every slot's chunk (its last
+        token, then its drafts), then emit each stream's accepted prefix
+        plus the target's token at the first mismatch (or the bonus
+        token after a fully accepted chunk) — 1 to k + 1 tokens a stream,
+        plain decode's tokens.  Row ``j`` of a sampled stream draws with
+        ``fold_in(key(seed), gen_count + j)``, on the host, and only for
+        rows the walk reaches."""
+        c = self.spec_k + 1
+        n_slots = self.config.slots
+        with self._mu:
+            if self._loop_gen != my_gen:
+                return
+            chunk = np.zeros((n_slots, c), np.int32)
+            chunk[:, 0] = self._last_tok
+            dl = np.zeros(n_slots, np.int32)
+            for s in range(n_slots):
+                d = drafts[s]
+                if d is None or d.size == 0:
+                    continue
+                m = min(int(d.size), self.spec_k)
+                chunk[s, 1:1 + m] = d[:m]
+                dl[s] = m
+            gen0 = self._gen_counts.copy()
+            seeds, temps, top_ks = (self._seeds.copy(), self._temps.copy(),
+                                    self._top_ks.copy())
+            page_tbl, seq_lens = self._page_tbl.copy(), self._seq_lens.copy()
+        self._steps += 1
+        t0 = time.perf_counter()
+        try:
+            logits, greedy = self._logits(c, page_tbl, seq_lens, chunk)
+            greedy = greedy.cpu().numpy().astype(np.int32)
+        except Exception as exc:
+            self._step_failed(my_gen, exc)
+            return
+
+        def token(s: int, j: int) -> int:
+            if temps[s] <= 0.0:
+                return int(greedy[s * c + j])
+            return _sample_token(logits[s * c + j], float(temps[s]),
+                                 int(top_ks[s]), int(seeds[s]),
+                                 int(gen0[s]) + j)
+
+        sp = {"drafted": 0, "accepted": 0, "rejected": 0, "bonus": 0}
+        emitted_total = 0
+        finished: list[tuple[GenerationRequest, bool]] = []
+        with self._mu:
+            if self._loop_gen != my_gen:
+                return
+            for s, req in enumerate(self._slot_req):
+                if req is None:
+                    continue
+                if req.cancelled:
+                    self._clear_slot(s)
+                    finished.append((req, False))
+                    continue
+                d_len, budget = int(dl[s]), req.max_new - int(gen0[s])
+                # walk the chunk: row j is what plain decode emits at
+                # that position; a row equal to its draft accepts it and
+                # the walk goes on; a stop token ends the stream there
+                toks, accepted, fin = [], 0, False
+                for j in range(min(d_len + 1, budget)):
+                    t = token(s, j)
+                    toks.append(t)
+                    match = j < d_len and t == int(chunk[s, j + 1])
+                    accepted += match
+                    if t in req.stop_tokens:
+                        fin = True
+                        break
+                    if not match:
+                        break
+                emit = len(toks)
+                for t in toks:
+                    req._record(t)
+                self._seq_lens[s] += emit
+                self._gen_counts[s] += emit
+                self._last_tok[s] = toks[-1]
+                sp["drafted"] += d_len
+                sp["accepted"] += accepted
+                sp["rejected"] += d_len - accepted
+                sp["bonus"] += emit - accepted
+                req.spec_drafted += d_len
+                req.spec_accepted += accepted
+                emitted_total += emit
+                if self._gen_counts[s] >= req.max_new or fin:
+                    self._clear_slot(s)
+                    finished.append((req, True))
+        with self._stats_lock:
+            self._decode_s += time.perf_counter() - t0
+            for kind, v in sp.items():
+                self._spec_counts[kind] += v
+            self._spec_counts["emitted"] += emitted_total
+            self._spec_counts["verify_dispatches"] += 1
+        self._count_tokens(emitted_total)
+        self._settle(finished)
 
     def _clear_slot(self, s: int) -> None:
         """Caller holds self._mu; the caller releases the pages."""
@@ -571,6 +963,8 @@ class GenerationEngine:
     def stats(self) -> dict:
         with self._stats_lock:
             outcomes = dict(self._outcomes)
+            spec = dict(self._spec_counts)
+        drafted, verifies = spec["drafted"], spec["verify_dispatches"]
         return {
             "slots": self.config.slots,
             "active_streams": self.active_streams(),
@@ -580,8 +974,26 @@ class GenerationEngine:
             "prefills": self._prefills,
             "prefill_seconds": self._prefill_s,
             "tokens_generated": self._tokens_out,
+            "graph_captures": self._captures,
             "outcomes": outcomes,
             "kv": self.kv.stats(),
+            "speculative": {
+                "enabled": self.spec_k > 0,
+                "k": self.spec_k,
+                "drafter": (self.drafter.name
+                            if self.drafter is not None else None),
+                "drafted": drafted,
+                "accepted": spec["accepted"],
+                "rejected": spec["rejected"],
+                "bonus": spec["bonus"],
+                "acceptance_ratio": (round(spec["accepted"] / drafted, 4)
+                                     if drafted else 0.0),
+                "verify_dispatches": verifies,
+                "plain_dispatches": spec["plain_dispatches"],
+                "tokens_per_dispatch": (round(spec["emitted"] / verifies, 4)
+                                        if verifies else 0.0),
+                "fallbacks": spec["fallbacks"],
+            },
         }
 
     def _count_tokens(self, n: int) -> None:

@@ -18,7 +18,9 @@ exists.  int8 pages use symmetric per-(position, head) scales
 
 Allocator state (free list, tables) is host state under one lock;
 exhaustion raises `KVPoolExhausted`, which the engine turns into an
-explicit 429, never a stall.
+explicit 429, never a stall.  Speculative decode adds best-effort
+overhang pages (`reserve_speculative`, never a 429) that `truncate_to`
+and `release` give back.
 """
 
 from __future__ import annotations
@@ -93,6 +95,7 @@ class PagedKVCache:
         self._lock = threading.Lock()
         self._free: list[int] = list(range(self.num_pages - 1, 0, -1))
         self._tables: dict = {}
+        self._spec_extra: dict = {}    # rid -> speculative overhang pages
         self._alloc_failures = 0
 
     # -- geometry ----------------------------------------------------------
@@ -125,10 +128,44 @@ class PagedKVCache:
             self._tables.setdefault(rid, []).extend(got)
         return got
 
+    def reserve_speculative(self, rid, length: int) -> list[int]:
+        """Best-effort overhang for speculative decode: grow ``rid``'s
+        table to cover ``length`` positions so draft K/V rows land in
+        real pages.  A short free list is not an error here (the stream's
+        admission is already funded): it returns ``[]`` without counting
+        an allocation failure.  Returns the pages added."""
+        with self._lock:
+            have = len(self._tables.get(rid, ()))
+            need = self.pages_for(length) - have
+            if need <= 0 or need > len(self._free):
+                return []
+            got = [self._free.pop() for _ in range(need)]
+            self._tables.setdefault(rid, []).extend(got)
+            self._spec_extra[rid] = self._spec_extra.get(rid, 0) + len(got)
+        return got
+
+    def truncate_to(self, rid, length: int) -> list[int]:
+        """Free ``rid``'s tail pages beyond what ``length`` positions
+        need (a stream whose drafter was disabled gives its overhang
+        back).  Rows past ``length`` in the kept pages are masked by
+        seq_len and overwritten as the stream grows.  Returns the freed
+        pages."""
+        keep = self.pages_for(length)
+        with self._lock:
+            pages = self._tables.get(rid)
+            if not pages or len(pages) <= keep:
+                return []
+            freed = pages[keep:]
+            del pages[keep:]
+            self._free.extend(freed)
+            self._spec_extra.pop(rid, None)
+        return freed
+
     def release(self, rid) -> int:
         """Free every page ``rid`` holds.  Idempotent."""
         with self._lock:
             pages = self._tables.pop(rid, None)
+            self._spec_extra.pop(rid, None)
             if pages:
                 self._free.extend(pages)
         return len(pages or ())
@@ -138,6 +175,11 @@ class PagedKVCache:
             return list(self._tables.get(rid, ()))
 
     # -- introspection -----------------------------------------------------
+    @property
+    def free_pages(self) -> int:
+        with self._lock:
+            return len(self._free)
+
     @property
     def used_pages(self) -> int:
         with self._lock:
@@ -152,6 +194,7 @@ class PagedKVCache:
                 "used_pages": self.num_pages - 1 - len(self._free),
                 "free_pages": len(self._free),
                 "requests": len(self._tables),
+                "spec_reserved_pages": sum(self._spec_extra.values()),
                 "alloc_failures": self._alloc_failures,
                 "bytes_per_token": self.bytes_per_token(),
             }

@@ -49,7 +49,13 @@ tables), where it splits each slot into chunks of pages merged in a
 fixed order: one long slot alone, lengths on chunk boundaries and one
 off them, pages shared between slots, the same bits from a second
 launch (1e-4 against plain, both page types), and a pool view that
-`cp.async.bulk` cannot read raising before a launch.
+`cp.async.bulk` cannot read raising before a launch.  The speculative
+verify's chunk attention (the same kernel on S x C pseudo-slots) is held
+to the same 1e-4 and the same bits on a second launch.  The engine's
+decode and verify steps captured as CUDA graphs give the eager steps'
+logits and tokens bit for bit over 16 dispatches, count each kernel the
+graph holds once a replay, and are captured again when a training step
+rebuilds the model's compute parameters.
 """
 
 import dataclasses
@@ -76,6 +82,8 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
 )
 from deeplearning4j_tpu_torch.ops.generation import _sample, generate
 from deeplearning4j_tpu_torch.ops.paged_attention import (
+    paged_attention_chunk,
+    paged_attention_chunk_plain,
     paged_attention_fwd,
     paged_attention_plain,
     split_plan,
@@ -460,6 +468,94 @@ def test_engine_on_the_card_matches_dense_generate(cuda):
     assert counts.get("flash_fwd", 0) > 0 and counts.get("paged_attention_fwd", 0) > 0
     for out, ref in zip(outs, refs):
         np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_chunk_kernel_matches_plain(cuda, quant):
+    """The verify shape: 8 slots x 5 rows of the serve mix, row j
+    attending seq_len + j + 1 positions; slot 6 idle."""
+    lens = [2017, 20, 150, 300, 5, 64, 0, 90]
+    c = 5
+    _, kp, vp, tbl, _, ks, vs = _flagship_pages(cuda, quant, [n + c for n in lens],
+                                                seed=26)
+    g = torch.Generator(device=cuda).manual_seed(27)
+    q = torch.randn((len(lens), c, FLAG_H, FLAG_DH), generator=g, device=cuda)
+    seq = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    attend = torch.where(seq[:, None] > 0,
+                         seq[:, None] + torch.arange(1, c + 1, device=cuda), 0).int()
+    name = "paged_attention_chunk_int8" if quant else "paged_attention_chunk"
+    before = kernels.launches().get(name, 0)
+    out = paged_attention_chunk(q, kp, vp, tbl, attend, k_scale=ks, v_scale=vs)
+    ref = paged_attention_chunk_plain(q, kp, vp, tbl, attend, ks, vs)
+    torch.cuda.synchronize()
+    assert kernels.launches()[name] == before + 1
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.all(out[6] == 0)
+    assert torch.equal(paged_attention_chunk(q, kp, vp, tbl, attend, k_scale=ks,
+                                             v_scale=vs), out)
+
+
+def _card_engine(cuda, bf16, **cfg):
+    model = TransformerEncoder(vocab_size=97, d_model=256, n_heads=2,
+                               n_layers=2, chunked_vocab_loss=True,
+                               bf16_compute=bf16).init_model(device=cuda)
+    return model, GenerationEngine(model, GenerationConfig(**{
+        **dict(slots=4, page_size=16, num_pages=64, max_pages_per_seq=8), **cfg}))
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("c", [1, 5])
+def test_captured_steps_match_the_eager_steps(cuda, c, bf16, kv_dtype):
+    """Three streams admitted (one slot idle); 16 dispatches of C rows a
+    slot, each run eagerly and then as the graph replay on the same
+    state: the same logits and tokens, bit for bit, and each replay
+    counts the layers' paged-attention launches once."""
+    model, eng = _card_engine(cuda, bf16, kv_dtype=kv_dtype)
+    rng_np = np.random.default_rng(c)
+    for slot, n in enumerate((5, 33, 80)):
+        req = eng.submit(rng_np.integers(0, 97, n), 40)
+        eng._admit_to_slot(eng._loop_gen, slot, eng.queue.take_batch(
+            1, 0.0, eng._stop)[0])
+        assert eng._slot_req[slot] is req
+    name = "paged_attention_fwd" if c == 1 else "paged_attention_chunk"
+    name += "_int8" if kv_dtype == "int8" else ""
+    for i in range(16):
+        toks = np.concatenate([eng._last_tok[:, None],
+                               rng_np.integers(0, 97, (4, c - 1))], axis=1).astype(np.int32)
+        args = (c, eng._page_tbl.copy(), eng._seq_lens.copy(), toks)
+        logits, greedy = (t.clone() for t in eng._program_eager(*args))
+        before = kernels.launches().get(name, 0)
+        got, got_greedy = eng._program_captured(*args)
+        torch.cuda.synchronize()
+        assert kernels.launches()[name] - before == 2 * (1 + (i == 0))   # + warm-up
+        assert torch.equal(got, logits) and torch.equal(got_greedy, greedy)
+        nxt = greedy.view(4, c)[:, 0].cpu().numpy()
+        for s in range(3):
+            eng._seq_lens[s] += 1
+            eng._last_tok[s] = nxt[s]
+    assert eng.stats()["graph_captures"] == 1
+    for s in range(3):
+        eng.kv.release(eng._slot_req[s].rid)
+
+
+def test_graph_is_captured_again_after_a_training_step(cuda):
+    """A training step rebuilds the compute parameters: the next dispatch
+    captures a new graph, and the streams follow the new weights."""
+    model, eng = _card_engine(cuda, False)
+    ids = np.random.default_rng(5).integers(0, 97, (2, 32))
+    prompts = [np.random.default_rng(n).integers(0, 97, n) for n in (5, 33)]
+    eng.start()
+    try:
+        for step in range(2):
+            refs = [generate(model, p[None], 12)[0].cpu().numpy() for p in prompts]
+            outs = [r.result(120) for r in [eng.submit(p, 12) for p in prompts]]
+            for out, ref in zip(outs, refs):
+                np.testing.assert_array_equal(out, ref)
+            assert eng.stats()["graph_captures"] == step + 1
+            model.fit_batch(DataSet(ids, np.roll(ids, -1, axis=1)))
+    finally:
+        eng.stop()
 
 
 @pytest.mark.parametrize("m,k,n", [(4096, 1024, 4096), (8, 1024, 4096),

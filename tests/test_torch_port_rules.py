@@ -11,6 +11,10 @@
   it launches the kernel or raises.  The bf16 flash forward reads its
   inputs through TMA and raises on inputs TMA cannot read.
 - A kernel library's name hashes every header its source includes.
+- The speculative verify's chunk attention launches the paged-attention
+  kernel on S x C pseudo-slots for a CUDA tensor, or raises; the engine's
+  captured step raises when its capture fails, never rerunning eagerly;
+  a capture's launches are held and counted once a replay.
 """
 
 import os
@@ -18,6 +22,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,7 +55,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for name in mods:
             importlib.import_module(name)
         for need in ("quant.ptq", "train.checkpoint", "utils.serde",
-                     "nn.weights", "nn.schedules"):
+                     "nn.weights", "nn.schedules", "serving.speculative",
+                     "runtime.faults", "runtime.graphs"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -440,3 +446,89 @@ def test_paged_attention_rejects_what_the_copies_cannot_read(claims_cuda, monkey
     with pytest.raises(ValueError, match="TMA box"):
         pa.paged_attention_fwd(q, *pools, tbl, lens)
     assert lib.calls == []
+
+
+def test_chunk_attention_launches_on_pseudo_slots(claims_cuda, monkeypatch):
+    """S x C pseudo-slots: the table's rows repeated C times, the lengths
+    flattened, one launch counted as ``paged_attention_chunk``; inside a
+    `ticket_scope` the launch takes the scope's counters."""
+    lib = _ArgLib()
+    monkeypatch.setattr(kernels, "library", lambda stem: lib)
+    q, kp, vp, tbl, _ = _paged_args()
+    tbl = torch.tensor([[1, 2, 0], [3, 0, 0]], dtype=torch.int32)
+    attend = torch.tensor([[4, 5, 6], [0, 0, 0]], dtype=torch.int32)
+    before = kernels.launches()
+    tickets = torch.zeros(pa.tickets_needed(6, 2, 32, 8, False), dtype=torch.int32)
+    with pa.ticket_scope(tickets):
+        out = pa.paged_attention_chunk(torch.zeros((2, 3, 2, 32)), kp, vp, tbl, attend)
+    assert out.shape == (2, 3, 2, 32)
+    (call,) = lib.args
+    assert call[10] == 6                                # slots
+    assert call[9] == tickets.data_ptr()
+    after = kernels.launches()
+    assert after.get("paged_attention_chunk", 0) == before.get("paged_attention_chunk", 0) + 1
+    assert after.get("paged_attention_fwd", 0) == before.get("paged_attention_fwd", 0)
+    with pytest.raises(ValueError, match="ticket counters"):
+        with pa.ticket_scope(torch.zeros(2, dtype=torch.int32)):
+            pa.paged_attention_chunk(torch.zeros((2, 3, 2, 32)), kp, vp, tbl, attend)
+
+
+def test_chunk_attention_raises_instead_of_falling_back(claims_cuda, monkeypatch):
+    monkeypatch.setattr(kernels, "library", lambda stem: _FakeLib(rc=98))
+    q, kp, vp, tbl, _ = _paged_args()
+    attend = torch.ones((2, 3), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="error 98"):
+        pa.paged_attention_chunk(torch.zeros((2, 3, 2, 32)), kp, vp, tbl, attend)
+    with pytest.raises(RuntimeError, match="error 98"):
+        pa.paged_attention_chunk(
+            torch.zeros((2, 3, 2, 32)),
+            *[torch.zeros((4, 8, 2, 32), dtype=torch.int8) for _ in range(2)], tbl,
+            attend, k_scale=torch.ones((4, 8, 2)), v_scale=torch.ones((4, 8, 2)))
+
+
+def test_a_capture_holds_its_launches_and_each_replay_counts_them():
+    before = kernels.launches().get("probe_kernel", 0)
+    with kernels.holding_launches() as held:
+        kernels.check_launch("probe_kernel", 0)
+        kernels.check_launch("probe_kernel", 0)
+        with pytest.raises(RuntimeError, match="nest"):
+            with kernels.holding_launches():
+                pass
+    assert held == {"probe_kernel": 2}
+    assert kernels.launches().get("probe_kernel", 0) == before
+    kernels.count_replay(held)
+    kernels.count_replay(held)
+    assert kernels.launches()["probe_kernel"] == before + 4
+
+
+def test_a_failing_capture_raises_and_never_reruns_eagerly(monkeypatch):
+    """On CUDA the engine's steps are graph replays; when the capture
+    fails the step raises, and the stream's dispatch fails with it —
+    the eager program is not run in its place."""
+    from deeplearning4j_tpu_torch.serving import generation as gen_mod
+
+    m = TransformerEncoder(vocab_size=17, d_model=32, n_heads=2,
+                           n_layers=1).init_model(device="cpu")
+    eng = gen_mod.GenerationEngine(m, gen_mod.GenerationConfig(
+        slots=2, page_size=8, num_pages=8, max_pages_per_seq=2, spec_k=2))
+    req = eng.submit(np.arange(6) % 17, 5)
+    eng._admit_to_slot(eng._loop_gen, 0, eng.queue.take_batch(1, 0.0, eng._stop)[0])
+
+    class RefusedCapture:
+        def __init__(self, *a, **k):
+            raise RuntimeError("operation not permitted when stream is capturing")
+
+    eager = []
+    monkeypatch.setattr(gen_mod, "CapturedProgram", RefusedCapture)
+    monkeypatch.setattr(eng, "_program_eager", lambda *a: eager.append(a))
+    monkeypatch.setattr(kernels, "route", lambda device: "kernel")
+    for c in (1, 3):
+        toks = np.zeros((2, c), np.int32)
+        with pytest.raises(RuntimeError, match="capturing"):
+            eng._logits(c, eng._page_tbl, eng._seq_lens, toks)
+    eng._decode_step(eng._loop_gen)
+    assert eager == []
+    assert req.outcome == "error"
+    with pytest.raises(Exception, match="decode step failed"):
+        req.result(timeout=1)
+    assert eng.kv.leak_check() is None and eng.kv.used_pages == 0
