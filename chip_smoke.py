@@ -77,6 +77,38 @@ Then the phases:
    (31 steps x 8 layers, counted across replays).  Then the host time to
    sample one token from a (1, 32000) row, top-k 50 and top-k 0, with
    the port's sampler and with two yardsticks it does not call.
+   With the serving plane in the tree, then 4 alternating passes with
+   span tracing off and on: decode ms a step of each, and the
+   difference.
+5b. server — the serving plane on the same flagship: an
+   `InferenceServer` (batches of up to 8) with the engine attached
+   (``server=``, the serve engine's configuration) behind its HTTP front
+   on 127.0.0.1.  Generate: the serve mix through ``POST /v1/generate``
+   (8 concurrent requests, one of them streamed NDJSON, the last
+   sampled), queued before the loop starts as in-process reference
+   streams are: every greedy stream must equal in-process `generate`'s,
+   in exactly 31 decode steps and 248 B4 launches; the per-stream
+   breakdown means (decode_compute against sampling) are printed.
+   Infer: 16 requests of 256 ids in-process (2 batches of 8, after
+   `warm_start`) and 8 through ``/v1/infer``: rows within B1 bf16's
+   tolerance of ``output()`` of the same rows, exactly 8 B1 launches a
+   batch dispatch.  Infer at load, while the batcher runs: 16
+   closed-loop in-process clients for 3 s and 8 HTTP clients for 4 s,
+   each after a 0.5 s warm-up: requests/s, p50 / p99 latency (p99 from
+   100 requests up), rows a batch, the server's seconds by segment,
+   exactly 8 B1 launches a batch.  Hot-swap:
+   `push_weights` of a perturbed copy while 8 streams decode: no stream
+   dropped, the weights generation up by 1, one graph re-capture; a torn
+   push (``serving.hotswap:truncate``) and ``/v1/reload`` of a corrupted
+   zip roll back (409) with ``output()`` unchanged.  Wedge: with the
+   engine's watchdog floor at 0.3 s, ``serving.decode:delay`` holds a
+   step 2 s: every in-flight stream fails ``wedged``, no page leaks, the
+   abort stage is counted, a flight dump is written, the breaker
+   (threshold 1) opens, sheds, admits a half-open probe and closes, and
+   the serve mix after gives the same greedy tokens as before.  Scrape:
+   the generation, KV, serving, breaker, watchdog, flight, fault and
+   checkpoint families hold non-zero counts; ``/v1/status`` carries the
+   generation block and ``/healthz`` answers 200.
 6. spec — speculative decoding on the flagship: the serve engine with
    ``spec_k`` 4 and the n-gram drafter against a plain engine, the serve
    prompts with 100 new tokens a stream (the last sampled), one warm-up
@@ -170,8 +202,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "train", "train_f32", "serve", "spec", "parity", "int8", "quant",
-          "ckpt")
+PHASES = ("kernels", "train", "train_f32", "serve", "server", "spec", "parity", "int8",
+          "quant", "ckpt")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -241,6 +273,20 @@ PAGED_DIMS = tuple(range(16, 257, 16))       # every instantiated head dim
 PAGED_MIXES = {"serve": [2017, 20, 150, 300, 5, 64, 0, 90], "full_pool": [1008] * 8}
 # the speculative verify: k drafts a stream, so C = k + 1 rows a slot
 SPEC_K = 4
+# /v1/infer: 16 requests of 256 token ids, coalesced into batches of 8
+INFER_REQUESTS, INFER_SEQ, INFER_BATCH = 16, 256, 8
+# /v1/infer at load: closed-loop clients sending back to back while the
+# batcher runs (in-process: two full batches in flight, one forming while
+# the other dispatches; HTTP: one batch), a warm-up, then the measured
+# window; requests/s counts completions inside the window, latencies the
+# requests started inside it
+INFER_LOAD = {"in_process": (16, 0.5, 3.0), "http": (8, 0.5, 4.0)}
+# the wedge: the engine's watchdog floor for the phase (steps take ~3 ms),
+# and the delayed step's sleep, well past the abort at twice the floor
+WEDGE_FLOOR_S, WEDGE_DELAY_S = 0.3, 2.0
+# the hot-swap's streams: long enough (~0.6 s of decode) that the push
+# lands while every one of them is decoding
+SWAP_NEW = 200
 # ragged in M, K and N for the tensor-core route, whose TMA loads need N a
 # multiple of 16 (72 is not: that shape takes the rows route alone)
 DM_RAGGED_TMA = (200, 100, 48)
@@ -745,6 +791,9 @@ def phase_kernels(torch, timer):
                                bh=TRAIN_BATCH * HEADS))
         for t in (TRAIN_SEQ, 2000):
             rows.extend(flash_bwd_cases(torch, timer, t, dtype))
+    # B1 at the server's /v1/infer batch: 8 requests of 256 ids
+    rows.append(flash_case(torch, timer, INFER_SEQ, torch.bfloat16,
+                           bh=INFER_BATCH * HEADS))
     # the tensor-core (bf16) backward off the training shape: non-causal,
     # a serve bucket, and a head dim of 64
     rows.extend(flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, causal=False))
@@ -1286,6 +1335,7 @@ def phase_serve(torch, np, kernels):
         _log_pass("measured pass", res)
         more = [_serve_pass(torch, np, eng, seed=4)[2] for _ in range(PASSES - 1)]
         _log_medians("serve", [res] + more, res)
+        res["tracing"] = _tracing_cost(torch, np, eng)
         if eng.kv.leak_check() is not None:
             raise AssertionError(eng.kv.leak_check())
     finally:
@@ -1315,6 +1365,36 @@ def phase_serve(torch, np, kernels):
     del model
     torch.cuda.empty_cache()
     return res
+
+
+def _tracing_cost(torch, np, eng, rounds=4):
+    """Decode seconds a step of the serve pass with span tracing off and
+    on, in alternating passes on one engine (a tree without the serving
+    plane's tracer: None)."""
+    try:
+        from deeplearning4j_tpu_torch.observe import tracer
+    except ImportError:
+        return None
+    rec = tracer()
+    per = {"off": [], "on": []}
+    for _ in range(rounds):
+        for mode in ("off", "on"):
+            if mode == "on":
+                rec.enable()
+            try:
+                r = _serve_pass(torch, np, eng, seed=4)[2]
+            finally:
+                rec.disable()
+            per[mode].append(r["decode_seconds"] / r["decode_steps"])
+    spans = len(rec)
+    rec.clear()
+    off, on = (statistics.median(per[m]) for m in ("off", "on"))
+    log(f"[serve] tracing: decode ms a step off {off * 1e3:.4f} ("
+        + ", ".join(f"{x * 1e3:.4f}" for x in per["off"]) + f"), on {on * 1e3:.4f} ("
+        + ", ".join(f"{x * 1e3:.4f}" for x in per["on"]) + f"); difference "
+        f"{(on - off) * 1e3:.4f} ms a step; {spans} spans recorded")
+    return {"off_s_per_step": per["off"], "on_s_per_step": per["on"],
+            "median_off_s": off, "median_on_s": on, "spans": spans}
 
 
 def sample_cost(torch):
@@ -1371,6 +1451,487 @@ def sample_cost(torch):
     log(f"[serve] sampling a token from a (1, {VOCAB}) row, host ms (median of "
         "5 x 20, synced): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
     return out
+
+
+# -- server phase -------------------------------------------------------------------
+
+
+
+def _http(url, path, payload=None, raw=None, timeout=600):
+    """(status, body bytes) of one request to the port's HTTP front."""
+    import urllib.error
+    import urllib.request
+
+    data = raw if raw is not None else (
+        json.dumps(payload).encode() if payload is not None else None)
+    req = urllib.request.Request(url + path.lstrip("/"), data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _infer_load(np, call, rows, clients, warm_s, window_s):
+    """Closed-loop load: ``clients`` threads each ``call(row)`` back to
+    back for ``warm_s + window_s`` seconds.  requests/s counts the
+    completions inside the window; the latency percentiles are over the
+    requests started inside it (p99 needs 100 of them)."""
+    import threading
+
+    t_start = time.perf_counter()
+    w0, w1 = t_start + warm_s, t_start + warm_s + window_s
+    lats, done, outs, errs = [], [], [], []
+    lock = threading.Lock()
+
+    def client(i):
+        k = i
+        try:
+            while time.perf_counter() < w1:
+                t0 = time.perf_counter()
+                out = call(rows[k % len(rows)])
+                t1 = time.perf_counter()
+                k += clients
+                with lock:
+                    done.append(t1)
+                    if t0 >= w0:
+                        lats.append(t1 - t0)
+                    outs.append(out)
+        except BaseException as exc:            # re-raised below
+            errs.append(exc)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    lats.sort()
+    in_window = sum(w0 <= t <= w1 for t in done)
+
+    def pct(p):
+        return lats[min(len(lats) - 1, int(p * len(lats)))] * 1e3
+
+    return {"requests": len(done), "completed_in_window": in_window,
+            "window_s": window_s, "requests_per_s": in_window / window_s,
+            "n_latencies": len(lats), "p50_ms": pct(0.50) if lats else None,
+            "p99_ms": pct(0.99) if len(lats) >= 100 else None,
+            "outputs": outs}
+
+
+def _parallel(fns):
+    """Run callables on threads; their results in order (raises the
+    first exception)."""
+    import threading
+
+    out, errs = [None] * len(fns), []
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except BaseException as exc:        # re-raised below
+            errs.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i, fn)) for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _queued_pass(eng, submit_all, n):
+    """Stop the engine's loop, have ``submit_all`` queue ``n`` streams,
+    then start it: it admits them together, as the serve pass does."""
+    import threading
+
+    eng.stop()
+    box = {}
+    t = threading.Thread(target=lambda: box.update(out=submit_all()))
+    t.start()
+    t_end = time.monotonic() + 60
+    while eng.queue.depth < n:
+        if time.monotonic() > t_end or not t.is_alive() and "out" not in box:
+            raise AssertionError(f"{eng.queue.depth} of {n} streams queued")
+        time.sleep(0.002)
+    eng.start()
+    t.join()
+    if "out" not in box:
+        raise AssertionError("the streams' client failed")
+    return box["out"]
+
+
+def _submit_mix(eng, prompts, max_new=32):
+    """The serve mix on ``eng`` in-process: the last stream samples."""
+    reqs = [eng.submit(p, max_new) for p in prompts[:-1]]
+    reqs.append(eng.submit(prompts[-1], max_new, temperature=0.8, top_k=50, seed=11))
+    return [list(map(int, r.result(timeout=600))) for r in reqs]
+
+
+def _http_mix(url, prompts, max_new=32, stream_index=1):
+    """The serve mix through ``POST /v1/generate``, one thread a stream:
+    stream ``stream_index`` asks for NDJSON; the last samples."""
+    def one(i, p):
+        body = {"prompt": p.tolist(), "max_new_tokens": max_new}
+        if i == len(prompts) - 1:
+            body.update(temperature=0.8, top_k=50, seed=11)
+        if i == stream_index:
+            body["stream"] = True
+            code, raw = _http(url, "/v1/generate", body)
+            lines = [json.loads(l) for l in raw.decode().splitlines()]
+            if code != 200 or not lines[-1].get("done") or lines[-1]["error"]:
+                raise AssertionError(f"streamed generate: {code} {lines[-1:]}")
+            return p.tolist() + [l["token"] for l in lines if "token" in l]
+        code, raw = _http(url, "/v1/generate", body)
+        if code != 200:
+            raise AssertionError(f"/v1/generate: {code} {raw[:200]}")
+        return json.loads(raw)["tokens"]
+    return _parallel([lambda i=i, p=p: one(i, p) for i, p in enumerate(prompts)])
+
+
+def _breakdown(eng):
+    st = eng.stats()
+    return st["streams"]["settled"], {k: v["seconds_total"] for k, v in
+                                      st["latency_breakdown"].items()}
+
+
+def _perturbed(torch, model, scale=1.001):
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return t.detach() * scale
+    with torch.no_grad():
+        return walk(model.params)
+
+
+def _corrupt_zip(path):
+    """A small model's checkpoint zip with one byte flipped mid-file."""
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+
+    small = TransformerEncoder(vocab_size=VOCAB, d_model=64, n_heads=2,
+                               n_layers=1).init_model(device="cpu")
+    ModelSerializer.write_model(small, path)
+    with open(path, "rb") as f:
+        raw = bytearray(f.read())
+    raw[len(raw) // 2] ^= 0xFF
+    with open(path, "wb") as f:
+        f.write(bytes(raw))
+
+
+def phase_server(torch, np, kernels):
+    """The serving plane on the card: an `InferenceServer` over the
+    flagship with a `GenerationEngine` attached (``server=``) behind its
+    HTTP front on 127.0.0.1.  Generate through HTTP, infer, scrape, a
+    hot-swap in flight, torn pushes, a wedged step; see the module
+    docstring."""
+    from deeplearning4j_tpu_torch.observe import registry
+    from deeplearning4j_tpu_torch.runtime import faults
+    from deeplearning4j_tpu_torch.serving.admission import ServingRejected
+    from deeplearning4j_tpu_torch.serving.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+    from deeplearning4j_tpu_torch.serving.http import ServingHTTPServer
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer, ServingConfig
+
+    crash_dir = os.path.abspath(os.path.join("build", "crash"))
+    os.environ["DL4JTPU_CRASH_DIR"] = crash_dir
+    model = _flagship(torch)
+    srv = InferenceServer(model, ServingConfig(
+        max_batch=INFER_BATCH, max_queue=64, linger_s=0.002,
+        default_deadline_s=120.0, breaker_threshold=1,
+        breaker_probe_after_s=0.5)).start()
+    eng = GenerationEngine(server=srv, config=GenerationConfig(**ENGINE)).start()
+    http = ServingHTTPServer(srv, port=0, host="127.0.0.1").start()
+    url = http.url
+    res = {"url": url}
+    reg = registry()
+
+    def counter(name, **labels):
+        return reg.counter(name).value(**labels)
+
+    try:
+        # -- generate: in-process, then the same streams through HTTP ---------
+        _serve_pass(torch, np, eng, seed=2)       # new prefill shapes, the capture
+        prompts = _prompts(np, 4, SERVE_LENGTHS)
+        ref = _queued_pass(eng, lambda: _submit_mix(eng, prompts), len(prompts))
+        n0, b0 = _breakdown(eng)
+        kernels.reset_launches()
+        steps0, t0 = eng.stats()["decode_steps"], time.perf_counter()
+        got = _queued_pass(eng, lambda: _http_mix(url, prompts), len(prompts))
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        n1, b1 = _breakdown(eng)
+        steps = eng.stats()["decode_steps"] - steps0
+        same = [g == r for g, r in zip(got, ref)]
+        log(f"[server] /v1/generate: 8 streams x 32 tokens in {wall:.3f}s "
+            f"({8 * 32 / wall:.1f} tokens/s, HTTP included), {steps} decode steps; "
+            f"launches {counts}; streams equal to in-process generate: {same}")
+        if not all(same[:-1]):
+            raise AssertionError("a greedy /v1/generate stream differs from "
+                                 "in-process generate")
+        if steps != 31 or counts.get("paged_attention_fwd", 0) != LAYERS * 31:
+            raise AssertionError(f"{steps} steps, {counts.get('paged_attention_fwd')} "
+                                 f"B4 launches through HTTP, want 31 and {LAYERS * 31}")
+        per = {k: (b1[k] - b0[k]) / (n1 - n0) for k in b1}
+        log("[server] per-stream breakdown means (s): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in per.items())
+            + f"; decode_compute / sampling = {per['decode_compute']:.6f} / "
+            f"{per['sampling']:.6f}")
+        res["generate"] = {"wall_s": wall, "decode_steps": steps, "launches": counts,
+                           "equal": same, "breakdown_mean_s": per}
+        res["launches"] = counts
+
+        # -- infer: 16 in-process requests (2 batches of 8), 8 through HTTP ---
+        rng = np.random.default_rng(7)
+        rows = rng.integers(0, VOCAB, (INFER_REQUESTS, INFER_SEQ)).astype(np.int64)
+        srv.warm_start(rows[0])
+        srv.stop()
+        b_before = srv.stats()["batches"]
+        pend = [srv.submit(r) for r in rows]
+        kernels.reset_launches()
+        srv.start()
+        outs = [p.result(timeout=600) for p in pend]
+        infer_counts = kernels.launches()
+        st = srv.stats()
+        batches = st["batches"] - b_before
+        refs = [model.output(rows[i:i + INFER_BATCH]).cpu().numpy()
+                for i in range(0, INFER_REQUESTS, INFER_BATCH)]
+        ref_rows = np.concatenate(refs)
+        err = max(float(np.abs(o - r).max()) for o, r in zip(outs, ref_rows))
+        scale = float(np.abs(ref_rows).max())
+        log(f"[server] infer: {INFER_REQUESTS} requests of {INFER_SEQ} ids queued "
+            f"before the batcher started, {batches} batches; launches "
+            f"{infer_counts}; max |server - output()| {err:.3e} (max |output()| "
+            f"{scale:.3f})")
+        if batches != INFER_REQUESTS // INFER_BATCH or \
+                infer_counts.get("flash_fwd", 0) != LAYERS * batches:
+            raise AssertionError(f"{batches} batches, {infer_counts.get('flash_fwd')} "
+                                 f"B1 launches: want {LAYERS} a batch dispatch")
+        if err > TOL["flash_fwd/bf16"] * scale:
+            raise AssertionError(f"infer rows differ from output(): {err}")
+        kernels.reset_launches()
+        b_before = srv.stats()["batches"]
+        http_rows = rows[:INFER_BATCH]
+        http_out = _parallel([
+            lambda r=r: _http(url, "/v1/infer", {"features": r.tolist()})
+            for r in http_rows])
+        http_counts = kernels.launches()
+        http_batches = srv.stats()["batches"] - b_before
+        if any(code != 200 for code, _ in http_out):
+            raise AssertionError(f"/v1/infer: {[c for c, _ in http_out]}")
+        http_err = max(float(np.abs(np.asarray(json.loads(raw)["outputs"]) - r).max())
+                       for (_, raw), r in zip(http_out, refs[0]))
+        log(f"[server] /v1/infer: {len(http_rows)} requests in {http_batches} "
+            f"batch(es), launches {http_counts}, max |http - output()| {http_err:.3e}")
+        if http_counts.get("flash_fwd", 0) != LAYERS * http_batches or \
+                http_err > TOL["flash_fwd/bf16"] * scale:
+            raise AssertionError("/v1/infer: B1 launches or rows off")
+        res["infer"] = {"requests": INFER_REQUESTS, "batches": batches,
+                        "launches": infer_counts, "max_abs_err": err,
+                        "http_launches": http_counts, "http_batches": http_batches,
+                        "http_max_abs_err": http_err}
+
+        # -- infer at load: in-process, then through HTTP --------------------
+        load_rows = rng.integers(0, VOCAB, (64, INFER_SEQ)).astype(np.int64)
+
+        def http_call(r):
+            code, body = _http(url, "/v1/infer", {"features": r.tolist()})
+            if code != 200:
+                raise AssertionError(f"/v1/infer at load: {code} {body[:200]!r}")
+            return body
+
+        res["infer_load"] = {}
+        for route, call in (("in_process", srv.infer), ("http", http_call)):
+            clients, warm_s, window_s = INFER_LOAD[route]
+            b_before, lb0 = srv.stats()["batches"], srv.stats()["latency_breakdown"]
+            kernels.reset_launches()
+            load = _infer_load(np, call, load_rows, clients, warm_s, window_s)
+            if not load["n_latencies"]:
+                raise AssertionError(f"infer at load ({route}): no request started "
+                                     "and ended inside the window")
+            st = srv.stats()
+            n_batches = st["batches"] - b_before
+            flash = kernels.launches().get("flash_fwd", 0)
+            seg = {k: v - lb0["seconds_total"].get(k, 0.0)
+                   for k, v in st["latency_breakdown"]["seconds_total"].items()}
+            if route == "in_process":
+                bad = [o.shape for o in load.pop("outputs")[::16]
+                       if o.shape != (INFER_SEQ, D_MODEL) or not np.isfinite(o).all()]
+                if bad:
+                    raise AssertionError(f"infer at load: outputs off {bad}")
+            else:
+                load.pop("outputs")
+            load.update(clients=clients, batches=n_batches, flash_fwd=flash,
+                        rows_per_batch=load["requests"] / max(1, n_batches),
+                        server_seconds=seg)
+            log(f"[server] /v1/infer load, {route}: {clients} closed-loop clients, "
+                f"{load['completed_in_window']} completed in {window_s:.1f}s = "
+                f"{load['requests_per_s']:.1f} requests/s; latency over "
+                f"{load['n_latencies']} requests p50 {load['p50_ms']:.2f} ms, p99 "
+                + (f"{load['p99_ms']:.2f} ms" if load["p99_ms"] is not None
+                   else "not resolved (fewer than 100 requests)")
+                + f"; {load['requests']} requests in {n_batches} batches "
+                f"({load['rows_per_batch']:.2f} rows a batch), B1 {flash}; server "
+                "seconds " + ", ".join(f"{k} {v:.4f}" for k, v in seg.items()))
+            if flash != LAYERS * n_batches:
+                raise AssertionError(f"infer at load: {flash} B1 launches in "
+                                     f"{n_batches} batches, want {LAYERS} a batch")
+            res["infer_load"][route] = load
+
+        # -- hot-swap while 8 streams decode --------------------------------
+        cap0, recap0 = eng.stats()["graph_captures"], eng.stats()["graph_recaptures"]
+        gen0 = srv.generation
+        new = _perturbed(torch, model)
+        reqs = [eng.submit(p, SWAP_NEW) for p in _prompts(np, 9, SERVE_LENGTHS)]
+        t_end = time.monotonic() + 120
+        while not all(len(r.tokens_so_far()) > 2 for r in reqs):
+            if time.monotonic() > t_end:
+                raise AssertionError("streams did not start decoding")
+            time.sleep(0.001)
+        during = [len(r.tokens_so_far()) for r in reqs]
+        if not srv.push_weights(new, source="chip_smoke"):
+            raise AssertionError("the in-flight push rolled back")
+        fates = []
+        for r in reqs:
+            try:
+                fates.append(len(r.result(timeout=600)) - len(r.prompt))
+            except Exception as exc:      # counted as a dropped stream below
+                fates.append(repr(exc))
+        st = eng.stats()
+        swap = {"tokens_at_push": during, "generated": fates,
+                "generation": srv.generation - gen0,
+                "captures": st["graph_captures"] - cap0,
+                "recaptures": st["graph_recaptures"] - recap0}
+        swap["recapture_s"] = eng.stats()["last_capture_s"]
+        log(f"[server] hot-swap in flight: {swap}")
+        if fates != [SWAP_NEW] * len(reqs) or swap["generation"] != 1 or \
+                swap["recaptures"] != 1 or swap["captures"] != 1:
+            raise AssertionError(f"hot-swap in flight: {swap}")
+        # torn pushes roll back: a truncated tree, a corrupted zip over HTTP
+        probe = rows[:1]
+        before = model.output(probe).cpu()
+        faults.arm("serving.hotswap:truncate:nth=1")
+        try:
+            torn = srv.push_weights(_perturbed(torch, model, 1.01))
+        finally:
+            faults.disarm()
+        os.makedirs(crash_dir, exist_ok=True)
+        bad = os.path.join(crash_dir, "corrupt.zip")
+        _corrupt_zip(bad)
+        code, _ = _http(url, "/v1/reload", {"path": bad})
+        after = model.output(probe).cpu()
+        rolled = {"truncate_installed": torn, "reload_status": code,
+                  "generation": srv.generation - gen0,
+                  "output_unchanged": bool(torch.equal(before, after))}
+        log(f"[server] torn pushes: {rolled}")
+        if torn or code != 409 or rolled["generation"] != 1 or \
+                not rolled["output_unchanged"]:
+            raise AssertionError(f"a torn push did not roll back: {rolled}")
+        res["hotswap"] = {**swap, **rolled}
+
+        # -- a wedged step -----------------------------------------------------
+        ref = _queued_pass(eng, lambda: _submit_mix(eng, prompts), len(prompts))
+        stalls0 = {s: counter("dl4jtpu_watchdog_stalls_total", stage=s)
+                   for s in ("warn", "stack_dump", "abort")}
+        trans0 = {to: counter("dl4jtpu_serving_breaker_transitions_total", to=to)
+                  for to in ("open", "half_open", "closed")}
+        dumps0 = eng.flight.dumps_written
+        states = [srv.breaker.state]
+        floor = eng.watchdog.floor_s
+        eng.watchdog.floor_s = WEDGE_FLOOR_S
+        wedged = [eng.submit(p, 32) for p in prompts[:-1]]
+        while not all(r.tokens_so_far() for r in wedged):
+            time.sleep(0.001)
+        faults.arm(f"serving.decode:delay:nth=3,secs={WEDGE_DELAY_S}")
+        try:
+            outcomes = []
+            for r in wedged:
+                try:
+                    r.result(timeout=120)
+                    outcomes.append("ok")
+                except Exception as exc:
+                    outcomes.append(f"{r.outcome}: {exc}")
+            states.append(srv.breaker.state)
+            try:
+                eng.submit(prompts[1], 4)
+                shed = None
+            except ServingRejected as exc:
+                shed = exc.reason
+            time.sleep(WEDGE_DELAY_S)         # the stale step wakes and drops
+        finally:
+            faults.disarm()
+            eng.watchdog.floor_s = floor
+        leak = eng.kv.leak_check()
+        stalls = {s: counter("dl4jtpu_watchdog_stalls_total", stage=s) - stalls0[s]
+                  for s in stalls0}
+        time.sleep(srv.config.breaker_probe_after_s)
+        probe_out = eng.generate(prompts[1], 4, timeout=120)   # the half-open probe
+        states.append(srv.breaker.state)
+        again = _queued_pass(eng, lambda: _submit_mix(eng, prompts), len(prompts))
+        trans = {to: counter("dl4jtpu_serving_breaker_transitions_total", to=to)
+                 - trans0[to] for to in trans0}
+        wedge = {"outcomes": outcomes, "leak_check": leak, "stalls": stalls,
+                 "breaker_transitions": trans,
+                 "flight_dumps": eng.flight.dumps_written - dumps0,
+                 "breaker_states": states, "shed_while_open": shed,
+                 "probe_tokens": len(probe_out) - len(prompts[1]),
+                 "same_tokens_after": [a == r for a, r in zip(again, ref)],
+                 "used_pages": eng.kv.used_pages}
+        log(f"[server] wedge: {wedge}")
+        if not all(o.startswith("wedged") for o in outcomes) or leak is not None \
+                or stalls["abort"] != 1 or wedge["flight_dumps"] < 1 \
+                or states != ["closed", "open", "closed"] \
+                or trans != {"open": 1, "half_open": 1, "closed": 1} \
+                or shed != "breaker_open" or not all(wedge["same_tokens_after"][:-1]):
+            raise AssertionError(f"wedge: {wedge}")
+        res["wedge"] = wedge
+
+        # -- scrape ----------------------------------------------------------------
+        text = reg.to_prometheus_text()
+        must = ('dl4jtpu_generation_streams_total{outcome="ok"}',
+                'dl4jtpu_generation_streams_total{outcome="wedged"}',
+                "dl4jtpu_decode_tokens_total", "dl4jtpu_kv_pages_total",
+                "dl4jtpu_ttft_seconds_count",
+                'dl4jtpu_serving_requests_total{outcome="ok"}',
+                "dl4jtpu_serving_batches_total",
+                'dl4jtpu_serving_hotswap_total{result="installed"}',
+                'dl4jtpu_serving_hotswap_total{result="rolled_back"}',
+                'dl4jtpu_serving_breaker_transitions_total{to="open"}',
+                'dl4jtpu_generation_streams_total{outcome="breaker_open"}',
+                'dl4jtpu_watchdog_stalls_total{stage="abort"}',
+                'dl4jtpu_flight_dumps_total{trigger="watchdog_abort"}',
+                'dl4jtpu_faults_injected_total{site="serving.decode"}',
+                'dl4jtpu_ckpt_verify_failures_total{reason="corrupt"}')
+        values = {}
+        for m in must:
+            line = next((l for l in text.splitlines() if l.startswith(m + " ")), None)
+            values[m] = float(line.split()[-1]) if line else 0.0
+        code_s, raw_s = _http(url, "/v1/status")
+        code_h, raw_h = _http(url, "/healthz")
+        status = json.loads(raw_s)
+        log(f"[server] scrape: {values}; /v1/status {code_s} with "
+            f"{'generation' in status and isinstance(status['generation'], dict)} "
+            f"generation block; /healthz {code_h}")
+        if any(v <= 0 for v in values.values()) or code_s != 200 or code_h != 200 \
+                or not isinstance(status.get("generation"), dict):
+            raise AssertionError(f"scrape: {values} {code_s} {code_h}")
+        res["scrape"] = values
+        if eng.kv.leak_check() is not None:
+            raise AssertionError(eng.kv.leak_check())
+    finally:
+        faults.disarm()
+        http.stop()
+        eng.stop()
+        srv.stop()
+    del model
+    torch.cuda.empty_cache()
+    return res
 
 
 # -- spec phase ---------------------------------------------------------------------
@@ -1452,10 +2013,10 @@ def graph_check(torch, np, model, kernels):
             toks = np.concatenate([eng._last_tok[:, None],
                                    rng.integers(0, VOCAB, (ENGINE["slots"], c - 1))],
                                   axis=1).astype(np.int32)
-            args = (c, eng._page_tbl.copy(), eng._seq_lens.copy(), toks)
-            logits, greedy = (t.clone() for t in eng._program_eager(*args))
+            host = eng._inputs(eng._page_tbl.copy(), eng._seq_lens.copy(), toks)
+            logits, greedy = (t.clone() for t in eng._run_eager(c, host))
             before = kernels.launches().get(name, 0)
-            got, got_greedy = eng._program_captured(*args)
+            (got, got_greedy), _ = eng._replay(c, host)
             torch.cuda.synchronize()
             counted.append(kernels.launches().get(name, 0) - before)
             same &= bool(torch.equal(got, logits) and torch.equal(got_greedy, greedy))
@@ -2182,6 +2743,9 @@ def main(argv=None) -> int:
     if "serve" in phases:
         report["serve"] = phase_serve(torch, np, kernels)
         done("serve")
+    if "server" in phases:
+        report["server"] = phase_server(torch, np, kernels)
+        done("server")
     if "spec" in phases:
         report["spec"] = phase_spec(torch, np, kernels)
         done("spec")
@@ -2227,6 +2791,9 @@ def main(argv=None) -> int:
         (row("flash_bwd_dq", dtype="f32", shape=train_bhtd), "train_f32"),
         (row("flash_bwd_dkdv", dtype="f32", shape=train_bhtd), "train_f32"),
         (row("paged_attention_fwd", dtype="f32", mix="serve"), "serve"),
+        # the serving plane: /v1/generate's decode steps, /v1/infer's batches
+        (row("paged_attention_fwd", dtype="f32", mix="serve"), "server"),
+        (row("flash_fwd", shape=[INFER_BATCH * HEADS, INFER_SEQ, dh]), "server/infer"),
         # the verify's B4 on pseudo-slots
         (row("paged_attention_chunk", dtype="f32", mix="verify"), "spec"),
         (row("paged_attention_chunk_int8", dtype="int8", mix="verify"), "spec/int8"),

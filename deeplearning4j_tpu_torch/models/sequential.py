@@ -274,15 +274,18 @@ class SequentialModel(nn.Module):
         return x
 
     @torch.no_grad()
-    def output(self, features) -> torch.Tensor:
+    def output(self, features, params: dict | None = None) -> torch.Tensor:
         """Forward pass with the output activation applied, in f32
         (reference `MultiLayerNetwork.output()`): class probabilities for
         an `RnnOutputLayer` head, hidden states for a
         `ChunkedSoftmaxOutputLayer` head (its projection lives in the
-        loss)."""
+        loss).  ``params``: a `compute_params()` tree to run on instead
+        of the current one (a server's snapshot, taken under its weights
+        lock)."""
         if self.params is None:
             self.init()
-        x = self._forward(self.compute_params(), features)
+        x = self._forward(params if params is not None
+                          else self.compute_params(), features)
         return self.conf.layers[-1].output_activation()(x.float())
 
     # -- training -------------------------------------------------------------

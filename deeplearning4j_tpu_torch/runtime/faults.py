@@ -6,19 +6,37 @@ Named sites consult ``maybe_fail(site)``, and an armed `FaultPlan`
 decides — deterministically — whether that call raises, delays, dies,
 or asks the site to corrupt its own output.
 
-Sites the port consults today:
+Sites the port consults, where the JAX package consults them:
 
   ``serving.prefill``    the generation engine's per-stream prefill
                          (``raise`` ⇒ the stream fails explicitly, its
                          pages released; in `prefill_detached` a
                          `ServingError`)
+  ``serving.decode``     the generation engine, before each batched
+                         decode step, inside the step's watchdog arm
+                         (``raise`` ⇒ every in-flight stream fails and
+                         releases its pages; ``delay`` ⇒ a wedged step
+                         the watchdog aborts)
   ``serving.draft``      the speculative drafter, per drafting stream
                          (``raise`` ⇒ that stream falls back to plain
                          decode for good; ``corrupt`` ⇒ garbage drafts
                          that must all be rejected, output unchanged)
+  ``kv.alloc``           `PagedKVCache.alloc` (``raise`` ⇒ injected
+                         exhaustion: an explicit ``kv_exhausted`` 429)
+  ``serving.admit``      `InferenceServer.submit` entry (any kind ⇒ an
+                         explicit ``admit_fault`` rejection)
+  ``serving.infer``      the server's batched dispatch (``delay`` ⇒ a
+                         wedged dispatch; ``raise`` ⇒ a failed one;
+                         ``corrupt`` ⇒ NaN outputs the screen rejects)
+  ``serving.hotswap``    `InferenceServer.push_weights` (``truncate`` /
+                         ``corrupt`` ⇒ a torn or poisoned push that
+                         rolls back)
+  ``device.sync``        `observe.trace.StepScope.sync` (the fit loops
+                         arm it with ROADMAP A9)
 
-`SITES` lists every site of the JAX package; the port's other modules
-consult theirs as they are ported.
+Every fire bumps ``dl4jtpu_faults_injected_total{site=...}``.  `SITES`
+lists every site of the JAX package; the port's other modules consult
+theirs as they are ported.
 
 Plan grammar (also the ``DL4J_TPU_FAULT_PLAN`` env value, so subprocess
 workers inherit the plan from their spawner's environment)::
@@ -58,9 +76,9 @@ _KINDS = ("raise", "delay", "truncate", "corrupt", "kill")
 # The site registry, the JAX package's table name for name: a plan
 # written for one package arms the same sites in the other.  Plans may
 # still name ad-hoc sites (tests do); this table is the contract for
-# production call sites, not a runtime gate.  The port consults
-# ``serving.prefill`` and ``serving.draft`` (`serving/generation.py`);
-# the others wait for the modules that consult them.
+# production call sites, not a runtime gate.  The module docstring lists
+# the sites the port consults; the others wait for the modules that
+# consult them.
 SITES: dict = {
     "coordinator.rpc": "every CoordinatorClient request attempt",
     "heartbeat.send": "the worker heartbeat, before the rpc",
@@ -301,6 +319,7 @@ class FaultPlan:
                     break
         if fired is None:
             return None
+        _count_fire(site)
         if fired.kind == "delay":
             time.sleep(fired.secs)
             return None
@@ -314,6 +333,17 @@ class FaultPlan:
                 f"injected fault at {site} (consult #{n})"
             )
         return fired.kind                 # cooperative: "truncate"/"corrupt"
+
+
+def _count_fire(site: str) -> None:
+    try:
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        registry().counter("dl4jtpu_faults_injected_total").inc(site=site)
+    except Exception:
+        pass             # telemetry must never mask the injected fault —
+        # and this path runs INSIDE the injected failure, where even a
+        # logging call can recurse into a faulted subsystem
 
 
 # -- process-global arming --------------------------------------------------

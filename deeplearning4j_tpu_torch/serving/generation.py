@@ -41,14 +41,33 @@
   its outputs.  Prefill stays eager (its bucket varies).  On the CPU
   both steps run eagerly.
 
+- **the plane** (as the JAX engine attaches it) — one `StepWatchdog`
+  a engine is armed around every dispatch (a verify dispatch with
+  ``n_steps = C``, a dispatch that captures a graph with the cold floor
+  and disarmed without a sample); its abort (`_on_wedged`) fails every
+  in-flight stream, gives back all of their pages and respawns the loop
+  under a new generation.  The ``serving.decode`` fault site is
+  consulted at the top of every step, inside the arm (``raise`` = a
+  failed step, ``delay`` = a wedged one).  Every stream settles through
+  ONE fate point (`_finish`): the ``generation.stream`` root span, the
+  per-outcome counter, the six-segment latency breakdown (queue /
+  prefill / handoff / decode_queue / decode_compute / sampling — the
+  host sampler's time is ``sampling``), the slow-stream ring and a
+  flight-recorder record (`serving/flight.py`).  Span taxonomy per
+  stream: ``generation.admit`` -> ``generation.prefill`` ->
+  ``generation.kv_handoff`` -> one ``generation.decode_step`` a step a
+  co-resident stream -> ``generation.stream``; the trace context rides
+  the `prefill_detached` handoff.
+- **``server=``** — attached to an `InferenceServer`, the engine
+  snapshots the compute params under the server's weights lock before
+  every step (a hot-swap lands between steps; the step after it
+  captures a new graph), feeds the shared breaker and answers
+  ``/v1/generate``.
+
 Numerics: greedy decode is token-identical to `ops.generation.generate`
 at f32 on the CPU (same per-position math), and sampled streams draw on
 the same ``(seed, g)`` schedule with the JAX engine's random bits, so a
-stream's tokens do not depend on its slot or its neighbours.  Not ported
-yet: the step watchdog (and its per-token normalisation of a verify
-dispatch), the flight recorder, tracing and SLO counters (the
-``dl4jtpu_spec_*`` families, the ``serving.decode`` site, trace context
-on the handoff), and the ``server=`` / hot-swap attachment.
+stream's tokens do not depend on its slot or its neighbours.
 """
 
 from __future__ import annotations
@@ -56,12 +75,14 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.observe import trace as otrace
 from deeplearning4j_tpu_torch.ops.generation import (
     _block_prefill,
     _head_logits,
@@ -79,12 +100,14 @@ from deeplearning4j_tpu_torch.ops.paged_attention import (
 from deeplearning4j_tpu_torch.runtime import faults, kernels
 from deeplearning4j_tpu_torch.runtime.flags import bucket_length
 from deeplearning4j_tpu_torch.runtime.graphs import CapturedProgram
+from deeplearning4j_tpu_torch.runtime.watchdog import StepWatchdog
 from deeplearning4j_tpu_torch.serving.admission import (
     AdmissionQueue,
     ServingError,
     ServingRejected,
     ServingTimeout,
 )
+from deeplearning4j_tpu_torch.serving.flight import FlightRecorder
 from deeplearning4j_tpu_torch.serving.kv_cache import (
     SCRATCH_PAGE,
     KVPoolExhausted,
@@ -93,6 +116,32 @@ from deeplearning4j_tpu_torch.serving.kv_cache import (
 from deeplearning4j_tpu_torch.serving import speculative
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
+
+#: slowest-stream exemplars kept per engine
+GEN_SLOW_RING_CAP = 16
+
+#: the per-stream latency segments, in lifecycle order (breakdown dict
+#: keys, histogram families and the JAX engine share this vocabulary);
+#: decode_queue is the residual: slot residency not spent in decode
+#: compute or sampling
+GEN_BREAKDOWN_SEGMENTS = ("queue", "prefill", "handoff", "decode_queue",
+                          "decode_compute", "sampling")
+
+_GEN_BREAKDOWN_FAMILIES = None
+
+
+def _gen_breakdown_families() -> dict:
+    """Segment-name -> histogram, resolved once."""
+    global _GEN_BREAKDOWN_FAMILIES
+    if _GEN_BREAKDOWN_FAMILIES is None:
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        reg = registry()
+        _GEN_BREAKDOWN_FAMILIES = {
+            seg: reg.histogram(f"dl4jtpu_generation_{seg}_seconds")
+            for seg in GEN_BREAKDOWN_SEGMENTS
+        }
+    return _GEN_BREAKDOWN_FAMILIES
 
 
 @dataclass
@@ -108,6 +157,9 @@ class GenerationConfig:
     prefill_quantum: Optional[int] = None   # default: page_size
     max_queue: int = 128
     default_max_new: int = 32
+    watchdog_floor_s: float = 30.0
+    watchdog_cold_floor_s: float = 600.0   # a dispatch that captures a graph
+    watchdog_k: float = 10.0
     poll_s: float = 0.02           # idle-queue poll granularity
     # speculative decoding: draft length per stream per step (0 = off;
     # None = DL4J_TPU_SPEC_K), the drafter (None = DL4J_TPU_SPEC_DRAFTER,
@@ -151,7 +203,16 @@ class GenerationRequest:
         self.seq = 0
         self.t_submit = time.perf_counter()
         self.ttft_s: Optional[float] = None
+        # observability riders (engine-written; see _finish): trace
+        # linkage, latency segments, fate bookkeeping
+        self.trace_id: Optional[int] = None
+        self.root_span: Optional[int] = None
+        self.root_parent: Optional[int] = None
+        self.lat: dict = {}            # segment -> seconds
         self.outcome: Optional[str] = None
+        self.trace_done = False        # fate settled exactly once
+        self.t_offer: Optional[float] = None
+        self.t_slot: Optional[float] = None
         self._event = threading.Event()
         self._lock = threading.Lock()
 
@@ -207,16 +268,27 @@ class GenerationEngine:
         out = req.result(timeout=30)        # prompt + generated tokens
         engine.stop()
 
+    Pass exactly one of ``model`` and ``server=``: attached to an
+    `InferenceServer`, the engine snapshots params under the server's
+    weights lock (a hot-swap lands between decode steps), feeds the
+    shared breaker, and ``server.shed_pressure`` folds in KV occupancy.
     Runs on the model's device; the decode loop is one background
     thread that owns every device call after `start`.
     """
 
-    def __init__(self, model, config: Optional[GenerationConfig] = None):
+    def __init__(self, model=None, config: Optional[GenerationConfig] = None,
+                 *, server=None):
+        if (model is None) == (server is None):
+            raise ValueError("pass exactly one of model= or server=")
+        self.server = server
+        self.model = model = server.model if server is not None else model
         if model.params is None:
             model.init()
-        self.model = model
         self.device = model.device
         self.config = cfg = config or GenerationConfig()
+        self._weights_lock = (server._weights_lock if server is not None
+                              else threading.Lock())
+        self.breaker = server.breaker if server is not None else None
         embed, pos, blocks, head = _plan(model)
         self._stack = (embed, pos, tuple(blocks), head)
         names = [l.name for l in model.conf.layers]
@@ -265,22 +337,46 @@ class GenerationEngine:
                              "bonus": 0, "emitted": 0,
                              "verify_dispatches": 0,
                              "plain_dispatches": 0, "fallbacks": 0}
-        # chunk width -> (CapturedProgram, pinned host inputs); CUDA only
+        # chunk width -> (CapturedProgram, pinned host inputs, the event
+        # after their last copy up); CUDA only
         self._captured: dict = {}
         self._captures = 0
+        self._recaptures = 0
+        self._last_capture_s: Optional[float] = None   # host wall, enqueue
 
         self.queue = AdmissionQueue(cfg.max_queue)
         self._mu = threading.Lock()        # slot state + loop generation
         self._stop = threading.Event()
         self._loop_gen = 0
         self._thread: Optional[threading.Thread] = None
+        self.watchdog = StepWatchdog(
+            floor_s=cfg.watchdog_floor_s,
+            cold_floor_s=cfg.watchdog_cold_floor_s,
+            k=cfg.watchdog_k, abort=self._on_wedged, name="generation")
+        # the loop generation that armed the watchdog: a stale loop
+        # (wedged, then respawned) must not disarm its successor's step
+        self._wd_lock = threading.Lock()
+        self._wd_owner: Optional[int] = None
         self._steps = 0
         self._tokens_out = 0
         self._prefills = 0
         self._prefill_s = 0.0          # wall seconds in prefill (host clock)
         self._decode_s = 0.0           # wall seconds in decode steps
+        # observability: trace recorder handle, slow-stream ring,
+        # breakdown totals, and the flight recorder with its SLO-alert
+        # trigger (detached at stop())
+        self._rec = otrace.tracer()
         self._stats_lock = threading.Lock()
-        self._outcomes: dict[str, int] = {}
+        self._slow: list[dict] = []
+        self._lat_totals = {k: 0.0 for k in GEN_BREAKDOWN_SEGMENTS}
+        self._stream_outcomes: dict[str, int] = {}
+        self._streams_settled = 0
+        self._rate_samples: deque = deque(maxlen=64)  # (t, tokens_out)
+        self.flight = FlightRecorder()
+        self.flight.context_fn = self._flight_context
+        self.flight.attach_slo_trigger()
+        if server is not None:
+            server.generation_engine = self
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "GenerationEngine":
@@ -308,14 +404,17 @@ class GenerationEngine:
             self._fail_active_locked(
                 ServingRejected("shutdown", "engine stopped"),
                 outcome="shutdown")
+        self.flight.detach_slo_trigger()
 
     # -- admission ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None, *,
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-               stop_tokens: tuple = (), on_token=None,
+               stop_tokens: tuple = (), on_token=None, trace_ctx=None,
                spec_k: Optional[int] = None) -> GenerationRequest:
-        """Admit one stream.  Raises `ServingRejected` on a full queue;
-        a stream longer than the page table holds is a `ValueError`.
+        """Admit one stream.  Raises `ServingRejected` on a full queue
+        or an open breaker; a stream longer than the page table holds is
+        a `ValueError`.  ``trace_ctx`` is an upstream ``(trace_id,
+        root_span)`` pair; None allocates fresh ids when tracing is on.
         ``spec_k`` lowers the engine's draft length for this stream (0 =
         plain decode; never above the engine's: the verify chunk's width
         is fixed)."""
@@ -326,15 +425,52 @@ class GenerationEngine:
             seed=seed, stop_tokens=stop_tokens, on_token=on_token,
             spec_k=spec_k)
         self._validate(req)
-        self._offer(req)
+        self._init_trace(req, trace_ctx)
+        self._offer_counted(req)
         return req
 
     def _offer(self, req: GenerationRequest) -> None:
+        if self.breaker is not None and not self.breaker.admits():
+            raise ServingRejected(
+                "breaker_open", f"circuit breaker is {self.breaker.state}")
         if not self.queue.offer(req):
-            self._count_outcome("queue_full")
             raise ServingRejected(
                 "queue_full",
                 f"generation queue at capacity ({self.queue.max_queue})")
+
+    def _offer_counted(self, req: GenerationRequest) -> None:
+        """Offer + admission bookkeeping: a synchronous reject counts as
+        a stream outcome (its reason); an accepted stream bumps the
+        demand counter and stamps the enqueue mark."""
+        try:
+            self._offer(req)
+        except ServingRejected as exc:
+            self._count_stream(exc.reason)
+            raise
+        req.t_offer = time.perf_counter()
+        self._count_admitted()
+
+    def _init_trace(self, req: GenerationRequest, trace_ctx=None) -> None:
+        """Allocate (or adopt) the stream's trace linkage BEFORE the
+        queue sees it.  No-op when tracing is off."""
+        if not self._rec.enabled:
+            return
+        if trace_ctx is not None:
+            req.trace_id, req.root_span = trace_ctx
+        else:
+            req.trace_id = otrace.next_id()
+            req.root_span = otrace.next_id()
+
+    def _trace_segment(self, req: GenerationRequest, name: str,
+                       t0_pc: float, dur: float, **args) -> None:
+        """One child span of the stream's root chain (no-op untraced)."""
+        if req.trace_id is None or not self._rec.enabled:
+            return
+        self._rec.add_complete(
+            name, t0_pc, dur, cat="generation",
+            **otrace.trace_args(req.trace_id, otrace.next_id(),
+                                req.root_span),
+            **args)
 
     def _validate(self, req: GenerationRequest) -> None:
         t_p = req.prompt.shape[0]
@@ -372,37 +508,51 @@ class GenerationEngine:
     def prefill_detached(self, prompt, max_new_tokens: int, *,
                          temperature: float = 0.0, top_k: int = 0,
                          seed: int = 0, stop_tokens: tuple = (),
+                         trace_ctx=None,
                          spec_k: Optional[int] = None) -> dict:
         """Run only the prefill here, in the caller's thread, and return
         the handoff another engine's `join_prefilled` resumes the stream
         from: the prompt's K/V rows as host f32 arrays (n_layers,
-        t_bucket, H, Dh), the first token and the sampling state.  K/V
-        land in whatever pages the decoding engine keeps, so an f32
-        engine can prefill for an int8-page one.  Fault site
-        ``serving.prefill``: ``raise`` is a `ServingError`."""
+        t_bucket, H, Dh), the first token, the sampling state, and the
+        stream's trace context and timing marks (the decoding engine
+        extends the same causal chain).  K/V land in whatever pages the
+        decoding engine keeps, so an f32 engine can prefill for an
+        int8-page one.  Fault site ``serving.prefill``: ``raise`` is a
+        `ServingError`."""
         req = GenerationRequest(
             prompt, int(max_new_tokens), temperature=temperature,
             top_k=top_k, seed=seed, stop_tokens=stop_tokens)
         self._validate(req)
+        self._init_trace(req, trace_ctx)
         try:
             faults.maybe_fail("serving.prefill")
         except Exception as exc:
             raise ServingError(f"injected prefill fault: {exc}") from exc
+        t_pre0 = time.perf_counter()
         k, v, first = self._run_prefill(req)
+        k, v = k.cpu().numpy(), v.cpu().numpy()
+        pre_s = time.perf_counter() - t_pre0
+        self._trace_segment(req, "generation.prefill", t_pre0, pre_s,
+                            bucket=int(k.shape[1]), detached=True)
         out = {
-            "prompt": req.prompt, "k": k.cpu().numpy(), "v": v.cpu().numpy(),
+            "prompt": req.prompt, "k": k, "v": v,
             "first_token": int(first), "max_new": req.max_new,
             "temperature": req.temperature, "top_k": req.top_k,
             "seed": req.seed, "stop_tokens": req.stop_tokens,
             "t_submit": req.t_submit,      # the stream's TTFT counts from here
+            "prefill_s": pre_s,
+            "t_done_pc": time.perf_counter(),
         }
         if spec_k is not None:
             out["spec_k"] = max(0, int(spec_k))
+        if req.trace_id is not None:
+            out["trace"] = (req.trace_id, req.root_span)
         return out
 
     def join_prefilled(self, handoff: dict, on_token=None) -> GenerationRequest:
         """Admit a stream whose prefill ran elsewhere (`prefill_detached`);
-        its first token is already in the handoff."""
+        its first token is already in the handoff.  Adopts the handoff's
+        trace context and its prefill timing."""
         req = GenerationRequest(
             handoff["prompt"], handoff["max_new"],
             temperature=handoff["temperature"], top_k=handoff["top_k"],
@@ -411,10 +561,20 @@ class GenerationEngine:
             spec_k=handoff.get("spec_k"))
         req.t_submit = handoff.get("t_submit", req.t_submit)
         self._validate(req)
-        self._offer(req)
+        self._init_trace(req, handoff.get("trace"))
+        if "prefill_s" in handoff:
+            req.lat["prefill"] = float(handoff["prefill_s"])
+        self._offer_counted(req)
         return req
 
     # -- device programs ---------------------------------------------------
+    def _compute_params(self) -> dict:
+        """The compute-params snapshot a dispatch runs on, taken under
+        the weights lock: a hot-swap installs under the same lock, so it
+        lands between dispatches."""
+        with self._weights_lock:
+            return self.model.compute_params()
+
     @torch.no_grad()
     def _prefill(self, prompt_pad, prompt_len: int, req: GenerationRequest):
         """Bucketed prompt forward; returns (k, v, first_token) with k, v
@@ -423,7 +583,7 @@ class GenerationEngine:
         and their K/V rows sit past seq_len (masked at decode, then
         overwritten as the stream grows into them)."""
         embed, pos, blocks, head = self._stack
-        params = self.model.compute_params()
+        params = self._compute_params()
         x = embed._act()(params[self._embed_name]["W"][prompt_pad])
         if pos is not None:
             x = pos.apply(params.get(self._pos_name, {}), x)
@@ -519,30 +679,40 @@ class GenerationEngine:
         logits = _head_logits(head, params[self._head_name], x_t).float()
         return logits, torch.argmax(logits, dim=-1)
 
-    def _program_eager(self, c: int, page_tbl, seq_lens, toks):
-        """One step of C rows a slot, run eagerly; (logits, argmax)."""
-        buf = torch.from_numpy(self._inputs(page_tbl, seq_lens, toks))
-        return self._program(self.model.compute_params(), buf.to(self.device), c)
+    def _run_eager(self, c: int, host: np.ndarray):
+        buf = torch.from_numpy(host).to(self.device)
+        return self._program(self._compute_params(), buf, c)
 
-    def _program_captured(self, c: int, page_tbl, seq_lens, toks):
-        """The same step as one CUDA graph replay.  The graph is captured
-        at the first call for C, and again when the model's compute
-        parameters are other tensors than the ones it read (`init`,
-        `load_params` and every training step rebuild them); it keeps
-        ticket counters of its own for the paged-attention kernel.  The
-        returned tensors are the graph's outputs: the next replay
-        overwrites them."""
-        host = self._inputs(page_tbl, seq_lens, toks)
-        params = self.model.compute_params()
+    def _replay(self, c: int, host: np.ndarray, on_capture=None):
+        """One graph replay for `_inputs` vector ``host``: ((logits,
+        argmax), captured).  The graph is captured at the first call for
+        C, and again when the model's compute parameters are other
+        tensors than the ones it read (`init`, `load_params` — a
+        hot-swap — and every training step rebuild them); the decision
+        reads the same snapshot the step runs on, and ``on_capture`` is
+        called just before a capture.  The stale graph holds the old tree
+        until it is dropped here, after its last replay was read back.
+        It keeps ticket counters of its own for the paged-attention
+        kernel.  The returned tensors are the graph's outputs: the next
+        replay overwrites them.  The inputs go up by an asynchronous copy
+        from a pinned buffer, so enqueueing a step never waits on the
+        card; an event recorded after the copy is waited on before the
+        buffer is written again."""
+        params = self._compute_params()
         entry = self._captured.get(c)
         if entry is not None and entry[0].keep[0] is not params:
             del self._captured[c]          # frees the stale graph first
             entry = None
+            self._recaptures += 1
         if entry is not None:
-            prog, pinned = entry
+            prog, pinned, copied = entry
+            copied.synchronize()           # the previous copy has read it
             pinned.numpy()[:] = host
-            prog.inputs[0].copy_(pinned)
-            return prog.replay()
+            prog.inputs[0].copy_(pinned, non_blocking=True)
+            copied.record()
+            return prog.replay(), False
+        if on_capture is not None:
+            on_capture()
         static = torch.from_numpy(host).to(self.device)
         tickets = torch.zeros(
             tickets_needed(self.config.slots * c, self._n_heads,
@@ -554,30 +724,37 @@ class GenerationEngine:
             with ticket_scope(tickets):
                 return self._program(params, buf, c)
 
+        t0 = time.perf_counter()
         prog = CapturedProgram(fn, [static], keep=(params, tickets))
         pinned = torch.empty(host.shape, dtype=torch.int32, pin_memory=True)
-        self._captured[c] = (prog, pinned)
+        self._captured[c] = (prog, pinned, torch.cuda.Event())
         self._captures += 1
-        return prog.replay()
+        self._last_capture_s = time.perf_counter() - t0
+        return prog.replay(), True
 
-    def _logits(self, c: int, page_tbl, seq_lens, toks):
-        """A step's (logits, argmax) on device: one graph replay on
-        CUDA, the eager program on the CPU."""
+    def _run(self, c: int, host: np.ndarray, on_capture=None):
+        """One graph replay on CUDA, the eager program on the CPU:
+        ((logits, argmax), captured)."""
         if kernels.route(self.device) == "kernel":
-            return self._program_captured(c, page_tbl, seq_lens, toks)
-        return self._program_eager(c, page_tbl, seq_lens, toks)
+            return self._replay(c, host, on_capture)
+        return self._run_eager(c, host), False
 
-    def _step(self, page_tbl, seq_lens, last_tok, seeds, gen_counts, temps,
-              top_ks) -> np.ndarray:
-        """One token for every slot; the pools are appended in place.
-        Arguments are host copies of the slot state."""
-        logits, greedy = self._logits(1, page_tbl, seq_lens, last_tok[:, None])
-        nxt = greedy.cpu().numpy().astype(np.int32)
-        active = seq_lens > 0
-        for s in np.flatnonzero(active & (temps > 0.0)):
-            nxt[s] = _sample_token(logits[s], float(temps[s]), int(top_ks[s]),
-                                   int(seeds[s]), int(gen_counts[s]))
-        return np.where(active, nxt, 0)
+    def _dispatch(self, my_gen: int, c: int, host: np.ndarray):
+        """Enqueue one step under ``_mu``, unless the loop went stale:
+        ((logits, argmax) on the device, captured), or None.  Checking
+        the loop generation and enqueueing under one lock is what keeps
+        a stale loop (wedged, then respawned past) from writing K/V into
+        pages `_on_wedged` gave back: either its step was enqueued before
+        the release, and so before any write of the new loop on the same
+        CUDA stream, or it is never enqueued.  A dispatch that captures a
+        graph — the port's compile — is re-armed with the cold floor
+        first, and its caller disarms it without a sample.  On CUDA the
+        lock covers the enqueue only; the CPU runs the step in it."""
+        with self._mu:
+            if self._loop_gen != my_gen:
+                return None
+            return self._run(c, host, on_capture=lambda: self._wd_arm(
+                my_gen, n_steps=c, cold=True, step=self._steps))
 
     # -- the decode loop ---------------------------------------------------
     def _loop(self, my_gen: int) -> None:
@@ -589,6 +766,8 @@ class GenerationEngine:
                     n_active = sum(r is not None for r in self._slot_req)
                 self._refill(my_gen, block=(n_active == 0))
                 with self._mu:
+                    if self._loop_gen != my_gen:
+                        return
                     n_active = sum(r is not None for r in self._slot_req)
                 if n_active:
                     self._decode_step(my_gen)
@@ -610,7 +789,15 @@ class GenerationEngine:
         batch = self.queue.take_batch(len(free), linger_s=0.0,
                                       stop=self._stop,
                                       poll_s=self.config.poll_s)
+        t_taken = time.perf_counter()
         for req in batch:
+            q0 = req.t_offer if req.t_offer is not None else req.t_submit
+            wait = max(0.0, t_taken - q0)
+            first_take = "queue" not in req.lat
+            req.lat["queue"] = wait
+            if first_take:
+                # cancelled streams keep the segment too
+                self._trace_segment(req, "generation.admit", q0, wait)
             if req.cancelled:
                 self._finish(req, "cancelled",
                              ServingRejected("shutdown", "cancelled"))
@@ -632,8 +819,13 @@ class GenerationEngine:
         try:
             self.kv.alloc(req.rid, self.kv.pages_for(span))
         except KVPoolExhausted as exc:
+            # the explicit 429 — the stream never stalls waiting on pages
             self._finish(req, "kv_exhausted",
                          ServingRejected("kv_exhausted", str(exc)))
+            try:
+                self.flight.note_kv_exhausted()
+            except Exception as e:
+                log.debug("kv spike note failed: %s", e)
             return
         req.pages = self.kv.pages_for(span)
         if self._req_spec_k(req) > 0:
@@ -645,21 +837,39 @@ class GenerationEngine:
         try:
             if req.prefilled is None:
                 faults.maybe_fail("serving.prefill")
-                t0 = time.perf_counter()
+                t_pre0 = time.perf_counter()
                 k, v, first = self._run_prefill(req)
+                t_pre1 = time.perf_counter()
+                req.lat["prefill"] = t_pre1 - t_pre0
+                self._trace_segment(req, "generation.prefill", t_pre0,
+                                    t_pre1 - t_pre0, bucket=t_b)
                 with self._stats_lock:
                     self._prefills += 1
-                    self._prefill_s += time.perf_counter() - t0
+                    self._prefill_s += t_pre1 - t_pre0
+                hand_t0 = None
             else:
                 k, v = req.prefilled["k"], req.prefilled["v"]
                 first = int(req.prefilled["first_token"])
+                hand_t0 = req.prefilled.get("t_done_pc")
+            t_w0 = time.perf_counter()
             tbl = self.kv.write_prefill(req.rid, k, v)
+            t_w1 = time.perf_counter()
+            # a handoff spans from the prefill engine's completion mark;
+            # the lat entry leaves out the queue wait "queue" owns
+            transfer = (max(0.0, req.t_offer - hand_t0)
+                        if hand_t0 is not None and req.t_offer is not None
+                        else 0.0)
+            req.lat["handoff"] = transfer + (t_w1 - t_w0)
+            span_t0 = hand_t0 if hand_t0 is not None else t_w0
+            self._trace_segment(req, "generation.kv_handoff", span_t0,
+                                max(0.0, t_w1 - span_t0), pages=len(tbl))
         except Exception as exc:
             log.exception("prefill failed")
             self.kv.release(req.rid)
             self._finish(req, "error", ServingError(f"prefill failed: {exc}"))
             return
         req._record(first)
+        self._observe_ttft(req)
         self._count_tokens(1)
         if req.max_new <= 1 or first in req.stop_tokens:
             self.kv.release(req.rid)
@@ -669,7 +879,7 @@ class GenerationEngine:
             if self._loop_gen != my_gen:
                 self.kv.release(req.rid)
                 self._finish(req, "error",
-                             ServingError("engine restarted during admit"))
+                             ServingError("engine respawned during admit"))
                 return
             row = np.full(self.config.max_pages_per_seq, SCRATCH_PAGE, np.int32)
             row[: len(tbl)] = tbl
@@ -681,11 +891,43 @@ class GenerationEngine:
             self._top_ks[slot] = req.top_k
             self._seeds[slot] = req.seed
             self._slot_req[slot] = req
+            req.t_slot = time.perf_counter()
+        self._gauge_occupancy()
+
+    # -- the watchdog's arm, owned by one loop generation --------------------
+    def _wd_arm(self, my_gen: int, n_steps: int = 1, cold: bool = False,
+                step: Optional[int] = None) -> None:
+        """Arm for this loop's next dispatch (``step``, by default the one
+        after the last counted) — unless the loop is stale (`_on_wedged`
+        bumps the generation under the same lock)."""
+        with self._wd_lock:
+            if self._loop_gen != my_gen:
+                return
+            self._wd_owner = my_gen
+            self.watchdog.arm(self._steps + 1 if step is None else step,
+                              n_steps=n_steps, cold=cold)
+
+    def _wd_disarm(self, my_gen: int, dur: Optional[float]) -> None:
+        """Disarm only while this loop still owns the arm: a stale loop
+        waking after `_on_wedged` must leave its successor's deadline in
+        place."""
+        with self._wd_lock:
+            if self._wd_owner == my_gen:
+                self._wd_owner = None
+                self.watchdog.disarm(dur)
 
     def _decode_step(self, my_gen: int) -> None:
         """One dispatch for every live slot — a verify of drafted chunks
         when any stream drafted, else one plain token — then harvest:
-        stop conditions, page release, slot free."""
+        stop conditions, page release, slot free.  The watchdog is armed
+        from the ``serving.decode`` consult to the step's read-back."""
+        self._wd_arm(my_gen)
+        try:
+            faults.maybe_fail("serving.decode")
+        except Exception as exc:
+            self._wd_disarm(my_gen, None)
+            self._step_failed(my_gen, exc)
+            return
         if self.drafter is not None:
             drafts = self._gather_drafts(my_gen)
             if drafts is not None:
@@ -695,25 +937,46 @@ class GenerationEngine:
                 self._spec_counts["plain_dispatches"] += 1
         with self._mu:
             if self._loop_gen != my_gen:
+                self._wd_disarm(my_gen, None)
                 return
-            args = (self._page_tbl.copy(), self._seq_lens.copy(),
-                    self._last_tok.copy(), self._seeds.copy(),
-                    self._gen_counts.copy(), self._temps.copy(),
-                    self._top_ks.copy())
+            page_tbl, seq_lens = self._page_tbl.copy(), self._seq_lens.copy()
+            last_tok, seeds = self._last_tok.copy(), self._seeds.copy()
+            gen_counts, temps = self._gen_counts.copy(), self._temps.copy()
+            top_ks = self._top_ks.copy()
+        t_in = time.perf_counter()
+        host = self._inputs(page_tbl, seq_lens, last_tok[:, None])
         self._steps += 1
         t0 = time.perf_counter()
         try:
-            nxt = self._step(*args)
+            out = self._dispatch(my_gen, 1, host)
+            if out is None:
+                self._wd_disarm(my_gen, None)
+                return                     # wedged + respawned: stale
+            (logits, greedy), captured = out
+            nxt = greedy.cpu().numpy().astype(np.int32)
         except Exception as exc:
+            self._wd_disarm(my_gen, None)
             self._step_failed(my_gen, exc)
             return
-        with self._stats_lock:
-            self._decode_s += time.perf_counter() - t0
+        step_s = time.perf_counter() - t0
+        self._wd_disarm(my_gen, None if captured else step_s)
+        t_h0 = time.perf_counter()
+        active = seq_lens > 0
+        for s in np.flatnonzero(active & (temps > 0.0)):
+            # the host sampler (`ops.generation._sample`): jax's threefry
+            # and Gumbel bits, charged to the "sampling" segment
+            nxt[s] = _sample_token(logits[s], float(temps[s]), int(top_ks[s]),
+                                   int(seeds[s]), int(gen_counts[s]))
+        nxt = np.where(active, nxt, 0)
+        # decode_seconds: the step's inputs, dispatch and read-back, and
+        # the host sampler
+        decode_s = time.perf_counter() - t_in
         finished: list[tuple[GenerationRequest, bool]] = []
+        stepped: list[tuple[GenerationRequest, int]] = []
         n_live = 0
         with self._mu:
             if self._loop_gen != my_gen:
-                return
+                return                     # wedged + respawned: stale
             for s, req in enumerate(self._slot_req):
                 if req is None:
                     continue
@@ -727,18 +990,31 @@ class GenerationEngine:
                 self._seq_lens[s] += 1
                 self._gen_counts[s] += 1
                 self._last_tok[s] = tok
+                stepped.append((req, int(self._gen_counts[s])))
                 if self._gen_counts[s] >= req.max_new or tok in req.stop_tokens:
                     self._clear_slot(s)
                     finished.append((req, True))
+            if stepped and self._rec.enabled:
+                # batch composition: every co-resident stream gets this
+                # step's span, tagged with who shared the dispatch
+                rids = [r.rid for r, _ in stepped]
+                counts = {r.rid: c for r, c in stepped}
+                for req, _ in stepped:
+                    self._trace_segment(
+                        req, "generation.decode_step", t0, step_s,
+                        step=self._steps, batch=rids, batch_tokens=counts)
+        samp_s = max(0.0, time.perf_counter() - t_h0)
+        for req, _ in stepped:
+            # each co-resident stream is charged the full step plus the
+            # host sampling and harvest
+            req.lat["decode_compute"] = req.lat.get("decode_compute", 0.0) + step_s
+            req.lat["sampling"] = req.lat.get("sampling", 0.0) + samp_s
+        with self._stats_lock:
+            self._decode_s += decode_s
+        if self.breaker is not None:
+            self.breaker.record_success()
         self._count_tokens(n_live)
         self._settle(finished)
-
-    def _step_failed(self, my_gen: int, exc: BaseException) -> None:
-        log.exception("generation decode step failed")
-        with self._mu:
-            if self._loop_gen == my_gen:
-                self._fail_active_locked(
-                    ServingError(f"decode step failed: {exc}"))
 
     def _settle(self, finished) -> None:
         for req, ok in finished:
@@ -748,6 +1024,7 @@ class GenerationEngine:
             else:
                 self._finish(req, "cancelled",
                              ServingRejected("shutdown", "cancelled"))
+        self._gauge_occupancy()
 
     # -- speculative decode ------------------------------------------------
     def _req_spec_k(self, req: GenerationRequest) -> int:
@@ -822,11 +1099,14 @@ class GenerationEngine:
         token after a fully accepted chunk) — 1 to k + 1 tokens a stream,
         plain decode's tokens.  Row ``j`` of a sampled stream draws with
         ``fold_in(key(seed), gen_count + j)``, on the host, and only for
-        rows the walk reaches."""
+        rows the walk reaches.  The watchdog re-arms with the chunk
+        width, so its EWMA stays per token."""
         c = self.spec_k + 1
         n_slots = self.config.slots
+        self._wd_arm(my_gen, n_steps=c)
         with self._mu:
             if self._loop_gen != my_gen:
+                self._wd_disarm(my_gen, None)
                 return
             chunk = np.zeros((n_slots, c), np.int32)
             chunk[:, 0] = self._last_tok
@@ -842,14 +1122,24 @@ class GenerationEngine:
             seeds, temps, top_ks = (self._seeds.copy(), self._temps.copy(),
                                     self._top_ks.copy())
             page_tbl, seq_lens = self._page_tbl.copy(), self._seq_lens.copy()
+        t_in = time.perf_counter()
+        host = self._inputs(page_tbl, seq_lens, chunk)
         self._steps += 1
         t0 = time.perf_counter()
         try:
-            logits, greedy = self._logits(c, page_tbl, seq_lens, chunk)
+            out = self._dispatch(my_gen, c, host)
+            if out is None:
+                self._wd_disarm(my_gen, None)
+                return                     # wedged + respawned: stale
+            (logits, greedy), captured = out
             greedy = greedy.cpu().numpy().astype(np.int32)
         except Exception as exc:
+            self._wd_disarm(my_gen, None)
             self._step_failed(my_gen, exc)
             return
+        step_s = time.perf_counter() - t0
+        self._wd_disarm(my_gen, None if captured else step_s)
+        t_h0 = time.perf_counter()
 
         def token(s: int, j: int) -> int:
             if temps[s] <= 0.0:
@@ -861,9 +1151,10 @@ class GenerationEngine:
         sp = {"drafted": 0, "accepted": 0, "rejected": 0, "bonus": 0}
         emitted_total = 0
         finished: list[tuple[GenerationRequest, bool]] = []
+        stepped: list[tuple[GenerationRequest, int, int]] = []
         with self._mu:
             if self._loop_gen != my_gen:
-                return
+                return                     # wedged + respawned: stale
             for s, req in enumerate(self._slot_req):
                 if req is None:
                     continue
@@ -899,17 +1190,57 @@ class GenerationEngine:
                 req.spec_drafted += d_len
                 req.spec_accepted += accepted
                 emitted_total += emit
+                stepped.append((req, int(self._gen_counts[s]), emit))
                 if self._gen_counts[s] >= req.max_new or fin:
                     self._clear_slot(s)
                     finished.append((req, True))
+            # decode_seconds: the step's inputs, dispatch and read-back,
+            # and the walk
+            decode_s = time.perf_counter() - t_in
+            if stepped and self._rec.enabled:
+                rids = [r.rid for r, _, _ in stepped]
+                counts = {r.rid: n for r, n, _ in stepped}
+                emits = {r.rid: e for r, _, e in stepped}
+                for req, _, _ in stepped:
+                    self._trace_segment(
+                        req, "generation.decode_step", t0, step_s,
+                        step=self._steps, batch=rids, batch_tokens=counts,
+                        emitted=emits, speculative=True)
+        samp_s = max(0.0, time.perf_counter() - t_h0)
+        for req, _, _ in stepped:
+            req.lat["decode_compute"] = req.lat.get("decode_compute", 0.0) + step_s
+            req.lat["sampling"] = req.lat.get("sampling", 0.0) + samp_s
         with self._stats_lock:
-            self._decode_s += time.perf_counter() - t0
+            self._decode_s += decode_s
+        if self.breaker is not None:
+            self.breaker.record_success()
+        self._count_tokens(emitted_total)
+        self._count_spec(sp, emitted_total)
+        self._settle(finished)
+
+    def _count_spec(self, sp: dict, emitted: int) -> None:
+        """One verify dispatch's speculative accounting: host counters
+        for stats() plus the ``dl4jtpu_spec_*`` families."""
+        with self._stats_lock:
             for kind, v in sp.items():
                 self._spec_counts[kind] += v
-            self._spec_counts["emitted"] += emitted_total
+            self._spec_counts["emitted"] += emitted
             self._spec_counts["verify_dispatches"] += 1
-        self._count_tokens(emitted_total)
-        self._settle(finished)
+            drafted = self._spec_counts["drafted"]
+            ratio = (self._spec_counts["accepted"] / drafted
+                     if drafted else 0.0)
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            reg = registry()
+            ctr = reg.counter("dl4jtpu_spec_tokens_total")
+            for kind, v in sp.items():
+                if v:
+                    ctr.inc(v, kind=kind)
+            reg.gauge("dl4jtpu_spec_acceptance_ratio").set(round(ratio, 4))
+            reg.histogram("dl4jtpu_spec_tokens_per_dispatch").observe(emitted)
+        except Exception as e:
+            log.debug("spec metric failed: %s", e)
 
     def _clear_slot(self, s: int) -> None:
         """Caller holds self._mu; the caller releases the pages."""
@@ -922,10 +1253,29 @@ class GenerationEngine:
         self._top_ks[s] = 0
         self._seeds[s] = 0
 
+    # -- failure paths -----------------------------------------------------
+    def _step_failed(self, my_gen: int, exc: BaseException) -> None:
+        log.error("generation decode step failed: %s", exc)
+        tripped = False
+        if self.breaker is not None:
+            was = self.breaker.state
+            self.breaker.record_failure()
+            tripped = was != "open" and self.breaker.state == "open"
+        with self._mu:
+            if self._loop_gen != my_gen:
+                return
+            self._fail_active_locked(ServingError(f"decode step failed: {exc}"))
+        self._gauge_occupancy()
+        if tripped:
+            try:
+                self.flight.dump("breaker_open", context={"error": str(exc)})
+            except Exception as e:
+                log.debug("breaker flight dump failed: %s", e)
+
     def _fail_active_locked(self, exc: BaseException,
                             outcome: str = "error") -> None:
         """Caller holds self._mu: fail every in-flight stream and release
-        all of their pages."""
+        all of their pages.  Every stream settles through `_finish`."""
         for s, req in enumerate(self._slot_req):
             if req is None:
                 continue
@@ -933,17 +1283,149 @@ class GenerationEngine:
             self.kv.release(req.rid)
             self._finish(req, outcome, exc)
 
+    def _on_wedged(self, event: dict) -> None:
+        """Watchdog abort: the dispatched step never returned.  Fail
+        every in-flight stream, release all of their pages, trip the
+        breaker, and respawn the loop under a new generation — the
+        wedged thread's eventual return sees a stale generation and
+        drops its harvest."""
+        log.error("generation decode step wedged: %s", event)
+        if self.breaker is not None:
+            self.breaker.record_failure()
+        with self._mu:
+            with self._wd_lock:
+                self._loop_gen += 1
+                gen = self._loop_gen
+                self._wd_owner = None
+                self.watchdog.disarm(None)
+            # The pools are written in place, so a freed page may still
+            # have a write of the wedged step ahead of it.  That is safe:
+            # `_dispatch` enqueues under this lock after checking the
+            # generation, so the stale step either was enqueued before
+            # this release — and so, on the one CUDA stream every loop
+            # and prefill writes on, runs before any write of the new
+            # loop into these pages — or is never enqueued.  The new loop
+            # captures fresh graphs (own static inputs and pinned buffer),
+            # so the stale thread's replay shares nothing with it.
+            self._fail_active_locked(
+                ServingError(f"decode step wedged: {event.get('stage')}"),
+                outcome="wedged")
+            if self._captured:
+                self._recaptures += len(self._captured)
+                self._captured = {}
+        self._gauge_occupancy()
+        try:
+            self.flight.dump("watchdog_abort", context=dict(event))
+        except Exception as e:
+            log.debug("watchdog flight dump failed: %s", e)
+        if not self._stop.is_set():
+            self._thread = threading.Thread(
+                target=self._loop, args=(gen,), name="dl4j-torch-generation",
+                daemon=True)
+            self._thread.start()
+
+    # -- the fate point ----------------------------------------------------
     def _finish(self, req: GenerationRequest, outcome: str,
                 exc: Optional[BaseException] = None) -> None:
-        """Settle one stream exactly once."""
+        """Settle one stream EXACTLY ONCE: finalize the latency
+        breakdown, record the ``generation.stream`` root span, bump the
+        per-outcome counter, offer the stream to the slow ring, append
+        the flight record, then release the client.  Racing settlers
+        claim via `trace_done` under the request lock."""
         with req._lock:
-            if req.outcome is not None:
+            if req.trace_done:
                 return
+            req.trace_done = True
             req.outcome = outcome
-        self._count_outcome(outcome)
+        t_fate = time.perf_counter()
+        latency = max(0.0, t_fate - req.t_submit)
+        if req.t_slot is not None:
+            resid = (t_fate - req.t_slot
+                     - req.lat.get("decode_compute", 0.0)
+                     - req.lat.get("sampling", 0.0))
+            req.lat["decode_queue"] = max(0.0, resid)
+        self._observe_breakdown(req.lat)
+        self._count_stream(outcome)
+        if req.trace_id is not None and self._rec.enabled:
+            args = dict(otrace.trace_args(req.trace_id, req.root_span,
+                                          req.root_parent))
+            if exc is not None:
+                args["error"] = str(exc)
+            self._rec.add_complete(
+                "generation.stream", req.t_submit, latency,
+                cat="generation", outcome=outcome, rid=req.rid,
+                tokens=len(req.tokens), **args)
+        self._note_slow(req, outcome, latency)
+        self._flight_record(req, outcome, latency, exc)
         if exc is not None:
             req.error = exc
         req._event.set()
+
+    def _note_slow(self, req: GenerationRequest, outcome: str,
+                   latency_s: float) -> None:
+        """Offer one settled stream to the slowest-streams ring (bounded,
+        latency-descending)."""
+        entry = {
+            "kind": "generate",
+            "rid": req.rid,
+            "trace": (f"{req.trace_id:x}" if req.trace_id is not None
+                      else None),
+            "trace_id": req.trace_id,
+            "outcome": outcome,
+            "latency_s": round(latency_s, 6),
+            "ttft_s": (round(req.ttft_s, 6) if req.ttft_s is not None
+                       else None),
+            "tokens": len(req.tokens),
+            "t_wall": time.time(),
+            "breakdown_s": {k: round(v, 6) for k, v in req.lat.items()},
+        }
+        with self._stats_lock:
+            slow = self._slow
+            if len(slow) >= GEN_SLOW_RING_CAP and \
+                    latency_s <= slow[-1]["latency_s"]:
+                return
+            slow.append(entry)
+            slow.sort(key=lambda e: -e["latency_s"])
+            del slow[GEN_SLOW_RING_CAP:]
+
+    def slow_streams(self, spans: bool = True) -> list[dict]:
+        """The slowest-stream exemplars (latency-descending), each with
+        its breakdown and — when tracing is on — its causal span chain."""
+        with self._stats_lock:
+            out = [dict(e) for e in self._slow]
+        if spans and self._rec.enabled:
+            for e in out:
+                if e["trace_id"] is not None:
+                    e["spans"] = self._rec.trace_chain(e["trace_id"])
+        for e in out:
+            e.pop("trace_id", None)
+        return out
+
+    def _flight_record(self, req: GenerationRequest, outcome: str,
+                       latency_s: float,
+                       exc: Optional[BaseException]) -> None:
+        try:
+            self.flight.record({
+                "rid": req.rid,
+                "trace": (f"{req.trace_id:x}"
+                          if req.trace_id is not None else None),
+                "outcome": outcome,
+                "error": str(exc) if exc is not None else None,
+                "prompt_len": int(req.prompt.shape[0]),
+                "max_new": req.max_new,
+                "tokens": len(req.tokens),
+                "ttft_s": req.ttft_s,
+                "latency_s": round(latency_s, 6),
+                "pages_held": req.pages,
+                "breakdown_s": {k: round(v, 6) for k, v in req.lat.items()},
+                "t_wall": time.time(),
+            })
+        except Exception as e:
+            log.debug("flight record failed: %s", e)
+
+    def _flight_context(self) -> dict:
+        """Engine/KV snapshot merged into every flight dump."""
+        return {"stats": self.stats()}
 
     # -- introspection -----------------------------------------------------
     def active_streams(self) -> int:
@@ -961,21 +1443,45 @@ class GenerationEngine:
         return False
 
     def stats(self) -> dict:
+        active = self.active_streams()
         with self._stats_lock:
-            outcomes = dict(self._outcomes)
+            totals = dict(self._lat_totals)
+            outcomes = dict(self._stream_outcomes)
+            settled = self._streams_settled
+            slow_n = len(self._slow)
             spec = dict(self._spec_counts)
+        total_s = sum(totals.values())
+        # per-token view: a speculative step emits 1..k+1 tokens a
+        # dispatch, so comparisons read seconds_per_token
+        n_tok = max(1, self._tokens_out)
+        breakdown = {
+            k: {
+                "seconds_total": round(v, 6),
+                "fraction": round(v / total_s, 4) if total_s > 0 else 0.0,
+                "seconds_per_token": round(v / n_tok, 9),
+            }
+            for k, v in totals.items()
+        }
         drafted, verifies = spec["drafted"], spec["verify_dispatches"]
         return {
             "slots": self.config.slots,
-            "active_streams": self.active_streams(),
+            "active_streams": active,
             "queue_depth": self.queue.depth,
             "decode_steps": self._steps,
             "decode_seconds": self._decode_s,
             "prefills": self._prefills,
             "prefill_seconds": self._prefill_s,
             "tokens_generated": self._tokens_out,
+            "tokens_per_s": round(self.tokens_per_s(), 4),
             "graph_captures": self._captures,
+            "graph_recaptures": self._recaptures,
+            "last_capture_s": self._last_capture_s,
             "outcomes": outcomes,
+            "streams": {"settled": settled, "outcomes": outcomes},
+            "latency_breakdown": breakdown,
+            "slow_streams": slow_n,
+            "flight": {"records": len(self.flight),
+                       "dumps": self.flight.dumps_written},
             "kv": self.kv.stats(),
             "speculative": {
                 "enabled": self.spec_k > 0,
@@ -996,12 +1502,106 @@ class GenerationEngine:
             },
         }
 
+    def health_summary(self) -> dict:
+        """Compact generation block for `InferenceServer.health()`."""
+        active = self.active_streams()
+        with self._stats_lock:
+            outcomes = dict(self._stream_outcomes)
+            drafted = self._spec_counts["drafted"]
+            accepted = self._spec_counts["accepted"]
+        out = {
+            "active_streams": active,
+            "queue_depth": self.queue.depth,
+            "kv_occupancy": round(self.kv.occupancy(), 4),
+            "tokens_per_s": round(self.tokens_per_s(), 4),
+            "stream_outcomes": outcomes,
+            "flight_dumps": self.flight.dumps_written,
+        }
+        if self.spec_k > 0:
+            out["spec_acceptance_ratio"] = (
+                round(accepted / drafted, 4) if drafted else 0.0)
+        return out
+
+    def tokens_per_s(self) -> float:
+        """Recent aggregate decode rate over the trailing rate-sample
+        window (0.0 until two samples exist)."""
+        with self._stats_lock:
+            if len(self._rate_samples) < 2:
+                return 0.0
+            t0, n0 = self._rate_samples[0]
+            t1, n1 = self._rate_samples[-1]
+        dt = t1 - t0
+        return (n1 - n0) / dt if dt > 0 else 0.0
+
+    # -- telemetry ---------------------------------------------------------
     def _count_tokens(self, n: int) -> None:
         if n <= 0:
             return
+        now = time.perf_counter()
         with self._stats_lock:
             self._tokens_out += n
+            self._rate_samples.append((now, self._tokens_out))
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
 
-    def _count_outcome(self, outcome: str) -> None:
+            reg = registry()
+            reg.counter("dl4jtpu_decode_tokens_total").inc(n)
+            reg.gauge("dl4jtpu_generation_tokens_per_s").set(
+                round(self.tokens_per_s(), 4))
+        except Exception as e:
+            log.debug("decode token metric failed: %s", e)
+
+    def _count_stream(self, outcome: str) -> None:
+        """One settled (or synchronously rejected) stream, by outcome."""
         with self._stats_lock:
-            self._outcomes[outcome] = self._outcomes.get(outcome, 0) + 1
+            self._streams_settled += 1
+            self._stream_outcomes[outcome] = (
+                self._stream_outcomes.get(outcome, 0) + 1)
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            registry().counter("dl4jtpu_generation_streams_total").inc(
+                outcome=outcome)
+        except Exception as e:
+            log.debug("stream outcome metric failed: %s", e)
+
+    def _count_admitted(self) -> None:
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            registry().counter(
+                "dl4jtpu_generation_streams_admitted_total").inc()
+        except Exception as e:
+            log.debug("admitted stream metric failed: %s", e)
+
+    def _observe_breakdown(self, lat: dict) -> None:
+        try:
+            fams = _gen_breakdown_families()
+            with self._stats_lock:
+                for seg in GEN_BREAKDOWN_SEGMENTS:
+                    v = lat.get(seg)
+                    if v is None:
+                        continue
+                    self._lat_totals[seg] += v
+                    fams[seg].observe(v)
+        except Exception as e:
+            log.debug("generation breakdown observe failed: %s", e)
+
+    def _observe_ttft(self, req: GenerationRequest) -> None:
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            if req.ttft_s is not None:
+                registry().histogram("dl4jtpu_ttft_seconds").observe(req.ttft_s)
+        except Exception as e:
+            log.debug("ttft metric failed: %s", e)
+
+    def _gauge_occupancy(self) -> None:
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            active = self.active_streams()
+            registry().gauge("dl4jtpu_decode_batch_occupancy").set(
+                active / max(1, self.config.slots))
+        except Exception as e:
+            log.debug("occupancy gauge failed: %s", e)

@@ -18,21 +18,28 @@ exists.  int8 pages use symmetric per-(position, head) scales
 
 Allocator state (free list, tables) is host state under one lock;
 exhaustion raises `KVPoolExhausted`, which the engine turns into an
-explicit 429, never a stall.  Speculative decode adds best-effort
-overhang pages (`reserve_speculative`, never a 429) that `truncate_to`
-and `release` give back.
+explicit 429, never a stall.  The fault site ``kv.alloc`` makes that
+path provokable (``raise`` = injected exhaustion).  Speculative decode
+adds best-effort overhang pages (`reserve_speculative`, never a 429)
+that `truncate_to` and `release` give back.  Occupancy lands on
+``dl4jtpu_kv_pages_used`` / ``dl4jtpu_kv_pages_total``, and every
+failed allocation on ``dl4jtpu_serving_shed_total{reason="kv_exhausted"}``.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.runtime import faults
 from deeplearning4j_tpu_torch.runtime.backend import resolve_device
 from deeplearning4j_tpu_torch.runtime.flags import bucket_length
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
 
 #: pool page 0 is the scratch page idle slots write to — never handed out
 SCRATCH_PAGE = 0
@@ -97,6 +104,8 @@ class PagedKVCache:
         self._tables: dict = {}
         self._spec_extra: dict = {}    # rid -> speculative overhang pages
         self._alloc_failures = 0
+        self._gauge_total()
+        self._gauge_used(0)
 
     # -- geometry ----------------------------------------------------------
     def pages_for(self, length: int) -> int:
@@ -113,19 +122,34 @@ class PagedKVCache:
     def alloc(self, rid, n_pages: int) -> list[int]:
         """Append ``n_pages`` pool pages to ``rid``'s table; raises
         `KVPoolExhausted` (and grants nothing) when the free list is
-        short."""
+        short.  Fault site ``kv.alloc``: ``raise`` = injected
+        exhaustion."""
+        try:
+            faults.maybe_fail("kv.alloc")
+        except Exception as exc:
+            self._count_failure()
+            raise KVPoolExhausted(f"injected exhaustion: {exc}") from exc
         n_pages = int(n_pages)
         if n_pages < 0:
             raise ValueError("n_pages must be >= 0")
         with self._lock:
             if n_pages > len(self._free):
                 self._alloc_failures += 1
+                short = n_pages - len(self._free)
                 used = self.num_pages - 1 - len(self._free)
-                raise KVPoolExhausted(
+                err = KVPoolExhausted(
                     f"kv pool exhausted: need {n_pages} page(s), "
-                    f"{len(self._free)} free ({used}/{self.num_pages - 1} in use)")
-            got = [self._free.pop() for _ in range(n_pages)]
-            self._tables.setdefault(rid, []).extend(got)
+                    f"{len(self._free)} free ({short} short; "
+                    f"{used}/{self.num_pages - 1} in use)")
+            else:
+                got = [self._free.pop() for _ in range(n_pages)]
+                self._tables.setdefault(rid, []).extend(got)
+                used = self.num_pages - 1 - len(self._free)
+                err = None
+        if err is not None:
+            self._count_failure()
+            raise err
+        self._gauge_used(used)
         return got
 
     def reserve_speculative(self, rid, length: int) -> list[int]:
@@ -142,6 +166,8 @@ class PagedKVCache:
             got = [self._free.pop() for _ in range(need)]
             self._tables.setdefault(rid, []).extend(got)
             self._spec_extra[rid] = self._spec_extra.get(rid, 0) + len(got)
+            used = self.num_pages - 1 - len(self._free)
+        self._gauge_used(used)
         return got
 
     def truncate_to(self, rid, length: int) -> list[int]:
@@ -159,6 +185,8 @@ class PagedKVCache:
             del pages[keep:]
             self._free.extend(freed)
             self._spec_extra.pop(rid, None)
+            used = self.num_pages - 1 - len(self._free)
+        self._gauge_used(used)
         return freed
 
     def release(self, rid) -> int:
@@ -168,6 +196,9 @@ class PagedKVCache:
             self._spec_extra.pop(rid, None)
             if pages:
                 self._free.extend(pages)
+            used = self.num_pages - 1 - len(self._free)
+        if pages:
+            self._gauge_used(used)
         return len(pages or ())
 
     def table(self, rid) -> list[int]:
@@ -184,6 +215,12 @@ class PagedKVCache:
     def used_pages(self) -> int:
         with self._lock:
             return self.num_pages - 1 - len(self._free)
+
+    def occupancy(self) -> float:
+        """Fraction of allocatable pages in use, in [0, 1] — the KV term
+        of `InferenceServer.shed_pressure`."""
+        with self._lock:
+            return 1.0 - len(self._free) / max(1, self.num_pages - 1)
 
     def stats(self) -> dict:
         with self._lock:
@@ -261,3 +298,29 @@ class PagedKVCache:
             self.k_pages.index_put_(ix, k.float().reshape(shape))
             self.v_pages.index_put_(ix, v.float().reshape(shape))
         return np.asarray(pages, np.int32)
+
+    # -- telemetry (never on the allocation's critical path) ---------------
+    def _count_failure(self) -> None:
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            registry().counter("dl4jtpu_serving_shed_total").inc(
+                reason="kv_exhausted")
+        except Exception as e:
+            log.debug("kv alloc-failure metric failed: %s", e)
+
+    def _gauge_total(self) -> None:
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            registry().gauge("dl4jtpu_kv_pages_total").set(self.num_pages - 1)
+        except Exception as e:
+            log.debug("kv total gauge failed: %s", e)
+
+    def _gauge_used(self, used: int) -> None:
+        try:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            registry().gauge("dl4jtpu_kv_pages_used").set(used)
+        except Exception as e:
+            log.debug("kv used gauge failed: %s", e)

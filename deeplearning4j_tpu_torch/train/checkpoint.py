@@ -22,9 +22,10 @@ code, data from the file), on the card unless the caller asks for the
 CPU.  A zip written here restores in the JAX package and the other way
 round.
 
-Not ported yet: the fault-injection sites ``checkpoint.write`` and
-``checkpoint.fsync`` and `CheckpointStore` (ROADMAP A9), the
-verify-failure metric (A10) — a failure is logged — and
+A failed verify is logged and counted under
+``dl4jtpu_ckpt_verify_failures_total{reason="corrupt"}``.  Not ported
+yet: the fault-injection sites ``checkpoint.write`` and
+``checkpoint.fsync`` and `CheckpointStore` (ROADMAP A9), and
 ``write_model_distributed`` (A11).  A ``GraphModel`` checkpoint raises
 (A4).
 """
@@ -61,6 +62,19 @@ _REQUIRED_ENTRIES = ("configuration.json", "params.npz", "netstate.npz",
 class CheckpointVerifyError(RuntimeError):
     """The checkpoint file failed integrity verification (truncated zip,
     CRC mismatch, missing entries, leaf-count drift)."""
+
+
+def _count_verify_failure(path: str, reason: str,
+                          kind: str = "corrupt") -> None:
+    log.warning("checkpoint %s failed verification: %s", path, reason)
+    try:
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        registry().counter("dl4jtpu_ckpt_verify_failures_total").inc(
+            reason=kind)
+    except Exception as e:
+        # best-effort: the verify failure itself must propagate
+        log.debug("ckpt verify-failure metric failed: %s", e)
 
 
 def _host(leaf) -> np.ndarray:
@@ -208,8 +222,7 @@ class ModelSerializer:
             raise
         except (zipfile.BadZipFile, zlib.error, KeyError, ValueError,
                 OSError, json.JSONDecodeError) as e:
-            log.warning("checkpoint %s failed verification: %s: %s", path,
-                        type(e).__name__, e)
+            _count_verify_failure(path, f"{type(e).__name__}: {e}")
             raise CheckpointVerifyError(
                 f"checkpoint {path} failed verification: {e}") from e
 

@@ -55,10 +55,16 @@ to the same 1e-4 and the same bits on a second launch.  The engine's
 decode and verify steps captured as CUDA graphs give the eager steps'
 logits and tokens bit for bit over 16 dispatches, count each kernel the
 graph holds once a replay, and are captured again when a training step
-rebuilds the model's compute parameters.
+rebuilds the model's compute parameters.  The serving plane on captured
+steps: a watchdog abort while a step is held inside its arm fails the
+streams, the held loop enqueues nothing after the release (the pools
+keep their bits) and the respawned loop serves the same greedy tokens;
+a hot-swap between replays captures once more, drops no stream, and
+each replay still counts one paged-attention launch a layer.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -523,10 +529,10 @@ def test_captured_steps_match_the_eager_steps(cuda, c, bf16, kv_dtype):
     for i in range(16):
         toks = np.concatenate([eng._last_tok[:, None],
                                rng_np.integers(0, 97, (4, c - 1))], axis=1).astype(np.int32)
-        args = (c, eng._page_tbl.copy(), eng._seq_lens.copy(), toks)
-        logits, greedy = (t.clone() for t in eng._program_eager(*args))
+        host = eng._inputs(eng._page_tbl.copy(), eng._seq_lens.copy(), toks)
+        logits, greedy = (t.clone() for t in eng._run_eager(c, host))
         before = kernels.launches().get(name, 0)
-        got, got_greedy = eng._program_captured(*args)
+        (got, got_greedy), _ = eng._replay(c, host)
         torch.cuda.synchronize()
         assert kernels.launches()[name] - before == 2 * (1 + (i == 0))   # + warm-up
         assert torch.equal(got, logits) and torch.equal(got_greedy, greedy)
@@ -556,6 +562,120 @@ def test_graph_is_captured_again_after_a_training_step(cuda):
             model.fit_batch(DataSet(ids, np.roll(ids, -1, axis=1)))
     finally:
         eng.stop()
+
+
+def _hold_inputs(eng, n):
+    """Hold the engine's n-th step in `_inputs` (inside its watchdog arm,
+    before its enqueue) until ``gate`` is set."""
+    import threading
+
+    entered, gate, calls = threading.Event(), threading.Event(), [0]
+    inputs = eng._inputs
+
+    def held(*a):
+        calls[0] += 1
+        if calls[0] == n:
+            entered.set()
+            assert gate.wait(60.0)
+        return inputs(*a)
+
+    eng._inputs = held
+    return entered, gate
+
+
+def test_watchdog_abort_during_replays_then_a_new_loop(cuda, tmp_path,
+                                                       monkeypatch):
+    """A step held inside its arm while captured replays run: the abort
+    fails the streams and gives back their pages; the held (stale) loop
+    wakes and enqueues nothing, so no page is written after the release;
+    the respawned loop serves the same greedy tokens as before."""
+    import threading
+
+    from deeplearning4j_tpu_torch.runtime.watchdog import StepWatchdog
+
+    monkeypatch.setenv("DL4JTPU_CRASH_DIR", str(tmp_path))
+    model, eng = _card_engine(cuda, False)
+    prompts = [np.random.default_rng(n).integers(0, 97, n) for n in (5, 33, 80)]
+    eng.start()
+    try:
+        want = [r.result(120) for r in [eng.submit(p, 12) for p in prompts]]
+    finally:
+        eng.stop()
+    clock = [0.0]
+    eng.watchdog = StepWatchdog(floor_s=1.0, cold_floor_s=1.0,
+                                abort=eng._on_wedged, threaded=False,
+                                clock=lambda: clock[0], name="generation")
+    entered, gate = _hold_inputs(eng, 4)
+    reqs = [eng.submit(p, 20) for p in prompts]
+    enqueued = []
+    run = eng._run
+    eng._run = lambda c, host, **kw: enqueued.append(c) or run(c, host, **kw)
+    eng.start()
+    try:
+        assert entered.wait(60.0)
+        eng.watchdog.poll(now=100.0)
+        for r in reqs:
+            with pytest.raises(Exception, match="wedged"):
+                r.result(60)
+        assert eng.kv.leak_check() is None and eng.kv.used_pages == 0
+        torch.cuda.synchronize()
+        pools = (eng.kv.k_pages.clone(), eng.kv.v_pages.clone())
+        n_enqueued = len(enqueued)
+        gate.set()
+        for t in threading.enumerate():
+            if t.name == "dl4j-torch-generation" and t is not eng._thread:
+                t.join(30.0)
+        torch.cuda.synchronize()
+        assert len(enqueued) == n_enqueued
+        assert torch.equal(eng.kv.k_pages, pools[0])
+        assert torch.equal(eng.kv.v_pages, pools[1])
+        got = [r.result(120) for r in [eng.submit(p, 12) for p in prompts]]
+    finally:
+        gate.set()
+        eng.stop()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert eng.stats()["graph_recaptures"] >= 1     # fresh graphs after it
+
+
+def test_hot_swap_between_replays_captures_once_more(cuda):
+    """`push_weights` while streams decode: the swap lands between two
+    replays, the next dispatch captures one new graph, no stream drops,
+    and each replay still counts one paged-attention launch a layer."""
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+
+    model, _ = _card_engine(cuda, False)
+    srv = InferenceServer(model)
+    eng = GenerationEngine(server=srv, config=GenerationConfig(
+        slots=4, page_size=16, num_pages=64, max_pages_per_seq=8)).start()
+    prompts = [np.random.default_rng(n).integers(0, 97, n) for n in (5, 17, 20)]
+    try:
+        reqs = [eng.submit(p, 100) for p in prompts]
+        for r in reqs:
+            while len(r.tokens_so_far()) < 3:
+                time.sleep(0.001)
+        new = {k: {kk: (vv.detach() * 1.01 if not isinstance(vv, dict) else
+                        {a: b.detach() * 1.01 for a, b in vv.items()})
+                   for kk, vv in v.items()} for k, v in model.params.items()}
+        assert srv.push_weights(new)
+        at_push = [len(r.tokens_so_far()) for r in reqs]
+        for r in reqs:
+            assert len(r.result(120)) == len(r.prompt) + 100
+        assert max(at_push) < 100              # the swap landed mid-stream
+        st = eng.stats()
+        assert st["graph_captures"] == 2 and st["graph_recaptures"] == 1
+        refs = [generate(model, p[None], 12)[0].cpu().numpy() for p in prompts]
+        steps0 = eng.stats()["decode_steps"]
+        kernels.reset_launches()
+        outs = [r.result(120) for r in [eng.submit(p, 12) for p in prompts]]
+        steps = eng.stats()["decode_steps"] - steps0
+        assert kernels.launches()["paged_attention_fwd"] == 2 * steps
+        for out, ref in zip(outs, refs):
+            np.testing.assert_array_equal(out, ref)
+        assert eng.stats()["graph_captures"] == 2
+    finally:
+        eng.stop()
+        srv.stop()
 
 
 @pytest.mark.parametrize("m,k,n", [(4096, 1024, 4096), (8, 1024, 4096),

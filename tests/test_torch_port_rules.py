@@ -1,10 +1,11 @@
 """Rules the port keeps, checked without a GPU.
 
 - The port never imports jax, optax or the JAX package (a fresh
-  interpreter imports every module of it, `utils/` and `train/`
-  included, takes a training step, runs the CPU engine and a quantized
-  ``output()``, writes and restores a checkpoint zip of each model,
-  then lists its modules).
+  interpreter imports every module of it, `utils/`, `train/`,
+  `observe/` and the serving plane included, takes a training step,
+  runs the CPU engine, the server with an attached engine behind its
+  HTTP front, and a quantized ``output()``, writes and restores a
+  checkpoint zip of each model, then lists its modules).
 - Entry points default to CUDA and raise when there is none, checkpoint
   restore included; only an explicit ``device="cpu"`` runs on the CPU.
 - A kernel wrapper never answers a CUDA tensor with its plain version:
@@ -56,7 +57,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             importlib.import_module(name)
         for need in ("quant.ptq", "train.checkpoint", "utils.serde",
                      "nn.weights", "nn.schedules", "serving.speculative",
-                     "runtime.faults", "runtime.graphs"):
+                     "runtime.faults", "runtime.graphs", "observe",
+                     "observe.metrics", "observe.trace", "observe.slo",
+                     "runtime.crash", "runtime.watchdog", "serving.flight",
+                     "serving.breaker", "serving.batching", "serving.hotswap",
+                     "serving.server", "serving.http"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -77,6 +82,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         finally:
             eng.stop()
         assert out.shape == (8,)
+        from deeplearning4j_tpu_torch.serving.http import ServingHTTPServer
+        from deeplearning4j_tpu_torch.serving.server import InferenceServer
+        srv = InferenceServer(m).start()
+        eng = GenerationEngine(server=srv, config=GenerationConfig(
+            slots=2, page_size=8, num_pages=8, max_pages_per_seq=2)).start()
+        http = ServingHTTPServer(srv).start()
+        try:
+            assert srv.infer(ids[0]).shape == (6, 32)
+            assert eng.generate(np.arange(5) % 17, 3, timeout=60).shape == (8,)
+            from deeplearning4j_tpu_torch.observe import registry
+            assert "dl4jtpu_generation_streams_total" in (
+                registry().to_prometheus_text())
+        finally:
+            http.stop()
+            eng.stop()
+            srv.stop()
         q = quantize(m)
         p = q.output(ids)
         assert p.shape == (2, 6, 32) and bool(np.isfinite(p.numpy()).all())
@@ -520,12 +541,12 @@ def test_a_failing_capture_raises_and_never_reruns_eagerly(monkeypatch):
 
     eager = []
     monkeypatch.setattr(gen_mod, "CapturedProgram", RefusedCapture)
-    monkeypatch.setattr(eng, "_program_eager", lambda *a: eager.append(a))
+    monkeypatch.setattr(eng, "_run_eager", lambda *a: eager.append(a))
     monkeypatch.setattr(kernels, "route", lambda device: "kernel")
     for c in (1, 3):
         toks = np.zeros((2, c), np.int32)
         with pytest.raises(RuntimeError, match="capturing"):
-            eng._logits(c, eng._page_tbl, eng._seq_lens, toks)
+            eng._run(c, eng._inputs(eng._page_tbl, eng._seq_lens, toks))
     eng._decode_step(eng._loop_gen)
     assert eager == []
     assert req.outcome == "error"
