@@ -66,7 +66,12 @@ Then the phases:
    flagship built with ``bf16_compute=False``: f32 compute, the JAX
    package's CPU arithmetic, through B1 f32 (`flash_fwd_split`) and the
    f32 backward (`flash_bwd_dq_split`, `flash_bwd_dkdv_split`), with the
-   same gates.
+   same gates.  In the bf16 train phase, then, `observe.cost` analyses
+   the step program (one counted run: torch ops by FlopCounterMode's
+   formulas, B1-B3 by the port's ``*_work`` functions, the same ones the
+   kernel rows' bounds use): its FLOPs must be within 1% of the count by
+   hand (`_train_flops_by_hand`); achieved FLOP/s and MFU at the median
+   step against the H100 row, and the roofline class, are printed.
 5. serve — the full-width flagship `TransformerEncoder` (vocab 32000,
    d 1024, 8 heads, 8 layers, chunked head, seed 123, bf16 compute) in a
    `GenerationEngine` (8 slots, 16-row pages, 512 pages, 160-wide
@@ -109,6 +114,32 @@ Then the phases:
    the generation, KV, serving, breaker, watchdog, flight, fault and
    checkpoint families hold non-zero counts; ``/v1/status`` carries the
    generation block and ``/healthz`` answers 200.
+5c. fleet — the serving fleet (`serving/fleet.py`, `serving/router.py`):
+   two flagship replicas (seed 123 each) in one process on the card,
+   batches of 8, the serve engine's configuration.  Generate: roles
+   prefill (r0) and decode (r1); the serve mix through
+   `ServingFleet.generate`, 8 streams started together: each equal to
+   r1's in-process stream of the same prompt (the sampled one also to
+   the serve phase's sampled stream, when that phase ran), exactly 8 B1
+   launches a prompt with no prefill on r1, exactly 8 B4 launches a
+   decode step of r1, no other kernel, no decode loop on r0; tokens/s,
+   mean TTFT (submit to the first token's callback), the 2000-token
+   prompt's TTFT and the handoff's seconds and share of TTFT are
+   printed.  Infer: two ``both`` replicas; 16 requests of 256 ids routed
+   before the batchers start (one batch of 8 on each): rows bit-identical
+   to ``output()`` of the row in a batch of 8, exactly 8 B1 launches a
+   batch, ``dl4jtpu_router_requests_total`` 8 on each replica.  Chaos:
+   16 closed-loop clients for 2 s, r1 killed once it holds queued
+   requests: every request completes, at least one retry, exactly one
+   ``dead`` ejection; after `revive_replica` (re-sync included) one
+   probe re-admits r1.  Deploy: a perturbed tree rolled out on the
+   prefill/decode fleet while 4 infer clients run, golden-input canaries
+   at tolerance 1e-4: installed on both, weights generation +1 on each,
+   and exactly one graph re-capture after it (r1; r0 never captures);
+   then with ``serving.canary:corrupt:every=1`` armed the deploy rolls
+   the fleet back, one canary failure is counted, and both replicas'
+   outputs are bit-identical to before.  Compile stats of the phase: no
+   ``nvcc`` run, every kernel library found up to date.
 6. spec — speculative decoding on the flagship: the serve engine with
    ``spec_k`` 4 and the n-gram drafter against a plain engine, the serve
    prompts with 100 new tokens a stream (the last sampled), one warm-up
@@ -202,8 +233,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "train", "train_f32", "serve", "server", "spec", "parity", "int8",
-          "quant", "ckpt")
+PHASES = ("kernels", "train", "train_f32", "serve", "server", "fleet", "spec", "parity",
+          "int8", "quant", "ckpt")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -424,7 +455,11 @@ def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
     """Kernel B1 against `flash_fwd_plain` at (BH, T, D 128): out and lse
     each against its tolerance (bf16 out relative to max |plain| and row
     by row), a second launch bit for bit."""
-    from deeplearning4j_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        flash_fwd,
+        flash_fwd_plain,
+        flash_fwd_work,
+    )
     import torch.nn.functional as F
 
     d = D_MODEL // HEADS
@@ -441,12 +476,11 @@ def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
     del again
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
     errs = out_errors(out, ref)
-    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
-    eb = q.element_size()
-    n_bytes = 4 * bh * t * d * eb + bh * t * 4
-    # the function's multiply-adds on the bf16 peak, in f32 too: the card
-    # reaches f32 accuracy on bf16 tensor cores (by split parts)
-    b_ms, b_by = bound_ms(n_bytes, 4 * d * pairs, "bf16")
+    # the function's FLOPs (the port's own count of B1's work) on the bf16
+    # peak, in f32 too: the card reaches f32 accuracy on bf16 tensor cores
+    # (by split parts)
+    (_, n_ops, n_bytes), = flash_fwd_work(bh, t, d, causal, q.element_size())
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
     qs, ks, vs = (x[None] for x in (q, k, v))        # (1, BH, T, D) for sdpa
     row = {
         "name": "flash_fwd",
@@ -469,8 +503,8 @@ def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
         # log only: the split design's own floor, three bf16 part products
         # (hi hi, hi lo, lo hi) for each product, and the f32-FMA bound of
         # the CUDA-core kernel it replaced
-        row["part_floor_ms"] = bound_ms(n_bytes, 3 * 4 * d * pairs, "bf16")[0]
-        row["f32_fma_bound_ms"] = bound_ms(n_bytes, 4 * d * pairs, "f32")[0]
+        row["part_floor_ms"] = bound_ms(n_bytes, 3 * n_ops, "bf16")[0]
+        row["f32_fma_bound_ms"] = bound_ms(n_bytes, n_ops, "f32")[0]
     return row
 
 
@@ -523,6 +557,7 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops.flash_attention import (
         flash_bwd_plain,
+        flash_bwd_work,
         flash_fwd,
         launch_bwd_dkdv,
         launch_bwd_dq,
@@ -575,9 +610,8 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
 
     # the backward alone: forward + backward minus the forward
     library_ms = timer(sdpa_fwd_bwd) - timer(sdpa_fwd)
-    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
-    eb = q.element_size()
-    in_bytes = 4 * bh * t * d * eb + 2 * bh * t * 4       # q, k, v, g, lse, delta
+    # the port's own count of B2's and B3's work: name -> (FLOPs, bytes)
+    work = {n: (f, b) for n, f, b in flash_bwd_work(bh, t, d, causal, q.element_size())}
     kernel = {"bf16": "wgmma", "f32": "split" if split else "fma"}[kind]
     extra = {}
     if split:
@@ -593,12 +627,11 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
         for e in extra.values():
             e["pair_ms"] = pair_ms
     rows = []
-    for name, n_out, n_ops, fn, errs in (
-            ("flash_bwd_dq", 1, 6 * d * pairs, dq_call, [rel_err(dq, rq)]),
-            ("flash_bwd_dkdv", 2, 8 * d * pairs, dkdv_call,
-             [rel_err(dk, rk), rel_err(dv, rv)])):
-        n_bytes = in_bytes + n_out * bh * t * d * eb
-        # the function's multiply-adds on the bf16 peak, in f32 too: the card
+    for name, fn, errs in (
+            ("flash_bwd_dq", dq_call, [rel_err(dq, rq)]),
+            ("flash_bwd_dkdv", dkdv_call, [rel_err(dk, rk), rel_err(dv, rv)])):
+        n_ops, n_bytes = work[name]
+        # the function's FLOPs on the bf16 peak, in f32 too: the card
         # reaches f32 accuracy on bf16 tensor cores (by split parts)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
         row = {
@@ -656,6 +689,7 @@ def paged_case(torch, timer, quant: bool, dh=D_MODEL // HEADS, mix="serve"):
     from deeplearning4j_tpu_torch.ops.paged_attention import (
         paged_attention_fwd,
         paged_attention_plain,
+        paged_attention_work,
     )
 
     s, h = ENGINE["slots"], HEADS
@@ -680,12 +714,9 @@ def paged_case(torch, timer, quant: bool, dh=D_MODEL // HEADS, mix="serve"):
     }
     if dh != D_MODEL // HEADS:
         return row
-    live = sum(lens)
-    eb = kp.element_size()
-    n_bytes = (q.numel() * 4 + 2 * live * h * dh * eb
-               + (2 * live * h * 4 if quant else 0)
-               + sum(-(-n // ps) for n in lens) * 4 + s * 4 + out.numel() * 4)
-    n_ops = 4 * live * h * dh + (2 * live * h * dh if quant else 0)
+    # the port's own count of B4's work at these lengths
+    (_, n_ops, n_bytes), = paged_attention_work(lens, h, dh, ps, kp.element_size(),
+                                                quant)
     b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
 
     def fn():
@@ -715,6 +746,7 @@ def chunk_case(torch, timer, quant: bool):
     from deeplearning4j_tpu_torch.ops.paged_attention import (
         paged_attention_chunk,
         paged_attention_chunk_plain,
+        paged_attention_chunk_work,
     )
 
     s, h, dh, c = ENGINE["slots"], HEADS, D_MODEL // HEADS, SPEC_K + 1
@@ -737,13 +769,9 @@ def chunk_case(torch, timer, quant: bool):
         raise AssertionError(f"{name}: a second launch gave other bits")
     if any(out[i].abs().max().item() != 0.0 for i, n in enumerate(lens) if n == 0):
         raise AssertionError(f"{name}: idle slot output is not exact zero")
-    uniq = sum(n + c for n in lens if n)            # each slot's rows, once
-    rows = int(attend.sum())                        # what the rows attend
-    eb = kp.element_size()
-    n_bytes = (2 * q.numel() * 4 + 2 * uniq * h * dh * eb
-               + (2 * uniq * h * 4 if quant else 0)
-               + sum(-(-(n + c) // ps) for n in lens if n) * 4 + s * c * 4)
-    n_ops = 4 * rows * h * dh + (2 * rows * h * dh if quant else 0)
+    # the port's own count: each slot's rows once, what every row attends
+    (_, n_ops, n_bytes), = paged_attention_chunk_work(
+        attend.tolist(), h, dh, ps, kp.element_size(), quant)
     b_ms, b_by = bound_ms(n_bytes, n_ops, "f32")
     return {
         "name": name, "kernel": "paged_attention_chunk", "dtype": "int8" if quant else "f32",
@@ -1244,9 +1272,58 @@ def phase_train(torch, np, kernels, f32=False):
         if counts.get(name, 0) != want:
             raise AssertionError(f"{name} launched {counts.get(name, 0)} times "
                                  f"in {TRAIN_STEPS} steps, want {want}: {counts}")
+    if not f32:
+        res["cost"] = _step_cost(torch, model, res["median_step_ms"])
     del model, batch
     torch.cuda.empty_cache()
     return res
+
+
+def _train_flops_by_hand() -> float:
+    """FLOPs of one flagship training step (forward and backward), counted
+    here from the shapes: each dense product 2 M N K forward and 4 M N K
+    backward (dX and dW); the chunked head's products over the vocab
+    padded to whole 8192-wide chunks, one forward and three backward
+    (recomputed logits, dh, dW); B1 (2 products a scored pair), B2 (3) and
+    B3 (4), 2 D FLOPs a pair each."""
+    m, d = TRAIN_BATCH * TRAIN_SEQ, D_MODEL
+    dense = LAYERS * (4 * d * d + 2 * d * 4 * d)          # sum of K x N a layer
+    vpad = -(-VOCAB // 8192) * 8192
+    pairs = TRAIN_BATCH * HEADS * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = LAYERS * 2 * (d // HEADS) * pairs * (2 + 3 + 4)
+    return 6 * m * dense + 8 * m * d * vpad + attn
+
+
+def _step_cost(torch, model, step_ms):
+    """`observe.cost` analysis of the training step program: its FLOPs
+    against `_train_flops_by_hand` (within 1%), achieved FLOP/s and MFU at
+    the measured median step, the roofline class."""
+    from deeplearning4j_tpu_torch.observe import cost
+
+    t0 = time.perf_counter()
+    recs = cost.analyze_model(model, memory=True)
+    if len(recs) != 1 or recs[0].flops is None:
+        raise AssertionError(f"cost analysis of the step: {[r.as_dict() for r in recs]}")
+    rec = recs[0]
+    hand = _train_flops_by_hand()
+    achieved = rec.flops / (step_ms / 1e3)
+    peak_f, peak_b = cost.peaks()
+    out = {"flops": rec.flops, "flops_by_hand": hand, "bytes": rec.bytes_accessed,
+           "kernel_work": rec.kernel_work, "achieved_flops_per_s": achieved,
+           "mfu": achieved / peak_f, "peak_flops": peak_f, "peak_bytes_per_s": peak_b,
+           "roofline": rec.roofline(), "arithmetic_intensity": rec.arithmetic_intensity(),
+           "peak_bytes": rec.peak_bytes, "analysis_s": time.perf_counter() - t0,
+           "record": rec.as_dict()}
+    log(f"[train] cost: {rec.flops:.6e} FLOPs a step (by hand {hand:.6e}, "
+        f"{rec.flops / hand - 1:+.2e}); {rec.bytes_accessed:.4e} bytes; at the median "
+        f"step {step_ms:.1f} ms: {achieved / 1e12:.2f} TFLOP/s, MFU {out['mfu']:.4f} "
+        f"against {peak_f / 1e12:.0f} TFLOP/s ({torch.cuda.get_device_name(0)}); "
+        f"{out['roofline']}; kernels {rec.kernel_work}; analysis "
+        f"{out['analysis_s']:.2f}s")
+    if abs(rec.flops / hand - 1) > 0.01:
+        raise AssertionError(f"the step's counted FLOPs {rec.flops:.6e} are not within "
+                             f"1% of the hand count {hand:.6e}")
+    return out
 
 
 SERVE_LENGTHS = [2000, 5, 40, 97, 150, 233, 300, 64]   # the last one samples
@@ -1361,6 +1438,7 @@ def phase_serve(torch, np, kernels):
         raise AssertionError("non-finite hidden states")
     res["launches"] = counts
     res["first_pass"] = cold
+    res["streams"] = [list(map(int, o)) for o in outs]   # the fleet phase's reference
     res["sample_ms"] = sample_cost(torch)
     del model
     torch.cuda.empty_cache()
@@ -1934,6 +2012,391 @@ def phase_server(torch, np, kernels):
     return res
 
 
+# -- fleet phase ------------------------------------------------------------------
+
+# the chaos window: closed-loop infer clients, and the kill that lands once
+# the doomed replica holds queued requests (they fail `shutdown` there and
+# retry on the survivor)
+CHAOS_CLIENTS, CHAOS_WINDOW_S = 16, 2.0
+FLEET_PROBATION_S = 0.5
+
+
+def _fleet(torch, roles, generation=True):
+    """Two flagship replicas (seed 123 each: the same weights), batches
+    of 8, and the serve engine's configuration on each when
+    ``generation``."""
+    from deeplearning4j_tpu_torch.serving.fleet import ServingFleet
+    from deeplearning4j_tpu_torch.serving.generation import GenerationConfig
+    from deeplearning4j_tpu_torch.serving.router import RouterConfig
+    from deeplearning4j_tpu_torch.serving.server import ServingConfig
+
+    return ServingFleet(
+        lambda: _flagship(torch), n_replicas=2,
+        config=ServingConfig(max_batch=INFER_BATCH, max_queue=64, linger_s=0.002,
+                             default_deadline_s=120.0),
+        # the pull cache outlives the phase: routing reads the pressure of
+        # a replica's first pull (0 on both), so picks alternate r0, r1
+        router_config=RouterConfig(default_deadline_s=120.0,
+                                   probation_s=FLEET_PROBATION_S,
+                                   health_refresh_s=3600.0),
+        roles=roles,
+        generation_config=GenerationConfig(**ENGINE) if generation else None)
+
+
+def _fleet_generate(np, fleet, prompts, max_new=32):
+    """The serve mix through `ServingFleet.generate`, one thread a stream,
+    all started together (the last samples): outputs, client TTFTs (submit
+    to the first token's callback) and the wall seconds."""
+    t_first = [None] * len(prompts)
+
+    def one(i, p):
+        kw = dict(temperature=0.8, top_k=50, seed=11) if i == len(prompts) - 1 else {}
+        t0 = time.perf_counter()
+
+        def on_token(tok, idx):
+            if idx == 0:
+                t_first[i] = time.perf_counter() - t0
+        return list(map(int, fleet.generate(p, max_new, on_token=on_token,
+                                            timeout=600, **kw)))
+
+    t0 = time.perf_counter()
+    outs = _parallel([lambda i=i, p=p: one(i, p) for i, p in enumerate(prompts)])
+    return outs, t_first, time.perf_counter() - t0
+
+
+def _serial_prefills(pre, dec, prompts, max_new=32):
+    """The serve mix's two hops made by one client thread: each prompt's
+    `prefill_detached` on ``pre`` after the one before it ends, its
+    `join_prefilled` on ``dec`` at once (the last samples).  Tokens/s,
+    client TTFTs (from the first prefill's start) and the streams."""
+    t_first = [None] * len(prompts)
+    t0 = time.perf_counter()
+    reqs, pre_s = [], 0.0
+    for i, p in enumerate(prompts):
+        kw = dict(temperature=0.8, top_k=50, seed=11) if i == len(prompts) - 1 else {}
+        hand = pre.prefill_detached(p, max_new, **kw)
+        pre_s += hand["prefill_s"]
+
+        def on_token(tok, idx, i=i):
+            if idx == 0:
+                t_first[i] = time.perf_counter() - t0
+        reqs.append(dec.join_prefilled(hand, on_token=on_token))
+    outs = [list(map(int, r.result(timeout=600))) for r in reqs]
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall, "tokens_per_s": len(prompts) * max_new / wall,
+            "ttft_s": t_first, "mean_ttft_s": sum(t_first) / len(t_first),
+            "prefill_s_total": pre_s, "outs": outs}
+
+
+def _handoff_copies(torch, np, pre, prompt):
+    """One prompt's detached prefill with nothing else running (its
+    ``prefill_s``, the host copy included), and the host copies of a
+    handoff of its size alone: K and V to pageable host memory and back."""
+    pre.prefill_detached(prompt, 32)                  # this shape, once more
+    torch.cuda.synchronize()
+    hand = pre.prefill_detached(prompt, 32)
+    kv = torch.empty((2,) + hand["k"].shape, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = kv.cpu().numpy()
+    t1 = time.perf_counter()
+    back = torch.from_numpy(host).to("cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del back, kv
+    return {"prefill_s": hand["prefill_s"], "mb": host.nbytes / 1e6,
+            "d2h_s": t1 - t0, "h2d_s": t2 - t1}
+
+
+def _row0(np, model, row, bucket):
+    """``output()`` row 0 of ``row`` zero-padded to a ``bucket``-row batch:
+    a served row is this, bit for bit, when its request dispatched in a
+    batch of ``bucket`` (rows do not mix)."""
+    batch = np.zeros((bucket,) + row.shape, row.dtype)
+    batch[0] = row
+    return model.output(batch)[0].cpu().numpy()
+
+
+def phase_fleet(torch, np, kernels, report):
+    """The serving fleet (`serving/fleet.py`, `serving/router.py`) on the
+    card: two flagship replicas in one process.  Disaggregated generation
+    (prefill on r0, decode on r1), routed inference over two ``both``
+    replicas, a replica killed under load, a rolling canary deploy under
+    traffic and one that the canary rolls back, the compile stats of the
+    phase; see the module docstring."""
+    import threading
+
+    from deeplearning4j_tpu_torch.observe import registry
+    from deeplearning4j_tpu_torch.runtime import compile_stats, faults
+
+    os.environ["DL4JTPU_CRASH_DIR"] = os.path.abspath(os.path.join("build", "crash"))
+    reg = registry()
+    res = {}
+    kernels.library("flash_fwd")      # every library loaded (built at the start)
+    cs0 = compile_stats.snapshot()
+    kernels.build_all()               # a warm kernel cache: every source a hit
+    fleets = []
+    try:
+        # -- 1. disaggregated generation: prefill on r0, decode on r1 -------
+        t0 = time.perf_counter()
+        fa = _fleet(torch, ["prefill", "decode"])
+        fleets.append(fa)
+        fa.start()
+        log(f"[fleet] prefill/decode fleet of 2 flagship replicas built in "
+            f"{time.perf_counter() - t0:.1f}s")
+        pre, dec = fa.engines["r0"], fa.engines["r1"]
+        if pre._thread is not None:
+            raise AssertionError("the prefill replica runs a decode loop")
+        _fleet_generate(np, fa, _prompts(np, 2, SERVE_LENGTHS))   # new shapes, capture
+        prompts = _prompts(np, 4, SERVE_LENGTHS)
+        st0, (n0, b0) = dec.stats(), _breakdown(dec)
+        kernels.reset_launches()
+        outs, ttft, wall = _fleet_generate(np, fa, prompts)
+        counts = kernels.launches()
+        st1, (n1, b1) = dec.stats(), _breakdown(dec)
+        steps = st1["decode_steps"] - st0["decode_steps"]
+        r1_prefills = st1["prefills"] - st0["prefills"]
+        handoff = (b1["handoff"] - b0["handoff"]) / (n1 - n0)
+        per = {k: (b1[k] - b0[k]) / (n1 - n0) for k in b1}
+        _check_streams(np, prompts, outs, 32)
+        ref = _queued_pass(dec, lambda: _submit_mix(dec, prompts), len(prompts))
+        same = [o == r for o, r in zip(outs, ref)]
+        served = report.get("serve", {}).get("streams")
+        sampled_as_serve = None if served is None else outs[-1] == served[-1]
+        mean_ttft = sum(ttft) / len(ttft)
+        serial = _serial_prefills(pre, dec, prompts)
+        serial["equal"] = serial.pop("outs") == outs
+        copies = _handoff_copies(torch, np, pre, prompts[0])
+        gen = {"wall_s": wall, "tokens_per_s": len(prompts) * 32 / wall,
+               "mean_ttft_s": mean_ttft, "ttft_s": ttft, "long_prompt_ttft_s": ttft[0],
+               "handoff_mean_s": handoff, "handoff_share_of_mean_ttft": handoff / mean_ttft,
+               "breakdown_mean_s": per, "serial_prefills": serial,
+               "handoff_copies": copies,
+               "decode_steps": steps, "r1_prefills": r1_prefills, "launches": counts,
+               "equal_to_in_process": same, "sampled_equal_to_serve_phase": sampled_as_serve}
+        log(f"[fleet] generate (prefill r0, decode r1): 8 streams x 32 tokens in "
+            f"{wall:.3f}s = {gen['tokens_per_s']:.1f} tokens/s; mean TTFT "
+            f"{mean_ttft * 1e3:.1f} ms (2000-token prompt {ttft[0] * 1e3:.1f} ms); "
+            f"handoff {handoff * 1e3:.2f} ms a stream ({gen['handoff_share_of_mean_ttft']:.3f} "
+            f"of mean TTFT); r1 {steps} decode steps, {r1_prefills} prefills; launches "
+            f"{counts}; equal to r1's in-process streams {same}; sampled stream equal "
+            f"to the serve phase's: {sampled_as_serve}")
+        log("[fleet] r1's per-stream breakdown means (s): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in per.items()))
+        log(f"[fleet] the same streams, r0's prefills one after another from one "
+            f"client thread: {serial['tokens_per_s']:.1f} tokens/s, mean TTFT "
+            f"{serial['mean_ttft_s'] * 1e3:.1f} ms (2000-token prompt "
+            f"{serial['ttft_s'][0] * 1e3:.1f} ms), prefill {serial['prefill_s_total']:.4f} s "
+            f"in all; streams equal: {serial['equal']}")
+        log(f"[fleet] the 2000-token prompt alone, r1 idle: detached prefill "
+            f"{copies['prefill_s'] * 1e3:.1f} ms; its K/V ({copies['mb']:.1f} MB) "
+            f"device -> host {copies['d2h_s'] * 1e3:.1f} ms, host -> device "
+            f"{copies['h2d_s'] * 1e3:.1f} ms")
+        if not all(same) or not serial["equal"]:
+            raise AssertionError("a fleet stream differs from the decode replica's "
+                                 "in-process stream")
+        if sampled_as_serve is False:
+            raise AssertionError("the sampled fleet stream differs from the serve "
+                                 "phase's sampled stream")
+        if counts.get("flash_fwd", 0) != LAYERS * len(prompts) or r1_prefills != 0:
+            raise AssertionError(f"{counts.get('flash_fwd')} B1 launches and {r1_prefills} "
+                                 f"prefills on r1: want {LAYERS} a prompt, all on r0")
+        if counts.get("paged_attention_fwd", 0) != LAYERS * steps or steps <= 0:
+            raise AssertionError(f"{counts.get('paged_attention_fwd')} B4 launches in "
+                                 f"{steps} decode steps, want {LAYERS} a step")
+        if set(counts) - {"flash_fwd", "paged_attention_fwd"}:
+            raise AssertionError(f"another kernel ran on the fleet's path: {counts}")
+        if pre._thread is not None:
+            raise AssertionError("the prefill replica started a decode loop")
+        res["generate"] = gen
+        res["launches"] = counts
+
+        # -- 2. routed inference over two `both` replicas -------------------
+        fb = _fleet(torch, ["both", "both"], generation=False)
+        fleets.append(fb)
+        rng = np.random.default_rng(7)
+        rows = rng.integers(0, VOCAB, (INFER_REQUESTS, INFER_SEQ)).astype(np.int64)
+        fb.warm_start(rows[0])
+        name = fb.router.name
+
+        def routed(replica, outcome="ok"):
+            return reg.counter("dl4jtpu_router_requests_total").value(
+                router=name, replica=replica, outcome=outcome)
+
+        req0 = {r: routed(r) for r in ("r0", "r1")}
+        box = {}
+        client = threading.Thread(target=lambda: box.update(
+            out=_parallel([lambda r=r: fb.infer(r, deadline_s=600) for r in rows])))
+        client.start()                 # queued on both replicas before they start
+        t_end = time.monotonic() + 60
+        while sum(s.queue.depth for s in fb.replicas) < INFER_REQUESTS:
+            if time.monotonic() > t_end:
+                raise AssertionError("the routed requests never queued")
+            time.sleep(0.002)
+        kernels.reset_launches()
+        fb.start()
+        client.join()
+        if "out" not in box:
+            raise AssertionError("a routed request failed")
+        infer_counts = kernels.launches()
+        per = {r: routed(r) - req0[r] for r in ("r0", "r1")}
+        batches = [s.stats()["batches"] for s in fb.replicas]
+        model = fb.replicas[0].model
+        same = [bool(np.array_equal(o, _row0(np, model, r, INFER_BATCH)))
+                for o, r in zip(box["out"], rows)]
+        log(f"[fleet] infer: {INFER_REQUESTS} routed requests of {INFER_SEQ} ids, "
+            f"router counts {per}, batches {batches}, launches {infer_counts}; rows "
+            f"bit-identical to output(): {sum(same)} of {len(same)}")
+        if per != {"r0": INFER_BATCH, "r1": INFER_BATCH} or batches != [1, 1]:
+            raise AssertionError(f"routed {per} in batches {batches}: want one batch "
+                                 f"of {INFER_BATCH} on each replica")
+        if infer_counts.get("flash_fwd", 0) != LAYERS * 2 or set(infer_counts) != {"flash_fwd"}:
+            raise AssertionError(f"launches {infer_counts}: want {LAYERS} B1 a batch")
+        if not all(same):
+            raise AssertionError("a routed row differs from output()")
+        res["infer"] = {"router_requests": per, "batches": batches,
+                        "launches": infer_counts, "bit_identical": sum(same)}
+
+        # -- 3. chaos: kill r1 under closed-loop load, revive it ------------
+        st0 = fb.router.stats()
+        dead0 = reg.counter("dl4jtpu_replica_ejections_total").value(reason="dead")
+        killed = {}
+
+        def killer():
+            # the kill lands while r1 is in the first half of a batch's
+            # dispatch (its EWMA: ~10 ms of host work for 8 x 256 ids) with
+            # requests queued behind it: its batcher stops after that
+            # batch, so the queued ones fail `shutdown` and are retried;
+            # at the latest 1.4 s into the 2 s of load
+            srv = fb.replicas[1]
+            time.sleep(0.5)
+            t_end = time.monotonic() + 0.9
+            while time.monotonic() < t_end:
+                inflight, ewma = srv._inflight, srv._batch_ewma or 0.01
+                if (inflight is not None and srv.queue.depth >= 1
+                        and time.perf_counter() - inflight["t0_pc"] < ewma / 2):
+                    break
+                time.sleep(0.0001)
+            killed["depth"] = srv.queue.depth
+            fb.kill_replica(1)
+
+        kt = threading.Thread(target=killer)
+        kt.start()
+        load = _infer_load(np, lambda r: fb.infer(r, deadline_s=600), rows,
+                           CHAOS_CLIENTS, 0.0, CHAOS_WINDOW_S)
+        kt.join()
+        st1 = fb.router.stats()
+        dead = reg.counter("dl4jtpu_replica_ejections_total").value(reason="dead") - dead0
+        retries = st1["retries"] - st0["retries"]
+        bad = [o.shape for o in load.pop("outputs")
+               if o.shape != (INFER_SEQ, D_MODEL) or not np.isfinite(o).all()]
+        state = fb.router.replica_states()["r1"]["state"]
+        t_rev = time.perf_counter()
+        if not fb.revive_replica(1):
+            raise AssertionError("revive_replica(1) failed its re-sync")
+        time.sleep(FLEET_PROBATION_S)
+        read0 = fb.router.stats()["readmissions"]
+        for r in rows[:4]:
+            fb.infer(r, deadline_s=600)
+        readmitted = fb.router.stats()["readmissions"] - read0
+        chaos = {"requests": load["requests"], "failed": st1["failed"] - st0["failed"],
+                 "retries": retries, "dead_ejections": dead, "queued_at_kill": killed,
+                 "state_after_kill": state, "readmissions": readmitted,
+                 "state_after_revive": fb.router.replica_states()["r1"]["state"],
+                 "revive_s": time.perf_counter() - t_rev}
+        log(f"[fleet] chaos: {load['requests']} requests from {CHAOS_CLIENTS} clients "
+            f"in {CHAOS_WINDOW_S:.1f}s, r1 killed with {killed.get('depth')} queued: "
+            f"{chaos['failed']} failed, {retries} retries, {dead} ejection(s) "
+            f"'dead', r1 {state}; revived: {readmitted} readmission(s), r1 "
+            f"{chaos['state_after_revive']}")
+        if bad or chaos["failed"] or retries < 1 or dead != 1 or state != "probation":
+            raise AssertionError(f"chaos: {chaos}, bad outputs {bad[:3]}")
+        if readmitted != 1 or chaos["state_after_revive"] != "active":
+            raise AssertionError(f"r1 not re-admitted through one probe: {chaos}")
+        res["chaos"] = chaos
+
+        # -- 4. rolling deploy under traffic, then a canary rollback --------
+        fa.deployer.set_goldens([rows[0], rows[1]])
+        cap0 = compile_stats.snapshot()
+        gens0 = [s.generation for s in fa.replicas]
+        new = _perturbed(torch, fa.replicas[0].model)
+        stop = threading.Event()
+        traffic = {"n": 0}
+
+        def client_loop(i):
+            while not stop.is_set():
+                out = fa.infer(rows[i % len(rows)], deadline_s=600)
+                if not np.isfinite(out).all():
+                    raise AssertionError("non-finite infer output under the deploy")
+                traffic["n"] += 1
+
+        threads = [threading.Thread(target=client_loop, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        try:
+            time.sleep(0.2)
+            t_dep = time.perf_counter()
+            dep = fa.deployer.deploy(new, source="chip_smoke")
+            dep_s = time.perf_counter() - t_dep
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+        outs2, _, _ = _fleet_generate(np, fa, prompts[:2], max_new=8)
+        captures = (compile_stats.snapshot() - cap0).jit_cache_misses
+        gens1 = [s.generation for s in fa.replicas]
+        log(f"[fleet] deploy under traffic ({traffic['n']} infer requests meanwhile): "
+            f"{dep} in {dep_s:.3f}s; weights generations {gens0} -> {gens1}; graph "
+            f"captures after it (deploy + 2 streams) {captures}")
+        if not dep["installed"] or dep["replicas_updated"] != 2 or \
+                gens1 != [g + 1 for g in gens0] or traffic["n"] <= 0:
+            raise AssertionError(f"deploy under traffic: {dep}, generations {gens1}")
+        if captures != 1:
+            raise AssertionError(f"{captures} graph captures after the deploy, want one "
+                                 "re-capture on r1 (r0 never captures)")
+        x = rows[2]
+        before = [s.infer(x, deadline_s=600) for s in fa.replicas]
+        canary0 = reg.counter("dl4jtpu_canary_failures_total").value()
+        faults.arm("serving.canary:corrupt:every=1")
+        try:
+            bad_dep = fa.deployer.deploy(_perturbed(torch, fa.replicas[0].model, 1.01))
+        finally:
+            faults.disarm()
+        after = [s.infer(x, deadline_s=600) for s in fa.replicas]
+        canary = reg.counter("dl4jtpu_canary_failures_total").value() - canary0
+        unchanged = all(np.array_equal(a, b) for a, b in zip(before, after))
+        log(f"[fleet] deploy with serving.canary:corrupt: {bad_dep}; canary failures "
+            f"+{canary}; outputs bit-identical to before: {unchanged}")
+        if bad_dep["installed"] or "canary:r0" not in (bad_dep["reason"] or "") or \
+                bad_dep["rolled_back"] != 1 or canary != 1 or not unchanged or \
+                fa.deployer.generation != 1:
+            raise AssertionError(f"canary rollback: {bad_dep}, +{canary}, {unchanged}")
+        res["deploy"] = {"result": dep, "seconds": dep_s, "traffic": traffic["n"],
+                         "generations": [gens0, gens1], "recaptures": captures,
+                         "canary_rollback": bad_dep, "canary_failures": canary}
+        for srv in fa.replicas:
+            eng = srv.generation_engine
+            if eng.kv.leak_check() is not None:
+                raise AssertionError(eng.kv.leak_check())
+    finally:
+        faults.disarm()
+        for f in fleets:
+            f.stop()
+
+    # -- 5. compile stats of the phase: nothing compiled, every library a hit
+    spent = compile_stats.snapshot() - cs0
+    res["compile_stats"] = spent.as_dict()
+    log(f"[fleet] compile stats of the phase: {res['compile_stats']}")
+    if spent.fresh_backend_compiles != 0 or \
+            spent.persistent_cache_hits != len(kernels.SIGNATURES):
+        raise AssertionError(f"compile stats: {spent}; want no nvcc run and "
+                             f"{len(kernels.SIGNATURES)} library hits")
+    del fleets
+    torch.cuda.empty_cache()
+    return res
+
+
 # -- spec phase ---------------------------------------------------------------------
 
 SPEC_MAX_NEW, SPEC_ROUNDS = 100, 3
@@ -2267,6 +2730,7 @@ def dm_case(torch, timer, m, k, n, route=None):
     from deeplearning4j_tpu_torch.ops.dequant_matmul import (
         dequant_matmul,
         dequant_matmul_plain,
+        dequant_matmul_work,
         kernel_route,
         launch_dequant_matmul,
     )
@@ -2302,9 +2766,9 @@ def dm_case(torch, timer, m, k, n, route=None):
     if not timed:
         return row
     w = q.float() * scale                  # the library's dequantized weight
-    n_bytes = m * k * 4 + k * n + n * 4 + m * n * 4
-    # the function's multiply-adds on the bf16 peak, whatever the route
-    b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n, "bf16")
+    # the port's own count of B5's work, on the bf16 peak whatever the route
+    (_, n_ops, n_bytes), = dequant_matmul_work(m, k, n)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
     row.update({
         "ms": timer(fn),
         "plain_ms": timer(lambda: dequant_matmul_plain(x, q, scale)),
@@ -2314,10 +2778,10 @@ def dm_case(torch, timer, m, k, n, route=None):
         # log only: the f32-FMA bound of the CUDA-core kernel the
         # tensor-core route replaced, and that route's own floor, two bf16
         # part products (x_hi q, x_lo q) for each multiply-add
-        "f32_fma_bound_ms": bound_ms(n_bytes, 2 * m * k * n, "f32")[0],
+        "f32_fma_bound_ms": bound_ms(n_bytes, n_ops, "f32")[0],
     })
     if route == "wgmma":
-        row["part_floor_ms"] = bound_ms(n_bytes, 2 * 2 * m * k * n, "bf16")[0]
+        row["part_floor_ms"] = bound_ms(n_bytes, 2 * n_ops, "bf16")[0]
     row["int8pack_ms"], row["int8pack_rel_err"], row["int8pack"] = int8pack_case(
         torch, timer, x, q, scale, ref)
     return row
@@ -2746,6 +3210,9 @@ def main(argv=None) -> int:
     if "server" in phases:
         report["server"] = phase_server(torch, np, kernels)
         done("server")
+    if "fleet" in phases:
+        report["fleet"] = phase_fleet(torch, np, kernels, report)
+        done("fleet")
     if "spec" in phases:
         report["spec"] = phase_spec(torch, np, kernels)
         done("spec")
@@ -2794,6 +3261,10 @@ def main(argv=None) -> int:
         # the serving plane: /v1/generate's decode steps, /v1/infer's batches
         (row("paged_attention_fwd", dtype="f32", mix="serve"), "server"),
         (row("flash_fwd", shape=[INFER_BATCH * HEADS, INFER_SEQ, dh]), "server/infer"),
+        # the fleet: r0's prefills and r1's decode steps; routed batches
+        (row("flash_fwd", shape=[HEADS, SERVE_LENGTHS[0], dh]), "fleet"),
+        (row("paged_attention_fwd", dtype="f32", mix="serve"), "fleet"),
+        (row("flash_fwd", shape=[INFER_BATCH * HEADS, INFER_SEQ, dh]), "fleet/infer"),
         # the verify's B4 on pseudo-slots
         (row("paged_attention_chunk", dtype="f32", mix="verify"), "spec"),
         (row("paged_attention_chunk_int8", dtype="int8", mix="verify"), "spec/int8"),

@@ -50,6 +50,7 @@ from deeplearning4j_tpu_torch.models._common import (
 )
 from deeplearning4j_tpu_torch.nn import losses
 from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
+from deeplearning4j_tpu_torch.observe.trace import step_scope
 from deeplearning4j_tpu_torch.quant.ptq import SCHEME
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 from deeplearning4j_tpu_torch.runtime import rng
@@ -171,6 +172,13 @@ class SequentialModel(nn.Module):
         self.iteration = 0
         self.epoch = 0
         self._last_score = None
+        # the step program, registered with the cost registry
+        # (observe/cost.py) on first use; the record lives while it is
+        # cached here.  `_cost_program`: the record of the last program
+        # dispatched (set by the registration wrapper during the call;
+        # StepScope.sync() snapshots it)
+        self._step_fns: dict = {}
+        self._cost_program = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -340,23 +348,47 @@ class SequentialModel(nn.Module):
             raise NotImplementedError(
                 "features masks (key masks in attention) are not ported to "
                 "training yet (ROADMAP A5: SelfAttentionLayer)")
-        plist = tree_leaves(self.params)
+        params = self.params
+        plist = tree_leaves(params)
         if self.opt_state is None:
             self.opt_state = self._tx.init(plist)
         key = rng.SeedStream.fold(self._stream.root, self.iteration)
-        with torch.enable_grad():
-            loss = self._step_loss(self.params, batch.features, batch.labels,
-                                   batch.labels_mask, key=key)
-            grads = torch.autograd.grad(loss, plist, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(plist, grads)]
-        updates, self.opt_state = self._tx.update(grads, self.opt_state, plist)
-        with torch.no_grad():
-            for p, u in zip(plist, updates):
-                p.add_(u.to(p.dtype))
+        with step_scope(self) as scope:
+            loss, grads = self._step_program()(
+                params, batch.features, batch.labels, batch.labels_mask, key)
+            scope.sync(loss)
+            updates, self.opt_state = self._tx.update(grads, self.opt_state,
+                                                      plist)
+            with torch.no_grad():
+                for p, u in zip(plist, updates):
+                    p.add_(u.to(p.dtype))
         self._compute = None           # output() and the engine read new weights
         self._last_score = loss.detach()
         self.iteration += 1
+
+    def _step_program(self):
+        """The training step's device program, `_grad_step`, registered
+        with the cost registry on first use (as the JAX package's
+        ``_get_step_fn`` registers its jitted step)."""
+        fn = self._step_fns.get(("train",))
+        if fn is None:
+            from deeplearning4j_tpu_torch.observe import cost
+
+            fn = self._step_fns[("train",)] = cost.register_step_program(
+                self, ("train",), self._grad_step)
+        return fn
+
+    def _grad_step(self, params: dict, features, labels, lmask, key):
+        """Loss and gradients of ``params`` (``jax.tree.leaves`` order,
+        zeros for an unused leaf) on one batch: the step's forward and
+        backward, and no state changed — the optimizer update applies
+        them.  Pure, so the cost analysis can run it again."""
+        plist = tree_leaves(params)
+        with torch.enable_grad():
+            loss = self._step_loss(params, features, labels, lmask, key=key)
+            grads = torch.autograd.grad(loss, plist, allow_unused=True)
+        return loss, [torch.zeros_like(p) if g is None else g
+                      for p, g in zip(plist, grads)]
 
     def fit(self, data, epochs: int = 1, batch_size: int | None = None,
             steps_per_execution: int = 1) -> None:

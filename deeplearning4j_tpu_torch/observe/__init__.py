@@ -13,9 +13,15 @@ card):
   with multi-window burn-rate alerting; alert state lands on the
   ``dl4jtpu_slo_*`` gauges, ``/healthz`` and ``/v1/status``.
 
+- `observe.cost`: the program registry, a step program's FLOPs and
+  bytes from one counted run, MFU and the roofline class on the
+  ``dl4jtpu_step_*`` gauges.
+- `observe.fleet`: the fleet's merged Prometheus exposition, skew and
+  straggler views and cluster trace (`FleetAggregator`), and the worker
+  side's `FleetReporter`.
+
 `observe.health` (`HealthListener`, `DivergenceError`) comes with the
-training tooling (ROADMAP A9); `observe.cost` and `observe.fleet` with
-ROADMAP A10 step 3.
+training tooling (ROADMAP A9).
 
     from deeplearning4j_tpu_torch.observe import registry, tracer
 

@@ -14,10 +14,10 @@ names, types, help strings and buckets, so a scrape of the port names
 what a scrape of the JAX package names.  Two collectors read the card
 instead of jax: `_build_info_collector` (package, torch and CUDA
 versions, backend, ``torch.cuda.device_count()``) and
-`_device_memory_collector` (``torch.cuda.memory_stats()``).  The
-compile-stats collector waits for the port's `runtime/compile_stats.py`
-(ROADMAP A10 step 3); until then the ``dl4jtpu_compile_*`` families
-stay at zero.
+`_device_memory_collector` (``torch.cuda.memory_stats()``).
+`_compile_stats_collector` bridges the port's `runtime/compile_stats.py`
+(CUDA-graph captures, ``nvcc`` runs and up-to-date kernel libraries)
+into the ``dl4jtpu_compile_*`` families.
 
     from deeplearning4j_tpu_torch.observe import registry
     reg = registry()
@@ -387,12 +387,14 @@ _REGISTRY_LOCK = threading.Lock()
 
 def registry() -> MetricsRegistry:
     """The process-global registry, core families pre-declared and the
-    default pull collectors (device memory, build info) installed."""
+    default pull collectors (compile stats, device memory, build info)
+    installed."""
     global _REGISTRY
     with _REGISTRY_LOCK:
         if _REGISTRY is None:
             reg = MetricsRegistry()
             _declare_core(reg)
+            reg.register_collector(_compile_stats_collector)
             reg.register_collector(_device_memory_collector)
             reg.register_collector(_build_info_collector)
             reg.register_collector(_registry_meta_collector)
@@ -812,6 +814,26 @@ def _declare_core(reg: MetricsRegistry) -> None:
                   "1..spec_k+1: its accepted prefix plus the "
                   "corrected/bonus sample) — the distribution behind "
                   "the speculative speedup")
+
+
+def _compile_stats_collector() -> None:
+    """Bridge runtime/compile_stats.py process-global counters into the
+    registry (set_total: compile_stats is the ground truth)."""
+    from deeplearning4j_tpu_torch.runtime import compile_stats
+
+    snap = compile_stats.snapshot()
+    reg = registry()
+    for family, value in (
+        ("dl4jtpu_compile_jit_cache_misses_total", snap.jit_cache_misses),
+        ("dl4jtpu_compile_backend_compiles_total", snap.backend_compiles),
+        ("dl4jtpu_compile_seconds_total", snap.compile_secs),
+        ("dl4jtpu_compile_persistent_cache_hits_total",
+         snap.persistent_cache_hits),
+        ("dl4jtpu_compile_persistent_cache_puts_total",
+         snap.persistent_cache_puts),
+        ("dl4jtpu_compile_seconds_saved_total", snap.compile_secs_saved),
+    ):
+        reg.counter(family).set_total(value)
 
 
 def _build_info_collector() -> None:

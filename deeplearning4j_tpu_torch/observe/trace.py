@@ -523,10 +523,11 @@ class StepScope:
     """
 
     __slots__ = ("_rec", "_hist", "_steps", "_n", "_iteration", "_t0",
-                 "_dispatched", "_overlap", "_watchdog")
+                 "_dispatched", "_overlap", "_watchdog", "_model",
+                 "_cost_rec")
 
     def __init__(self, iteration: int, n_steps: int = 1,
-                 overlap_s: float = 0.0, watchdog=None):
+                 overlap_s: float = 0.0, watchdog=None, model=None):
         self._rec = tracer()
         self._hist, self._steps = _step_families()
         self._n = n_steps
@@ -534,6 +535,10 @@ class StepScope:
         self._dispatched = False
         self._overlap = overlap_s
         self._watchdog = watchdog
+        # performance attribution: sync() snapshots the ProgramRecord the
+        # dispatch wrapper routed through the model (observe/cost.py)
+        self._model = model
+        self._cost_rec = None
 
     def __enter__(self) -> "StepScope":
         self._t0 = time.perf_counter()
@@ -560,6 +565,16 @@ class StepScope:
             self._hist.observe(dur)
             self._steps.inc(self._n)
         args = {"iteration": self._iteration, "n_steps": self._n}
+        if self._cost_rec is not None and (not failed or self._dispatched):
+            # MFU / roofline attribution for the program this scope
+            # dispatched (no-op until the record has been cost-analyzed;
+            # a telemetry failure must never fail the step)
+            try:
+                from deeplearning4j_tpu_torch.observe import cost
+
+                cost.note_step(self._cost_rec, dur, args, self._n)
+            except Exception as e:
+                log.debug("step cost attribution failed: %s", e)
         if self._overlap > 0:
             # the prefetch pipeline's win for this step: producer-thread
             # staging seconds that ran concurrently with compute
@@ -585,6 +600,10 @@ class StepScope:
         # against (disarmed: one global load + None check)
         faults.maybe_fail("device.sync")
         self._dispatched = True
+        if self._model is not None:
+            # the dispatch wrapper (observe/cost.py) set this during the
+            # step call just above; snapshot it HERE
+            self._cost_rec = getattr(self._model, "_cost_program", None)
         if self._rec.enabled and x is not None:
             import torch
 
@@ -600,4 +619,4 @@ def step_scope(model, n_steps: int = 1) -> StepScope:
     if overlap:
         model._overlap_accum = 0.0
     return StepScope(getattr(model, "iteration", 0), n_steps, overlap,
-                     watchdog=getattr(model, "_watchdog", None))
+                     watchdog=getattr(model, "_watchdog", None), model=model)

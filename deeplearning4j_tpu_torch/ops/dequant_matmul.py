@@ -47,15 +47,25 @@ def _check(x, q, scale) -> None:
         raise ValueError("dequant_matmul: x, q, scale on different devices")
 
 
+def dequant_matmul_work(m: int, k: int, n: int) -> list:
+    """What kernel B5 computes for (M, K) f32 x and (K, N) int8 q:
+    ``[(name, flops, bytes)]``, 2 M N K FLOPs; x, q and the scales read
+    and y written once."""
+    return [("dequant_matmul", 2 * m * k * n,
+             m * k * 4 + k * n + n * 4 + m * n * 4)]
+
+
 def dequant_matmul(x, q, scale):
     """(..., K) f32 @ dequant((K, N) int8, (N,) f32) -> (..., N) f32.  CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     _check(x, q, scale)
-    if kernels.route(x.device) == "plain":
-        return dequant_matmul_plain(x, q, scale)
     *lead, k = x.shape
-    y = _dequant_matmul_kernel(x.reshape(-1, k), q, scale)
+    with kernels.kernel_call(
+            lambda: dequant_matmul_work(x.numel() // k, k, q.shape[1])):
+        if kernels.route(x.device) == "plain":
+            return dequant_matmul_plain(x, q, scale)
+        y = _dequant_matmul_kernel(x.reshape(-1, k), q, scale)
     return y.reshape(*lead, q.shape[1])
 
 

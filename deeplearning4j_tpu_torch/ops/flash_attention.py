@@ -130,13 +130,40 @@ def _check_kernel_args(name, *tensors) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def _pairs(bh: int, t: int, causal: bool) -> int:
+    """(query, key) pairs a (BH, T) attention scores."""
+    return bh * (t * (t + 1) // 2 if causal else t * t)
+
+
+def flash_fwd_work(bh: int, t: int, d: int, causal: bool, elem: int) -> list:
+    """What kernel B1 computes at (BH, T, D) with ``elem``-byte inputs:
+    ``[(name, flops, bytes)]``.  FLOPs: S = Q K^T and P V, 2 D each a
+    scored pair; bytes: q, k, v read and out written once, and the f32
+    lse."""
+    return [("flash_fwd", 4 * d * _pairs(bh, t, causal),
+             4 * bh * t * d * elem + bh * t * 4)]
+
+
+def flash_bwd_work(bh: int, t: int, d: int, causal: bool, elem: int) -> list:
+    """What kernels B2 and B3 compute at (BH, T, D): dQ recomputes S and
+    dP and forms dS K (3 products a pair), dK/dV recompute S and dP and
+    form P^T g and dS^T Q (4); each reads q, k, v, g, the f32 lse and
+    delta once and writes its gradients once."""
+    pairs = _pairs(bh, t, causal)
+    read = 4 * bh * t * d * elem + 2 * bh * t * 4
+    return [("flash_bwd_dq", 6 * d * pairs, read + bh * t * d * elem),
+            ("flash_bwd_dkdv", 8 * d * pairs, read + 2 * bh * t * d * elem)]
+
+
 def flash_fwd(q, k, v, *, causal: bool):
     """(BH, T, D) -> (out, lse).  CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise."""
     _check(q, k, v)
-    if kernels.route(q.device) == "plain":
-        return flash_fwd_plain(q, k, v, causal=causal)
-    return _flash_fwd_kernel(q, k, v, causal)
+    with kernels.kernel_call(
+            lambda: flash_fwd_work(*q.shape, causal, q.element_size())):
+        if kernels.route(q.device) == "plain":
+            return flash_fwd_plain(q, k, v, causal=causal)
+        return _flash_fwd_kernel(q, k, v, causal)
 
 
 def _flash_fwd_kernel(q, k, v, causal: bool):
@@ -178,9 +205,11 @@ def flash_bwd(q, k, v, out, lse, g, *, causal: bool):
         raise ValueError(f"flash_bwd wants an f32 lse of shape "
                          f"{tuple(q.shape[:2])}; got {lse.dtype} "
                          f"{tuple(lse.shape)}")
-    if kernels.route(q.device) == "plain":
-        return flash_bwd_plain(q, k, v, out, lse, g, causal=causal)
-    return _flash_bwd_kernel(q, k, v, out, lse, g, causal)
+    with kernels.kernel_call(
+            lambda: flash_bwd_work(*q.shape, causal, q.element_size())):
+        if kernels.route(q.device) == "plain":
+            return flash_bwd_plain(q, k, v, out, lse, g, causal=causal)
+        return _flash_bwd_kernel(q, k, v, out, lse, g, causal)
 
 
 def _flash_bwd_kernel(q, k, v, out, lse, g, causal: bool):

@@ -163,14 +163,65 @@ def _check(q, k_pages, v_pages, page_tbl, seq_lens, k_scale, v_scale):
     return tensors
 
 
+def paged_attention_work(seq_lens: list, heads: int, head_dim: int,
+                         page_size: int, kv_elem: int, quant: bool) -> list:
+    """What kernel B4 computes for one query row a slot at these
+    ``seq_lens`` (the data decides the work: idle and short slots read
+    less): ``[(name, flops, bytes)]``.  FLOPs: q K^T and P V over every
+    live position, 2 Dh each, and int8 pages' dequantisation; bytes: q
+    read and out written (f32), each live K/V row (and its int8 scales)
+    and each live page's table entry read once, and the lengths."""
+    s, live = len(seq_lens), sum(int(n) for n in seq_lens)
+    pages = sum(-(-int(n) // page_size) for n in seq_lens)
+    rows = 2 * live * heads
+    flops = 2 * rows * head_dim + (rows * head_dim if quant else 0)
+    nbytes = (2 * s * heads * head_dim * 4 + rows * head_dim * kv_elem
+              + (rows * 4 if quant else 0) + pages * 4 + s * 4)
+    return [("paged_attention_fwd_int8" if quant else "paged_attention_fwd",
+             flops, nbytes)]
+
+
+def paged_attention_chunk_work(attend_lens: list, heads: int, head_dim: int,
+                               page_size: int, kv_elem: int,
+                               quant: bool) -> list:
+    """What the verify's B4 computes for (S, C) ``attend_lens``: every
+    row attends its own length (FLOPs as `paged_attention_work`), while
+    the bytes count each slot's K/V rows and pages once (its longest
+    row's), though the pseudo-slots read them C times."""
+    flops = paged_attention_work(
+        [n for row in attend_lens for n in row], heads, head_dim, page_size,
+        kv_elem, quant)[0][1]
+    longest = [max(int(n) for n in row) for row in attend_lens]
+    s, c = len(attend_lens), len(attend_lens[0]) if attend_lens else 0
+    rows = 2 * sum(longest) * heads
+    pages = sum(-(-n // page_size) for n in longest)
+    nbytes = (2 * s * c * heads * head_dim * 4 + rows * head_dim * kv_elem
+              + (rows * 4 if quant else 0) + pages * 4 + s * c * 4)
+    return [("paged_attention_chunk_int8" if quant else "paged_attention_chunk",
+             flops, nbytes)]
+
+
+def _page_work(q, k_pages, lens, quant: bool, chunk: bool) -> list:
+    """`paged_attention_work` / `paged_attention_chunk_work` of a call
+    (reads the lengths back from the device: only inside a counting
+    scope)."""
+    h, dh = q.shape[-2:]
+    fn = paged_attention_chunk_work if chunk else paged_attention_work
+    return fn(lens.tolist(), h, dh, k_pages.shape[1], k_pages.element_size(),
+              quant)
+
+
 def paged_attention_fwd(q, k_pages, v_pages, page_tbl, seq_lens,
                         k_scale=None, v_scale=None):
     """Kernel wrapper; see the module docstring."""
     tensors = _check(q, k_pages, v_pages, page_tbl, seq_lens, k_scale, v_scale)
-    if kernels.route(q.device) == "plain":
-        return paged_attention_plain(q, k_pages, v_pages, page_tbl, seq_lens,
-                                     k_scale, v_scale)
-    return _paged_attention_kernel(tensors, k_scale is not None)
+    quant = k_scale is not None
+    with kernels.kernel_call(
+            lambda: _page_work(q, k_pages, seq_lens, quant, False)):
+        if kernels.route(q.device) == "plain":
+            return paged_attention_plain(q, k_pages, v_pages, page_tbl,
+                                         seq_lens, k_scale, v_scale)
+        return _paged_attention_kernel(tensors, quant)
 
 
 _TICKETS: dict = {}
@@ -308,9 +359,12 @@ def paged_attention_chunk(q, k_pages, v_pages, page_tbl, attend_lens, *,
     tbl = page_tbl[:, None, :].expand(s, c, page_tbl.shape[-1]).reshape(s * c, -1)
     tensors = _check(q.reshape(s * c, h, dh), k_pages, v_pages, tbl,
                      attend_lens.reshape(s * c), k_scale, v_scale)
-    if kernels.route(q.device) == "plain":
-        return paged_attention_chunk_plain(q, k_pages, v_pages, page_tbl,
-                                           attend_lens, k_scale, v_scale)
-    out = _paged_attention_kernel(tensors, k_scale is not None,
-                                  name="paged_attention_chunk")
+    quant = k_scale is not None
+    with kernels.kernel_call(
+            lambda: _page_work(q, k_pages, attend_lens, quant, True)):
+        if kernels.route(q.device) == "plain":
+            return paged_attention_chunk_plain(q, k_pages, v_pages, page_tbl,
+                                               attend_lens, k_scale, v_scale)
+        out = _paged_attention_kernel(tensors, quant,
+                                      name="paged_attention_chunk")
     return out.reshape(s, c, h, dh)

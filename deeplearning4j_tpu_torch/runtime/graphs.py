@@ -22,13 +22,14 @@ on every call is one `replay`.
 - Launch counters: the kernels a capture enqueues are held, not counted
   (they do not run then), and each replay counts them once.
 - Nothing falls back: a failing capture or replay raises.
+- Each capture counts as one ``jit_cache_misses`` in `compile_stats`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from deeplearning4j_tpu_torch.runtime import kernels
+from deeplearning4j_tpu_torch.runtime import compile_stats, kernels
 
 
 class CapturedProgram:
@@ -55,6 +56,7 @@ class CapturedProgram:
                 self.graph.capture_end()
         self.held = held
         current.wait_stream(self.stream)
+        compile_stats.note_capture()
 
     def replay(self):
         """Run the graph on the current stream; returns `outputs`."""

@@ -21,6 +21,16 @@ after).  A CUDA graph capture enqueues kernels without running them:
 inside `holding_launches` this thread's launches are held, not counted,
 and every replay of the graph counts them (`count_replay`), so the
 counters still say how many times each kernel ran.
+
+Work counters: a ctypes launch is no torch op, so no torch operation
+counter sees it.  Each wrapper runs inside `kernel_call`, with a
+function of its shapes that says what its kernels compute (FLOPs, and
+bytes: each input read once, each output written once; the wrappers'
+``*_work`` functions, which `chip_smoke.py`'s bound column calls too).
+Inside a counting scope (`observe/cost.py`) those are summed per
+kernel, and `in_kernel_call` tells the scope's op counter to leave out
+the torch ops a wrapper runs (its plain version on the CPU), so a
+program counts the same on both devices.
 """
 
 from __future__ import annotations
@@ -33,9 +43,13 @@ import re
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from deeplearning4j_tpu_torch.runtime import compile_stats
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -131,32 +145,53 @@ def build_all() -> dict[str, Path]:
     """Compile every source that has no up-to-date library, one ``nvcc``
     per source, all started together.  Raises with the compiler's output
     on failure; writes each compiler log (ptxas register / spill report)
-    beside its library."""
+    and the run's seconds beside its library.  Every source counts in
+    `compile_stats`: an ``nvcc`` run with its seconds, or an up-to-date
+    library with the seconds recorded when it was built."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     paths = {stem: _lib_path(stem) for stem in SIGNATURES}
     todo = {s: p for s, p in paths.items() if not p.exists()}
+    for stem, path in paths.items():
+        if stem not in todo:
+            compile_stats.note_hit(_recorded_secs(path))
     if not todo:
         return paths
     nvcc = nvcc_path()
-    procs = {}
-    for stem, path in todo.items():
+
+    def run(stem: str, path: Path):
         tmp = path.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
-        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT), tmp)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+        return proc, tmp, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(todo)) as pool:
+        runs = {s: pool.submit(run, s, p) for s, p in todo.items()}
+        results = {s: f.result() for s, f in runs.items()}
     errors = []
-    for stem, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        paths[stem].with_suffix(".log").write_bytes(log)
+    for stem, (proc, tmp, secs) in results.items():
+        paths[stem].with_suffix(".log").write_bytes(proc.stdout)
         if proc.returncode != 0:
             errors.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n"
-                          + log.decode(errors="replace"))
+                          + proc.stdout.decode(errors="replace"))
             continue
+        paths[stem].with_suffix(".secs").write_text(f"{secs:.6f}\n")
         os.replace(tmp, paths[stem])
+        compile_stats.note_build(secs)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def _recorded_secs(path: Path) -> float:
+    """The ``nvcc`` seconds written beside a library when it was built
+    (0.0 for a library built without the record)."""
+    try:
+        return float(path.with_suffix(".secs").read_text())
+    except (OSError, ValueError):
+        return 0.0
 
 
 def library(stem: str) -> ctypes.CDLL:
@@ -228,6 +263,54 @@ def count_replay(held: dict) -> None:
     with _COUNT_LOCK:
         for name, n in held.items():
             _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
+
+
+_WORK = threading.local()
+
+
+def _work_sums():
+    """The ``kernel_work`` dict of the innermost active torch dispatch
+    mode that keeps one (the counting scope of `observe/cost.py`), or
+    None.  The mode stack, unlike a Python thread-local, follows a
+    backward into autograd's device threads."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        work = getattr(mode, "kernel_work", None)
+        if work is not None:
+            return work
+    return None
+
+
+@contextlib.contextmanager
+def kernel_call(work):
+    """One wrapper call.  Inside a counting scope, ``work()`` — a list of
+    ``(kernel name, flops, bytes)`` from the call's shapes — is added to
+    the scope's ``name -> [calls, flops, bytes]`` sums, and
+    `in_kernel_call` is true for the block.  Outside one, nothing runs
+    but the stack lookup."""
+    if getattr(_WORK, "inside", False):
+        yield
+        return
+    acc = _work_sums()
+    if acc is None:
+        yield
+        return
+    for name, flops, nbytes in work():
+        rec = acc.setdefault(name, [0, 0.0, 0.0])
+        rec[0] += 1
+        rec[1] += float(flops)
+        rec[2] += float(nbytes)
+    _WORK.inside = True
+    try:
+        yield
+    finally:
+        _WORK.inside = False
+
+
+def in_kernel_call() -> bool:
+    """True inside a counted wrapper call (see `kernel_call`)."""
+    return getattr(_WORK, "inside", False)
 
 
 def launches() -> dict[str, int]:

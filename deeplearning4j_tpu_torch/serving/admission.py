@@ -93,7 +93,7 @@ class PendingRequest:
                  "seq", "_event", "_result", "_error", "cancelled",
                  "orig_len", "padded_len",
                  "trace_id", "root_span", "root_parent", "t0_pc",
-                 "t_enq_pc", "lat")
+                 "t_enq_pc", "lat", "bucket")
 
     def __init__(self, features: tuple, signature: tuple,
                  deadline: float, fmask=None, seq: int = 0,
@@ -120,6 +120,9 @@ class PendingRequest:
         self.root_parent: Optional[int] = None   # a router try's span id
         self.t0_pc = self.t_enq_pc = time.perf_counter()
         self.lat: dict = {}
+        # the batch bucket the request dispatched in (set before its
+        # result): a canary computes its expected row at the same shape
+        self.bucket: Optional[int] = None
 
     # -- completion (batcher side) ----------------------------------------
     def complete(self, result) -> None:

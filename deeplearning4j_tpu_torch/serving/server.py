@@ -452,6 +452,8 @@ class InferenceServer:
     def _dispatch(self, reqs: list[PendingRequest],
                   t_taken_pc: Optional[float] = None) -> None:
         bucket = batching.batch_bucket(len(reqs), self.config.max_batch)
+        for r in reqs:
+            r.bucket = bucket
         t_form_pc = time.perf_counter()
         if t_taken_pc is not None:
             for r in reqs:

@@ -60,7 +60,11 @@ steps: a watchdog abort while a step is held inside its arm fails the
 streams, the held loop enqueues nothing after the release (the pools
 keep their bits) and the respawned loop serves the same greedy tokens;
 a hot-swap between replays captures once more, drops no stream, and
-each replay still counts one paged-attention launch a layer.
+each replay still counts one paged-attention launch a layer.  The
+serving fleet: two replicas in one process capture and replay their
+decode graphs concurrently with exact launch totals, and a rolling
+deploy's canary passes an honest deploy at tolerance 1e-4 under routed
+traffic.
 """
 
 import dataclasses
@@ -766,3 +770,132 @@ def test_quantized_output_on_the_card_matches_the_cpu(cuda):
     ref = cpu.output(ids)
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert (got.cpu() - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+def _card_fleet(cuda, bf16, goldens=None):
+    from deeplearning4j_tpu_torch.serving.fleet import ServingFleet
+    from deeplearning4j_tpu_torch.serving.router import RouterConfig
+    from deeplearning4j_tpu_torch.serving.server import ServingConfig
+
+    return ServingFleet(
+        lambda: TransformerEncoder(vocab_size=97, d_model=256, n_heads=2,
+                                   n_layers=2, chunked_vocab_loss=True,
+                                   bf16_compute=bf16).init_model(device=cuda),
+        n_replicas=2, config=ServingConfig(max_batch=4, default_deadline_s=120.0),
+        router_config=RouterConfig(default_deadline_s=120.0),
+        golden_inputs=goldens,
+        generation_config=GenerationConfig(slots=4, page_size=16, num_pages=64,
+                                           max_pages_per_seq=8))
+
+
+def _threads(fns):
+    import threading
+
+    out, errs = [None] * len(fns), []
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except BaseException as exc:        # re-raised below
+            errs.append(exc)
+
+    ts = [threading.Thread(target=run, args=(i, fn)) for i, fn in enumerate(fns)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    assert not errs, errs
+    assert not any(t.is_alive() for t in ts)
+    return out
+
+
+def test_two_replicas_capture_and_replay_concurrently(cuda):
+    """Two replicas of one process on one card, both `both`: streams
+    through `fleet.generate` prefill on one and decode on either, so each
+    engine captures and replays its decode graph while the other runs;
+    after a rolling deploy each captures again, again concurrently.  The
+    streams equal dense `generate` (f32) before and after, and the launch
+    totals over each round are exact: B1 once a layer a prompt, B4 once a
+    layer a decode step of either engine (and a capture's eager
+    warm-up)."""
+    from deeplearning4j_tpu_torch.runtime import compile_stats
+
+    fleet = _card_fleet(cuda, bf16=False).start()
+    prompts = [np.random.default_rng(n).integers(0, 97, n) for n in (5, 9, 17, 33,
+                                                                     40, 64, 70, 90)]
+    engines = list(fleet.engines.values())
+    try:
+        for rnd, scale in enumerate((None, 1.01)):
+            if scale is not None:
+                model = fleet.replicas[0].model
+                new = {k: {kk: (vv.detach() * scale if not isinstance(vv, dict) else
+                                {a: b.detach() * scale for a, b in vv.items()})
+                           for kk, vv in v.items()} for k, v in model.params.items()}
+                assert fleet.deployer.deploy(new)["installed"]
+            model = fleet.replicas[0].model
+            refs = [generate(model, p[None], 12)[0].cpu().numpy() for p in prompts]
+            steps0 = sum(e.stats()["decode_steps"] for e in engines)
+            caps0 = compile_stats.snapshot()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            outs = _threads([lambda p=p: fleet.generate(p, 12, timeout=120)
+                             for p in prompts])
+            torch.cuda.synchronize()
+            counts = kernels.launches()
+            steps = sum(e.stats()["decode_steps"] for e in engines) - steps0
+            for out, ref in zip(outs, refs):
+                np.testing.assert_array_equal(out, ref)
+            assert all(e.stats()["decode_steps"] > 0 for e in engines)
+            assert counts["flash_fwd"] == 2 * len(prompts)
+            # each replica's capture runs its step once eagerly (warm-up),
+            # which counts; every replay counts the graph's launches
+            captured = (compile_stats.snapshot() - caps0).jit_cache_misses
+            assert captured == 2
+            assert counts["paged_attention_fwd"] == 2 * (steps + captured)
+            assert [e.stats()["graph_captures"] for e in engines] == [rnd + 1] * 2
+    finally:
+        fleet.stop()
+
+
+def test_canary_passes_an_honest_deploy_under_traffic(cuda):
+    """bf16 replicas (the card's compute) under routed infer traffic: a
+    rolling deploy's canary compares the served golden rows, batched with
+    whatever traffic shared their dispatch, against the staged weights at
+    the same batch bucket, at tolerance 1e-4: the honest deploy
+    installs, with no canary failure, and the fleet serves the new
+    weights."""
+    import threading
+
+    rng_np = np.random.default_rng(3)
+    rows = rng_np.integers(0, 97, (8, 24)).astype(np.int64)
+    fleet = _card_fleet(cuda, bf16=True, goldens=[rows[0], rows[1]]).start()
+    stop, served, errs = threading.Event(), [0], []
+
+    def client(i):
+        try:
+            while not stop.is_set():
+                fleet.infer(rows[i % len(rows)], deadline_s=60)
+                served[0] += 1
+        except BaseException as exc:        # re-raised below
+            errs.append(exc)
+
+    ts = [threading.Thread(target=client, args=(i,)) for i in range(6)]
+    try:
+        for t in ts:
+            t.start()
+        time.sleep(0.2)
+        model = fleet.replicas[0].model
+        new = {k: {kk: (vv.detach() * 1.01 if not isinstance(vv, dict) else
+                        {a: b.detach() * 1.01 for a, b in vv.items()})
+                   for kk, vv in v.items()} for k, v in model.params.items()}
+        res = fleet.deployer.deploy(new)
+    finally:
+        stop.set()
+        for t in ts:
+            t.join(60)
+        fleet.stop()
+    assert not errs, errs
+    assert res["installed"] and res["replicas_updated"] == 2, res
+    assert fleet.deployer.tolerance == 1e-4 and fleet.deployer.canary_failures == 0
+    assert served[0] > 0
+    assert [s.generation for s in fleet.replicas] == [1, 1]

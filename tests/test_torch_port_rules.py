@@ -2,9 +2,10 @@
 
 - The port never imports jax, optax or the JAX package (a fresh
   interpreter imports every module of it, `utils/`, `train/`,
-  `observe/` and the serving plane included, takes a training step,
-  runs the CPU engine, the server with an attached engine behind its
-  HTTP front, and a quantized ``output()``, writes and restores a
+  `observe/` and the serving plane and fleet included, takes a training
+  step and analyses its cost, runs the CPU engine, the server with an
+  attached engine behind its HTTP front, a prefill/decode fleet and the
+  fleet aggregator, and a quantized ``output()``, writes and restores a
   checkpoint zip of each model, then lists its modules).
 - Entry points default to CUDA and raise when there is none, checkpoint
   restore included; only an explicit ``device="cpu"`` runs on the CPU.
@@ -61,7 +62,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "observe.metrics", "observe.trace", "observe.slo",
                      "runtime.crash", "runtime.watchdog", "serving.flight",
                      "serving.breaker", "serving.batching", "serving.hotswap",
-                     "serving.server", "serving.http"):
+                     "serving.server", "serving.http", "serving.router",
+                     "serving.fleet", "observe.fleet", "observe.cost",
+                     "runtime.compile_stats"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -98,6 +101,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             http.stop()
             eng.stop()
             srv.stop()
+        from deeplearning4j_tpu_torch.observe import cost
+        from deeplearning4j_tpu_torch.observe.fleet import FleetAggregator
+        from deeplearning4j_tpu_torch.serving.fleet import ServingFleet
+        assert cost.analyze_model(m)[0].flops > 0
+        fleet = ServingFleet(
+            lambda: TransformerEncoder(vocab_size=17, d_model=32, n_heads=2,
+                                       n_layers=1).init_model(device="cpu"),
+            n_replicas=2, roles=["prefill", "decode"],
+            generation_config=GenerationConfig(
+                slots=2, page_size=8, num_pages=8, max_pages_per_seq=2)).start()
+        try:
+            assert fleet.generate(np.arange(5) % 17, 3, timeout=60).shape == (8,)
+            assert fleet.infer(ids[0]).shape == (6, 17)
+        finally:
+            fleet.stop()
+        FleetAggregator().ingest("w0", {"prom": registry().to_prometheus_text()})
         q = quantize(m)
         p = q.output(ids)
         assert p.shape == (2, 6, 32) and bool(np.isfinite(p.numpy()).all())

@@ -150,6 +150,10 @@ def _serve(which, model, streams, plan=None, **cfg):
     rec = trace.tracer()
     rec.clear()
     rec.enable()
+    # the compared gauges hold what this run sets, not what an engine of
+    # an earlier test in this process left there
+    for name in GAUGES:
+        metrics.registry().gauge(name).clear()
     before = _metrics(metrics)
     try:
         eng = Engine(model=model, config=Config(**{**CFG, **cfg}))
