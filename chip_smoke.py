@@ -168,7 +168,10 @@ Then the phases:
    Kernel rows first: the dequant-matmul kernel (B5) against
    `dequant_matmul_plain` at the six product shapes (M, K, N) =
    (4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024),
-   (4096, 1024, 32000), (8, 1024, 4096) and (1, 4096, 4096), within
+   (4096, 1024, 32000), (8, 1024, 4096) and (1, 4096, 4096), and at the
+   quantized engine's decode (M 8) and verify (M 40) shapes (8, 1024,
+   1024), (8, 4096, 1024), (8, 1024, 32000), (40, 1024, 1024), (40, 1024,
+   4096), (40, 4096, 1024) and (40, 1024, 32000), within
    1e-5 (K 1024) or 2e-5 (K 4096) of max |plain|, plus the ragged
    (5, 100, 72) and (200, 100, 48) for correctness, each on the route
    the wrapper picks by shape (the tensor cores above 64 rows, f32 FMAs
@@ -189,6 +192,37 @@ Then the phases:
    and max |dp| <= 1e-4 of max p.  The unquantized model's bf16
    ``output()`` time and the int8-vs-f32-weights argmax agreement are
    printed as information.
+9b. qserve — int8 serving (ROADMAP A7): the serve phase's flagship
+   (chunked head, seed 123) `quantize`d, in a `GenerationEngine` with the
+   serve engine's configuration, on the serve mix, the decode step a
+   captured graph.  B1 f32 at the long prompt's prefill (BH 8, T 2000)
+   is a kernel row first.  Launch counters zeroed just before the
+   measured pass: exactly 49 B5 launches a decode step and a prefill (8
+   layers x 6 products and the head), 8 f32 B1 a prompt, 8 B4 a step and
+   no other kernel.  Tokens/s, mean TTFT, the 2000-token prompt's TTFT
+   and decode ms a step over 3 passes are printed beside the serve
+   phase's bf16 engine in the same call, with B5's device time in one
+   profiled pass and the int8 tree's bytes against the f32 tree's.
+   Greedy agreement with dense `generate` over the same quantized model:
+   >= 0.95 on f32 pages, >= 0.9 on int8 pages, first tokens identical
+   (the parity phase's prompts); the captured plain and verify steps
+   against the eager ones, bit for bit, with 49 B5 a replay.  Spec
+   (``spec_k`` 4, n-gram) against the plain quantized engine: >= 0.95,
+   first tokens identical, exactly 49 B5 a dispatch (verify or plain)
+   and a prefill, 8 B4 of each route a dispatch.  Then an
+   `InferenceServer` (engine attached) behind HTTP: it advertises
+   ``quantized``; ``/v1/generate`` streams equal in-process ones; 8
+   ``/v1/infer`` rows within B5's 2e-5 of ``output()`` of the same rows
+   with 8 B1 and 48 B5 a batch; a NaN-scale push (``nonfinite``) and an
+   f32 push (``structure``) roll back with the outputs unchanged; a push
+   of a quantized tree installs with one re-capture; ``/v1/reload`` of
+   the model's quantized zip installs (generation +1, the same
+   outputs).  Then two quantized ``both`` replicas in a `ServingFleet`:
+   a rolling deploy of a quantized tree installs on both with
+   generation +1, and a deploy under ``serving.canary:corrupt:nth=1``
+   rolls back with outputs bit-identical.  The script refuses to start
+   when ``DL4JTPU_QUANT_KERNEL`` is set to anything but auto: on the
+   card the quantized products run B5, and a plain name there raises.
 10. ckpt — the checkpoint zip (`train/checkpoint.py`) on the card.  The
    full-width flagship with its softmax head trains 3 steps (bf16, Adam)
    on the train batch; `ModelSerializer.write_model` (with the updater),
@@ -234,7 +268,7 @@ import sys
 import time
 
 PHASES = ("kernels", "train", "train_f32", "serve", "server", "fleet", "spec", "parity",
-          "int8", "quant", "ckpt")
+          "int8", "quant", "qserve", "ckpt")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -294,6 +328,11 @@ QUANT_BATCH, QUANT_SEQ, QUANT_WARMUP, QUANT_CALLS = 2, 2048, 1, 3
 DM_SHAPES = [(4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024),
              (4096, 1024, VOCAB), (8, 1024, 4096), (1, 4096, 4096)]
 DM_RAGGED = (5, 100, 72)
+# B5 at the quantized engine's decode (8 rows a step) and verify (8 slots x
+# 5 rows) shapes besides (8, 1024, 4096): the block's products and the head
+DM_SERVE_SHAPES = [(8, 1024, 1024), (8, 4096, 1024), (8, 1024, VOCAB),
+                   (40, 1024, 1024), (40, 1024, 4096), (40, 4096, 1024),
+                   (40, 1024, VOCAB)]
 # B4's head dims besides the flagship's 128: 32 lanes hold Dh / 32 values
 # each where 32 divides Dh, else strided lanes
 PAGED_CHECK_DIMS = (16, 48, 80, 96, 192, 256)
@@ -1103,12 +1142,16 @@ def _profiled(torch, name, fn):
     busy_us = sum(t for t, _, _ in dev)
     top = sorted(dev, reverse=True)[:15]
     paged = [(t, n) for t, k, n in dev if "paged" in k]
+    dequant = [(t, n) for t, k, n in dev if "dequant" in k]
     res = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
            "device_busy_share": busy_us / 1e6 / wall,
            "top_device_kernels_ms": [[k, t / 1e3, n] for t, k, n in top],
            # kernel B4's own device time and launches
            "paged_attention_device_ms": sum(t for t, _ in paged) / 1e3,
-           "paged_attention_launches": sum(n for _, n in paged)}
+           "paged_attention_launches": sum(n for _, n in paged),
+           # kernel B5's (dequant_matmul_rows / _reduce / _wgmma; not split_x)
+           "dequant_matmul_device_ms": sum(t for t, _ in dequant) / 1e3,
+           "dequant_matmul_launches": sum(n for _, n in dequant)}
     res.update(extra or {})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"profile_{name}.txt"), "w") as f:
@@ -2454,11 +2497,12 @@ def _first_divergence(torch, np, model, prompts, outs, refs):
     return None
 
 
-def graph_check(torch, np, model, kernels):
+def graph_check(torch, np, model, kernels, extra=None, tag="spec"):
     """The captured plain and verify steps against the eager ones, on the
     same state: 8 streams admitted into a spec engine (not started), 3
     dispatches of each width; logits and argmax bit for bit, and each
-    replay counting 8 launches of its B4 route."""
+    replay counting 8 launches of its B4 route (and ``extra``'s count of
+    each kernel it names)."""
     from deeplearning4j_tpu_torch.serving.generation import (
         GenerationConfig,
         GenerationEngine,
@@ -2471,6 +2515,7 @@ def graph_check(torch, np, model, kernels):
         eng._admit_to_slot(eng._loop_gen, slot, eng.queue.take_batch(1, 0.0, eng._stop)[0])
     res = {}
     for c, name in ((1, "paged_attention_fwd"), (SPEC_K + 1, "paged_attention_chunk")):
+        want = {name: LAYERS, **(extra or {})}
         same, counted = True, []
         for _ in range(3):
             toks = np.concatenate([eng._last_tok[:, None],
@@ -2478,19 +2523,20 @@ def graph_check(torch, np, model, kernels):
                                   axis=1).astype(np.int32)
             host = eng._inputs(eng._page_tbl.copy(), eng._seq_lens.copy(), toks)
             logits, greedy = (t.clone() for t in eng._run_eager(c, host))
-            before = kernels.launches().get(name, 0)
+            before = kernels.launches()
             (got, got_greedy), _ = eng._replay(c, host)
             torch.cuda.synchronize()
-            counted.append(kernels.launches().get(name, 0) - before)
+            after = kernels.launches()
+            counted.append({k: after.get(k, 0) - before.get(k, 0) for k in want})
             same &= bool(torch.equal(got, logits) and torch.equal(got_greedy, greedy))
             nxt = greedy.view(ENGINE["slots"], c)[:, 0].cpu().numpy()
             eng._seq_lens += 1
             eng._last_tok[:] = nxt
         res[f"c{c}"] = {"bit_identical": same, "launches_per_dispatch": counted}
-        log(f"[spec] graph check, {c} row(s) a slot: captured == eager bit for bit: "
-            f"{same}; {name} launches a dispatch {counted} (the first includes the "
+        log(f"[{tag}] graph check, {c} row(s) a slot: captured == eager bit for bit: "
+            f"{same}; launches a dispatch {counted} (the first includes the "
             "capture's warm-up)")
-        if not same or counted[1:] != [LAYERS] * 2:
+        if not same or counted[1:] != [want] * 2:
             raise AssertionError(f"captured step ({c} rows) differs from the eager one "
                                  f"or miscounts its launches: {res}")
     for req in eng._slot_req:
@@ -2792,7 +2838,7 @@ def dm_rows(torch, timer):
     other route, where TMA can describe the weights (N a multiple of 16),
     checked against the plain version."""
     rows, other_rows = [], []
-    for m, k, n in DM_SHAPES + [DM_RAGGED, DM_RAGGED_TMA]:
+    for m, k, n in DM_SHAPES + DM_SERVE_SHAPES + [DM_RAGGED, DM_RAGGED_TMA]:
         rows.append(dm_case(torch, timer, m, k, n))
         other = "rows" if rows[-1]["route"] == "wgmma" else "wgmma"
         if other == "rows" or n % 16 == 0:
@@ -2919,6 +2965,343 @@ def phase_quant(torch, np, kernels, timer):
         "probability_row_sum_err": row_sum_err,
         "agreement_vs_f32_weights": agree_w,
     }
+
+
+# -- qserve phase -----------------------------------------------------------------
+
+# B5 launches a prefill and a decode (or verify) dispatch of the quantized
+# flagship: 8 layers x 6 products, and the head (one row at prefill)
+QSERVE_B5 = 6 * LAYERS + 1
+
+
+def _qflagship(torch):
+    """The serve configuration's flagship, `quantize`d (the f32 copy freed)."""
+    from deeplearning4j_tpu_torch.quant import quantize
+
+    model = _flagship(torch)
+    q = quantize(model)
+    del model
+    torch.cuda.empty_cache()
+    return q
+
+
+def _requantized(torch, qmodel, factor=1.001):
+    """A quantized tree of the same structure, every scale and float leaf
+    times ``factor``: a push that must install."""
+    from deeplearning4j_tpu_torch.quant import QuantizedTensor
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, QuantizedTensor):
+            return QuantizedTensor(t.q.clone(), t.scale * factor)
+        return t.detach() * factor
+    with torch.no_grad():
+        return walk(qmodel.params)
+
+
+def _nan_scale(torch, qmodel):
+    from deeplearning4j_tpu_torch.quant import QuantizedTensor
+
+    tree = _requantized(torch, qmodel, 1.0)
+    w = tree["layer2"]["W1"]
+    scale = w.scale.clone()
+    scale[0] = float("nan")
+    tree["layer2"]["W1"] = QuantizedTensor(w.q, scale)
+    return tree
+
+
+def _swap_reason(staged, live):
+    from deeplearning4j_tpu_torch.serving.hotswap import SwapVerifyError, verify_weights
+
+    try:
+        verify_weights(staged, live)
+    except SwapVerifyError as exc:
+        return exc.reason
+    return None
+
+
+def phase_qserve(torch, np, kernels, report, timer):
+    """Int8 serving on the card (ROADMAP A7): the quantized flagship in the
+    engine, dense `generate`, speculation, the server and the fleet; see
+    the module docstring."""
+    from deeplearning4j_tpu_torch.observe import registry
+    from deeplearning4j_tpu_torch.ops.generation import generate
+    from deeplearning4j_tpu_torch.quant import quantized_bytes
+    from deeplearning4j_tpu_torch.runtime import faults
+    from deeplearning4j_tpu_torch.serving.fleet import ServingFleet
+    from deeplearning4j_tpu_torch.serving.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+    from deeplearning4j_tpu_torch.serving.http import ServingHTTPServer
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer, ServingConfig
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+
+    os.environ["DL4JTPU_CRASH_DIR"] = os.path.abspath(os.path.join("build", "crash"))
+    res = {}
+    # B1 f32 at the long prompt's prefill shape, beside the bf16 row
+    rows = [flash_case(torch, timer, SERVE_LENGTHS[0], torch.float32, bh=HEADS)]
+    check_rows("qserve", rows)
+    res["kernel_rows"] = rows
+
+    t0 = time.perf_counter()
+    qmodel = _qflagship(torch)
+    qb = quantized_bytes(qmodel.params)
+    f32_bytes = qb["tree_bytes"] - qb["quantized_bytes"] + qb["f32_equiv_bytes"]
+    res["tree_bytes"] = {"quantized": qb["tree_bytes"], "f32": f32_bytes}
+    log(f"[qserve] quantized flagship (chunked head, seed 123) built in "
+        f"{time.perf_counter() - t0:.1f}s: tree {qb['tree_bytes']} bytes against "
+        f"{f32_bytes} in f32 ({qb['tree_bytes'] / f32_bytes:.4f}); compute "
+        f"{qmodel.compute_dtype}")
+    if qmodel.compute_dtype != torch.float32:
+        raise AssertionError("the quantized model does not compute in f32")
+
+    # -- 1-2. the engine on the serve mix; exact launch counts --------------
+    eng = GenerationEngine(qmodel, GenerationConfig(**ENGINE)).start()
+    try:
+        _, _, cold = _serve_pass(torch, np, eng, seed=2)
+        _log_pass("qserve first pass (new shapes, the capture)", cold)
+        kernels.reset_launches()
+        prompts, outs, one = _serve_pass(torch, np, eng, seed=4)
+        counts = kernels.launches()
+        _log_pass("qserve measured pass", one)
+        more = [_serve_pass(torch, np, eng, seed=4)[2] for _ in range(2)]
+        _log_medians("qserve", [one] + more, one)
+        prof = _profiled(torch, "qserve", lambda: _serve_pass(torch, np, eng, seed=4)[2])
+        if eng.kv.leak_check() is not None:
+            raise AssertionError(eng.kv.leak_check())
+    finally:
+        eng.stop()
+    steps, prefills = one["decode_steps"], one["prefills"]
+    want = {"dequant_matmul": QSERVE_B5 * (steps + prefills),
+            "flash_fwd": LAYERS * prefills,
+            "paged_attention_fwd": LAYERS * steps}
+    log(f"[qserve] launches in the measured pass: {counts} (want {want}, "
+        f"{steps} steps, {prefills} prefills)")
+    if steps != 31 or prefills != len(SERVE_LENGTHS) or \
+            {k: counts.get(k, 0) for k in want} != want or \
+            set(counts) - set(want):
+        raise AssertionError(f"qserve launches {counts}, want exactly {want}")
+    step_ms = one["decode_seconds"] / steps * 1e3
+    serve = report.get("serve")
+    res["engine"] = {**one, "launches": counts, "decode_ms_per_step": step_ms,
+                     "first_pass": cold, "profile": prof}
+    log(f"[qserve] int8 engine: median {one['median_tokens_per_s']:.1f} tokens/s, "
+        f"mean TTFT {one['mean_ttft_s'] * 1e3:.2f} ms, 2000-token prompt TTFT "
+        f"{one['long_prompt_ttft_s'] * 1e3:.2f} ms, decode {step_ms:.4f} ms a step; "
+        f"B5 device time in the profiled pass {prof['dequant_matmul_device_ms']:.3f} ms "
+        f"in {prof['dequant_matmul_launches']} launches, of {prof['device_busy_s'] * 1e3:.3f} "
+        f"ms busy")
+    if serve is not None:
+        log(f"[qserve] bf16 serve engine, same call: median "
+            f"{serve['median_tokens_per_s']:.1f} tokens/s, mean TTFT "
+            f"{serve['mean_ttft_s'] * 1e3:.2f} ms, 2000-token prompt TTFT "
+            f"{serve['long_prompt_ttft_s'] * 1e3:.2f} ms, decode "
+            f"{serve['decode_seconds'] / serve['decode_steps'] * 1e3:.4f} ms a step")
+        res["bf16_serve"] = {k: serve[k] for k in (
+            "median_tokens_per_s", "mean_ttft_s", "long_prompt_ttft_s",
+            "decode_seconds", "decode_steps")}
+    else:
+        log("[qserve] bf16 serve engine: the serve phase did not run in this call")
+
+    # -- 3. tokens against dense generate; int8 pages; the captured step ----
+    pprompts = _prompts(np, 3, PARITY_LENGTHS)
+    refs = [generate(qmodel, p[None], 32)[0].cpu().numpy() for p in pprompts]
+    for kv in ("f32", "int8"):
+        e = GenerationEngine(qmodel, GenerationConfig(**ENGINE, kv_dtype=kv)).start()
+        try:
+            got = _parity_streams(e, pprompts, 32)
+        finally:
+            e.stop()
+        agree, first_ok = _agreement(np, pprompts, got, refs)
+        gate = 0.95 if kv == "f32" else 0.9
+        res[f"parity_{kv}"] = {"agreement": agree, "first_token_identical": first_ok,
+                               "gate": gate}
+        log(f"[qserve] {kv} pages: greedy agreement with dense generate over the "
+            f"quantized model {agree:.4f} (gate {gate}), first tokens identical "
+            f"{first_ok}")
+        if agree < gate or not first_ok:
+            raise AssertionError(f"quantized engine ({kv} pages) disagrees with dense "
+                                 "generate")
+    res["graph_check"] = graph_check(torch, np, qmodel, kernels,
+                                     extra={"dequant_matmul": QSERVE_B5}, tag="qserve")
+
+    # -- 4. speculation: the verify at C = k + 1 through B5 and B4 ----------
+    sprompts = _prompts(np, 4, SERVE_LENGTHS)
+    plain = GenerationEngine(qmodel, GenerationConfig(**ENGINE, spec_k=0)).start()
+    spec = GenerationEngine(qmodel, GenerationConfig(**ENGINE, spec_k=SPEC_K)).start()
+    try:
+        srefs, _ = _spec_pass(torch, plain, sprompts)
+        _spec_pass(torch, spec, sprompts)                  # meet every shape
+        kernels.reset_launches()
+        souts, sone = _spec_pass(torch, spec, sprompts)
+        scounts = kernels.launches()
+    finally:
+        plain.stop()
+        spec.stop()
+    agree, first_ok = _agreement(np, sprompts, souts, srefs)
+    same = sum(bool(np.array_equal(o, r)) for o, r in zip(souts, srefs))
+    dispatches = sone["verify_dispatches"] + sone["plain_dispatches"]
+    swant = {"dequant_matmul": QSERVE_B5 * (dispatches + sone["prefills"]),
+             "paged_attention_chunk": LAYERS * sone["verify_dispatches"],
+             "paged_attention_fwd": LAYERS * sone["plain_dispatches"],
+             "flash_fwd": LAYERS * sone["prefills"]}
+    res["spec"] = {"agreement": agree, "first_token_identical": first_ok,
+                   "byte_identical_streams": same, "launches": scounts, **sone}
+    log(f"[qserve] spec_k {SPEC_K}: agreement with the plain quantized engine "
+        f"{agree:.4f} (gate {SPEC_GATE}), first tokens identical {first_ok}, "
+        f"byte-identical streams {same} of {len(sprompts)}; drafted {sone['drafted']}, "
+        f"accepted {sone['accepted']}, {sone['verify_dispatches']} verify and "
+        f"{sone['plain_dispatches']} plain dispatches; launches {scounts} (want {swant})")
+    if agree < SPEC_GATE or not first_ok or sone["verify_dispatches"] <= 0:
+        raise AssertionError("quantized spec engine fails the parity rule")
+    if {k: scounts.get(k, 0) for k in swant} != swant or set(scounts) - set(swant):
+        raise AssertionError(f"quantized spec launches {scounts}, want {swant}")
+
+    # -- 5. the server and its HTTP front -----------------------------------
+    srv = InferenceServer(qmodel, ServingConfig(
+        max_batch=INFER_BATCH, max_queue=64, linger_s=0.002,
+        default_deadline_s=120.0)).start()
+    eng = GenerationEngine(server=srv, config=GenerationConfig(**ENGINE)).start()
+    http = ServingHTTPServer(srv, port=0, host="127.0.0.1").start()
+    url = http.url
+    try:
+        if srv.health().get("quantized") is not True or not srv.stats()["quantized"]:
+            raise AssertionError("the server does not advertise its int8 model")
+        _serve_pass(torch, np, eng, seed=2)                # shapes, the capture
+        ref = _queued_pass(eng, lambda: _submit_mix(eng, sprompts), len(sprompts))
+        got = _queued_pass(eng, lambda: _http_mix(url, sprompts), len(sprompts))
+        same = [g == r for g, r in zip(got, ref)]
+        log(f"[qserve] /v1/generate streams equal to in-process generate: {same}")
+        if not all(same):
+            raise AssertionError("a /v1/generate stream differs from in-process generate")
+        rng = np.random.default_rng(7)
+        rows_in = rng.integers(0, VOCAB, (INFER_BATCH, INFER_SEQ)).astype(np.int64)
+        srv.warm_start(rows_in[0])
+        b0 = srv.stats()["batches"]
+        kernels.reset_launches()
+        http_out = _parallel([
+            lambda r=r: _http(url, "/v1/infer", {"features": r.tolist()})
+            for r in rows_in])
+        icounts = kernels.launches()
+        batches = srv.stats()["batches"] - b0
+        if any(code != 200 for code, _ in http_out):
+            raise AssertionError(f"/v1/infer: {[c for c, _ in http_out]}")
+        outs_h = [np.asarray(json.loads(raw)["outputs"], np.float32) for _, raw in http_out]
+        # each row as the batch it dispatched in computes it (rows do not mix)
+        want_rows = qmodel.output(rows_in).cpu().numpy()
+        ierr = max(float(np.abs(o - w).max()) for o, w in zip(outs_h, want_rows))
+        iwant = {"flash_fwd": LAYERS * batches, "dequant_matmul": 6 * LAYERS * batches}
+        log(f"[qserve] /v1/infer: {INFER_BATCH} requests in {batches} batch(es), "
+            f"launches {icounts} (want {iwant}), max |http - output()| {ierr:.3e}")
+        if {k: icounts.get(k, 0) for k in iwant} != iwant or \
+                ierr > TOL["dequant_matmul/K4096"] * float(np.abs(want_rows).max()):
+            raise AssertionError("/v1/infer over the int8 model: launches or rows off")
+        probe = rows_in[:1]
+        before = qmodel.output(probe).cpu()
+        nan_reason = _swap_reason(_nan_scale(torch, qmodel), qmodel.params)
+        f32_tree = _flagship(torch).params
+        f32_reason = _swap_reason(f32_tree, qmodel.params)
+        nan_ok = srv.push_weights(_nan_scale(torch, qmodel), source="qserve-nan")
+        f32_ok = srv.push_weights(f32_tree, source="qserve-f32")
+        del f32_tree
+        unchanged = bool(torch.equal(before, qmodel.output(probe).cpu()))
+        rejected = {"nan_scale": [nan_ok, nan_reason], "f32_tree": [f32_ok, f32_reason],
+                    "output_unchanged": unchanged, "generation": srv.generation}
+        log(f"[qserve] bad pushes: {rejected}")
+        if nan_ok or f32_ok or nan_reason != "nonfinite" or f32_reason != "structure" \
+                or not unchanged or srv.generation != 0:
+            raise AssertionError(f"a bad push onto the int8 model: {rejected}")
+        cap0, recap0 = eng.stats()["graph_captures"], eng.stats()["graph_recaptures"]
+        if not srv.push_weights(_requantized(torch, qmodel), source="qserve"):
+            raise AssertionError("the quantized push rolled back")
+        _serve_pass(torch, np, eng, seed=5)
+        st = eng.stats()
+        swap = {"generation": srv.generation, "captures": st["graph_captures"] - cap0,
+                "recaptures": st["graph_recaptures"] - recap0,
+                "output_changed": not torch.equal(before, qmodel.output(probe).cpu())}
+        log(f"[qserve] hot-swap of a quantized tree: {swap}")
+        if swap != {"generation": 1, "captures": 1, "recaptures": 1,
+                    "output_changed": True}:
+            raise AssertionError(f"quantized hot-swap: {swap}")
+        os.makedirs(CKPT_DIR, exist_ok=True)
+        zpath = os.path.abspath(os.path.join(CKPT_DIR, "qserve.zip"))
+        t0 = time.perf_counter()
+        ModelSerializer.write_model(qmodel, zpath)
+        write_s = time.perf_counter() - t0
+        pre = qmodel.output(probe).cpu()
+        t0 = time.perf_counter()
+        code, body = _http(url, "/v1/reload", {"path": zpath})
+        reload_s = time.perf_counter() - t0
+        # the zip holds the live weights: the same outputs after the install
+        reload = {"status": code, "generation": srv.generation, "write_s": write_s,
+                  "reload_s": reload_s, "zip_bytes": os.path.getsize(zpath),
+                  "output_identical": bool(torch.equal(pre, qmodel.output(probe).cpu()))}
+        log(f"[qserve] /v1/reload of the quantized zip: {reload}")
+        if code != 200 or srv.generation != 2 or not reload["output_identical"]:
+            raise AssertionError(f"/v1/reload of a quantized zip: {code} {body[:200]!r}")
+        res["server"] = {"generate_equal": same, "infer_launches": icounts,
+                         "infer_batches": batches, "infer_max_abs_err": ierr,
+                         "rejected": rejected, "hotswap": swap, "reload": reload}
+        if eng.kv.leak_check() is not None:
+            raise AssertionError(eng.kv.leak_check())
+    finally:
+        http.stop()
+        eng.stop()
+        srv.stop()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del qmodel, srv, eng
+    torch.cuda.empty_cache()
+
+    # -- 6. the fleet: two quantized `both` replicas, deploy and rollback ----
+    reg = registry()
+    rng = np.random.default_rng(8)
+    goldens = list(rng.integers(0, VOCAB, (2, INFER_SEQ)).astype(np.int64))
+    fleet = ServingFleet(
+        lambda: _qflagship(torch), n_replicas=2,
+        config=ServingConfig(max_batch=INFER_BATCH, max_queue=64, linger_s=0.002,
+                             default_deadline_s=120.0),
+        golden_inputs=goldens)
+    try:
+        fleet.warm_start(goldens[0])
+        fleet.start()
+        if not all(s.quantized for s in fleet.replicas):
+            raise AssertionError("a fleet replica does not advertise its int8 model")
+        x = goldens[1]
+        gens0 = [s.generation for s in fleet.replicas]
+        t0 = time.perf_counter()
+        dep = fleet.deployer.deploy(_requantized(torch, fleet.replicas[0].model),
+                                    source="qserve")
+        dep_s = time.perf_counter() - t0
+        gens1 = [s.generation for s in fleet.replicas]
+        before = [s.infer(x, deadline_s=600) for s in fleet.replicas]
+        canary0 = reg.counter("dl4jtpu_canary_failures_total").value()
+        faults.arm("serving.canary:corrupt:nth=1")
+        try:
+            bad = fleet.deployer.deploy(_requantized(torch, fleet.replicas[0].model, 1.01))
+        finally:
+            faults.disarm()
+        after = [s.infer(x, deadline_s=600) for s in fleet.replicas]
+        canary = reg.counter("dl4jtpu_canary_failures_total").value() - canary0
+        unchanged = all(np.array_equal(a, b) for a, b in zip(before, after))
+        log(f"[qserve] fleet deploy of a quantized tree: {dep} in {dep_s:.3f}s, "
+            f"generations {gens0} -> {gens1}; corrupted canary: {bad}, canary "
+            f"failures +{canary}, outputs bit-identical to before: {unchanged}")
+        if not dep["installed"] or dep["replicas_updated"] != 2 or \
+                gens1 != [g + 1 for g in gens0]:
+            raise AssertionError(f"quantized fleet deploy: {dep}, {gens1}")
+        if bad["installed"] or bad["rolled_back"] != 1 or canary != 1 or not unchanged:
+            raise AssertionError(f"quantized canary rollback: {bad}, {unchanged}")
+        res["fleet"] = {"deploy": dep, "deploy_s": dep_s, "generations": [gens0, gens1],
+                        "canary_rollback": bad, "canary_failures": canary}
+    finally:
+        faults.disarm()
+        fleet.stop()
+    del fleet
+    torch.cuda.empty_cache()
+    res["launches"] = counts
+    return res
 
 
 # -- ckpt phase -------------------------------------------------------------------
@@ -3124,6 +3507,11 @@ def main(argv=None) -> int:
                     help="run the port found in this checkout (another commit "
                          "unpacked with git archive) instead of this one")
     args = ap.parse_args(argv)
+    forced = os.environ.get("DL4JTPU_QUANT_KERNEL", "").strip().lower()
+    if forced not in ("", "auto"):
+        print(f"chip_smoke: DL4JTPU_QUANT_KERNEL={forced!r}: the quantized products "
+              "run kernel B5 on the card; unset it (or set auto)", file=sys.stderr)
+        return 2
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in PHASES + EXTRA_PHASES for p in phases):
         ap.error(f"unknown phase in {phases}")
@@ -3231,6 +3619,10 @@ def main(argv=None) -> int:
         report["quant"] = phase_quant(torch, np, kernels, timer)
         rows = rows + report["quant"]["kernel_rows"]
         done("quant")
+    if "qserve" in phases:
+        report["qserve"] = phase_qserve(torch, np, kernels, report, timer)
+        rows = rows + report["qserve"]["kernel_rows"]
+        done("qserve")
     if "ckpt" in phases:
         report["ckpt"] = phase_ckpt(torch, np, kernels)
         done("ckpt")
@@ -3272,7 +3664,12 @@ def main(argv=None) -> int:
         # the W1 product of the quantized flagship
         (row("dequant_matmul", dtype="int8",
              shape=[QUANT_BATCH * QUANT_SEQ, D_MODEL, 4 * D_MODEL]), "quant"),
-    ]
+        # the quantized engine: the long prompt's f32 prefill, B5's rows
+        # route at the decode step's products and head, and at the verify's
+        (row("flash_fwd", dtype="f32", shape=[HEADS, SERVE_LENGTHS[0], dh]), "qserve"),
+    ] + [(row("dequant_matmul", dtype="int8", shape=[m, k, n]),
+          "qserve" if m == ENGINE["slots"] else "qserve/spec")
+         for m, k, n in [(8, D_MODEL, 4 * D_MODEL)] + DM_SERVE_SHAPES]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),

@@ -17,7 +17,10 @@ A quantized model (`quant.quantize`, or `load_params` of a tree with
 buffers and computes in f32, whatever the bf16 setting says: that is
 what the JAX package computes, since its quantized embedding returns f32
 rows and every later layer follows ``x.dtype``.  It takes no training
-step.
+step.  ``output()`` runs as a program registered with the cost registry
+under the JAX package's key (``("infer", False)``, plus ``"int8"`` for a
+quantized model), and a quantized site counts its implementation once a
+program signature (`program_run`, `ops/dequant_matmul.py`).
 
 A training step is the JAX step written out eagerly: forward, data loss
 (the output layer's own loss, or a loss of `nn/losses.py`), plus the
@@ -33,6 +36,8 @@ level), the order of the optax state's leaves in a checkpoint.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -51,6 +56,7 @@ from deeplearning4j_tpu_torch.models._common import (
 from deeplearning4j_tpu_torch.nn import losses
 from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
 from deeplearning4j_tpu_torch.observe.trace import step_scope
+from deeplearning4j_tpu_torch.ops.dequant_matmul import counting_selections
 from deeplearning4j_tpu_torch.quant.ptq import SCHEME
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 from deeplearning4j_tpu_torch.runtime import rng
@@ -104,6 +110,13 @@ def _tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def compute_tree(tree: dict, dtype: torch.dtype) -> dict:
+    """``tree`` detached and cast to the compute ``dtype``; `QuantizedTensor`
+    leaves stay as they are (a quantized model computes in f32)."""
+    return _tree_map(lambda t: t if isinstance(t, QuantizedTensor)
+                     else t.detach().to(dtype), tree)
+
+
 def tree_leaves(tree) -> list:
     """The leaves of a nested dict in ``jax.tree.leaves`` order: keys
     sorted at every level, a `QuantizedTensor` as its ``q`` then its
@@ -121,10 +134,11 @@ def _has_quantized(tree: dict) -> bool:
 
 
 def _as_quantized(leaf, path: str) -> QuantizedTensor:
-    """A host `QuantizedTensor` from any leaf with ``.q`` and ``.scale``
+    """A `QuantizedTensor` from any leaf with ``.q`` and ``.scale``
     arrays, its bits unchanged: ``q`` must be int8 and ``scale`` f32 of
-    shape ``(q.shape[-1],)``."""
-    q, scale = (x.detach().cpu() if isinstance(x, torch.Tensor)
+    shape ``(q.shape[-1],)``.  Tensors stay on their device (a staged
+    push on the card is not copied through the host)."""
+    q, scale = (x.detach() if isinstance(x, torch.Tensor)
                 else torch.from_numpy(np.array(x)) for x in (leaf.q, leaf.scale))
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"{path}: a quantized leaf needs int8 q and f32 scale, "
@@ -179,6 +193,10 @@ class SequentialModel(nn.Module):
         # StepScope.sync() snapshots it)
         self._step_fns: dict = {}
         self._cost_program = None
+        # (program kind, int8?, input signature) of every program run so
+        # far: where the JAX package would trace (`program_run`)
+        self._program_signatures: set = set()
+        self._signatures_lock = threading.Lock()
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -260,10 +278,7 @@ class SequentialModel(nn.Module):
         rebuilt after `init`, `load_params` and every training step).
         `QuantizedTensor` leaves stay as they are."""
         if self._compute is None:
-            dt = self.compute_dtype
-            self._compute = _tree_map(
-                lambda t: t if isinstance(t, QuantizedTensor)
-                else t.detach().to(dt), self.params)
+            self._compute = compute_tree(self.params, self.compute_dtype)
         return self._compute
 
     def _forward(self, params: dict, features, *, training: bool = False,
@@ -292,9 +307,40 @@ class SequentialModel(nn.Module):
         lock)."""
         if self.params is None:
             self.init()
-        x = self._forward(params if params is not None
-                          else self.compute_params(), features)
+        return self._infer_program()(
+            params if params is not None else self.compute_params(), features)
+
+    def _infer_program(self):
+        """`_infer`, registered with the cost registry on first use under
+        the JAX package's key (``_get_infer_fn``: ``("infer", False)``,
+        plus ``"int8"`` for a quantized tree)."""
+        key = ("infer", False) + (("int8",) if self._quantized is not None else ())
+        fn = self._step_fns.get(key)
+        if fn is None:
+            from deeplearning4j_tpu_torch.observe import cost
+
+            fn = self._step_fns[key] = cost.register_step_program(
+                self, key, self._infer)
+        return fn
+
+    def _infer(self, params: dict, features) -> torch.Tensor:
+        """The ``output()`` program: the stack on ``params`` (compute
+        dtype) and the output activation, in f32.  Pure."""
+        x = as_tensor(features, self.device)
+        with self.program_run("infer", tuple(x.shape), x.dtype):
+            x = self._forward(params, x)
         return self.conf.layers[-1].output_activation()(x.float())
+
+    def program_run(self, kind: str, *signature):
+        """The scope of one run of program ``kind`` at input ``signature``
+        (shapes only) over this model's kind of tree (int8 or float).
+        Its quantized sites count their implementation on the first run
+        only: where the JAX package traces the program."""
+        key = (kind, self._quantized is not None) + signature
+        with self._signatures_lock:
+            first = key not in self._program_signatures
+            self._program_signatures.add(key)
+        return counting_selections(first)
 
     # -- training -------------------------------------------------------------
 

@@ -147,11 +147,17 @@ class _TensorSpec:
 
 def _signature_of(args):
     """The call's arguments with every tensor (and numpy array) replaced
-    by its `_TensorSpec` — metadata reads only, no device sync; other
-    leaves (ints, tuples of ints, None) are kept as they are."""
+    by its `_TensorSpec` — metadata reads only, no device sync; a
+    `QuantizedTensor` becomes one of specs (the record must not hold a
+    swapped-out tree's weights); other leaves (ints, tuples of ints,
+    None) are kept as they are."""
     import numpy as np
     import torch
 
+    from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
+
+    if isinstance(args, QuantizedTensor):
+        return QuantizedTensor(_signature_of(args.q), _signature_of(args.scale))
     if isinstance(args, torch.Tensor):
         return _TensorSpec(args)
     if isinstance(args, np.ndarray):
@@ -167,8 +173,12 @@ def _signature_of(args):
 
 def _placeholders(sig):
     """Zeros of every spec in ``sig``, the rest as captured."""
+    from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
+
     if isinstance(sig, _TensorSpec):
         return sig.zeros()
+    if isinstance(sig, QuantizedTensor):
+        return QuantizedTensor(sig.q.zeros(), sig.scale.zeros())
     if isinstance(sig, dict):
         return {k: _placeholders(v) for k, v in sig.items()}
     if isinstance(sig, list):
@@ -179,8 +189,12 @@ def _placeholders(sig):
 
 
 def _spec_leaves(sig) -> list:
+    from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
+
     if isinstance(sig, _TensorSpec):
         return [sig]
+    if isinstance(sig, QuantizedTensor):
+        return [sig.q, sig.scale]
     if isinstance(sig, dict):
         return [x for k in sorted(sig) for x in _spec_leaves(sig[k])]
     if isinstance(sig, (list, tuple)):

@@ -5,30 +5,130 @@
 weights ``q`` (K, N) with per-output-channel f32 scales ``scale`` (N,),
 accumulated in f32 and returned as f32 (..., N).
 
-`dequant_matmul` is the kernel wrapper: on a CUDA tensor it launches
-``csrc/dequant_matmul.cu`` (the int8 weights cross HBM as int8 and are
-widened only on chip) or raises; on a CPU tensor it runs
-`dequant_matmul_plain`, the JAX package's dequantize-then-dot reference
-(`_xla_dequant_dot`).  The kernel has two routes, picked here by shape:
-more than `SMALL_M` rows whose weights TMA can describe go to the
-tensor cores (x split into two bf16 parts, f32 sums), the rest to f32
-FMAs split over K (decode-sized products, and shapes TMA cannot
-describe).  Both take any M, K and N: they mask the ragged edge
-themselves, so the Pallas tiling rule (`pallas_eligible`) has no
-counterpart.  The JAX package's CPU ``blocked`` implementation, its
-selection rule and its selection counter are not ported (ROADMAP A7).
+Three implementations behind one dispatch, under the JAX package's
+names:
+
+- ``pallas`` — in the port, kernel B5, ``csrc/dequant_matmul.cu`` (the
+  int8 weights cross HBM as int8 and are widened only on chip).  It
+  runs on a CUDA tensor only: on a CPU tensor it raises.  The kernel has
+  two routes, picked here by shape: more than `SMALL_M` rows whose
+  weights TMA can describe go to the tensor cores (x split into two
+  bf16 parts, f32 sums), the rest to f32 FMAs split over K
+  (decode-sized products, and shapes TMA cannot describe).  Both take
+  any M, K and N: they mask the ragged edge themselves, so the Pallas
+  tiling rule (`pallas_eligible`) has no counterpart.
+- ``blocked`` — `_blocked_dequant_dot`, a loop over K blocks that
+  dequantizes one (block_k, N) slab at a time, with f32 sums; K must
+  tile by a block candidate, else ``xla`` runs.
+- ``xla`` — `dequant_matmul_plain`, the JAX package's
+  dequantize-then-dot reference (`_xla_dequant_dot`).
+
+Selection (`select_impl`).  On a CUDA tensor the quantized products
+launch B5 or raise: the override ``DL4JTPU_QUANT_KERNEL`` may be unset,
+``auto`` or ``pallas``, and ``blocked`` or ``xla`` there raises.  On a
+CPU tensor the override (pallas / blocked / xla; auto or empty defers)
+wins, else the JAX package's CPU rule: ``blocked`` from 2^22 weights and
+2 rows up (K tiling), else ``xla``; ``pallas`` then raises.  Every
+selection is counted on ``dl4jtpu_quant_dequant_matmul_total{impl}``
+after the fallback is resolved, with the JAX package's labels.  The JAX
+package counts when it traces a program: once per quantized site per
+program signature.  The port counts once per site per input signature
+of a model program (`SequentialModel.program_run` around each run of the
+model's ``output()``, the generation engine's prefill and step, the
+drafter and `ops.generation.generate`), and every call made outside a
+program.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
+import threading
 
 import torch
 
 from deeplearning4j_tpu_torch.runtime import kernels
 
+ENV_KERNEL = "DL4JTPU_QUANT_KERNEL"
+IMPLS = ("pallas", "blocked", "xla")
+
+#: K block candidates of the blocked implementation, largest first
+_BLOCK_CANDIDATES = (512, 256, 128)
+#: the JAX package's CPU rule: ``blocked`` from this many weights and
+#: this many activation rows up
+_BLOCKED_MIN_WEIGHTS = 1 << 22
+_BLOCKED_MIN_M = 2
+
+_COUNTING = threading.local()
+
+
+def _pick_block(dim: int) -> int:
+    for b in _BLOCK_CANDIDATES:
+        if dim % b == 0:
+            return b
+    return 0
+
+
+def select_impl(m: int, k: int, n: int, device="cpu") -> str:
+    """The selection rule.  Where `kernels.route` sends the device to the
+    kernels (CUDA): ``pallas`` (B5), and an override of ``blocked`` or
+    ``xla`` raises.  On the CPU: the env override, then the JAX package's
+    rule (``blocked`` for large weights and at least two rows when K
+    tiles, else ``xla``)."""
+    env = os.environ.get(ENV_KERNEL, "").strip().lower()
+    if kernels.route(torch.device(device)) == "kernel":
+        if env in ("blocked", "xla"):
+            raise RuntimeError(
+                f"dequant_matmul: {ENV_KERNEL}={env!r} names a plain version; on "
+                "a CUDA tensor the quantized products run kernel B5 (unset it, "
+                "or set auto or pallas)")
+        return "pallas"
+    if env in IMPLS:
+        return env
+    if k * n >= _BLOCKED_MIN_WEIGHTS and m >= _BLOCKED_MIN_M and _pick_block(k):
+        return "blocked"
+    return "xla"
+
+
+@contextlib.contextmanager
+def counting_selections(on: bool):
+    """Inside, a quantized site counts its selection only if ``on`` (and
+    every enclosing scope is on): a model program counts on its first run
+    at an input signature, as the JAX package counts when it traces."""
+    prev = getattr(_COUNTING, "on", True)
+    _COUNTING.on = prev and on
+    try:
+        yield
+    finally:
+        _COUNTING.on = prev
+
+
+def _count_selection(impl: str) -> None:
+    if not getattr(_COUNTING, "on", True):
+        return
+    try:
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        registry().counter("dl4jtpu_quant_dequant_matmul_total").inc(impl=impl)
+    except Exception:
+        pass          # telemetry never fails a product (or a capture)
+
 
 def dequant_matmul_plain(x, q, scale):
     """Dequantize-then-dot in f32: ``x.float() @ (q.float() * scale)``."""
     return x.float() @ (q.float() * scale.float())
+
+
+def _blocked_dequant_dot(x, q, scale, *, block_k: int):
+    """A loop over K blocks: one (block_k, N) int8 slab widened to f32 and
+    dotted with the matching columns of x, summed in f32; the scale is
+    applied once to the sum (it commutes with the contraction)."""
+    k, n = q.shape
+    x32 = x.float()
+    acc = torch.zeros(x.shape[:-1] + (n,), dtype=torch.float32, device=x.device)
+    for s in range(0, k, block_k):
+        acc = acc + x32[..., s:s + block_k] @ q[s:s + block_k].float()
+    return acc * scale.float()
 
 
 def _check(x, q, scale) -> None:
@@ -56,17 +156,27 @@ def dequant_matmul_work(m: int, k: int, n: int) -> list:
 
 
 def dequant_matmul(x, q, scale):
-    """(..., K) f32 @ dequant((K, N) int8, (N,) f32) -> (..., N) f32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    """(..., K) f32 @ dequant((K, N) int8, (N,) f32) -> (..., N) f32.  On a
+    CUDA tensor B5 launches (or the call raises); on a CPU tensor a plain
+    implementation runs (`select_impl`), and ``pallas`` raises."""
     _check(x, q, scale)
     *lead, k = x.shape
-    with kernels.kernel_call(
-            lambda: dequant_matmul_work(x.numel() // k, k, q.shape[1])):
-        if kernels.route(x.device) == "plain":
+    n = q.shape[1]
+    m = x.numel() // k if k else 0
+    chosen = select_impl(m, k, n, x.device)
+    if chosen == "blocked" and not _pick_block(k):
+        chosen = "xla"                 # K does not tile: the baseline
+    _count_selection(chosen)
+    if chosen == "pallas" and kernels.route(x.device) != "kernel":
+        raise RuntimeError("dequant_matmul: 'pallas' names kernel B5, which "
+                           f"needs a CUDA tensor, not {x.device}")
+    with kernels.kernel_call(lambda: dequant_matmul_work(m, k, n)):
+        if chosen == "blocked":
+            return _blocked_dequant_dot(x, q, scale, block_k=_pick_block(k))
+        if chosen == "xla":
             return dequant_matmul_plain(x, q, scale)
         y = _dequant_matmul_kernel(x.reshape(-1, k), q, scale)
-    return y.reshape(*lead, q.shape[1])
+    return y.reshape(*lead, n)
 
 
 #: the tensor-core route takes more rows than this

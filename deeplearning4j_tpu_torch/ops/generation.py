@@ -7,6 +7,15 @@ per-position math (`_block_step`'s f32 attention with -inf masking, the
 sampling rule of `_sample`) is the contract the paged engine in
 `serving/generation.py` is held to: greedy decode token for token.
 
+Int8 weights.  Over a `quant.quantize`d model every product goes through
+`quant.functional.matmul` (`ops.dequant_matmul`: kernel B5 on CUDA) and
+the embedding through `quant.functional.embedding_lookup` (int8 rows
+gathered, then dequantized in f32: the JAX package's
+dequantize-then-gather, element for element).  A plain weight takes the
+op it always took (``x @ w.to(x.dtype)``).  A quantized model computes
+in f32 whatever ``bf16_compute`` says (ROADMAP C16): the JAX package
+computes its quantized step in the model's compute dtype.
+
 Sampling.  As the JAX package: greedy argmax of the unscaled logits, or
 a temperature scale and a top-k threshold at the k-th largest scaled
 logit, then `jax.random.categorical` — argmax of the logits plus Gumbel
@@ -35,18 +44,13 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 )
 from deeplearning4j_tpu_torch.nn.conf.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.ops.attention import mha
-from deeplearning4j_tpu_torch.quant.ptq import is_quantized
+from deeplearning4j_tpu_torch.quant import functional as quantf
 from deeplearning4j_tpu_torch.runtime import rng
 
 
 def _plan(model):
     """Validate the stack shape; returns (embed, pos, blocks, head).
     Shared by `generate` and the paged engine."""
-    if is_quantized(model):
-        raise NotImplementedError(
-            "generation over an int8-quantized model is not ported yet "
-            "(ROADMAP A7: the JAX engine dequantizes every weight at each "
-            "step); generate with the f32 model")
     layers = list(model.conf.layers)
     if not layers or not isinstance(layers[0], Embedding):
         raise ValueError("generate() needs an Embedding first layer")
@@ -73,6 +77,12 @@ def _plan(model):
     return embed, pos, blocks, head
 
 
+def _embed(embed, lp, ids: torch.Tensor) -> torch.Tensor:
+    """The embedding layer's rows for ``ids``, its activation applied; a
+    quantized table gathers int8 rows and dequantizes them in f32."""
+    return embed._act()(quantf.embedding_lookup(lp["W"], ids))
+
+
 def _pe_rows(pos_layer, lp, t: torch.Tensor, d: int) -> torch.Tensor:
     """Positional-encoding rows for positions ``t`` (N,) -> (N, d) f32."""
     if pos_layer is None:
@@ -97,15 +107,16 @@ def _block_prefill(cfg, lp, x, mask=None):
     b, t, _ = x.shape
     h_, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
     ap = lp["attn"]
+    mm = quantf.matmul
     hh = _ln(lp["ln1"], x)
-    q = (hh @ ap["Wq"].to(x.dtype)).reshape(b, t, h_, dh)
-    k = (hh @ ap["Wk"].to(x.dtype)).reshape(b, t, h_, dh)
-    v = (hh @ ap["Wv"].to(x.dtype)).reshape(b, t, h_, dh)
+    q = mm(hh, ap["Wq"]).reshape(b, t, h_, dh)
+    k = mm(hh, ap["Wk"]).reshape(b, t, h_, dh)
+    v = mm(hh, ap["Wv"]).reshape(b, t, h_, dh)
     out = mha(q, k, v, causal=True, mask=mask)
-    x = x + out.reshape(b, t, h_ * dh) @ ap["Wo"].to(x.dtype)
+    x = x + mm(out.reshape(b, t, h_ * dh), ap["Wo"])
     hh = _ln(lp["ln2"], x)
-    hh = cfg.ffn_activation(hh @ lp["W1"].to(x.dtype) + lp["b1"].to(x.dtype))
-    x = x + (hh @ lp["W2"].to(x.dtype) + lp["b2"].to(x.dtype))
+    hh = cfg.ffn_activation(mm(hh, lp["W1"]) + lp["b1"].to(x.dtype))
+    x = x + (mm(hh, lp["W2"]) + lp["b2"].to(x.dtype))
     return x, k, v
 
 
@@ -116,10 +127,11 @@ def _block_step(cfg, lp, x_t, k_cache, v_cache, pos: int):
     h_, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
     ell = k_cache.shape[1]
     ap = lp["attn"]
+    mm = quantf.matmul
     hh = _ln(lp["ln1"], x_t)
-    q = (hh @ ap["Wq"].to(x_t.dtype)).reshape(b, h_, dh)
-    k_cache[:, pos] = (hh @ ap["Wk"].to(x_t.dtype)).reshape(b, h_, dh)
-    v_cache[:, pos] = (hh @ ap["Wv"].to(x_t.dtype)).reshape(b, h_, dh)
+    q = mm(hh, ap["Wq"]).reshape(b, h_, dh)
+    k_cache[:, pos] = mm(hh, ap["Wk"]).reshape(b, h_, dh)
+    v_cache[:, pos] = mm(hh, ap["Wv"]).reshape(b, h_, dh)
     scores = torch.einsum("bhd,blhd->bhl", q.float(),
                           k_cache.float()) / math.sqrt(dh)
     live = torch.arange(ell, device=x_t.device)[None, None, :] <= pos
@@ -127,10 +139,10 @@ def _block_step(cfg, lp, x_t, k_cache, v_cache, pos: int):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhl,blhd->bhd", p, v_cache.float())
     out = out.reshape(b, h_ * dh).to(x_t.dtype)
-    x_t = x_t + out @ ap["Wo"].to(x_t.dtype)
+    x_t = x_t + mm(out, ap["Wo"])
     hh = _ln(lp["ln2"], x_t)
-    hh = cfg.ffn_activation(hh @ lp["W1"].to(x_t.dtype) + lp["b1"].to(x_t.dtype))
-    return x_t + (hh @ lp["W2"].to(x_t.dtype) + lp["b2"].to(x_t.dtype))
+    hh = cfg.ffn_activation(mm(hh, lp["W1"]) + lp["b1"].to(x_t.dtype))
+    return x_t + (mm(hh, lp["W2"]) + lp["b2"].to(x_t.dtype))
 
 
 def _head_logits(head, lp, h):
@@ -188,29 +200,34 @@ def generate(model, prompt_ids, max_new_tokens: int, *,
     pos_lp = params.get(pos.name, {}) if pos is not None else {}
     d = embed.n_out
     ell = t_p + max_new_tokens
-    E = params[embed_name]["W"]
-
-    x = embed._act()(E[prompt])
-    if pos is not None:
-        x = pos.apply(pos_lp, x)
-    caches = []
-    for cfg in blocks:
-        x, k, v = _block_prefill(cfg, params[cfg.name], x, None)
-        k_c = torch.zeros((b, ell) + tuple(k.shape[2:]), dtype=k.dtype, device=dev)
-        v_c = torch.zeros_like(k_c)
-        k_c[:, :t_p] = k
-        v_c[:, :t_p] = v
-        caches.append((k_c, v_c))
-    logits = _head_logits(head, params[head_name], x[:, -1])
+    # quantized sites count once a call shape, as the JAX package's jitted
+    # prefill and scan body are traced once
+    shape = (b, t_p, max_new_tokens)
+    with model.program_run("generate", *shape):
+        x = _embed(embed, params[embed_name], prompt)
+        if pos is not None:
+            x = pos.apply(pos_lp, x)
+        caches = []
+        for cfg in blocks:
+            x, k, v = _block_prefill(cfg, params[cfg.name], x, None)
+            k_c = torch.zeros((b, ell) + tuple(k.shape[2:]), dtype=k.dtype,
+                              device=dev)
+            v_c = torch.zeros_like(k_c)
+            k_c[:, :t_p] = k
+            v_c[:, :t_p] = v
+            caches.append((k_c, v_c))
+        logits = _head_logits(head, params[head_name], x[:, -1])
     tok = _sample(logits, temperature=temperature, top_k=top_k, seed=seed, g=0)
     toks = [tok]
     for i in range(max_new_tokens - 1):
         t = t_p + i
-        x_t = embed._act()(E[tok]) + _pe_rows(
-            pos, pos_lp, torch.full((b,), t, device=dev), d).to(E.dtype)
-        for cfg, (k_c, v_c) in zip(blocks, caches):
-            x_t = _block_step(cfg, params[cfg.name], x_t, k_c, v_c, t)
-        logits = _head_logits(head, params[head_name], x_t)
+        with model.program_run("generate_step", *shape):
+            x_t = _embed(embed, params[embed_name], tok)
+            x_t = x_t + _pe_rows(pos, pos_lp, torch.full((b,), t, device=dev),
+                                 d).to(x_t.dtype)
+            for cfg, (k_c, v_c) in zip(blocks, caches):
+                x_t = _block_step(cfg, params[cfg.name], x_t, k_c, v_c, t)
+            logits = _head_logits(head, params[head_name], x_t)
         tok = _sample(logits, temperature=temperature, top_k=top_k, seed=seed,
                       g=i + 1)
         toks.append(tok)

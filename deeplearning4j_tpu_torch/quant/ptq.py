@@ -16,14 +16,23 @@ tree takes no updates, and `fit_batch` refuses a quantized model) and
 ``meta.json`` records.  A quantized model computes in f32, as the JAX
 package's does (`models/sequential.py`).  `requantize_structure`
 rebuilds the quantized tree's structure when a checkpoint restores.
+
+Telemetry, as in the JAX package: `quantize` sets
+``dl4jtpu_quant_params_bytes{kind=quantized|f32_equiv}`` from the new
+tree, and `parity_check` counts its verdict on
+``dl4jtpu_quant_parity_checks_total{result=pass|fail}``.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor, quantize_array
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
 
 SCHEME = "int8-perchannel-symmetric/1"
 
@@ -116,6 +125,7 @@ def quantize(model, *, min_elements: int = 0, copy: bool = True):
         target = model
     target._install(qparams)              # drops opt_state and the compute cache
     target._quantized = {"scheme": SCHEME, "min_elements": min_elements}
+    _gauge_bytes(qparams)
     return target
 
 
@@ -185,12 +195,12 @@ def _macro_f1(y_true, y_pred, n_classes: int) -> float:
 
 def parity_check(reference, quantized, features, labels=None, *,
                  top1_tol: float = 0.01, f1_tol: float = 0.02) -> dict:
-    """The evaluation-parity gate of the JAX package, without its metrics
-    counter.  Runs both models' ``output()`` on ``features`` and compares
-    argmax predictions: without ``labels``, the top-1 disagreement
-    between the two models must stay within ``top1_tol``; with integer
-    ``labels``, the top-1 accuracy delta gates on ``top1_tol`` and the
-    macro-F1 delta on ``f1_tol``."""
+    """The evaluation-parity gate of the JAX package.  Runs both models'
+    ``output()`` on ``features`` and compares argmax predictions: without
+    ``labels``, the top-1 disagreement between the two models must stay
+    within ``top1_tol``; with integer ``labels``, the top-1 accuracy
+    delta gates on ``top1_tol`` and the macro-F1 delta on ``f1_tol``.
+    The verdict is counted on ``dl4jtpu_quant_parity_checks_total``."""
     ref_out = reference.output(features)
     q_out = quantized.output(features)
     n_classes = int(ref_out.shape[-1])
@@ -213,4 +223,23 @@ def parity_check(reference, quantized, features, labels=None, *,
         result["f1_delta"] = abs(result["f1_ref"] - result["f1_quant"])
         ok = result["top1_delta"] <= top1_tol and result["f1_delta"] <= f1_tol
     result["pass"] = bool(ok)
+    try:
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        registry().counter("dl4jtpu_quant_parity_checks_total").inc(
+            result="pass" if ok else "fail")
+    except Exception as e:
+        log.debug("quant parity metric failed: %s", e)
     return result
+
+
+def _gauge_bytes(params: dict) -> None:
+    try:
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        b = quantized_bytes(params)
+        g = registry().gauge("dl4jtpu_quant_params_bytes")
+        g.set(b["quantized_bytes"], kind="quantized")
+        g.set(b["f32_equiv_bytes"], kind="f32_equiv")
+    except Exception as e:
+        log.debug("quant params-bytes gauge failed: %s", e)

@@ -214,7 +214,8 @@ def library(stem: str) -> ctypes.CDLL:
 
 def route(device: torch.device) -> str:
     """``"plain"`` for a CPU tensor, ``"kernel"`` for a CUDA one; any
-    other device is an error.  The wrappers' only dispatch decision."""
+    other device is an error.  The wrappers' only choice between a
+    kernel and its plain version."""
     if device.type == "cpu":
         return "plain"
     if device.type == "cuda":

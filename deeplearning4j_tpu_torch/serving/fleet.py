@@ -56,7 +56,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from deeplearning4j_tpu_torch.models.sequential import _tree_map
+from deeplearning4j_tpu_torch.models.sequential import compute_tree
 from deeplearning4j_tpu_torch.observe import trace as otrace
 from deeplearning4j_tpu_torch.runtime import faults
 from deeplearning4j_tpu_torch.serving.router import (
@@ -340,7 +340,7 @@ class FleetDeployer:
         model = server.model
         dt = model.compute_dtype
         staged = server._stage(params)
-        tree = _tree_map(lambda t: t.detach().to(dt), staged)
+        tree = compute_tree(staged, dt)
         out = []
         for x in self.golden_inputs():
             feats = server._as_feature_tuple(x)

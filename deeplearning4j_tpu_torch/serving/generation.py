@@ -85,6 +85,7 @@ import torch
 from deeplearning4j_tpu_torch.observe import trace as otrace
 from deeplearning4j_tpu_torch.ops.generation import (
     _block_prefill,
+    _embed,
     _head_logits,
     _ln,
     _pe_rows,
@@ -97,6 +98,7 @@ from deeplearning4j_tpu_torch.ops.paged_attention import (
     ticket_scope,
     tickets_needed,
 )
+from deeplearning4j_tpu_torch.quant import functional as quantf
 from deeplearning4j_tpu_torch.runtime import faults, kernels
 from deeplearning4j_tpu_torch.runtime.flags import bucket_length
 from deeplearning4j_tpu_torch.runtime.graphs import CapturedProgram
@@ -584,17 +586,18 @@ class GenerationEngine:
         overwritten as the stream grows into them)."""
         embed, pos, blocks, head = self._stack
         params = self._compute_params()
-        x = embed._act()(params[self._embed_name]["W"][prompt_pad])
-        if pos is not None:
-            x = pos.apply(params.get(self._pos_name, {}), x)
-        ks, vs = [], []
-        for cfg_b in blocks:
-            x, k, v = _block_prefill(cfg_b, params[cfg_b.name], x, None)
-            ks.append(k[0])
-            vs.append(v[0])
-        # (1, D) @ W: the same product shape as the dense reference's
-        logits = _head_logits(head, params[self._head_name],
-                              x[:, prompt_len - 1])[0]
+        with self.model.program_run("prefill", tuple(prompt_pad.shape)):
+            x = _embed(embed, params[self._embed_name], prompt_pad)
+            if pos is not None:
+                x = pos.apply(params.get(self._pos_name, {}), x)
+            ks, vs = [], []
+            for cfg_b in blocks:
+                x, k, v = _block_prefill(cfg_b, params[cfg_b.name], x, None)
+                ks.append(k[0])
+                vs.append(v[0])
+            # (1, D) @ W: the same product shape as the dense reference's
+            logits = _head_logits(head, params[self._head_name],
+                                  x[:, prompt_len - 1])[0]
         first = _sample_token(logits, req.temperature, req.top_k, req.seed, 0)
         return torch.stack(ks).float(), torch.stack(vs).float(), first
 
@@ -649,8 +652,8 @@ class GenerationEngine:
         quant = self.kv.kv_dtype == "int8"
         pos_idx, page_of, row_of, tok, attend = buf[:5 * n].view(5, n)
         tbl = buf[5 * n:].view(n_slots, mp)
-        E = params[self._embed_name]["W"]
-        x_t = embed._act()(E[tok.long()])
+        mm = quantf.matmul
+        x_t = _embed(embed, params[self._embed_name], tok.long())
         x_t = x_t + _pe_rows(pos, params.get(self._pos_name, {}), pos_idx,
                              self._d).to(x_t.dtype)
         idx = (page_of.long(), row_of.long())
@@ -658,9 +661,9 @@ class GenerationEngine:
             lp = params[cfg_b.name]
             ap = lp["attn"]
             hh = _ln(lp["ln1"], x_t)
-            q = (hh @ ap["Wq"]).reshape(n, h_, dh)
-            k_t = (hh @ ap["Wk"]).reshape(n, h_, dh)
-            v_t = (hh @ ap["Wv"]).reshape(n, h_, dh)
+            q = mm(hh, ap["Wq"]).reshape(n, h_, dh)
+            k_t = mm(hh, ap["Wk"]).reshape(n, h_, dh)
+            v_t = mm(hh, ap["Wv"]).reshape(n, h_, dh)
             self.kv.write_rows(li, *idx, k_t, v_t)
             pools = (self.kv.k_pages[li], self.kv.v_pages[li])
             scales = dict(k_scale=self.kv.k_scales[li] if quant else None,
@@ -672,16 +675,26 @@ class GenerationEngine:
                 attn = paged_attention_chunk(
                     q.float().reshape(n_slots, c, h_, dh).contiguous(), *pools,
                     tbl, attend.view(n_slots, c), **scales)
-            x_t = x_t + attn.reshape(n, h_ * dh).to(x_t.dtype) @ ap["Wo"]
+            x_t = x_t + mm(attn.reshape(n, h_ * dh).to(x_t.dtype), ap["Wo"])
             hh = _ln(lp["ln2"], x_t)
-            hh = cfg_b.ffn_activation(hh @ lp["W1"] + lp["b1"])
-            x_t = x_t + (hh @ lp["W2"] + lp["b2"])
+            hh = cfg_b.ffn_activation(mm(hh, lp["W1"]) + lp["b1"])
+            x_t = x_t + (mm(hh, lp["W2"]) + lp["b2"])
         logits = _head_logits(head, params[self._head_name], x_t).float()
         return logits, torch.argmax(logits, dim=-1)
 
+    def _step_run(self, c: int):
+        """The scope of one run of the step program at C rows a slot
+        (`SequentialModel.program_run`): eager, or a capture's warm-up and
+        capture.  Its quantized sites count on the first only, as the JAX
+        engine's step counts when it is traced; a re-capture after a
+        hot-swap counts nothing, as the JAX step is not traced again."""
+        return self.model.program_run("step", self.config.slots, c,
+                                      self.kv.kv_dtype)
+
     def _run_eager(self, c: int, host: np.ndarray):
         buf = torch.from_numpy(host).to(self.device)
-        return self._program(self._compute_params(), buf, c)
+        with self._step_run(c):
+            return self._program(self._compute_params(), buf, c)
 
     def _replay(self, c: int, host: np.ndarray, on_capture=None):
         """One graph replay for `_inputs` vector ``host``: ((logits,
@@ -721,7 +734,7 @@ class GenerationEngine:
             dtype=torch.int32, device=self.device)
 
         def fn(buf):
-            with ticket_scope(tickets):
+            with ticket_scope(tickets), self._step_run(c):
                 return self._program(params, buf, c)
 
         t0 = time.perf_counter()

@@ -18,8 +18,12 @@ reaches the atomic install.  Checks, in rejection-cost order:
 
 Leaves are torch tensors (any device) or numpy arrays; a tree is nested
 dicts.  Leaves are visited in the JAX package's ``jax.tree.flatten``
-order — dict keys sorted at every level — so a checksum computed by one
-package verifies in the other (f32 leaves have the same bytes in both).
+order — dict keys sorted at every level, a `QuantizedTensor` as its int8
+``q`` then its f32 ``scale`` under a node of its own, as the JAX pytree
+node flattens it — so a checksum computed by one package verifies in the
+other (the leaves have the same bytes in both), a NaN scale fails the
+finiteness check, and a quantized tree pushed onto an f32 model (or the
+reverse) fails the structure check.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 
 
 class SwapVerifyError(RuntimeError):
@@ -56,6 +62,8 @@ def _flatten(tree) -> tuple[list, object]:
             leaves += sub
             defs.append(d)
         return leaves, (type(tree).__name__, tuple(defs))
+    if isinstance(tree, QuantizedTensor):
+        return [tree.q, tree.scale], ("QuantizedTensor", ("*", "*"))
     return [tree], "*"
 
 
@@ -133,16 +141,15 @@ def apply_fault_action(action: str, staged):
     """Cooperative fault-site mutations for ``serving.hotswap``:
     ``truncate`` simulates a torn transfer (the last leaf is dropped ->
     the structure check fails); ``corrupt`` NaN-poisons the first
-    floating leaf of a copy (the finiteness check fails).  Returns the
+    floating leaf of a copy in flatten order (the finiteness check
+    fails; in a quantized tree that leaf is a scale).  Returns the
     mutated tree."""
     if action == "truncate":
         return _flatten(staged)[0][:-1]   # no longer the live structure
     if action == "corrupt":
         poisoned = [False]
 
-        def walk(t):
-            if isinstance(t, dict):
-                return {k: walk(t[k]) for k in sorted(t)}
+        def leaf(t):
             if isinstance(t, torch.Tensor):
                 t = t.detach().clone()
                 if not poisoned[0] and t.is_floating_point() and t.numel():
@@ -154,6 +161,13 @@ def apply_fault_action(action: str, staged):
                 a.reshape(-1)[0] = np.nan
                 poisoned[0] = True
             return a
+
+        def walk(t):
+            if isinstance(t, dict):
+                return {k: walk(t[k]) for k in sorted(t)}
+            if isinstance(t, QuantizedTensor):
+                return QuantizedTensor(leaf(t.q), leaf(t.scale))
+            return leaf(t)
 
         return walk(staged)
     return staged

@@ -31,11 +31,12 @@ causally-linked span chain: ``serving.request`` (root) ->
 ``serving.dispatch``.  The slowest completed requests are kept in a
 bounded exemplar ring (`slow_requests()`).
 
-Not ported yet: a quantized model (ROADMAP A7), a model with a mesh
-(A11), multi-input graphs (A4).  Time padding: the port's `output()`
-takes no key mask, so a padded batch is served only where the padding
-cannot reach a real row — a causal stack whose mask is a run of ones
-then zeros; anything else raises (`_check_mask`).
+An int8-quantized model (`quant.quantize`) serves through kernel B5
+(`ops/dequant_matmul.py`) and swaps quantized trees.  Not ported yet: a
+model with a mesh (A11), multi-input graphs (A4).  Time padding: the
+port's `output()` takes no key mask, so a padded batch is served only
+where the padding cannot reach a real row — a causal stack whose mask
+is a run of ones then zeros; anything else raises (`_check_mask`).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.observe import trace as otrace
+from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 from deeplearning4j_tpu_torch.runtime import faults
 from deeplearning4j_tpu_torch.serving import batching
 from deeplearning4j_tpu_torch.serving.admission import (
@@ -129,10 +131,6 @@ class InferenceServer:
     def __init__(self, model, config: Optional[ServingConfig] = None):
         if model.params is None:
             model.init()
-        if getattr(model, "_quantized", None):
-            raise NotImplementedError(
-                "InferenceServer over a quantized model is not ported yet "
-                "(ROADMAP A7)")
         self.model = model
         self.config = config or ServingConfig()
         self.n_inputs = len(getattr(
@@ -141,7 +139,11 @@ class InferenceServer:
         self.n_outputs = len(getattr(
             getattr(model, "conf", None), "network_outputs", (),
         )) or 1
-        self.quantized = False          # a quantized model waits for A7
+        # an int8-quantized model (quant/ptq.py), advertised on the
+        # status surfaces; dispatch, hot-swap and warm start take its
+        # tree as they take an f32 one (a QuantizedTensor flattens to
+        # its int8 and f32 leaves)
+        self.quantized = bool(getattr(model, "_quantized", None))
         self.queue = AdmissionQueue(self.config.max_queue)
         self.breaker = CircuitBreaker(
             threshold=self.config.breaker_threshold,
@@ -869,10 +871,14 @@ class InferenceServer:
 
     def _stage(self, tree):
         """A private f32 copy of a pushed tree on the model's device
-        (the installed weights never alias the caller's tensors); any
-        other nesting passes through for `verify_weights` to reject."""
+        (the installed weights never alias the caller's tensors); a
+        `QuantizedTensor` is copied as its int8 ``q`` and f32 ``scale``;
+        any other nesting passes through for `verify_weights` to
+        reject."""
         if isinstance(tree, dict):
             return {k: self._stage(v) for k, v in tree.items()}
+        if isinstance(tree, QuantizedTensor):
+            return QuantizedTensor(self._stage(tree.q), self._stage(tree.scale))
         if isinstance(tree, (list, tuple)):
             return tree
         t = (tree.detach() if isinstance(tree, torch.Tensor)

@@ -18,7 +18,8 @@ tokens``), with two implementations:
 - `ModelDrafter` (``"model"``) — a small zoo model decodes ``k`` tokens
   greedily, one bucketed full forward per draft token (no KV cache of
   its own), under ``torch.no_grad`` on the draft model's device; on CUDA
-  each forward's attention is the flash-forward kernel.  Greedy drafting
+  each forward's attention is the flash-forward kernel, and a quantized
+  draft model's products are the dequant-matmul kernel.  Greedy drafting
   is deterministic.
 
 Drafts are proposals, never outputs: a drafter returning garbage (the
@@ -40,6 +41,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops.generation import (
     _block_prefill,
+    _embed,
     _head_logits,
     _plan,
 )
@@ -129,12 +131,14 @@ class ModelDrafter(DraftSource):
         so causal attention keeps them out of it."""
         embed, pos, blocks, head = self._stack
         params = self.model.compute_params()
-        x = embed._act()(params[self._embed_name]["W"][toks_pad])
-        if pos is not None:
-            x = pos.apply(params.get(self._pos_name, {}), x)
-        for cfg_b in blocks:
-            x, _, _ = _block_prefill(cfg_b, params[cfg_b.name], x, None)
-        logits = _head_logits(head, params[self._head_name], x[0, true_len - 1])
+        with self.model.program_run("draft", tuple(toks_pad.shape)):
+            x = _embed(embed, params[self._embed_name], toks_pad)
+            if pos is not None:
+                x = pos.apply(params.get(self._pos_name, {}), x)
+            for cfg_b in blocks:
+                x, _, _ = _block_prefill(cfg_b, params[cfg_b.name], x, None)
+            logits = _head_logits(head, params[self._head_name],
+                                  x[0, true_len - 1])
         return int(torch.argmax(logits.float()))
 
     def draft(self, history: np.ndarray, k: int) -> np.ndarray:

@@ -64,7 +64,13 @@ each replay still counts one paged-attention launch a layer.  The
 serving fleet: two replicas in one process capture and replay their
 decode graphs concurrently with exact launch totals, and a rolling
 deploy's canary passes an honest deploy at tolerance 1e-4 under routed
-traffic.
+traffic.  Int8 serving: the quantized model's captured decode and verify
+steps give the eager steps' bits and count 13 B5 launches a replay (2
+layers x 6 products and the head); its engine agrees with dense
+`generate` (>= 0.95, first tokens identical) before and after a
+quantized hot-swap that re-captures the step; ``DL4JTPU_QUANT_KERNEL``
+unset, auto or ``pallas`` launches B5 on the card, and ``xla`` or
+``blocked`` raises there.
 """
 
 import dataclasses
@@ -770,6 +776,122 @@ def test_quantized_output_on_the_card_matches_the_cpu(cuda):
     ref = cpu.output(ids)
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert (got.cpu() - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+def _card_qengine(cuda, **cfg):
+    model = quantize(TransformerEncoder(vocab_size=97, d_model=256, n_heads=2,
+                                        n_layers=2, chunked_vocab_loss=True,
+                                        ).init_model(device=cuda))
+    return model, GenerationEngine(model, GenerationConfig(**{
+        **dict(slots=4, page_size=16, num_pages=64, max_pages_per_seq=8), **cfg}))
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("c", [1, 5])
+def test_quantized_captured_steps_match_the_eager_steps(cuda, c, kv_dtype):
+    """The int8 model's decode and verify steps: the graph replay gives the
+    eager step's logits and tokens bit for bit, and counts B5 once a
+    product and the head (2 x 6 + 1) and B4 once a layer a replay."""
+    model, eng = _card_qengine(cuda, kv_dtype=kv_dtype)
+    rng_np = np.random.default_rng(c)
+    for slot, n in enumerate((5, 33, 80)):
+        eng.submit(rng_np.integers(0, 97, n), 40)
+        eng._admit_to_slot(eng._loop_gen, slot, eng.queue.take_batch(
+            1, 0.0, eng._stop)[0])
+    name = "paged_attention_fwd" if c == 1 else "paged_attention_chunk"
+    name += "_int8" if kv_dtype == "int8" else ""
+    for i in range(6):
+        toks = np.concatenate([eng._last_tok[:, None],
+                               rng_np.integers(0, 97, (4, c - 1))], axis=1).astype(np.int32)
+        host = eng._inputs(eng._page_tbl.copy(), eng._seq_lens.copy(), toks)
+        logits, greedy = (t.clone() for t in eng._run_eager(c, host))
+        before = kernels.launches()
+        (got, got_greedy), _ = eng._replay(c, host)
+        torch.cuda.synchronize()
+        after = kernels.launches()
+        runs = 1 + (i == 0)                                      # + warm-up
+        assert after[name] - before.get(name, 0) == 2 * runs
+        assert after["dequant_matmul"] - before.get("dequant_matmul", 0) == 13 * runs
+        assert torch.equal(got, logits) and torch.equal(got_greedy, greedy)
+        nxt = greedy.view(4, c)[:, 0].cpu().numpy()
+        for s in range(3):
+            eng._seq_lens[s] += 1
+            eng._last_tok[s] = nxt[s]
+    assert eng.stats()["graph_captures"] == 1
+    for s in range(3):
+        eng.kv.release(eng._slot_req[s].rid)
+
+
+def test_quantized_engine_and_a_swap_on_the_card(cuda):
+    """The int8 engine's greedy streams against dense `generate` over the
+    same model, before and after a quantized hot-swap that re-captures
+    the step over the new q and scale buffers."""
+    from deeplearning4j_tpu_torch.quant import QuantizedTensor
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+
+    model, _ = _card_qengine(cuda)
+    srv = InferenceServer(model)
+    assert srv.quantized
+    eng = GenerationEngine(server=srv, config=GenerationConfig(
+        slots=4, page_size=16, num_pages=64, max_pages_per_seq=8)).start()
+    prompts = [np.random.default_rng(n).integers(0, 97, n) for n in (5, 33, 80)]
+
+    def agreement():
+        refs = [generate(model, p[None], 12)[0].cpu().numpy() for p in prompts]
+        outs = [r.result(120) for r in [eng.submit(p, 12) for p in prompts]]
+        same = sum(int((np.asarray(o) == r).sum()) for o, r in zip(outs, refs))
+        assert all(o[len(p)] == r[len(p)] for o, r, p in zip(outs, refs, prompts))
+        return same / sum(len(r) for r in refs)
+
+    def scaled(t):
+        if isinstance(t, dict):
+            return {k: scaled(v) for k, v in t.items()}
+        if isinstance(t, QuantizedTensor):
+            return QuantizedTensor(t.q.clone(), t.scale * 1.01)
+        return t.detach() * 1.01
+
+    try:
+        assert agreement() >= 0.95
+        assert srv.push_weights(scaled(model.params))
+        assert agreement() >= 0.95
+        st = eng.stats()
+        assert st["graph_captures"] == 2 and st["graph_recaptures"] == 1
+    finally:
+        eng.stop()
+        srv.stop()
+
+
+def test_quant_kernel_override_on_the_card(cuda, monkeypatch):
+    """Unset, ``auto`` and ``pallas`` launch B5 on a CUDA tensor and count
+    ``pallas``; ``xla`` or ``blocked`` raises there, launching and
+    counting nothing: the quantized products never fall back to a plain
+    version on the card."""
+    from deeplearning4j_tpu_torch.observe.metrics import registry
+    from deeplearning4j_tpu_torch.ops.dequant_matmul import ENV_KERNEL, IMPLS
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((8, 1024), generator=g, device=cuda)
+    q = torch.randint(-127, 128, (1024, 512), generator=g, device=cuda,
+                      dtype=torch.int8)
+    scale = torch.rand((512,), generator=g, device=cuda) / 127 + 1e-4
+    ref = dequant_matmul_plain(x, q, scale)
+    c = registry().counter("dl4jtpu_quant_dequant_matmul_total")
+    for env in ("", "auto", "pallas", "xla", "blocked"):
+        monkeypatch.setenv(ENV_KERNEL, env)
+        n0 = kernels.launches().get("dequant_matmul", 0)
+        c0 = {i: c.value(impl=i) for i in IMPLS}
+        if env in ("xla", "blocked"):
+            with pytest.raises(RuntimeError, match="kernel B5"):
+                dequant_matmul(x, q, scale)
+            launched, counted = 0, {}
+        else:
+            y = dequant_matmul(x, q, scale)
+            assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+            launched, counted = 1, {"pallas": 1}
+        torch.cuda.synchronize()
+        assert kernels.launches().get("dequant_matmul", 0) - n0 == launched
+        assert {i: c.value(impl=i) - c0[i] for i in IMPLS} == {
+            i: counted.get(i, 0) for i in IMPLS}
 
 
 def _card_fleet(cuda, bf16, goldens=None):

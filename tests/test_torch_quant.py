@@ -37,7 +37,6 @@ from deeplearning4j_tpu_torch.ops.dequant_matmul import (
     dequant_matmul,
     dequant_matmul_plain,
 )
-from deeplearning4j_tpu_torch.ops.generation import generate
 from deeplearning4j_tpu_torch.quant import (
     QuantizedTensor,
     SCHEME,
@@ -48,10 +47,6 @@ from deeplearning4j_tpu_torch.quant import (
     quantized_bytes,
 )
 from deeplearning4j_tpu_torch.quant.qtensor import quantize_array
-from deeplearning4j_tpu_torch.serving.generation import (
-    GenerationConfig,
-    GenerationEngine,
-)
 from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
 # small shapes: one intra-op thread keeps these files from competing with
@@ -353,14 +348,6 @@ def test_fit_batch_on_a_quantized_model_raises(qmodel):
         qmodel.fit_batch(DataSet(ids, np.roll(ids, -1, axis=1)))
     with pytest.raises(RuntimeError, match="quantized"):
         qmodel.fit(DataSet(ids, np.roll(ids, -1, axis=1)))
-
-
-def test_generation_over_a_quantized_model_raises(qmodel):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationEngine(qmodel, GenerationConfig(
-            slots=2, page_size=8, num_pages=8, max_pages_per_seq=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate(qmodel, _ids()[:1, :5], 3)
 
 
 def test_load_params_refuses_a_malformed_quantized_leaf():

@@ -19,7 +19,8 @@ f32, the port's weights carried from the JAX model by
   503 ``breaker_open``, 200 with streamed NDJSON).
 - A hot-swap lands between decode steps with no stream dropped; the
   server's padding rule (a trailing-padding mask on a causal stack is
-  served, anything else raises); a quantized model waits for A7.
+  served, anything else raises).  A quantized model's server is held in
+  `tests/test_torch_quant_serving.py`.
 """
 
 import json
@@ -49,7 +50,6 @@ from deeplearning4j_tpu.zoo.transformer import TransformerEncoder as JaxTE
 from deeplearning4j_tpu_torch.convert import params_from_jax
 from deeplearning4j_tpu_torch.models.sequential import SequentialModel
 from deeplearning4j_tpu_torch.observe import metrics as pmetrics
-from deeplearning4j_tpu_torch.quant import quantize
 from deeplearning4j_tpu_torch.runtime import faults as pfaults
 from deeplearning4j_tpu_torch.serving.admission import (
     ServingError,
@@ -363,12 +363,6 @@ def test_padding_masks_are_served_only_where_they_cannot_reach_a_real_row():
             srv._call_model([x], None, params, None)
     finally:
         del port._mesh
-
-
-def test_a_quantized_model_waits_for_a7():
-    _, port = _models()
-    with pytest.raises(NotImplementedError, match="A7"):
-        InferenceServer(quantize(port))
 
 
 # -- HTTP ------------------------------------------------------------------------
