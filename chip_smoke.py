@@ -59,10 +59,17 @@ Then the phases:
 4. train — the full-width flagship (below) trained with Adam (lr 3e-4)
    through the chunked vocab loss on one fixed batch of 4 x 2048 token
    ids (numpy seed 3, int64): 2 warm-up and 6 measured `fit_batch`
-   steps.  Prints step ms, tokens/s and every loss; gates on finite,
-   falling loss and on exactly 8 launches a step of each of flash_fwd,
-   flash_bwd_dq and flash_bwd_dkdv (counters zeroed just before the
-   measured steps and read just after).  train_f32 — the same with the
+   steps, each a replay of the captured step (one CUDA graph: forward,
+   backward, updater; the first warm-up step runs eagerly and is
+   captured), then 3 eager steps of the same program timed beside them,
+   with the graph dropped first; the device memory of each run (peak
+   reserved and allocated from an emptied cache, and what stays
+   reserved after: a graph holds its pool) is printed beside it.
+   Prints step ms, tokens/s and every loss; gates on finite, falling
+   loss, one step graph, and on exactly 8 launches a step of each of
+   flash_fwd, flash_bwd_dq and flash_bwd_dkdv across the replays
+   (counters zeroed just before the measured steps and read just
+   after).  train_f32 — the same with the
    flagship built with ``bf16_compute=False``: f32 compute, the JAX
    package's CPU arithmetic, through B1 f32 (`flash_fwd_split`) and the
    f32 backward (`flash_bwd_dq_split`, `flash_bwd_dkdv_split`), with the
@@ -72,6 +79,32 @@ Then the phases:
    kernel rows' bounds use): its FLOPs must be within 1% of the count by
    hand (`_train_flops_by_hand`); achieved FLOP/s and MFU at the median
    step against the H100 row, and the roofline class, are printed.
+4b. lenet — the LeNet slice (ROADMAP A3), at bench.py's bench_lenet
+   configuration (`deeplearning4j_tpu_torch/bench_lenet.py`): `entry()`
+   on the card ((8, 10), finite); LeNet trained at batch 512 on
+   `MnistDataSetIterator(train=True, num_examples=30000)` (its first 40
+   batches cycled) with `fit(steps_per_execution=50)`, 100 warm-up and
+   1,000 measured steps, in bf16 and in f32: samples/s, ms a step, the
+   step's FLOPs (`observe.cost`, within 1% of the count by hand),
+   achieved FLOP/s and MFU; finite losses whose last 50 average below
+   the first 50; `evaluate` on 5,000 test images at or above
+   `LENET_ACC_FLOOR`.  From one snapshot, 3 captured and 3 eager steps
+   must agree bit for bit (losses, parameters, Adam state, layer
+   state) with no capture during the replays, for LeNet in both
+   computes and for SimpleCNN.  A 304-row batch (the iterator's last)
+   then captures a second step graph into the first one's pool (gate:
+   2 graphs), and 100 eager steps run with no graph held: ms a step and
+   device memory of the captured run, the second signature and the
+   eager run are printed.  SimpleCNN at 32 x 32 x 3 on
+   `CifarDataSetIterator`, batch 128, 20 steps: finite falling losses,
+   BatchNorm running stats that moved and are finite; saved, restored
+   on the card and bit-identical (state and `output()`).  `quantize`
+   of the trained bf16 LeNet: `output()` of the 5 evaluation batches of
+   1,000 images with exactly 2 B5 launches a call (Dense and the head;
+   the convs dequantize their kernels), argmax agreement >= 0.99 with the
+   f32 model of the dequantized weights, its accuracy; B5 at (1000,
+   2450, 500), (1000, 500, 10) and the entry's (8, 2450, 500) against
+   `dequant_matmul_plain` and cuBLAS f32, with their bounds.
 5. serve — the full-width flagship `TransformerEncoder` (vocab 32000,
    d 1024, 8 heads, 8 layers, chunked head, seed 123, bf16 compute) in a
    `GenerationEngine` (8 slots, 16-row pages, 512 pages, 160-wide
@@ -259,6 +292,7 @@ Details also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -267,8 +301,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "train", "train_f32", "serve", "server", "fleet", "spec", "parity",
-          "int8", "quant", "qserve", "ckpt")
+PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
+          "parity", "int8", "quant", "qserve", "ckpt")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -279,6 +313,8 @@ VOCAB, D_MODEL, HEADS, LAYERS = 32000, 1024, 8, 8
 ENGINE = dict(slots=8, page_size=16, num_pages=512, max_pages_per_seq=160)
 # bench.py bench_longctx's training batch: 4 sequences of 2048 tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 2048, 2, 6
+# eager steps after the captured ones, timed beside them (not gated)
+TRAIN_EAGER = 3
 
 TOL = {  # max |kernel - plain| allowed, with the reason
     # flash forward out, f32: f32 both sides, different summation order;
@@ -1273,6 +1309,7 @@ def phase_train(torch, np, kernels, f32=False):
         raise AssertionError(f"bf16_compute=False built a {model.compute_dtype} model")
     batch = _train_batch(np)
     losses = []
+    mem0 = _memory_window(torch)
     for i in range(TRAIN_WARMUP):
         t1 = time.perf_counter()
         model.fit_batch(batch)
@@ -1280,7 +1317,6 @@ def phase_train(torch, np, kernels, f32=False):
         log(f"[{tag}] warm-up step {i}: loss {losses[-1]:.5f}, "
             f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     step_ms = []
     t0 = time.perf_counter()
@@ -1292,24 +1328,46 @@ def phase_train(torch, np, kernels, f32=False):
         log(f"[{tag}] step {i}: loss {losses[-1]:.5f}, {step_ms[-1]:.1f} ms")
     wall = time.perf_counter() - t0
     counts = kernels.launches()
+    graphs = model.compile_stats()["step_programs"]
+    memory = {"captured": _memory_window(torch, mem0)}
+    # the same step program run eagerly (no graph), in the same call
+    model.capture_steps = False
+    model._drop_graphs()
+    mem0 = _memory_window(torch)
+    eager_ms = []
+    for i in range(TRAIN_EAGER):
+        t1 = time.perf_counter()
+        model.fit_batch(batch)
+        losses.append(model.score_value)
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+    memory["eager"] = _memory_window(torch, mem0)
+    model.capture_steps = True
+    log(f"[{tag}] captured step (graph replay) {statistics.median(step_ms):.2f} ms "
+        f"against the eager step {statistics.median(eager_ms):.2f} ms "
+        f"({['%.2f' % t for t in eager_ms]}); {graphs} step graph(s); memory "
+        f"(GiB) {_memory_text(memory)}")
     tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
     res = {
         "compute": str(model.compute_dtype), "params": n_params,
         "batch": [TRAIN_BATCH, TRAIN_SEQ],
         "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS, "losses": losses,
         "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+        "eager_step_ms": eager_ms, "step_graphs": graphs,
         "wall_s": wall, "tokens_per_s": tokens / wall,
-        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": counts,
+        "peak_memory_gib": {k: v["peak_gib"] for k, v in memory.items()},
+        "memory": memory, "launches": counts,
     }
     log(f"[{tag}] {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
         f"{wall:.3f}s = {res['tokens_per_s']:.1f} tokens/s; median step "
-        f"{res['median_step_ms']:.1f} ms; peak memory "
-        f"{res['peak_memory_gib']:.2f} GiB; launches {counts}")
+        f"{res['median_step_ms']:.1f} ms; peak memory captured "
+        f"{memory['captured']['peak_gib']:.3f} GiB, eager "
+        f"{memory['eager']['peak_gib']:.3f} GiB; launches {counts}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if not losses[-1] < losses[0]:
+    if not losses[TRAIN_WARMUP + TRAIN_STEPS - 1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
+    if graphs != 1:
+        raise AssertionError(f"{graphs} step graphs for one batch signature")
     want = LAYERS * TRAIN_STEPS
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
         if counts.get(name, 0) != want:
@@ -1320,6 +1378,32 @@ def phase_train(torch, np, kernels, f32=False):
     del model, batch
     torch.cuda.empty_cache()
     return res
+
+
+def _memory_window(torch, start=None):
+    """Device memory of a run of steps.  Called with no ``start``, it
+    empties the allocator's cache and zeroes its peaks, and returns what
+    stays reserved (the live tensors, and any graph's pool); called with
+    that ``start`` after the steps, it returns (GiB) the peak reserved and
+    allocated since, and what stays reserved once the cache is emptied
+    again (a captured step's pool stays: the graph holds it)."""
+    torch.cuda.synchronize()
+    if start is None:
+        gc.collect()                # an earlier phase's model may sit in a cycle
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_reserved() / 2**30
+    peak = torch.cuda.max_memory_reserved() / 2**30
+    peak_alloc = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    return {"start_gib": start, "peak_gib": peak, "peak_allocated_gib": peak_alloc,
+            "held_gib": torch.cuda.memory_reserved() / 2**30}
+
+
+def _memory_text(memory: dict) -> str:
+    return "; ".join(f"{k}: start {v['start_gib']:.3f}, peak {v['peak_gib']:.3f} "
+                     f"(allocated {v['peak_allocated_gib']:.3f}), held after "
+                     f"{v['held_gib']:.3f}" for k, v in memory.items())
 
 
 def _train_flops_by_hand() -> float:
@@ -2489,7 +2573,7 @@ def _first_divergence(torch, np, model, prompts, outs, refs):
         params = model.compute_params()
         ids = torch.from_numpy(r[None, :at].astype(np.int64)).cuda()
         with torch.no_grad():
-            h = model._forward(params, ids)[0, -1]
+            h = model._forward(params, model.net_state, ids)[0][0, -1]
             logits = head.logits(params[model.conf.layers[-1].name], h).float()
         top = torch.topk(logits, 2).values
         return {"stream": i, "position": at - len(p), "token": int(o[at]),
@@ -2965,6 +3049,337 @@ def phase_quant(torch, np, kernels, timer):
         "probability_row_sum_err": row_sum_err,
         "agreement_vs_f32_weights": agree_w,
     }
+
+
+# -- lenet phase --------------------------------------------------------------------
+
+# the accuracy floor of LeNet after bench_lenet's 1,100 steps, on 5,000 test
+# images: `python -m deeplearning4j_tpu_torch.bench_lenet --device cpu` read
+# LENET_CPU_ACCURACY (f32, the procedural digits, 4 host threads: 141.0 s
+# for the 1,000 measured steps; the last 50 losses average 1.25e-5); the
+# floor leaves 0.02 for bf16 compute and another summation order on the card
+LENET_CPU_ACCURACY = 1.0
+LENET_ACC_FLOOR = 0.98
+# B5 at quantized LeNet's products: Dense (2450 -> 500) and the head (500 ->
+# 10) over the 1,000-image evaluation batches, and the entry's 8 images
+LENET_DM_SHAPES = [(1000, 2450, 500), (1000, 500, 10), (8, 2450, 500)]
+# held to 1e-5 of max |plain|, K 2450 included: the rows route's f32 sums
+# in another order read 1.6e-6 there (this phase on an H100 80GB HBM3)
+LENET_DM_TOL = 1e-5
+# SimpleCNN on CIFAR-shaped data: BatchNorm and Dropout on the card
+SIMPLECNN_HW, SIMPLECNN_BATCH, SIMPLECNN_STEPS, SIMPLECNN_SPE = 32, 128, 20, 10
+CAPTURE_CMP_STEPS = 3
+# eager LeNet steps timed beside the captured ones
+LENET_EAGER_STEPS = 100
+# the rows of MnistDataSetIterator's last training batch (30,000 = 58 x 512 + 304)
+LENET_TAIL_ROWS = 304
+
+
+def _lenet_flops_by_hand(batch: int) -> float:
+    """FLOPs of one LeNet training step at ``batch``, from the shapes:
+    each conv 2 x (output elements) x (kernel volume) forward, its weight
+    gradient the same, its input gradient the same again except at the
+    first layer (the images take none); each dense product 2 M N K
+    forward and 4 M N K backward."""
+    conv1 = 2 * 28 * 28 * 20 * (5 * 5 * 1)
+    conv2 = 2 * 14 * 14 * 50 * (5 * 5 * 20)
+    dense = 2 * 2450 * 500 + 2 * 500 * 10
+    return batch * (2 * conv1 + 3 * conv2 + 3 * dense)
+
+
+def _full_state(torch, model) -> dict:
+    """Copies of everything a step changes: parameters, optimizer leaves
+    (tensors and counts), layer state, the step counter."""
+    from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+    from deeplearning4j_tpu_torch.nn.updaters import state_leaves
+
+    def cp(x):
+        return x.detach().clone() if isinstance(x, torch.Tensor) else int(x)
+
+    return {"params": [cp(p) for p in tree_leaves(model.params)],
+            "updater": [cp(x) for x in state_leaves(model.opt_state or ())],
+            "net_state": [cp(x) for x in tree_leaves(model.net_state)],
+            "iteration": model.iteration}
+
+
+def _restore_state(torch, model, snap) -> None:
+    """`_full_state` back into the model's own tensors (a graph reads them)."""
+    from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+    from deeplearning4j_tpu_torch.nn.updaters import load_state_leaves
+
+    with torch.no_grad():
+        for dst, src in zip(tree_leaves(model.params), snap["params"]):
+            dst.copy_(src)
+        for dst, src in zip(tree_leaves(model.net_state), snap["net_state"]):
+            dst.copy_(src)
+    model.opt_state = load_state_leaves(model.opt_state, snap["updater"])
+    model.iteration = snap["iteration"]
+    model._compute = None
+
+
+def _differing(torch, a: dict, b: dict) -> list:
+    bad = []
+    for k in ("params", "updater", "net_state"):
+        for i, (x, y) in enumerate(zip(a[k], b[k])):
+            if not (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y):
+                bad.append(f"{k} leaf {i}")
+    if a["iteration"] != b["iteration"]:
+        bad.append("iteration")
+    return bad
+
+
+def _captured_vs_eager(torch, model, batches, tag):
+    """From one snapshot, ``len(batches)`` `fit_batch` steps replaying the
+    model's captured step, then the same steps eagerly (``capture_steps =
+    False``: the same program on the same device inputs): losses,
+    parameters, optimizer state and layer state must be bit-identical, and
+    the captured run must replay, not capture again."""
+    snap = _full_state(torch, model)
+    captures0 = model.compile_stats()["jit_cache_misses"]
+    cap = []
+    for b in batches:
+        model.fit_batch(b)
+        cap.append(model._last_score.clone())
+    recaptures = model.compile_stats()["jit_cache_misses"] - captures0
+    after_cap = _full_state(torch, model)
+    _restore_state(torch, model, snap)
+    model.capture_steps = False
+    try:
+        eag = []
+        for b in batches:
+            model.fit_batch(b)
+            eag.append(model._last_score.clone())
+    finally:
+        model.capture_steps = True
+    after_eager = _full_state(torch, model)
+    same_losses = all(torch.equal(x, y) for x, y in zip(cap, eag))
+    bad = _differing(torch, after_cap, after_eager)
+    log(f"[lenet] {tag}: {len(batches)} captured steps against eager from one "
+        f"snapshot: losses {[float(x) for x in cap]} identical: {same_losses}; "
+        f"state differs at {bad or 'no leaf'}; captures during the replays "
+        f"{recaptures}")
+    if not same_losses or bad or recaptures:
+        raise AssertionError(f"{tag}: the captured step is not the eager step")
+    return {"losses": [float(x) for x in cap], "identical": True}
+
+
+def _lenet_train(torch, np, bl, batches, f32):
+    """bench_lenet's warm-up and measured steps on the card."""
+    from deeplearning4j_tpu_torch.observe import cost
+
+    tag = "f32" if f32 else "bf16"
+    model = bl.lenet("cuda", f32)
+    mem0 = _memory_window(torch)
+    t0 = time.perf_counter()
+    first = bl.train(model, batches, bl.WARMUP)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    measured = bl.train(model, batches, bl.STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = torch.cat([first, measured]).float().cpu().numpy()
+    step_ms = secs / bl.STEPS * 1e3
+    memory = {"captured": _memory_window(torch, mem0)}
+    # a profiled group of replays (it trains on: the gates below read
+    # the measured steps)
+    def group():
+        bl.train(model, batches, bl.SPE)
+
+    prof = None if f32 else _profiled(torch, "lenet", group)
+    recs = cost.analyze_model(model)
+    rec = next(r for r in recs if r.kind == "train")
+    hand = _lenet_flops_by_hand(bl.BATCH)
+    peak_f, _ = cost.peaks()
+    achieved = rec.flops / (step_ms / 1e3)
+    res = {"compute": str(model.compute_dtype), "warmup_s": warm_s,
+           "seconds": secs, "ms_per_step": step_ms,
+           "samples_per_s": bl.STEPS * bl.BATCH / secs,
+           "first50_mean": float(losses[:50].mean()),
+           "last50_mean": float(losses[-50:].mean()),
+           "flops": rec.flops, "flops_by_hand": hand,
+           "achieved_flops_per_s": achieved, "mfu": achieved / peak_f,
+           "graphs": model.compile_stats()["step_programs"], "profile": prof}
+    log(f"[lenet] {tag}: {bl.WARMUP} warm-up steps in {warm_s:.2f}s, {bl.STEPS} "
+        f"measured in {secs:.3f}s: {step_ms:.4f} ms a step, "
+        f"{res['samples_per_s']:.1f} samples/s; loss first 50 "
+        f"{res['first50_mean']:.5f}, last 50 {res['last50_mean']:.5f}; "
+        f"{rec.flops:.6e} FLOPs a step (by hand {hand:.6e}, "
+        f"{rec.flops / hand - 1:+.2e}), {achieved / 1e12:.3f} TFLOP/s, MFU "
+        f"{res['mfu']:.5f} against {peak_f / 1e12:.0f} TFLOP/s; "
+        f"{res['graphs']} step graph(s)")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: non-finite LeNet loss")
+    if not res["last50_mean"] < res["first50_mean"]:
+        raise AssertionError(f"{tag}: LeNet loss did not fall")
+    if abs(rec.flops / hand - 1) > 0.01:
+        raise AssertionError(f"{tag}: counted FLOPs {rec.flops} not within 1% "
+                             f"of the hand count {hand}")
+    t0 = time.perf_counter()
+    res["accuracy"] = bl.accuracy(model)
+    res["evaluate_s"] = time.perf_counter() - t0
+    log(f"[lenet] {tag}: accuracy {res['accuracy']:.4f} on {bl.EVAL_EXAMPLES} "
+        f"test images (floor {LENET_ACC_FLOOR}; the CPU read "
+        f"{LENET_CPU_ACCURACY}) in {res['evaluate_s']:.2f}s")
+    if not res["accuracy"] >= LENET_ACC_FLOOR:
+        raise AssertionError(f"{tag}: LeNet accuracy {res['accuracy']} below "
+                             f"{LENET_ACC_FLOOR}")
+    res["captured_vs_eager"] = _captured_vs_eager(
+        torch, model, batches[:CAPTURE_CMP_STEPS], f"LeNet {tag}")
+    # a ragged tail batch is a second signature: its graph shares the
+    # first one's pool, so what stays reserved should barely grow
+    held1 = _memory_window(torch)
+    tail = batches[0].split_batches(LENET_TAIL_ROWS)[0]
+    model.fit_batch(tail)
+    memory["second_signature"] = _memory_window(torch, held1)
+    graphs2 = model.compile_stats()["step_programs"]
+    # the same steps' program eagerly, with no graph held
+    model.capture_steps = False
+    model._drop_graphs()
+    mem0 = _memory_window(torch)
+    t0 = time.perf_counter()
+    bl.train(model, batches, LENET_EAGER_STEPS)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / LENET_EAGER_STEPS * 1e3
+    memory["eager"] = _memory_window(torch, mem0)
+    model.capture_steps = True
+    res.update({"eager_ms_per_step": eager_ms, "memory": memory,
+                "peak_memory_gib": {k: memory[k]["peak_gib"]
+                                    for k in ("captured", "eager")}})
+    log(f"[lenet] {tag}: the eager step {eager_ms:.4f} ms ({LENET_EAGER_STEPS} "
+        f"steps, no graph held) against the captured {step_ms:.4f} ms; "
+        f"{graphs2} step graphs after a {LENET_TAIL_ROWS}-row batch; memory "
+        f"(GiB) {_memory_text(memory)}")
+    if graphs2 != 2:
+        raise AssertionError(f"{tag}: {graphs2} step graphs for two signatures")
+    return model, res
+
+
+def _simplecnn(torch, np, bl):
+    """SimpleCNN at 32 x 32 x 3, batch 128, 20 steps: BatchNorm's running
+    stats move; captured == eager; save / restore bit for bit."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.data.builtin import CifarDataSetIterator
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo.simplecnn import SimpleCNN
+
+    it = CifarDataSetIterator(SIMPLECNN_BATCH, train=True,
+                              num_examples=SIMPLECNN_BATCH * SIMPLECNN_STEPS)
+    batches = list(it)
+    model = SimpleCNN(height=SIMPLECNN_HW, width=SIMPLECNN_HW).init_model("cuda")
+    stats0 = _full_state(torch, model)["net_state"]
+    losses = bl.train(model, batches, SIMPLECNN_STEPS, SIMPLECNN_SPE)
+    losses = losses.float().cpu().numpy()
+    stats = _full_state(torch, model)["net_state"]
+    moved = all(not torch.equal(a, b) for a, b in zip(stats0, stats))
+    finite = all(bool(torch.isfinite(s).all()) for s in stats)
+    head, tail = float(losses[:5].mean()), float(losses[-5:].mean())
+    log(f"[lenet] SimpleCNN {SIMPLECNN_HW}x{SIMPLECNN_HW}x3 batch {SIMPLECNN_BATCH}, "
+        f"{SIMPLECNN_STEPS} steps (synthetic {it.is_synthetic}), compute "
+        f"{model.compute_dtype}: losses {[round(float(x), 4) for x in losses]}; "
+        f"first 5 {head:.4f}, last 5 {tail:.4f}; BatchNorm stats moved {moved}, "
+        f"finite {finite}")
+    if not np.isfinite(losses).all() or not tail < head or not moved or not finite:
+        raise AssertionError("SimpleCNN did not train, or its BatchNorm stats")
+    cmp = _captured_vs_eager(torch, model, batches[:CAPTURE_CMP_STEPS], "SimpleCNN")
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join(tempfile.mkdtemp(dir="build"), "simplecnn.zip")
+    try:
+        model.save(path)
+        back = ModelSerializer.restore(path, device="cuda")
+        x = torch.from_numpy(batches[0].features).cuda()
+        bad = _differing(torch, _full_state(torch, model), _full_state(torch, back))
+        same_out = torch.equal(model.output(x), back.output(x))
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    log(f"[lenet] SimpleCNN saved and restored on the card: state differs at "
+        f"{bad or 'no leaf'}; output() bit-identical {same_out}")
+    if bad or not same_out:
+        raise AssertionError("the restored SimpleCNN is not the saved one")
+    return {"losses": [float(x) for x in losses], "bn_stats_moved": moved,
+            "captured_vs_eager": cmp, "restored_identical": True}
+
+
+def phase_lenet(torch, np, kernels, timer):
+    """The LeNet slice on the card; see the module docstring."""
+    from deeplearning4j_tpu_torch import bench_lenet as bl
+    from deeplearning4j_tpu_torch.data.builtin import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.entry import entry
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.quant import dequantize_tree, quantize
+
+    res = {}
+    fwd, (params, net_state, x8) = entry()
+    out = fwd(params, net_state, x8)
+    torch.cuda.synchronize()
+    log(f"[lenet] entry(): forward of {tuple(x8.shape)} -> {tuple(out.shape)} "
+        f"{out.dtype} on {out.device}, finite {bool(torch.isfinite(out).all())}")
+    if tuple(out.shape) != (8, 10) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("entry() forward is not an (8, 10) finite output")
+
+    synthetic, batches = bl.train_batches()
+    res["is_synthetic"] = synthetic
+    log(f"[lenet] MnistDataSetIterator(train=True, num_examples={bl.EXAMPLES}): "
+        f"is_synthetic {synthetic}; {len(batches)} batches of {bl.BATCH} cycled, "
+        f"fit(steps_per_execution={bl.SPE})")
+    trained = None
+    for f32 in (False, True):
+        model, res["f32" if f32 else "bf16"] = _lenet_train(torch, np, bl, batches, f32)
+        if not f32:
+            trained = model
+        else:
+            del model
+    res["simplecnn"] = _simplecnn(torch, np, bl)
+
+    # quantized LeNet: Dense and the head through B5, the convs on a
+    # dequantized kernel; against the f32 model of the same weights
+    qm = quantize(trained)
+    twin = SequentialModel(bl.lenet_conf(f32=True), device="cuda").load_params(
+        dequantize_tree(qm.params))
+    test = list(MnistDataSetIterator(bl.EVAL_BATCH, train=False,
+                                     num_examples=bl.EVAL_EXAMPLES))
+    feats = [torch.from_numpy(b.features).cuda() for b in test]
+    qm.output(feats[0])                              # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ms, outs = [], []
+    for f in feats:
+        t0 = time.perf_counter()
+        outs.append(qm.output(f))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launches()
+    res["launches"] = counts
+    kernels.reset_launches()
+    qm.output(x8)
+    torch.cuda.synchronize()
+    res["entry"] = {"launches": kernels.launches()}
+    refs = [twin.output(f) for f in feats]
+    agree = sum(_argmax_agreement(a, b) for a, b in zip(outs, refs)) / len(outs)
+    labels = np.concatenate([b.labels.argmax(-1) for b in test])
+    preds = torch.cat(outs).argmax(-1).cpu().numpy()
+    q_acc = float((preds == labels).mean())
+    want = {"dequant_matmul": 2 * len(feats)}
+    log(f"[lenet] quantized LeNet output() of {len(feats)} x {bl.EVAL_BATCH} images: "
+        f"{['%.3f' % t for t in ms]} ms a call; launches {counts} (want {want}); "
+        f"the entry's 8 images {res['entry']['launches']}; argmax agreement with "
+        f"the dequantized f32 twin {agree:.5f} (gate {QUANT_AGREEMENT}); accuracy "
+        f"{q_acc:.4f} (the bf16 model's {res['bf16']['accuracy']:.4f})")
+    if counts != want or res["entry"]["launches"] != {"dequant_matmul": 2}:
+        raise AssertionError(f"quantized LeNet launched {counts}, want {want}")
+    if agree < QUANT_AGREEMENT:
+        raise AssertionError("quantized LeNet disagrees with its dequantized twin")
+    res.update({"quantized_output_ms": ms, "quantized_agreement": agree,
+                "quantized_accuracy": q_acc})
+    del qm, twin, trained, feats, outs, refs
+    torch.cuda.empty_cache()
+    rows = [dm_case(torch, timer, m, k, n) for m, k, n in LENET_DM_SHAPES]
+    for r in rows:
+        r["tol"] = LENET_DM_TOL
+    check_rows("lenet", rows)
+    res["kernel_rows"] = rows
+    return res
 
 
 # -- qserve phase -----------------------------------------------------------------
@@ -3592,6 +4007,10 @@ def main(argv=None) -> int:
     if "train_f32" in phases:
         report["train_f32"] = phase_train(torch, np, kernels, f32=True)
         done("train_f32")
+    if "lenet" in phases:
+        report["lenet"] = phase_lenet(torch, np, kernels, timer)
+        rows = rows + report["lenet"]["kernel_rows"]
+        done("lenet")
     if "serve" in phases:
         report["serve"] = phase_serve(torch, np, kernels)
         done("serve")
@@ -3669,7 +4088,11 @@ def main(argv=None) -> int:
         (row("flash_fwd", dtype="f32", shape=[HEADS, SERVE_LENGTHS[0], dh]), "qserve"),
     ] + [(row("dequant_matmul", dtype="int8", shape=[m, k, n]),
           "qserve" if m == ENGINE["slots"] else "qserve/spec")
-         for m, k, n in [(8, D_MODEL, 4 * D_MODEL)] + DM_SERVE_SHAPES]
+         for m, k, n in [(8, D_MODEL, 4 * D_MODEL)] + DM_SERVE_SHAPES] + [
+        # quantized LeNet's Dense and head over the evaluation batches, and
+        # the entry's 8 images
+        (row("dequant_matmul", dtype="int8", shape=[m, k, n]),
+         "lenet/entry" if m == 8 else "lenet") for m, k, n in LENET_DM_SHAPES]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),

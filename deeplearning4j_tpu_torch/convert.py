@@ -13,7 +13,9 @@ The JAX model's parameters are a nested dict keyed by layer name::
 
 `params_from_jax` loads such a tree (leaves as numpy arrays, e.g.
 ``jax.tree.map(np.asarray, model.params)`` on the JAX side) into a port
-model built from the same configuration.  Layouts are kept as they are:
+model built from the same configuration, and with ``net_state=`` the
+JAX model's layer state too (BatchNorm's ``{"mean", "var"}`` under the
+layer's name).  Layouts are kept as they are:
 dense weights stay (n_in, n_out) and are applied as ``x @ W``.  The
 model itself is needed because the tree does not say everything the
 stack is (head count, causality, head type).  `params_to_numpy` is the
@@ -33,10 +35,19 @@ from deeplearning4j_tpu_torch.models.sequential import SequentialModel, _tree_ma
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 
 
-def params_from_jax(tree: dict, model: SequentialModel) -> SequentialModel:
-    """Install ``tree`` into ``model`` (names and shapes checked) and
-    return the model."""
-    return model.load_params(tree)
+def params_from_jax(tree: dict, model: SequentialModel,
+                    net_state: dict | None = None) -> SequentialModel:
+    """Install ``tree`` (and ``net_state``, when given) into ``model``,
+    names and shapes checked, and return the model."""
+    model.load_params(tree)
+    if net_state is not None:
+        model.load_net_state(net_state)
+    return model
+
+
+def net_state_to_numpy(model: SequentialModel) -> dict:
+    """The model's layer state as numpy arrays (copies, on the host)."""
+    return _tree_map(lambda t: t.detach().cpu().numpy().copy(), model.net_state)
 
 
 def params_to_numpy(model: SequentialModel) -> dict:

@@ -1,31 +1,66 @@
-"""`SequentialModel` — `deeplearning4j_tpu/models/sequential.py` for the
-transformer stack: inference (``output``) and training (``fit``,
-``fit_batch``).
+"""`SequentialModel` — `deeplearning4j_tpu/models/sequential.py`: the
+layer stack, its inference (``output``, ``predict``, ``evaluate``) and
+training (``fit``, ``fit_batch``).
 
 The model is an `nn.Module` on one explicit device.  Its parameters keep
 the JAX package's tree: ``model.params["layer2"]["attn"]["Wq"]`` is the
 same (n_in, n_out) array there and here, so weights carry across by
 layer name (`convert.params_from_jax`).  They are f32 master weights.
-The compute dtype (bf16 on CUDA, f32 on the CPU, or
-``conf.bf16_compute``) applies to a cast of the tree: for inference a
-detached copy made once and cached (`compute_params`); for training a
-cast inside the autograd graph at every step, so the gradients land on
-the f32 masters.
+``net_state`` is the JAX package's tree of what is not trained
+(BatchNorm's running mean and variance), f32.  The compute dtype (bf16
+on CUDA, f32 on the CPU, or ``conf.bf16_compute``) applies to a cast of
+the tree: for inference a detached copy made once and cached
+(`compute_params`); for training a cast inside the autograd graph at
+every step, so the gradients land on the f32 masters.  Network inputs
+take the compute dtype on the device (`_cast.entry_cast`: float and
+uint8 image bytes; integer ids pass through), and a feed-forward layer
+after convolutional maps sees them flattened in NHWC order
+(``conf.flatten_flags()``), the JAX package's row order of Dense ``W``.
 
 A quantized model (`quant.quantize`, or `load_params` of a tree with
 `QuantizedTensor` leaves) holds each int8 weight and its f32 scales as
 buffers and computes in f32, whatever the bf16 setting says: that is
-what the JAX package computes, since its quantized embedding returns f32
-rows and every later layer follows ``x.dtype``.  It takes no training
-step.  ``output()`` runs as a program registered with the cost registry
-under the JAX package's key (``("infer", False)``, plus ``"int8"`` for a
+what the JAX package computes, since its quantized layers return f32
+and every later layer follows ``x.dtype``.  It takes no training step.
+``output()`` runs as a program registered with the cost registry under
+the JAX package's key (``("infer", False)``, plus ``"int8"`` for a
 quantized model), and a quantized site counts its implementation once a
 program signature (`program_run`, `ops/dequant_matmul.py`).
 
-A training step is the JAX step written out eagerly: forward, data loss
-(the output layer's own loss, or a loss of `nn/losses.py`), plus the
-l1 / l2 penalty, backward, clipping and the updater (`nn/updaters.py`,
-optax's arithmetic), applied in place.
+A training step is the JAX step written out: forward, data loss (the
+output layer's own loss, or a loss of `nn/losses.py`), plus the l1 / l2
+penalty, backward, clipping and the updater (`nn/updaters.py`, optax's
+arithmetic), applied in place, and the layers' new state written over
+the old.  ``fit(..., steps_per_execution=K)`` groups K batches of one
+shape (JAX ``_fit_epoch_multi``): each step keeps its own loss; a group
+whose shapes differ, and a short tail, step batch by batch.
+
+The captured step.  The JAX package runs a whole step as one compiled
+program.  On CUDA the port runs it as one CUDA graph for each batch
+signature (`runtime/graphs.py`): forward, backward, updater and state
+write.  The first step of a signature runs eagerly (the graph's
+warm-up, on the capture stream) and is captured after; every later step
+is a replay.  Whatever changes between steps is a device input the host
+refills before each replay, never a value baked in at capture: the
+batch, the layers' dropout keys (drawn on the host from the step
+counter), and the updater's step values (the learning rate and Adam's
+bias corrections, `nn/updaters.py` ``values``), whose counts advance on
+the host.  A K-step group stages its K batches, keys and values on the
+card in one copy each and replays
+the graph K times, each step's inputs copied card to card into the
+graph's.  ``capture_steps = False`` runs the same step program eagerly
+on the same device inputs: the same kernels, so the same bits.  A
+capture that fails raises; nothing reruns the step eagerly instead.
+A model's step graphs share one memory pool and one capture stream:
+the pool holds what a step needs besides the live trees (activations,
+gradients, scratch), and a later signature's graph reuses the earlier
+ones' memory, since no two steps run at once.  The graphs read the
+live parameter, optimizer and state tensors, so whatever installs new
+ones (`init`, `load_params`, `load_net_state`, a fresh optimizer
+state) drops them (`_drop_graphs`); copying values into the live
+tensors in place, as `load_state_leaves` does, keeps them.  On the CPU
+the step runs eagerly, its step values as Python floats: optax's
+arithmetic.
 
 Random bits follow the JAX package's `SeedStream` (`runtime/rng.py`):
 layer ``name`` initialises from ``stream.key("init/<name>")``, and step
@@ -49,12 +84,15 @@ from deeplearning4j_tpu_torch.data.iterator import (
     ExistingDataSetIterator,
     NumpyDataSetIterator,
 )
+from deeplearning4j_tpu_torch.models._cast import entry_cast
 from deeplearning4j_tpu_torch.models._common import (
     regularization_loss,
     resolve_output_spec,
 )
+from deeplearning4j_tpu_torch.models.model import Model
 from deeplearning4j_tpu_torch.nn import losses
-from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
+from deeplearning4j_tpu_torch.nn.activations import Activation
+from deeplearning4j_tpu_torch.nn.updaters import advance_counts, with_gradient_clipping
 from deeplearning4j_tpu_torch.observe.trace import step_scope
 from deeplearning4j_tpu_torch.ops.dequant_matmul import counting_selections
 from deeplearning4j_tpu_torch.quant.ptq import SCHEME
@@ -165,7 +203,48 @@ def _as_iterator(data, batch_size: int | None) -> DataSetIterator:
     raise TypeError(f"cannot interpret {type(data)} as training data")
 
 
-class SequentialModel(nn.Module):
+def _copy_state(dst: dict, src: dict) -> None:
+    """Write the layers' new state ``src`` over ``dst`` in place (the
+    tensors a captured step reads stay the same objects)."""
+    for name, leaves in src.items():
+        for k, v in leaves.items():
+            dst[name][k].copy_(v)
+
+
+class _Staged:
+    """A step group's inputs on the card: the batches stacked, the
+    layers' keys (K, layers, 2) and the updater's step values (K, n), one
+    host-to-device copy each."""
+
+    def __init__(self, model, batches):
+        dev = model.device
+
+        def stack(arrays):
+            if isinstance(arrays[0], torch.Tensor):
+                return torch.stack([a.to(dev) for a in arrays])
+            return torch.from_numpy(np.stack([np.asarray(a) for a in arrays])).to(dev)
+
+        self.features = stack([b.features for b in batches])
+        self.labels = stack([b.labels for b in batches])
+        self.lmask = (None if batches[0].labels_mask is None
+                      else stack([b.labels_mask for b in batches]))
+        keys, vals, state = [], [], model.opt_state
+        for i in range(len(batches)):
+            keys.append(model._layer_keys(model.iteration + i))
+            vals.append(model._tx.values(state))
+            state = advance_counts(state)
+        self.keys = torch.tensor(keys, dtype=torch.int64).to(dev)
+        self.vals = torch.from_numpy(np.asarray(vals, np.float32).reshape(
+            len(batches), len(vals[0]))).to(dev)
+
+    def step(self, i: int) -> tuple:
+        """Step i's (features, labels, labels mask, keys, values)."""
+        return (self.features[i], self.labels[i],
+                None if self.lmask is None else self.lmask[i],
+                self.keys[i], self.vals[i])
+
+
+class SequentialModel(Model):
     """Sequential layer stack on one device (``"cuda"`` by default)."""
 
     def __init__(self, conf, device=None):
@@ -179,13 +258,16 @@ class SequentialModel(nn.Module):
             conf.updater.to_tx(conf.steps_per_epoch), conf.gradient_clip_value,
             conf.gradient_clip_norm)
         self._stream = rng.SeedStream(conf.seed)
+        self._itypes = self._flatten_before = None
+        if conf.input_type is not None:
+            self._itypes, self._flatten_before = conf._walk_types()
         self.layers = nn.ModuleDict()
         self._compute = None
         self._quantized = None         # the scheme marker of a quantized tree
-        self.opt_state = None
-        self.iteration = 0
-        self.epoch = 0
-        self._last_score = None
+        # the training step's CUDA graphs, one a batch signature; on the
+        # card a step replays one unless `capture_steps` is False
+        self._captured: dict = {}
+        self.capture_steps = True
         # the step program, registered with the cost registry
         # (observe/cost.py) on first use; the record lives while it is
         # cached here.  `_cost_program`: the record of the last program
@@ -212,18 +294,25 @@ class SequentialModel(nn.Module):
             return None
         return {name: m.tree() for name, m in self.layers.items()}
 
+    def _types(self):
+        if self._itypes is None:
+            raise ValueError("configuration has no input_type; call set_input_type")
+        return self._itypes
+
     @torch.no_grad()
     def init(self) -> "SequentialModel":
-        """Random weights from ``conf.seed``, drawn on the model's device:
-        the JAX package's, bit for bit."""
-        tree = {}
-        sizes = self.conf.layer_input_sizes()
-        for layer, n_in in zip(self.conf.layers, sizes):
-            p = layer.init(self._stream.key(f"init/{layer.name}"), n_in,
-                           self.device)
+        """Random weights from ``conf.seed``, drawn on the model's device
+        (the JAX package's, bit for bit), and the layers' initial state."""
+        tree, state = {}, {}
+        for layer, itype in zip(self.conf.layers, self._types()):
+            p, s = layer.init(self._stream.key(f"init/{layer.name}"), itype,
+                              self.device)
             if p:
                 tree[layer.name] = p
+            if s:
+                state[layer.name] = s
         self._install(tree)
+        self.net_state = state
         return self
 
     @torch.no_grad()
@@ -235,21 +324,34 @@ class SequentialModel(nn.Module):
         installed bit for bit as an int8 weight and its f32 scales."""
         if self.params is None:
             self.init()
-        want = self.params
+        self._install(self._checked(self.params, tree, quantized_ok=True))
+        return self
 
-        def walk(w, got, path):
-            if set(w) != set(got):
+    @torch.no_grad()
+    def load_net_state(self, tree: dict) -> "SequentialModel":
+        """Install a layer-state tree (BatchNorm's running stats) of
+        array-likes, checked against what `init` creates."""
+        if self.params is None:
+            self.init()
+        self.net_state = _tree_map(lambda t: t.to(self.device),
+                                   self._checked(self.net_state, tree))
+        self._drop_graphs()
+        return self
+
+    def _checked(self, want: dict, got: dict, quantized_ok=False) -> dict:
+        def walk(w, g, path):
+            if set(w) != set(g):
                 raise ValueError(
-                    f"parameter names differ at {path or '<root>'}: "
-                    f"want {sorted(w)}, got {sorted(got)}")
+                    f"names differ at {path or '<root>'}: "
+                    f"want {sorted(w)}, got {sorted(g)}")
             out = {}
             for k, v in w.items():
                 p = f"{path}/{k}" if path else k
                 if isinstance(v, dict):
-                    out[k] = walk(v, got[k], p)
+                    out[k] = walk(v, g[k], p)
                     continue
-                t = got[k]
-                if hasattr(t, "q") and hasattr(t, "scale"):
+                t = g[k]
+                if quantized_ok and hasattr(t, "q") and hasattr(t, "scale"):
                     t = _as_quantized(t, p)
                 else:
                     t = (t.detach().float() if isinstance(t, torch.Tensor)
@@ -261,17 +363,25 @@ class SequentialModel(nn.Module):
                 out[k] = t
             return out
 
-        self._install(walk(want, tree, ""))
-        return self
+        return walk(want, got, "")
 
     def _install(self, tree: dict) -> None:
+        """Make ``tree`` the model's parameters (`init`, `load_params`,
+        a restore): the compute copy, the optimizer state and the step
+        graphs belonged to the old tensors and go."""
         tree = _tree_map(lambda t: t.to(self.device), tree)
         self.layers = nn.ModuleDict(
             {name: ParamTree(p) for name, p in tree.items()})
         self._compute = None
-        self.opt_state = None          # moments belong to the old tensors
+        self.opt_state = None
+        self._drop_graphs()
         self._quantized = ({"scheme": SCHEME} if _has_quantized(tree)
                            else None)
+
+    def _drop_graphs(self) -> None:
+        """Forget the step graphs: they read tensors that are no longer
+        the model's.  The next step of each signature captures anew."""
+        self._captured = {}
 
     def compute_params(self) -> dict:
         """The parameter tree in the compute dtype, detached (cached;
@@ -281,34 +391,58 @@ class SequentialModel(nn.Module):
             self._compute = compute_tree(self.params, self.compute_dtype)
         return self._compute
 
-    def _forward(self, params: dict, features, *, training: bool = False,
-                 key=None) -> torch.Tensor:
-        """The layer stack on ``params`` (already in the compute dtype).
-        Float features take the compute dtype, as the JAX package's
-        ``entry_cast`` does; integer ids pass through.  In training,
-        layer i draws its dropout from ``fold_in(key, i)``."""
-        x = as_tensor(features, self.device)
-        if x.is_floating_point():
-            x = x.to(self.compute_dtype)
+    def _layer_keys(self, step: int) -> list:
+        """The dropout keys of step ``step``: layer i's is
+        ``fold_in(fold(root, step), i)``, as the JAX package folds them."""
+        key = rng.SeedStream.fold(self._stream.root, step)
+        return [rng.fold_in(key, i) for i in range(len(self.conf.layers))]
+
+    def _forward(self, params: dict, net_state: dict, features, *,
+                 training: bool = False, keys=None):
+        """The layer stack on ``params`` (already in the compute dtype)
+        and ``net_state``; returns (output, new state of the layers that
+        have one).  Inputs take the compute dtype (`entry_cast`); a
+        feed-forward layer after convolutional maps sees them flattened.
+        In training, layer i draws its dropout from ``keys[i]``
+        (`_layer_keys`: two Python ints, or two device scalars)."""
+        x = entry_cast(as_tensor(features, self.device), self.compute_dtype)
+        flatten = self._flatten_before or [False] * len(self.conf.layers)
+        new_state = {}
         for i, layer in enumerate(self.conf.layers):
-            lkey = rng.fold_in(key, i) if key is not None else None
-            x = layer.apply(params.get(layer.name, {}), x, training=training,
-                            rng=lkey)
-        return x
+            if flatten[i]:
+                x = x.reshape(x.shape[0], -1)
+            x, ns = layer.apply(params.get(layer.name, {}),
+                                net_state.get(layer.name, {}), x,
+                                training=training,
+                                rng=keys[i] if keys is not None else None)
+            if ns:
+                new_state[layer.name] = ns
+        return x, new_state
+
+    def _out_activation(self) -> Activation:
+        """What ``output()`` applies to the last layer's output: the
+        output layer's activation (its loss's canonical one by default);
+        nothing for a head that owns its loss."""
+        last = self.conf.layers[-1]
+        if hasattr(last, "compute_loss_with_params") or not hasattr(last, "loss"):
+            return Activation.IDENTITY
+        return resolve_output_spec(last)[1]
 
     @torch.no_grad()
-    def output(self, features, params: dict | None = None) -> torch.Tensor:
+    def output(self, features, params: dict | None = None,
+               net_state: dict | None = None) -> torch.Tensor:
         """Forward pass with the output activation applied, in f32
         (reference `MultiLayerNetwork.output()`): class probabilities for
-        an `RnnOutputLayer` head, hidden states for a
+        an output layer with a softmax, hidden states for a
         `ChunkedSoftmaxOutputLayer` head (its projection lives in the
         loss).  ``params``: a `compute_params()` tree to run on instead
         of the current one (a server's snapshot, taken under its weights
-        lock)."""
+        lock); ``net_state`` likewise (the model's by default)."""
         if self.params is None:
             self.init()
         return self._infer_program()(
-            params if params is not None else self.compute_params(), features)
+            params if params is not None else self.compute_params(),
+            net_state if net_state is not None else self.net_state, features)
 
     def _infer_program(self):
         """`_infer`, registered with the cost registry on first use under
@@ -323,13 +457,13 @@ class SequentialModel(nn.Module):
                 self, key, self._infer)
         return fn
 
-    def _infer(self, params: dict, features) -> torch.Tensor:
+    def _infer(self, params: dict, net_state: dict, features) -> torch.Tensor:
         """The ``output()`` program: the stack on ``params`` (compute
         dtype) and the output activation, in f32.  Pure."""
         x = as_tensor(features, self.device)
         with self.program_run("infer", tuple(x.shape), x.dtype):
-            x = self._forward(params, x)
-        return self.conf.layers[-1].output_activation()(x.float())
+            x, _ = self._forward(params, net_state, x)
+        return self._out_activation()(x.float())
 
     def program_run(self, kind: str, *signature):
         """The scope of one run of program ``kind`` at input ``signature``
@@ -341,6 +475,91 @@ class SequentialModel(nn.Module):
             first = key not in self._program_signatures
             self._program_signatures.add(key)
         return counting_selections(first)
+
+    def predict(self, features) -> np.ndarray:
+        """Argmax class predictions (reference `predict()`)."""
+        return self.output(features).argmax(dim=-1).cpu().numpy()
+
+    @torch.no_grad()
+    def feed_forward(self, features) -> list:
+        """Every layer's activations (reference `feedForward()`), in the
+        compute dtype; an inspection path."""
+        params = self.compute_params()
+        x = entry_cast(as_tensor(features, self.device), self.compute_dtype)
+        flatten = self._flatten_before or [False] * len(self.conf.layers)
+        acts = []
+        for i, layer in enumerate(self.conf.layers):
+            if flatten[i]:
+                x = x.reshape(x.shape[0], -1)
+            x, _ = layer.apply(params.get(layer.name, {}),
+                               self.net_state.get(layer.name, {}), x)
+            acts.append(x)
+        return acts
+
+    def _data_loss(self, params: dict, out, labels, lmask):
+        last = self.conf.layers[-1]
+        labels = as_tensor(labels, self.device)
+        if lmask is not None:
+            lmask = as_tensor(lmask, self.device)
+        if hasattr(last, "compute_loss_with_params"):
+            return last.compute_loss_with_params(params.get(last.name, {}), out,
+                                                 labels, lmask)
+        loss, act, fused = resolve_output_spec(last)
+        if not fused:
+            out = act(out.float())
+        return losses.compute(loss, out, labels, lmask, from_logits=fused)
+
+    @torch.no_grad()
+    def score(self, ds: DataSet) -> float:
+        """Loss, penalty included, on a dataset, inference mode, nothing
+        updated."""
+        if self.params is None:
+            self.init()
+        out, _ = self._forward(self.compute_params(), self.net_state, ds.features)
+        loss = self._data_loss(self.params, out, ds.labels, ds.labels_mask)
+        return float(loss + self._reg_loss(self.params))
+
+    def evaluate(self, data, batch_size: int | None = None):
+        """`Evaluation` of ``output()`` over ``data`` (reference
+        `evaluate()`).  Integer class ids are told from one-hot labels by
+        element count, one label per prediction position, as the chunked
+        head's loss tells them apart."""
+        from deeplearning4j_tpu_torch.evaluation.evaluation import Evaluation
+
+        ev = Evaluation()
+        last = self.conf.layers[-1]
+        for batch in _as_iterator(data, batch_size):
+            probs = self.output(batch.features)
+            if hasattr(last, "evaluation_output"):
+                # a head that owns its projection: its logits, not apply()'s
+                probs = last.evaluation_output(
+                    self.compute_params().get(last.name, {}), probs)
+            parr = probs.float().cpu().numpy()
+            labels = np.asarray(batch.labels)
+            n_out = parr.shape[-1]
+            if labels.ndim >= 1 and n_out > 1 and labels.size * n_out == parr.size:
+                ids = labels.astype(np.int64)
+                if ids.ndim == parr.ndim and ids.shape[-1] == 1:
+                    ids = ids[..., 0]
+                onehot = np.zeros(ids.shape + (n_out,), np.float32)
+                np.put_along_axis(onehot, ids[..., None], 1.0, axis=-1)
+                labels = onehot
+            ev.eval(labels, parr, mask=batch.labels_mask)
+        return ev
+
+    def clone(self) -> "SequentialModel":
+        """A model of the same configuration and device with copies of
+        the parameters, layer state, optimizer state and counters."""
+        m = SequentialModel(self.conf, device=self.device)
+        if self.params is not None:
+            m._install(_tree_map(lambda t: t if isinstance(t, QuantizedTensor)
+                                 else t.detach().clone(), self.params))
+            m._quantized = self._quantized
+            m.net_state = _tree_map(lambda t: t.clone(), self.net_state)
+            if self.opt_state is not None:
+                m.opt_state = _clone_state(self.opt_state)
+        m.iteration, m.epoch = self.iteration, self.epoch
+        return m
 
     # -- training -------------------------------------------------------------
 
@@ -358,64 +577,23 @@ class SequentialModel(nn.Module):
         return regularization_loss(params,
                                    [(l.name, l) for l in self.conf.layers])
 
-    def _step_loss(self, params: dict, features, labels, lmask=None, key=None):
+    def _step_loss(self, params: dict, net_state: dict, features, labels,
+                   lmask=None, keys=None):
         """Forward + data loss + l1 / l2 penalty on the f32 master tree
         ``params``: the layers see it cast to the compute dtype inside
         the graph; the output layer's own loss (the chunked head) and the
-        penalty see the masters, as the JAX package's do."""
+        penalty see the masters, as the JAX package's do.  Returns (loss,
+        the layers' new state)."""
         dt = self.compute_dtype
-        out = self._forward(_tree_map(lambda t: t.to(dt), params), features,
-                            training=True, key=key)
-        last = self.conf.layers[-1]
-        labels = as_tensor(labels, self.device)
-        if lmask is not None:
-            lmask = as_tensor(lmask, self.device)
-        if hasattr(last, "compute_loss_with_params"):
-            data_loss = last.compute_loss_with_params(
-                params.get(last.name, {}), out, labels, lmask)
-        else:
-            loss, act, fused = resolve_output_spec(last)
-            if not fused:
-                out = act(out.float())
-            data_loss = losses.compute(loss, out, labels, lmask,
-                                       from_logits=fused)
-        return data_loss + self._reg_loss(params)
-
-    def fit_batch(self, batch: DataSet) -> None:
-        """One optimizer step on ``batch``."""
-        if self.params is None:
-            self.init()
-        if self._quantized is not None:
-            raise RuntimeError(
-                "this model is int8-quantized for inference and takes no "
-                "training step; train the f32 model, then quantize it again")
-        self._check_trainable()
-        if batch.features_mask is not None:
-            raise NotImplementedError(
-                "features masks (key masks in attention) are not ported to "
-                "training yet (ROADMAP A5: SelfAttentionLayer)")
-        params = self.params
-        plist = tree_leaves(params)
-        if self.opt_state is None:
-            self.opt_state = self._tx.init(plist)
-        key = rng.SeedStream.fold(self._stream.root, self.iteration)
-        with step_scope(self) as scope:
-            loss, grads = self._step_program()(
-                params, batch.features, batch.labels, batch.labels_mask, key)
-            scope.sync(loss)
-            updates, self.opt_state = self._tx.update(grads, self.opt_state,
-                                                      plist)
-            with torch.no_grad():
-                for p, u in zip(plist, updates):
-                    p.add_(u.to(p.dtype))
-        self._compute = None           # output() and the engine read new weights
-        self._last_score = loss.detach()
-        self.iteration += 1
+        out, new_state = self._forward(_tree_map(lambda t: t.to(dt), params),
+                                       net_state, features, training=True, keys=keys)
+        data_loss = self._data_loss(params, out, labels, lmask)
+        return data_loss + self._reg_loss(params), new_state
 
     def _step_program(self):
-        """The training step's device program, `_grad_step`, registered
-        with the cost registry on first use (as the JAX package's
-        ``_get_step_fn`` registers its jitted step)."""
+        """The training step's pure device program, `_grad_step`,
+        registered with the cost registry on first use (as the JAX
+        package's ``_get_step_fn`` registers its jitted step)."""
         fn = self._step_fns.get(("train",))
         if fn is None:
             from deeplearning4j_tpu_torch.observe import cost
@@ -424,40 +602,192 @@ class SequentialModel(nn.Module):
                 self, ("train",), self._grad_step)
         return fn
 
-    def _grad_step(self, params: dict, features, labels, lmask, key):
-        """Loss and gradients of ``params`` (``jax.tree.leaves`` order,
-        zeros for an unused leaf) on one batch: the step's forward and
-        backward, and no state changed — the optimizer update applies
-        them.  Pure, so the cost analysis can run it again."""
+    def _grad_step(self, params: dict, net_state: dict, features, labels,
+                   lmask, keys):
+        """Loss, gradients of ``params`` (``jax.tree.leaves`` order, zeros
+        for an unused leaf) and the layers' new state on one batch: the
+        step's forward and backward, and no state changed — the update
+        applies them.  Pure, so the cost analysis can run it again."""
         plist = tree_leaves(params)
         with torch.enable_grad():
-            loss = self._step_loss(params, features, labels, lmask, key=key)
+            loss, new_state = self._step_loss(params, net_state, features,
+                                              labels, lmask, keys=keys)
             grads = torch.autograd.grad(loss, plist, allow_unused=True)
-        return loss, [torch.zeros_like(p) if g is None else g
-                      for p, g in zip(plist, grads)]
+        return (loss, [torch.zeros_like(p) if g is None else g
+                       for p, g in zip(plist, grads)],
+                _tree_map(lambda t: t.detach(), new_state))
+
+    def _train_step(self, features, labels, lmask, keys, vals, grad_step=None):
+        """One whole step on the live trees: `_grad_step`, the updater,
+        the parameters and the layer state updated in place.  ``keys``:
+        the layers' dropout keys (`_layer_keys`, or their (layers, 2)
+        int64 device tensor); ``vals``: the updater's step values (None:
+        the updater computes them as Python floats; else a device
+        tensor).  ``grad_step``: the forward and backward to run (the
+        registered `_step_program`, which counts a dispatch, by
+        default).  Returns the loss and the updater's new state (its
+        counts advanced)."""
+        if isinstance(keys, torch.Tensor):
+            keys = [(k[0], k[1]) for k in keys]
+        if vals is not None:
+            vals = [vals[i] for i in range(vals.shape[0])]
+        params = self.params
+        plist = tree_leaves(params)
+        loss, grads, new_state = (grad_step or self._step_program())(
+            params, self.net_state, features, labels, lmask, keys)
+        updates, opt_state = self._tx.update(grads, self.opt_state, plist, vals)
+        with torch.no_grad():
+            for p, u in zip(plist, updates):
+                p.add_(u.to(p.dtype))
+            _copy_state(self.net_state, new_state)
+        return loss.detach(), opt_state
+
+    def fit_batch(self, batch: DataSet) -> None:
+        """One optimizer step on ``batch``."""
+        self._run_steps([batch])
+
+    def _prepare(self, batches) -> None:
+        if self.params is None:
+            self.init()
+        if self._quantized is not None:
+            raise RuntimeError(
+                "this model is int8-quantized for inference and takes no "
+                "training step; train the f32 model, then quantize it again")
+        self._check_trainable()
+        if any(b.features_mask is not None for b in batches):
+            raise NotImplementedError(
+                "features masks (key masks in attention) are not ported to "
+                "training yet (ROADMAP A5: SelfAttentionLayer)")
+        if self.opt_state is None:
+            self.opt_state = self._tx.init(tree_leaves(self.params))
+            self._drop_graphs()
+
+    def _run_steps(self, batches: list) -> None:
+        """len(batches) optimizer steps in order, one loss each: on the
+        card from staged inputs (graph replays, or the same program
+        eagerly), on the CPU eagerly."""
+        self._prepare(batches)
+        k = len(batches)
+        with step_scope(self, k) as scope:
+            if self.device.type == "cuda":
+                losses_k = self._run_steps_cuda(batches)
+            else:
+                out = []
+                for i, b in enumerate(batches):
+                    loss, self.opt_state = self._train_step(
+                        b.features, b.labels, b.labels_mask,
+                        self._layer_keys(self.iteration + i), None)
+                    out.append(loss)
+                losses_k = torch.stack(out)
+            scope.sync(losses_k)
+        self._compute = None           # output() and the engine read new weights
+        self._last_score = losses_k if k > 1 else losses_k[0]
+        self.last_batch_size = batches[-1].num_examples
+        self.iteration += k
+
+    def _run_steps_cuda(self, batches: list) -> torch.Tensor:
+        staged = _Staged(self, batches)
+        out = torch.empty(len(batches), dtype=torch.float32, device=self.device)
+        first = 0
+        if self.capture_steps:
+            sig = tuple(None if t is None else (tuple(t.shape), t.dtype)
+                        for t in staged.step(0))
+            prog = self._captured.get(sig)
+            if prog is None:
+                prog = self._captured[sig] = self._capture(staged.step(0))
+                first = 1
+                out[0].copy_(prog.inputs[-1])
+                self.opt_state = advance_counts(self.opt_state)
+            rec = self._step_program()._cost_record
+        for i in range(first, len(batches)):
+            if not self.capture_steps:
+                out[i].copy_(self._train_step(*staged.step(i))[0])
+            else:
+                for dst, src in zip(prog.inputs, staged.step(i)):
+                    if dst is not None:
+                        dst.copy_(src)
+                prog.replay()
+                out[i].copy_(prog.inputs[-1])
+                self._cost_program = rec
+                rec.dispatches += 1
+            self.opt_state = advance_counts(self.opt_state)
+        return out
+
+    def _capture(self, inputs: tuple):
+        """The step program as a CUDA graph over static copies of
+        ``inputs`` (a staged step's), in the pool and on the stream of
+        the model's other step graphs.  Its warm-up (`CapturedProgram`)
+        is that step itself, run eagerly on the capture stream, and
+        counts as the step's dispatch; the capture records the step
+        without running it, so it calls the bare `_grad_step`.  Every
+        run's loss lands in the last input, a static slot."""
+        from deeplearning4j_tpu_torch.runtime.graphs import CapturedProgram
+
+        def step(features, labels, lmask, keys, vals, slot):
+            bare = torch.cuda.is_current_stream_capturing()
+            slot.copy_(self._train_step(
+                features, labels, lmask, keys, vals,
+                grad_step=self._grad_step if bare else None)[0])
+
+        inputs = tuple(None if t is None else t.clone() for t in inputs)
+        slot = torch.empty((), dtype=torch.float32, device=self.device)
+        other = next(iter(self._captured.values()), None)
+        return CapturedProgram(
+            step, inputs + (slot,), keep=(tree_leaves(self.params), self.opt_state,
+                                          self.net_state),
+            pool=other and other.graph.pool(), stream=other and other.stream)
 
     def fit(self, data, epochs: int = 1, batch_size: int | None = None,
             steps_per_execution: int = 1) -> None:
         """``epochs`` passes over ``data``: a DataSetIterator, a DataSet
         (split by ``batch_size`` when given), a list of DataSets or a
-        (features, labels) tuple of arrays."""
-        if steps_per_execution != 1:
-            raise NotImplementedError(
-                "steps_per_execution > 1 is not ported yet (ROADMAP A3: "
-                "models/sequential.py grouped steps)")
+        (features, labels) tuple of arrays.  ``steps_per_execution`` K
+        groups K batches of one shape into one staged run of K steps
+        (graph replays on the card), each step with its own loss; a
+        group of mixed shapes, and a short tail, step batch by batch."""
+        if steps_per_execution < 1:
+            raise ValueError(f"steps_per_execution must be >= 1, got "
+                             f"{steps_per_execution}")
         if self.params is None:
             self.init()
         iterator = _as_iterator(data, batch_size)
         for _ in range(epochs):
-            for batch in iterator:
-                self.fit_batch(batch)
+            if steps_per_execution > 1:
+                self._fit_epoch_multi(iterator, steps_per_execution)
+            else:
+                for batch in self._timed_batches(iterator):
+                    self.fit_batch(batch)
             self.epoch += 1
             iterator.reset()
 
-    @property
-    def score_value(self) -> float:
-        """Last training loss, penalty included (reference
-        `Model.score()`); synchronises with the device."""
-        if self._last_score is None:
-            return float("nan")
-        return float(self._last_score)
+    def _fit_epoch_multi(self, iterator, spe: int) -> None:
+        """JAX ``_fit_epoch_multi``: groups of ``spe`` batches."""
+        def group_ok(buf):
+            f0, l0 = buf[0].features, buf[0].labels
+            return all(np.shape(b.features) == np.shape(f0)
+                       and np.shape(b.labels) == np.shape(l0)
+                       and b.features_mask is None and b.labels_mask is None
+                       for b in buf)
+
+        buf: list[DataSet] = []
+        for batch in self._timed_batches(iterator):
+            buf.append(batch)
+            if len(buf) == spe:
+                if group_ok(buf):
+                    self._run_steps(buf)
+                else:
+                    for b in buf:
+                        self.fit_batch(b)
+                buf = []
+        for b in buf:                       # ragged tail group
+            self.fit_batch(b)
+
+
+def _clone_state(state):
+    if isinstance(state, tuple):
+        return tuple(_clone_state(s) for s in state)
+    if isinstance(state, list):
+        return [_clone_state(s) for s in state]
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    return state

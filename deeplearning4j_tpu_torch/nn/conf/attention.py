@@ -15,11 +15,12 @@ import dataclasses
 import torch
 
 from deeplearning4j_tpu_torch.nn.activations import Activation
+from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LayerConfig,
-    LayerNorm,
     _coerce_enum,
     _dropout,
+    layer_norm,
 )
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 from deeplearning4j_tpu_torch.ops.attention import mha
@@ -67,24 +68,29 @@ class PositionalEncoding(LayerConfig):
     max_length: int = 0
     REGULARIZED = ()
 
-    def init(self, key, n_in, device):
+    @property
+    def HAS_PARAMS(self):  # type: ignore[override]
+        return self.learned
+
+    def init(self, key, itype, device):
         if not self.learned:
-            return {}
+            return {}, {}
         if self.max_length <= 0:
             raise ValueError("learned PositionalEncoding requires max_length")
+        d = itype.size
         wi = self._winit(WeightInit.NORMAL)
-        return {"P": wi.init(key, (self.max_length, n_in), fan_in=n_in,
-                             fan_out=n_in, device=device)}
+        return {"P": wi.init(key, (self.max_length, d), fan_in=d,
+                             fan_out=d, device=device)}, {}
 
-    def apply(self, params, x, *, training=False, rng=None):
+    def apply(self, params, state, x, *, training=False, rng=None):
         t, d = x.shape[1], x.shape[2]
         if self.learned:
             if t > self.max_length:
                 raise ValueError(
                     f"sequence length {t} exceeds max_length {self.max_length}")
-            return x + params["P"][:t].to(x.dtype)
+            return x + params["P"][:t].to(x.dtype), state
         pos = torch.arange(t, device=x.device)
-        return x + sinusoid_rows(pos, d).to(x.dtype)
+        return x + sinusoid_rows(pos, d).to(x.dtype), state
 
 
 @serde.register
@@ -124,45 +130,47 @@ class TransformerEncoderBlock(LayerConfig):
         out.extend(attn[p] for p in ("Wq", "Wk", "Wv", "Wo") if p in attn)
         return out
 
-    def output_size(self, n_in: int) -> int:
-        if n_in != self.d_model:
+    def output_type(self, itype):
+        if itype.size != self.d_model:
             raise ValueError(
                 f"TransformerEncoderBlock d_model={self.d_model} but input "
-                f"feature size is {n_in}")
-        return self.d_model
+                f"feature size is {itype.size}")
+        return InputType.recurrent(self.d_model, itype.shape[0])
 
-    def init(self, key, n_in, device):
+    def init(self, key, itype, device):
         k_attn, k1, k2 = rng_mod.split(key, 3)
         d, dff, wi = self.d_model, self._dff(), self._winit()
-        ln = LayerNorm()
+
+        def ln():
+            return {"gamma": torch.ones(d, device=device),
+                    "beta": torch.zeros(d, device=device)}
+
         return {
             "attn": init_qkv_params(k_attn, wi, d, d, d, device),
-            "ln1": ln.init(None, d, device),
-            "ln2": ln.init(None, d, device),
+            "ln1": ln(),
+            "ln2": ln(),
             "W1": wi.init(k1, (d, dff), fan_in=d, fan_out=dff, device=device),
             "b1": torch.zeros(dff, device=device),
             "W2": wi.init(k2, (dff, d), fan_in=dff, fan_out=d, device=device),
             "b2": torch.zeros(d, device=device),
-        }
+        }, {}
 
-    def apply(self, params, x, *, training=False, rng=None):
-        ln = LayerNorm()
+    def apply(self, params, state, x, *, training=False, rng=None):
         ap = params["attn"]
         b, t, _ = x.shape
         h_, dh = self.n_heads, self.d_model // self.n_heads
-        h = ln.apply(params["ln1"], x)
+        h = layer_norm(params["ln1"], x)
         q = quantf.matmul(h, ap["Wq"]).reshape(b, t, h_, dh)
         k = quantf.matmul(h, ap["Wk"]).reshape(b, t, h_, dh)
         v = quantf.matmul(h, ap["Wv"]).reshape(b, t, h_, dh)
         out = mha(q, k, v, causal=self.causal).reshape(b, t, h_ * dh)
         x = x + quantf.matmul(out, ap["Wo"])
-        h = ln.apply(params["ln2"], x)
-        if training and rng is not None:
+        h = layer_norm(params["ln2"], x)
+        if training and rng is not None and self.dropout_rate:
             # the JAX block splits its key for the attention sub-layer
             # (r1, unused without a rate) and the FFN (r2)
-            h = _dropout(h, self.dropout_rate or 0.0, training,
-                         rng_mod.split(rng, 2)[1])
+            h = _dropout(h, self.dropout_rate, training, rng_mod.split(rng, 2)[1])
         h = self.ffn_activation(quantf.matmul(h, params["W1"])
                                 + params["b1"].to(x.dtype))
         h = quantf.matmul(h, params["W2"]) + params["b2"].to(x.dtype)
-        return x + h
+        return x + h, state

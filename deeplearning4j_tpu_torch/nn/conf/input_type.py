@@ -1,10 +1,11 @@
 """`InputType` — `deeplearning4j_tpu/nn/conf/input_type.py`, as data.
 
-A configuration carries its input type so that ``configuration.json``
-matches the JAX package's.  The port's stacks size themselves from the
-feature size of a feed-forward or recurrent type; convolutional types
-wait for the LeNet slice (ROADMAP A3), and a model built from one
-raises.
+Layers declare ``output_type(input_type)``; the configuration walks the
+chain once (`SequentialConfiguration.layer_input_types`), so no layer
+is given its input width by hand.  Convolutional types are NHWC, the
+JAX package's layout: a (height, width, channels) type is a batch of
+(B, H, W, C) maps, flattened in that order where a feed-forward layer
+follows.
 """
 
 from __future__ import annotations
@@ -52,6 +53,24 @@ class InputType:
         if self.kind == self.KIND_RNN:
             return self.shape[1]
         raise ValueError(f"size undefined for {self}")
+
+    @property
+    def channels(self) -> int:
+        if self.kind in (self.KIND_CNN, self.KIND_CNN3D):
+            return self.shape[-1]
+        raise ValueError(f"channels undefined for {self}")
+
+    @property
+    def flat_size(self) -> int:
+        n = 1
+        for s in self.shape:
+            if s < 0:
+                raise ValueError(f"cannot flatten variable dimension in {self}")
+            n *= s
+        return n
+
+    def batch_shape(self, batch: int) -> tuple[int, ...]:
+        return (batch, *self.shape)
 
     def __repr__(self) -> str:
         return f"InputType({self.kind}, {self.shape})"

@@ -1,31 +1,48 @@
-"""Layer configs — the part of `deeplearning4j_tpu/nn/conf/layers.py` the
-transformer slices use: the `LayerConfig` base (l1 / l2 penalties,
-dropout on the layer input), `Embedding`, `LayerNorm` and
-`ChunkedSoftmaxOutputLayer` (logits for inference, the chunked loss for
-training).
+"""Layer configs — `deeplearning4j_tpu/nn/conf/layers.py`: the
+`LayerConfig` base and the layers the ported stacks use.
 
 A config is a frozen dataclass registered for serde under the JAX
-package's tag, with its fields, defaults and enum values.  ``init``
-draws from a threefry key (`nn/weights.py`) as the JAX layer does, so a
-seed gives the JAX package's weights.  ``apply`` is a plain function of
-a parameter dict and a tensor; in training it takes the layer's step key
-for dropout.  Dense weights keep the JAX layout (n_in, n_out) and are
-applied as ``x @ W``.
+package's tag, with its fields, defaults and enum values.  Each owns the
+JAX package's three functions:
+
+- ``output_type(itype)``: shape inference down the stack;
+- ``init(key, itype, device) -> (params, state)``: draws from a threefry
+  key (`nn/weights.py`) as the JAX layer does, so a seed gives the JAX
+  package's weights; ``state`` holds what is not trained (BatchNorm's
+  running mean and variance);
+- ``apply(params, state, x, *, training, rng) -> (y, new_state)``: a
+  plain function of the parameter and state dicts and a tensor; in
+  training it takes the layer's step key for dropout.
+
+``EXPECTS`` says which input kind a layer takes ("ff" layers after a
+convolutional one get the implicit flatten), ``HAS_PARAMS`` whether it
+has parameters.  Layouts are the JAX tree's: dense weights (n_in, n_out)
+applied as ``x @ W``, conv kernels HWIO over NHWC maps (`ops/conv.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.activations import Activation
+from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.losses import Loss
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
+from deeplearning4j_tpu_torch.ops import conv as conv_ops
 from deeplearning4j_tpu_torch.quant import functional as quantf
 from deeplearning4j_tpu_torch.runtime import rng as rng_mod
 from deeplearning4j_tpu_torch.utils import serde
+
+
+class PoolingType(str, enum.Enum):
+    MAX = "max"
+    AVG = "avg"
+    SUM = "sum"
+    PNORM = "pnorm"
 
 
 def _coerce_enum(v, enum_cls):
@@ -49,12 +66,15 @@ def _coerce_enum(v, enum_cls):
 def _dropout(x: torch.Tensor, rate: float, training: bool, key) -> torch.Tensor:
     """Inverted dropout on a layer's input, the JAX package's mask: kept
     where ``bernoulli(key, 1 - rate)``, scaled by a division by the keep
-    probability (taken in x's dtype, as jax takes a Python scalar)."""
+    probability (taken in x's dtype, as jax takes a Python scalar).  The
+    key is two 32-bit words, Python ints or device tensors (a captured
+    training step's key is a device input)."""
     if not training or rate <= 0.0 or key is None:
         return x
     keep = 1.0 - rate
     mask = rng_mod.bernoulli(key, keep, tuple(x.shape), device=x.device)
-    return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),
+    # torch.full, not torch.tensor: no host-to-device copy inside a step
+    return torch.where(mask, x / torch.full((), keep, dtype=x.dtype, device=x.device),
                        0.0).to(x.dtype)
 
 
@@ -72,33 +92,45 @@ class LayerConfig:
     # excluded from updates; fit() refuses it until masked updates are ported
     frozen: bool = False
 
+    # the input kind apply() takes; an "ff" layer after a convolutional
+    # one gets the implicit flatten
+    EXPECTS = "any"
+    HAS_PARAMS = True
     # which parameters the l1 / l2 penalty applies to
     REGULARIZED = ("W",)
 
     def __post_init__(self):
+        # strings are accepted wherever the enum is, and padding is
+        # case-insensitive ("SAME" must not diverge from "same")
         if self.activation is not None:
             object.__setattr__(self, "activation",
                                _coerce_enum(self.activation, Activation))
         if self.weight_init is not None:
             object.__setattr__(self, "weight_init",
                                _coerce_enum(self.weight_init, WeightInit))
+        pad = getattr(self, "padding", None)
+        if isinstance(pad, str):
+            object.__setattr__(self, "padding", pad.lower())
         loss = getattr(self, "loss", None)
         if loss is not None:
             object.__setattr__(self, "loss", _coerce_enum(loss, Loss))
+        pooling = getattr(self, "pooling", None)
+        if pooling is not None:
+            object.__setattr__(self, "pooling", _coerce_enum(pooling, PoolingType))
 
     def check_supported(self) -> None:
         """Raise `NotImplementedError`, naming the ROADMAP item, for a
         field value this port cannot honour yet (called when a model is
         built, never when a configuration loads)."""
 
-    def output_size(self, n_in: int) -> int:
-        return n_in
+    def output_type(self, itype: InputType) -> InputType:
+        return itype
 
-    def init(self, key, n_in: int, device) -> dict:
-        return {}
+    def init(self, key, itype: InputType, device) -> tuple[dict, dict]:
+        return {}, {}
 
-    def apply(self, params: dict, x: torch.Tensor, *, training: bool = False,
-              rng=None) -> torch.Tensor:
+    def apply(self, params: dict, state: dict, x: torch.Tensor, *,
+              training: bool = False, rng=None) -> tuple[torch.Tensor, dict]:
         raise NotImplementedError
 
     def regularizable_params(self, lp: dict) -> list:
@@ -119,27 +151,271 @@ class LayerConfig:
         return self.weight_init if self.weight_init is not None else default
 
 
+# ---------------------------------------------------------------------------
+# Feed-forward layers
+# ---------------------------------------------------------------------------
+
+def _dense(layer, params, x):
+    # quantf.matmul: ``x @ W`` for f32 weights, B5 (int8 weights, f32
+    # accumulation) after quantize()
+    y = quantf.matmul(x, params["W"])
+    if layer.has_bias:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def _dense_init(layer, key, n_in, device):
+    p = {"W": layer._winit().init(key, (n_in, layer.n_out), fan_in=n_in,
+                                  fan_out=layer.n_out, device=device)}
+    if layer.has_bias:
+        p["b"] = torch.zeros(layer.n_out, device=device)
+    return p
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class Dense(LayerConfig):
+    """Fully connected layer (DenseLayer role); n_in is inferred."""
+
+    n_out: int = 0
+    has_bias: bool = True
+
+    EXPECTS = "ff"
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.n_out)
+
+    def init(self, key, itype, device):
+        return _dense_init(self, key, itype.size, device), {}
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        x = _dropout(x, self.dropout_rate or 0.0, training, rng)
+        return self._act()(_dense(self, params, x)), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class OutputLayer(Dense):
+    """Dense + declared loss.  ``apply`` returns PRE-activation logits;
+    the model fuses the activation into the loss for training and
+    applies it for ``output()``."""
+
+    loss: Loss = Loss.MCXENT
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        x = _dropout(x, self.dropout_rate or 0.0, training, rng)
+        return _dense(self, params, x), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class ActivationLayer(LayerConfig):
+    HAS_PARAMS = False
+    REGULARIZED = ()
+    # slope / scale of the parameterised activations (Keras' LeakyReLU
+    # alpha 0.3 against the enum's 0.01; ELU's scale); None keeps the
+    # enum's constant
+    alpha: Optional[float] = None
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        if self.alpha is not None:
+            a = self.alpha
+            if self.activation == Activation.LEAKYRELU:
+                return torch.where(x >= 0, x, a * x), state
+            if self.activation == Activation.ELU:
+                return torch.where(x > 0, x, a * torch.expm1(
+                    torch.where(x > 0, 0.0, x))), state
+        return self._act()(x), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class Dropout(LayerConfig):
+    """Standalone dropout layer (DropoutLayer role)."""
+
+    rate: float = 0.5
+    HAS_PARAMS = False
+    REGULARIZED = ()
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        return _dropout(x, self.rate, training, rng), state
+
+
 @serde.register
 @dataclasses.dataclass(frozen=True)
 class Embedding(LayerConfig):
-    """Token ids (B, T) -> vectors (B, T, n_out)."""
+    """Token ids (B,) -> (B, n_out) or (B, T) -> (B, T, n_out)."""
 
     n_in: int = 0
     n_out: int = 0
 
-    def output_size(self, n_in: int) -> int:
-        return self.n_out
+    def output_type(self, itype):
+        if itype.kind == InputType.KIND_RNN:
+            return InputType.recurrent(self.n_out, itype.shape[0])
+        return InputType.feed_forward(self.n_out)
 
-    def init(self, key, n_in, device):
+    def init(self, key, itype, device):
         if self.n_in <= 0:
             raise ValueError("Embedding.n_in (vocab size) must be set explicitly")
         return {"W": self._winit().init(key, (self.n_in, self.n_out),
                                         fan_in=self.n_in, fan_out=self.n_out,
-                                        device=device)}
+                                        device=device)}, {}
 
-    def apply(self, params, x, *, training=False, rng=None):
+    def apply(self, params, state, x, *, training=False, rng=None):
         # a quantized table gathers int8 rows and returns them in f32
-        return self._act()(quantf.embedding_lookup(params["W"], x.long()))
+        return self._act()(quantf.embedding_lookup(params["W"], x.long())), state
+
+
+# ---------------------------------------------------------------------------
+# Convolutional layers (NHWC maps, HWIO kernels; ops/conv.py)
+# ---------------------------------------------------------------------------
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class Conv2D(LayerConfig):
+    """2D convolution (ConvolutionLayer role): ``lax.conv_general_dilated``
+    in the JAX package, cuDNN on the card (`ops/conv.py`)."""
+
+    n_out: int = 0
+    kernel: tuple[int, int] = (3, 3)
+    stride: tuple[int, int] = (1, 1)
+    padding: str = "valid"             # "same" | "valid"
+    dilation: tuple[int, int] = (1, 1)
+    groups: int = 1                    # n_in groups => depthwise
+    has_bias: bool = True
+
+    EXPECTS = "cnn"
+
+    def _out_hw(self, h: int, w: int) -> tuple[int, int]:
+        kh, kw = conv_ops.pair(self.kernel)
+        sh, sw = conv_ops.pair(self.stride)
+        dh, dw = conv_ops.pair(self.dilation)
+        ekh, ekw = (kh - 1) * dh + 1, (kw - 1) * dw + 1
+        if self.padding == "same":
+            return -(-h // sh), -(-w // sw)
+        return (h - ekh) // sh + 1, (w - ekw) // sw + 1
+
+    def output_type(self, itype):
+        h, w, _ = itype.shape
+        oh, ow = self._out_hw(h, w)
+        return InputType.convolutional(oh, ow, self.n_out)
+
+    def init(self, key, itype, device):
+        c_in = itype.channels
+        kh, kw = conv_ops.pair(self.kernel)
+        if c_in % self.groups:
+            raise ValueError(f"channels {c_in} not divisible by groups {self.groups}")
+        shape = (kh, kw, c_in // self.groups, self.n_out)
+        fan_in = kh * kw * (c_in // self.groups)
+        fan_out = kh * kw * self.n_out // self.groups
+        p = {"W": self._winit(WeightInit.RELU).init(key, shape, fan_in=fan_in,
+                                                      fan_out=fan_out, device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros(self.n_out, device=device)
+        return p, {}
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        x = _dropout(x, self.dropout_rate or 0.0, training, rng)
+        # conv_weight: a dtype cast, or the int8 kernel dequantized
+        w = quantf.conv_weight(params["W"], x.dtype)
+        y = conv_ops.conv2d_nhwc(x, w, stride=self.stride, padding=self.padding,
+                                 dilation=self.dilation, groups=self.groups)
+        if self.has_bias:
+            y = y + params["b"].to(x.dtype)
+        return self._act()(y), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class Subsampling(LayerConfig):
+    """Pooling layer (SubsamplingLayer role)."""
+
+    pooling: PoolingType = PoolingType.MAX
+    kernel: tuple[int, int] = (2, 2)
+    stride: tuple[int, int] = (2, 2)
+    padding: str = "valid"
+    pnorm: int = 2
+
+    EXPECTS = "cnn"
+    HAS_PARAMS = False
+    REGULARIZED = ()
+
+    def output_type(self, itype):
+        h, w, c = itype.shape
+        kh, kw = conv_ops.pair(self.kernel)
+        sh, sw = conv_ops.pair(self.stride)
+        if self.padding == "same":
+            oh, ow = -(-h // sh), -(-w // sw)
+        else:
+            oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+        return InputType.convolutional(oh, ow, c)
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        return conv_ops.pool2d_nhwc(x, self.pooling.value, kernel=self.kernel,
+                                    stride=self.stride, padding=self.padding,
+                                    pnorm=self.pnorm), state
+
+
+# ---------------------------------------------------------------------------
+# Normalization layers
+# ---------------------------------------------------------------------------
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class BatchNorm(LayerConfig):
+    """BatchNormalization role.  The running mean and variance live in
+    the layer's STATE: training normalises with the batch's mean and
+    population variance (``jnp.var``) in f32 and returns the running
+    stats as ``decay * old + (1 - decay) * batch``; inference normalises
+    with them.  (``F.batch_norm``'s own update uses the unbiased
+    variance and the opposite momentum, so it is not used.)"""
+
+    epsilon: float = 1e-5
+    decay: float = 0.9        # running-stat momentum (reference default 0.9)
+    lock_gamma_beta: bool = False
+
+    REGULARIZED = ()
+
+    def init(self, key, itype, device):
+        c = itype.shape[-1]
+        params = {}
+        if not self.lock_gamma_beta:
+            params = {"gamma": torch.ones(c, device=device),
+                      "beta": torch.zeros(c, device=device)}
+        state = {"mean": torch.zeros(c, device=device),
+                 "var": torch.ones(c, device=device)}
+        return params, state
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        dims = tuple(range(x.dim() - 1))
+        xf = x.float()
+        if training:
+            mean = xf.mean(dim=dims)
+            var = ((xf - mean) ** 2).mean(dim=dims)
+            new_state = {
+                "mean": self.decay * state["mean"] + (1 - self.decay) * mean,
+                "var": self.decay * state["var"] + (1 - self.decay) * var,
+            }
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        scale = torch.rsqrt(var + self.epsilon)
+        if "gamma" in params:
+            scale = params["gamma"].float() * scale
+        shift = (params["beta"].float() - mean * scale if "beta" in params
+                 else -(mean * scale))
+        y = (xf * scale + shift).to(x.dtype)
+        return self._act()(y), new_state
+
+
+def layer_norm(params: dict, x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
+    """Layer normalization over the last dim, in f32, back in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + epsilon)
+    y = y * params["gamma"].float() + params["beta"].float()
+    return y.to(x.dtype)
 
 
 @serde.register
@@ -150,17 +426,13 @@ class LayerNorm(LayerConfig):
     epsilon: float = 1e-5
     REGULARIZED = ()
 
-    def init(self, key, n_in, device):
-        return {"gamma": torch.ones(n_in, device=device),
-                "beta": torch.zeros(n_in, device=device)}
+    def init(self, key, itype, device):
+        c = itype.shape[-1]
+        return {"gamma": torch.ones(c, device=device),
+                "beta": torch.zeros(c, device=device)}, {}
 
-    def apply(self, params, x, *, training=False, rng=None):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        y = y * params["gamma"].float() + params["beta"].float()
-        return self._act()(y.to(x.dtype))
+    def apply(self, params, state, x, *, training=False, rng=None):
+        return self._act()(layer_norm(params, x, self.epsilon)), state
 
 
 @serde.register
@@ -176,24 +448,19 @@ class ChunkedSoftmaxOutputLayer(LayerConfig):
     chunk: int = 8192
     has_bias: bool = True
 
-    def init(self, key, n_in, device):
-        p = {"W": self._winit().init(key, (n_in, self.n_out), fan_in=n_in,
-                                     fan_out=self.n_out, device=device)}
-        if self.has_bias:
-            p["b"] = torch.zeros(self.n_out, device=device)
-        return p
+    def init(self, key, itype, device):
+        return _dense_init(self, key, itype.size, device), {}
 
-    def apply(self, params, x, *, training=False, rng=None):
-        return _dropout(x, self.dropout_rate or 0.0, training, rng)
+    def apply(self, params, state, x, *, training=False, rng=None):
+        return _dropout(x, self.dropout_rate or 0.0, training, rng), state
+
+    def evaluation_output(self, lp, out):
+        """Class probabilities for `Evaluation`: the hidden states
+        projected densely (evaluation batches are inference-sized)."""
+        return torch.softmax(self.logits(lp, out).float(), dim=-1)
 
     def logits(self, params, h):
-        y = quantf.matmul(h, params["W"])
-        if self.has_bias:
-            y = y + params["b"].to(h.dtype)
-        return y
-
-    def output_activation(self) -> Activation:
-        return Activation.IDENTITY
+        return _dense(self, params, h)
 
     def compute_loss_with_params(self, lp, preds, labels, mask=None):
         """Chunked cross-entropy of (..., D) hidden states ``preds`` against

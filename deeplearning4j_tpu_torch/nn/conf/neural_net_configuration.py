@@ -5,9 +5,12 @@ The configuration has the JAX class's fields and round-trips through
 the same JSON (`to_json` / `from_json`, `utils/serde.py`).  Model-level
 defaults (activation, weight init, l1, l2, dropout) flow into layers
 that did not set their own; layers left unnamed get ``layer{i}``, the
-names parameter trees key on.  Fields the port cannot honour yet load
-all the same and raise when a model is built (`SequentialModel`): TBPTT
-(ROADMAP A8) and convolutional input types (A3).
+names parameter trees key on.  The configuration walks the input type
+down the stack (`layer_input_types`), with the implicit CNN -> FF
+flatten where a feed-forward layer follows a convolutional one (the
+InputPreProcessor role, `flatten_flags`).  Fields the port cannot
+honour yet load all the same and raise when a model is built
+(`SequentialModel`): TBPTT (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -58,25 +61,39 @@ class SequentialConfiguration:
             raise NotImplementedError(
                 "truncated BPTT is not ported yet (ROADMAP A8: recurrent "
                 "layers and TBPTT)")
-        it = self.input_type
-        if it is not None and it.kind not in (InputType.KIND_FF, InputType.KIND_RNN):
-            raise NotImplementedError(
-                f"input type {it} is not ported yet (ROADMAP A3: the LeNet "
-                "slice, convolutional layers)")
         for layer in self.layers:
             layer.check_supported()
 
-    def layer_input_sizes(self) -> list[int]:
-        """Feature size each layer sees: the input type's, then each
-        layer's output (an `Embedding` ignores its input's)."""
-        it = self.input_type
-        cur = it.size if it is not None and it.kind in (
-            InputType.KIND_FF, InputType.KIND_RNN) else 0
-        sizes = []
+    def _walk_types(self) -> tuple[list[InputType], list[bool]]:
+        """The type walk down the stack, with the implicit CNN -> FF
+        flatten: where a layer EXPECTS "ff" and the incoming type is
+        convolutional, the maps flatten (NHWC order) first; ``flags[i]``
+        records it so the model applies the same rule."""
+        if self.input_type is None:
+            raise ValueError("configuration has no input_type; call set_input_type")
+        itypes, flags = [], []
+        cur = self.input_type
         for layer in self.layers:
-            sizes.append(cur)
-            cur = layer.output_size(cur)
-        return sizes
+            flat = layer.EXPECTS == "ff" and cur.kind in (
+                InputType.KIND_CNN, InputType.KIND_CNN3D)
+            if flat:
+                cur = InputType.feed_forward(cur.flat_size)
+            flags.append(flat)
+            itypes.append(cur)
+            cur = layer.output_type(cur)
+        return itypes, flags
+
+    def layer_input_types(self) -> list[InputType]:
+        """Input type each layer sees (after a flatten where one applies)."""
+        return self._walk_types()[0]
+
+    def flatten_flags(self) -> list[bool]:
+        """Whether an implicit flatten precedes each layer."""
+        return self._walk_types()[1]
+
+    def output_type(self) -> InputType:
+        itypes = self.layer_input_types()
+        return self.layers[-1].output_type(itypes[-1])
 
 
 class NeuralNetConfiguration:
@@ -91,6 +108,9 @@ class NeuralNetConfiguration:
                 .layer(ChunkedSoftmaxOutputLayer(n_out=vocab))
                 .set_input_type(InputType.recurrent(1))
                 .build())
+
+    or LeNet's ``Conv2D`` / ``Subsampling`` / ``Dense`` / ``OutputLayer``
+    stack over ``InputType.convolutional(28, 28, 1)`` (`zoo/lenet.py`).
     """
 
     def __init__(self):

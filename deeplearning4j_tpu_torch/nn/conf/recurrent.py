@@ -6,12 +6,10 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
 from deeplearning4j_tpu_torch.nn.activations import Activation
-from deeplearning4j_tpu_torch.nn.conf.layers import LayerConfig, _dropout
+from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import LayerConfig, _dense, _dense_init, _dropout
 from deeplearning4j_tpu_torch.nn.losses import Loss
-from deeplearning4j_tpu_torch.quant import functional as quantf
 from deeplearning4j_tpu_torch.utils import serde
 
 #: output activation a loss implies when the layer declares none
@@ -33,27 +31,17 @@ class RnnOutputLayer(LayerConfig):
     loss: Loss = Loss.MCXENT
     has_bias: bool = True
 
-    def output_size(self, n_in: int) -> int:
-        return self.n_out
+    EXPECTS = "rnn"
 
-    def init(self, key, n_in, device):
-        p = {"W": self._winit().init(key, (n_in, self.n_out), fan_in=n_in,
-                                     fan_out=self.n_out, device=device)}
-        if self.has_bias:
-            p["b"] = torch.zeros(self.n_out, device=device)
-        return p
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, itype.shape[0])
 
-    def apply(self, params, x, *, training=False, rng=None):
+    def init(self, key, itype, device):
+        return _dense_init(self, key, itype.size, device), {}
+
+    def apply(self, params, state, x, *, training=False, rng=None):
         x = _dropout(x, self.dropout_rate or 0.0, training, rng)
-        return self.logits(params, x)
+        return self.logits(params, x), state
 
     def logits(self, params, x):
-        y = quantf.matmul(x, params["W"])
-        if self.has_bias:
-            y = y + params["b"].to(x.dtype)
-        return y
-
-    def output_activation(self) -> Activation:
-        if self.activation is not None:
-            return self.activation
-        return CANONICAL_ACTIVATION.get(self.loss, Activation.IDENTITY)
+        return _dense(self, params, x)

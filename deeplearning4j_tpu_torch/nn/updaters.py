@@ -22,6 +22,16 @@ nested tuples for a chain.  `state_leaves` flattens it in the order
 ``jax.tree.leaves`` flattens optax's state, `load_state_leaves` writes
 such a list back: the positional ``updater.npz`` of a checkpoint.
 Tensors of a state are updated in place.
+
+Step values.  What changes from step to step besides the tensors — the
+learning rate a schedule gives and Adam's bias corrections — is a
+function of the counts alone: ``tx.values(state)`` gives those f32
+values on the host, and ``update(..., vals=...)`` takes them as given.
+With ``vals`` None the update computes them itself, as Python floats
+(the CPU path, optax's arithmetic).  A captured training step on the
+card passes them as 0-dim views of a device tensor it refills before
+each replay, so no step's rate is baked into the graph; the counts then
+advance on the host (`advance_counts`), as `update` would advance them.
 """
 
 from __future__ import annotations
@@ -49,12 +59,19 @@ def _bump(count: int) -> int:
     return min(count + 1, _INT32_MAX)
 
 
+def _no_values(state) -> list:
+    return []
+
+
 class Transform(NamedTuple):
     """An optax ``GradientTransformation``: ``init(params) -> state``,
-    ``update(grads, state, params) -> (updates, state)``."""
+    ``update(grads, state, params, vals=None) -> (updates, state)``, and
+    ``values(state)``: the step values that update reads (see the module
+    docstring)."""
 
     init: Callable
     update: Callable
+    values: Callable = _no_values
 
 
 def _zeros(params):
@@ -69,18 +86,37 @@ def chain(*txs) -> Transform:
     def init(params):
         return tuple(t.init(params) for t in txs)
 
-    def update(grads, state, params=None):
+    def values(state):
+        return [v for t, s in zip(txs, state) for v in t.values(s)]
+
+    def update(grads, state, params=None, vals=None):
         new = []
+        at = 0
         for t, s in zip(txs, state):
-            grads, s = t.update(grads, s, params)
+            mine = None
+            if vals is not None:
+                n = len(t.values(s))
+                mine, at = vals[at:at + n], at + n
+            grads, s = t.update(grads, s, params, mine)
             new.append(s)
         return grads, tuple(new)
 
-    return Transform(init, update)
+    return Transform(init, update, values)
+
+
+def advance_counts(state):
+    """``state`` with every count bumped once: the counts `update`
+    returns, for a step whose tensors were updated without running it
+    (a graph replay)."""
+    if isinstance(state, tuple):
+        return tuple(advance_counts(s) for s in state)
+    if isinstance(state, int):
+        return _bump(state)
+    return state
 
 
 def identity() -> Transform:
-    return Transform(_empty_init, lambda g, s, p=None: (g, s))
+    return Transform(_empty_init, lambda g, s, p=None, v=None: (g, s))
 
 
 def _moment(grads, moments, decay: float, order: int) -> None:
@@ -101,15 +137,19 @@ def _sqrt(xs):
 
 def scale_by_schedule(fn) -> Transform:
     """updates * fn(count), the count its own state."""
-    def update(grads, state, params=None):
-        (count,) = state
-        return torch._foreach_mul(grads, float(np.float32(fn(count)))), (_bump(count),)
+    def values(state):
+        return [float(np.float32(fn(state[0])))]
 
-    return Transform(lambda params: (0,), update)
+    def update(grads, state, params=None, vals=None):
+        (count,) = state
+        (lr,) = values(state) if vals is None else vals
+        return torch._foreach_mul(grads, lr), (_bump(count),)
+
+    return Transform(lambda params: (0,), update, values)
 
 
 def trace(decay: float, nesterov: bool = False) -> Transform:
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, vals=None):
         (tr,) = state
         torch._foreach_mul_(tr, _f32(decay))
         torch._foreach_add_(tr, grads)                  # g + decay t
@@ -123,61 +163,80 @@ def trace(decay: float, nesterov: bool = False) -> Transform:
 
 
 def scale_by_adam(b1: float, b2: float, eps: float, nesterov: bool = False) -> Transform:
-    def update(grads, state, params=None):
+    def values(state):
+        count = _bump(state[0])
+        vals = [_bias_correction(b1, count), _bias_correction(b2, count)]
+        if nesterov:
+            vals.append(_bias_correction(b1, _bump(count)))
+        return vals
+
+    def update(grads, state, params=None, vals=None):
         count, mu, nu = state
+        c1, c2, *c1_next = values(state) if vals is None else vals
         grads = [g.float() for g in grads]
         _moment(grads, mu, b1, 1)
         _moment(grads, nu, b2, 2)
         count = _bump(count)
         if nesterov:
-            m = torch._foreach_mul(
-                torch._foreach_div(mu, _bias_correction(b1, _bump(count))), _f32(b1))
+            m = torch._foreach_mul(torch._foreach_div(mu, c1_next[0]), _f32(b1))
             torch._foreach_add_(m, torch._foreach_mul(
-                torch._foreach_div(grads, _bias_correction(b1, count)), _f32(1 - b1)))
+                torch._foreach_div(grads, c1), _f32(1 - b1)))
         else:
-            m = torch._foreach_div(mu, _bias_correction(b1, count))
-        v = torch._foreach_div(nu, _bias_correction(b2, count))
+            m = torch._foreach_div(mu, c1)
+        v = torch._foreach_div(nu, c2)
         den = _sqrt(v)
         torch._foreach_add_(den, _f32(eps))
         return torch._foreach_div(m, den), (count, mu, nu)
 
-    return Transform(lambda params: (0, _zeros(params), _zeros(params)), update)
+    return Transform(lambda params: (0, _zeros(params), _zeros(params)), update,
+                     values)
 
 
 def scale_by_adamax(b1: float, b2: float, eps: float) -> Transform:
-    def update(grads, state, params=None):
+    def values(state):
+        return [_bias_correction(b1, _bump(state[0]))]
+
+    def update(grads, state, params=None, vals=None):
         count, mu, nu = state
+        (c1,) = values(state) if vals is None else vals
         grads = [g.float() for g in grads]
         count = _bump(count)
         _moment(grads, mu, b1, 1)
         for n, g in zip(nu, grads):                      # max(|g| + eps, b2 nu)
             torch.maximum(g.abs() + _f32(eps), n * _f32(b2), out=n)
-        m = torch._foreach_div(mu, _bias_correction(b1, count))
+        m = torch._foreach_div(mu, c1)
         return torch._foreach_div(m, nu), (count, mu, nu)
 
-    return Transform(lambda params: (0, _zeros(params), _zeros(params)), update)
+    return Transform(lambda params: (0, _zeros(params), _zeros(params)), update,
+                     values)
 
 
 def scale_by_amsgrad(b1: float, b2: float, eps: float) -> Transform:
-    def update(grads, state, params=None):
+    def values(state):
+        count = _bump(state[0])
+        return [_bias_correction(b1, count), _bias_correction(b2, count)]
+
+    def update(grads, state, params=None, vals=None):
         count, mu, nu, nu_max = state
+        c1, c2 = values(state) if vals is None else vals
         grads = [g.float() for g in grads]
         _moment(grads, mu, b1, 1)
         _moment(grads, nu, b2, 2)
         count = _bump(count)
-        m = torch._foreach_div(mu, _bias_correction(b1, count))
-        v = torch._foreach_div(nu, _bias_correction(b2, count))
+        m = torch._foreach_div(mu, c1)
+        v = torch._foreach_div(nu, c2)
         torch._foreach_maximum_(nu_max, v)
         den = _sqrt(nu_max)
         torch._foreach_add_(den, _f32(eps))
         return torch._foreach_div(m, den), (count, mu, nu, nu_max)
 
     return Transform(
-        lambda params: (0, _zeros(params), _zeros(params), _zeros(params)), update)
+        lambda params: (0, _zeros(params), _zeros(params), _zeros(params)), update,
+        values)
 
 
 def scale_by_rss(initial: float, eps: float) -> Transform:
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, vals=None):
         (ss,) = state
         grads = [g.float() for g in grads]
         torch._foreach_add_(ss, torch._foreach_mul(grads, grads))
@@ -195,7 +254,7 @@ def scale_by_rss(initial: float, eps: float) -> Transform:
 
 
 def scale_by_adadelta(rho: float, eps: float) -> Transform:
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, vals=None):
         e_g, e_x = state
         grads = [g.float() for g in grads]
         _moment(grads, e_g, rho, 2)
@@ -209,7 +268,7 @@ def scale_by_adadelta(rho: float, eps: float) -> Transform:
 
 
 def scale_by_rms(decay: float, eps: float) -> Transform:
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, vals=None):
         (nu,) = state
         grads = [g.float() for g in grads]
         _moment(grads, nu, decay, 2)
@@ -220,7 +279,7 @@ def scale_by_rms(decay: float, eps: float) -> Transform:
 
 
 def add_decayed_weights(weight_decay: float) -> Transform:
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, vals=None):
         if not weight_decay:                  # g + 0 p is g
             return grads, state
         if params is None:
@@ -234,16 +293,16 @@ def add_decayed_weights(weight_decay: float) -> Transform:
 
 def set_to_zero() -> Transform:
     return Transform(_empty_init,
-                     lambda g, s, p=None: ([torch.zeros_like(x) for x in g], s))
+                     lambda g, s, p=None, v=None: ([torch.zeros_like(x) for x in g], s))
 
 
 def clip(max_delta: float) -> Transform:
-    return Transform(_empty_init, lambda g, s, p=None: (
+    return Transform(_empty_init, lambda g, s, p=None, v=None: (
         [x.clamp(-max_delta, max_delta) for x in g], s))
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, vals=None):
         norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
         # a select, as optax does: no host sync on the norm
         keep = norm < max_norm
@@ -321,8 +380,8 @@ class Updater:
     def init(self, params):
         return self.to_tx().init(params)
 
-    def update(self, grads, state, params=None):
-        return self.to_tx().update(grads, state, params)
+    def update(self, grads, state, params=None, vals=None):
+        return self.to_tx().update(grads, state, params, vals)
 
 
 @dataclasses.dataclass(frozen=True)

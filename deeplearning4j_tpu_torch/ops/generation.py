@@ -206,7 +206,7 @@ def generate(model, prompt_ids, max_new_tokens: int, *,
     with model.program_run("generate", *shape):
         x = _embed(embed, params[embed_name], prompt)
         if pos is not None:
-            x = pos.apply(pos_lp, x)
+            x = pos.apply(pos_lp, {}, x)[0]
         caches = []
         for cfg in blocks:
             x, k, v = _block_prefill(cfg, params[cfg.name], x, None)

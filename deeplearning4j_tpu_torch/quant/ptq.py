@@ -1,14 +1,18 @@
 """Post-training quantization — `quantize(model)` for the port, the
 counterpart of `deeplearning4j_tpu/quant/ptq.py`.
 
-Rewrites the matmul and embedding weights of a built model into
+Rewrites the matmul, conv and embedding weights of a built model into
 `QuantizedTensor` pairs (symmetric per-output-channel int8,
-`qtensor.quantize_array`), keyed exactly as the JAX package keys its
-quantized tree.  Biases and norm parameters stay f32.  The quantized
+`qtensor.quantize_array`; a conv kernel's channels are HWIO's last
+axis), keyed exactly as the JAX package keys its quantized tree.
+Biases, norm parameters and BatchNorm's state stay f32.  The quantized
 layer set comes from the configuration (layer types), limited to the
-layer types the port has: `Embedding`, `ChunkedSoftmaxOutputLayer`,
-`RnnOutputLayer` and `TransformerEncoderBlock` (W1, W2 and the
-attention projections).
+layer types the port has: `Conv2D`, `Dense` and `OutputLayer`,
+`Embedding`, `ChunkedSoftmaxOutputLayer`, `RnnOutputLayer` and
+`TransformerEncoderBlock` (W1, W2 and the attention projections).  A
+quantized Dense or OutputLayer product runs B5 on the card
+(`quantf.matmul`); a quantized conv dequantizes its kernel and convolves
+in f32 (`quantf.conv_weight`), as the JAX layer does.
 
 The transform is inference-only: the optimizer state is dropped (an int8
 tree takes no updates, and `fit_batch` refuses a quantized model) and
@@ -49,6 +53,8 @@ def _quantizable_types():
 
     qkv = ("Wq", "Wk", "Wv", "Wo")
     return (
+        (L.Conv2D, {"": ("W",)}),
+        (L.Dense, {"": ("W",)}),             # OutputLayer subclasses Dense
         (L.Embedding, {"": ("W",)}),
         (L.ChunkedSoftmaxOutputLayer, {"": ("W",)}),
         (R.RnnOutputLayer, {"": ("W",)}),
@@ -121,9 +127,10 @@ def quantize(model, *, min_elements: int = 0, copy: bool = True):
         target.iteration = model.iteration
         target.epoch = model.epoch
         qparams = _copy_tree(qparams)
+        target.net_state = _copy_tree(model.net_state or {})
     else:
         target = model
-    target._install(qparams)              # drops opt_state and the compute cache
+    target._install(qparams)              # drops opt_state, the compute cache, the graphs
     target._quantized = {"scheme": SCHEME, "min_elements": min_elements}
     _gauge_bytes(qparams)
     return target

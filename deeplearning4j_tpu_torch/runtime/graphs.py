@@ -17,10 +17,19 @@ on every call is one `replay`.
   kernel scratch): a graph replayed over freed memory reads garbage, so
   the owner re-captures when those objects change, and holds them until
   then.
+- ``pool`` and ``stream``: another graph's `graph.pool()` and `stream`,
+  to capture into that graph's private memory pool on its stream.  The
+  allocator hands a capture only blocks freed on its own stream, so a
+  pool is shared only with the stream.  Graphs that share a pool must
+  never run at the same time, and a tensor ``fn`` returns (an output)
+  lives in the pool, so only graphs whose outputs the caller no longer
+  reads may share one.
 - Capture runs with ``capture_error_mode="thread_local"``: other threads
   may use the card meanwhile.  It leaves the allocator's cache as it is.
 - Launch counters: the kernels a capture enqueues are held, not counted
-  (they do not run then), and each replay counts them once.
+  (they do not run then), and each replay counts them once; a
+  backward's, which autograd enqueues from its own thread on the
+  capture stream, too.
 - Nothing falls back: a failing capture or replay raises.
 - Each capture counts as one ``jit_cache_misses`` in `compile_stats`.
 """
@@ -35,11 +44,11 @@ from deeplearning4j_tpu_torch.runtime import compile_stats, kernels
 class CapturedProgram:
     """``fn(*inputs)`` as one CUDA graph; see the module docstring."""
 
-    def __init__(self, fn, inputs, *, keep=()):
+    def __init__(self, fn, inputs, *, keep=(), pool=None, stream=None):
         self.inputs = tuple(inputs)
         self.keep = tuple(keep)
         device = self.inputs[0].device
-        self.stream = torch.cuda.Stream(device)
+        self.stream = stream if stream is not None else torch.cuda.Stream(device)
         current = torch.cuda.current_stream(device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
@@ -48,8 +57,9 @@ class CapturedProgram:
         # that one empties the allocator's cache first, and every eager
         # allocation after it (the next prefills) pays cudaMalloc again
         self.graph = torch.cuda.CUDAGraph()
-        with kernels.holding_launches() as held, torch.cuda.stream(self.stream):
-            self.graph.capture_begin(capture_error_mode="thread_local")
+        with kernels.holding_launches(self.stream.cuda_stream) as held, \
+                torch.cuda.stream(self.stream):
+            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 self.outputs = fn(*self.inputs)
             finally:

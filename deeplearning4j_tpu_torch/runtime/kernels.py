@@ -235,28 +235,42 @@ def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     held = getattr(_HOLD, "launches", None)
+    if held is None and _HOLD_BY_STREAM:
+        # a backward runs in autograd's device thread, on the stream of
+        # its forward: a launch there during a capture is held too
+        held = _HOLD_BY_STREAM.get(torch.cuda.current_stream().cuda_stream)
     if held is not None:
-        held[name] = held.get(name, 0) + 1
+        with _COUNT_LOCK:
+            held[name] = held.get(name, 0) + 1
         return
     with _COUNT_LOCK:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
 
 
 _HOLD = threading.local()
+#: capture stream -> the held dict of the capture running on it
+_HOLD_BY_STREAM: dict = {}
 
 
 @contextlib.contextmanager
-def holding_launches():
+def holding_launches(stream: int | None = None):
     """Launches this thread makes inside the block go into the yielded
     dict instead of the counters: a graph capture enqueues kernels that
-    do not run until the graph replays."""
+    do not run until the graph replays.  With ``stream`` (the capture
+    stream's raw handle), launches any other thread makes on that
+    stream meanwhile are held as well: autograd runs a captured step's
+    backward in its own thread."""
     if getattr(_HOLD, "launches", None) is not None:
         raise RuntimeError("holding_launches does not nest")
     _HOLD.launches = held = {}
+    if stream is not None:
+        _HOLD_BY_STREAM[stream] = held
     try:
         yield held
     finally:
         _HOLD.launches = None
+        if stream is not None:
+            _HOLD_BY_STREAM.pop(stream, None)
 
 
 def count_replay(held: dict) -> None:

@@ -589,7 +589,7 @@ class GenerationEngine:
         with self.model.program_run("prefill", tuple(prompt_pad.shape)):
             x = _embed(embed, params[self._embed_name], prompt_pad)
             if pos is not None:
-                x = pos.apply(params.get(self._pos_name, {}), x)
+                x = pos.apply(params.get(self._pos_name, {}), {}, x)[0]
             ks, vs = [], []
             for cfg_b in blocks:
                 x, k, v = _block_prefill(cfg_b, params[cfg_b.name], x, None)

@@ -134,7 +134,7 @@ class ModelDrafter(DraftSource):
         with self.model.program_run("draft", tuple(toks_pad.shape)):
             x = _embed(embed, params[self._embed_name], toks_pad)
             if pos is not None:
-                x = pos.apply(params.get(self._pos_name, {}), x)
+                x = pos.apply(params.get(self._pos_name, {}), {}, x)[0]
             for cfg_b in blocks:
                 x, _, _ = _block_prefill(cfg_b, params[cfg_b.name], x, None)
             logits = _head_logits(head, params[self._head_name],

@@ -9,7 +9,8 @@ A checkpoint is one zip:
 - ``params.npz``, ``netstate.npz``, ``updater.npz``: positional arrays
   ``arr_0, arr_1, ...``, the leaves in ``jax.tree.leaves`` order (dict
   keys sorted at every level, so ``layer10`` before ``layer2``; a
-  quantized weight as ``q`` then ``scale``; the optimizer state as optax
+  quantized weight as ``q`` then ``scale``; the layers' state, such as
+  BatchNorm's ``mean`` and ``var``; the optimizer state as optax
   flattens it, `nn/updaters.py` `state_leaves`);
 - ``meta.json``: format version, iteration, epoch and the quantization
   scheme of an int8 model;
@@ -156,7 +157,7 @@ class ModelSerializer:
                 {"model_class": type(model).__name__,
                  "conf": serde.to_jsonable(model.conf)}, indent=2).encode())
             put("params.npz", *_npz_bytes(tree_leaves(model.params)))
-            put("netstate.npz", *_npz_bytes([]))      # no ported layer has state
+            put("netstate.npz", *_npz_bytes(tree_leaves(model.net_state or {})))
             opt = _updater_state(model) if save_updater else None
             if opt is not None:
                 put("updater.npz", *_npz_bytes(updaters.state_leaves(opt)))
@@ -255,7 +256,9 @@ class ModelSerializer:
             model._install(_unflatten_like(
                 ref, _npz_leaves(zf, "params.npz", len(tree_leaves(ref)))))
             model._quantized = quantized
-            _npz_leaves(zf, "netstate.npz", 0)
+            state = model.net_state
+            model.load_net_state(_unflatten_like(
+                state, _npz_leaves(zf, "netstate.npz", len(tree_leaves(state)))))
             if "updater.npz" in zf.namelist():
                 state = (model._tx.init(tree_leaves(model.params))
                          if quantized is None else ())

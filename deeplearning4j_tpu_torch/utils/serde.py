@@ -9,8 +9,8 @@ JAX package's tags (the class names), with its field names, defaults and
 enum values, so one ``configuration.json`` reads and writes in both
 packages.
 
-A tag the JAX package has and the port does not yet (a Dense layer, a
-graph vertex, ...) raises `NotImplementedError` naming the ROADMAP item
+A tag the JAX package has and the port does not yet (a graph vertex, a
+recurrent layer, ...) raises `NotImplementedError` naming the ROADMAP item
 that ports it; a tag neither package knows raises `KeyError`.
 """
 
@@ -24,15 +24,12 @@ from typing import Any
 
 _REGISTRY: dict[str, type] = {}
 
-_LENET = "A3: the LeNet slice"
 _RESNET = "A4: the ResNet-50 slice, graphs and N-d layers"
 _ATTENTION = "A5: attention, the rest"
 _RECURRENT = "A8: recurrent layers"
 _LONG_TAIL = "A13: the long tail"
 #: JAX package tags the port has no class for yet, and where each waits
 UNPORTED = {
-    **dict.fromkeys(("Dense", "OutputLayer", "Conv2D", "Subsampling",
-                     "BatchNorm", "Dropout", "ActivationLayer"), _LENET),
     **dict.fromkeys(("GraphConfiguration", "GraphNode", "AttentionVertex",
                      "ElementWiseVertex", "L2NormalizeVertex", "MergeVertex",
                      "ReshapeVertex", "ScaleVertex", "StackVertex",

@@ -4,7 +4,6 @@ positions + N pre-LN encoder blocks + a per-token vocab head."""
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.models.sequential import SequentialModel
 from deeplearning4j_tpu_torch.nn.conf.attention import (
     PositionalEncoding,
     TransformerEncoderBlock,
@@ -22,9 +21,10 @@ from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.losses import Loss
 from deeplearning4j_tpu_torch.nn.updaters import Adam
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
+from deeplearning4j_tpu_torch.zoo.zoo_model import ZooModel
 
 
-class TransformerEncoder:
+class TransformerEncoder(ZooModel):
     NAME = "transformer_encoder"
 
     def __init__(
@@ -47,6 +47,7 @@ class TransformerEncoder:
         if moe_experts:
             raise NotImplementedError(
                 "MoE layers are not ported yet (ROADMAP A5: attention, the rest)")
+        super().__init__(vocab_size, seed)
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.n_heads = n_heads
@@ -83,7 +84,3 @@ class TransformerEncoder:
             head = RnnOutputLayer(n_out=self.vocab_size, loss=Loss.MCXENT,
                                   activation=Activation.SOFTMAX)
         return b.layer(head).set_input_type(InputType.recurrent(1)).build()
-
-    def init_model(self, device=None) -> SequentialModel:
-        """Build and randomly initialise on ``device`` (CUDA by default)."""
-        return SequentialModel(self.conf(), device=device).init()

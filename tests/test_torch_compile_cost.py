@@ -102,12 +102,14 @@ def test_builds_and_up_to_date_libraries_count(fake_nvcc):
 
 
 class _Stream:
+    cuda_stream = 0          # the raw handle a capture holds launches by
+
     def wait_stream(self, other):
         pass
 
 
 class _Graph:
-    def capture_begin(self, capture_error_mode=None):
+    def capture_begin(self, pool=None, capture_error_mode=None):
         assert capture_error_mode == "thread_local"
 
     def capture_end(self):

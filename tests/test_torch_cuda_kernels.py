@@ -70,7 +70,19 @@ layers x 6 products and the head); its engine agrees with dense
 `generate` (>= 0.95, first tokens identical) before and after a
 quantized hot-swap that re-captures the step; ``DL4JTPU_QUANT_KERNEL``
 unset, auto or ``pallas`` launches B5 on the card, and ``xla`` or
-``blocked`` raises there.
+``blocked`` raises there.  The LeNet slice: 3 f32 LeNet steps on the
+card (cuDNN in exact f32, the captured step), each from the CPU's trees,
+with Sgd and with Adam: the loss within 1e-5, Dense and the head's
+parameters (Sgd) and moments (Adam) within 1e-5 of each leaf's largest
+element, every Adam step the Adam formula on the card's own moments and
+staged step values; LeNet's conv and pooling layers on identical inputs,
+forward and backward, within 1e-5 of the CPU's; a step after
+`load_params` trains the new weights; the captured training step's
+replays against the same program run eagerly, bit for bit (LeNet in f32
+and bf16, SimpleCNN with dropout and BatchNorm); convolutions from 4
+threads give the single thread's bits and leave cuDNN's flags as they
+were; quantized LeNet with exactly 2 B5 launches a call, within 2e-5 of
+max p of the CPU's quantized model.
 """
 
 import dataclasses
@@ -83,7 +95,7 @@ import torch
 from deeplearning4j_tpu_torch.convert import params_to_numpy
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.models.sequential import SequentialModel, tree_leaves
-from deeplearning4j_tpu_torch.nn.updaters import state_leaves
+from deeplearning4j_tpu_torch.nn.updaters import Adam, Sgd, state_leaves
 from deeplearning4j_tpu_torch.ops.dequant_matmul import (
     dequant_matmul,
     dequant_matmul_plain,
@@ -112,6 +124,8 @@ from deeplearning4j_tpu_torch.serving.generation import (
 )
 from deeplearning4j_tpu_torch.serving.kv_cache import quantize_page_rows
 from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+from deeplearning4j_tpu_torch.zoo.lenet import LeNet
+from deeplearning4j_tpu_torch.zoo.simplecnn import SimpleCNN
 from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
 pytestmark = pytest.mark.torch_port
@@ -347,6 +361,278 @@ def test_training_on_the_card_matches_the_cpu(cuda):
     counts = kernels.launches()
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
         assert counts.get(name, 0) == 2 * 3, counts
+
+
+def _lenet_batches(n, batch=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return [DataSet(rng.random((batch, 28, 28, 1)).astype(np.float32),
+                    np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)])
+            for _ in range(n)]
+
+
+LENET_UPDATERS = {"sgd": lambda: Sgd(0.1), "adam": lambda: Adam(1e-3)}
+# LeNet's leaves that no max window routes a gradient to: Dense and the head
+LENET_UNPOOLED = ("layer4", "layer5")
+
+
+def _lenet_on_both(cuda, updater):
+    conf = dataclasses.replace(LeNet().conf(), bf16_compute=False, updater=updater)
+    return (SequentialModel(conf, device=cuda).init(),
+            SequentialModel(conf, device="cpu").init())
+
+
+def _rel_gap(got, want) -> float:
+    """The largest gap over the largest reference element."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / max(float(want.abs().max()), 1e-30))
+
+
+def _unpooled(tree) -> list:
+    return tree_leaves({k: tree[k] for k in LENET_UNPOOLED})
+
+
+def _adam_moments(model, names) -> list:
+    """(mu, nu) of each named layer's leaves, in the parameter order.  The
+    state is ``((adam (count, mu, nu), rate (count,)),)``: Adam's chain
+    under the (absent) clipping."""
+    ((_, mu, nu), _), = model.opt_state
+    order = sorted(model.params)
+    n = [len(tree_leaves(model.params[k])) for k in order]
+    first = dict(zip(order, np.cumsum([0] + n[:-1])))
+    idx = [first[k] + j for k in names for j in range(len(tree_leaves(model.params[k])))]
+    return [(mu[i], nu[i]) for i in idx]
+
+
+@pytest.mark.parametrize("updater", ["sgd", "adam"])
+def test_lenet_steps_on_the_card_match_the_cpu(cuda, updater):
+    """f32 compute: 3 LeNet steps on the card (the captured step: one
+    capture, then replays) against the same steps on the CPU, each from
+    the same trees: before steps 2 and 3 the CPU's parameters and
+    optimizer state are copied into the card's own tensors (its graph
+    reads them).  After each step:
+
+    - the loss within 1e-5;
+    - Dense and the head (the leaves no max window routes to): Sgd(0.1)'s
+      parameters (0.1 x the gradient off the old weights) and Adam's
+      moments (0.1 g and 0.001 g^2) within 1e-5 of each leaf's largest
+      element, so a gradient off by a scale, or on part of a leaf,
+      fails;
+    - Adam: every leaf's step is Adam's on the card's own new moments
+      and the step count (the rate and the f32 bias corrections the host
+      stages for the graph), each element within 1e-6 of the leaf's
+      largest step plus half an f32 ulp of the new parameter (p + u is
+      rounded once).
+
+    The conv leaves are held by `test_lenet_layers_on_the_card_match_the_cpu`
+    instead: in a whole step a max window whose two largest inputs lie
+    within rounding of each other sends its whole gradient to either one,
+    as each device's f32 sums fall, and that moves the conv leaves'
+    gradients by far more than rounding (the JAX package's CPU step and
+    the card both route some of these batches' windows unlike the port's
+    CPU step)."""
+    from deeplearning4j_tpu_torch.nn.updaters import load_state_leaves
+
+    card, cpu = _lenet_on_both(cuda, LENET_UPDATERS[updater]())
+    upd = card.conf.updater
+    for i, b in enumerate(_lenet_batches(3)):
+        if i:
+            with torch.no_grad():
+                for p, v in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+                    p.copy_(v)
+            card.opt_state = load_state_leaves(card.opt_state,
+                                               state_leaves(cpu.opt_state))
+        before = [p.detach().clone() for p in tree_leaves(card.params)]
+        card.fit_batch(b)
+        cpu.fit_batch(b)
+        assert abs(card.score_value - cpu.score_value) <= 1e-5, i
+        if updater == "sgd":
+            gaps = [_rel_gap(a, w) for a, w in zip(_unpooled(card.params),
+                                                   _unpooled(cpu.params))]
+            assert max(gaps) <= 1e-5, (i, gaps)
+            continue
+        gaps = [_rel_gap(a, w) for (ma, va), (mw, vw) in zip(
+            _adam_moments(card, LENET_UNPOOLED), _adam_moments(cpu, LENET_UNPOOLED))
+            for a, w in ((ma, mw), (va, vw))]
+        assert max(gaps) <= 1e-5, (i, gaps)
+        t = np.float32(card.iteration)
+        c1, c2 = (float(1 - np.float32(beta) ** t) for beta in (upd.beta1, upd.beta2))
+        for p0, p, (mu, nu) in zip(before, tree_leaves(card.params),
+                                   _adam_moments(card, sorted(card.params))):
+            p = p.detach().cpu().double()
+            mu, nu = mu.cpu().double(), nu.cpu().double()
+            step = -float(np.float32(upd.learning_rate)) * (mu / c1) / (
+                (nu / c2).sqrt() + float(np.float32(upd.epsilon)))
+            err = (p - p0.cpu().double() - step).abs()
+            assert bool((err <= 1e-6 * step.abs().max() + p.abs() * 2.0**-24).all()), i
+    stats = card.compile_stats()
+    assert stats["step_programs"] == 1 and stats["jit_cache_misses"] == 1
+
+
+def test_lenet_layers_on_the_card_match_the_cpu(cuda):
+    """Each of LeNet's convolution and pooling layers on the card, forward
+    and backward (of ``sum(y * g)``, g seeded), on the CPU's own inputs
+    to it (its activations at batch 32): output and the gradients of the
+    input, the kernel and the bias within 1e-5 of each one's largest
+    element (cuDNN in exact f32 against the CPU, the same sums in
+    another order).  Identical inputs route every max window alike."""
+    conf = dataclasses.replace(LeNet().conf(), bf16_compute=False)
+    cpu = SequentialModel(conf, device="cpu").init()
+    x = _lenet_batches(1)[0].features
+    acts = [torch.from_numpy(x)] + cpu.feed_forward(x)
+    gen = torch.Generator().manual_seed(3)
+    for i, layer in enumerate(conf.layers[:4]):
+        params = cpu.params.get(layer.name, {})
+        g = torch.randn(acts[i + 1].shape, generator=gen)
+        res = []
+        for dev in ("cpu", cuda):
+            a = acts[i].detach().to(dev).requires_grad_()
+            p = {k: v.detach().to(dev).requires_grad_() for k, v in params.items()}
+            y, _ = layer.apply(p, {}, a)
+            y.mul(g.to(dev)).sum().backward()
+            res.append([y, a.grad] + [p[k].grad for k in sorted(p)])
+        for got, want in zip(res[1], res[0]):
+            assert _rel_gap(got, want) <= 1e-5, (layer.name, _rel_gap(got, want))
+
+
+def test_a_step_after_load_params_trains_the_new_weights(cuda):
+    """Sgd LeNet (no optimizer tensors, no layer state) on the card: a
+    step, then `load_params` of other weights, then a step.  The second
+    step must move every new parameter and match the CPU's step from the
+    same weights: the loss within 1e-5, Dense and the head within 1e-5 of
+    each leaf's largest element (a graph kept from the old tensors would
+    train those and leave the new ones as they were)."""
+    card, cpu = _lenet_on_both(cuda, LENET_UPDATERS["sgd"]())
+    b0, b1 = _lenet_batches(2)
+    card.fit_batch(b0)
+    other = SequentialModel(dataclasses.replace(cpu.conf, seed=7), device="cpu").init()
+    card.load_params(_to_cpu(other.params))
+    cpu.load_params(_to_cpu(other.params))
+    card.fit_batch(b1)
+    cpu.fit_batch(b1)
+    assert abs(card.score_value - cpu.score_value) <= 1e-5
+    moved = [not torch.equal(a.detach().cpu(), b)
+             for a, b in zip(tree_leaves(card.params), tree_leaves(other.params))]
+    assert all(moved)
+    gaps = [_rel_gap(a, w) for a, w in zip(_unpooled(card.params), _unpooled(cpu.params))]
+    assert max(gaps) <= 1e-5, gaps
+    assert card.compile_stats()["jit_cache_misses"] == 2
+
+
+def test_conv_flag_windows_in_threads_on_the_card(cuda):
+    """Convolution forwards and backwards from 4 threads at once (each
+    backward on autograd's thread): every result is the single-thread
+    result's bits (deterministic, no TF32, inside every window), and
+    cuDNN's global flags are the caller's afterwards."""
+    import threading
+
+    from deeplearning4j_tpu_torch.ops.conv import conv2d_nhwc
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((64, 28, 28, 20), generator=g, device=cuda)
+    w = torch.randn((5, 5, 20, 50), generator=g, device=cuda)
+
+    def run():
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = conv2d_nhwc(xr, wr, padding="same")
+        y.square().sum().backward()
+        return y.detach(), xr.grad, wr.grad
+
+    cudnn = torch.backends.cudnn
+    flags = lambda: (cudnn.enabled, cudnn.benchmark, cudnn.deterministic,  # noqa: E731
+                     cudnn.allow_tf32)
+    with cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                     allow_tf32=True):
+        caller = flags()
+        want = run()
+        got, errors = [], []
+
+        def worker():
+            try:
+                for _ in range(5):
+                    got.append(run())
+            except Exception as e:      # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        assert not errors and flags() == caller
+    assert len(got) == 20
+    for res in got:
+        assert all(torch.equal(a, b) for a, b in zip(res, want))
+
+
+def _snapshot_state(model):
+    return ([p.detach().clone() for p in tree_leaves(model.params)],
+            [x.clone() if isinstance(x, torch.Tensor) else x
+             for x in state_leaves(model.opt_state)],
+            [x.clone() for x in tree_leaves(model.net_state)], model.iteration)
+
+
+@pytest.mark.parametrize("name,bf16", [("lenet", False), ("lenet", True),
+                                       ("simplecnn", True)])
+def test_captured_training_steps_are_the_eager_steps(cuda, name, bf16):
+    """From one snapshot, 3 replays of the captured step and 3 eager runs
+    of the same step program give the same losses, parameters, Adam state
+    and BatchNorm state, bit for bit (SimpleCNN: dropout keys and
+    BatchNorm stats through the graph's device inputs)."""
+    from deeplearning4j_tpu_torch.nn.updaters import load_state_leaves
+
+    if name == "lenet":
+        conf, batches = LeNet().conf(), _lenet_batches(4)
+    else:
+        conf = SimpleCNN(height=32, width=32).conf()
+        rng = np.random.default_rng(1)
+        batches = [DataSet(rng.random((16, 32, 32, 3)).astype(np.float32),
+                           np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)])
+                   for _ in range(4)]
+    model = SequentialModel(dataclasses.replace(conf, bf16_compute=bf16),
+                            device=cuda).init()
+    model.fit_batch(batches[0])                  # runs and captures
+    params, opt, state, it = _snapshot_state(model)
+    runs = []
+    for capture in (True, False):
+        model.capture_steps = capture
+        with torch.no_grad():
+            for p, v in zip(tree_leaves(model.params), params):
+                p.copy_(v)
+            for x, v in zip(tree_leaves(model.net_state), state):
+                x.copy_(v)
+        model.opt_state = load_state_leaves(model.opt_state, opt)
+        model.iteration = it
+        losses = []
+        for b in batches[1:]:
+            model.fit_batch(b)
+            losses.append(model._last_score.clone())
+        runs.append((losses, _snapshot_state(model)))
+    model.capture_steps = True
+    (lc, sc), (le, se) = runs
+    assert all(torch.equal(a, b) for a, b in zip(lc, le))
+    for got, want in zip(sc[:3], se[:3]):
+        for a, b in zip(got, want):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else int(a) == int(b))
+    assert sc[3] == se[3] == it + 3
+    assert model.compile_stats()["jit_cache_misses"] == 1
+
+
+def test_quantized_lenet_launches_b5_twice_a_call(cuda):
+    """Quantized LeNet on the card: Dense and the head through B5 (2
+    launches a call), the convs on the dequantized kernels; probabilities
+    within 2e-5 of max p of the same quantized model on the CPU."""
+    conf = dataclasses.replace(LeNet().conf(), bf16_compute=False)
+    q = quantize(SequentialModel(conf, device=cuda).init())
+    qc = quantize(SequentialModel(conf, device="cpu").init())
+    x = np.random.default_rng(2).random((64, 28, 28, 1)).astype(np.float32)
+    kernels.reset_launches()
+    p = q.output(x)
+    torch.cuda.synchronize()
+    assert kernels.launches() == {"dequant_matmul": 2}
+    ref = qc.output(x)
+    assert (p.cpu() - ref).abs().max() <= 2e-5 * ref.abs().max()
 
 
 def _to_cpu(tree):

@@ -64,7 +64,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "serving.breaker", "serving.batching", "serving.hotswap",
                      "serving.server", "serving.http", "serving.router",
                      "serving.fleet", "observe.fleet", "observe.cost",
-                     "runtime.compile_stats"):
+                     "runtime.compile_stats", "models.model", "models._cast",
+                     "ops.conv", "evaluation.evaluation", "data.normalizers",
+                     "data.builtin", "zoo.zoo_model", "zoo.lenet",
+                     "zoo.simplecnn", "entry", "bench_lenet"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -127,6 +130,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             ModelSerializer.write_model(model, path)
             back = ModelSerializer.restore(path, device="cpu")
             assert back.iteration == 1
+        from deeplearning4j_tpu_torch.entry import entry
+        from deeplearning4j_tpu_torch.zoo.lenet import LeNet
+        lm = LeNet().init_model(device="cpu")
+        x = np.zeros((4, 28, 28, 1), np.float32)
+        y = np.eye(10, dtype=np.float32)[[0, 1, 2, 3]]
+        lm.fit([DataSet(x, y)] * 2, steps_per_execution=2)
+        assert lm.iteration == 2 and np.isfinite(lm.score_value)
+        assert tuple(quantize(lm).output(x).shape) == (4, 10)
+        fwd, args = entry(device="cpu")
+        assert tuple(fwd(*args).shape) == (8, 10)
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "optax",
                                             "deeplearning4j_tpu"))

@@ -152,10 +152,14 @@ def test_settings_the_port_cannot_run_load_and_raise_when_built():
     tb = _stack("port", updaters.Sgd(), tbptt=8)
     with pytest.raises(NotImplementedError, match="A8"):
         SequentialModel(tb, device="cpu")
-    cnn = SequentialConfiguration(layers=tb.layers,
-                                  input_type=InputType.convolutional(8, 8, 1))
-    with pytest.raises(NotImplementedError, match="A3"):
-        SequentialModel(cnn, device="cpu")
+    # a convolutional input type builds since the LeNet slice (ROADMAP A3)
+    cnn = (NeuralNetConfiguration.builder().list()
+           .layer(layers.Conv2D(n_out=2, kernel=(3, 3)))
+           .layer(layers.OutputLayer(n_out=3))
+           .set_input_type(InputType.convolutional(8, 8, 1)).build())
+    _both_ways(JaxSC.from_json(cnn.to_json()), cnn)
+    model = SequentialModel(cnn, device="cpu").init()
+    assert tuple(model.output(torch.zeros((2, 8, 8, 1))).shape) == (2, 3)
 
 
 @pytest.mark.parametrize("pair", [
@@ -180,7 +184,7 @@ def test_enum_fields_coerce_values_names_and_aliases():
         layers.Embedding(activation="nope")
 
 
-@pytest.mark.parametrize("tag,item", [("Dense", "A3"), ("Conv2D", "A3"),
+@pytest.mark.parametrize("tag,item", [("GlobalPooling", "A4"), ("LossLayer", "A13"),
                                       ("GraphConfiguration", "A4"),
                                       ("SelfAttentionLayer", "A5"),
                                       ("LSTM", "A8"), ("Yolo2OutputLayer", "A13")])

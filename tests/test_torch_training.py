@@ -299,15 +299,16 @@ def test_builder_sets_the_training_settings():
 
 def test_what_the_slice_does_not_train_raises():
     """Dropout trains now (the JAX package's masks,
-    `tests/test_torch_init_rng.py`); frozen layers, grouped steps, feature
-    masks, TBPTT and data parallelism still raise, naming their ROADMAP
-    items.  TBPTT loads as configuration data and raises when a model is
-    built from it."""
+    `tests/test_torch_init_rng.py`), and grouped steps since the LeNet
+    slice (`tests/test_torch_lenet.py` holds their losses; a group of
+    none is refused); frozen layers, feature masks, TBPTT and data
+    parallelism still raise, naming their ROADMAP items.  TBPTT loads as
+    configuration data and raises when a model is built from it."""
     ids, y = _batches(one_hot=False, n=1)[0]
     batch = DataSet(ids, y)
     model = _zoo(TransformerEncoder).init_model(device="cpu")
-    with pytest.raises(NotImplementedError, match="steps_per_execution"):
-        model.fit(batch, steps_per_execution=2)
+    with pytest.raises(ValueError, match="steps_per_execution"):
+        model.fit(batch, steps_per_execution=0)
     with pytest.raises(NotImplementedError, match="features masks"):
         model.fit_batch(DataSet(ids, y, features_mask=np.ones_like(ids)))
     conf = _zoo(TransformerEncoder).conf()
