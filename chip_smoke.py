@@ -282,7 +282,40 @@ Then the phases:
    under torch.profiler: device busy share, device time by kernel, and
    the paged-attention kernel's own device time in the serve and int8
    passes.
-13. report — one ``{"kernels": [...]}`` JSON line, then the last line
+13. attn — the attention slice (ROADMAP A5).  (a) The MoE flagship: the
+   train phase's flagship with ``moe_experts`` 8, ``moe_top_k`` 2 (a
+   `MoELayer` after each block, f32 router and experts), trained on the
+   train batch, 2 warm-up and 6 measured captured steps: one graph,
+   exactly 8 launches a step of B1, B2 and B3; finite losses that fall
+   below the first within 40 more untimed steps (this stack's residual
+   stream grows with depth, and Adam at 3e-4 first raises its loss); 3
+   captured and 3 eager steps bit-identical from one snapshot; an eager
+   step's loss equal to data + penalty + aux (computed apart from the same
+   state; no aux entry left in the layer state); the step's FLOPs
+   (`observe.cost`) within 1% of `_moe_flops_by_hand`; one profiled eager
+   step (device time by kind: flash, f32 GEMM, bf16 GEMM, the rest);
+   ``output()`` of 2 x 2048 ids with exactly 8 B1 launches; the share of
+   choices each MoE layer drops.  (b) A masked classifier at BERT-base
+   widths (12 non-causal blocks of 768, 12 heads, FFN 3072, learned
+   positions to 512, `GlobalPooling` AVG, a 2-way softmax head) trained
+   in bf16 with Adam 5e-5 on procedural padded batches (32 x 128, row
+   lengths 8-64, a class marker id in ~30% of a row's tokens): 2
+   + 20 captured steps, finite falling losses, no flash launch, one
+   capture across batches whose masks differ; 3 captured and 3 eager
+   steps bit-identical; padding invariance (every padded id rewritten:
+   masked ``output()`` bit-identical, bf16 and f32); f32 rows alone at
+   their own length (B1 f32) within 2e-4 of their padded masked rows;
+   exactly 12 B1 launches in an unmasked full-length ``output()`` and
+   none in a masked one; accuracy on 1,024 held-out masked rows; the
+   quantized classifier's masked ``output()`` with the B5 launches its
+   int8 tree implies and argmax agreement >= 0.99 with its dequantized
+   f32 twin; B1 and B5 rows at the classifier's shapes.  (d) Its
+   ``/v1/infer``: 12 padded requests with their masks (one with a hole)
+   within 2^-7 of ``output(x, mask)``, no B1 launch.  (c) A small f32
+   stack of `SelfAttentionLayer` (both ``project_input`` modes) and
+   `LearnedSelfAttentionLayer`: masked ``output()`` and 3 masked steps
+   within 1e-5 of the port's CPU run from the same weights.
+14. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -302,7 +335,7 @@ import sys
 import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
-          "parity", "int8", "quant", "qserve", "ckpt")
+          "parity", "int8", "quant", "qserve", "ckpt", "attn")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -526,8 +559,8 @@ def out_errors(out, ref) -> dict:
             "row_err": (diff.amax(-1) / mag.amax(-1).clamp_min(1e-30)).max().item()}
 
 
-def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
-    """Kernel B1 against `flash_fwd_plain` at (BH, T, D 128): out and lse
+def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS, d=D_MODEL // HEADS):
+    """Kernel B1 against `flash_fwd_plain` at (BH, T, D): out and lse
     each against its tolerance (bf16 out relative to max |plain| and row
     by row), a second launch bit for bit."""
     from deeplearning4j_tpu_torch.ops.flash_attention import (
@@ -537,7 +570,6 @@ def flash_case(torch, timer, t, dtype, causal=True, bh=HEADS):
     )
     import torch.nn.functional as F
 
-    d = D_MODEL // HEADS
     g = torch.Generator(device="cuda").manual_seed(t)
     q, k, v = (torch.randn((bh, t, d), generator=g, device="cuda").to(dtype)
                for _ in range(3))
@@ -1182,6 +1214,7 @@ def _profiled(torch, name, fn):
     res = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
            "device_busy_share": busy_us / 1e6 / wall,
            "top_device_kernels_ms": [[k, t / 1e3, n] for t, k, n in top],
+           "all_device_kernels_ms": [[k, t / 1e3, n] for t, k, n in dev],
            # kernel B4's own device time and launches
            "paged_attention_device_ms": sum(t for t, _ in paged) / 1e3,
            "paged_attention_launches": sum(n for _, n in paged),
@@ -1421,10 +1454,11 @@ def _train_flops_by_hand() -> float:
     return 6 * m * dense + 8 * m * d * vpad + attn
 
 
-def _step_cost(torch, model, step_ms):
+def _step_cost(torch, model, step_ms, hand=None, tag="train"):
     """`observe.cost` analysis of the training step program: its FLOPs
-    against `_train_flops_by_hand` (within 1%), achieved FLOP/s and MFU at
-    the measured median step, the roofline class."""
+    against ``hand`` (`_train_flops_by_hand` by default; within 1%),
+    achieved FLOP/s and MFU at the measured median step, the roofline
+    class."""
     from deeplearning4j_tpu_torch.observe import cost
 
     t0 = time.perf_counter()
@@ -1432,7 +1466,7 @@ def _step_cost(torch, model, step_ms):
     if len(recs) != 1 or recs[0].flops is None:
         raise AssertionError(f"cost analysis of the step: {[r.as_dict() for r in recs]}")
     rec = recs[0]
-    hand = _train_flops_by_hand()
+    hand = _train_flops_by_hand() if hand is None else hand
     achieved = rec.flops / (step_ms / 1e3)
     peak_f, peak_b = cost.peaks()
     out = {"flops": rec.flops, "flops_by_hand": hand, "bytes": rec.bytes_accessed,
@@ -1441,7 +1475,7 @@ def _step_cost(torch, model, step_ms):
            "roofline": rec.roofline(), "arithmetic_intensity": rec.arithmetic_intensity(),
            "peak_bytes": rec.peak_bytes, "analysis_s": time.perf_counter() - t0,
            "record": rec.as_dict()}
-    log(f"[train] cost: {rec.flops:.6e} FLOPs a step (by hand {hand:.6e}, "
+    log(f"[{tag}] cost: {rec.flops:.6e} FLOPs a step (by hand {hand:.6e}, "
         f"{rec.flops / hand - 1:+.2e}); {rec.bytes_accessed:.4e} bytes; at the median "
         f"step {step_ms:.1f} ms: {achieved / 1e12:.2f} TFLOP/s, MFU {out['mfu']:.4f} "
         f"against {peak_f / 1e12:.0f} TFLOP/s ({torch.cuda.get_device_name(0)}); "
@@ -3087,14 +3121,17 @@ def _lenet_flops_by_hand(batch: int) -> float:
     return batch * (2 * conv1 + 3 * conv2 + 3 * dense)
 
 
-def _full_state(torch, model) -> dict:
+def _full_state(torch, model, device=None) -> dict:
     """Copies of everything a step changes: parameters, optimizer leaves
-    (tensors and counts), layer state, the step counter."""
+    (tensors and counts), layer state, the step counter; on ``device``
+    (the card by default)."""
     from deeplearning4j_tpu_torch.models.sequential import tree_leaves
     from deeplearning4j_tpu_torch.nn.updaters import state_leaves
 
     def cp(x):
-        return x.detach().clone() if isinstance(x, torch.Tensor) else int(x)
+        if not isinstance(x, torch.Tensor):
+            return int(x)
+        return x.detach().to(device, copy=True) if device else x.detach().clone()
 
     return {"params": [cp(p) for p in tree_leaves(model.params)],
             "updater": [cp(x) for x in state_leaves(model.opt_state or ())],
@@ -3128,12 +3165,14 @@ def _differing(torch, a: dict, b: dict) -> list:
     return bad
 
 
-def _captured_vs_eager(torch, model, batches, tag):
+def _captured_vs_eager(torch, model, batches, tag, phase="lenet", host=False):
     """From one snapshot, ``len(batches)`` `fit_batch` steps replaying the
     model's captured step, then the same steps eagerly (``capture_steps =
     False``: the same program on the same device inputs): losses,
     parameters, optimizer state and layer state must be bit-identical, and
-    the captured run must replay, not capture again."""
+    the captured run must replay, not capture again.  ``host``: the two
+    end states are compared in host memory (a large model)."""
+    where = "cpu" if host else None
     snap = _full_state(torch, model)
     captures0 = model.compile_stats()["jit_cache_misses"]
     cap = []
@@ -3141,7 +3180,7 @@ def _captured_vs_eager(torch, model, batches, tag):
         model.fit_batch(b)
         cap.append(model._last_score.clone())
     recaptures = model.compile_stats()["jit_cache_misses"] - captures0
-    after_cap = _full_state(torch, model)
+    after_cap = _full_state(torch, model, where)
     _restore_state(torch, model, snap)
     model.capture_steps = False
     try:
@@ -3151,10 +3190,11 @@ def _captured_vs_eager(torch, model, batches, tag):
             eag.append(model._last_score.clone())
     finally:
         model.capture_steps = True
-    after_eager = _full_state(torch, model)
+    after_eager = _full_state(torch, model, where)
+    del snap
     same_losses = all(torch.equal(x, y) for x, y in zip(cap, eag))
     bad = _differing(torch, after_cap, after_eager)
-    log(f"[lenet] {tag}: {len(batches)} captured steps against eager from one "
+    log(f"[{phase}] {tag}: {len(batches)} captured steps against eager from one "
         f"snapshot: losses {[float(x) for x in cap]} identical: {same_losses}; "
         f"state differs at {bad or 'no leaf'}; captures during the replays "
         f"{recaptures}")
@@ -3914,6 +3954,541 @@ def phase_ckpt(torch, np, kernels):
     return res
 
 
+# -- attn phase ---------------------------------------------------------------------
+
+# the MoE flagship: the train phase's flagship with the zoo's MoE knob
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+# untimed steps after the measured ones, at most, for the loss to fall
+# below the first (`_attn_moe`)
+MOE_SETTLE_STEPS = 40
+# the masked classifier at BERT-base widths (BASELINE config 4: SST-2
+# fine-tuning), padded to run_classifier.py's max_seq_length 128 for GLUE,
+# with its train batch 32 and learning rate 5e-5; row lengths 8-64 drawn
+# from the seed
+CLS_VOCAB, CLS_D, CLS_HEADS, CLS_LAYERS, CLS_FF, CLS_MAXLEN = 30522, 768, 12, 12, 3072, 512
+CLS_BATCH, CLS_SEQ, CLS_LENGTHS = 32, 128, (8, 64)
+CLS_WARMUP, CLS_STEPS, CLS_HELD_OUT, CLS_LR = 2, 20, 1024, 5e-5
+# B5's shapes in the quantized classifier's output(): each block's four
+# attention products and its two FFN products, and the head
+CLS_DM_SHAPES = [(CLS_BATCH * CLS_SEQ, CLS_D, CLS_D), (CLS_BATCH * CLS_SEQ, CLS_D, CLS_FF),
+                 (CLS_BATCH * CLS_SEQ, CLS_FF, CLS_D), (CLS_BATCH, CLS_D, 2)]
+# rows of the f32 twin run alone at their own length (the B1 route)
+CLS_ALONE_ROWS = 4
+# the server's /v1/infer requests: rows of one padded batch, one with a hole
+ATTN_SERVER_ROWS = 12
+
+
+def _moe_flops_by_hand(model) -> float:
+    """FLOPs of one MoE flagship training step: the flagship's
+    (`_train_flops_by_hand`) plus, a MoE layer, the router (2 N D E
+    forward, 4 N D E backward) and the experts' two batched f32 products
+    over every capacity slot (2 E C D H forward each, 4 E C D H
+    backward); the dispatch and combine are gathers (no FLOPs)."""
+    from deeplearning4j_tpu_torch.parallel.expert import capacity
+
+    n = TRAIN_BATCH * TRAIN_SEQ
+    extra = 0
+    for layer in model.conf.layers:
+        if type(layer).__name__ == "MoELayer":
+            cfg = layer._cfg()
+            c = capacity(cfg, n)
+            extra += 6 * n * cfg.d_model * cfg.n_experts
+            extra += 2 * 6 * cfg.n_experts * c * cfg.d_model * cfg.d_hidden
+    return _train_flops_by_hand() + extra
+
+
+def _moe_drop_share(torch, model, ids):
+    """The share of (token, choice) pairs each MoE layer drops for want of
+    capacity on ``ids``: its input from `feed_forward`, routed again."""
+    from deeplearning4j_tpu_torch.parallel.expert import dropped_share
+
+    acts = model.feed_forward(ids)
+    out = []
+    for i, layer in enumerate(model.conf.layers):
+        if type(layer).__name__ == "MoELayer":
+            out.append(dropped_share(model.params[layer.name], acts[i - 1], layer._cfg()))
+    del acts
+    return out
+
+
+def _device_time_by_kind(prof) -> dict:
+    """A profiled run's device ms by kind of kernel: the flash kernels,
+    f32 GEMMs (CUTLASS's SIMT sgemm, cuBLAS's f32 xmma), bf16 GEMMs
+    (cuBLAS's nvjet and bf16 xmma kernels), everything else."""
+    out = {"flash": 0.0, "gemm_f32": 0.0, "gemm_bf16": 0.0, "other": 0.0}
+    for k, ms, _ in prof["all_device_kernels_ms"]:
+        name = k.lower()
+        if "flash" in name:
+            out["flash"] += ms
+        elif "sgemm" in name or "f32f32_f32f32" in name:
+            out["gemm_f32"] += ms
+        elif "gemm" in name or "nvjet" in name:
+            out["gemm_bf16"] += ms
+        else:
+            out["other"] += ms
+    return out
+
+
+def _attn_moe(torch, np, kernels, timer):
+    """(a) The MoE flagship trained on the card."""
+    from deeplearning4j_tpu_torch.models._common import AUX_LOSS_KEY
+    from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+
+    t0 = time.perf_counter()
+    model = TransformerEncoder(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=LAYERS,
+        causal=True, chunked_vocab_loss=True, vocab_chunk=8192, seed=123,
+        moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K).init_model(device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[attn] MoE flagship: {n_params} params (f32 masters; the experts stay "
+        f"f32 in compute), {MOE_EXPERTS} experts top-{MOE_TOP_K} after each of "
+        f"{LAYERS} blocks, built in {time.perf_counter() - t0:.1f}s")
+    batch = _train_batch(np)
+    losses = []
+    mem0 = _memory_window(torch)
+    for i in range(TRAIN_WARMUP):
+        t1 = time.perf_counter()
+        model.fit_batch(batch)
+        losses.append(model.score_value)
+        log(f"[attn] MoE warm-up step {i}: loss {losses[-1]:.5f}, "
+            f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    step_ms = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        model.fit_batch(batch)
+        losses.append(model.score_value)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    graphs = model.compile_stats()["step_programs"]
+    memory = {"captured": _memory_window(torch, mem0)}
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    res = {"params": n_params, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms), "wall_s": wall,
+           "tokens_per_s": tokens / wall, "launches": counts, "step_graphs": graphs,
+           "peak_memory_gib": memory["captured"]["peak_gib"], "memory": memory}
+    log(f"[attn] MoE: {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
+        f"{wall:.3f}s = {res['tokens_per_s']:.1f} tokens/s; median step "
+        f"{res['median_step_ms']:.1f} ms ({['%.1f' % t for t in step_ms]}); losses "
+        f"{['%.5f' % x for x in losses]}; launches {counts}; {graphs} step graph(s); "
+        f"memory (GiB) {_memory_text(memory)}")
+    # the JAX package's MoE stack at this init grows its residual stream
+    # about 1.5-2x a MoE layer, and Adam's first steps on one batch can
+    # raise its loss before they lower it (its CPU run at d 256 does):
+    # steps go on, untimed, until the loss falls below the first
+    settle = 0
+    while not losses[-1] < losses[0] and settle < MOE_SETTLE_STEPS:
+        model.fit_batch(batch)
+        losses.append(model.score_value)
+        settle += 1
+    res["settle_steps"] = settle
+    log(f"[attn] MoE: {settle} more step(s) until the loss fell below the first: "
+        f"{['%.5f' % x for x in losses[TRAIN_WARMUP + TRAIN_STEPS:]]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE loss not finite or not falling: {losses}")
+    if graphs != 1:
+        raise AssertionError(f"MoE: {graphs} step graphs for one batch signature")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        if counts.get(name, 0) != LAYERS * TRAIN_STEPS:
+            raise AssertionError(f"MoE: {name} launched {counts.get(name, 0)} times in "
+                                 f"{TRAIN_STEPS} steps, want {LAYERS * TRAIN_STEPS}")
+    res["cost"] = _step_cost(torch, model, res["median_step_ms"],
+                             hand=_moe_flops_by_hand(model), tag="attn")
+    res["captured_vs_eager"] = _captured_vs_eager(
+        torch, model, [batch] * CAPTURE_CMP_STEPS, "MoE flagship", phase="attn",
+        host=True)
+
+    # one eager step's loss against its parts, computed from the same state
+    feats = torch.from_numpy(batch.features).cuda()
+    labels = torch.from_numpy(batch.labels).cuda()
+    with torch.no_grad():
+        data, reg, aux, state = model._step_loss_parts(
+            model.params, model.net_state, feats, labels,
+            keys=model._layer_keys(model.iteration))
+        parts = [float(data), float(reg), float(aux)]
+    model.capture_steps = False
+    try:
+        model.fit_batch(batch)
+        loss = model.score_value
+        # one profiled eager step: where the time goes
+        prof = _profiled(torch, "moe", lambda: model.fit_batch(batch))
+    finally:
+        model.capture_steps = True
+    whole = float(data + reg + aux)
+    res["loss_parts"] = {"loss": loss, "data": parts[0], "reg": parts[1],
+                         "aux": parts[2], "sum": whole}
+    res["profile"] = prof
+    res["device_ms_by_kind"] = _device_time_by_kind(prof)
+    log(f"[attn] MoE eager step: loss {loss:.7f} = data {parts[0]:.7f} + reg "
+        f"{parts[1]:.7f} + aux {parts[2]:.7f} (sum {whole:.7f}); state after "
+        f"{sorted(state)}, net_state {sorted(model.net_state)}; profiled eager step "
+        f"device ms by kind {res['device_ms_by_kind']}")
+    if abs(loss - whole) > 1e-6 * abs(loss) or not parts[2] > 0:
+        raise AssertionError("the MoE step's loss is not data + reg + aux")
+    if state or any(AUX_LOSS_KEY in s for s in model.net_state.values()):
+        raise AssertionError("an aux entry reached the layer state")
+
+    ids = batch.features[:QUANT_BATCH]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = model.output(ids)
+    torch.cuda.synchronize()
+    res["output"] = {"launches": kernels.launches()}
+    log(f"[attn] MoE output() of {list(ids.shape)} ids: {tuple(out.shape)}, launches "
+        f"{res['output']['launches']}")
+    if res["output"]["launches"].get("flash_fwd", 0) != LAYERS or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError("MoE output(): B1 launches or values off")
+    # B1 at the shape that output() gave it, against its plain version
+    res["kernel_rows"] = [flash_case(torch, timer, TRAIN_SEQ, torch.bfloat16,
+                                     bh=QUANT_BATCH * HEADS)]
+    res["dropped_share"] = _moe_drop_share(torch, model, batch.features)
+    log(f"[attn] MoE choices dropped for want of capacity, by layer: "
+        f"{['%.5f' % s for s in res['dropped_share']]} (mean "
+        f"{statistics.mean(res['dropped_share']):.5f})")
+    del model, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cls_conf(bf16=None):
+    from deeplearning4j_tpu_torch.nn.activations import Activation
+    from deeplearning4j_tpu_torch.nn.conf.attention import (
+        PositionalEncoding,
+        TransformerEncoderBlock,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        Embedding,
+        GlobalPooling,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.losses import Loss
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.weights import WeightInit
+
+    b = (NeuralNetConfiguration.builder().seed(123).updater(Adam(CLS_LR))
+         .weight_init(WeightInit.XAVIER).bf16_compute(bf16).list()
+         .layer(Embedding(n_in=CLS_VOCAB, n_out=CLS_D))
+         .layer(PositionalEncoding(learned=True, max_length=CLS_MAXLEN)))
+    for _ in range(CLS_LAYERS):
+        b.layer(TransformerEncoderBlock(d_model=CLS_D, n_heads=CLS_HEADS, d_ff=CLS_FF,
+                                        causal=False))
+    return (b.layer(GlobalPooling(pooling="avg"))
+            .layer(OutputLayer(n_out=2, loss=Loss.MCXENT, activation=Activation.SOFTMAX))
+            .set_input_type(InputType.recurrent(1)).build())
+
+
+def _cls_data(np, rows, seed, full=False):
+    """``rows`` padded rows of procedural two-class 'sentences': a row's
+    length is drawn in CLS_LENGTHS (CLS_SEQ with ``full``); about 30% of
+    its tokens are its class's marker id, the rest drawn from the whole
+    vocab; id 0 ([PAD]) after its end.  (ids int64, one-hot labels, mask
+    f32.)"""
+    r = np.random.default_rng(seed)
+    lengths = (np.full(rows, CLS_SEQ) if full
+               else r.integers(CLS_LENGTHS[0], CLS_LENGTHS[1] + 1, rows))
+    mask = (np.arange(CLS_SEQ)[None] < lengths[:, None]).astype(np.float32)
+    cls = r.integers(0, 2, rows)
+    noise = r.integers(1000, CLS_VOCAB, (rows, CLS_SEQ))
+    marker = np.broadcast_to((1000 + 500 * cls)[:, None], noise.shape)
+    ids = np.where(r.random((rows, CLS_SEQ)) < 0.3, marker, noise) * (mask > 0)
+    return ids.astype(np.int64), np.eye(2, dtype=np.float32)[cls], mask
+
+
+def _cls_batch(np, rows, seed):
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+    ids, labels, mask = _cls_data(np, rows, seed)
+    return DataSet(ids, labels, features_mask=mask)
+
+
+def _rewrite_padding(np, ids, mask, seed):
+    r = np.random.default_rng(seed)
+    return np.where(mask > 0, ids, r.integers(1, CLS_VOCAB, ids.shape)).astype(ids.dtype)
+
+
+def _b5_sites(qmodel) -> int:
+    """Products a quantized ``output()`` runs through B5: every int8 leaf
+    but an embedding table's (gathered, not multiplied)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import Embedding
+    from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
+
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict) else isinstance(v, QuantizedTensor)
+                   for v in tree.values())
+
+    return sum(count(qmodel.params.get(l.name, {})) for l in qmodel.conf.layers
+               if not isinstance(l, Embedding))
+
+
+def _attn_classifier(torch, np, kernels, timer):
+    """(b) The masked encoder classifier at BERT-base widths."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.quant import dequantize_tree, quantize
+
+    def masked_calls(m, ids, mask):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = m.output(ids, mask)
+        torch.cuda.synchronize()
+        return out, kernels.launches()
+
+    model = SequentialModel(_cls_conf(), device="cuda").init()
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = [_cls_batch(np, CLS_BATCH, 100 + i) for i in range(CLS_WARMUP + CLS_STEPS)]
+    losses = []
+    mem0 = _memory_window(torch)
+    captures0 = model.compile_stats()["jit_cache_misses"]
+    for b in batches[:CLS_WARMUP]:
+        model.fit_batch(b)
+        losses.append(model.score_value)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    step_ms = []
+    t0 = time.perf_counter()
+    for b in batches[CLS_WARMUP:]:
+        t1 = time.perf_counter()
+        model.fit_batch(b)
+        losses.append(model.score_value)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    captures = model.compile_stats()["jit_cache_misses"] - captures0
+    graphs = model.compile_stats()["step_programs"]
+    memory = {"captured": _memory_window(torch, mem0)}
+    res = {"params": n_params, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms), "wall_s": wall,
+           "samples_per_s": CLS_STEPS * CLS_BATCH / wall, "launches": counts,
+           "captures": captures, "step_graphs": graphs, "memory": memory}
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"[attn] classifier ({n_params} params, bf16, batch {CLS_BATCH} x {CLS_SEQ}, "
+        f"lengths {CLS_LENGTHS}): {CLS_STEPS} masked steps in {wall:.3f}s = "
+        f"{res['samples_per_s']:.1f} samples/s, median {res['median_step_ms']:.2f} ms "
+        f"a step; losses {['%.4f' % x for x in losses]} (first 5 mean {first:.4f}, "
+        f"last 5 {last:.4f}); launches {counts}; {captures} capture(s), {graphs} "
+        f"step graph(s) over {len(batches)} batches with different masks; memory "
+        f"(GiB) {_memory_text(memory)}")
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"classifier loss not finite or not falling: {losses}")
+    if any(counts.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")):
+        raise AssertionError(f"a masked step launched a flash kernel: {counts}")
+    if captures != 1 or graphs != 1:
+        raise AssertionError(f"{captures} captures, {graphs} graphs across batches "
+                             "that differ only in their masks")
+    res["captured_vs_eager"] = _captured_vs_eager(
+        torch, model, batches[:CAPTURE_CMP_STEPS], "classifier", phase="attn")
+
+    ids, labels, mask = _cls_data(np, CLS_BATCH, 7)
+    ids2 = _rewrite_padding(np, ids, mask, 8)
+    f32 = SequentialModel(_cls_conf(bf16=False), device="cuda").load_params(model.params)
+    inv = {}
+    for tag, m in (("bf16", model), ("f32", f32)):
+        a, ca = masked_calls(m, ids, mask)
+        b, cb = masked_calls(m, ids2, mask)
+        inv[tag] = bool(torch.equal(a, b))
+        if not inv[tag] or ca.get("flash_fwd", 0) or cb.get("flash_fwd", 0):
+            raise AssertionError(f"{tag}: padded ids changed masked output(), or a "
+                                 f"masked call launched B1 ({ca}, {cb})")
+    p32 = f32.output(ids, mask)
+    alone, alone_counts = [], []
+    for r in range(CLS_ALONE_ROWS):
+        n = int(mask[r].sum())
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        p = f32.output(ids[r:r + 1, :n])
+        torch.cuda.synchronize()
+        alone_counts.append(kernels.launches().get("flash_fwd", 0))
+        alone.append((p[0] - p32[r]).abs().max().item())
+    lengths = [int(mask[r].sum()) for r in range(CLS_ALONE_ROWS)]
+    res["padding_invariant"] = inv
+    res["alone"] = {"max_abs_err": max(alone), "lengths": lengths,
+                    "b1_launches": alone_counts,
+                    "launches": {"flash_fwd": sum(alone_counts)}}
+    log(f"[attn] padding invariance (every padded id rewritten), bit for bit: {inv}; "
+        f"f32 rows alone at their own length {lengths} (B1 f32) against their padded "
+        f"masked rows: max |dp| {['%.3e' % e for e in alone]} (tol "
+        f"{TOL['flash_fwd/f32']}), B1 launches {alone_counts}")
+    if max(alone) > TOL["flash_fwd/f32"] or any(c != CLS_LAYERS for c in alone_counts):
+        raise AssertionError("an f32 row alone disagrees with its padded masked row")
+
+    full = _cls_data(np, CLS_BATCH, 9, full=True)[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    pf = model.output(full)
+    torch.cuda.synchronize()
+    res["unmasked"] = {"launches": kernels.launches()}
+    _, res["masked_launches"] = masked_calls(model, ids, mask)
+    log(f"[attn] unmasked full-length output() of {list(full.shape)}: launches "
+        f"{res['unmasked']['launches']}; masked: {res['masked_launches']}")
+    if res["unmasked"]["launches"].get("flash_fwd", 0) != CLS_LAYERS or \
+            res["masked_launches"].get("flash_fwd", 0) or not bool(torch.isfinite(pf).all()):
+        raise AssertionError("B1 launches of the classifier's output() off")
+    # B1 at the shapes these calls gave it, against its plain version:
+    # bf16 unmasked, and f32 at each row's own length run alone
+    res["kernel_rows"] = [flash_case(torch, timer, CLS_SEQ, torch.bfloat16, causal=False,
+                                     bh=CLS_BATCH * CLS_HEADS, d=CLS_D // CLS_HEADS)]
+    res["kernel_rows"] += [flash_case(torch, timer, n, torch.float32, causal=False,
+                                      bh=CLS_HEADS, d=CLS_D // CLS_HEADS)
+                           for n in sorted(set(lengths))]
+
+    held = _cls_data(np, CLS_HELD_OUT, 11)
+    t0 = time.perf_counter()
+    ev = model.evaluate(DataSet(held[0], held[1], features_mask=held[2]),
+                        batch_size=CLS_BATCH)
+    res["accuracy"] = ev.accuracy()
+    log(f"[attn] classifier accuracy on {CLS_HELD_OUT} held-out masked rows: "
+        f"{res['accuracy']:.4f} ({time.perf_counter() - t0:.2f}s)")
+
+    # int8: masked output() through B5 (each block's six products and the
+    # head), against the f32 model of the dequantized weights
+    q = quantize(model)
+    sites = _b5_sites(q)
+    twin = SequentialModel(_cls_conf(bf16=False), device="cuda").load_params(
+        dequantize_tree(q.params))
+    pq, pt, qcounts = [], [], {}
+    calls = CLS_HELD_OUT // CLS_BATCH
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i in range(calls):
+        sl = slice(i * CLS_BATCH, (i + 1) * CLS_BATCH)
+        pq.append(q.output(held[0][sl], held[2][sl]))
+    torch.cuda.synchronize()
+    qcounts = kernels.launches()
+    for i in range(calls):
+        sl = slice(i * CLS_BATCH, (i + 1) * CLS_BATCH)
+        pt.append(twin.output(held[0][sl], held[2][sl]))
+    pq, pt = torch.cat(pq), torch.cat(pt)
+    agree = _argmax_agreement(pq, pt)
+    res["quant"] = {"b5_sites": sites, "calls": calls, "launches": qcounts,
+                    "agreement": agree, "max_abs_dp": (pq - pt).abs().max().item()}
+    log(f"[attn] quantized masked output(): {calls} calls of {CLS_BATCH} rows, launches "
+        f"{qcounts} (want {sites} B5 a call from the tree, no B1); argmax agreement "
+        f"with the dequantized f32 twin {agree:.5f} (gate {QUANT_AGREEMENT}), max "
+        f"|dp| {res['quant']['max_abs_dp']:.3e}")
+    if qcounts.get("dequant_matmul", 0) != sites * calls or qcounts.get("flash_fwd", 0) \
+            or agree < QUANT_AGREEMENT:
+        raise AssertionError("quantized classifier: B5 launches or agreement off")
+    res["kernel_rows"] += [dm_case(torch, timer, *s) for s in CLS_DM_SHAPES]
+    del q, twin, f32, pq, pt
+    torch.cuda.empty_cache()
+    return res, model
+
+
+def _attn_layers(torch, np):
+    """(c) SelfAttentionLayer both ways and LearnedSelfAttentionLayer in
+    a small f32 stack: the card against the port's CPU run, same weights."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.nn.conf.attention import (
+        LearnedSelfAttentionLayer,
+        SelfAttentionLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import Embedding
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(5).updater(Adam(1e-3))
+            .bf16_compute(False).list()
+            .layer(Embedding(n_in=100, n_out=64))
+            .layer(SelfAttentionLayer(n_out=64, n_heads=4, causal=False))
+            .layer(SelfAttentionLayer(n_out=64, n_heads=4, project_input=False))
+            .layer(LearnedSelfAttentionLayer(n_out=32, n_heads=2, n_queries=4))
+            .layer(RnnOutputLayer(n_out=3))
+            .set_input_type(InputType.recurrent(1)).build())
+    r = np.random.default_rng(21)
+    ids = r.integers(1, 100, (4, 24)).astype(np.int64)
+    mask = (np.arange(24)[None] < np.array([[24], [17], [9], [13]])).astype(np.float32)
+    mask[0, 5] = 0.0
+    y = np.eye(3, dtype=np.float32)[r.integers(0, 3, (4, 4))]
+    cpu = SequentialModel(conf, device="cpu").init()
+    card = SequentialModel(conf, device="cuda").load_params(cpu.params)
+    pc, pg = cpu.output(ids, mask), card.output(ids, mask).cpu()
+    out_err = ((pg - pc).abs().max() / pc.abs().max()).item()
+    lc, lg = [], []
+    for _ in range(3):
+        cpu.fit_batch(DataSet(ids, y, features_mask=mask))
+        card.fit_batch(DataSet(ids, y, features_mask=mask))
+        lc.append(cpu.score_value)
+        lg.append(card.score_value)
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    log(f"[attn] layers alone (f32): masked output() rel err {out_err:.3e}; losses "
+        f"card {lg} cpu {lc}, rel err {loss_err:.3e} (tol 1e-5)")
+    if out_err > 1e-5 or loss_err > 1e-5:
+        raise AssertionError("the attention layers on the card disagree with the CPU")
+    return {"output_rel_err": out_err, "losses_card": lg, "losses_cpu": lc,
+            "loss_rel_err": loss_err}
+
+
+def _attn_server(torch, np, kernels, model):
+    """(d) `/v1/infer` over the trained classifier: padded requests with
+    their own masks, one with a hole, batched by the server."""
+    from deeplearning4j_tpu_torch.serving.http import ServingHTTPServer
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer, ServingConfig
+
+    ids, _, mask = _cls_data(np, ATTN_SERVER_ROWS, 31)
+    mask[0, 2] = 0.0                                  # a hole, not padding
+    ref = model.output(ids, mask)
+    srv = InferenceServer(model, ServingConfig(
+        max_batch=8, max_queue=64, linger_s=0.005, default_deadline_s=120.0)).start()
+    http = ServingHTTPServer(srv, port=0, host="127.0.0.1").start()
+    try:
+        def call(i):
+            return _http(http.url, "/v1/infer", {"features": ids[i].tolist(),
+                                                  "features_mask": mask[i].tolist()})
+
+        call(0)                                       # first use of the bucket
+        torch.cuda.synchronize()
+        b0 = srv.stats()["batches"]
+        kernels.reset_launches()
+        got = _parallel([lambda i=i: call(i) for i in range(ATTN_SERVER_ROWS)])
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        batches = srv.stats()["batches"] - b0
+    finally:
+        http.stop()
+        srv.stop()
+    if any(code != 200 for code, _ in got):
+        raise AssertionError(f"/v1/infer refused a masked request: {got}")
+    rows = torch.tensor([json.loads(body)["outputs"] for _, body in got])
+    err = (rows - ref.cpu()).abs().max().item()
+    scale = ref.abs().max().item()
+    log(f"[attn] /v1/infer: {ATTN_SERVER_ROWS} padded masked requests (one with a hole) "
+        f"in {batches} batch(es), launches {counts}; max |http - output(x, mask)| "
+        f"{err:.3e} of max {scale:.3e} (tol {TOL['flash_fwd/bf16']} of max)")
+    if counts.get("flash_fwd", 0) or err > TOL["flash_fwd/bf16"] * scale:
+        raise AssertionError("/v1/infer: masked rows off, or B1 launched")
+    return {"requests": ATTN_SERVER_ROWS, "batches": batches, "launches": counts,
+            "max_abs_err": err}
+
+
+def phase_attn(torch, np, kernels, timer):
+    """The attention slice (ROADMAP A5): the MoE flagship trained, the
+    masked classifier trained, evaluated, quantized and served, and the
+    attention layers alone against the CPU."""
+    res = {"moe": _attn_moe(torch, np, kernels, timer)}
+    res["cls"], model = _attn_classifier(torch, np, kernels, timer)
+    res["kernel_rows"] = res["moe"].pop("kernel_rows") + res["cls"].pop("kernel_rows")
+    check_rows("attn", res["kernel_rows"])
+    res["server"] = _attn_server(torch, np, kernels, model)
+    del model
+    torch.cuda.empty_cache()
+    res["layers"] = _attn_layers(torch, np)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4045,6 +4620,10 @@ def main(argv=None) -> int:
     if "ckpt" in phases:
         report["ckpt"] = phase_ckpt(torch, np, kernels)
         done("ckpt")
+    if "attn" in phases:
+        report["attn"] = phase_attn(torch, np, kernels, timer)
+        rows = rows + report["attn"]["kernel_rows"]
+        done("attn")
 
     entries = []
     def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):
@@ -4092,7 +4671,22 @@ def main(argv=None) -> int:
         # quantized LeNet's Dense and head over the evaluation batches, and
         # the entry's 8 images
         (row("dequant_matmul", dtype="int8", shape=[m, k, n]),
-         "lenet/entry" if m == 8 else "lenet") for m, k, n in LENET_DM_SHAPES]
+         "lenet/entry" if m == 8 else "lenet") for m, k, n in LENET_DM_SHAPES] + [
+        # the attention slice: the MoE flagship's training steps, the masked
+        # classifier's unmasked output() and its quantized masked output()
+        (row("flash_fwd", shape=train_bhtd), "attn/moe"),
+        (row("flash_bwd_dq", shape=train_bhtd), "attn/moe"),
+        (row("flash_bwd_dkdv", shape=train_bhtd), "attn/moe"),
+        (row("flash_fwd", shape=[CLS_BATCH * CLS_HEADS, CLS_SEQ, CLS_D // CLS_HEADS],
+             causal=False), "attn/cls/unmasked"),
+        # the MoE flagship's output() of 2 x 2048 ids; the classifier's f32
+        # rows run alone (the longest row's shape; every length is checked)
+        (row("flash_fwd", shape=[QUANT_BATCH * HEADS, TRAIN_SEQ, dh]), "attn/moe/output"),
+        (row("flash_fwd", dtype="f32", causal=False, shape=[
+            CLS_HEADS, max(report.get("attn", {}).get("cls", {}).get("alone", {})
+                           .get("lengths", [0])), CLS_D // CLS_HEADS]), "attn/cls/alone"),
+    ] + [(row("dequant_matmul", dtype="int8", shape=[m, k, n]), "attn/cls/quant")
+         for m, k, n in CLS_DM_SHAPES]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),

@@ -9,7 +9,12 @@ The JAX model's parameters are a nested dict keyed by layer name::
     {"layer0": {"W"},
      "layer2": {"attn": {"Wq", "Wk", "Wv", "Wo"}, "ln1": {"gamma", "beta"},
                 "ln2": {...}, "W1", "b1", "W2", "b2"},
+     "layer3": {"router", "Wi", "Wo"},              # MoELayer
      "layer10": {"W", "b"}}
+
+(a `SelfAttentionLayer` holds ``Wq``, ``Wk``, ``Wv``, ``Wo`` at its top
+level, none without ``project_input``; a `LearnedSelfAttentionLayer`
+``Q``, ``Wk``, ``Wv``, ``Wo``; `GlobalPooling` nothing).
 
 `params_from_jax` loads such a tree (leaves as numpy arrays, e.g.
 ``jax.tree.map(np.asarray, model.params)`` on the JAX side) into a port

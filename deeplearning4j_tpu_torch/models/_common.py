@@ -28,9 +28,10 @@ def resolve_output_spec(layer):
 
 def pop_aux_losses(new_state: dict):
     """Split layer-emitted auxiliary losses out of a state tree: returns
-    (aux_total, cleaned_state).  Aux entries feed the objective, never the
-    carried state.  No ported layer emits one yet (the MoE layer, which
-    does, is not ported), so the training step does not call this."""
+    (aux_total, cleaned_state).  Aux entries (the MoE layer's
+    load-balancing loss) feed the objective, never the carried state:
+    `SequentialModel._step_loss` adds the total to the data loss and the
+    penalty, as the JAX package's ``_step_loss`` does."""
     total = 0.0
     cleaned = {}
     for lname, ls in new_state.items():

@@ -23,9 +23,14 @@ buffers and computes in f32, whatever the bf16 setting says: that is
 what the JAX package computes, since its quantized layers return f32
 and every later layer follows ``x.dtype``.  It takes no training step.
 ``output()`` runs as a program registered with the cost registry under
-the JAX package's key (``("infer", False)``, plus ``"int8"`` for a
+the JAX package's key (``("infer", masked)``, plus ``"int8"`` for a
 quantized model), and a quantized site counts its implementation once a
 program signature (`program_run`, `ops/dequant_matmul.py`).
+
+Masks.  A (B, T) features mask (1 on real steps) reaches every layer
+with ``ACCEPTS_MASK`` (attention keys, `GlobalPooling`) until the time
+axis collapses, in ``output``, ``score``, ``evaluate``, ``predict``,
+``feed_forward`` and training, as in the JAX package.
 
 A training step is the JAX step written out: forward, data loss (the
 output layer's own loss, or a loss of `nn/losses.py`), plus the l1 / l2
@@ -86,6 +91,7 @@ from deeplearning4j_tpu_torch.data.iterator import (
 )
 from deeplearning4j_tpu_torch.models._cast import entry_cast
 from deeplearning4j_tpu_torch.models._common import (
+    pop_aux_losses,
     regularization_loss,
     resolve_output_spec,
 )
@@ -148,13 +154,6 @@ def _tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
-def compute_tree(tree: dict, dtype: torch.dtype) -> dict:
-    """``tree`` detached and cast to the compute ``dtype``; `QuantizedTensor`
-    leaves stay as they are (a quantized model computes in f32)."""
-    return _tree_map(lambda t: t if isinstance(t, QuantizedTensor)
-                     else t.detach().to(dtype), tree)
-
-
 def tree_leaves(tree) -> list:
     """The leaves of a nested dict in ``jax.tree.leaves`` order: keys
     sorted at every level, a `QuantizedTensor` as its ``q`` then its
@@ -212,9 +211,9 @@ def _copy_state(dst: dict, src: dict) -> None:
 
 
 class _Staged:
-    """A step group's inputs on the card: the batches stacked, the
-    layers' keys (K, layers, 2) and the updater's step values (K, n), one
-    host-to-device copy each."""
+    """A step group's inputs on the card: the batches and their masks
+    stacked, the layers' keys (K, layers, 2) and the updater's step
+    values (K, n), one host-to-device copy each."""
 
     def __init__(self, model, batches):
         dev = model.device
@@ -228,6 +227,8 @@ class _Staged:
         self.labels = stack([b.labels for b in batches])
         self.lmask = (None if batches[0].labels_mask is None
                       else stack([b.labels_mask for b in batches]))
+        self.fmask = (None if batches[0].features_mask is None
+                      else stack([b.features_mask for b in batches]))
         keys, vals, state = [], [], model.opt_state
         for i in range(len(batches)):
             keys.append(model._layer_keys(model.iteration + i))
@@ -238,9 +239,11 @@ class _Staged:
             len(batches), len(vals[0]))).to(dev)
 
     def step(self, i: int) -> tuple:
-        """Step i's (features, labels, labels mask, keys, values)."""
+        """Step i's (features, labels, labels mask, features mask, keys,
+        values)."""
         return (self.features[i], self.labels[i],
                 None if self.lmask is None else self.lmask[i],
+                None if self.fmask is None else self.fmask[i],
                 self.keys[i], self.vals[i])
 
 
@@ -261,6 +264,8 @@ class SequentialModel(Model):
         self._itypes = self._flatten_before = None
         if conf.input_type is not None:
             self._itypes, self._flatten_before = conf._walk_types()
+        # layers whose weights stay f32 in the compute tree (the MoE layer)
+        self.f32_layers = frozenset(l.name for l in conf.layers if l.F32_PARAMS)
         self.layers = nn.ModuleDict()
         self._compute = None
         self._quantized = None         # the scheme marker of a quantized tree
@@ -388,8 +393,25 @@ class SequentialModel(Model):
         rebuilt after `init`, `load_params` and every training step).
         `QuantizedTensor` leaves stay as they are."""
         if self._compute is None:
-            self._compute = compute_tree(self.params, self.compute_dtype)
+            self._compute = self.cast_tree(self.params)
         return self._compute
+
+    def cast_tree(self, tree: dict, detach: bool = True) -> dict:
+        """``tree`` cast to the compute dtype, as the layers see it: the
+        ``F32_PARAMS`` layers (the MoE layer) keep f32 and `QuantizedTensor`
+        leaves stay as they are (a quantized model computes in f32).
+        Detached unless ``detach`` is False (the training step
+        differentiates through the cast)."""
+        def cast(dt):
+            def leaf(t):
+                if isinstance(t, QuantizedTensor):
+                    return t
+                return (t.detach() if detach else t).to(dt)
+            return leaf
+
+        return {k: _tree_map(cast(torch.float32 if k in self.f32_layers
+                                  else self.compute_dtype), v)
+                for k, v in tree.items()}
 
     def _layer_keys(self, step: int) -> list:
         """The dropout keys of step ``step``: layer i's is
@@ -397,24 +419,45 @@ class SequentialModel(Model):
         key = rng.SeedStream.fold(self._stream.root, step)
         return [rng.fold_in(key, i) for i in range(len(self.conf.layers))]
 
-    def _forward(self, params: dict, net_state: dict, features, *,
-                 training: bool = False, keys=None):
-        """The layer stack on ``params`` (already in the compute dtype)
-        and ``net_state``; returns (output, new state of the layers that
-        have one).  Inputs take the compute dtype (`entry_cast`); a
+    def _layer_outputs(self, params: dict, net_state: dict, features, *,
+                       training: bool = False, keys=None, fmask=None):
+        """Run the stack, yielding (layer, output, new state) layer by
+        layer.  Inputs take the compute dtype (`entry_cast`); a
         feed-forward layer after convolutional maps sees them flattened.
-        In training, layer i draws its dropout from ``keys[i]``
-        (`_layer_keys`: two Python ints, or two device scalars)."""
+        The (B, T) features mask ``fmask`` reaches every layer with
+        ``ACCEPTS_MASK`` until the time axis collapses (JAX
+        ``_forward``).  In training, layer i draws its dropout from
+        ``keys[i]`` (`_layer_keys`: two Python ints, or two device
+        scalars)."""
         x = entry_cast(as_tensor(features, self.device), self.compute_dtype)
-        flatten = self._flatten_before or [False] * len(self.conf.layers)
-        new_state = {}
+        mask = None if fmask is None else as_tensor(fmask, self.device)
+        n = len(self.conf.layers)
+        flatten = self._flatten_before or [False] * n
+        itypes = self._itypes or [None] * n
         for i, layer in enumerate(self.conf.layers):
             if flatten[i]:
                 x = x.reshape(x.shape[0], -1)
+            kw = {"mask": mask} if layer.ACCEPTS_MASK else {}
             x, ns = layer.apply(params.get(layer.name, {}),
                                 net_state.get(layer.name, {}), x,
                                 training=training,
-                                rng=keys[i] if keys is not None else None)
+                                rng=keys[i] if keys is not None else None, **kw)
+            yield layer, x, ns
+            # once the time axis collapses (RNN -> FF), the mask is spent
+            it = itypes[i]
+            if (mask is not None and it is not None and it.kind == "rnn"
+                    and layer.output_type(it).kind != "rnn"):
+                mask = None
+
+    def _forward(self, params: dict, net_state: dict, features, *,
+                 training: bool = False, keys=None, fmask=None):
+        """The layer stack on ``params`` (already in the compute dtype)
+        and ``net_state``; returns (output, new state of the layers that
+        have one).  See `_layer_outputs`."""
+        x, new_state = None, {}
+        for layer, x, ns in self._layer_outputs(params, net_state, features,
+                                                training=training, keys=keys,
+                                                fmask=fmask):
             if ns:
                 new_state[layer.name] = ns
         return x, new_state
@@ -429,26 +472,29 @@ class SequentialModel(Model):
         return resolve_output_spec(last)[1]
 
     @torch.no_grad()
-    def output(self, features, params: dict | None = None,
+    def output(self, features, features_mask=None, params: dict | None = None,
                net_state: dict | None = None) -> torch.Tensor:
         """Forward pass with the output activation applied, in f32
         (reference `MultiLayerNetwork.output()`): class probabilities for
         an output layer with a softmax, hidden states for a
         `ChunkedSoftmaxOutputLayer` head (its projection lives in the
-        loss).  ``params``: a `compute_params()` tree to run on instead
-        of the current one (a server's snapshot, taken under its weights
-        lock); ``net_state`` likewise (the model's by default)."""
+        loss).  ``features_mask``: the (B, T) keep-mask of a padded
+        batch (1 on real steps), seen by every mask-aware layer.
+        ``params``: a `compute_params()` tree to run on instead of the
+        current one (a server's snapshot, taken under its weights lock);
+        ``net_state`` likewise (the model's by default)."""
         if self.params is None:
             self.init()
-        return self._infer_program()(
-            params if params is not None else self.compute_params(),
-            net_state if net_state is not None else self.net_state, features)
+        masked = features_mask is not None
+        args = (params if params is not None else self.compute_params(),
+                net_state if net_state is not None else self.net_state, features)
+        return self._infer_program(masked)(*args, *((features_mask,) if masked else ()))
 
-    def _infer_program(self):
+    def _infer_program(self, masked: bool = False):
         """`_infer`, registered with the cost registry on first use under
-        the JAX package's key (``_get_infer_fn``: ``("infer", False)``,
+        the JAX package's key (``_get_infer_fn``: ``("infer", masked)``,
         plus ``"int8"`` for a quantized tree)."""
-        key = ("infer", False) + (("int8",) if self._quantized is not None else ())
+        key = ("infer", masked) + (("int8",) if self._quantized is not None else ())
         fn = self._step_fns.get(key)
         if fn is None:
             from deeplearning4j_tpu_torch.observe import cost
@@ -457,12 +503,15 @@ class SequentialModel(Model):
                 self, key, self._infer)
         return fn
 
-    def _infer(self, params: dict, net_state: dict, features) -> torch.Tensor:
+    def _infer(self, params: dict, net_state: dict, features,
+               fmask=None) -> torch.Tensor:
         """The ``output()`` program: the stack on ``params`` (compute
         dtype) and the output activation, in f32.  Pure."""
         x = as_tensor(features, self.device)
-        with self.program_run("infer", tuple(x.shape), x.dtype):
-            x, _ = self._forward(params, net_state, x)
+        sig = (tuple(x.shape), x.dtype) + (
+            () if fmask is None else (tuple(np.shape(fmask)),))
+        with self.program_run("infer", *sig):
+            x, _ = self._forward(params, net_state, x, fmask=fmask)
         return self._out_activation()(x.float())
 
     def program_run(self, kind: str, *signature):
@@ -476,25 +525,16 @@ class SequentialModel(Model):
             self._program_signatures.add(key)
         return counting_selections(first)
 
-    def predict(self, features) -> np.ndarray:
+    def predict(self, features, features_mask=None) -> np.ndarray:
         """Argmax class predictions (reference `predict()`)."""
-        return self.output(features).argmax(dim=-1).cpu().numpy()
+        return self.output(features, features_mask).argmax(dim=-1).cpu().numpy()
 
     @torch.no_grad()
-    def feed_forward(self, features) -> list:
+    def feed_forward(self, features, features_mask=None) -> list:
         """Every layer's activations (reference `feedForward()`), in the
         compute dtype; an inspection path."""
-        params = self.compute_params()
-        x = entry_cast(as_tensor(features, self.device), self.compute_dtype)
-        flatten = self._flatten_before or [False] * len(self.conf.layers)
-        acts = []
-        for i, layer in enumerate(self.conf.layers):
-            if flatten[i]:
-                x = x.reshape(x.shape[0], -1)
-            x, _ = layer.apply(params.get(layer.name, {}),
-                               self.net_state.get(layer.name, {}), x)
-            acts.append(x)
-        return acts
+        return [x for _, x, _ in self._layer_outputs(
+            self.compute_params(), self.net_state, features, fmask=features_mask)]
 
     def _data_loss(self, params: dict, out, labels, lmask):
         last = self.conf.layers[-1]
@@ -515,7 +555,8 @@ class SequentialModel(Model):
         updated."""
         if self.params is None:
             self.init()
-        out, _ = self._forward(self.compute_params(), self.net_state, ds.features)
+        out, _ = self._forward(self.compute_params(), self.net_state, ds.features,
+                               fmask=ds.features_mask)
         loss = self._data_loss(self.params, out, ds.labels, ds.labels_mask)
         return float(loss + self._reg_loss(self.params))
 
@@ -529,7 +570,7 @@ class SequentialModel(Model):
         ev = Evaluation()
         last = self.conf.layers[-1]
         for batch in _as_iterator(data, batch_size):
-            probs = self.output(batch.features)
+            probs = self.output(batch.features, batch.features_mask)
             if hasattr(last, "evaluation_output"):
                 # a head that owns its projection: its logits, not apply()'s
                 probs = last.evaluation_output(
@@ -578,17 +619,29 @@ class SequentialModel(Model):
                                    [(l.name, l) for l in self.conf.layers])
 
     def _step_loss(self, params: dict, net_state: dict, features, labels,
-                   lmask=None, keys=None):
-        """Forward + data loss + l1 / l2 penalty on the f32 master tree
-        ``params``: the layers see it cast to the compute dtype inside
-        the graph; the output layer's own loss (the chunked head) and the
-        penalty see the masters, as the JAX package's do.  Returns (loss,
-        the layers' new state)."""
-        dt = self.compute_dtype
-        out, new_state = self._forward(_tree_map(lambda t: t.to(dt), params),
-                                       net_state, features, training=True, keys=keys)
+                   lmask=None, fmask=None, keys=None):
+        """The step's objective (JAX ``_step_loss``): data loss + l1 / l2
+        penalty + the layers' auxiliary losses, summed in that order
+        (`_step_loss_parts`).  Returns (loss, the layers' new state)."""
+        data, reg, aux, new_state = self._step_loss_parts(
+            params, net_state, features, labels, lmask, fmask, keys)
+        return data + reg + aux, new_state
+
+    def _step_loss_parts(self, params: dict, net_state: dict, features, labels,
+                         lmask=None, fmask=None, keys=None):
+        """Forward, then the data loss, the l1 / l2 penalty and the layers'
+        auxiliary losses apart, on the f32 master tree ``params``: the
+        layers see it cast to the compute dtype inside the graph (but
+        ``F32_PARAMS`` layers the masters); the output layer's own loss
+        (the chunked head) and the penalty see the masters, as the JAX
+        package's do.  Returns (data, penalty, aux, the layers' new state
+        with the aux entries popped)."""
+        out, new_state = self._forward(self.cast_tree(params, detach=False),
+                                       net_state, features, training=True,
+                                       keys=keys, fmask=fmask)
         data_loss = self._data_loss(params, out, labels, lmask)
-        return data_loss + self._reg_loss(params), new_state
+        aux, new_state = pop_aux_losses(new_state)
+        return data_loss, self._reg_loss(params), aux, new_state
 
     def _step_program(self):
         """The training step's pure device program, `_grad_step`,
@@ -603,7 +656,7 @@ class SequentialModel(Model):
         return fn
 
     def _grad_step(self, params: dict, net_state: dict, features, labels,
-                   lmask, keys):
+                   lmask, fmask, keys):
         """Loss, gradients of ``params`` (``jax.tree.leaves`` order, zeros
         for an unused leaf) and the layers' new state on one batch: the
         step's forward and backward, and no state changed — the update
@@ -611,15 +664,17 @@ class SequentialModel(Model):
         plist = tree_leaves(params)
         with torch.enable_grad():
             loss, new_state = self._step_loss(params, net_state, features,
-                                              labels, lmask, keys=keys)
+                                              labels, lmask, fmask, keys=keys)
             grads = torch.autograd.grad(loss, plist, allow_unused=True)
         return (loss, [torch.zeros_like(p) if g is None else g
                        for p, g in zip(plist, grads)],
                 _tree_map(lambda t: t.detach(), new_state))
 
-    def _train_step(self, features, labels, lmask, keys, vals, grad_step=None):
+    def _train_step(self, features, labels, lmask, fmask, keys, vals,
+                    grad_step=None):
         """One whole step on the live trees: `_grad_step`, the updater,
-        the parameters and the layer state updated in place.  ``keys``:
+        the parameters and the layer state updated in place.  ``lmask``,
+        ``fmask``: the labels and features masks, or None.  ``keys``:
         the layers' dropout keys (`_layer_keys`, or their (layers, 2)
         int64 device tensor); ``vals``: the updater's step values (None:
         the updater computes them as Python floats; else a device
@@ -634,7 +689,7 @@ class SequentialModel(Model):
         params = self.params
         plist = tree_leaves(params)
         loss, grads, new_state = (grad_step or self._step_program())(
-            params, self.net_state, features, labels, lmask, keys)
+            params, self.net_state, features, labels, lmask, fmask, keys)
         updates, opt_state = self._tx.update(grads, self.opt_state, plist, vals)
         with torch.no_grad():
             for p, u in zip(plist, updates):
@@ -654,10 +709,6 @@ class SequentialModel(Model):
                 "this model is int8-quantized for inference and takes no "
                 "training step; train the f32 model, then quantize it again")
         self._check_trainable()
-        if any(b.features_mask is not None for b in batches):
-            raise NotImplementedError(
-                "features masks (key masks in attention) are not ported to "
-                "training yet (ROADMAP A5: SelfAttentionLayer)")
         if self.opt_state is None:
             self.opt_state = self._tx.init(tree_leaves(self.params))
             self._drop_graphs()
@@ -675,7 +726,7 @@ class SequentialModel(Model):
                 out = []
                 for i, b in enumerate(batches):
                     loss, self.opt_state = self._train_step(
-                        b.features, b.labels, b.labels_mask,
+                        b.features, b.labels, b.labels_mask, b.features_mask,
                         self._layer_keys(self.iteration + i), None)
                     out.append(loss)
                 losses_k = torch.stack(out)
@@ -723,10 +774,10 @@ class SequentialModel(Model):
         run's loss lands in the last input, a static slot."""
         from deeplearning4j_tpu_torch.runtime.graphs import CapturedProgram
 
-        def step(features, labels, lmask, keys, vals, slot):
+        def step(features, labels, lmask, fmask, keys, vals, slot):
             bare = torch.cuda.is_current_stream_capturing()
             slot.copy_(self._train_step(
-                features, labels, lmask, keys, vals,
+                features, labels, lmask, fmask, keys, vals,
                 grad_step=self._grad_step if bare else None)[0])
 
         inputs = tuple(None if t is None else t.clone() for t in inputs)
@@ -761,13 +812,16 @@ class SequentialModel(Model):
             iterator.reset()
 
     def _fit_epoch_multi(self, iterator, spe: int) -> None:
-        """JAX ``_fit_epoch_multi``: groups of ``spe`` batches."""
+        """JAX ``_fit_epoch_multi``: groups of ``spe`` batches.  A group
+        stages its masks beside its batches; one whose shapes differ, or
+        whose batches differ in having a mask, steps batch by batch (the
+        JAX package steps every masked batch alone: the same steps)."""
+        def sig(b):
+            return tuple(None if a is None else np.shape(a) for a in (
+                b.features, b.labels, b.features_mask, b.labels_mask))
+
         def group_ok(buf):
-            f0, l0 = buf[0].features, buf[0].labels
-            return all(np.shape(b.features) == np.shape(f0)
-                       and np.shape(b.labels) == np.shape(l0)
-                       and b.features_mask is None and b.labels_mask is None
-                       for b in buf)
+            return all(sig(b) == sig(buf[0]) for b in buf)
 
         buf: list[DataSet] = []
         for batch in self._timed_batches(iterator):

@@ -1,16 +1,20 @@
-"""Attention layer configs — `PositionalEncoding` and the pre-LN
-`TransformerEncoderBlock` of `deeplearning4j_tpu/nn/conf/attention.py`.
+"""Attention layer configs — `deeplearning4j_tpu/nn/conf/attention.py`:
+`SelfAttentionLayer`, `LearnedSelfAttentionLayer`, `PositionalEncoding`
+and the pre-LN `TransformerEncoderBlock`.
 
 Sequence parallelism (``seq_parallel`` "ring" / "ulysses") waits for the
-parallelism slice (ROADMAP A11): a block that asks for it loads from a
-configuration and raises when a model is built.  These blocks attend on
-one device through `ops.attention.mha`, which sends unmasked calls to
-the flash-forward kernel on CUDA.
+parallelism slice (ROADMAP A11): a layer that asks for it loads from a
+configuration and raises when a model is built.  Every layer here
+attends on one device through `ops.attention.mha`, which sends unmasked
+self-attention to the flash-forward kernel on CUDA; a key mask (the
+model's features mask, ``ACCEPTS_MASK``) keeps the dense route, as the
+JAX package's ``flash_eligible`` refuses any mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -45,17 +49,167 @@ def sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
     return pe
 
 
-def init_qkv_params(key, wi: WeightInit, n_in: int, hd: int, n_out: int,
-                    device) -> dict:
+_SEQ_MODES = ("none", "ring", "ulysses")
+
+
+def _check_seq_parallel(layer) -> None:
+    """Raise for a sequence-parallel mode (ROADMAP A11) when a model is
+    built; an unknown mode is a ValueError, as in the JAX package."""
+    if layer.seq_parallel not in _SEQ_MODES:
+        raise ValueError(
+            f"seq_parallel={layer.seq_parallel!r}; options: {_SEQ_MODES}")
+    if layer.seq_parallel != "none":
+        raise NotImplementedError(
+            f"layer {layer.name!r}: seq_parallel={layer.seq_parallel!r} is "
+            "not ported yet (ROADMAP A11: ring and Ulysses attention)")
+
+
+def resolve_head_size(n_out: int, n_heads: int, head_size) -> int:
+    """An explicit head_size wins; otherwise n_out splits evenly over the
+    heads."""
+    if head_size is not None:
+        return head_size
+    if n_out % n_heads:
+        raise ValueError(f"n_out {n_out} not divisible by n_heads {n_heads}")
+    return n_out // n_heads
+
+
+def init_qkv_params(key, wi: WeightInit, n_in_q: int, n_in_k: int,
+                    n_in_v: int, hd: int, n_out: int, device) -> dict:
     """Wq / Wk / Wv into n_heads * head_size (= hd) and Wo back out, from
     the four subkeys of ``key`` in that order (the JAX package's)."""
     kq, kk, kv, ko = rng_mod.split(key, 4)
     return {
-        "Wq": wi.init(kq, (n_in, hd), fan_in=n_in, fan_out=hd, device=device),
-        "Wk": wi.init(kk, (n_in, hd), fan_in=n_in, fan_out=hd, device=device),
-        "Wv": wi.init(kv, (n_in, hd), fan_in=n_in, fan_out=hd, device=device),
+        "Wq": wi.init(kq, (n_in_q, hd), fan_in=n_in_q, fan_out=hd, device=device),
+        "Wk": wi.init(kk, (n_in_k, hd), fan_in=n_in_k, fan_out=hd, device=device),
+        "Wv": wi.init(kv, (n_in_v, hd), fan_in=n_in_v, fan_out=hd, device=device),
         "Wo": wi.init(ko, (hd, n_out), fan_in=hd, fan_out=n_out, device=device),
     }
+
+
+def apply_qkv_attention(params, xq, xk, xv, *, n_heads: int, head_size: int,
+                        project_input: bool, causal: bool, mask):
+    """Project (when project_input), attend, merge heads, project out.
+    xq / xk / xv: (B, T*, F), one tensor three times for self-attention;
+    mask: a (B, Tk) keep-mask over keys or None.  The projections go
+    through `quantf.matmul` (B5 for an int8 weight); the core is `mha` on
+    one device (a sequence-parallel layer raised when its model was
+    built, `_check_seq_parallel`)."""
+    b, tq = xq.shape[0], xq.shape[1]
+    h, dh = n_heads, head_size
+    if project_input:
+        q = quantf.matmul(xq, params["Wq"]).reshape(b, tq, h, dh)
+        k = quantf.matmul(xk, params["Wk"]).reshape(b, xk.shape[1], h, dh)
+        v = quantf.matmul(xv, params["Wv"]).reshape(b, xv.shape[1], h, dh)
+    else:
+        q = xq.reshape(b, tq, h, dh)
+        k = xk.reshape(b, xk.shape[1], h, dh)
+        v = xv.reshape(b, xv.shape[1], h, dh)
+    out = mha(q, k, v, causal=causal, mask=mask).reshape(b, tq, h * dh)
+    if project_input:
+        out = quantf.matmul(out, params["Wo"])
+    return out
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class SelfAttentionLayer(LayerConfig):
+    """Multi-head self-attention over a sequence.  ``project_input``:
+    learned Wq / Wk / Wv into n_heads * head_size, attention, Wo back out
+    to n_out; without it the input is q = k = v and n_in must equal
+    n_heads * head_size = n_out."""
+
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: Optional[int] = None       # default: n_out // n_heads
+    project_input: bool = True
+    causal: bool = False
+    seq_parallel: str = "none"            # none | ring | ulysses (A11)
+
+    EXPECTS = "rnn"
+    ACCEPTS_MASK = True
+    REGULARIZED = ("Wq", "Wk", "Wv", "Wo")
+
+    def check_supported(self):
+        _check_seq_parallel(self)
+
+    def _head_size(self) -> int:
+        return resolve_head_size(self.n_out, self.n_heads, self.head_size)
+
+    def output_type(self, itype):
+        if not self.project_input and itype.size != self.n_out:
+            raise ValueError("project_input=False requires n_in == n_out "
+                             f"(got {itype.size} vs {self.n_out})")
+        return InputType.recurrent(self.n_out, itype.shape[0])
+
+    def init(self, key, itype, device):
+        if not self.project_input:
+            if itype.size != self.n_heads * self._head_size():
+                raise ValueError(
+                    "project_input=False requires n_in == n_heads*head_size "
+                    f"(got {itype.size} vs {self.n_heads}*{self._head_size()})")
+            return {}, {}
+        n_in, hd = itype.size, self.n_heads * self._head_size()
+        wi = self._winit(WeightInit.XAVIER)
+        return init_qkv_params(key, wi, n_in, n_in, n_in, hd, self.n_out,
+                               device), {}
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        x = _dropout(x, self.dropout_rate or 0.0, training, rng)
+        out = apply_qkv_attention(
+            params, x, x, x, n_heads=self.n_heads, head_size=self._head_size(),
+            project_input=self.project_input, causal=self.causal, mask=mask)
+        return self._act()(out), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class LearnedSelfAttentionLayer(LayerConfig):
+    """Attention with ``n_queries`` learned query vectors: (B, T, n_in)
+    -> (B, n_queries, n_out) whatever T is, a trainable pooling of the
+    sequence.  Keys and values attend densely (the queries are not a
+    sequence to shard); Wk, Wv and Wo are plain products, never int8,
+    as in the JAX layer."""
+
+    n_out: int = 0
+    n_heads: int = 1
+    n_queries: int = 1
+    head_size: Optional[int] = None
+
+    EXPECTS = "rnn"
+    ACCEPTS_MASK = True
+    REGULARIZED = ("Wk", "Wv", "Wo", "Q")
+
+    def _head_size(self) -> int:
+        return resolve_head_size(self.n_out, self.n_heads, self.head_size)
+
+    def output_type(self, itype):
+        return InputType.recurrent(self.n_out, self.n_queries)
+
+    def init(self, key, itype, device):
+        n_in, hd = itype.size, self.n_heads * self._head_size()
+        kq, kk, kv, ko = rng_mod.split(key, 4)
+        wi = self._winit(WeightInit.XAVIER)
+        return {
+            "Q": wi.init(kq, (self.n_queries, hd), fan_in=hd, fan_out=hd,
+                         device=device),
+            "Wk": wi.init(kk, (n_in, hd), fan_in=n_in, fan_out=hd, device=device),
+            "Wv": wi.init(kv, (n_in, hd), fan_in=n_in, fan_out=hd, device=device),
+            "Wo": wi.init(ko, (hd, self.n_out), fan_in=hd, fan_out=self.n_out,
+                          device=device),
+        }, {}
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        x = _dropout(x, self.dropout_rate or 0.0, training, rng)
+        b, t = x.shape[0], x.shape[1]
+        h, dh = self.n_heads, self._head_size()
+        q = params["Q"].to(x.dtype).reshape(1, self.n_queries, h, dh).expand(
+            b, self.n_queries, h, dh)
+        k = (x @ params["Wk"].to(x.dtype)).reshape(b, t, h, dh)
+        v = (x @ params["Wv"].to(x.dtype)).reshape(b, t, h, dh)
+        out = mha(q, k, v, mask=mask)
+        out = out.reshape(b, self.n_queries, h * dh) @ params["Wo"].to(x.dtype)
+        return self._act()(out), state
 
 
 @serde.register
@@ -96,9 +250,11 @@ class PositionalEncoding(LayerConfig):
 @serde.register
 @dataclasses.dataclass(frozen=True)
 class TransformerEncoderBlock(LayerConfig):
-    """Pre-LN block: x + MHA(LN(x)), then x + FFN(LN(x)).  Dropout drops
-    the FFN's input; the attention sub-layer takes none (the JAX block
-    builds it without a rate)."""
+    """Pre-LN block: x + MHA(LN(x)), then x + FFN(LN(x)).  The attention
+    is a `SelfAttentionLayer` of the block's width (its tree under
+    ``params["attn"]``), key-masked by the model's features mask.
+    Dropout drops the FFN's input; the attention sub-layer takes none
+    (the JAX block builds it without a rate)."""
 
     d_model: int = 0
     n_heads: int = 1
@@ -106,6 +262,9 @@ class TransformerEncoderBlock(LayerConfig):
     causal: bool = False
     seq_parallel: str = "none"
     ffn_activation: Activation = Activation.GELU
+
+    EXPECTS = "rnn"
+    ACCEPTS_MASK = True
 
     def __post_init__(self):
         super().__post_init__()
@@ -116,10 +275,7 @@ class TransformerEncoderBlock(LayerConfig):
                 f"d_model {self.d_model} not divisible by n_heads {self.n_heads}")
 
     def check_supported(self):
-        if self.seq_parallel != "none":
-            raise NotImplementedError(
-                f"layer {self.name!r}: seq_parallel={self.seq_parallel!r} is "
-                "not ported yet (ROADMAP A11: ring and Ulysses attention)")
+        _check_seq_parallel(self)
 
     def _dff(self) -> int:
         return self.d_ff if self.d_ff > 0 else 4 * self.d_model
@@ -146,7 +302,7 @@ class TransformerEncoderBlock(LayerConfig):
                     "beta": torch.zeros(d, device=device)}
 
         return {
-            "attn": init_qkv_params(k_attn, wi, d, d, d, device),
+            "attn": init_qkv_params(k_attn, wi, d, d, d, d, d, device),
             "ln1": ln(),
             "ln2": ln(),
             "W1": wi.init(k1, (d, dff), fan_in=d, fan_out=dff, device=device),
@@ -155,16 +311,12 @@ class TransformerEncoderBlock(LayerConfig):
             "b2": torch.zeros(d, device=device),
         }, {}
 
-    def apply(self, params, state, x, *, training=False, rng=None):
-        ap = params["attn"]
-        b, t, _ = x.shape
-        h_, dh = self.n_heads, self.d_model // self.n_heads
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
         h = layer_norm(params["ln1"], x)
-        q = quantf.matmul(h, ap["Wq"]).reshape(b, t, h_, dh)
-        k = quantf.matmul(h, ap["Wk"]).reshape(b, t, h_, dh)
-        v = quantf.matmul(h, ap["Wv"]).reshape(b, t, h_, dh)
-        out = mha(q, k, v, causal=self.causal).reshape(b, t, h_ * dh)
-        x = x + quantf.matmul(out, ap["Wo"])
+        x = x + apply_qkv_attention(
+            params["attn"], h, h, h, n_heads=self.n_heads,
+            head_size=self.d_model // self.n_heads, project_input=True,
+            causal=self.causal, mask=mask)
         h = layer_norm(params["ln2"], x)
         if training and rng is not None and self.dropout_rate:
             # the JAX block splits its key for the attention sub-layer

@@ -12,7 +12,9 @@ JAX package's three functions:
   running mean and variance);
 - ``apply(params, state, x, *, training, rng) -> (y, new_state)``: a
   plain function of the parameter and state dicts and a tensor; in
-  training it takes the layer's step key for dropout.
+  training it takes the layer's step key for dropout.  A layer with
+  ``ACCEPTS_MASK`` also takes ``mask=``, the model's (B, T) features
+  mask, until the time axis collapses.
 
 ``EXPECTS`` says which input kind a layer takes ("ff" layers after a
 convolutional one get the implicit flatten), ``HAS_PARAMS`` whether it
@@ -98,6 +100,11 @@ class LayerConfig:
     HAS_PARAMS = True
     # which parameters the l1 / l2 penalty applies to
     REGULARIZED = ("W",)
+    # apply() takes the (B, T) features mask as ``mask=``
+    ACCEPTS_MASK = False
+    # the layer computes in f32 from f32 weights whatever the compute
+    # dtype (the model leaves its tree out of the bf16 cast)
+    F32_PARAMS = False
 
     def __post_init__(self):
         # strings are accepted wherever the enum is, and padding is
@@ -354,6 +361,52 @@ class Subsampling(LayerConfig):
         return conv_ops.pool2d_nhwc(x, self.pooling.value, kernel=self.kernel,
                                     stride=self.stride, padding=self.padding,
                                     pnorm=self.pnorm), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class GlobalPooling(LayerConfig):
+    """GlobalPoolingLayer role: collapse the time axis of (B, T, F) or the
+    spatial axes of (B, H, W, C).  A (B, T) features mask excludes padded
+    steps from every pooling type: MAX sees them as -inf, SUM and PNORM
+    (p = 2) as zeros, AVG divides the masked sum by ``max(sum m, 1)``."""
+
+    pooling: PoolingType = PoolingType.AVG
+    HAS_PARAMS = False
+    REGULARIZED = ()
+    ACCEPTS_MASK = True
+
+    def output_type(self, itype):
+        if itype.kind == InputType.KIND_CNN:
+            return InputType.feed_forward(itype.channels)
+        if itype.kind == InputType.KIND_RNN:
+            return InputType.feed_forward(itype.size)
+        return itype
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        axes = tuple(range(1, x.dim() - 1))
+        m = None
+        if mask is not None:
+            m = mask.to(x.dtype)
+            while m.dim() < x.dim():
+                m = m[..., None]
+        if self.pooling is PoolingType.MAX:
+            if m is not None:
+                x = torch.where(m > 0, x, torch.full((), float("-inf"),
+                                                     dtype=x.dtype, device=x.device))
+            return torch.amax(x, dim=axes), state
+        if self.pooling is PoolingType.SUM:
+            if m is not None:
+                x = x * m
+            return x.sum(dim=axes), state
+        if self.pooling is PoolingType.PNORM:
+            if m is not None:
+                x = x * m
+            return (x.abs() ** 2.0).sum(dim=axes) ** 0.5, state
+        if m is not None:
+            denom = torch.clamp(m.sum(dim=axes), min=1.0)
+            return (x * m).sum(dim=axes) / denom, state
+        return x.mean(dim=axes), state
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ axis), keyed exactly as the JAX package keys its quantized tree.
 Biases, norm parameters and BatchNorm's state stay f32.  The quantized
 layer set comes from the configuration (layer types), limited to the
 layer types the port has: `Conv2D`, `Dense` and `OutputLayer`,
-`Embedding`, `ChunkedSoftmaxOutputLayer`, `RnnOutputLayer` and
-`TransformerEncoderBlock` (W1, W2 and the attention projections).  A
+`Embedding`, `ChunkedSoftmaxOutputLayer`, `RnnOutputLayer`,
+`SelfAttentionLayer` (Wq, Wk, Wv, Wo) and `TransformerEncoderBlock` (W1,
+W2 and the attention projections).  `MoELayer` and
+`LearnedSelfAttentionLayer` stay f32, as in the JAX package.  A
 quantized Dense or OutputLayer product runs B5 on the card
 (`quantf.matmul`); a quantized conv dequantizes its kernel and convolves
 in f32 (`quantf.conv_weight`), as the JAX layer does.
@@ -58,6 +60,7 @@ def _quantizable_types():
         (L.Embedding, {"": ("W",)}),
         (L.ChunkedSoftmaxOutputLayer, {"": ("W",)}),
         (R.RnnOutputLayer, {"": ("W",)}),
+        (A.SelfAttentionLayer, {"": qkv}),
         (A.TransformerEncoderBlock, {"": ("W1", "W2"), "attn": qkv}),
     )
 

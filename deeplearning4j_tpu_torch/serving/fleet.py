@@ -56,7 +56,6 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from deeplearning4j_tpu_torch.models.sequential import compute_tree
 from deeplearning4j_tpu_torch.observe import trace as otrace
 from deeplearning4j_tpu_torch.runtime import faults
 from deeplearning4j_tpu_torch.serving.router import (
@@ -338,9 +337,8 @@ class FleetDeployer:
         probe must read when it dispatched in a ``bucket``-row batch."""
         del net_state                  # the port's models carry none
         model = server.model
-        dt = model.compute_dtype
         staged = server._stage(params)
-        tree = compute_tree(staged, dt)
+        tree = model.cast_tree(staged)
         out = []
         for x in self.golden_inputs():
             feats = server._as_feature_tuple(x)

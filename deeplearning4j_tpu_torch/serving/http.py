@@ -5,7 +5,8 @@ Every rejection the `InferenceServer` produces maps to an explicit
 status code; an overloaded or degraded server answers fast with a
 reason, never hangs the socket:
 
-  POST /v1/infer    {"features": [...], "deadline_ms": 250}
+  POST /v1/infer    {"features": [...], "deadline_ms": 250,
+                     "features_mask": [1, 1, 0]}  # optional (T,) keep-mask
                     -> 200 {"outputs": ..., "latency_ms", "generation"}
                     -> 400 bad request  (malformed JSON / wrong shape)
                     -> 429 queue_full   (backpressure: retry later)
@@ -294,6 +295,7 @@ class ServingHTTPServer:
                             _features(a) for a in payload["inputs"])
                     else:
                         feats = _features(payload.get("features"))
+                    fmask = payload.get("features_mask")   # checked at admit
                     deadline_ms = payload.get("deadline_ms")
                     deadline_s = (
                         float(deadline_ms) / 1000.0
@@ -306,7 +308,8 @@ class ServingHTTPServer:
 
                 t0 = time.monotonic()
                 try:
-                    req = outer.server.submit(feats, deadline_s=deadline_s)
+                    req = outer.server.submit(feats, deadline_s=deadline_s,
+                                              features_mask=fmask)
                     result = req.result()
                 except ServingRejected as exc:
                     self._json(

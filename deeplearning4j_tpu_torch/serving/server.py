@@ -33,10 +33,11 @@ bounded exemplar ring (`slow_requests()`).
 
 An int8-quantized model (`quant.quantize`) serves through kernel B5
 (`ops/dequant_matmul.py`) and swaps quantized trees.  Not ported yet: a
-model with a mesh (A11), multi-input graphs (A4).  Time padding: the
-port's `output()` takes no key mask, so a padded batch is served only
-where the padding cannot reach a real row — a causal stack whose mask
-is a run of ones then zeros; anything else raises (`_check_mask`).
+model with a mesh (A11), multi-input graphs (A4).  Time padding: a
+padded batch's mask column (each request's own mask, or ones over its
+real steps) goes to ``output(..., features_mask=)``, as the JAX server
+passes it to its masked infer program, so padding and a mask's holes
+reach no real row.
 """
 
 from __future__ import annotations
@@ -303,7 +304,8 @@ class InferenceServer:
         feats = self._as_feature_tuple(features)
         deadline_s = (self.config.default_deadline_s
                       if deadline_s is None else float(deadline_s))
-        fmask = features_mask
+        fmask = (None if features_mask is None
+                 else self._checked_mask(features_mask, feats[0]))
         orig_len = padded_len = None
         if self._sequence_mode(feats):
             orig_len = int(feats[0].shape[0])
@@ -316,7 +318,7 @@ class InferenceServer:
                 fmask = seq_mask
             else:
                 m = np.zeros_like(seq_mask)
-                m[: len(fmask)] = np.asarray(fmask, np.float32)
+                m[: len(fmask)] = fmask
                 fmask = m
         sig = batching.bucket_signature(
             feats, self.config.sequence_quantum,
@@ -388,6 +390,21 @@ class InferenceServer:
                 f"{len(feats)}"
             )
         return feats
+
+    @staticmethod
+    def _checked_mask(features_mask, x: np.ndarray) -> np.ndarray:
+        """A request's features mask as f32 per-step flags, or ValueError
+        before it is queued: it must be 1-D, finite and as long as the
+        request's own time axis.  A bad mask that reached the batch would
+        fail every request dispatched with it and count against the
+        breaker."""
+        m = np.asarray(features_mask, np.float32)
+        steps = x.shape[0] if x.ndim else None
+        if m.ndim != 1 or m.shape[0] != steps or not np.isfinite(m).all():
+            raise ValueError(f"features_mask must be {steps} finite per-step "
+                             f"flags, one for each step of the features; got "
+                             f"shape {m.shape}")
+        return m
 
     def _sequence_mode(self, feats: tuple) -> bool:
         return (self.config.bucket_sequences and self.n_inputs == 1
@@ -593,24 +610,8 @@ class InferenceServer:
             raise NotImplementedError(
                 "serving a model with a device mesh is not ported yet "
                 "(ROADMAP A11)")
-        if fmask_col is not None:
-            self._check_mask(fmask_col)
         with torch.inference_mode():
-            return (model.output(cols[0], params=params),)
-
-    def _check_mask(self, fmask_col) -> None:
-        """The port's `output()` takes no key mask.  A causal stack
-        ignores a suffix of padding (no real row attends to it); any
-        other mask would change real rows, so it raises."""
-        m = np.asarray(fmask_col) > 0
-        suffix = (np.diff(m.astype(np.int8), axis=-1) <= 0).all()
-        blocks = [l for l in self.model.conf.layers if hasattr(l, "causal")]
-        if suffix and blocks and all(l.causal for l in blocks):
-            return
-        raise NotImplementedError(
-            "a features mask that reaches real rows (a non-causal stack, "
-            "or a mask that is not trailing padding) needs key masks "
-            "through output() (ROADMAP A5)")
+            return (model.output(cols[0], fmask_col, params=params),)
 
     def _finish_ok(self, token: int, reqs: list[PendingRequest],
                    rows: list[np.ndarray], bucket: int,

@@ -25,7 +25,6 @@ from typing import Any
 _REGISTRY: dict[str, type] = {}
 
 _RESNET = "A4: the ResNet-50 slice, graphs and N-d layers"
-_ATTENTION = "A5: attention, the rest"
 _RECURRENT = "A8: recurrent layers"
 _LONG_TAIL = "A13: the long tail"
 #: JAX package tags the port has no class for yet, and where each waits
@@ -33,13 +32,11 @@ UNPORTED = {
     **dict.fromkeys(("GraphConfiguration", "GraphNode", "AttentionVertex",
                      "ElementWiseVertex", "L2NormalizeVertex", "MergeVertex",
                      "ReshapeVertex", "ScaleVertex", "StackVertex",
-                     "SubsetVertex", "UnstackVertex", "GlobalPooling",
-                     "ZeroPadding2D", "Conv1D", "Conv3D", "Cropping1D",
-                     "Cropping2D", "Cropping3D", "MaskZeroLayer", "PReLU",
+                     "SubsetVertex", "UnstackVertex", "ZeroPadding2D",
+                     "Conv1D", "Conv3D", "Cropping1D", "Cropping2D",
+                     "Cropping3D", "MaskZeroLayer", "PReLU",
                      "Subsampling1D", "Subsampling3D", "Upsampling1D",
                      "Upsampling3D"), _RESNET),
-    **dict.fromkeys(("SelfAttentionLayer", "LearnedSelfAttentionLayer",
-                     "MoELayer"), _ATTENTION),
     **dict.fromkeys(("LSTM", "GravesLSTM", "GRU", "SimpleRnn", "Bidirectional",
                      "LastTimeStep", "TimeDistributed", "ConvLSTM2D"),
                     _RECURRENT),
@@ -66,9 +63,10 @@ def register(cls=None, *, name: str | None = None):
 
 
 # the modules whose config classes register themselves on import
-_CONFIG_MODULES = ("nn.conf.layers", "nn.conf.attention", "nn.conf.recurrent",
-                   "nn.conf.input_type", "nn.conf.neural_net_configuration",
-                   "nn.updaters", "nn.schedules")
+_CONFIG_MODULES = ("nn.conf.layers", "nn.conf.attention", "nn.conf.moe",
+                   "nn.conf.recurrent", "nn.conf.input_type",
+                   "nn.conf.neural_net_configuration", "nn.updaters",
+                   "nn.schedules")
 
 
 def registered(tag: str) -> type:

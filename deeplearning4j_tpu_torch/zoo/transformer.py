@@ -1,6 +1,7 @@
 """TransformerEncoder — the zoo's causal LM, as in
 `deeplearning4j_tpu/zoo/transformer.py`: token embedding + sinusoidal
-positions + N pre-LN encoder blocks + a per-token vocab head."""
+positions + N pre-LN encoder blocks (each followed by a `MoELayer` when
+``moe_experts`` > 0) + a per-token vocab head."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from deeplearning4j_tpu_torch.nn.conf.attention import (
     TransformerEncoderBlock,
 )
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+from deeplearning4j_tpu_torch.nn.conf.moe import MoELayer
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ChunkedSoftmaxOutputLayer,
     Embedding,
@@ -44,9 +46,6 @@ class TransformerEncoder(ZooModel):
         vocab_chunk: int = 8192,
         bf16_compute=None,
     ):
-        if moe_experts:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP A5: attention, the rest)")
         super().__init__(vocab_size, seed)
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -57,6 +56,7 @@ class TransformerEncoder(ZooModel):
         self.seq_parallel = seq_parallel
         self.seed = seed
         self.learning_rate = learning_rate
+        self.moe_experts = moe_experts
         self.moe_top_k = moe_top_k
         self.chunked_vocab_loss = chunked_vocab_loss
         self.vocab_chunk = vocab_chunk
@@ -77,6 +77,9 @@ class TransformerEncoder(ZooModel):
             b.layer(TransformerEncoderBlock(
                 d_model=self.d_model, n_heads=self.n_heads, d_ff=self.d_ff,
                 causal=self.causal, seq_parallel=self.seq_parallel))
+            if self.moe_experts > 0:
+                b.layer(MoELayer(n_out=self.d_model, n_experts=self.moe_experts,
+                                 top_k=self.moe_top_k))
         if self.chunked_vocab_loss:
             head = ChunkedSoftmaxOutputLayer(n_out=self.vocab_size,
                                              chunk=self.vocab_chunk)

@@ -82,7 +82,10 @@ replays against the same program run eagerly, bit for bit (LeNet in f32
 and bf16, SimpleCNN with dropout and BatchNorm); convolutions from 4
 threads give the single thread's bits and leave cuDNN's flags as they
 were; quantized LeNet with exactly 2 B5 launches a call, within 2e-5 of
-max p of the CPU's quantized model.
+max p of the CPU's quantized model.  The attention slice: the captured
+training step of a MoE transformer (bf16 and f32) and of a masked
+classifier over batches whose masks differ (one capture) against the
+eager step, bit for bit.
 """
 
 import dataclasses
@@ -572,17 +575,67 @@ def _snapshot_state(model):
             [x.clone() for x in tree_leaves(model.net_state)], model.iteration)
 
 
+def _masked_batches(n, vocab=64, rows=4, t=24):
+    """Padded id batches whose masks differ batch to batch, two-class."""
+    rng = np.random.default_rng(3)
+    out = []
+    for _ in range(n):
+        mask = (np.arange(t)[None] < rng.integers(4, t + 1, (rows, 1))).astype(np.float32)
+        ids = (rng.integers(1, vocab, (rows, t)) * mask).astype(np.int64)
+        out.append(DataSet(ids, np.eye(2, dtype=np.float32)[rng.integers(0, 2, rows)],
+                           features_mask=mask))
+    return out
+
+
+def _masked_conf():
+    """A small non-causal classifier: blocks, `GlobalPooling`, softmax."""
+    from deeplearning4j_tpu_torch.nn.conf.attention import (
+        PositionalEncoding,
+        TransformerEncoderBlock,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        Embedding,
+        GlobalPooling,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+        NeuralNetConfiguration,
+    )
+
+    return (NeuralNetConfiguration.builder().seed(4).updater(Adam(1e-3)).list()
+            .layer(Embedding(n_in=64, n_out=64))
+            .layer(PositionalEncoding(learned=True, max_length=32))
+            .layer(TransformerEncoderBlock(d_model=64, n_heads=2, causal=False))
+            .layer(TransformerEncoderBlock(d_model=64, n_heads=2, causal=False))
+            .layer(GlobalPooling(pooling="avg"))
+            .layer(OutputLayer(n_out=2))
+            .set_input_type(InputType.recurrent(1)).build())
+
+
 @pytest.mark.parametrize("name,bf16", [("lenet", False), ("lenet", True),
-                                       ("simplecnn", True)])
+                                       ("simplecnn", True), ("moe", True),
+                                       ("moe", False), ("masked", True)])
 def test_captured_training_steps_are_the_eager_steps(cuda, name, bf16):
     """From one snapshot, 3 replays of the captured step and 3 eager runs
     of the same step program give the same losses, parameters, Adam state
     and BatchNorm state, bit for bit (SimpleCNN: dropout keys and
-    BatchNorm stats through the graph's device inputs)."""
+    BatchNorm stats through the graph's device inputs; the MoE
+    transformer: the routed dispatch and the aux loss; the masked
+    classifier: batches whose features masks differ, one capture)."""
     from deeplearning4j_tpu_torch.nn.updaters import load_state_leaves
 
     if name == "lenet":
         conf, batches = LeNet().conf(), _lenet_batches(4)
+    elif name == "moe":
+        conf = TransformerEncoder(vocab_size=64, d_model=64, n_heads=2, n_layers=2,
+                                  chunked_vocab_loss=True, vocab_chunk=32,
+                                  moe_experts=4).conf()
+        rng = np.random.default_rng(2)
+        batches = [DataSet(ids, np.roll(ids, -1, axis=1)) for ids in
+                   (rng.integers(0, 64, (2, 32)) for _ in range(4))]
+    elif name == "masked":
+        conf, batches = _masked_conf(), _masked_batches(4)
     else:
         conf = SimpleCNN(height=32, width=32).conf()
         rng = np.random.default_rng(1)

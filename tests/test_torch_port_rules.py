@@ -6,7 +6,8 @@
   step and analyses its cost, runs the CPU engine, the server with an
   attached engine behind its HTTP front, a prefill/decode fleet and the
   fleet aggregator, and a quantized ``output()``, writes and restores a
-  checkpoint zip of each model, then lists its modules).
+  checkpoint zip of each model, trains a masked MoE step, then lists its
+  modules).
 - Entry points default to CUDA and raise when there is none, checkpoint
   restore included; only an explicit ``device="cpu"`` runs on the CPU.
 - A kernel wrapper never answers a CUDA tensor with its plain version:
@@ -67,7 +68,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "runtime.compile_stats", "models.model", "models._cast",
                      "ops.conv", "evaluation.evaluation", "data.normalizers",
                      "data.builtin", "zoo.zoo_model", "zoo.lenet",
-                     "zoo.simplecnn", "entry", "bench_lenet"):
+                     "zoo.simplecnn", "entry", "bench_lenet",
+                     "parallel.expert", "nn.conf.moe"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -140,6 +142,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         assert tuple(quantize(lm).output(x).shape) == (4, 10)
         fwd, args = entry(device="cpu")
         assert tuple(fwd(*args).shape) == (8, 10)
+        moe = TransformerEncoder(vocab_size=17, d_model=32, n_heads=2, n_layers=1,
+                                 causal=False, moe_experts=2).init_model(device="cpu")
+        fm = np.ones(ids.shape, np.float32)
+        fm[1, 4:] = 0
+        moe.fit_batch(DataSet(ids, np.roll(ids, -1, axis=1), features_mask=fm))
+        assert np.isfinite(moe.score_value) and moe.net_state == {}
+        assert tuple(moe.output(ids, fm).shape) == (2, 6, 17)
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "optax",
                                             "deeplearning4j_tpu"))

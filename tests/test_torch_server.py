@@ -343,26 +343,73 @@ def test_the_engine_feeds_the_breaker_and_shed_pressure():
 
 
 def test_padding_masks_are_served_only_where_they_cannot_reach_a_real_row():
+    """A batch's mask column reaches ``output(x, mask)``: trailing padding,
+    a mask with a hole and a non-causal model are all served, each row
+    what ``output()`` gives under the same mask (the JAX server's masked
+    infer program).  A model with a mesh still raises (A11)."""
     _, port = _models()
     srv = InferenceServer(port)
     x = np.stack([_ids(8, 1), _ids(8, 2)])
     params = port.compute_params()
     suffix = np.array([[1] * 8, [1] * 5 + [0] * 3], np.float32)
-    out = srv._call_model([x], suffix, params, None)[0]
-    np.testing.assert_array_equal(out.numpy(), port.output(x).numpy())
     hole = np.array([[1] * 8, [1, 0] + [1] * 6], np.float32)
-    with pytest.raises(NotImplementedError, match="A5"):
-        srv._call_model([x], hole, params, None)
     nc = SequentialModel(TransformerEncoder(**{**KW, "causal": False}).conf(),
                          device="cpu").init()
-    with pytest.raises(NotImplementedError, match="A5"):
-        InferenceServer(nc)._call_model([x], suffix, nc.compute_params(), None)
+    for model, mask in ((port, suffix), (port, hole), (nc, suffix), (nc, hole)):
+        out = InferenceServer(model)._call_model([x], mask, model.compute_params(),
+                                                 None)[0]
+        np.testing.assert_array_equal(out.numpy(), model.output(x, mask).numpy())
+    # a causal stack's rows before the padding do not see it (the masked
+    # call attends densely, the unmasked one through flash: 1e-6)
+    np.testing.assert_allclose(
+        srv._call_model([x], suffix, params, None)[0].numpy()[1, :5],
+        port.output(x).numpy()[1, :5], rtol=0, atol=1e-6)
+    # the hole changes the rows after it, the non-causal mask every row
+    assert not np.array_equal(srv._call_model([x], hole, params, None)[0].numpy()[1],
+                              port.output(x).numpy()[1])
     port._mesh = object()
     try:
         with pytest.raises(NotImplementedError, match="A11"):
             srv._call_model([x], None, params, None)
     finally:
         del port._mesh
+
+
+def test_a_bad_mask_is_refused_at_admit_and_fails_no_other_request():
+    """A mask shorter or longer than its features, 2-D or holding a NaN is
+    refused before it is queued (ValueError; 400 over HTTP), so it never
+    reaches a batch: the requests queued beside it are served as
+    ``output(x, mask)`` gives them, in one batch, and the breaker (one
+    failure trips it here) records nothing."""
+    _, port = _models()
+    srv = InferenceServer(port, ServingConfig(max_batch=4, default_deadline_s=60.0,
+                                              breaker_threshold=1))
+    x = np.stack([_ids(8, 1), _ids(8, 2)])
+    mask = np.array([[1] * 8, [1, 0] + [1] * 6], np.float32)
+    good = [srv.submit(x[0], features_mask=mask[0])]
+    for bad in ([1.0] * 7, [1.0] * 9, [[1.0] * 8], [1.0] * 7 + [float("nan")]):
+        with pytest.raises(ValueError, match="features_mask"):
+            srv.submit(x[1], features_mask=bad)
+    good.append(srv.submit(x[1], features_mask=mask[1]))
+    srv.start()
+    http = ServingHTTPServer(srv, port=0, host="127.0.0.1").start()
+    try:
+        rows = np.stack([np.asarray(r.result(timeout=60)) for r in good])
+        req = urllib.request.Request(
+            http.url + "v1/infer", headers={"Content-Type": "application/json"},
+            data=json.dumps({"features": x[0].tolist(),
+                             "features_mask": [1.0] * 7}).encode())
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(req, timeout=60)
+        assert err.value.code == 400
+        err.value.close()
+        stats = srv.stats()
+    finally:
+        http.stop()
+        srv.stop()
+    np.testing.assert_allclose(rows, port.output(x, mask).numpy(), rtol=0, atol=1e-6)
+    assert (stats["admitted"], stats["batches"], stats["errors"]) == (2, 1, 0)
+    assert srv.breaker.state == "closed"
 
 
 # -- HTTP ------------------------------------------------------------------------

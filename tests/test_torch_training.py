@@ -301,7 +301,9 @@ def test_what_the_slice_does_not_train_raises():
     """Dropout trains now (the JAX package's masks,
     `tests/test_torch_init_rng.py`), and grouped steps since the LeNet
     slice (`tests/test_torch_lenet.py` holds their losses; a group of
-    none is refused); frozen layers, feature masks, TBPTT and data
+    none is refused), and features masks since the attention slice (an
+    all-ones mask gives the unmasked step's loss, through the dense
+    attention instead of flash); frozen layers, TBPTT and data
     parallelism still raise, naming their ROADMAP items.  TBPTT loads as
     configuration data and raises when a model is built from it."""
     ids, y = _batches(one_hot=False, n=1)[0]
@@ -309,8 +311,11 @@ def test_what_the_slice_does_not_train_raises():
     model = _zoo(TransformerEncoder).init_model(device="cpu")
     with pytest.raises(ValueError, match="steps_per_execution"):
         model.fit(batch, steps_per_execution=0)
-    with pytest.raises(NotImplementedError, match="features masks"):
-        model.fit_batch(DataSet(ids, y, features_mask=np.ones_like(ids)))
+    # a features mask trains (key masks through the attention, the JAX step)
+    masked, plain = model.clone(), model.clone()
+    masked.fit_batch(DataSet(ids, y, features_mask=np.ones_like(ids)))
+    plain.fit_batch(batch)
+    assert masked.score_value == pytest.approx(plain.score_value, rel=1e-5)
     conf = _zoo(TransformerEncoder).conf()
     conf = dataclasses.replace(conf, layers=(
         dataclasses.replace(conf.layers[0], frozen=True),) + conf.layers[1:])
