@@ -315,7 +315,33 @@ Then the phases:
    stack of `SelfAttentionLayer` (both ``project_input`` modes) and
    `LearnedSelfAttentionLayer`: masked ``output()`` and 3 masked steps
    within 1e-5 of the port's CPU run from the same weights.
-14. report — one ``{"kernels": [...]}`` JSON line, then the last line
+14. resnet — the ResNet-50 slice (ROADMAP A4).  (a) The zoo's
+   `ResNet50()` (`GraphModel`, seed 123, Adam 1e-3, bf16) trained as
+   bench.py's bench_resnet50 runs it: batch 256 of 224 x 224 x 3 images
+   (numpy seed 0, normal(0, 1)) and one-hot labels, 4 batches staged on
+   the card and cycled, ``fit(steps_per_execution=16)``; first 3 groups
+   run eagerly (``capture_steps = False``, 2 timed), then `observe.cost`
+   analyses the step (FLOPs within 1% of `_resnet_flops_by_hand`), then
+   3 warm-up and 15 timed groups replay the captured step: samples/s, ms
+   a step captured and eager, MFU against 989 TFLOP/s, peak memory of
+   each run; gates on finite losses and the last group's mean below the
+   first's; one profiled group (device busy share, top kernels); 2
+   captured steps against the same 2 eager, bit for bit.  (b) The same
+   training fed by `PrefetchIterator` over a generator of the host
+   batches (pinned memory, a side stream): the staged batches equal the
+   source in order and bytes, samples/s beside (a)'s, the producer
+   seconds hidden behind the steps above 0.  (c) `write_model` /
+   `restore` on the card: parameters, optimizer and BatchNorm state bit
+   for bit and the next step's loss equal; `quantize`: ``output()`` of
+   the first batch with exactly one B5 launch (the head; the convs
+   dequantize), `parity_check` against the trained model on it, and B5
+   at (256, 2048, 1000) against its plain version and cuBLAS f32.  (d) A
+   graph of one unmasked `AttentionVertex` (12 heads of 64, T 128, batch
+   32) in bf16 and f32: one B1 launch an ``output()`` call, one each of
+   B1, B2 and B3 in a captured step, the f32 output within 1e-4 of the
+   same graph on the CPU; B1 at (384, 128, 64) non-causal, both types,
+   against its plain version.
+15. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -335,7 +361,7 @@ import sys
 import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
-          "parity", "int8", "quant", "qserve", "ckpt", "attn")
+          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -4489,6 +4515,331 @@ def phase_attn(torch, np, kernels, timer):
     return res
 
 
+# -- the ResNet-50 slice (ROADMAP A4) ---------------------------------------------
+
+# bench.py bench_resnet50: 224 x 224 x 3 images, 1000 classes, batch 256, 4
+# batches cycled, steps_per_execution 16, 3 x 16 warm-up steps; bench.py
+# times 15 x 16 steps, 12 x 16 here keep the phase near 150 s
+RESNET_BATCH, RESNET_HW, RESNET_CLASSES, RESNET_BATCHES = 256, 224, 1000, 4
+RESNET_SPE, RESNET_WARMUP_GROUPS, RESNET_GROUPS = 16, 3, 12
+# the eager run beside the captured one, and the prefetch-fed run: groups
+# of RESNET_SPE steps (one of warm-up each)
+RESNET_EAGER_GROUPS, RESNET_PREFETCH_GROUPS = 3, 4
+# the quantized head's B5 shape: (batch, the pooled width, classes)
+RESNET_DM_SHAPE = (RESNET_BATCH, 2048, RESNET_CLASSES)
+# the AttentionVertex graph: BERT-base attention widths, unmasked, non-causal
+AV_BATCH, AV_SEQ, AV_D, AV_HEADS, AV_CLASSES = 32, 128, 768, 12, 10
+# f32 output on the card against the same graph's f32 output on the CPU:
+# softmax probabilities, the same f32 arithmetic (B1 f32 at f32 accuracy by
+# split parts) summed in another order
+AV_CPU_TOL = 1e-4
+
+
+def _resnet_flops_by_hand(batch: int) -> float:
+    """FLOPs of one ResNet-50 training step at ``batch``, counted from the
+    shapes: each convolution 2 H_out W_out k_h k_w C_in C_out an image
+    forward, its weight gradient the same and its input gradient the same
+    again, except the stem's (the images take no gradient); the head's
+    product 2 x 2048 x classes forward and twice that backward."""
+    convs, h, c_in = [], RESNET_HW // 4, 64
+    stem = (RESNET_HW // 2) ** 2 * 7 * 7 * 3 * 64
+    for stage, (blocks, f) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+        for block in range(blocks):
+            ho = h // (2 if block == 0 and stage > 0 else 1)
+            convs += [ho * ho * c_in * f, ho * ho * 9 * f * f, ho * ho * f * 4 * f]
+            if block == 0:
+                convs.append(ho * ho * c_in * 4 * f)
+            c_in, h = 4 * f, ho
+    macs = sum(convs) + 2048 * RESNET_CLASSES
+    return batch * 2.0 * (3 * macs + 2 * stem)
+
+
+def _resnet_train(torch, model, batches, groups):
+    """``groups`` groups of RESNET_SPE steps over ``batches`` cycled,
+    ``fit(..., steps_per_execution=RESNET_SPE)`` each; every loss (on
+    the card, not synchronised)."""
+    out = []
+    for g in range(groups):
+        group = [batches[(g * RESNET_SPE + i) % len(batches)] for i in range(RESNET_SPE)]
+        model.fit(group, steps_per_execution=RESNET_SPE)
+        out.append(model._last_score.reshape(-1))
+    return torch.cat(out)
+
+
+def _timed_groups(torch, model, batches, warm, groups):
+    """``warm`` groups, then ``groups`` timed: (warm-up losses, timed
+    losses, seconds of the timed groups)."""
+    first = _resnet_train(torch, model, batches, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = _resnet_train(torch, model, batches, groups)
+    torch.cuda.synchronize()
+    return first, timed, time.perf_counter() - t0
+
+
+def _resnet_prefetch(torch, np, model, host, res):
+    """(b) The same training fed through `PrefetchIterator` over a
+    generator of the host batches (staged from pinned memory on a side
+    stream): the batches come out in order with their bytes, and the
+    producer's work overlaps the steps."""
+    from deeplearning4j_tpu_torch.data.prefetch import PrefetchIterator
+
+    def feed(n):
+        for i in range(n):
+            yield host[i % len(host)]
+
+    staged = list(PrefetchIterator(feed(len(host)), depth=2, device="cuda"))
+    same = len(staged) == len(host) and all(
+        s.features.is_cuda and np.array_equal(s.features.cpu().numpy(), h.features)
+        and np.array_equal(s.labels.cpu().numpy(), h.labels)
+        for s, h in zip(staged, host))
+    del staged
+    if not same:
+        raise AssertionError("prefetch: the staged batches differ from the source")
+    model.fit(feed(RESNET_SPE), steps_per_execution=RESNET_SPE)        # warm-up
+    torch.cuda.synchronize()
+    overlap0, wait0 = model.overlap_s, model.etl_wait_s
+    steps = (RESNET_PREFETCH_GROUPS - 1) * RESNET_SPE
+    t0 = time.perf_counter()
+    model.fit(feed(steps), steps_per_execution=RESNET_SPE)
+    losses = model._last_score.float().cpu().numpy()
+    secs = time.perf_counter() - t0
+    out = {"same_order_and_bytes": True, "steps": steps, "seconds": secs,
+           "samples_per_s": steps * RESNET_BATCH / secs,
+           "overlap_s": model.overlap_s - overlap0,
+           "etl_wait_s": model.etl_wait_s - wait0}
+    log(f"[resnet] (b) prefetch: {len(host)} batches staged in order with their "
+        f"bytes; {steps} steps fed by PrefetchIterator over a generator of host "
+        f"batches in {secs:.3f}s = {out['samples_per_s']:.1f} samples/s (in-memory "
+        f"card batches: {res['samples_per_s']:.1f}); producer seconds hidden behind "
+        f"the steps {out['overlap_s']:.3f}, consumer wait {out['etl_wait_s']:.3f}; "
+        f"last group's losses finite {bool(np.isfinite(losses).all())}")
+    if not out["overlap_s"] > 0 or not np.isfinite(losses).all():
+        raise AssertionError(f"prefetch: no overlap, or non-finite losses: {out}")
+    return out
+
+
+def _resnet_ckpt_quant(torch, np, kernels, timer, model, batches, host):
+    """(c) `write_model` / `restore` bit for bit and the next step's loss;
+    `quantize`, `parity_check` on the first batch, and B5 at the head's
+    shape."""
+    from deeplearning4j_tpu_torch.quant import parity_check, quantize
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+
+    out = {}
+    # eager steps below: the step graph of another model would hold a
+    # second pool (the captured step gives the eager step's bits, (a))
+    model.capture_steps = False
+    model._drop_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = os.path.join("build", "ckpt", "resnet50.zip")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        ModelSerializer.write_model(model, path)
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ModelSerializer.restore(path, device="cuda")
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        out["zip_bytes"] = os.path.getsize(path)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    back.capture_steps = False
+    bad = _differing(torch, _full_state(torch, model, "cpu"), _full_state(torch, back, "cpu"))
+    model.fit_batch(batches[0])
+    back.fit_batch(batches[0])
+    a, b = model._last_score, back._last_score
+    out["next_loss"] = [float(a), float(b)]
+    out["identical"] = not bad and bool(torch.equal(a, b))
+    log(f"[resnet] (c) checkpoint: {out['zip_bytes']} bytes written in "
+        f"{out['write_s']:.2f}s, restored on the card in {out['restore_s']:.2f}s; "
+        f"state differs at {bad or 'no leaf'}; the next step's loss {float(a)!r} "
+        f"saved, {float(b)!r} restored")
+    if not out["identical"]:
+        raise AssertionError("resnet checkpoint: the restored model is not the saved one")
+    del back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    q = quantize(model)
+    x0 = host[0].features
+    labels = host[0].labels.argmax(-1)
+    q.output(x0)                                     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    qout = q.output(x0)
+    torch.cuda.synchronize()
+    q_ms = (time.perf_counter() - t0) * 1e3
+    out["launches"] = kernels.launches()
+    parity = parity_check(model, q, x0, labels)
+    out.update(parity=parity, quant_output_ms=q_ms,
+               quant_output_finite=bool(torch.isfinite(qout).all()))
+    log(f"[resnet] (c) quantized: output() of {tuple(x0.shape)} in {q_ms:.2f} ms, "
+        f"launches {out['launches']}; parity_check on the first batch {parity}")
+    if out["launches"].get("dequant_matmul", 0) != 1 or not parity["pass"] \
+            or not out["quant_output_finite"]:
+        raise AssertionError(f"resnet quantized: {out}")
+    row = dm_case(torch, timer, *RESNET_DM_SHAPE)
+    out["kernel_rows"] = check_rows("resnet", [row])
+    del q
+    return out
+
+
+def _attention_graph_conf(bf16):
+    from deeplearning4j_tpu_torch.nn.activations import Activation
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import AttentionVertex, GraphBuilder
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import GlobalPooling, OutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    return (GraphBuilder().seed(123).updater(Adam(1e-4)).bf16_compute(bf16)
+            .add_inputs("x").set_input_types(InputType.recurrent(AV_D, AV_SEQ))
+            .add_vertex("att", AttentionVertex(n_out=AV_D, n_heads=AV_HEADS), "x")
+            .add_layer("pool", GlobalPooling(), "att")
+            .add_layer("out", OutputLayer(n_out=AV_CLASSES, activation=Activation.SOFTMAX),
+                       "pool")
+            .set_outputs("out").build())
+
+
+def _resnet_attention(torch, np, kernels, timer):
+    """(d) A graph with an unmasked `AttentionVertex` at BERT-base widths:
+    B1 once a vertex a call, B2 and B3 in a training step, in bf16 and
+    f32; the f32 output against the same graph's on the CPU."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
+
+    r = np.random.default_rng(5)
+    x = r.normal(size=(AV_BATCH, AV_SEQ, AV_D)).astype(np.float32)
+    y = np.eye(AV_CLASSES, dtype=np.float32)[r.integers(0, AV_CLASSES, AV_BATCH)]
+    out = {}
+    for tag, bf16 in (("bf16", True), ("f32", False)):
+        m = GraphModel(_attention_graph_conf(bf16), device="cuda").init()
+        m.output(x)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        probs = m.output(x)
+        torch.cuda.synchronize()
+        infer = kernels.launches()
+        m.fit_batch(DataSet(x, y))                   # the capture's warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        m.fit_batch(DataSet(x, y))
+        loss = m.score_value
+        train = kernels.launches()
+        # launches of one output() call (the kernels line's count)
+        res = {"launches": infer, "train_launches": train, "loss": loss}
+        if not bf16:
+            cpu = GraphModel(_attention_graph_conf(False), device="cpu").init()
+            ref = cpu.output(x).numpy()
+            res["cpu_max_abs_err"] = float(np.abs(probs.cpu().numpy() - ref).max())
+        out[tag] = res
+        log(f"[resnet] (d) AttentionVertex graph {tag}: output() launches {infer}; "
+            f"one captured step's launches {train}; loss {loss:.5f}"
+            + (f"; f32 output against the CPU's: max |diff| {res['cpu_max_abs_err']:.3e} "
+               f"(tol {AV_CPU_TOL:.0e})" if not bf16 else ""))
+        if (infer.get("flash_fwd", 0) != 1 or train.get("flash_fwd", 0) != 1
+                or train.get("flash_bwd_dq", 0) != 1 or train.get("flash_bwd_dkdv", 0) != 1
+                or not np.isfinite(loss)):
+            raise AssertionError(f"AttentionVertex graph {tag}: {res}")
+        if not bf16 and not res["cpu_max_abs_err"] <= AV_CPU_TOL:
+            raise AssertionError(f"AttentionVertex graph f32: {res}")
+        del m
+    out["kernel_rows"] = check_rows("resnet", [
+        flash_case(torch, timer, AV_SEQ, dt, causal=False, bh=AV_BATCH * AV_HEADS,
+                   d=AV_D // AV_HEADS) for dt in (torch.bfloat16, torch.float32)])
+    return out
+
+
+def phase_resnet(torch, np, kernels, timer):
+    """The ResNet-50 slice on the card; see the module docstring."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.observe import cost
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    host = [DataSet(rng.normal(0, 1, (RESNET_BATCH, RESNET_HW, RESNET_HW, 3)
+                               ).astype(np.float32),
+                    np.eye(RESNET_CLASSES, dtype=np.float32)[
+                        rng.integers(0, RESNET_CLASSES, RESNET_BATCH)])
+            for _ in range(RESNET_BATCHES)]
+    # staged on the card once, as bench.py stages its batches
+    batches = [DataSet(torch.from_numpy(b.features).cuda(),
+                       torch.from_numpy(b.labels).cuda()) for b in host]
+    model = ResNet50().init_model()
+    res = {"params": model.num_params(), "compute": str(model.compute_dtype)}
+
+    # (a) eager first (the program's cost analysis runs with no graph held)
+    model.capture_steps = False
+    mem0 = _memory_window(torch)
+    e_first, e_timed, e_secs = _timed_groups(torch, model, batches, 1,
+                                             RESNET_EAGER_GROUPS - 1)
+    eager_ms = e_secs / ((RESNET_EAGER_GROUPS - 1) * RESNET_SPE) * 1e3
+    memory = {"eager": _memory_window(torch, mem0)}
+    hand = _resnet_flops_by_hand(RESNET_BATCH)
+    rec = next(r for r in cost.analyze_model(model) if r.kind == "train")
+    model.capture_steps = True
+    mem0 = _memory_window(torch)
+    first, timed, secs = _timed_groups(torch, model, batches, RESNET_WARMUP_GROUPS,
+                                       RESNET_GROUPS)
+    memory["captured"] = _memory_window(torch, mem0)
+    n = RESNET_GROUPS * RESNET_SPE
+    step_ms = secs / n * 1e3
+    losses = torch.cat([e_first, e_timed, first, timed]).float().cpu().numpy()
+    peak_f, _ = cost.peaks()
+    res.update({
+        "ms_per_step": step_ms, "eager_ms_per_step": eager_ms,
+        "samples_per_s": n * RESNET_BATCH / secs,
+        "eager_samples_per_s": RESNET_BATCH / eager_ms * 1e3,
+        "flops": rec.flops, "flops_by_hand": hand,
+        "mfu": rec.flops / (step_ms / 1e3) / peak_f, "peak_flops": peak_f,
+        "memory": memory, "step_graphs": model.compile_stats()["step_programs"],
+        "first_group_mean": float(losses[:RESNET_SPE].mean()),
+        "last_group_mean": float(losses[-RESNET_SPE:].mean())})
+    log(f"[resnet] (a) ResNet-50 ({res['params']} params, {res['compute']}) at "
+        f"{RESNET_HW} x {RESNET_HW} x 3, batch {RESNET_BATCH}, steps_per_execution "
+        f"{RESNET_SPE}: captured {step_ms:.3f} ms a step = {res['samples_per_s']:.1f} "
+        f"samples/s ({RESNET_WARMUP_GROUPS} warm-up + {RESNET_GROUPS} timed groups); "
+        f"eager {eager_ms:.3f} ms a step = {res['eager_samples_per_s']:.1f} samples/s; "
+        f"{rec.flops:.6e} FLOPs a step (by hand {hand:.6e}, {rec.flops / hand - 1:+.2e}); "
+        f"MFU {res['mfu']:.4f} against {peak_f / 1e12:.0f} TFLOP/s "
+        f"({torch.cuda.get_device_name(0)}); {res['step_graphs']} step graph(s); "
+        f"memory (GiB) {_memory_text(memory)}")
+    log(f"[resnet] (a) losses: first group mean {res['first_group_mean']:.5f}, last "
+        f"{res['last_group_mean']:.5f}; every group's mean "
+        f"{[round(float(x), 4) for x in losses.reshape(-1, RESNET_SPE).mean(1)]}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("resnet: a non-finite loss")
+    if not res["last_group_mean"] < res["first_group_mean"]:
+        raise AssertionError("resnet: the loss did not fall")
+    if abs(rec.flops / hand - 1) > 0.01:
+        raise AssertionError(f"resnet: counted FLOPs {rec.flops} not within 1% of "
+                             f"the hand count {hand}")
+    def group():
+        _resnet_train(torch, model, batches, 1)
+
+    res["profile"] = _profiled(torch, "resnet", group)
+    res["captured_vs_eager"] = _captured_vs_eager(
+        torch, model, batches[:2], "ResNet-50", phase="resnet", host=True)
+    t0 = time.perf_counter()
+    res["prefetch"] = _resnet_prefetch(torch, np, model, host, res)
+    res["prefetch"]["phase_s"] = time.perf_counter() - t0
+    res["ckpt"] = _resnet_ckpt_quant(torch, np, kernels, timer, model, batches, host)
+    res["quant"] = {"launches": res["ckpt"]["launches"]}
+    del model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["attn"] = _resnet_attention(torch, np, kernels, timer)
+    res["kernel_rows"] = res["ckpt"].pop("kernel_rows") + res["attn"].pop("kernel_rows")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[resnet] phase seconds {res['seconds']:.1f}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4624,6 +4975,10 @@ def main(argv=None) -> int:
         report["attn"] = phase_attn(torch, np, kernels, timer)
         rows = rows + report["attn"]["kernel_rows"]
         done("attn")
+    if "resnet" in phases:
+        report["resnet"] = phase_resnet(torch, np, kernels, timer)
+        rows = rows + report["resnet"]["kernel_rows"]
+        done("resnet")
 
     entries = []
     def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):
@@ -4686,7 +5041,16 @@ def main(argv=None) -> int:
             CLS_HEADS, max(report.get("attn", {}).get("cls", {}).get("alone", {})
                            .get("lengths", [0])), CLS_D // CLS_HEADS]), "attn/cls/alone"),
     ] + [(row("dequant_matmul", dtype="int8", shape=[m, k, n]), "attn/cls/quant")
-         for m, k, n in CLS_DM_SHAPES]
+         for m, k, n in CLS_DM_SHAPES] + [
+        # the ResNet-50 slice: the quantized graph's head, and the
+        # AttentionVertex graph's output() in bf16 and f32
+        (row("dequant_matmul", dtype="int8", shape=list(RESNET_DM_SHAPE)), "resnet/quant"),
+        (row("flash_fwd", causal=False, shape=[AV_BATCH * AV_HEADS, AV_SEQ, AV_D // AV_HEADS]),
+         "resnet/attn/bf16"),
+        (row("flash_fwd", dtype="f32", causal=False,
+             shape=[AV_BATCH * AV_HEADS, AV_SEQ, AV_D // AV_HEADS]),
+         "resnet/attn/f32"),
+    ]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),

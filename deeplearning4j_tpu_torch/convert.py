@@ -14,11 +14,14 @@ The JAX model's parameters are a nested dict keyed by layer name::
 
 (a `SelfAttentionLayer` holds ``Wq``, ``Wk``, ``Wv``, ``Wo`` at its top
 level, none without ``project_input``; a `LearnedSelfAttentionLayer`
-``Q``, ``Wk``, ``Wv``, ``Wo``; `GlobalPooling` nothing).
+``Q``, ``Wk``, ``Wv``, ``Wo``; `GlobalPooling` nothing).  A `GraphModel`'s
+tree is keyed by each node's ``param_key`` (its name unless shared), an
+`AttentionVertex` holding ``Wq``, ``Wk``, ``Wv``, ``Wo``; its BatchNorm
+state under the same keys.
 
 `params_from_jax` loads such a tree (leaves as numpy arrays, e.g.
 ``jax.tree.map(np.asarray, model.params)`` on the JAX side) into a port
-model built from the same configuration, and with ``net_state=`` the
+model (sequential or graph) built from the same configuration, and with ``net_state=`` the
 JAX model's layer state too (BatchNorm's ``{"mean", "var"}`` under the
 layer's name).  Layouts are kept as they are:
 dense weights stay (n_in, n_out) and are applied as ``x @ W``.  The
@@ -36,12 +39,12 @@ hands a quantized leaf back as a `QuantizedTensor` of numpy arrays.
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.models.sequential import SequentialModel, _tree_map
+from deeplearning4j_tpu_torch.models.model import Model, _tree_map
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 
 
-def params_from_jax(tree: dict, model: SequentialModel,
-                    net_state: dict | None = None) -> SequentialModel:
+def params_from_jax(tree: dict, model: Model,
+                    net_state: dict | None = None) -> Model:
     """Install ``tree`` (and ``net_state``, when given) into ``model``,
     names and shapes checked, and return the model."""
     model.load_params(tree)
@@ -50,12 +53,12 @@ def params_from_jax(tree: dict, model: SequentialModel,
     return model
 
 
-def net_state_to_numpy(model: SequentialModel) -> dict:
+def net_state_to_numpy(model: Model) -> dict:
     """The model's layer state as numpy arrays (copies, on the host)."""
     return _tree_map(lambda t: t.detach().cpu().numpy().copy(), model.net_state)
 
 
-def params_to_numpy(model: SequentialModel) -> dict:
+def params_to_numpy(model: Model) -> dict:
     """The model's parameter tree as numpy arrays (copies, on the host),
     keyed as the JAX package keys it; a quantized leaf becomes a
     `QuantizedTensor` of its numpy ``q`` and ``scale``."""

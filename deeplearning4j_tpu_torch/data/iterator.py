@@ -1,7 +1,7 @@
-"""The `DataSetIterator` contract and the two in-memory iterators of
+"""The `DataSetIterator` contract, the two in-memory iterators of
 `deeplearning4j_tpu/data/iterator.py` that ``fit`` builds from its
-arguments.  Prefetching (`AsyncDataSetIterator`, `data/prefetch.py`)
-is not ported yet (ROADMAP A4)."""
+arguments, and `AsyncDataSetIterator`, the prefetching wrapper (a facade
+over `data/prefetch.py`)."""
 
 from __future__ import annotations
 
@@ -77,3 +77,35 @@ class ExistingDataSetIterator(DataSetIterator):
 
     def __iter__(self) -> Iterator[DataSet]:
         return iter(self._batches)
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch of ``base`` (the reference's
+    AsyncDataSetIterator): `data.prefetch.PrefetchIterator` with
+    ``queue_size`` as its depth, staging onto ``device`` (CUDA by
+    default) when ``device_put``, else pulling ahead only."""
+
+    def __init__(self, base: DataSetIterator, queue_size: int = 2,
+                 device_put: bool = True, device=None):
+        from deeplearning4j_tpu_torch.data.prefetch import (
+            PrefetchIterator,
+            stage_to_device,
+        )
+
+        self._base = base
+        self._prefetch = PrefetchIterator(
+            base, depth=queue_size,
+            stage=stage_to_device if device_put else None, device=device)
+
+    @property
+    def batch_size(self) -> int:
+        return self._base.batch_size
+
+    def reset(self) -> None:
+        self._prefetch.reset()
+
+    def close(self) -> None:
+        self._prefetch.close()
+
+    def __iter__(self) -> Iterator[DataSet]:
+        return iter(self._prefetch)

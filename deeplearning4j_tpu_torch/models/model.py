@@ -1,7 +1,8 @@
 """The model base — `deeplearning4j_tpu/models/model.py`: what every
-model class shares.  The fit loop's batch pull with its fault sites and
-ETL accounting, the last score, parameter accounting, ``save`` and
-``compile_stats``.
+model class shares.  The fit loop's batch pull with its fault sites,
+ETL and prefetch-overlap accounting, the last score, parameter
+accounting, ``save`` and ``compile_stats``; and the training-step
+machinery `SequentialModel` and `GraphModel` both run.
 
 The pull (`_timed_batches`) consults the fault sites where the JAX
 package does: ``data.next_batch`` before each ``next()``, and
@@ -9,7 +10,41 @@ package does: ``data.next_batch`` before each ``next()``, and
 arrays, a decoder emitting garbage; ``raise`` fails the pull).  Without
 a recovery policy (ROADMAP A9) a failed pull ends the fit, as in the
 JAX package.  The seconds ``fit`` waits on its iterator land on
-``etl_wait_s`` and on ``dl4jtpu_etl_wait_seconds_total``.
+``etl_wait_s`` and on ``dl4jtpu_etl_wait_seconds_total``.  A batch a
+`data.prefetch.PrefetchIterator` staged carries the producer's seconds
+for it; what of them the consumer did not wait for is the overlap the
+pipeline bought (``overlap_s``,
+``dl4jtpu_prefetch_overlap_seconds_total``, ``overlap_seconds`` on the
+``train_step`` span).  ``fit`` wraps a lazily produced feed in one
+(`_prefetch_feed`, ``environment().prefetch_depth`` deep; in-memory
+feeds are exempt).
+
+The step machinery.  A model keeps its parameters as a tree of
+`ParamTree` modules keyed by layer (or graph ``param_key``), f32
+masters; `compute_params` is their detached compute-dtype cast, and the
+training step differentiates through the cast (`cast_tree`).  A model
+class supplies how a batch splits into the step's device inputs
+(`_batch_arrays`: a flat tuple of arrays, None for an absent mask), the
+step's objective (`_step_loss`), the per-node dropout keys
+(`_layer_keys`) and its own checks; the base runs the steps:
+
+- on the CPU eagerly, the updater's step values as Python floats;
+- on the card from staged inputs (`_Staged`: a group's K batches, keys
+  and step values on the card in one copy each), each step a replay of
+  one CUDA graph for each batch signature (`_capture`: the first step of
+  a signature runs eagerly as the graph's warm-up, on the capture
+  stream, and is captured after), or with ``capture_steps = False`` the
+  same program eagerly on the same device inputs: the same kernels, so
+  the same bits.  A capture that fails raises; nothing reruns the step
+  eagerly instead.  A model's step graphs share one memory pool and one
+  capture stream.  The graphs read the live parameter, optimizer and
+  state tensors, so whatever installs new ones (`init`, `load_params`,
+  `load_net_state`, a fresh optimizer state) drops them (`_drop_graphs`);
+  copying values into the live tensors in place keeps them.
+
+``fit(..., steps_per_execution=K)`` groups K batches of one signature
+(JAX ``_fit_epoch_multi``): each step keeps its own loss; a group whose
+shapes differ, and a short tail, step batch by batch.
 
 Listeners, the step watchdog's arming and the quarantine path are ROADMAP
 A9's; asking for a listener raises, naming it.
@@ -17,33 +52,182 @@ A9's; asking for a listener raises, naming it.
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
+import torch
 from torch import nn
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.nn.updaters import advance_counts
+from deeplearning4j_tpu_torch.observe.trace import step_scope
+from deeplearning4j_tpu_torch.ops.dequant_matmul import counting_selections
+from deeplearning4j_tpu_torch.quant.ptq import SCHEME
+from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 from deeplearning4j_tpu_torch.runtime import compile_stats as _cs
 from deeplearning4j_tpu_torch.runtime import faults
 
 
-def _poison_batch(batch: DataSet) -> DataSet:
+# -- parameter trees -------------------------------------------------------------
+
+class QuantizedLeaf(nn.Module):
+    """One `QuantizedTensor` of the tree: int8 ``q`` and f32 ``scale`` as
+    buffers (an int8 tensor cannot be a parameter that requires grad)."""
+
+    def __init__(self, qt: QuantizedTensor):
+        super().__init__()
+        self.register_buffer("q", qt.q)
+        self.register_buffer("scale", qt.scale)
+
+    def tree(self) -> QuantizedTensor:
+        return QuantizedTensor(self.q, self.scale)
+
+
+class ParamTree(nn.Module):
+    """A nested parameter dict as a module: tensors become parameters,
+    `QuantizedTensor` leaves `QuantizedLeaf` buffers, dicts child
+    modules."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            elif isinstance(val, QuantizedTensor):
+                self.add_module(key, QuantizedLeaf(val))
+            else:
+                self.register_parameter(key, nn.Parameter(val))
+
+    def tree(self) -> dict:
+        out = dict(self._parameters)
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+def as_tensor(x, device) -> torch.Tensor:
+    """A tensor on ``device``; array-likes are copied first, so read-only
+    numpy arrays (a JAX array's ``np.asarray`` view) are fine."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in ``jax.tree.leaves`` order: keys
+    sorted at every level, a `QuantizedTensor` as its ``q`` then its
+    ``scale``."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, QuantizedTensor):
+        return [tree.q, tree.scale]
+    return [tree]
+
+
+def _has_quantized(tree: dict) -> bool:
+    return any(_has_quantized(v) if isinstance(v, dict)
+               else isinstance(v, QuantizedTensor) for v in tree.values())
+
+
+def _as_quantized(leaf, path: str) -> QuantizedTensor:
+    """A `QuantizedTensor` from any leaf with ``.q`` and ``.scale``
+    arrays, its bits unchanged: ``q`` must be int8 and ``scale`` f32 of
+    shape ``(q.shape[-1],)``.  Tensors stay on their device (a staged
+    push on the card is not copied through the host)."""
+    q, scale = (x.detach() if isinstance(x, torch.Tensor)
+                else torch.from_numpy(np.array(x)) for x in (leaf.q, leaf.scale))
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"{path}: a quantized leaf needs int8 q and f32 scale, "
+                        f"got {q.dtype} and {scale.dtype}")
+    if q.dim() < 1 or tuple(scale.shape) != (q.shape[-1],):
+        raise ValueError(f"{path}: scale shape {tuple(scale.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    return QuantizedTensor(q.contiguous(), scale.contiguous())
+
+
+def _copy_state(dst: dict, src: dict) -> None:
+    """Write the layers' new state ``src`` over ``dst`` in place (the
+    tensors a captured step reads stay the same objects)."""
+    for name, leaves in src.items():
+        for k, v in leaves.items():
+            dst[name][k].copy_(v)
+
+
+def _clone_state(state):
+    if isinstance(state, tuple):
+        return tuple(_clone_state(s) for s in state)
+    if isinstance(state, list):
+        return [_clone_state(s) for s in state]
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    return state
+
+
+class _Staged:
+    """A step group's inputs on the card: each of the step's arrays
+    (`Model._batch_arrays`) stacked over the group, the nodes' keys
+    (K, nodes, 2) and the updater's step values (K, n), one
+    host-to-device copy each."""
+
+    def __init__(self, model, batches):
+        dev = model.device
+
+        def stack(arrays):
+            if arrays[0] is None:
+                return None
+            if isinstance(arrays[0], torch.Tensor):
+                return torch.stack([a.to(dev) for a in arrays])
+            return torch.from_numpy(np.stack([np.asarray(a) for a in arrays])).to(dev)
+
+        self.arrays = [stack(col) for col in zip(*(model._batch_arrays(b)
+                                                   for b in batches))]
+        keys, vals, state = [], [], model.opt_state
+        for i in range(len(batches)):
+            keys.append(model._layer_keys(model.iteration + i))
+            vals.append(model._tx.values(state))
+            state = advance_counts(state)
+        self.keys = torch.tensor(keys, dtype=torch.int64).to(dev)
+        self.vals = torch.from_numpy(np.asarray(vals, np.float32).reshape(
+            len(batches), len(vals[0]))).to(dev)
+
+    def step(self, i: int) -> tuple:
+        """Step i's arrays (None where absent), keys and step values."""
+        return tuple(None if a is None else a[i] for a in self.arrays) + (
+            self.keys[i], self.vals[i])
+
+
+def _poison_batch(batch):
     """The ``data.decode`` 'corrupt' action: a copy of the batch with
-    every float feature and label array NaN-filled, shapes and dtypes
-    kept; masks are left alone (a corrupt record keeps its framing)."""
+    every float feature and label array NaN-filled, shapes, dtypes and
+    devices kept (a prefetched batch's tensors stay where they were
+    staged); masks are left alone (a corrupt record keeps its framing)."""
     def bad(a):
+        if isinstance(a, torch.Tensor):
+            a = a.clone()
+            if a.is_floating_point():
+                a.fill_(float("nan"))
+            return a
         a = np.array(a, copy=True)
         if np.issubdtype(a.dtype, np.floating):
             a.fill(np.nan)
         return a
 
+    if isinstance(batch, MultiDataSet):
+        return MultiDataSet(tuple(bad(a) for a in batch.features),
+                            tuple(bad(a) for a in batch.labels),
+                            batch.features_masks, batch.labels_masks)
     return DataSet(bad(batch.features), bad(batch.labels), batch.features_mask,
                    batch.labels_mask)
 
 
 class Model(nn.Module):
-    """The surface `SequentialModel` shares with the JAX package's model
-    classes."""
+    """The surface and the step machinery `SequentialModel` and
+    `GraphModel` share with the JAX package's model classes."""
 
     def __init__(self):
         super().__init__()
@@ -56,7 +240,30 @@ class Model(nn.Module):
         # seconds fit() sat blocked on its input iterator
         self.etl_wait_s = 0.0
         self.last_etl_wait_s = 0.0
+        # prefetch producer seconds the consumer did not wait for: the
+        # total, the last batch's, and what the next step span drains
+        self.overlap_s = 0.0
+        self.last_overlap_s = 0.0
+        self._overlap_accum = 0.0
         self._compile_snap = _cs.snapshot()   # baseline at model creation
+        self.layers = nn.ModuleDict()
+        # layers whose weights stay f32 in the compute tree (the MoE layer)
+        self.f32_layers = frozenset()
+        self._compute = None
+        self._quantized = None         # the scheme marker of a quantized tree
+        # the training step's CUDA graphs, one a batch signature; on the
+        # card a step replays one unless `capture_steps` is False
+        self._captured: dict = {}
+        self.capture_steps = True
+        # programs registered with the cost registry (observe/cost.py) on
+        # first use; `_cost_program`: the record of the last program
+        # dispatched (StepScope.sync() snapshots it)
+        self._step_fns: dict = {}
+        self._cost_program = None
+        # (program kind, int8?, input signature) of every program run so
+        # far: where the JAX package would trace (`program_run`)
+        self._program_signatures: set = set()
+        self._signatures_lock = threading.Lock()
 
     # -- listeners (ROADMAP A9) -----------------------------------------------
     def set_listeners(self, *listeners) -> None:
@@ -69,12 +276,14 @@ class Model(nn.Module):
     # -- the fit loop's batch pull ----------------------------------------------
     def _timed_batches(self, iterator):
         """Iterate ``iterator`` through the fault sites, charging the time
-        blocked on ``next()`` to ``etl_wait_s``."""
+        blocked on ``next()`` to ``etl_wait_s`` and a prefetched batch's
+        hidden producer seconds to ``overlap_s``."""
         from deeplearning4j_tpu_torch.observe.metrics import registry
 
         reg = registry()
         wait_total = reg.counter("dl4jtpu_etl_wait_seconds_total")
         batches_total = reg.counter("dl4jtpu_etl_batches_total")
+        overlap_total = reg.counter("dl4jtpu_prefetch_overlap_seconds_total")
         it = iter(iterator)
         while True:
             t0 = time.perf_counter()
@@ -91,7 +300,42 @@ class Model(nn.Module):
             self.etl_wait_s += wait
             wait_total.inc(wait)
             batches_total.inc()
+            stage_s = getattr(batch, "_prefetch_stage_s", None)
+            if stage_s is not None:
+                # producer work not paid again as consumer wait
+                overlap = max(0.0, stage_s - wait)
+                self.last_overlap_s = overlap
+                self.overlap_s += overlap
+                self._overlap_accum += overlap
+                if overlap > 0:
+                    overlap_total.inc(overlap)
+            else:
+                self.last_overlap_s = 0.0
             yield batch
+
+    def _prefetch_feed(self, iterator):
+        """``iterator`` wrapped in a `PrefetchIterator` staging onto this
+        model's device, ``environment().prefetch_depth`` deep (0: no
+        wrap).  The caller closes a returned feed that is not
+        ``iterator``.  Already pipelined feeds, and in-memory ones
+        (`ExistingDataSetIterator`, `NumpyDataSetIterator`, lists and
+        tuples: every ``fit([batch, ...])`` or ``fit((x, y))``), are
+        returned as they are: they have no per-batch decode to hide.
+        Wrap such a feed yourself to overlap its host-to-device copies."""
+        from deeplearning4j_tpu_torch.data.iterator import (
+            AsyncDataSetIterator,
+            ExistingDataSetIterator,
+            NumpyDataSetIterator,
+        )
+        from deeplearning4j_tpu_torch.data.prefetch import PrefetchIterator
+        from deeplearning4j_tpu_torch.runtime.flags import environment
+
+        depth = environment().prefetch_depth
+        if depth <= 0 or isinstance(iterator, (
+                PrefetchIterator, AsyncDataSetIterator, ExistingDataSetIterator,
+                NumpyDataSetIterator, list, tuple)):
+            return iterator
+        return PrefetchIterator(iterator, depth=depth, device=self.device)
 
     # -- accounting ---------------------------------------------------------------
     @property
@@ -135,13 +379,347 @@ class Model(nn.Module):
         plus ``step_programs``: the CUDA graphs this model holds for its
         training step, one a batch signature."""
         d = (_cs.snapshot() - self._compile_snap).as_dict()
-        d["step_programs"] = len(getattr(self, "_captured", {}))
+        d["step_programs"] = len(self._captured)
         return d
 
     def save(self, path: str, save_updater: bool = True) -> None:
         from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
 
         ModelSerializer.write_model(self, path, save_updater)
+
+    # -- the parameter tree -------------------------------------------------------
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        if self._bf16 and self._quantized is None:
+            return torch.bfloat16
+        return torch.float32
+
+    @property
+    def params(self):
+        """The parameter tree: f32 tensors, and `QuantizedTensor` leaves
+        in a quantized model (None before `init`)."""
+        if not self.layers:
+            return None
+        return {name: m.tree() for name, m in self.layers.items()}
+
+    @torch.no_grad()
+    def load_params(self, tree: dict):
+        """Install a parameter tree of array-likes, checked name for name
+        and shape for shape against what `init` would create.  A leaf
+        with ``.q`` and ``.scale`` arrays (a `QuantizedTensor`, or the
+        JAX package's after ``jax.tree.map(np.asarray, ...)``) is
+        installed bit for bit as an int8 weight and its f32 scales."""
+        if self.params is None:
+            self.init()
+        self._install(self._checked(self.params, tree, quantized_ok=True))
+        return self
+
+    @torch.no_grad()
+    def load_net_state(self, tree: dict):
+        """Install a layer-state tree (BatchNorm's running stats) of
+        array-likes, checked against what `init` creates."""
+        if self.params is None:
+            self.init()
+        self.net_state = _tree_map(lambda t: t.to(self.device),
+                                   self._checked(self.net_state, tree))
+        self._drop_graphs()
+        return self
+
+    def _checked(self, want: dict, got: dict, quantized_ok=False) -> dict:
+        def walk(w, g, path):
+            if set(w) != set(g):
+                raise ValueError(
+                    f"names differ at {path or '<root>'}: "
+                    f"want {sorted(w)}, got {sorted(g)}")
+            out = {}
+            for k, v in w.items():
+                p = f"{path}/{k}" if path else k
+                if isinstance(v, dict):
+                    out[k] = walk(v, g[k], p)
+                    continue
+                t = g[k]
+                if quantized_ok and hasattr(t, "q") and hasattr(t, "scale"):
+                    t = _as_quantized(t, p)
+                else:
+                    t = (t.detach().float() if isinstance(t, torch.Tensor)
+                         else torch.from_numpy(np.array(t, dtype=np.float32))
+                         ).contiguous()
+                if tuple(t.shape) != tuple(v.shape):
+                    raise ValueError(f"{p}: shape {tuple(t.shape)} != "
+                                     f"{tuple(v.shape)}")
+                out[k] = t
+            return out
+
+        return walk(want, got, "")
+
+    def _install(self, tree: dict) -> None:
+        """Make ``tree`` the model's parameters (`init`, `load_params`,
+        a restore): the compute copy, the optimizer state and the step
+        graphs belonged to the old tensors and go."""
+        tree = _tree_map(lambda t: t.to(self.device), tree)
+        self.layers = nn.ModuleDict(
+            {name: ParamTree(p) for name, p in tree.items()})
+        self._compute = None
+        self.opt_state = None
+        self._drop_graphs()
+        self._quantized = ({"scheme": SCHEME} if _has_quantized(tree)
+                           else None)
+
+    def _drop_graphs(self) -> None:
+        """Forget the step graphs: they read tensors that are no longer
+        the model's.  The next step of each signature captures anew."""
+        self._captured = {}
+
+    def compute_params(self) -> dict:
+        """The parameter tree in the compute dtype, detached (cached;
+        rebuilt after `init`, `load_params` and every training step).
+        `QuantizedTensor` leaves stay as they are."""
+        if self._compute is None:
+            self._compute = self.cast_tree(self.params)
+        return self._compute
+
+    def cast_tree(self, tree: dict, detach: bool = True) -> dict:
+        """``tree`` cast to the compute dtype, as the layers see it: the
+        ``F32_PARAMS`` layers (the MoE layer) keep f32 and `QuantizedTensor`
+        leaves stay as they are (a quantized model computes in f32).
+        Detached unless ``detach`` is False (the training step
+        differentiates through the cast)."""
+        def cast(dt):
+            def leaf(t):
+                if isinstance(t, QuantizedTensor):
+                    return t
+                return (t.detach() if detach else t).to(dt)
+            return leaf
+
+        return {k: _tree_map(cast(torch.float32 if k in self.f32_layers
+                                  else self.compute_dtype), v)
+                for k, v in tree.items()}
+
+    def program_run(self, kind: str, *signature):
+        """The scope of one run of program ``kind`` at input ``signature``
+        (shapes only) over this model's kind of tree (int8 or float).
+        Its quantized sites count their implementation on the first run
+        only: where the JAX package traces the program."""
+        key = (kind, self._quantized is not None) + signature
+        with self._signatures_lock:
+            first = key not in self._program_signatures
+            self._program_signatures.add(key)
+        return counting_selections(first)
+
+    def clone(self):
+        """A model of the same configuration and device with copies of
+        the parameters, layer state, optimizer state and counters."""
+        m = type(self)(self.conf, device=self.device)
+        if self.params is not None:
+            m._install(_tree_map(lambda t: t if isinstance(t, QuantizedTensor)
+                                 else t.detach().clone(), self.params))
+            m._quantized = self._quantized
+            m.net_state = _tree_map(lambda t: t.clone(), self.net_state)
+            if self.opt_state is not None:
+                m.opt_state = _clone_state(self.opt_state)
+        m.iteration, m.epoch = self.iteration, self.epoch
+        return m
+
+    # -- training -------------------------------------------------------------
+    def _step_program(self):
+        """The training step's pure device program, `_grad_step`,
+        registered with the cost registry on first use (as the JAX
+        package's ``_get_step_fn`` registers its jitted step)."""
+        fn = self._step_fns.get(("train",))
+        if fn is None:
+            from deeplearning4j_tpu_torch.observe import cost
+
+            fn = self._step_fns[("train",)] = cost.register_step_program(
+                self, ("train",), self._grad_step)
+        return fn
+
+    def _grad_step(self, params: dict, net_state: dict, *inputs):
+        """Loss, gradients of ``params`` (``jax.tree.leaves`` order, zeros
+        for an unused leaf) and the layers' new state on one batch
+        (``inputs``: `_batch_arrays`, then the keys): the step's forward
+        and backward, and no state changed — the update applies them.
+        Pure, so the cost analysis can run it again."""
+        plist = tree_leaves(params)
+        with torch.enable_grad():
+            loss, new_state = self._step_loss(params, net_state, *inputs)
+            grads = torch.autograd.grad(loss, plist, allow_unused=True)
+        return (loss, [torch.zeros_like(p) if g is None else g
+                       for p, g in zip(plist, grads)],
+                _tree_map(lambda t: t.detach(), new_state))
+
+    def _train_step(self, *inputs, grad_step=None):
+        """One whole step on the live trees: `_grad_step`, the updater,
+        the parameters and the layer state updated in place.
+        ``inputs``: the batch's arrays (`_batch_arrays`), the nodes'
+        dropout keys (`_layer_keys`, or their (nodes, 2) int64 device
+        tensor) and the updater's step values (None: the updater computes
+        them as Python floats; else a device tensor).  ``grad_step``: the
+        forward and backward to run (the registered `_step_program`,
+        which counts a dispatch, by default).  Returns the loss and the
+        updater's new state (its counts advanced)."""
+        *arrays, keys, vals = inputs
+        if isinstance(keys, torch.Tensor):
+            keys = [(k[0], k[1]) for k in keys]
+        if vals is not None:
+            vals = [vals[i] for i in range(vals.shape[0])]
+        params = self.params
+        plist = tree_leaves(params)
+        loss, grads, new_state = (grad_step or self._step_program())(
+            params, self.net_state, *arrays, keys)
+        updates, opt_state = self._tx.update(grads, self.opt_state, plist, vals)
+        with torch.no_grad():
+            for p, u in zip(plist, updates):
+                p.add_(u.to(p.dtype))
+            _copy_state(self.net_state, new_state)
+        return loss.detach(), opt_state
+
+    def fit_batch(self, batch) -> None:
+        """One optimizer step on ``batch``."""
+        self._run_steps([self._as_batch(batch)])
+
+    def _prepare(self, batches) -> None:
+        if self.params is None:
+            self.init()
+        if self._quantized is not None:
+            raise RuntimeError(
+                "this model is int8-quantized for inference and takes no "
+                "training step; train the f32 model, then quantize it again")
+        self._check_trainable()
+        if self.opt_state is None:
+            self.opt_state = self._tx.init(tree_leaves(self.params))
+            self._drop_graphs()
+
+    def _run_steps(self, batches: list) -> None:
+        """len(batches) optimizer steps in order, one loss each: on the
+        card from staged inputs (graph replays, or the same program
+        eagerly), on the CPU eagerly."""
+        self._prepare(batches)
+        k = len(batches)
+        with step_scope(self, k) as scope:
+            if self.device.type == "cuda":
+                losses_k = self._run_steps_cuda(batches)
+            else:
+                out = []
+                for i, b in enumerate(batches):
+                    loss, self.opt_state = self._train_step(
+                        *self._batch_arrays(b),
+                        self._layer_keys(self.iteration + i), None)
+                    out.append(loss)
+                losses_k = torch.stack(out)
+            scope.sync(losses_k)
+        self._compute = None           # output() and the engine read new weights
+        self._last_score = losses_k if k > 1 else losses_k[0]
+        self.last_batch_size = batches[-1].num_examples
+        self.iteration += k
+
+    def _run_steps_cuda(self, batches: list) -> torch.Tensor:
+        staged = _Staged(self, batches)
+        out = torch.empty(len(batches), dtype=torch.float32, device=self.device)
+        first = 0
+        if self.capture_steps:
+            sig = tuple(None if t is None else (tuple(t.shape), t.dtype)
+                        for t in staged.step(0))
+            prog = self._captured.get(sig)
+            if prog is None:
+                prog = self._captured[sig] = self._capture(staged.step(0))
+                first = 1
+                out[0].copy_(prog.inputs[-1])
+                self.opt_state = advance_counts(self.opt_state)
+            rec = self._step_program()._cost_record
+        for i in range(first, len(batches)):
+            if not self.capture_steps:
+                out[i].copy_(self._train_step(*staged.step(i))[0])
+            else:
+                for dst, src in zip(prog.inputs, staged.step(i)):
+                    if dst is not None:
+                        dst.copy_(src)
+                prog.replay()
+                out[i].copy_(prog.inputs[-1])
+                self._cost_program = rec
+                rec.dispatches += 1
+            self.opt_state = advance_counts(self.opt_state)
+        return out
+
+    def _capture(self, inputs: tuple):
+        """The step program as a CUDA graph over static copies of
+        ``inputs`` (a staged step's), in the pool and on the stream of
+        the model's other step graphs.  Its warm-up (`CapturedProgram`)
+        is that step itself, run eagerly on the capture stream, and
+        counts as the step's dispatch; the capture records the step
+        without running it, so it calls the bare `_grad_step`.  Every
+        run's loss lands in the last input, a static slot.  The warm-up's
+        cached activations are released before the capture, so the card
+        does not hold a step's memory twice."""
+        from deeplearning4j_tpu_torch.runtime.graphs import CapturedProgram
+
+        def step(*args):
+            *step_inputs, slot = args
+            bare = torch.cuda.is_current_stream_capturing()
+            slot.copy_(self._train_step(
+                *step_inputs, grad_step=self._grad_step if bare else None)[0])
+            if not bare:
+                # the warm-up's activations are free now: hand their
+                # blocks back, or the graph's own pool holds them again
+                torch.cuda.empty_cache()
+
+        inputs = tuple(None if t is None else t.clone() for t in inputs)
+        slot = torch.empty((), dtype=torch.float32, device=self.device)
+        other = next(iter(self._captured.values()), None)
+        return CapturedProgram(
+            step, inputs + (slot,), keep=(tree_leaves(self.params), self.opt_state,
+                                          self.net_state),
+            pool=other and other.graph.pool(), stream=other and other.stream)
+
+    def fit(self, data, epochs: int = 1, batch_size: int | None = None,
+            steps_per_execution: int = 1) -> None:
+        """``epochs`` passes over ``data`` (what `_as_iterator` takes).
+        ``steps_per_execution`` K groups K batches of one signature into
+        one staged run of K steps (graph replays on the card), each step
+        with its own loss; a group of mixed signatures, and a short tail,
+        step batch by batch.  A lazily produced feed is prefetched
+        (`_prefetch_feed`)."""
+        if steps_per_execution < 1:
+            raise ValueError(f"steps_per_execution must be >= 1, got "
+                             f"{steps_per_execution}")
+        if self.params is None:
+            self.init()
+        iterator = self._as_iterator(data, batch_size)
+        feed = self._prefetch_feed(iterator)
+        try:
+            for _ in range(epochs):
+                if steps_per_execution > 1:
+                    self._fit_epoch_multi(feed, steps_per_execution)
+                else:
+                    for batch in self._timed_batches(feed):
+                        self.fit_batch(batch)
+                self.epoch += 1
+                if hasattr(iterator, "reset"):
+                    iterator.reset()
+        finally:
+            if feed is not iterator:
+                feed.close()
+
+    def _fit_epoch_multi(self, iterator, spe: int) -> None:
+        """JAX ``_fit_epoch_multi``: groups of ``spe`` batches.  A group
+        stages its masks beside its batches; one whose shapes differ, or
+        whose batches differ in having a mask, steps batch by batch (the
+        JAX package steps every masked batch alone: the same steps)."""
+        def sig(b):
+            return tuple(None if a is None else tuple(np.shape(a))
+                         for a in self._batch_arrays(b))
+
+        buf: list = []
+        for batch in self._timed_batches(iterator):
+            buf.append(self._as_batch(batch))
+            if len(buf) == spe:
+                if all(sig(b) == sig(buf[0]) for b in buf):
+                    self._run_steps(buf)
+                else:
+                    for b in buf:
+                        self._run_steps([b])
+                buf = []
+        for b in buf:                       # ragged tail group
+            self._run_steps([b])
 
 
 def _leaves(tree):

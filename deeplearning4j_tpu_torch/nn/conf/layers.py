@@ -365,6 +365,26 @@ class Subsampling(LayerConfig):
 
 @serde.register
 @dataclasses.dataclass(frozen=True)
+class ZeroPadding2D(LayerConfig):
+    """Zeros around (B, H, W, C) maps: (top, bottom, left, right)."""
+
+    padding: tuple[int, int, int, int] = (1, 1, 1, 1)
+    EXPECTS = "cnn"
+    HAS_PARAMS = False
+    REGULARIZED = ()
+
+    def output_type(self, itype):
+        h, w, c = itype.shape
+        t, b, l, r = self.padding
+        return InputType.convolutional(h + t + b, w + l + r, c)
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        t, b, l, r = self.padding
+        return torch.nn.functional.pad(x, (0, 0, l, r, t, b)), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
 class GlobalPooling(LayerConfig):
     """GlobalPoolingLayer role: collapse the time axis of (B, T, F) or the
     spatial axes of (B, H, W, C).  A (B, T) features mask excludes padded

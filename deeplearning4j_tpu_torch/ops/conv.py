@@ -1,14 +1,17 @@
-"""Convolution and pooling on NHWC maps — what the JAX package's
-`Conv2D` and `Subsampling` lower to (``lax.conv_general_dilated`` and
+"""Convolution and pooling on channels-last maps — what the JAX
+package's `Conv2D` and `Subsampling` (and the 1-D and 3-D layers of
+`layers_nd.py`) lower to (``lax.conv_general_dilated`` and
 ``lax.reduce_window``, `deeplearning4j_tpu/nn/conf/layers.py`).  XLA
 emits their code there: no Pallas kernel, so none here either.  The
 card runs cuDNN's convolutions and PyTorch's pooling kernels.
 
-Layout.  Maps stay NHWC and kernels HWIO, the JAX tree's layouts, so a
-checkpoint's weights and a flatten's order carry across unchanged.  A
-(B, H, W, C) tensor is handed to PyTorch as its (B, C, H, W) view: the
-strides of channels-last memory, which cuDNN reads as NHWC without a
-copy; the result's view back is NHWC again.
+Layout.  Maps stay channels-last (NWC, NHWC, NDHWC) and kernels WIO,
+HWIO, DHWIO, the JAX tree's layouts, so a checkpoint's weights and a
+flatten's order carry across unchanged.  A (B, H, W, C) tensor is handed
+to PyTorch as its (B, C, H, W) view: the strides of channels-last
+memory, which cuDNN reads as NHWC without a copy (3-D maps likewise as
+``channels_last_3d``; a 1-D map is made contiguous); the result's view
+back is channels-last again.
 
 Padding.  ``"same"`` is XLA's: ``out = ceil(in / stride)``, the total
 padding ``max((out - 1) * stride + dilated kernel - in, 0)``, ``total //
@@ -20,7 +23,7 @@ average pooling divides each window by its count of real elements.
 
 Exact f32 and fixed bits on the card.  PyTorch lets cuDNN run f32
 convolutions in TF32 and pick nondeterministic backward algorithms by
-default.  `Conv2dNHWC` runs its forward and its backward each under a
+default.  `ConvChannelsLast` runs its forward and its backward each under a
 local ``torch.backends.cudnn.flags`` (TF32 off, deterministic
 algorithms, no benchmarking), so the f32 model stays the JAX package's
 f32 arithmetic and a captured training step gives the eager step's
@@ -62,15 +65,22 @@ def same_pads(size: int, k: int, s: int, d: int = 1) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _pads(x_nhwc, kernel, stride, dilation, padding: str):
-    """((top, bottom), (left, right)) of an NHWC map for ``padding``."""
+def _pads(x, kernel, stride, dilation, padding: str):
+    """(before, after) of each spatial dim of a channels-last map ``x``
+    (B, *spatial, C) for ``padding``."""
+    nd = x.dim() - 2
     if padding == "same":
-        (kh, kw), (sh, sw), (dh, dw) = kernel, stride, dilation
-        return (same_pads(x_nhwc.shape[1], kh, sh, dh),
-                same_pads(x_nhwc.shape[2], kw, sw, dw))
+        return [same_pads(x.shape[1 + i], kernel[i], stride[i], dilation[i])
+                for i in range(nd)]
     if padding != "valid":
         raise ValueError(f"padding must be 'same' or 'valid', got {padding!r}")
-    return (0, 0), (0, 0)
+    return [(0, 0)] * nd
+
+
+def _flat_pads(pads) -> tuple:
+    """`F.pad`'s argument for per-dim (before, after) pads: the last
+    spatial dim first."""
+    return tuple(v for before, after in reversed(pads) for v in (before, after))
 
 
 _FLAGS_LOCK = threading.Lock()
@@ -88,14 +98,18 @@ def _exact(device):
         yield
 
 
-class Conv2dNHWC(torch.autograd.Function):
-    """``F.conv2d`` on NCHW views (channels-last memory) with its forward
-    and backward each under `_exact`."""
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_LAST = {2: torch.channels_last, 3: torch.channels_last_3d}
+
+
+class ConvChannelsLast(torch.autograd.Function):
+    """``F.conv{1,2,3}d`` on channels-first views of channels-last memory,
+    with its forward and backward each under `_exact`."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, dilation, groups):
         with _exact(x.device):
-            y = F.conv2d(x, w, None, stride, padding, dilation, groups)
+            y = _CONV[x.dim() - 2](x, w, None, stride, padding, dilation, groups)
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding, dilation, groups)
         return y
@@ -108,8 +122,40 @@ class Conv2dNHWC(torch.autograd.Function):
         with _exact(x.device):
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 g, x, w, None, list(stride), list(padding), list(dilation),
-                False, [0, 0], groups, mask)
+                False, [0] * len(stride), groups, mask)
         return gx, gw, None, None, None, None
+
+
+def _tuple(v, n: int) -> tuple:
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def conv_channels_last(x: torch.Tensor, w: torch.Tensor, *, stride=1,
+                       padding: str = "valid", dilation=1,
+                       groups: int = 1) -> torch.Tensor:
+    """``lax.conv_general_dilated`` of channels-last maps: x (B, *spatial,
+    C), w (*kernel, C / groups, n_out) (WIO, HWIO or DHWIO) -> (B,
+    *spatial', n_out) in x's dtype, for 1, 2 or 3 spatial dims."""
+    nd = x.dim() - 2
+    kernel = tuple(w.shape[:nd])
+    stride, dilation = _tuple(stride, nd), _tuple(dilation, nd)
+    pads = _pads(x, kernel, stride, dilation, padding)
+    xc = x.movedim(-1, 1)                         # channels-first view
+    if any(before != after for before, after in pads):
+        xc = F.pad(xc, _flat_pads(pads))
+        sym = (0,) * nd
+    else:
+        sym = tuple(before for before, _ in pads)
+    fmt = _LAST.get(nd)
+    wc = w.permute(nd + 1, nd, *range(nd))
+    if fmt is None:                               # 1-D: plain contiguous
+        xc, wc = xc.contiguous(), wc.contiguous()
+    else:
+        xc, wc = xc.contiguous(memory_format=fmt), wc.contiguous(memory_format=fmt)
+    y = ConvChannelsLast.apply(xc, wc, stride, sym, dilation, groups)
+    return y.movedim(1, -1)
 
 
 def conv2d_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, *, stride=(1, 1),
@@ -119,53 +165,64 @@ def conv2d_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, *, stride=(1, 1),
     ("NHWC", "HWIO", "NHWC"), feature_group_count=groups)``: (B, H, W,
     C) maps and an (kh, kw, C / groups, n_out) kernel -> (B, H', W',
     n_out) maps in x's dtype."""
-    kernel, stride, dilation = pair(w_hwio.shape[:2]), pair(stride), pair(dilation)
-    (pt, pb), (pl, pr) = _pads(x, kernel, stride, dilation, padding)
-    xc = x.permute(0, 3, 1, 2)                    # NCHW view, NHWC memory
-    if (pt, pl) != (pb, pr):
-        xc = F.pad(xc, (pl, pr, pt, pb))
-        sym = (0, 0)
+    return conv_channels_last(x, w_hwio, stride=pair(stride), padding=padding,
+                              dilation=pair(dilation), groups=groups)
+
+
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def pool_channels_last(x: torch.Tensor, pooling: str, *, kernel, stride,
+                       padding: str = "valid", pnorm: float = 2) -> torch.Tensor:
+    """``lax.reduce_window`` pooling of channels-last maps (B, *spatial,
+    C), 1, 2 or 3 spatial dims: ``"max"``, ``"sum"``, ``"avg"`` (SAME
+    windows divided by their real elements) or ``"pnorm"`` ((sum
+    |x|^p)^(1/p)).  A 1-D map pools as a 2-D map of height 1."""
+    nd = x.dim() - 2
+    if nd == 1:
+        y = pool_channels_last(x[:, None], pooling, kernel=(1,) + _tuple(kernel, 1),
+                               stride=(1,) + _tuple(stride, 1), padding=padding,
+                               pnorm=pnorm)
+        return y[:, 0]
+    kernel, stride = _tuple(kernel, nd), _tuple(stride, nd)
+    pads = _pads(x, kernel, stride, (1,) * nd, padding)
+    padded = any(p != (0, 0) for p in pads)
+    xc = x.movedim(-1, 1)
+
+    def pad(t, value=0.0):
+        return F.pad(t, _flat_pads(pads), value=value) if padded else t
+
+    def sum_pool(t):
+        return _AVG_POOL[nd](t, kernel, stride, divisor_override=1)
+
+    if pooling == "max":
+        y = _MAX_POOL[nd](pad(xc, float("-inf")), kernel, stride)
+    elif pooling == "sum":
+        y = sum_pool(pad(xc))
+    elif pooling == "avg":
+        s = sum_pool(pad(xc))
+        if padding == "same":
+            ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=x.dtype,
+                              device=x.device)
+            y = s / sum_pool(pad(ones))
+        else:
+            n = 1
+            for k in kernel:
+                n *= k
+            y = s / n
+    elif pooling == "pnorm":
+        p = float(pnorm)
+        y = sum_pool(pad(xc.abs() ** p)) ** (1.0 / p)
     else:
-        sym = (pt, pl)
-    xc = xc.contiguous(memory_format=torch.channels_last)
-    w = w_hwio.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    y = Conv2dNHWC.apply(xc, w, stride, sym, dilation, groups)
-    return y.permute(0, 2, 3, 1)
-
-
-def _sum_pool(xc, kernel, stride):
-    return F.avg_pool2d(xc, kernel, stride, divisor_override=1)
+        raise ValueError(f"unhandled pooling {pooling!r}")
+    return y.movedim(1, -1)
 
 
 def pool2d_nhwc(x: torch.Tensor, pooling: str, *, kernel=(2, 2),
                 stride=(2, 2), padding: str = "valid",
                 pnorm: int = 2) -> torch.Tensor:
-    """``lax.reduce_window`` pooling of (B, H, W, C) maps: ``"max"``,
-    ``"sum"``, ``"avg"`` (SAME windows divided by their real elements)
-    or ``"pnorm"`` ((sum |x|^p)^(1/p))."""
-    kernel, stride = pair(kernel), pair(stride)
-    (pt, pb), (pl, pr) = _pads(x, kernel, stride, (1, 1), padding)
-    padded = (pt, pb, pl, pr) != (0, 0, 0, 0)
-    xc = x.permute(0, 3, 1, 2)
-
-    def pad(t, value=0.0):
-        return F.pad(t, (pl, pr, pt, pb), value=value) if padded else t
-
-    if pooling == "max":
-        y = F.max_pool2d(pad(xc, float("-inf")), kernel, stride)
-    elif pooling == "sum":
-        y = _sum_pool(pad(xc), kernel, stride)
-    elif pooling == "avg":
-        s = _sum_pool(pad(xc), kernel, stride)
-        if padding == "same":
-            ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=x.dtype,
-                              device=x.device)
-            y = s / _sum_pool(pad(ones), kernel, stride)
-        else:
-            y = s / (kernel[0] * kernel[1])
-    elif pooling == "pnorm":
-        p = float(pnorm)
-        y = _sum_pool(pad(xc.abs() ** p), kernel, stride) ** (1.0 / p)
-    else:
-        raise ValueError(f"unhandled pooling {pooling!r}")
-    return y.permute(0, 2, 3, 1)
+    """`pool_channels_last` of (B, H, W, C) maps (the `Subsampling`
+    layer)."""
+    return pool_channels_last(x, pooling, kernel=pair(kernel), stride=pair(stride),
+                              padding=padding, pnorm=pnorm)

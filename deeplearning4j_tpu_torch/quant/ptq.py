@@ -7,7 +7,7 @@ Rewrites the matmul, conv and embedding weights of a built model into
 axis), keyed exactly as the JAX package keys its quantized tree.
 Biases, norm parameters and BatchNorm's state stay f32.  The quantized
 layer set comes from the configuration (layer types), limited to the
-layer types the port has: `Conv2D`, `Dense` and `OutputLayer`,
+layer types the port has: `Conv1D`, `Conv2D`, `Conv3D`, `Dense` and `OutputLayer`,
 `Embedding`, `ChunkedSoftmaxOutputLayer`, `RnnOutputLayer`,
 `SelfAttentionLayer` (Wq, Wk, Wv, Wo) and `TransformerEncoderBlock` (W1,
 W2 and the attention projections).  `MoELayer` and
@@ -51,6 +51,7 @@ def _quantizable_types():
     (the block keeps its attention projections under ``params["attn"]``)."""
     from deeplearning4j_tpu_torch.nn.conf import attention as A
     from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import layers_nd as LN
     from deeplearning4j_tpu_torch.nn.conf import recurrent as R
 
     qkv = ("Wq", "Wk", "Wv", "Wo")
@@ -59,10 +60,21 @@ def _quantizable_types():
         (L.Dense, {"": ("W",)}),             # OutputLayer subclasses Dense
         (L.Embedding, {"": ("W",)}),
         (L.ChunkedSoftmaxOutputLayer, {"": ("W",)}),
+        (LN.Conv1D, {"": ("W",)}),
+        (LN.Conv3D, {"": ("W",)}),
         (R.RnnOutputLayer, {"": ("W",)}),
         (A.SelfAttentionLayer, {"": qkv}),
         (A.TransformerEncoderBlock, {"": ("W1", "W2"), "attn": qkv}),
     )
+
+
+def _layer_configs(conf) -> dict:
+    """Node or layer name -> layer config, for sequential and graph
+    configurations (a graph's vertices quantize nothing)."""
+    layers = getattr(conf, "layers", None)
+    if layers is not None:
+        return {l.name: l for l in layers}
+    return {n.name: n.layer for n in conf.nodes if n.layer is not None}
 
 
 def _quant_spec(layer) -> dict:
@@ -87,7 +99,7 @@ def quantize_params(conf, params: dict, *, min_elements: int = 0) -> dict:
     """The params tree with every quantizable weight replaced by a
     `QuantizedTensor` (CPU tensors); everything else is carried by
     reference."""
-    configs = {l.name: l for l in conf.layers}
+    configs = _layer_configs(conf)
     out = {}
     for lname, lp in params.items():
         layer = configs.get(lname)

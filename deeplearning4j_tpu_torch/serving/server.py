@@ -33,7 +33,7 @@ bounded exemplar ring (`slow_requests()`).
 
 An int8-quantized model (`quant.quantize`) serves through kernel B5
 (`ops/dequant_matmul.py`) and swaps quantized trees.  Not ported yet: a
-model with a mesh (A11), multi-input graphs (A4).  Time padding: a
+model with a mesh (A11), a `GraphModel` (A13).  Time padding: a
 padded batch's mask column (each request's own mask, or ones over its
 real steps) goes to ``output(..., features_mask=)``, as the JAX server
 passes it to its masked infer program, so padding and a mask's holes

@@ -27,8 +27,8 @@ A failed verify is logged and counted under
 ``dl4jtpu_ckpt_verify_failures_total{reason="corrupt"}``.  Not ported
 yet: the fault-injection sites ``checkpoint.write`` and
 ``checkpoint.fsync`` and `CheckpointStore` (ROADMAP A9), and
-``write_model_distributed`` (A11).  A ``GraphModel`` checkpoint raises
-(A4).
+``write_model_distributed`` (A11).  A ``GraphModel`` (computation
+graph) checkpoint has the same entries, its trees keyed by ``param_key``.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.models.sequential import SequentialModel, tree_leaves
+from deeplearning4j_tpu_torch.models.model import tree_leaves
 from deeplearning4j_tpu_torch.nn import updaters
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 from deeplearning4j_tpu_torch.utils import serde
@@ -127,6 +127,18 @@ def _updater_state(model):
     if model.opt_state is None:
         return model._tx.init(tree_leaves(model.params))
     return model.opt_state
+
+
+# the configuration class each model class is built from
+_CONF_OF = {"SequentialModel": "SequentialConfiguration",
+            "GraphModel": "GraphConfiguration"}
+
+
+def _model_classes() -> dict:
+    from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+
+    return {"SequentialModel": SequentialModel, "GraphModel": GraphModel}
 
 
 class ModelSerializer:
@@ -238,14 +250,14 @@ class ModelSerializer:
         with zipfile.ZipFile(path, "r") as zf:
             cfg = json.loads(zf.read("configuration.json"))
             model_class = cfg["model_class"]
-            if model_class == "GraphModel":
-                raise NotImplementedError(
-                    "checkpoint of a GraphModel: computation graphs are not "
-                    "ported yet (ROADMAP A4: the ResNet-50 slice)")
-            if model_class != "SequentialModel":
+            cls = _model_classes().get(model_class)
+            if cls is None:
                 raise ValueError(f"unknown model class in checkpoint: {model_class}")
             conf = serde.from_jsonable(cfg["conf"])
-            model = SequentialModel(conf, device=device).init()
+            if type(conf).__name__ != _CONF_OF[model_class]:
+                raise ValueError(f"checkpoint's model class {model_class} does not "
+                                 f"take its {type(conf).__name__}")
+            model = cls(conf, device=device).init()
             meta = json.loads(zf.read("meta.json"))
             quantized = meta.get("quantized")
             if quantized is not None:

@@ -9,8 +9,8 @@ JAX package's tags (the class names), with its field names, defaults and
 enum values, so one ``configuration.json`` reads and writes in both
 packages.
 
-A tag the JAX package has and the port does not yet (a graph vertex, a
-recurrent layer, ...) raises `NotImplementedError` naming the ROADMAP item
+A tag the JAX package has and the port does not yet (a recurrent layer,
+...) raises `NotImplementedError` naming the ROADMAP item
 that ports it; a tag neither package knows raises `KeyError`.
 """
 
@@ -24,19 +24,10 @@ from typing import Any
 
 _REGISTRY: dict[str, type] = {}
 
-_RESNET = "A4: the ResNet-50 slice, graphs and N-d layers"
 _RECURRENT = "A8: recurrent layers"
 _LONG_TAIL = "A13: the long tail"
 #: JAX package tags the port has no class for yet, and where each waits
 UNPORTED = {
-    **dict.fromkeys(("GraphConfiguration", "GraphNode", "AttentionVertex",
-                     "ElementWiseVertex", "L2NormalizeVertex", "MergeVertex",
-                     "ReshapeVertex", "ScaleVertex", "StackVertex",
-                     "SubsetVertex", "UnstackVertex", "ZeroPadding2D",
-                     "Conv1D", "Conv3D", "Cropping1D", "Cropping2D",
-                     "Cropping3D", "MaskZeroLayer", "PReLU",
-                     "Subsampling1D", "Subsampling3D", "Upsampling1D",
-                     "Upsampling3D"), _RESNET),
     **dict.fromkeys(("LSTM", "GravesLSTM", "GRU", "SimpleRnn", "Bidirectional",
                      "LastTimeStep", "TimeDistributed", "ConvLSTM2D"),
                     _RECURRENT),
@@ -63,8 +54,8 @@ def register(cls=None, *, name: str | None = None):
 
 
 # the modules whose config classes register themselves on import
-_CONFIG_MODULES = ("nn.conf.layers", "nn.conf.attention", "nn.conf.moe",
-                   "nn.conf.recurrent", "nn.conf.input_type",
+_CONFIG_MODULES = ("nn.conf.layers", "nn.conf.layers_nd", "nn.conf.attention",
+                   "nn.conf.moe", "nn.conf.recurrent", "nn.conf.graph_conf", "nn.conf.input_type",
                    "nn.conf.neural_net_configuration", "nn.updaters",
                    "nn.schedules")
 

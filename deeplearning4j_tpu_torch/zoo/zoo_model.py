@@ -19,11 +19,16 @@ class ZooModel:
         raise NotImplementedError
 
     def init_model(self, device=None):
-        """A freshly initialised `SequentialModel` on ``device`` (CUDA by
-        default): the JAX package's weights for the same seed."""
+        """A freshly initialised model on ``device`` (CUDA by default): a
+        `GraphModel` for a graph configuration, else a `SequentialModel`;
+        the JAX package's weights for the same seed."""
+        from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
         from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphConfiguration
 
-        return SequentialModel(self.conf(), device=device).init()
+        conf = self.conf()
+        cls = GraphModel if isinstance(conf, GraphConfiguration) else SequentialModel
+        return cls(conf, device=device).init()
 
     def init_pretrained(self, pretrained_type: str = "default",
                         path: str | None = None):

@@ -16,8 +16,9 @@ package's `ModelSerializer`, both ways, on the CPU.
   their outputs agree within 1e-5, both ways, at two ``min_elements``.
 - A truncated zip, a corrupted entry (CRC) and a missing entry raise
   `CheckpointVerifyError` in both packages; a file without a manifest
-  (format 1) verifies on the zip's own CRCs.  ``GraphModel`` raises
-  naming ROADMAP A4.
+  (format 1) verifies on the zip's own CRCs.  A zip whose model class
+  does not take its configuration (``GraphModel`` over a sequential
+  one) raises.
 """
 
 import json
@@ -280,5 +281,6 @@ def test_write_replaces_a_file_and_restore_refuses_other_models(tmp_path):
     with zipfile.ZipFile(graph, "w") as zf:
         for n, d in entries.items():
             zf.writestr(n, d)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="GraphModel does not take its "
+                                         "SequentialConfiguration"):
         ModelSerializer.restore(graph, verify=False, device="cpu")

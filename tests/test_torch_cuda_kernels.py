@@ -85,7 +85,10 @@ were; quantized LeNet with exactly 2 B5 launches a call, within 2e-5 of
 max p of the CPU's quantized model.  The attention slice: the captured
 training step of a MoE transformer (bf16 and f32) and of a masked
 classifier over batches whose masks differ (one capture) against the
-eager step, bit for bit.
+eager step, bit for bit.  The ResNet-50 slice: a narrow ResNet in f32
+on the card against the CPU (``output()`` within 1e-5 of max p, 3 steps'
+losses within 1e-5), a graph step after `load_params`, and side-stream
+staging (pinned memory, an event) bit for bit.
 """
 
 import dataclasses
@@ -1360,3 +1363,93 @@ def test_canary_passes_an_honest_deploy_under_traffic(cuda):
     assert fleet.deployer.tolerance == 1e-4 and fleet.deployer.canary_failures == 0
     assert served[0] > 0
     assert [s.generation for s in fleet.replicas] == [1, 1]
+
+
+# -- the ResNet-50 slice: graphs on the card ------------------------------------
+
+def _narrow_resnet(device, **kw):
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    class Narrow(ResNet50):
+        STAGES = (1, 1, 1, 1)
+        FILTERS = (8, 8, 16, 16)
+
+    model = Narrow(num_classes=10, height=32, width=32, **kw)
+    conf = dataclasses.replace(model.conf(), bf16_compute=False)
+    from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
+
+    return GraphModel(conf, device=device).init()
+
+
+def _narrow_batch(seed=0):
+    r = np.random.default_rng(seed)
+    return DataSet(r.normal(size=(8, 32, 32, 3)).astype(np.float32),
+                   np.eye(10, dtype=np.float32)[r.integers(0, 10, 8)])
+
+
+def test_narrow_resnet_on_the_card_matches_the_cpu(cuda):
+    """The narrow ResNet in f32 (cuDNN in exact f32, the captured step):
+    the same initial trees, ``output()`` within 1e-5 of max p of the CPU's,
+    and 3 Adam steps on one batch whose losses are within 1e-5 of the
+    CPU's (the same f32 arithmetic in another order)."""
+    card, cpu = _narrow_resnet(cuda), _narrow_resnet("cpu")
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        assert torch.equal(a.detach().cpu(), b.detach())
+    batch = _narrow_batch()
+    p_card, p_cpu = card.output(batch.features).cpu(), cpu.output(batch.features)
+    assert (p_card - p_cpu).abs().max().item() <= 1e-5 * p_cpu.abs().max().item()
+    for _ in range(3):
+        card.fit_batch(batch)
+        cpu.fit_batch(batch)
+        assert abs(card.score_value - cpu.score_value) <= 1e-5
+    assert card.compile_stats()["step_programs"] == 1
+
+
+def test_a_graph_step_after_load_params_trains_the_new_weights(cuda):
+    """A captured graph step, then `load_params` of other weights, then a
+    step: the graph is dropped and the step trains the new tensors, as the
+    CPU's step from the same weights does (the loss within 1e-5)."""
+    card, cpu = _narrow_resnet(cuda), _narrow_resnet("cpu")
+    card.fit_batch(_narrow_batch(0))
+    other = _narrow_resnet("cpu", seed=7)
+    new = _to_cpu(other.params)
+    card.load_params(new)
+    cpu.load_params(new)
+    before = [t.detach().cpu().clone() for t in tree_leaves(card.params)]
+    card.fit_batch(_narrow_batch(1))
+    cpu.fit_batch(_narrow_batch(1))
+    assert abs(card.score_value - cpu.score_value) <= 1e-5
+    moved = [not torch.equal(a, b.detach().cpu())
+             for a, b in zip(before, tree_leaves(card.params))]
+    assert sum(moved) > len(moved) // 2
+
+
+def test_side_stream_staging_gives_the_same_bytes(cuda):
+    """`stage_to_device` copies from pinned memory on a side stream; once
+    the consumer's stream waits on its event the card holds the source's
+    bytes (f32 and uint8, a `MultiDataSet` too), and a `PrefetchIterator`
+    over a generator yields them in order."""
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.data.prefetch import (
+        PrefetchIterator,
+        stage_to_device,
+        wait_staged,
+    )
+
+    r = np.random.default_rng(2)
+    srcs = [DataSet(r.normal(size=(64, 32, 32, 3)).astype(np.float32),
+                    r.integers(0, 256, (64, 10)).astype(np.uint8)) for _ in range(6)]
+    staged = stage_to_device(srcs[0], cuda)
+    assert staged._ready is not None
+    wait_staged(staged)
+    assert staged.features.is_cuda and staged.labels.dtype == torch.uint8
+    np.testing.assert_array_equal(staged.features.cpu().numpy(), srcs[0].features)
+    np.testing.assert_array_equal(staged.labels.cpu().numpy(), srcs[0].labels)
+    mds = stage_to_device(MultiDataSet((srcs[1].features,), (srcs[1].labels,)), cuda)
+    wait_staged(mds)
+    np.testing.assert_array_equal(mds.features[0].cpu().numpy(), srcs[1].features)
+    out = list(PrefetchIterator((b for b in srcs), depth=2, device=cuda))
+    assert len(out) == len(srcs)
+    for got, want in zip(out, srcs):
+        np.testing.assert_array_equal(got.features.cpu().numpy(), want.features)
+        np.testing.assert_array_equal(got.labels.cpu().numpy(), want.labels)

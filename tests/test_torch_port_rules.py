@@ -69,7 +69,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "ops.conv", "evaluation.evaluation", "data.normalizers",
                      "data.builtin", "zoo.zoo_model", "zoo.lenet",
                      "zoo.simplecnn", "entry", "bench_lenet",
-                     "parallel.expert", "nn.conf.moe"):
+                     "parallel.expert", "nn.conf.moe", "nn.conf.graph_conf",
+                     "nn.conf.layers_nd", "models.computation_graph",
+                     "zoo.resnet", "data.prefetch"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -149,6 +151,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         moe.fit_batch(DataSet(ids, np.roll(ids, -1, axis=1), features_mask=fm))
         assert np.isfinite(moe.score_value) and moe.net_state == {}
         assert tuple(moe.output(ids, fm).shape) == (2, 6, 17)
+        from deeplearning4j_tpu_torch.data.prefetch import PrefetchIterator
+        from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+        class Tiny(ResNet50):
+            STAGES, FILTERS = (1,), (4,)
+        g = Tiny(num_classes=3, height=8, width=8).init_model(device="cpu")
+        xs = np.zeros((2, 8, 8, 3), np.float32)
+        ys = np.eye(3, dtype=np.float32)[[0, 2]]
+        g.fit(PrefetchIterator([DataSet(xs, ys)], device="cpu"))
+        assert g.iteration == 1 and np.isfinite(g.score_value)
+        assert tuple(quantize(g).output(xs).shape) == (2, 3)
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "optax",
                                             "deeplearning4j_tpu"))

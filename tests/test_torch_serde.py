@@ -184,8 +184,8 @@ def test_enum_fields_coerce_values_names_and_aliases():
         layers.Embedding(activation="nope")
 
 
-@pytest.mark.parametrize("tag,item", [("Conv1D", "A4"), ("LossLayer", "A13"),
-                                      ("GraphConfiguration", "A4"),
+@pytest.mark.parametrize("tag,item", [("SeparableConv2D", "A13"), ("LossLayer", "A13"),
+                                      ("ConvLSTM2D", "A8"),
                                       ("GravesLSTM", "A8"),
                                       ("LSTM", "A8"), ("Yolo2OutputLayer", "A13")])
 def test_a_tag_the_port_lacks_names_its_roadmap_item(tag, item):
