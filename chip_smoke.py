@@ -341,7 +341,47 @@ Then the phases:
    B1, B2 and B3 in a captured step, the f32 output within 1e-4 of the
    same graph on the CPU; B1 at (384, 128, 64) non-causal, both types,
    against its plain version.
-15. report — one ``{"kernels": [...]}`` JSON line, then the last line
+15. tools — the training tooling slice (ROADMAP A9).  (a) The flagship
+   trained 4 steps (numpy seed 0 ids, 4 x 2048; the last 3 timed: the
+   full step), then `TransferLearning.Builder` with Adam 1e-4 and
+   ``set_feature_extractor(7)`` (the embedding and blocks 0-5 frozen,
+   blocks 6-7 and the chunked head trained): 4 fine-tune steps without
+   listeners and the same 4 from the same snapshot with
+   `ScoreIterationListener`, `PerformanceListener`,
+   `CollectScoresListener` and `HealthListener(frequency=1)`: ms a step
+   of each, bit-identical losses and state; then `EarlyStoppingTrainer`
+   over 8 training batches with `DataSetLossCalculator` on 2 held-out
+   ones, `MaxEpochsTerminationCondition(3)`,
+   `ScoreImprovementEpochTerminationCondition(1)` and
+   `InMemoryModelSaver`, counters zeroed just before: exactly 8 B1 and 2
+   each of B2 and B3 a training step (the held-out scoring's launches
+   kept apart), frozen leaves keep their bits and trained ones move, no
+   health event, the best model scores its recorded score again, and 2
+   captured steps equal 2 eager ones bit for bit.  (b) `ResNet50()`
+   through `TransferLearning.GraphBuilder`, frozen through ``s2b5_out``
+   with a 10-way head: 2 warm-up and 8 timed captured steps at batch
+   256 beside the resnet phase's full step; frozen weights keep their
+   bits, frozen BatchNorm statistics move (the JAX package's training
+   mode), the loss falls, captured == eager.  (c1) The chaos drill:
+   `CheckpointStore(keep_last=2)` with one save at iteration 4, 16 more
+   warm-up steps, then the watchdog's floor 0.3 s and k 2 and 14 batches
+   under ``device.sync:delay:nth=3,secs=2;data.decode:raise:nth=6;
+   data.decode:corrupt:nth=9`` with `RecoveryPolicy(store,
+   skip_window=1)` and a raising `HealthListener`: the recovery ledger
+   (bench.py ``--chaos``'s fields), save / verify / restore seconds and
+   the rollback's; gates on one rollback at lr_scale 0.5, one
+   quarantined batch with its bytes on disk, a watchdog warn, a finite
+   final loss, the live state equal to the checkpoint's bit for bit
+   right after the rollback, no graph captured in the run, and the three
+   metric families moved.  (c2) `fit` of one batch of 1024 images under
+   `RecoveryPolicy(None, max_split=8)`: a real device OOM split 2x or
+   4x, finite losses, allocated memory back (but for a new piece
+   graph's static inputs), and a batch of 256 replaying its graph.
+   (c3) `PreemptionHandler(store)`: a listener sends SIGTERM at a step;
+   the checkpoint lands and `PreemptionError` stops the fit; the model
+   `restore_latest` gives takes the next batch with the interrupted
+   model's loss, bit for bit.
+16. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -361,7 +401,7 @@ import sys
 import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
-          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet")
+          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "tools")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -4840,6 +4880,571 @@ def phase_resnet(torch, np, kernels, timer):
     return res
 
 
+# -- the training tooling slice (ROADMAP A9) ---------------------------------------
+
+# (a) the flagship: pretraining steps on one batch (numpy seed 0 ids), then
+# the fine-tune's training and held-out batches of 4 x 2048 from the same
+# generator; blocks 0-5 and the embedding frozen (layer 7 is block 5)
+TOOLS_PRE_STEPS, TOOLS_FT_TRAIN, TOOLS_FT_HELD, TOOLS_FT_EPOCHS = 4, 8, 2, 3
+TOOLS_FREEZE_AT, TOOLS_FT_LR = 7, 1e-4
+# steps of each listener-cost run (with the four listeners, without them)
+TOOLS_LISTENER_STEPS = 4
+# (b) ResNet-50 frozen through its stage 2 (blocks s2b0 ... s2b5), a new
+# 10-way head; 2 warm-up and 8 timed captured steps over 2 batches
+TOOLS_RN_FREEZE, TOOLS_RN_CLASSES, TOOLS_RN_WARM, TOOLS_RN_TIMED = "s2b5_out", 10, 2, 8
+# (c1) the chaos drill: one save at iteration 4 of the warm-up (at the
+# default watchdog floor), warm-up steps after it so the watchdog's latency
+# average settles, then the plan over 14 batches with floor 0.3 s and k 2
+# (a deadline of ~0.5 s against a 2 s delay)
+TOOLS_SAVE_AT, TOOLS_WARM_AFTER_SAVE, TOOLS_CHAOS_BATCHES = 4, 16, 14
+TOOLS_CHAOS_PLAN = ("device.sync:delay:nth=3,secs=2;"
+                    "data.decode:raise:nth=6,exc=runtime;"
+                    "data.decode:corrupt:nth=9")
+TOOLS_WD_FLOOR_S, TOOLS_WD_K = 0.3, 2.0
+# (c2) a batch of 1024 images: 4x the 256 whose captured step reserves ~31 GiB
+TOOLS_OOM_BATCH, TOOLS_OOM_MAX_SPLIT = 1024, 8
+# (c3) the listener that sends SIGTERM fires at this step of the run
+TOOLS_SIGTERM_AT = 2
+TOOLS_DIR = os.path.join("build", "tools")   # inside the checkout; removed after
+
+
+def _ft_batches(np, n, rng):
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, VOCAB, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)
+        out.append(DataSet(ids, np.roll(ids, -1, axis=1)))
+    return out
+
+
+def _copies(torch, tree):
+    from deeplearning4j_tpu_torch.models.model import tree_leaves
+
+    return [t.detach().clone() for t in tree_leaves(tree)]
+
+
+def _timed_steps(torch, model, batches):
+    """`fit_batch` over ``batches``: (each step's own loss tensor, ms a
+    step over the run, the card synchronised at both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches:
+        model.fit_batch(b)
+        losses.append(model._last_score.detach().clone())
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) / len(batches) * 1e3
+
+
+def _tools_flagship(torch, np, kernels):
+    """(a) The flagship fine-tuned through `TransferLearning` under
+    `EarlyStoppingTrainer` with listeners."""
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.observe.health import HealthListener
+    from deeplearning4j_tpu_torch.train import (
+        CollectScoresListener, DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, FineTuneConfiguration, InMemoryModelSaver,
+        MaxEpochsTerminationCondition, PerformanceListener, ScoreIterationListener,
+        ScoreImprovementEpochTerminationCondition, TransferLearning)
+
+    res = {}
+    rng = np.random.default_rng(0)
+    pre = _ft_batches(np, 1, rng)[0]
+    train = _ft_batches(np, TOOLS_FT_TRAIN, rng)
+    held = _ft_batches(np, TOOLS_FT_HELD, rng)
+    base = _flagship(torch)
+    base.fit_batch(pre)                           # eager warm-up, then captured
+    _, full_ms = _timed_steps(torch, base, [pre] * (TOOLS_PRE_STEPS - 1))
+    res["full_step_ms"] = full_ms
+    tl = (TransferLearning.Builder(base)
+          .fine_tune_configuration(FineTuneConfiguration(updater=Adam(TOOLS_FT_LR)))
+          .set_feature_extractor(TOOLS_FREEZE_AT).build())
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    frozen_keys = sorted(k for k in tl._frozen if k in tl.params)
+    trained_keys = sorted(k for k in tl.params if k not in tl._frozen)
+    frozen0 = _copies(torch, {k: tl.params[k] for k in frozen_keys})
+    trained0 = _copies(torch, {k: tl.params[k] for k in trained_keys})
+    log(f"[tools] (a) fine-tune: frozen {sorted(tl._frozen)}, trained {trained_keys}; "
+        f"{len(tl._trainable_leaves(tl.params))} of "
+        f"{len(_copies(torch, tl.params))} leaves trained")
+
+    # the listeners' cost, and their neutrality, from one snapshot
+    tl.fit_batch(train[0])                        # the fine-tune step's capture
+    snap = _full_state(torch, tl)
+    # each set from the same snapshot: none, the lazy ones (a score read
+    # every 4th step), a score read every step, the health check alone,
+    # all four
+    sets = {
+        "without": lambda: (),
+        "lazy": lambda: (ScoreIterationListener(4), PerformanceListener()),
+        "collect": lambda: (CollectScoresListener(),),
+        "health": lambda: (HealthListener(frequency=1),),
+        "with": lambda: (ScoreIterationListener(4), PerformanceListener(),
+                         CollectScoresListener(), HealthListener(frequency=1)),
+    }
+    runs = {}
+    for name, make in sets.items():
+        _restore_state(torch, tl, snap)
+        tl.set_listeners(*make())
+        losses, ms = _timed_steps(torch, tl, train[1:1 + TOOLS_LISTENER_STEPS])
+        runs[name] = {"losses": losses, "ms": ms}
+        if name in ("without", "with"):
+            runs[name]["state"] = _full_state(torch, tl, "cpu")
+    same_losses = all(torch.equal(a, b) for a, b in
+                      zip(runs["with"]["losses"], runs["without"]["losses"]))
+    bad = _differing(torch, runs["with"]["state"], runs["without"]["state"])
+    res["listeners"] = {"ms_with": runs["with"]["ms"], "ms_without": runs["without"]["ms"],
+                        "ms_by_set": {k: v["ms"] for k, v in runs.items()},
+                        "identical": same_losses and not bad}
+    res["ft_step_ms"] = runs["without"]["ms"]
+    res["ft_tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / res["ft_step_ms"] * 1e3
+    res["full_tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / full_ms * 1e3
+    log(f"[tools] (a) {TOOLS_LISTENER_STEPS} fine-tune steps from one snapshot: "
+        f"{runs['without']['ms']:.3f} ms a step without listeners, "
+        f"{runs['with']['ms']:.3f} with the four; by set "
+        f"{ {k: round(v['ms'], 3) for k, v in runs.items()} }; losses identical "
+        f"{same_losses}, state differs at {bad or 'no leaf'}")
+    if not same_losses or bad:
+        raise AssertionError("tools: the listeners changed the fine-tune's bits")
+    del runs
+    _restore_state(torch, tl, snap)
+    del snap
+
+    # the fine-tune under early stopping, counters zeroed just before
+    class CountingLoss(DataSetLossCalculator):
+        """The held-out loss, with the launches its scoring makes kept apart."""
+        spent: dict = {}
+
+        def calculate_score(self, model):
+            c0 = kernels.launches()
+            s = super().calculate_score(model)
+            for k, v in kernels.launches().items():
+                self.spent[k] = self.spent.get(k, 0) + v - c0.get(k, 0)
+            return s
+
+    calc = CountingLoss(held)
+    collect, perf = CollectScoresListener(), PerformanceListener(frequency=8, warmup_iterations=2)
+    health = HealthListener(frequency=1)
+    tl.set_listeners(ScoreIterationListener(4), perf, collect, health)
+    cfg = (EarlyStoppingConfiguration.builder().score_calculator(calc)
+           .epoch_termination_conditions(MaxEpochsTerminationCondition(TOOLS_FT_EPOCHS),
+                                         ScoreImprovementEpochTerminationCondition(1))
+           .model_saver(InMemoryModelSaver()).build())
+    it0, captures0 = tl.iteration, tl.compile_stats()["jit_cache_misses"]
+    mem0 = _memory_window(torch)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = EarlyStoppingTrainer(cfg, tl, train).fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    memory = _memory_window(torch, mem0)
+    steps = tl.iteration - it0
+    per_step = {k: (counts.get(k, 0) - calc.spent.get(k, 0)) / steps
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+    res["ft"] = {
+        "launches": counts, "score_launches": dict(calc.spent), "steps": steps,
+        "launches_per_step": per_step, "wall_s": wall,
+        "perf_listener_samples_per_s": perf.samples_per_sec(),
+        "reason": result.termination_reason.value, "details": result.termination_details,
+        "best_epoch": result.best_model_epoch, "best_score": result.best_model_score,
+        "total_epochs": result.total_epochs,
+        "scores_by_epoch": {int(k): v for k, v in result.score_vs_epoch.items()},
+        "peak_reserved_gib": memory["peak_gib"], "memory": memory,
+        "captures": tl.compile_stats()["jit_cache_misses"] - captures0,
+        "health": {"events": list(health.events), "global_norm": health.last_global_norm,
+                   "update_norm": health.last_update_norm},
+    }
+    ft = res["ft"]
+    log(f"[tools] (a) EarlyStoppingTrainer: {result.termination_reason.value} "
+        f"({result.termination_details}) after {result.total_epochs} epochs, best epoch "
+        f"{result.best_model_epoch} (held-out loss {result.best_model_score:.6f}); scores "
+        f"by epoch {ft['scores_by_epoch']}; {steps} steps in {wall:.2f}s (held-out "
+        f"scoring included; PerformanceListener {ft['perf_listener_samples_per_s']:.2f} "
+        f"samples/s); fine-tune step {res['ft_step_ms']:.3f} ms = "
+        f"{res['ft_tokens_per_s']:.1f} tokens/s against the full step {full_ms:.3f} ms = "
+        f"{res['full_tokens_per_s']:.1f} tokens/s (ratio "
+        f"{res['ft_step_ms'] / full_ms:.3f}); peak reserved "
+        f"{memory['peak_gib']:.3f} GiB; launches {counts} (held-out scoring "
+        f"{calc.spent}), a training step {per_step}; health norm "
+        f"{health.last_global_norm}, |dw| {health.last_update_norm}, events "
+        f"{len(health.events)}")
+    # layers 0 and 1 are the embedding and the positions, layer i >= 2 is
+    # block i - 2: every block runs B1, the blocks after the frozen ones B2/B3
+    trained_blocks = LAYERS - (TOOLS_FREEZE_AT - 1)
+    want = {"flash_fwd": LAYERS, "flash_bwd_dq": trained_blocks,
+            "flash_bwd_dkdv": trained_blocks}
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"tools: launches a fine-tune step {per_step}, want {want}")
+    if health.events or not all(np.isfinite([health.last_global_norm,
+                                             health.last_update_norm])):
+        raise AssertionError(f"tools: health events {health.events}")
+    if ft["captures"]:
+        raise AssertionError(f"tools: {ft['captures']} captures during the fine-tune")
+    if not all(np.isfinite([s for _, s in collect.scores])):
+        raise AssertionError("tools: a non-finite fine-tune loss")
+    for a, b in zip(frozen0, _copies(torch, {k: tl.params[k] for k in frozen_keys})):
+        if not torch.equal(a, b):
+            raise AssertionError("tools: a frozen parameter changed its bits")
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(trained0, _copies(torch, {k: tl.params[k] for k in trained_keys})))
+    if moved != len(trained0):
+        raise AssertionError(f"tools: {len(trained0) - moved} trained leaves did not move")
+    again = DataSetLossCalculator(held).calculate_score(result.best_model)
+    log(f"[tools] (a) the best model scored again: {again!r} against the recorded "
+        f"{result.best_model_score!r}; frozen leaves {len(frozen0)} kept their bits, "
+        f"{moved} trained leaves moved")
+    if again != result.best_model_score:
+        raise AssertionError("tools: the best model does not score its recorded score")
+    ft["best_rescored"] = again
+    del result
+    tl.set_listeners()
+    gc.collect()
+    res["captured_vs_eager"] = _captured_vs_eager(torch, tl, train[:2], "flagship fine-tune",
+                                                  phase="tools", host=True)
+    del tl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rn_batches(torch, np, classes, n=2):
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+    rng = np.random.default_rng(0)
+    return [DataSet(torch.from_numpy(rng.normal(0, 1, (RESNET_BATCH, RESNET_HW, RESNET_HW, 3))
+                                     .astype(np.float32)).cuda(),
+                    torch.from_numpy(np.eye(classes, dtype=np.float32)[
+                        rng.integers(0, classes, RESNET_BATCH)]).cuda()) for _ in range(n)]
+
+
+def _tools_resnet_frozen(torch, np, report, base):
+    """(b) ResNet-50 as a frozen feature extractor through stage 2."""
+    from deeplearning4j_tpu_torch.train import TransferLearning
+
+    res = {}
+    rt = (TransferLearning.GraphBuilder(base).set_feature_extractor(TOOLS_RN_FREEZE)
+          .n_out_replace("output", TOOLS_RN_CLASSES).build())
+    batches = _rn_batches(torch, np, TOOLS_RN_CLASSES)
+    frozen = sorted(k for k in rt._frozen if k in rt.params)
+    bn = sorted(k for k in rt._frozen if k in rt.net_state)
+    w0 = _copies(torch, {k: rt.params[k] for k in frozen})
+    s0 = _copies(torch, {k: rt.net_state[k] for k in bn})
+    losses, _ = _timed_steps(torch, rt, [batches[i % 2] for i in range(TOOLS_RN_WARM)])
+    timed, ms = _timed_steps(torch, rt, [batches[i % 2] for i in range(TOOLS_RN_TIMED)])
+    losses = [float(x) for x in losses + timed]
+    kept = all(torch.equal(a, b) for a, b in
+               zip(w0, _copies(torch, {k: rt.params[k] for k in frozen})))
+    stats_moved = sum(not torch.equal(a, b) for a, b in
+                      zip(s0, _copies(torch, {k: rt.net_state[k] for k in bn})))
+    full = report.get("resnet", {}).get("ms_per_step")
+    res.update({"ms_per_step": ms, "samples_per_s": RESNET_BATCH / ms * 1e3,
+                "full_ms_per_step": full, "losses": losses,
+                "frozen_layers": len(frozen), "frozen_bn_stats": len(s0),
+                "bn_stats_moved": stats_moved, "frozen_kept": kept})
+    log(f"[tools] (b) ResNet-50 frozen through {TOOLS_RN_FREEZE} ({len(frozen)} frozen "
+        f"layers), a {TOOLS_RN_CLASSES}-way head: {ms:.3f} ms a step = "
+        f"{res['samples_per_s']:.1f} samples/s (batch {RESNET_BATCH}), the resnet phase's "
+        f"full step {full if full is None else round(full, 3)} ms; losses "
+        f"{[round(x, 4) for x in losses]}; frozen weights kept their bits {kept}; "
+        f"{stats_moved} of {len(s0)} frozen BatchNorm statistics moved")
+    if not kept:
+        raise AssertionError("tools: a frozen ResNet weight changed its bits")
+    if stats_moved != len(s0):
+        raise AssertionError("tools: frozen BatchNorm statistics did not move (JAX "
+                             "updates them in training mode)")
+    if not np.isfinite(losses).all() or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"tools: the frozen ResNet's loss did not fall: {losses}")
+    res["captured_vs_eager"] = _captured_vs_eager(torch, rt, batches, "ResNet-50 frozen",
+                                                  phase="tools", host=True)
+    del rt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tools_chaos(torch, np, model, batches, store, root):
+    """(c1) The chaos drill on the card: one save, the seeded plan, the
+    recovery ledger."""
+    from deeplearning4j_tpu_torch.observe.health import HealthListener
+    from deeplearning4j_tpu_torch.observe.metrics import registry
+    from deeplearning4j_tpu_torch.runtime import faults
+    from deeplearning4j_tpu_torch.train import ModelSerializer, RecoveryPolicy
+    from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+
+    res = {"saves": []}
+    saved = {}
+
+    class Saver(TrainingListener):
+        def iteration_done(self, m, iteration, epoch, score):
+            if iteration == TOOLS_SAVE_AT:
+                t0 = time.perf_counter()
+                store.save(m, step=iteration)
+                res["saves"].append(time.perf_counter() - t0)
+                saved["state"] = _full_state(torch, m, "cpu")
+
+    model.set_listeners(Saver(), HealthListener(frequency=1, raise_on_divergence=True))
+    policy = RecoveryPolicy(store, skip_window=1,
+                            quarantine_dir=os.path.join(root, "quarantine")).attach(model)
+    after_rollback = {}
+    real_rollback = policy._rollback
+
+    def timed_rollback(m, exc):
+        t0 = time.perf_counter()
+        real_rollback(m, exc)
+        after_rollback["s"] = time.perf_counter() - t0
+        after_rollback["state"] = _full_state(torch, m, "cpu")
+        after_rollback["captures"] = m.compile_stats()["jit_cache_misses"]
+
+    policy._rollback = timed_rollback
+    warm = TOOLS_SAVE_AT + TOOLS_WARM_AFTER_SAVE
+    model.fit([batches[i % len(batches)] for i in range(warm)])
+    wd = model._watchdog
+    wd.floor_s, wd.k = TOOLS_WD_FLOOR_S, TOOLS_WD_K
+    log(f"[tools] (c1) warm-up {warm} steps (the save at {TOOLS_SAVE_AT}: "
+        f"{res['saves'][0]:.2f}s); watchdog latency average {wd.ewma * 1e3:.2f} ms, "
+        f"deadline now {wd.deadline_s():.3f}s")
+    reg = registry()
+    families = ("dl4jtpu_watchdog_stalls_total", "dl4jtpu_recovery_events_total",
+                "dl4jtpu_quarantined_batches_total")
+    before = {f: reg.counter(f).snapshot() for f in families}
+    captures0 = model.compile_stats()["jit_cache_misses"]
+    warm_iters = model.iteration
+    t0 = time.perf_counter()
+    faults.arm(TOOLS_CHAOS_PLAN)
+    try:
+        model.fit([batches[i % len(batches)] for i in range(TOOLS_CHAOS_BATCHES)])
+    finally:
+        faults.disarm()
+    wall = time.perf_counter() - t0
+    captures = model.compile_stats()["jit_cache_misses"] - captures0
+    after = {f: reg.counter(f).snapshot() for f in families}
+    rb = next((e for e in policy.events if e["kind"] == "rollback"), None)
+    ledger = {
+        "plan": TOOLS_CHAOS_PLAN, "total_batches": TOOLS_CHAOS_BATCHES,
+        "final_iteration": int(model.iteration), "final_score": model.score_value,
+        "rollbacks": policy.rollbacks, "quarantined": policy.quarantined,
+        "lr_scale": policy.lr_scale,
+        "steps_to_recover": (rb["from_iteration"] - rb["restored_iteration"]
+                             + rb["skip_window"]) if rb else None,
+        "recovered_step_fraction": round((model.iteration - warm_iters)
+                                         / TOOLS_CHAOS_BATCHES, 3),
+        "watchdog_events": [(e["stage"], e["stalled_s"]) for e in wd.events],
+        "events": [e["kind"] for e in policy.events], "wall_s": wall,
+        "captures": captures, "rollback_s": after_rollback.get("s"),
+        "metrics": {f: {"before": before[f], "after": after[f]} for f in families},
+    }
+    path = store.path_for(TOOLS_SAVE_AT)
+    t0 = time.perf_counter()
+    ModelSerializer.verify(path)
+    ledger["verify_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ModelSerializer.restore(path, verify=False)
+    torch.cuda.synchronize()
+    ledger["restore_s"] = time.perf_counter() - t0
+    ledger["save_s"] = res["saves"][0]
+    del back
+    gc.collect()
+    torch.cuda.empty_cache()
+    q = policy.quarantine.entries()
+    ledger["quarantine"] = [{k: r[k] for k in ("reason", "has_bytes", "shapes", "path")}
+                            for r in q]
+    same = bool(rb) and not _differing(torch, saved["state"], after_rollback["state"])
+    ledger["rollback_bits_equal"] = same
+    ledger["captures_by_rollback_end"] = (after_rollback.get("captures", captures0)
+                                          - captures0)
+    res["ledger"] = ledger
+    log(f"[tools] (c1) recovery ledger: {json.dumps({k: v for k, v in ledger.items() if k != 'metrics'}, default=str)}")
+    log(f"[tools] (c1) metric families before -> after: {ledger['metrics']}")
+    if policy.rollbacks != 1 or policy.lr_scale != 0.5:
+        raise AssertionError(f"tools: rollbacks {policy.rollbacks}, lr_scale "
+                             f"{policy.lr_scale}")
+    if policy.quarantined != 1 or len(q) != 1 or not q[0]["has_bytes"] \
+            or not os.path.exists(q[0]["path"].replace(".json", ".npz")):
+        raise AssertionError(f"tools: the quarantine holds {q}")
+    npz = np.load(q[0]["path"].replace(".json", ".npz"))
+    if npz["features"].shape != (RESNET_BATCH, RESNET_HW, RESNET_HW, 3):
+        raise AssertionError(f"tools: the quarantined bytes are {npz['features'].shape}")
+    if "warn" not in [e["stage"] for e in wd.events]:
+        raise AssertionError(f"tools: no watchdog warn: {wd.events}")
+    if not np.isfinite(model.score_value):
+        raise AssertionError("tools: the chaos run ended on a non-finite loss")
+    if not same:
+        raise AssertionError("tools: after the rollback the live state is not the "
+                             "checkpoint's, bit for bit")
+    if captures:
+        raise AssertionError(f"tools: {captures} graph captures in the chaos run "
+                             "(a rollback must install in place)")
+    for f in families:
+        if sum(after[f]["series"].values()) <= sum(before[f]["series"].values()):
+            raise AssertionError(f"tools: {f} did not move: {after[f]}")
+    policy.detach(model)
+    return res
+
+
+def _tools_oom(torch, np, model, batches):
+    """(c2) A real device OOM split into microbatches."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.observe.health import HealthListener
+    from deeplearning4j_tpu_torch.train import CollectScoresListener, RecoveryPolicy
+
+    reps = TOOLS_OOM_BATCH // RESNET_BATCH
+    big = DataSet(torch.cat([batches[i % len(batches)].features for i in range(reps)]),
+                  torch.cat([batches[i % len(batches)].labels for i in range(reps)]))
+    collect = CollectScoresListener()
+    # the policy's raising health check, without the previous-parameters
+    # copy it would keep (a parameter-sized buffer that is no OOM's leak)
+    model.set_listeners(collect, HealthListener(frequency=1, track_updates=False))
+    policy = RecoveryPolicy(None, max_split=TOOLS_OOM_MAX_SPLIT).attach(model)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    graphs0 = dict(model._captured)
+    it0, captures0 = model.iteration, model.compile_stats()["jit_cache_misses"]
+    t0 = time.perf_counter()
+    model.fit([big])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_reserved() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc1 = torch.cuda.memory_allocated()
+    new_inputs = sum(t.numel() * t.element_size() for k, p in model._captured.items()
+                     if k not in graphs0 for t in p.inputs if t is not None)
+    factor, steps = policy.split_factor, model.iteration - it0
+    scores = [s for _, s in collect.scores]
+    captures = model.compile_stats()["jit_cache_misses"] - captures0
+    # a following batch of 256, the policy detached (its split sticks for
+    # the policy's fits), replays the model's graph
+    policy.detach(model)
+    c0 = model.compile_stats()["jit_cache_misses"]
+    model.fit([batches[0]])
+    replayed = model.compile_stats()["jit_cache_misses"] == c0
+    res = {"split_factor": factor, "steps": steps, "losses": scores, "wall_s": wall,
+           "peak_reserved_gib": peak, "allocated_before": alloc0,
+           "allocated_after": alloc1, "new_graph_input_bytes": new_inputs,
+           "captures": captures, "events": [e["kind"] for e in policy.events],
+           "next_step_replayed": replayed}
+    log(f"[tools] (c2) fit of one batch of {TOOLS_OOM_BATCH}: split factor {factor} "
+        f"({steps} steps of {TOOLS_OOM_BATCH // max(factor, 1)}), losses "
+        f"{[round(s, 5) for s in scores]}, {wall:.2f}s, peak reserved {peak:.3f} GiB; "
+        f"allocated {alloc0 / 2**30:.3f} GiB before, {alloc1 / 2**30:.3f} after "
+        f"(new step graph inputs {new_inputs / 2**30:.3f} GiB); {captures} captures; "
+        f"a batch of {RESNET_BATCH} next replayed its graph {replayed}")
+    if factor not in (2, 4) or steps != factor or "oom_split" not in res["events"]:
+        raise AssertionError(f"tools: OOM split {factor}, {steps} steps, {res['events']}")
+    if len(scores) != steps or not np.isfinite(scores).all():
+        raise AssertionError(f"tools: the split's losses {scores}")
+    if abs(alloc1 - alloc0 - new_inputs) > 0.05 * alloc0:
+        raise AssertionError(f"tools: allocated {alloc1} after the OOM against {alloc0} "
+                             f"before (+{new_inputs} of new graph inputs)")
+    if not replayed:
+        raise AssertionError("tools: the batch-256 step captured again after the OOM")
+    model.set_listeners()
+    del big
+    return res
+
+
+def _tools_sigterm(torch, np, model, batches, store):
+    """(c3) A real SIGTERM: the preemption checkpoint, and the resume."""
+    import signal
+
+    from deeplearning4j_tpu_torch.train import PreemptionError, PreemptionHandler
+    from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+
+    handler = PreemptionHandler(store).install()
+    sent = {}
+
+    class Kill(TrainingListener):
+        def iteration_done(self, m, iteration, epoch, score):
+            if iteration == it0 + TOOLS_SIGTERM_AT and not sent:
+                sent["at"] = iteration
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    it0 = model.iteration
+    model.set_listeners(Kill(), handler.listener())
+    raised = False
+    t0 = time.perf_counter()
+    try:
+        model.fit([batches[i % len(batches)] for i in range(TOOLS_SIGTERM_AT + 3)])
+    except PreemptionError:
+        raised = True
+    finally:
+        handler.uninstall()
+        model.set_listeners()
+    save_s = time.perf_counter() - t0
+    stopped = int(model.iteration)
+    entry = store.latest_valid()
+    nxt = batches[TOOLS_SIGTERM_AT % len(batches)]
+    model.fit_batch(nxt)
+    live_loss = model._last_score.detach().clone()
+    model._drop_graphs()                         # its graph pool goes before the restore
+    gc.collect()
+    torch.cuda.empty_cache()
+    back = store.restore_latest()
+    back.capture_steps = False                   # eager: the captured step's bits
+    back.fit_batch(nxt)
+    back_loss = back._last_score.detach().clone()
+    res = {"sent_at": sent.get("at"), "raised": raised, "saved_step": entry and entry["step"],
+           "stopped_at": stopped, "save_and_stop_s": save_s,
+           "live_loss": float(live_loss), "restored_loss": float(back_loss),
+           "identical": bool(torch.equal(live_loss, back_loss))}
+    log(f"[tools] (c3) SIGTERM sent at iteration {res['sent_at']}: PreemptionError "
+        f"{raised}, checkpoint step {res['saved_step']} ({save_s:.2f}s to save and stop); "
+        f"the next batch's loss {res['live_loss']!r} live, {res['restored_loss']!r} "
+        f"restored: identical {res['identical']}")
+    # the handler runs between bytecodes: the flag is seen at the listener
+    # call after the kill, or a later one
+    if (not raised or entry is None or entry["step"] != stopped
+            or stopped < res["sent_at"]):
+        raise AssertionError(f"tools: the SIGTERM run gave {res}")
+    if not res["identical"]:
+        raise AssertionError("tools: the restored model does not resume bit for bit")
+    del back
+    return res
+
+
+def phase_tools(torch, np, kernels, report):
+    """The training tooling slice (ROADMAP A9) on the card; see the module
+    docstring."""
+    from deeplearning4j_tpu_torch.train import CheckpointStore
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    crash_dir = os.environ.get("DL4JTPU_CRASH_DIR")
+    os.environ["DL4JTPU_CRASH_DIR"] = os.path.join(TOOLS_DIR, "crash")
+    res = {}
+    try:
+        res.update(_tools_flagship(torch, np, kernels))
+        res["phase_a_s"] = time.perf_counter() - t_phase
+        base = ResNet50().init_model()
+        res["frozen_resnet"] = _tools_resnet_frozen(torch, np, report, base)
+        batches = _rn_batches(torch, np, RESNET_CLASSES)
+        store = CheckpointStore(os.path.join(TOOLS_DIR, "ckpt"), keep_last=2)
+        res["chaos"] = _tools_chaos(torch, np, base, batches, store, TOOLS_DIR)
+        res["oom"] = _tools_oom(torch, np, base, batches)
+        res["sigterm"] = _tools_sigterm(torch, np, base, batches, store)
+        del base, batches
+    finally:
+        if crash_dir is None:
+            os.environ.pop("DL4JTPU_CRASH_DIR", None)
+        else:
+            os.environ["DL4JTPU_CRASH_DIR"] = crash_dir
+        shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tools] phase {res['phase_s']:.1f}s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4979,6 +5584,9 @@ def main(argv=None) -> int:
         report["resnet"] = phase_resnet(torch, np, kernels, timer)
         rows = rows + report["resnet"]["kernel_rows"]
         done("resnet")
+    if "tools" in phases:
+        report["tools"] = phase_tools(torch, np, kernels, report)
+        done("tools")
 
     entries = []
     def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):
@@ -5050,6 +5658,11 @@ def main(argv=None) -> int:
         (row("flash_fwd", dtype="f32", causal=False,
              shape=[AV_BATCH * AV_HEADS, AV_SEQ, AV_D // AV_HEADS]),
          "resnet/attn/f32"),
+        # the training tooling slice: the flagship's fine-tune under early
+        # stopping (its frozen prefix launches no backward kernel)
+        (row("flash_fwd", shape=train_bhtd), "tools/ft"),
+        (row("flash_bwd_dq", shape=train_bhtd), "tools/ft"),
+        (row("flash_bwd_dkdv", shape=train_bhtd), "tools/ft"),
     ]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",

@@ -85,3 +85,62 @@ class MultiDataSet:
                                     cut(self.features_masks),
                                     cut(self.labels_masks)))
         return out
+
+
+def as_numpy(x, dtype=None) -> np.ndarray:
+    """An array of ``x``: numpy and array-likes as they are, a tensor (on
+    any device) copied to the host."""
+    if hasattr(x, "detach") and hasattr(x, "cpu"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)
+
+
+def map_batch(batch, fn, *, masks: bool = True):
+    """A structural copy of a `DataSet` / `MultiDataSet` with ``fn``
+    applied to every feature and label array, masks too unless
+    ``masks=False`` (then they carry over).  None entries and other
+    objects pass through."""
+    def ap(a):
+        return None if a is None else fn(a)
+
+    if isinstance(batch, DataSet):
+        return DataSet(ap(batch.features), ap(batch.labels),
+                       ap(batch.features_mask) if masks else batch.features_mask,
+                       ap(batch.labels_mask) if masks else batch.labels_mask)
+    if isinstance(batch, MultiDataSet):
+        def apt(arrays, mask_group=False):
+            if arrays is None or (mask_group and not masks):
+                return arrays
+            return tuple(ap(a) for a in arrays)
+
+        return MultiDataSet(apt(batch.features), apt(batch.labels),
+                            apt(batch.features_masks, mask_group=True),
+                            apt(batch.labels_masks, mask_group=True))
+    return batch
+
+
+def named_arrays(batch, *, masks: bool = True) -> dict:
+    """A batch as name -> numpy array (``features``, ``labels``,
+    ``*_mask``; a `MultiDataSet`'s entries suffixed ``_<i>``; None
+    entries dropped; other objects give {}): the quarantine record's and
+    the non-finite input scan's view of a batch.  Tensors are copied to
+    the host."""
+    out: dict = {}
+    if isinstance(batch, DataSet):
+        pairs = [("features", batch.features), ("labels", batch.labels)]
+        if masks:
+            pairs += [("features_mask", batch.features_mask),
+                      ("labels_mask", batch.labels_mask)]
+        for name, a in pairs:
+            if a is not None:
+                out[name] = as_numpy(a)
+    elif isinstance(batch, MultiDataSet):
+        groups = [("features", batch.features), ("labels", batch.labels)]
+        if masks:
+            groups += [("features_mask", batch.features_masks or ()),
+                       ("labels_mask", batch.labels_masks or ())]
+        for group, arrays in groups:
+            for i, a in enumerate(arrays):
+                if a is not None:
+                    out[f"{group}_{i}"] = as_numpy(a)
+    return out

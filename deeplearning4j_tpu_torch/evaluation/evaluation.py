@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.data.dataset import as_numpy
+
 
 class Evaluation:
     def __init__(self, num_classes: int | None = None, top_n: int = 1):
@@ -29,8 +31,8 @@ class Evaluation:
 
     def eval(self, labels: np.ndarray, predictions: np.ndarray, mask=None) -> None:
         """labels: one-hot [N,K] or int [N]; predictions: probabilities [N,K]."""
-        labels = np.asarray(labels)
-        predictions = np.asarray(predictions)
+        labels = as_numpy(labels)
+        predictions = as_numpy(predictions)
         self._ensure(predictions.shape[-1])
         if labels.ndim == predictions.ndim:
             true = np.argmax(labels, axis=-1)
@@ -40,7 +42,7 @@ class Evaluation:
         true, pred = true.reshape(-1), pred.reshape(-1)
         probs2d = predictions.reshape(-1, predictions.shape[-1])
         if mask is not None:
-            m = np.asarray(mask).reshape(-1).astype(bool)
+            m = as_numpy(mask).reshape(-1).astype(bool)
             true, pred, probs2d = true[m], pred[m], probs2d[m]
         np.add.at(self._confusion, (true, pred), 1)
         self._count += true.shape[0]

@@ -31,9 +31,12 @@ outputs in f32, one tensor a network output (a tuple when there are
 several).  A quantized graph's Dense and output heads run B5
 (`quant/functional.py`); its convolutions dequantize their kernels.
 
-Not ported yet, each raising where it is asked for: frozen layers
-(ROADMAP A9), layerwise pretraining (A13), the fused device-decode
-step (A12).
+Frozen layer nodes (`train/transfer.py` ``GraphBuilder``) train as in
+the model base: only the trainable leaves are differentiated and
+updated.
+
+Not ported yet, each raising where it is asked for: layerwise
+pretraining (A13), the fused device-decode step (A12).
 """
 
 from __future__ import annotations
@@ -81,6 +84,10 @@ class GraphModel(Model):
         self._stream = rng.SeedStream(conf.seed)
         self.f32_layers = frozenset(n.pkey for n in conf.nodes
                                     if n.layer is not None and n.layer.F32_PARAMS)
+        # frozen layer nodes take no update; the mask is by node name over
+        # the tree's keys, as JAX mask_frozen_tx masks it
+        self._frozen = frozenset(n.name for n in conf.nodes
+                                 if n.layer is not None and n.layer.frozen)
         # the position in the order after which each activation is dead
         outputs = set(conf.network_outputs)
         last = {}
@@ -265,13 +272,6 @@ class GraphModel(Model):
         raise TypeError(f"cannot interpret {type(data)} as graph training data")
 
     # -- training ----------------------------------------------------------
-    def _check_trainable(self) -> None:
-        for n in self.conf.nodes:
-            if n.layer is not None and n.layer.frozen:
-                raise NotImplementedError(
-                    f"node {n.name!r}: frozen layers are not ported yet "
-                    "(ROADMAP A9: masked updates, train/transfer.py)")
-
     def _step_loss(self, params: dict, net_state: dict, *inputs):
         """The step's objective on the f32 masters ``params`` (the layers
         see them cast to the compute dtype inside the graph): the

@@ -8,7 +8,7 @@ The pull (`_timed_batches`) consults the fault sites where the JAX
 package does: ``data.next_batch`` before each ``next()``, and
 ``data.decode`` after it (``corrupt`` NaN-fills the batch's float
 arrays, a decoder emitting garbage; ``raise`` fails the pull).  Without
-a recovery policy (ROADMAP A9) a failed pull ends the fit, as in the
+a recovery policy (`train/recovery.py`) a failed pull ends the fit, as in the
 JAX package.  The seconds ``fit`` waits on its iterator land on
 ``etl_wait_s`` and on ``dl4jtpu_etl_wait_seconds_total``.  A batch a
 `data.prefetch.PrefetchIterator` staged carries the producer's seconds
@@ -46,12 +46,41 @@ step's objective (`_step_loss`), the per-node dropout keys
 (JAX ``_fit_epoch_multi``): each step keeps its own loss; a group whose
 shapes differ, and a short tail, step batch by batch.
 
-Listeners, the step watchdog's arming and the quarantine path are ROADMAP
-A9's; asking for a listener raises, naming it.
+Frozen layers (``frozen=True``, `train/transfer.py`): the step
+differentiates only the trainable leaves (`_trainable_leaves`), and the
+updater sees only them, so a frozen leaf gets no gradient, no update
+and no weight decay, and its optimizer state is absent, as optax's
+``masked`` keeps none (JAX ``mask_frozen_tx``).  A frozen prefix runs
+forward only.  The forward is unchanged: a frozen BatchNorm still
+updates its running statistics in training mode and a frozen layer's
+dropout still applies, as in the JAX package.
+
+Listeners (`train/listeners.py`).  After every step program the model
+dispatches ``iteration_done`` once a step, in order, with lazy scores
+(`_LazyScores`: the program's K losses are fetched to the host at most
+once, by the first listener that reads a score), inside the step's
+scope (its watchdog arm covers them) and the ``listeners`` span; a
+listener that raises leaves ``iteration`` counting every step that ran.
+The scores are read from the program's own loss tensor, never a graph's
+static slot, which the next replay overwrites.  ``fit`` calls
+``on_epoch_start`` / ``on_epoch_end`` around each epoch and
+``on_fit_end`` once (a duck-typed listener without it is tolerated).
+The step graphs write the live parameter, optimizer and state tensors
+in place, so a listener that keeps one of them after its first
+dispatch of a fit raises (`_check_donation_aliases`): it must snapshot.
+
+Self-healing hooks.  Every per-batch fit routes through `_fit_one` and
+every grouped one through `_fit_group`, where an attached
+`train.recovery.RecoveryPolicy` wraps the step; a pull that fails at
+``data.next_batch`` / ``data.decode`` goes to the policy's quarantine
+(`_timed_batches`) before it ends the fit.  ``fit`` creates the step
+watchdog at entry (`_ensure_watchdog`, `runtime/flags.py`), which the
+step scope arms around each program.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 
@@ -59,14 +88,118 @@ import numpy as np
 import torch
 from torch import nn
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.data.dataset import map_batch
 from deeplearning4j_tpu_torch.nn.updaters import advance_counts
-from deeplearning4j_tpu_torch.observe.trace import step_scope
+from deeplearning4j_tpu_torch.observe.trace import step_scope, tracer
 from deeplearning4j_tpu_torch.ops.dequant_matmul import counting_selections
 from deeplearning4j_tpu_torch.quant.ptq import SCHEME
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 from deeplearning4j_tpu_torch.runtime import compile_stats as _cs
 from deeplearning4j_tpu_torch.runtime import faults
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
+
+
+class _LazyScores:
+    """The K losses of one step program, fetched to the host at most
+    once: by the first listener that reads a score (one copy for the
+    group), never when no listener reads one.  Holds the program's own
+    loss tensor, which no later step writes."""
+
+    __slots__ = ("_device", "_host")
+
+    def __init__(self, device_losses):
+        self._device = device_losses
+        self._host = None
+
+    def fetch(self) -> np.ndarray:
+        if self._host is None:
+            self._host = self._device.detach().float().cpu().numpy().reshape(-1)
+            self._device = None
+        return self._host
+
+    def __getitem__(self, i: int) -> "_LazyScore":
+        return _LazyScore(self, i)
+
+
+class _LazyScore:
+    """One step's score of a `_LazyScores` group: it converts, formats,
+    compares and does arithmetic like the float a listener expects, and
+    fetches the group at the first such read."""
+
+    __slots__ = ("_group", "_i")
+
+    def __init__(self, group: _LazyScores, i: int):
+        self._group = group
+        self._i = i
+
+    def __float__(self) -> float:
+        return float(self._group.fetch()[self._i])
+
+    def __array__(self, dtype=None, copy=None):
+        a = np.asarray(self._group.fetch()[self._i])
+        return a.astype(dtype) if dtype is not None else a
+
+    def __format__(self, spec: str) -> str:
+        return format(float(self), spec)
+
+    def __repr__(self) -> str:
+        return repr(float(self))
+
+    def __bool__(self) -> bool:
+        return bool(float(self))
+
+    def __int__(self) -> int:
+        return int(float(self))
+
+    def __lt__(self, other):
+        return float(self) < other
+
+    def __le__(self, other):
+        return float(self) <= other
+
+    def __gt__(self, other):
+        return float(self) > other
+
+    def __ge__(self, other):
+        return float(self) >= other
+
+    def __eq__(self, other):
+        return float(self) == other
+
+    def __ne__(self, other):
+        return float(self) != other
+
+    def __hash__(self):
+        return hash(float(self))
+
+    def __add__(self, other):
+        return float(self) + other
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return float(self) - other
+
+    def __rsub__(self, other):
+        return other - float(self)
+
+    def __mul__(self, other):
+        return float(self) * other
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return float(self) / other
+
+    def __rtruediv__(self, other):
+        return other / float(self)
+
+    def __neg__(self):
+        return -float(self)
+
+    def __abs__(self):
+        return abs(float(self))
 
 
 # -- parameter trees -------------------------------------------------------------
@@ -217,12 +350,7 @@ def _poison_batch(batch):
             a.fill(np.nan)
         return a
 
-    if isinstance(batch, MultiDataSet):
-        return MultiDataSet(tuple(bad(a) for a in batch.features),
-                            tuple(bad(a) for a in batch.labels),
-                            batch.features_masks, batch.labels_masks)
-    return DataSet(bad(batch.features), bad(batch.labels), batch.features_mask,
-                   batch.labels_mask)
+    return map_batch(batch, bad, masks=False)
 
 
 class Model(nn.Module):
@@ -251,6 +379,8 @@ class Model(nn.Module):
         self.f32_layers = frozenset()
         self._compute = None
         self._quantized = None         # the scheme marker of a quantized tree
+        # top-level tree keys of frozen layers (set by the model class)
+        self._frozen = frozenset()
         # the training step's CUDA graphs, one a batch signature; on the
         # card a step replays one unless `capture_steps` is False
         self._captured: dict = {}
@@ -264,14 +394,92 @@ class Model(nn.Module):
         # far: where the JAX package would trace (`program_run`)
         self._program_signatures: set = set()
         self._signatures_lock = threading.Lock()
+        self.listeners: list = []
+        # one check a fit: no listener keeps a live tree (re-armed by fit)
+        self._donation_checked = True
+        # the StepWatchdog the step scopes arm (made at fit entry), and
+        # the RecoveryPolicy the fit chokepoints route through
+        self._watchdog = None
+        self._recovery = None
+        # step programs run so far (a grouped program counts once): what
+        # a listener compares to tell a new update from a group's next
+        # dispatch
+        self.step_programs_run = 0
+        # True while the updater writes the live trees in place: a
+        # failure then leaves them torn (RecoveryPolicy restores them)
+        self._updating = False
 
-    # -- listeners (ROADMAP A9) -----------------------------------------------
+    # -- listeners ------------------------------------------------------------
     def set_listeners(self, *listeners) -> None:
-        raise NotImplementedError(
-            "training listeners are not ported yet (ROADMAP A9: train/"
-            "listeners.py, the watchdog and recovery)")
+        self.listeners = list(listeners)
 
-    add_listener = set_listeners
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def _dispatch_iteration(self, score) -> None:
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch, score)
+        if not self._donation_checked:
+            # after the first dispatch of a fit: a stash a listener just
+            # took still holds the live tensors, and the next step has
+            # not overwritten them yet
+            self._donation_checked = True
+            if self.listeners:
+                self._check_donation_aliases()
+
+    def _finish_steps(self, losses: torch.Tensor, k: int) -> None:
+        """Bookkeeping after a program of k optimizer steps (JAX
+        ``_finish_grouped_steps``): the score, ``iteration``, and one
+        listener dispatch a step with lazy scores over ``losses`` (the
+        program's own (k,) loss tensor).  A listener that raises leaves
+        ``iteration`` counting all k steps: they ran."""
+        last = losses if k > 1 else losses[0]
+        self._last_score = last
+        self.step_programs_run += 1
+        if not self.listeners:
+            self.iteration += k
+            return
+        lazy = _LazyScores(losses)
+        done = 0
+        try:
+            with tracer().span("listeners", cat="step_phase"):
+                for w in range(k):
+                    self._last_score = lazy[w]
+                    self.iteration += 1
+                    done += 1
+                    self._dispatch_iteration(lazy[w])
+        finally:
+            self.iteration += k - done
+            self._last_score = last
+
+    def _check_donation_aliases(self) -> None:
+        """The JAX package's donation guard, for in-place replays: the
+        next step writes the live parameter, optimizer and state tensors
+        in place, so a listener that keeps one of them (or a view of its
+        storage) in a public attribute after its first dispatch would
+        read later steps' values as its own.  Private (underscore)
+        attributes are trusted to copy (`HealthListener` does)."""
+        live_ids, live_ptrs = set(), set()
+        trees = (self.params, self.net_state, self.opt_state)
+        for t in _tensors(trees):
+            live_ids.add(id(t))
+            if t.numel():
+                live_ptrs.add(t.untyped_storage().data_ptr())
+        for lst in self.listeners:
+            attrs = getattr(lst, "__dict__", None) or {}
+            for attr, value in attrs.items():
+                if attr.startswith("_"):
+                    continue
+                for t in _tensors(value):
+                    if id(t) in live_ids or (
+                            t.numel() and t.untyped_storage().data_ptr() in live_ptrs):
+                        raise RuntimeError(
+                            f"listener {type(lst).__name__}.{attr} holds the "
+                            "model's live parameter / optimizer / state tensors; "
+                            "the next training step overwrites them in place, "
+                            "so it would read later steps' values.  Copy "
+                            "instead (t.detach().clone(), .cpu().numpy()) or "
+                            "snapshot with train.listeners._host_snapshot.")
 
     # -- the fit loop's batch pull ----------------------------------------------
     def _timed_batches(self, iterator):
@@ -285,16 +493,38 @@ class Model(nn.Module):
         batches_total = reg.counter("dl4jtpu_etl_batches_total")
         overlap_total = reg.counter("dl4jtpu_prefetch_overlap_seconds_total")
         it = iter(iterator)
+        absorbed_pull_failure = False
+        no_batch = object()
         while True:
             t0 = time.perf_counter()
-            faults.maybe_fail("data.next_batch")
+            batch = no_batch
             try:
+                faults.maybe_fail("data.next_batch")
                 batch = next(it)
+                # after the pull, so a raise never tears the iterator's frame
+                if faults.maybe_fail("data.decode") == "corrupt":
+                    batch = _poison_batch(batch)
+                absorbed_pull_failure = False
             except StopIteration:
+                if absorbed_pull_failure:
+                    # a generator cannot resume after raising: the
+                    # quarantined pull may have ended the feed early
+                    log.warning(
+                        "feed ended right after a quarantined pull failure; "
+                        "a generator-backed iterator cannot resume, so any "
+                        "batches left in this epoch were skipped")
                 return
-            # after the pull, so a raise never tears the iterator's frame
-            if faults.maybe_fail("data.decode") == "corrupt":
-                batch = _poison_batch(batch)
+            except Exception as exc:
+                # the policy declines failures that are not poison
+                # (recovery.NON_POISON_ERRORS) and they re-raise; a failure
+                # at the decode boundary hands it the pulled batch, so the
+                # quarantine record carries its bytes
+                recov = self._recovery
+                if recov is not None and recov.quarantine_pull_failure(
+                        self, exc, batch=None if batch is no_batch else batch):
+                    absorbed_pull_failure = True
+                    continue
+                raise
             wait = time.perf_counter() - t0
             self.last_etl_wait_s = wait
             self.etl_wait_s += wait
@@ -312,6 +542,42 @@ class Model(nn.Module):
             else:
                 self.last_overlap_s = 0.0
             yield batch
+
+    def _fit_one(self, batch) -> None:
+        """The one-batch chokepoint every per-batch fit routes through:
+        `fit_batch`, or the attached `RecoveryPolicy`'s envelope (skip
+        window, input scan, OOM split, divergence rollback)."""
+        recov = self._recovery
+        if recov is None:
+            self.fit_batch(batch)
+        else:
+            recov.run_step(self, batch)
+
+    def _fit_group(self, batches, runner) -> None:
+        """The grouped chokepoint (``steps_per_execution``):
+        ``runner(batches)`` runs the K-step program, wrapped by the
+        attached `RecoveryPolicy`."""
+        recov = self._recovery
+        if recov is None:
+            runner(batches)
+        else:
+            recov.run_group(self, batches, runner)
+
+    def _ensure_watchdog(self):
+        """This model's `StepWatchdog`, made at fit entry (once) when
+        ``environment().watchdog_enabled``; the step scopes arm it around
+        every program.  One monitor thread serves every watchdog."""
+        if self._watchdog is None:
+            from deeplearning4j_tpu_torch.runtime.flags import environment
+
+            env = environment()
+            if env.watchdog_enabled:
+                from deeplearning4j_tpu_torch.runtime.watchdog import StepWatchdog
+
+                self._watchdog = StepWatchdog(
+                    floor_s=env.watchdog_floor_s, k=env.watchdog_k,
+                    name=type(self).__name__)
+        return self._watchdog
 
     def _prefetch_feed(self, iterator):
         """``iterator`` wrapped in a `PrefetchIterator` staging onto this
@@ -343,10 +609,12 @@ class Model(nn.Module):
         """Last training loss, penalty included (reference `Model.score()`);
         synchronises with the device.  A grouped fit's score is the
         group's last step's."""
-        if self._last_score is None:
+        s = self._last_score
+        if s is None:
             return float("nan")
-        s = self._last_score.detach().float().cpu().numpy()
-        return float(s.ravel()[-1])
+        if isinstance(s, _LazyScore):
+            return float(s)
+        return float(s.detach().float().cpu().numpy().ravel()[-1])
 
     def num_params(self) -> int:
         if self.params is None:
@@ -533,13 +801,31 @@ class Model(nn.Module):
                 self, ("train",), self._grad_step)
         return fn
 
+    def _trainable_leaves(self, params: dict) -> list:
+        """The leaves the optimizer trains, in ``jax.tree.leaves`` order:
+        every leaf but the frozen layers' (the leaves optax's ``masked``
+        keeps state for)."""
+        if not self._frozen:
+            return tree_leaves(params)
+        return tree_leaves({k: v for k, v in params.items()
+                            if k not in self._frozen})
+
+    def _init_opt_state(self):
+        """A fresh optimizer state over the trainable leaves."""
+        return self._tx.init(self._trainable_leaves(self.params))
+
     def _grad_step(self, params: dict, net_state: dict, *inputs):
-        """Loss, gradients of ``params`` (``jax.tree.leaves`` order, zeros
-        for an unused leaf) and the layers' new state on one batch
-        (``inputs``: `_batch_arrays`, then the keys): the step's forward
-        and backward, and no state changed — the update applies them.
+        """Loss, gradients of the trainable leaves (`_trainable_leaves`
+        order, zeros for an unused leaf) and the layers' new state on one
+        batch (``inputs``: `_batch_arrays`, then the keys): the step's
+        forward and backward, and no state changed — the update applies
+        them.  A frozen layer's leaves enter the forward detached, so
+        nothing before the first trainable layer records a backward.
         Pure, so the cost analysis can run it again."""
-        plist = tree_leaves(params)
+        plist = self._trainable_leaves(params)
+        if self._frozen:
+            params = {k: _tree_map(torch.Tensor.detach, v) if k in self._frozen
+                      else v for k, v in params.items()}
         with torch.enable_grad():
             loss, new_state = self._step_loss(params, net_state, *inputs)
             grads = torch.autograd.grad(loss, plist, allow_unused=True)
@@ -563,19 +849,26 @@ class Model(nn.Module):
         if vals is not None:
             vals = [vals[i] for i in range(vals.shape[0])]
         params = self.params
-        plist = tree_leaves(params)
+        plist = self._trainable_leaves(params)
         loss, grads, new_state = (grad_step or self._step_program())(
             params, self.net_state, *arrays, keys)
+        # from here the live trees are written in place: a failure
+        # leaves them torn until `_updating` clears
+        self._updating = True
         updates, opt_state = self._tx.update(grads, self.opt_state, plist, vals)
         with torch.no_grad():
             for p, u in zip(plist, updates):
                 p.add_(u.to(p.dtype))
             _copy_state(self.net_state, new_state)
+        self._updating = False
         return loss.detach(), opt_state
 
     def fit_batch(self, batch) -> None:
         """One optimizer step on ``batch``."""
         self._run_steps([self._as_batch(batch)])
+
+    def _check_trainable(self) -> None:
+        """A model class's checks before its first step (none here)."""
 
     def _prepare(self, batches) -> None:
         if self.params is None:
@@ -586,7 +879,7 @@ class Model(nn.Module):
                 "training step; train the f32 model, then quantize it again")
         self._check_trainable()
         if self.opt_state is None:
-            self.opt_state = self._tx.init(tree_leaves(self.params))
+            self.opt_state = self._init_opt_state()
             self._drop_graphs()
 
     def _run_steps(self, batches: list) -> None:
@@ -607,10 +900,9 @@ class Model(nn.Module):
                     out.append(loss)
                 losses_k = torch.stack(out)
             scope.sync(losses_k)
-        self._compute = None           # output() and the engine read new weights
-        self._last_score = losses_k if k > 1 else losses_k[0]
-        self.last_batch_size = batches[-1].num_examples
-        self.iteration += k
+            self._compute = None       # output() and the engine read new weights
+            self.last_batch_size = batches[-1].num_examples
+            self._finish_steps(losses_k, k)
 
     def _run_steps_cuda(self, batches: list) -> torch.Tensor:
         staged = _Staged(self, batches)
@@ -621,7 +913,17 @@ class Model(nn.Module):
                         for t in staged.step(0))
             prog = self._captured.get(sig)
             if prog is None:
-                prog = self._captured[sig] = self._capture(staged.step(0))
+                try:
+                    prog = self._capture(staged.step(0))
+                except BaseException:
+                    # a failed warm-up or capture (a device OOM): no
+                    # half-built program stays, the capture stream is
+                    # drained and its cached blocks go back before a retry
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                        torch.cuda.empty_cache()
+                    raise
+                self._captured[sig] = prog
                 first = 1
                 out[0].copy_(prog.inputs[-1])
                 self.opt_state = advance_counts(self.opt_state)
@@ -684,20 +986,30 @@ class Model(nn.Module):
         if self.params is None:
             self.init()
         iterator = self._as_iterator(data, batch_size)
+        self._donation_checked = False     # re-arm the one-time alias check
+        self._ensure_watchdog()
         feed = self._prefetch_feed(iterator)
         try:
             for _ in range(epochs):
+                for lst in self.listeners:
+                    lst.on_epoch_start(self, self.epoch)
                 if steps_per_execution > 1:
                     self._fit_epoch_multi(feed, steps_per_execution)
                 else:
                     for batch in self._timed_batches(feed):
-                        self.fit_batch(batch)
+                        self._fit_one(batch)
+                for lst in self.listeners:
+                    lst.on_epoch_end(self, self.epoch)
                 self.epoch += 1
                 if hasattr(iterator, "reset"):
                     iterator.reset()
         finally:
             if feed is not iterator:
                 feed.close()
+        for lst in self.listeners:
+            # a duck-typed listener written against the first three hooks
+            # has no on_fit_end
+            getattr(lst, "on_fit_end", lambda m: None)(self)
 
     def _fit_epoch_multi(self, iterator, spe: int) -> None:
         """JAX ``_fit_epoch_multi``: groups of ``spe`` batches.  A group
@@ -713,13 +1025,13 @@ class Model(nn.Module):
             buf.append(self._as_batch(batch))
             if len(buf) == spe:
                 if all(sig(b) == sig(buf[0]) for b in buf):
-                    self._run_steps(buf)
+                    self._fit_group(buf, self._run_steps)
                 else:
                     for b in buf:
-                        self._run_steps([b])
+                        self._fit_one(b)
                 buf = []
         for b in buf:                       # ragged tail group
-            self._run_steps([b])
+            self._fit_one(b)
 
 
 def _leaves(tree):
@@ -731,3 +1043,22 @@ def _leaves(tree):
             yield from (v.q, v.scale)
         else:
             yield v
+
+
+def _tensors(obj, depth: int = 0):
+    """The tensors in ``obj``: itself, or inside dicts, lists, tuples and
+    `QuantizedTensor` leaves (a few levels deep; other objects are not
+    trees)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif depth > 6:
+        return
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v, depth + 1)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v, depth + 1)
+    elif isinstance(obj, QuantizedTensor):
+        yield obj.q
+        yield obj.scale

@@ -119,6 +119,8 @@ class SequentialModel(Model):
             self._itypes, self._flatten_before = conf._walk_types()
         # layers whose weights stay f32 in the compute tree (the MoE layer)
         self.f32_layers = frozenset(l.name for l in conf.layers if l.F32_PARAMS)
+        # frozen layers take no update (JAX mask_frozen_tx)
+        self._frozen = frozenset(l.name for l in conf.layers if l.frozen)
 
     def _types(self):
         if self._itypes is None:
@@ -306,11 +308,6 @@ class SequentialModel(Model):
         return ev
 
     def _check_trainable(self) -> None:
-        for layer in self.conf.layers:
-            if layer.frozen:
-                raise NotImplementedError(
-                    f"layer {layer.name!r}: frozen layers are not ported yet "
-                    "(ROADMAP A9: masked updates, train/transfer.py)")
         last = self.conf.layers[-1]
         if not hasattr(last, "compute_loss_with_params"):
             resolve_output_spec(last)

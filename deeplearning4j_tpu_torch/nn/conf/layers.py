@@ -91,7 +91,8 @@ class LayerConfig:
     l1: Optional[float] = None
     l2: Optional[float] = None
     dropout_rate: Optional[float] = None   # probability of dropping
-    # excluded from updates; fit() refuses it until masked updates are ported
+    # excluded from updates (no gradient, no optimizer state); the
+    # forward still runs in training mode
     frozen: bool = False
 
     # the input kind apply() takes; an "ff" layer after a convolutional

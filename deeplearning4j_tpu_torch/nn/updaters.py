@@ -67,11 +67,24 @@ class Transform(NamedTuple):
     """An optax ``GradientTransformation``: ``init(params) -> state``,
     ``update(grads, state, params, vals=None) -> (updates, state)``, and
     ``values(state)``: the step values that update reads (see the module
-    docstring)."""
+    docstring).  ``rate_scaled(factor)``: the same transform with its
+    learning rate times ``factor`` (None: it has no rate), see
+    `scale_rate`."""
 
     init: Callable
     update: Callable
     values: Callable = _no_values
+    rate_scaled: Callable | None = None
+
+
+def scale_rate(tx: Transform, factor: float) -> Transform | None:
+    """``tx`` with every learning rate it applies multiplied by ``factor``
+    (rounded to f32), or None when it applies none (AdaDelta, NoOp).
+    The state and the step program are unchanged: only the step values
+    differ, so a captured step reads the new rate from its staged
+    values with no new capture.  For an f32 ``factor`` that is a power
+    of two the updates equal optax's ``updates * factor`` bit for bit."""
+    return tx.rate_scaled(factor) if tx.rate_scaled is not None else None
 
 
 def _zeros(params):
@@ -101,7 +114,12 @@ def chain(*txs) -> Transform:
             new.append(s)
         return grads, tuple(new)
 
-    return Transform(init, update, values)
+    def rate_scaled(factor):
+        return chain(*(t.rate_scaled(factor) if t.rate_scaled is not None else t
+                       for t in txs))
+
+    rated = any(t.rate_scaled is not None for t in txs)
+    return Transform(init, update, values, rate_scaled if rated else None)
 
 
 def advance_counts(state):
@@ -145,7 +163,11 @@ def scale_by_schedule(fn) -> Transform:
         (lr,) = values(state) if vals is None else vals
         return torch._foreach_mul(grads, lr), (_bump(count),)
 
-    return Transform(lambda params: (0,), update, values)
+    def rate_scaled(factor):
+        f = np.float32(factor)
+        return scale_by_schedule(lambda count: np.float32(fn(count)) * f)
+
+    return Transform(lambda params: (0,), update, values, rate_scaled)
 
 
 def trace(decay: float, nesterov: bool = False) -> Transform:

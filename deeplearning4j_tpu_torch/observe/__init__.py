@@ -20,8 +20,8 @@ card):
   straggler views and cluster trace (`FleetAggregator`), and the worker
   side's `FleetReporter`.
 
-`observe.health` (`HealthListener`, `DivergenceError`) comes with the
-training tooling (ROADMAP A9).
+- `observe.health`: `HealthListener` (one device reduction a check:
+  non-finite count, global norm, |Δw|) and `DivergenceError`.
 
     from deeplearning4j_tpu_torch.observe import registry, tracer
 

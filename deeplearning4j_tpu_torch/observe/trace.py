@@ -12,8 +12,9 @@ trace`).  Disabled (the default) it costs one attribute check per
 call site; enabled it costs two `perf_counter` reads and a deque append
 per span — no locks on the hot path beyond the GIL-atomic append.
 
-`StepScope` is the fit loops' per-step scope (the port's fit loops
-take it with ROADMAP A9): ``sync`` keeps the ``device.sync`` fault site
+`StepScope` is the fit loops' per-step scope, arming the model's step
+watchdog around the program and its listeners: ``sync`` keeps the
+``device.sync`` fault site
 and blocks on the card (``torch.cuda.synchronize``) ONLY while tracing
 is enabled, so the default (untraced) path keeps host/device overlap.
 

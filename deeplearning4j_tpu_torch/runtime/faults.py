@@ -31,8 +31,19 @@ Sites the port consults, where the JAX package consults them:
   ``serving.hotswap``    `InferenceServer.push_weights` (``truncate`` /
                          ``corrupt`` ⇒ a torn or poisoned push that
                          rolls back)
-  ``device.sync``        `observe.trace.StepScope.sync` (the fit loops
-                         arm it with ROADMAP A9)
+  ``device.sync``        `observe.trace.StepScope.sync`, every fit
+                         step (``delay`` ⇒ a wedged step the model's
+                         watchdog escalates on)
+  ``data.next_batch``    the fit loops' batch pull (``raise`` ⇒ a failed
+                         pull: quarantined under a RecoveryPolicy, else
+                         the fit ends)
+  ``data.decode``        after the pull (``corrupt`` NaN-fills the
+                         batch; ``raise`` a decode failure, quarantined
+                         with the pulled bytes under a RecoveryPolicy)
+  ``checkpoint.write``   `ModelSerializer.write_model` entry
+                         (``truncate`` chops the published bytes)
+  ``checkpoint.fsync``   between the zip landing in the tmp file and its
+                         publish (``kill`` ⇒ kill -9 mid-write)
 
 Every fire bumps ``dl4jtpu_faults_injected_total{site=...}``.  `SITES`
 lists every site of the JAX package; the port's other modules consult

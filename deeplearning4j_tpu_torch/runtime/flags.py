@@ -1,5 +1,6 @@
 """The parts of `deeplearning4j_tpu/runtime/flags.py` the port honours:
-sequence bucketing and the fit loops' prefetch depth.
+sequence bucketing, the fit loops' prefetch depth and their step
+watchdog.
 
 The JAX package buckets time axes so that a compiled program is reused
 across lengths.  PyTorch runs eagerly, but the bucket still decides the
@@ -8,7 +9,15 @@ keeps the same rule.
 
 `Environment.prefetch_depth` (``DL4J_TPU_PREFETCH_DEPTH``, default 2) is
 how many batches the fit loops' `data.prefetch.PrefetchIterator` stages
-ahead of the running step; 0 disables the wrap.  `environment()` is the
+ahead of the running step; 0 disables the wrap.
+
+The fit's step watchdog (`runtime/watchdog.py`, made at fit entry):
+``watchdog_enabled`` (``DL4J_TPU_WATCHDOG``, default on; off: no
+watchdog is made), ``watchdog_floor_s`` (``DL4J_TPU_WATCHDOG_FLOOR``,
+30) and ``watchdog_k`` (``DL4J_TPU_WATCHDOG_K``, 10): a step's deadline
+is ``max(floor, k * the EWMA of recent step latency)``.
+
+`environment()` is the
 process's one `Environment`, read from the environment variables on
 first use; tests set its fields directly.
 """
@@ -18,6 +27,13 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
 
 
 def sequence_bucket_size() -> int:
@@ -42,11 +58,18 @@ class Environment:
 
     # batches the fit loops stage ahead of the running step; 0: none
     prefetch_depth: int = 2
+    # the fit's step watchdog: made at fit entry when enabled
+    watchdog_enabled: bool = True
+    watchdog_floor_s: float = 30.0
+    watchdog_k: float = 10.0
 
     @staticmethod
     def from_env() -> "Environment":
         return Environment(
-            prefetch_depth=int(os.environ.get("DL4J_TPU_PREFETCH_DEPTH", "2")))
+            prefetch_depth=int(os.environ.get("DL4J_TPU_PREFETCH_DEPTH", "2")),
+            watchdog_enabled=_env_bool("DL4J_TPU_WATCHDOG", True),
+            watchdog_floor_s=float(os.environ.get("DL4J_TPU_WATCHDOG_FLOOR", "30")),
+            watchdog_k=float(os.environ.get("DL4J_TPU_WATCHDOG_K", "10")))
 
 
 _ENV: Environment | None = None

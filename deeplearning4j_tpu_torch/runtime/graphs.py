@@ -26,6 +26,8 @@ on every call is one `replay`.
   reads may share one.
 - Capture runs with ``capture_error_mode="thread_local"``: other threads
   may use the card meanwhile.  It leaves the allocator's cache as it is.
+  The garbage collector runs just before a capture and is off during it
+  (a dead graph torn down mid-capture would invalidate the capture).
 - Launch counters: the kernels a capture enqueues are held, not counted
   (they do not run then), and each replay counts them once; a
   backward's, which autograd enqueues from its own thread on the
@@ -35,6 +37,8 @@ on every call is one `replay`.
 """
 
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -55,15 +59,26 @@ class CapturedProgram:
             fn(*self.inputs)               # warm-up: it runs, and counts
         # capture_begin / capture_end, not the `torch.cuda.graph` context:
         # that one empties the allocator's cache first, and every eager
-        # allocation after it (the next prefills) pays cudaMalloc again
+        # allocation after it (the next prefills) pays cudaMalloc again.
+        # Its collection is kept, and the collector stays off during the
+        # capture: a collection there can destroy a dead model's graph,
+        # whose teardown is a call a capturing thread may not make, and
+        # the capture is lost
         self.graph = torch.cuda.CUDAGraph()
-        with kernels.holding_launches(self.stream.cuda_stream) as held, \
-                torch.cuda.stream(self.stream):
-            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                self.outputs = fn(*self.inputs)
-            finally:
-                self.graph.capture_end()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.holding_launches(self.stream.cuda_stream) as held, \
+                    torch.cuda.stream(self.stream):
+                self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    self.outputs = fn(*self.inputs)
+                finally:
+                    self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         self.held = held
         current.wait_stream(self.stream)
         compile_stats.note_capture()

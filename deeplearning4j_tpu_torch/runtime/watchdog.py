@@ -34,9 +34,10 @@ One shared daemon monitor thread serves every watchdog in the process
 (a thread per fitted model would leak one OS thread per model across a
 long test suite); per-step cost is two lock acquires and one condition
 notify — noise next to a dispatch.  The port's generation engine and
-server build theirs from their own configs (floor, cold floor, k); the
-JAX package's process-wide switch (``DL4J_TPU_WATCHDOG=0``) comes with
-the fit loops that read it (ROADMAP A9).
+server build theirs from their own configs (floor, cold floor, k); a
+model's fit builds its own at entry from `runtime/flags.py`
+(``DL4J_TPU_WATCHDOG``, ``DL4J_TPU_WATCHDOG_FLOOR``,
+``DL4J_TPU_WATCHDOG_K``; `models/model.py` ``_ensure_watchdog``).
 """
 
 from __future__ import annotations

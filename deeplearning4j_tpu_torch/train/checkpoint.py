@@ -24,11 +24,23 @@ CPU.  A zip written here restores in the JAX package and the other way
 round.
 
 A failed verify is logged and counted under
-``dl4jtpu_ckpt_verify_failures_total{reason="corrupt"}``.  Not ported
-yet: the fault-injection sites ``checkpoint.write`` and
-``checkpoint.fsync`` and `CheckpointStore` (ROADMAP A9), and
-``write_model_distributed`` (A11).  A ``GraphModel`` (computation
-graph) checkpoint has the same entries, its trees keyed by ``param_key``.
+``dl4jtpu_ckpt_verify_failures_total{reason="corrupt"}``.  The fault
+sites ``checkpoint.write`` (``truncate`` chops the published bytes) and
+``checkpoint.fsync`` (a ``kill`` there is kill -9 mid-write: a ``.tmp``
+orphan stays) are consulted where the JAX package consults them.  A
+``GraphModel`` (computation graph) checkpoint has the same entries, its
+trees keyed by ``param_key``.  A model with frozen layers keeps
+optimizer state for its trainable leaves only, as optax's ``masked``
+does, so its ``updater.npz`` is the JAX package's.
+
+`CheckpointStore` is a directory of rolling ``ckpt_<step>.zip`` files:
+atomic saves, verification, last-good fallback (a truncated newest file
+is skipped and counted), pins that ``gc`` never collects (a
+`RecoveryPolicy`'s rollback target), save listeners, and ``serve_into``
+(every save pushed to servers as a verified hot-swap).
+`restore_into` copies a checkpoint into a live model's tensors in place
+(a rollback: the step graphs stay valid).  Not ported:
+``write_model_distributed`` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import io
 import json
 import logging
 import os
+import re
 import zipfile
 import zlib
 from typing import Optional
@@ -47,6 +60,7 @@ import torch
 from deeplearning4j_tpu_torch.models.model import tree_leaves
 from deeplearning4j_tpu_torch.nn import updaters
 from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
+from deeplearning4j_tpu_torch.runtime import faults
 from deeplearning4j_tpu_torch.utils import serde
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
@@ -76,6 +90,46 @@ def _count_verify_failure(path: str, reason: str,
     except Exception as e:
         # best-effort: the verify failure itself must propagate
         log.debug("ckpt verify-failure metric failed: %s", e)
+
+
+def params_nonfinite(path: str) -> bool:
+    """True when the checkpoint's params.npz holds NaN or Inf, read from
+    the zip without building a model.  Verification cannot see this: a
+    save taken at the diverging step has good CRCs, and such a file must
+    never become a rollback or serving target."""
+    with zipfile.ZipFile(path, "r") as zf:
+        npz = np.load(io.BytesIO(zf.read("params.npz")), allow_pickle=False)
+        for name in npz.files:
+            a = npz[name]
+            if np.issubdtype(a.dtype, np.floating) and not np.isfinite(a).all():
+                return True
+    return False
+
+
+def count_skipped_checkpoint(path: str, reason: str) -> None:
+    """Log and count a checkpoint passed over as a restore, rollback or
+    serving target for a reason verify() cannot see (``nonfinite``:
+    intact bytes holding NaN / Inf), under
+    ``dl4jtpu_ckpt_verify_failures_total{reason=...}``."""
+    log.warning("checkpoint %s skipped as a restore target: %s", path, reason)
+    try:
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        registry().counter("dl4jtpu_ckpt_verify_failures_total").inc(
+            reason=reason)
+    except Exception as e:
+        log.debug("ckpt skip metric failed: %s", e)
+
+
+def _count_push_error() -> None:
+    """One ``serve_into`` target's push raised."""
+    try:
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        registry().counter("dl4jtpu_serving_hotswap_total").inc(
+            result="push_error")
+    except Exception as e:
+        log.debug("serve_into push-error metric failed: %s", e)
 
 
 def _host(leaf) -> np.ndarray:
@@ -122,11 +176,9 @@ def _updater_state(model):
     """The optimizer state a checkpoint holds: the model's, or the fresh
     state the JAX package's model carries from ``init`` on; none for an
     int8 model, which takes no updates."""
-    if model._quantized is not None:
+    if model._quantized is not None or model.opt_state is not None:
         return model.opt_state
-    if model.opt_state is None:
-        return model._tx.init(tree_leaves(model.params))
-    return model.opt_state
+    return model._init_opt_state()
 
 
 # the configuration class each model class is built from
@@ -147,9 +199,14 @@ class ModelSerializer:
         """Write the checkpoint zip atomically: the bytes land in
         ``path + ".tmp"``, are fsynced, and only then renamed over
         ``path``, so a reader sees the old file or the new one, never a
-        torn write."""
+        torn write.  ``model`` may be a host snapshot
+        (`train.listeners._HostSnapshot`).  Fault sites:
+        ``checkpoint.write`` at entry (``truncate`` corrupts the
+        published bytes: corruption that slipped past the fsync) and
+        ``checkpoint.fsync`` between the zip landing and the publish."""
         if model.params is None:
             raise RuntimeError("model not initialized")
+        action = faults.maybe_fail("checkpoint.write")
         manifest_entries: dict[str, dict] = {}
         leaf_counts: dict[str, int] = {}
 
@@ -166,7 +223,8 @@ class ModelSerializer:
                     leaf_counts[name] = leaves
 
             put("configuration.json", json.dumps(
-                {"model_class": type(model).__name__,
+                {"model_class": getattr(model, "_serialize_class_name",
+                                        type(model).__name__),
                  "conf": serde.to_jsonable(model.conf)}, indent=2).encode())
             put("params.npz", *_npz_bytes(tree_leaves(model.params)))
             put("netstate.npz", *_npz_bytes(tree_leaves(model.net_state or {})))
@@ -186,6 +244,11 @@ class ModelSerializer:
                 "leaf_counts": leaf_counts,
             }))
             zf.close()
+            if action == "truncate":
+                # injected corruption that survives the publish
+                f.flush()
+                f.truncate(max(1, f.tell() // 2))
+            faults.maybe_fail("checkpoint.fsync")
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)       # atomic publish
@@ -272,11 +335,230 @@ class ModelSerializer:
             model.load_net_state(_unflatten_like(
                 state, _npz_leaves(zf, "netstate.npz", len(tree_leaves(state)))))
             if "updater.npz" in zf.namelist():
-                state = (model._tx.init(tree_leaves(model.params))
-                         if quantized is None else ())
+                state = model._init_opt_state() if quantized is None else ()
                 want = len(updaters.state_leaves(state))
                 model.opt_state = updaters.load_state_leaves(
                     state, _npz_leaves(zf, "updater.npz", want)) or None
             model.iteration = meta.get("iteration", 0)
             model.epoch = meta.get("epoch", 0)
         return model
+
+    @staticmethod
+    @torch.no_grad()
+    def restore_into(model, path: str, verify: bool = True) -> dict:
+        """Copy a checkpoint of ``model``'s own configuration into its live
+        tensors in place: parameters, layer state, the optimizer state
+        (when both sides have one) and ``iteration`` (JAX
+        `RecoveryPolicy._install`).  The tensors a captured step reads
+        stay the same objects, so its graphs stay valid.  Returns the
+        checkpoint's ``meta.json``; raises `ValueError` when the leaves'
+        count or shapes differ."""
+        meta = ModelSerializer.verify(path) if verify else None
+        with zipfile.ZipFile(path, "r") as zf:
+            if meta is None:
+                meta = json.loads(zf.read("meta.json"))
+
+            def copy_into(live, name):
+                saved = _npz_leaves(zf, name, len(live))
+                for dst, src in zip(live, saved):
+                    if tuple(dst.shape) != tuple(src.shape):
+                        raise ValueError(f"{name}: leaf shape {tuple(src.shape)} "
+                                         f"!= {tuple(dst.shape)}")
+                    dst.copy_(torch.from_numpy(np.asarray(src)).to(dst.dtype))
+
+            copy_into(tree_leaves(model.params), "params.npz")
+            copy_into(tree_leaves(model.net_state or {}), "netstate.npz")
+            if "updater.npz" in zf.namelist() and model.opt_state is not None:
+                want = len(updaters.state_leaves(model.opt_state))
+                model.opt_state = updaters.load_state_leaves(
+                    model.opt_state, _npz_leaves(zf, "updater.npz", want))
+        model.iteration = meta.get("iteration", 0)
+        model._compute = None
+        model._last_score = None
+        return meta
+
+
+class CheckpointStore:
+    """A directory of rolling ``ckpt_<step>.zip`` files with
+    verification, last-good fallback and garbage collection (JAX
+    `CheckpointStore`).
+
+    Single writer; readers may scan meanwhile.  `save` publishes
+    atomically and collects; `latest_valid` walks the directory newest
+    first and returns the first checkpoint that passes verification (a
+    corrupt newest file is skipped and counted, not fatal).  It is also
+    a `PreemptionHandler` checkpointer (``save(model)`` + ``wait()``).
+    ``device``: where `restore_latest` / `restore_model` build the model
+    (CUDA unless the caller asks for the CPU).
+    """
+
+    def __init__(self, directory: str, keep_last: int = 3,
+                 prefix: str = "ckpt_", device=None):
+        if keep_last < 1:
+            raise ValueError("keep_last must be >= 1")
+        self.directory = directory
+        self.keep_last = keep_last
+        self.prefix = prefix
+        self.device = device
+        self._name_re = re.compile(re.escape(prefix) + r"(\d+)\.zip$")
+        # steps gc() never collects: a live RecoveryPolicy's rollback target
+        self._pins: set[int] = set()
+        # (step, path) callables run after each publish, before gc
+        self._save_listeners: list = []
+
+    # -- naming / scanning -------------------------------------------------
+    def path_for(self, step: int) -> str:
+        return os.path.join(self.directory, f"{self.prefix}{step:08d}.zip")
+
+    def _scan(self) -> list[tuple[int, str]]:
+        """[(step, path)] on disk, newest first; ``.tmp`` orphans and
+        foreign files ignored."""
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return []
+        out = []
+        for n in names:
+            m = self._name_re.match(n)
+            if m:
+                out.append((int(m.group(1)), os.path.join(self.directory, n)))
+        out.sort(reverse=True)
+        return out
+
+    def all_steps(self) -> list[int]:
+        """Steps on disk (unverified), ascending."""
+        return sorted(s for s, _ in self._scan())
+
+    # -- write side --------------------------------------------------------
+    def save(self, model, step: Optional[int] = None) -> int:
+        """Write ``model`` at ``step`` (default: its iteration), publish
+        atomically, notify the save listeners, collect.  Returns the
+        step."""
+        step = int(model.iteration if step is None else step)
+        os.makedirs(self.directory, exist_ok=True)
+        ModelSerializer.write_model(model, self.path_for(step))
+        for cb in list(self._save_listeners):
+            try:
+                cb(step, self.path_for(step))
+            except Exception:
+                log.exception("checkpoint save listener failed")
+        self.gc()
+        return step
+
+    def add_save_listener(self, cb) -> None:
+        """Register a ``(step, path)`` callable run after every publish,
+        before gc."""
+        if cb not in self._save_listeners:
+            self._save_listeners.append(cb)
+
+    def remove_save_listener(self, cb) -> None:
+        if cb in self._save_listeners:
+            self._save_listeners.remove(cb)
+
+    def wait(self) -> None:
+        """The `PreemptionHandler` checkpointer contract: writes are
+        synchronous."""
+
+    def pin(self, step: int) -> None:
+        """Keep ``step``'s checkpoint from gc() until unpinned."""
+        self._pins.add(int(step))
+
+    def unpin(self, step: int) -> None:
+        self._pins.discard(int(step))
+
+    def pinned_steps(self) -> set[int]:
+        return set(self._pins)
+
+    def gc(self) -> None:
+        """Delete checkpoints beyond the newest ``keep_last``, except
+        pinned steps, and any ``.tmp`` orphan (a dead writer's torn file:
+        this is the only writer)."""
+        kept = 0
+        for step, path in self._scan():
+            if kept < self.keep_last:
+                kept += 1
+                continue
+            if step in self._pins:
+                continue
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return
+        for n in names:
+            if n.startswith(self.prefix) and n.endswith(".tmp"):
+                try:
+                    os.remove(os.path.join(self.directory, n))
+                except OSError:
+                    pass
+
+    # -- read side ---------------------------------------------------------
+    def iter_valid(self, check_finite: bool = False):
+        """Yield ``{"step", "path", "meta"}`` for every checkpoint that
+        passes verification, newest first.  A corrupt file is skipped,
+        logged with its defect and counted (verify's ``corrupt``), never
+        raised; ``check_finite`` also skips files whose params hold NaN /
+        Inf (``nonfinite``)."""
+        for step, path in self._scan():
+            try:
+                meta = ModelSerializer.verify(path)
+            except CheckpointVerifyError as e:
+                log.warning("CheckpointStore skipping step %d (%s): %s",
+                            step, path, e)
+                continue
+            if check_finite:
+                try:
+                    nonfinite = params_nonfinite(path)
+                except Exception as e:
+                    count_skipped_checkpoint(
+                        path, f"unreadable_params:{type(e).__name__}")
+                    continue
+                if nonfinite:
+                    count_skipped_checkpoint(path, "nonfinite")
+                    continue
+            yield {"step": step, "path": path, "meta": meta}
+
+    def latest_valid(self, check_finite: bool = False) -> Optional[dict]:
+        """The newest checkpoint that passes verification (and the
+        NaN / Inf screen with ``check_finite``), or None."""
+        return next(self.iter_valid(check_finite=check_finite), None)
+
+    def restore_latest(self, check_finite: bool = False):
+        """The newest valid checkpoint restored on ``device``, or None."""
+        entry = self.latest_valid(check_finite=check_finite)
+        if entry is None:
+            return None
+        return ModelSerializer.restore(entry["path"], verify=False,
+                                       device=self.device)
+
+    # -- serving hook ------------------------------------------------------
+    def serve_into(self, *servers):
+        """Push every newly published checkpoint to each target as a
+        verified hot-swap (``push_checkpoint(path, source=...)``: an
+        `serving.InferenceServer` or a `serving.ServingFleet`).  One
+        target's push raising is logged and counted
+        (``dl4jtpu_serving_hotswap_total{result="push_error"}``) and never
+        stops the others.  Returns the save listener (pass it to
+        `remove_save_listener` to detach)."""
+        if not servers:
+            raise ValueError("serve_into needs at least one target")
+        targets = list(servers)
+
+        def _push(step: int, path: str) -> None:
+            for target in targets:
+                try:
+                    target.push_checkpoint(path, source=f"ckpt_step_{step}")
+                except Exception:
+                    log.exception("serve_into push to %r failed at step %d",
+                                  target, step)
+                    _count_push_error()
+
+        self.add_save_listener(_push)
+        return _push
+
+    def restore_model(self, step: int):
+        """Restore a given step (verifying it first) on ``device``."""
+        return ModelSerializer.restore(self.path_for(step), device=self.device)

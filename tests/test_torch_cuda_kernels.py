@@ -1453,3 +1453,101 @@ def test_side_stream_staging_gives_the_same_bytes(cuda):
     for got, want in zip(out, srcs):
         np.testing.assert_array_equal(got.features.cpu().numpy(), want.features)
         np.testing.assert_array_equal(got.labels.cpu().numpy(), want.labels)
+
+
+def _tiny_transformer(device, n_layers=4):
+    return TransformerEncoder(vocab_size=64, d_model=64, n_heads=2, n_layers=n_layers,
+                              causal=True, chunked_vocab_loss=True, vocab_chunk=32,
+                              seed=7).init_model(device=device)
+
+
+def _ids_batch(seed, b=2, t=128):
+    ids = np.random.default_rng(seed).integers(0, 64, (b, t)).astype(np.int64)
+    return DataSet(ids, np.roll(ids, -1, axis=1))
+
+
+def test_a_rollback_on_a_captured_model_installs_in_place(cuda, tmp_path):
+    """A `RecoveryPolicy` rollback on the card: the checkpoint's values are
+    copied into the tensors the step graph reads, so the next steps replay
+    the same graph (no capture) and start from the checkpoint bit for
+    bit; the halved learning rate arrives as a staged step value."""
+    from deeplearning4j_tpu_torch.runtime import faults
+    from deeplearning4j_tpu_torch.train import CheckpointStore, RecoveryPolicy
+    from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+
+    m = _tiny_transformer(cuda)
+    store = CheckpointStore(str(tmp_path / "ck"), keep_last=2)
+
+    class Saver(TrainingListener):
+        def iteration_done(self, model, iteration, epoch, score):
+            if iteration == 2:
+                store.save(model, step=iteration)
+
+    m.add_listener(Saver())
+    policy = RecoveryPolicy(store, skip_window=0).attach(m)
+    batches = [_ids_batch(i) for i in range(6)]
+    m.fit(batches[:3])
+    captures = m.compile_stats()["jit_cache_misses"]
+    ids = [id(t) for t in tree_leaves(m.params)]
+    saved = ModelSerializer.restore(store.path_for(2), device="cpu")
+    # a NaN batch: token ids cannot be NaN, so poison the step's loss
+    real = m._data_loss
+    m._data_loss = lambda *a: real(*a) * float("nan")
+    m.capture_steps = False                      # the poisoned program runs eagerly
+    try:
+        m.fit(batches[3:4])
+    finally:
+        m._data_loss = real
+        m.capture_steps = True
+    assert policy.rollbacks == 1 and m.iteration == 2 and policy.lr_scale == 0.5
+    assert [id(t) for t in tree_leaves(m.params)] == ids
+    for a, b in zip(tree_leaves(m.params), tree_leaves(saved.params)):
+        assert torch.equal(a.detach().cpu(), b.detach())
+    m.fit(batches[4:6])
+    assert m.compile_stats()["jit_cache_misses"] == captures
+    assert m.iteration == 4 and np.isfinite(m.score_value)
+    faults.disarm()
+
+
+def test_a_frozen_prefix_step_launches_no_backward_for_the_prefix(cuda):
+    """Blocks 0-2 of 4 frozen: a captured step launches B1 in every block
+    and B2 / B3 only in the last block, each replay; the frozen leaves keep
+    their bits."""
+    from deeplearning4j_tpu_torch.train import TransferLearning
+
+    base = _tiny_transformer(cuda)
+    tl = TransferLearning.Builder(base).set_feature_extractor(4).build()
+    frozen = [t.detach().clone() for k in sorted(tl._frozen) if k in tl.params
+              for t in tree_leaves(tl.params[k])]
+    tl.fit_batch(_ids_batch(0))                  # capture
+    kernels.reset_launches()
+    for i in range(3):
+        tl.fit_batch(_ids_batch(i + 1))
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert counts.get("flash_fwd", 0) == 4 * 3
+    assert counts.get("flash_bwd_dq", 0) == 1 * 3
+    assert counts.get("flash_bwd_dkdv", 0) == 1 * 3
+    after = [t.detach() for k in sorted(tl._frozen) if k in tl.params
+             for t in tree_leaves(tl.params[k])]
+    assert all(torch.equal(a, b) for a, b in zip(frozen, after))
+
+
+def test_a_host_snapshot_keeps_its_bytes_after_a_replay(cuda):
+    """`_HostSnapshot` copies the live tensors to the host on the training
+    thread: a replay that overwrites them afterwards leaves the snapshot's
+    bytes as they were, and its zip restores them."""
+    from deeplearning4j_tpu_torch.train.listeners import _host_snapshot
+
+    m = _tiny_transformer(cuda, n_layers=2)
+    m.fit_batch(_ids_batch(0))
+    m.fit_batch(_ids_batch(1))                   # a replay
+    snap = _host_snapshot(m)
+    kept = [t.clone() for t in tree_leaves(snap.params)]
+    live = [t.detach().cpu().clone() for t in tree_leaves(m.params)]
+    m.fit_batch(_ids_batch(2))                   # overwrites the live tensors
+    torch.cuda.synchronize()
+    for a, b, c, now in zip(kept, tree_leaves(snap.params), live, tree_leaves(m.params)):
+        assert not b.is_cuda and torch.equal(a, b) and torch.equal(b, c)
+    assert any(not torch.equal(b, now.detach().cpu())
+               for b, now in zip(tree_leaves(snap.params), tree_leaves(m.params)))

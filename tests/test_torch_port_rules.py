@@ -6,7 +6,9 @@
   step and analyses its cost, runs the CPU engine, the server with an
   attached engine behind its HTTP front, a prefill/decode fleet and the
   fleet aggregator, and a quantized ``output()``, writes and restores a
-  checkpoint zip of each model, trains a masked MoE step, then lists its
+  checkpoint zip of each model, trains a masked MoE step, fine-tunes a
+  graph with a frozen prefix under listeners and a recovery policy that
+  rolls a NaN batch back from a checkpoint store, then lists its
   modules).
 - Entry points default to CUDA and raise when there is none, checkpoint
   restore included; only an explicit ``device="cpu"`` runs on the CPU.
@@ -71,7 +73,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "zoo.simplecnn", "entry", "bench_lenet",
                      "parallel.expert", "nn.conf.moe", "nn.conf.graph_conf",
                      "nn.conf.layers_nd", "models.computation_graph",
-                     "zoo.resnet", "data.prefetch"):
+                     "zoo.resnet", "data.prefetch", "train.listeners",
+                     "train.early_stopping", "train.transfer",
+                     "train.recovery", "train.preemption", "data.quarantine",
+                     "observe.health", "evaluation.roc",
+                     "evaluation.regression", "evaluation.binary"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -161,6 +167,27 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         g.fit(PrefetchIterator([DataSet(xs, ys)], device="cpu"))
         assert g.iteration == 1 and np.isfinite(g.score_value)
         assert tuple(quantize(g).output(xs).shape) == (2, 3)
+        # the training tooling: a listener, a frozen layer, a recovery
+        # policy over a checkpoint store that rolls back a NaN batch
+        from deeplearning4j_tpu_torch.runtime import faults
+        from deeplearning4j_tpu_torch.train import (
+            CheckpointStore, CollectScoresListener, RecoveryPolicy,
+            TrainingListener, TransferLearning)
+        tl = TransferLearning.GraphBuilder(g).set_feature_extractor("s0b0_out").build()
+        store = CheckpointStore(tempfile.mkdtemp(), keep_last=2, device="cpu")
+        class Saver(TrainingListener):
+            def iteration_done(self, model, it, epoch, score):
+                if it == 1:
+                    store.save(model, step=it)
+        scores = CollectScoresListener()
+        tl.set_listeners(scores, Saver())
+        policy = RecoveryPolicy(store, skip_window=0).attach(tl)
+        os.environ["DL4JTPU_CRASH_DIR"] = tempfile.mkdtemp()
+        faults.arm("data.decode:corrupt:nth=2")
+        tl.fit([DataSet(xs, ys)] * 3)
+        faults.disarm()
+        assert policy.rollbacks == 1 and tl.iteration == 2, policy.events
+        assert len(scores.scores) == 3 and np.isfinite(tl.score_value)
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "optax",
                                             "deeplearning4j_tpu"))
@@ -606,3 +633,51 @@ def test_a_failing_capture_raises_and_never_reruns_eagerly(monkeypatch):
     with pytest.raises(Exception, match="decode step failed"):
         req.result(timeout=1)
     assert eng.kv.leak_check() is None and eng.kv.used_pages == 0
+
+
+def test_a_capture_collects_first_and_runs_with_the_collector_off(monkeypatch):
+    """`CapturedProgram` runs the garbage collector before capturing and
+    keeps it off during the capture (a dead graph torn down by a
+    collection mid-capture would invalidate it), and turns it back on
+    after, also when the capture fails."""
+    import contextlib
+    import gc
+
+    from deeplearning4j_tpu_torch.runtime import graphs
+
+    seen = []
+
+    class FakeStream:
+        cuda_stream = 0
+
+        def wait_stream(self, other):
+            pass
+
+    class FakeGraph:
+        def capture_begin(self, pool=None, capture_error_mode=None):
+            seen.append(("begin", gc.isenabled(), capture_error_mode))
+
+        def capture_end(self):
+            seen.append(("end", gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: FakeStream())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    collected = []
+    real_collect = gc.collect
+    monkeypatch.setattr(gc, "collect", lambda *a: collected.append(1) or real_collect(*a))
+    assert gc.isenabled()
+    prog = graphs.CapturedProgram(lambda x: x + 1, (torch.zeros(2),))
+    assert collected and seen == [("begin", False, "thread_local"), ("end", False)]
+    assert torch.equal(prog.outputs, torch.ones(2)) and gc.isenabled()
+
+    def failing(x):
+        if seen and seen[-1][0] == "begin":      # inside the capture
+            raise RuntimeError("capture failed")
+        return x
+
+    seen.clear()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.CapturedProgram(failing, (torch.zeros(2),))
+    assert seen[-1] == ("end", False) and gc.isenabled()

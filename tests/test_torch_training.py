@@ -303,7 +303,9 @@ def test_what_the_slice_does_not_train_raises():
     slice (`tests/test_torch_lenet.py` holds their losses; a group of
     none is refused), and features masks since the attention slice (an
     all-ones mask gives the unmasked step's loss, through the dense
-    attention instead of flash); frozen layers, TBPTT and data
+    attention instead of flash), and frozen layers since the training
+    tooling slice (the frozen embedding keeps its bits; its parity with
+    the JAX package is `tests/test_torch_transfer.py`'s); TBPTT and data
     parallelism still raise, naming their ROADMAP items.  TBPTT loads as
     configuration data and raises when a model is built from it."""
     ids, y = _batches(one_hot=False, n=1)[0]
@@ -319,8 +321,13 @@ def test_what_the_slice_does_not_train_raises():
     conf = _zoo(TransformerEncoder).conf()
     conf = dataclasses.replace(conf, layers=(
         dataclasses.replace(conf.layers[0], frozen=True),) + conf.layers[1:])
-    with pytest.raises(NotImplementedError, match="frozen"):
-        SequentialModel(conf, device="cpu").fit_batch(batch)
+    frozen = SequentialModel(conf, device="cpu").init()
+    name = conf.layers[0].name
+    before = {k: v.detach().clone() for k, v in frozen.params[name].items()}
+    frozen.fit_batch(batch)
+    assert frozen.iteration == 1 and np.isfinite(frozen.score_value)
+    for k, v in before.items():
+        assert torch.equal(v, frozen.params[name][k])
     tbptt = (NeuralNetConfiguration.builder().tbptt(16).list()
              .layer(_zoo(TransformerEncoder).conf().layers[0]).build())
     assert (tbptt.backprop_type, tbptt.tbptt_length) == ("tbptt", 16)
