@@ -381,7 +381,43 @@ Then the phases:
    the checkpoint lands and `PreemptionError` stops the fit; the model
    `restore_latest` gives takes the next batch with the interrupted
    model's loss, bit for bit.
-16. report — one ``{"kernels": [...]}`` JSON line, then the last line
+16. rnn — the recurrent slice (ROADMAP A8).  (a) The zoo's
+   `TextGenerationLSTM()` (vocab 77, two GravesLSTM layers of 200, TBPTT
+   50, Adam 1e-2, seed 123, bf16) as bench.py's bench_lstm trains it:
+   batches of 1024 x 200 one-hot characters of ``SURVEY.md`` (its 76 most
+   frequent characters as ids 0-75, the rest 76; windows drawn with
+   numpy seed 0, made on the card), ``fit(steps_per_execution=8)``: 2
+   warm-up and 3 timed groups of 8 x 4 window steps, each a replay of
+   the captured window step: ms a window step and a batch, samples/s,
+   characters/s, MFU from the hand count of `bench.py:127-135`, peak
+   memory, and one profiled group (device busy share, top kernels); one
+   more group runs with any host synchronisation an error.  Gates: the
+   last group's mean loss below the first's, 4 optimizer steps a batch,
+   no capture and no ``nvcc`` run in the timed groups, one step graph,
+   and a batch captured against the same batch eagerly from one
+   snapshot, bit for bit (window losses, parameters, Adam state).  (b)
+   The same model in f32 at batch 64 (BASELINE round 3's) against the
+   port on the CPU from the same seed: 2 batches, then a variable-length
+   batch with features and labels masks of random lengths (numpy seed
+   1): every window loss within 1e-5, the parameters within the CPU
+   tests' Adam rule, the masked ``output()`` within 1e-5 of max p, the
+   recurrent layers' outputs zero at masked steps (and ``output()``
+   there softmax of the head's bias).  (c) Greedy generation of 200
+   characters for 8 prompts by `rnn_time_step`, one step a call (a graph
+   replay a call): ms a character; 200 streamed steps against
+   ``output()`` of the whole sequence within 1e-5 in f32 (bf16 printed).
+   (d) `quantize`: ``output()`` of 64 x 200 and 200 `rnn_time_step`
+   calls, exactly one B5 launch a call or a step (the head; the gates
+   stay f32), within B5's 1e-5 of the f32 model of the dequantized
+   weights; B5 at (12800, 200, 77) and (8, 200, 77) against its plain
+   version and cuBLAS f32.  (e) `write_model` / `restore` on the card:
+   the state bit for bit, and one more batch on both, bit for bit.  (f)
+   `LSTM`, `GRU`, `SimpleRnn`, `Bidirectional(concat)` + `LastTimeStep`
+   (the last two masked), `TimeDistributed(Dense)` and `ConvLSTM2D` at
+   small widths in f32: ``output()`` within 1e-5 of max p of the CPU's,
+   and a captured step against the eager one, bit for bit.  Writes under
+   ``build/rnn/`` and removes it.
+17. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -401,7 +437,7 @@ import sys
 import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
-          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "tools")
+          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "tools", "rnn")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -3261,12 +3297,12 @@ def _captured_vs_eager(torch, model, batches, tag, phase="lenet", host=False):
     same_losses = all(torch.equal(x, y) for x, y in zip(cap, eag))
     bad = _differing(torch, after_cap, after_eager)
     log(f"[{phase}] {tag}: {len(batches)} captured steps against eager from one "
-        f"snapshot: losses {[float(x) for x in cap]} identical: {same_losses}; "
+        f"snapshot: losses {[x.tolist() for x in cap]} identical: {same_losses}; "
         f"state differs at {bad or 'no leaf'}; captures during the replays "
         f"{recaptures}")
     if not same_losses or bad or recaptures:
         raise AssertionError(f"{tag}: the captured step is not the eager step")
-    return {"losses": [float(x) for x in cap], "identical": True}
+    return {"losses": [x.tolist() for x in cap], "identical": True}
 
 
 def _lenet_train(torch, np, bl, batches, f32):
@@ -5445,6 +5481,447 @@ def phase_tools(torch, np, kernels, report):
     return res
 
 
+# -- the recurrent slice (ROADMAP A8) -------------------------------------------
+
+# BASELINE config 3 as bench.py's bench_lstm runs it (`bench.py:737-771`)
+RNN_VOCAB, RNN_HIDDEN, RNN_SEQ, RNN_TBPTT = 77, 200, 200, 50
+RNN_BATCH, RNN_SPE, RNN_WARM_GROUPS, RNN_GROUPS = 1024, 8, 2, 3
+RNN_F32_BATCH = 64            # BASELINE round 3's batch, for the f32 run
+RNN_PROMPTS, RNN_GEN = 8, 200  # greedy streams, characters a stream
+RNN_TEXT = "SURVEY.md"        # the characters the char-RNN trains on
+RNN_DIR = os.path.join("build", "rnn")   # inside the checkout; removed after
+RNN_DEVICE = "cuda"           # "cpu" only in a CPU rehearsal of the phase
+RNN_DM_SHAPES = [(RNN_F32_BATCH * RNN_SEQ, RNN_HIDDEN, RNN_VOCAB),
+                 (RNN_PROMPTS, RNN_HIDDEN, RNN_VOCAB)]
+# f32 card against f32 CPU (`tests/test_torch_recurrent.py`'s rules): losses
+# within 1e-5 of max(1, |loss|); parameters after Adam steps all within a
+# tenth of the learning rate and 99.9% within 1e-5 (Adam turns summation
+# noise on a near-zero gradient into a step of up to the rate); outputs
+# within 1e-5 of max p
+RNN_LOSS_TOL, RNN_OUT_TOL, RNN_PARAM_TOL, RNN_PARAM_SHARE = 1e-5, 1e-5, 1e-5, 0.999
+
+
+def _rnn_flops_by_hand(vocab, hidden, seq, n_layers=2) -> float:
+    """`bench.py:127-135` `_lstm_fwd_flops`: forward FLOPs of one example
+    of the char-RNN stack, counted by hand (gate width 4H): layer 0's
+    input and recurrent products, each later layer's two, the head."""
+    f = seq * (2 * vocab * 4 * hidden + 2 * hidden * 4 * hidden)
+    f += (n_layers - 1) * seq * (2 * hidden * 4 * hidden) * 2
+    f += seq * 2 * hidden * vocab
+    return float(f)
+
+
+def _rnn_text_ids(np):
+    """The characters of ``RNN_TEXT`` as ids: its 76 most frequent
+    characters 0-75 (by count, then code point), every other one 76."""
+    import collections
+
+    with open(RNN_TEXT, encoding="utf-8") as f:
+        text = f.read()
+    ranked = sorted(collections.Counter(text).items(), key=lambda kv: (-kv[1], kv[0]))
+    table = {c: i for i, (c, _) in enumerate(ranked[:RNN_VOCAB - 1])}
+    return np.array([table.get(c, RNN_VOCAB - 1) for c in text], np.int64)
+
+
+def _rnn_batches(torch, np, ids, n, batch, seed, device=None):
+    """``n`` batches of ``batch`` windows of RNN_SEQ + 1 characters drawn
+    from ``ids`` (numpy seed ``seed``), one-hot features and next-character
+    labels made on ``device``."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+    rng = np.random.default_rng(seed)
+    eye = torch.eye(RNN_VOCAB, device=device or RNN_DEVICE)
+    out = []
+    for _ in range(n):
+        starts = rng.integers(0, len(ids) - RNN_SEQ - 1, batch)
+        win = torch.from_numpy(ids[starts[:, None] + np.arange(RNN_SEQ + 1)]).to(device)
+        out.append(DataSet(eye[win[:, :-1]], eye[win[:, 1:]]))
+    return out
+
+
+def _rnn_model(torch, bf16, device=None):
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.zoo.textgen import TextGenerationLSTM
+
+    conf = TextGenerationLSTM(vocab_size=RNN_VOCAB, hidden=RNN_HIDDEN,
+                              tbptt_length=RNN_TBPTT).conf()
+    if not bf16:
+        conf = dataclasses.replace(conf, bf16_compute=False)
+    return SequentialModel(conf, device=device or RNN_DEVICE).init()
+
+
+def _rnn_train(torch, np, kernels, ids, res):
+    """(a) The char-RNN at full width, bf16: groups of RNN_SPE batches."""
+    from deeplearning4j_tpu_torch.observe import cost
+    from deeplearning4j_tpu_torch.runtime import compile_stats
+
+    batches = _rnn_batches(torch, np, ids, RNN_SPE, RNN_BATCH, 0)
+    model = _rnn_model(torch, True)
+    windows = RNN_SEQ // RNN_TBPTT
+    mem0 = _memory_window(torch)
+    t0 = time.perf_counter()
+    model.fit(batches, steps_per_execution=RNN_SPE)         # captures
+    first = model._last_score.clone()
+    for _ in range(RNN_WARM_GROUPS - 1):
+        model.fit(batches, steps_per_execution=RNN_SPE)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    it0, cs0 = model.iteration, compile_stats.snapshot()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(RNN_GROUPS):
+        model.fit(batches, steps_per_execution=RNN_SPE)
+        losses.append(model._last_score)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    taxes = (compile_stats.snapshot() - cs0).as_dict()
+    steps = model.iteration - it0
+    memory = {"captured": _memory_window(torch, mem0)}
+    # one more group with any host synchronisation an error
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.fit(batches, steps_per_execution=RNN_SPE)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses.append(model._last_score)
+    prof = _profiled(torch, "rnn", lambda: model.fit(
+        batches, steps_per_execution=RNN_SPE))
+    window_ms = secs / steps * 1e3
+    batch_ms = window_ms * windows
+    hand = 3 * _rnn_flops_by_hand(RNN_VOCAB, RNN_HIDDEN, RNN_SEQ) * RNN_BATCH
+    peak_f, _ = cost.peaks()
+    all_losses = torch.cat([first] + losses).float().cpu().numpy()
+    res.update({
+        "params": model.num_params(), "compute": str(model.compute_dtype),
+        "window_ms": window_ms, "batch_ms": batch_ms,
+        "samples_per_s": RNN_BATCH / batch_ms * 1e3,
+        "chars_per_s": RNN_BATCH * RNN_SEQ / batch_ms * 1e3,
+        "flops_per_batch_by_hand": hand, "mfu": hand / (batch_ms / 1e3) / peak_f,
+        "steps_timed": steps, "warm_s": warm_s, "compile_taxes": taxes,
+        "losses_first_group": all_losses[:RNN_SPE * windows].tolist(),
+        "losses_last_group": all_losses[-RNN_SPE * windows:].tolist(),
+        "memory": memory, "profile": {k: v for k, v in prof.items()
+                                      if k != "all_device_kernels_ms"},
+        "graphs": model.compile_stats()["step_programs"],
+    })
+    log(f"[rnn] (a) char-RNN {res['params']} params, batch {RNN_BATCH} x {RNN_SEQ}, "
+        f"TBPTT {RNN_TBPTT}, spe {RNN_SPE}, {res['compute']}: {window_ms:.3f} ms a "
+        f"window step, {batch_ms:.3f} ms a batch, {res['samples_per_s']:.1f} samples/s, "
+        f"{res['chars_per_s']:.1f} chars/s; {hand:.4e} FLOPs a batch by hand, MFU "
+        f"{res['mfu']:.5f} against {peak_f / 1e12:.0f} TFLOP/s "
+        f"({torch.cuda.get_device_name(0)}); device busy "
+        f"{prof['device_busy_share']:.3f}; {_memory_text(memory)}; warm-up "
+        f"{warm_s:.1f}s; compile taxes of the timed groups {taxes}")
+    log(f"[rnn] (a) losses: first group mean {all_losses[:RNN_SPE * windows].mean():.4f}, "
+        f"last group mean {all_losses[-RNN_SPE * windows:].mean():.4f}")
+    if not np.all(np.isfinite(all_losses)):
+        raise AssertionError("char-RNN: a loss is not finite")
+    if not all_losses[-RNN_SPE * windows:].mean() < all_losses[:RNN_SPE * windows].mean():
+        raise AssertionError("char-RNN: the loss did not fall")
+    if steps != RNN_GROUPS * RNN_SPE * windows:
+        raise AssertionError(f"char-RNN: {steps} optimizer steps in {RNN_GROUPS} "
+                             f"groups, want {windows} a batch")
+    if taxes.get("fresh_backend_compiles") or taxes.get("jit_cache_misses"):
+        raise AssertionError(f"char-RNN: the timed groups compiled or captured: {taxes}")
+    if res["graphs"] != 1:
+        raise AssertionError(f"char-RNN: {res['graphs']} step graphs, want 1")
+    res["captured_vs_eager"] = _captured_vs_eager(torch, model, batches[:1],
+                                                  "char-RNN batch", phase="rnn")
+    return model, batches
+
+
+def _rnn_f32(torch, np, ids, res):
+    """(b) f32 on the card against the port on the CPU from the same seed:
+    2 TBPTT batches of RNN_F32_BATCH, then a variable-length masked batch."""
+    from deeplearning4j_tpu_torch.convert import params_to_numpy
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+
+    card, cpu = _rnn_model(torch, False), _rnn_model(torch, False, "cpu")
+    lr = card.conf.updater.learning_rate
+    host = _rnn_batches(torch, np, ids, 2, RNN_F32_BATCH, 1, device="cpu")
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(RNN_TBPTT // 2, RNN_SEQ + 1, RNN_F32_BATCH)
+    mask = (np.arange(RNN_SEQ)[None, :] < lengths[:, None]).astype(np.float32)
+    x3 = host[0].features * torch.from_numpy(mask)[..., None]
+    host.append(DataSet(x3, host[1].labels, features_mask=mask, labels_mask=mask))
+    losses = {"card": [], "cpu": []}
+    for b in host:
+        dev = DataSet(b.features.to(RNN_DEVICE), b.labels.to(RNN_DEVICE),
+                      labels_mask=None if b.labels_mask is None else
+                      torch.from_numpy(b.labels_mask).to(RNN_DEVICE),
+                      features_mask=None if b.features_mask is None else
+                      torch.from_numpy(b.features_mask).to(RNN_DEVICE))
+        card.fit_batch(dev)
+        cpu.fit_batch(b)
+        losses["card"].extend(card._last_score.float().cpu().numpy().tolist())
+        losses["cpu"].extend(cpu._last_score.float().numpy().tolist())
+    lc, lp = np.array(losses["card"]), np.array(losses["cpu"])
+    loss_err = float(np.max(np.abs(lc - lp) / np.maximum(1.0, np.abs(lp))))
+    a = np.concatenate([np.asarray(v).ravel() for v in tree_leaves(params_to_numpy(card))])
+    b = np.concatenate([np.asarray(v).ravel() for v in tree_leaves(params_to_numpy(cpu))])
+    perr = np.abs(a - b)
+    share = float(np.mean(perr <= RNN_PARAM_TOL))
+    # output() of the masked batch on both, and the recurrent layers'
+    # zeros at its masked steps
+    xm = torch.from_numpy(mask)
+    out_card = card.output(x3.to(RNN_DEVICE), xm.to(RNN_DEVICE)).cpu()
+    out_cpu = cpu.output(x3, xm)
+    out_err = (out_card - out_cpu).abs().max().item() / out_cpu.abs().max().item()
+    acts = card.feed_forward(x3.to(RNN_DEVICE), xm.to(RNN_DEVICE))
+    masked = xm == 0
+    zeros = all(bool((h.cpu()[masked] == 0).all()) for h in acts[:2])
+    head_b = card.params["layer2"]["b"].detach().float()
+    bias_rows = (out_card[masked] - torch.softmax(head_b, -1).cpu()).abs().max().item()
+    res.update({"losses_card": lc.tolist(), "losses_cpu": lp.tolist(),
+                "loss_rel_err": loss_err, "param_max_err": float(perr.max()),
+                "param_share_within": share, "output_rel_err": out_err,
+                "masked_steps": int(masked.sum()), "masked_hidden_zero": zeros,
+                "masked_output_vs_softmax_bias": bias_rows})
+    log(f"[rnn] (b) f32, batch {RNN_F32_BATCH}, 2 batches + a masked one ("
+        f"{int(masked.sum())} masked steps): {len(lc)} window losses, card - cpu "
+        f"{loss_err:.3e} of max(1, |loss|) (gate {RNN_LOSS_TOL:.0e}); parameters: "
+        f"max |diff| {perr.max():.3e} (gate {lr / 10:.0e}), {share:.5f} within "
+        f"{RNN_PARAM_TOL:.0e} (gate {RNN_PARAM_SHARE}); masked output() card - cpu "
+        f"{out_err:.3e} of max p (gate {RNN_OUT_TOL:.0e}); hidden states zero at "
+        f"masked steps: {zeros}; output() there is softmax(head bias) within "
+        f"{bias_rows:.2e}")
+    if (loss_err > RNN_LOSS_TOL or perr.max() > lr / 10 or share < RNN_PARAM_SHARE
+            or out_err > RNN_OUT_TOL or not zeros or bias_rows > 1e-6):
+        raise AssertionError("f32 char-RNN on the card disagrees with the CPU")
+    return card
+
+
+def _rnn_stream(torch, np, kernels, model, f32_model, ids, res):
+    """(c) Greedy char-by-char generation through `rnn_time_step`, and
+    streamed outputs against ``output()`` of the whole sequence."""
+    eye = torch.eye(RNN_VOCAB, device=RNN_DEVICE)
+    rng = np.random.default_rng(2)
+    prompts = torch.from_numpy(ids[rng.integers(0, len(ids), RNN_PROMPTS)]).to(RNN_DEVICE)
+
+    def generate(m):
+        m.rnn_clear_previous_state()
+        tok, outs = prompts, []
+        for _ in range(RNN_GEN):
+            p = m.rnn_time_step(eye[tok][:, None, :])
+            tok = p[:, -1].argmax(-1)
+            outs.append(tok)
+        return torch.stack(outs, 1)
+
+    generate(model)                      # captures the (8, 1, 77) step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = generate(model)
+    torch.cuda.synchronize()
+    ms_char = (time.perf_counter() - t0) / RNN_GEN * 1e3
+    # streamed against whole: the f32 model, one step a call
+    x = eye[torch.from_numpy(ids[:RNN_SEQ]).to(RNN_DEVICE)][None].repeat(2, 1, 1)
+    whole = f32_model.output(x)
+    f32_model.rnn_clear_previous_state()
+    streamed = torch.cat([f32_model.rnn_time_step(x[:, t:t + 1])
+                          for t in range(RNN_SEQ)], 1)
+    err = (streamed - whole).abs().max().item() / whole.abs().max().item()
+    bwhole = model.output(x)
+    model.rnn_clear_previous_state()
+    bstream = torch.cat([model.rnn_time_step(x[:, t:t + 1]) for t in range(RNN_SEQ)], 1)
+    berr = (bstream - bwhole).abs().max().item() / bwhole.abs().max().item()
+    res.update({"ms_per_char": ms_char, "streamed_vs_whole_f32": err,
+                "streamed_vs_whole_bf16": berr,
+                "sample": text[0, :60].cpu().numpy().tolist(),
+                "rnn_graphs": len(model._rnn_graphs)})
+    log(f"[rnn] (c) {RNN_PROMPTS} greedy streams x {RNN_GEN} chars: {ms_char:.4f} ms "
+        f"a character (a replay a call, {len(model._rnn_graphs)} graph); streamed "
+        f"{RNN_SEQ} steps against output() of the sequence: f32 {err:.3e} of max p "
+        f"(gate {RNN_OUT_TOL:.0e}), bf16 {berr:.3e} (information)")
+    if err > RNN_OUT_TOL:
+        raise AssertionError("streamed outputs differ from the whole sequence's")
+
+
+def _rnn_quant(torch, np, kernels, model, ids, res, timer):
+    """(d) The quantized char-RNN: its head through B5 (the rows route:
+    N 77 is no multiple of 16), against the f32 model of the same
+    dequantized weights."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.quant import dequantize_tree, quantize
+
+    q = quantize(model)
+    ref = SequentialModel(dataclasses.replace(model.conf, bf16_compute=False),
+                          device=RNN_DEVICE).load_params(dequantize_tree(q.params))
+    x = _rnn_batches(torch, np, ids, 1, RNN_F32_BATCH, 3)[0].features
+    q.output(x)                                       # first use
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    p_q = q.output(x)
+    torch.cuda.synchronize()
+    out_ms = (time.perf_counter() - t0) * 1e3
+    out_counts = dict(kernels.launches())
+    p_ref = ref.output(x)
+    dp = (p_q - p_ref).abs().max().item() / p_ref.abs().max().item()
+    eye = torch.eye(RNN_VOCAB, device=RNN_DEVICE)
+    tok = torch.from_numpy(ids[:RNN_PROMPTS]).to(RNN_DEVICE)
+    q.rnn_clear_previous_state()
+    ref.rnn_clear_previous_state()
+    q.rnn_time_step(eye[tok][:, None])                # captures
+    ref.rnn_time_step(eye[tok][:, None])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    sq, sr = [], []
+    for _ in range(RNN_GEN):
+        pq = q.rnn_time_step(eye[tok][:, None])
+        sr.append(ref.rnn_time_step(eye[tok][:, None]))
+        sq.append(pq)
+        tok = pq[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    step_counts = dict(kernels.launches())
+    sq, sr = torch.cat(sq, 1), torch.cat(sr, 1)
+    sdp = (sq - sr).abs().max().item() / sr.abs().max().item()
+    rows = check_rows("rnn", [dm_case(torch, timer, *shape) for shape in RNN_DM_SHAPES])
+    res.update({"quant": {"launches": {"dequant_matmul": out_counts.get(
+                    "dequant_matmul", 0)}, "output_ms": out_ms, "max_dp_rel": dp,
+                    "all_launches": out_counts},
+                "quant_stream": {"launches": {"dequant_matmul": step_counts.get(
+                    "dequant_matmul", 0)}, "max_dp_rel": sdp,
+                    "all_launches": step_counts}})
+    tol = TOL["dequant_matmul/K1024"]
+    log(f"[rnn] (d) quantized output() of {tuple(x.shape[:2])}: {out_ms:.3f} ms, "
+        f"launches {out_counts}; vs the f32 model of the dequantized weights "
+        f"{dp:.3e} of max p; {RNN_GEN} quantized rnn_time_step calls: launches "
+        f"{step_counts}, {sdp:.3e} of max p (gate {tol:.0e} each)")
+    if {k: v for k, v in out_counts.items() if v} != {"dequant_matmul": 1}:
+        raise AssertionError(f"quantized output(): launches {out_counts}, want 1 B5")
+    if {k: v for k, v in step_counts.items() if v} != {"dequant_matmul": RNN_GEN}:
+        raise AssertionError(f"quantized streaming: launches {step_counts}, want "
+                             f"{RNN_GEN} B5 (one a step)")
+    if dp > tol or sdp > tol:
+        raise AssertionError("the quantized char-RNN disagrees with its dequantized "
+                             "f32 twin")
+    return rows
+
+
+def _rnn_ckpt(torch, np, model, batches, res):
+    """(e) write_model, restore on the card, and one more batch on both:
+    the same bits."""
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+
+    path = os.path.join(RNN_DIR, "char_rnn.zip")
+    t0 = time.perf_counter()
+    ModelSerializer.write_model(model, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ModelSerializer.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = not _differing(torch, _full_state(torch, model), _full_state(torch, back))
+    model.fit_batch(batches[1])
+    back.fit_batch(batches[1])
+    same_loss = torch.equal(model._last_score, back._last_score)
+    after = _differing(torch, _full_state(torch, model), _full_state(torch, back))
+    res["ckpt"] = {"bytes": os.path.getsize(path), "write_s": write_s,
+                   "restore_s": restore_s, "restored_identical": same,
+                   "resumed_identical": same_loss and not after}
+    log(f"[rnn] (e) zip {os.path.getsize(path)} bytes, write {write_s:.2f}s, restore "
+        f"{restore_s:.2f}s; restored state identical: {same}; one more batch on "
+        f"both: losses identical {same_loss}, state differs at {after or 'no leaf'}")
+    if not same or not same_loss or after:
+        raise AssertionError("the char-RNN zip does not resume bit for bit")
+
+
+def _rnn_small(torch, np, res):
+    """(f) The other recurrent layers at small widths, f32: a captured
+    step against the eager one, and ``output()`` against the CPU."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import recurrent as R
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    head = L.OutputLayer(n_out=3, loss="mcxent", activation="softmax")
+    cases = {
+        "LSTM": ([R.LSTM(n_out=32), R.LastTimeStep(), head], InputType.recurrent(8)),
+        "GRU": ([R.GRU(n_out=32), R.LastTimeStep(), head], InputType.recurrent(8)),
+        "SimpleRnn": ([R.SimpleRnn(n_out=32), R.LastTimeStep(), head],
+                      InputType.recurrent(8)),
+        "Bidirectional": ([R.Bidirectional(layer=R.LSTM(n_out=16), mode="concat"),
+                           R.LastTimeStep(), head], InputType.recurrent(8)),
+        "TimeDistributed": ([R.TimeDistributed(layer=L.Dense(n_out=16, activation="relu")),
+                             R.GRU(n_out=16), R.LastTimeStep(), head],
+                            InputType.recurrent(8)),
+        "ConvLSTM2D": ([R.ConvLSTM2D(n_out=8, kernel=(3, 3), padding="same"),
+                        L.GlobalPooling(), head], InputType.convolutional3d(6, 12, 12, 3)),
+    }
+    rng = np.random.default_rng(4)
+    out = {}
+    for name, (layers, itype) in cases.items():
+        b = NeuralNetConfiguration.builder().seed(5).updater(Adam(1e-3)).bf16_compute(False)
+        for layer in layers:
+            b = b.layer(layer)
+        conf = b.set_input_type(itype).build()
+        shape = ((16, 24, 8) if itype.kind == "rnn" else (4,) + tuple(itype.shape))
+        x = rng.normal(size=shape).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, shape[0])]
+        mask = None
+        if name in ("LSTM", "Bidirectional"):
+            mask = (np.arange(24)[None, :] < rng.integers(6, 25, 16)[:, None]
+                    ).astype(np.float32)
+        card = SequentialModel(conf, device=RNN_DEVICE).init()
+        cpu = SequentialModel(conf, device="cpu").init()
+        xm = None if mask is None else torch.from_numpy(mask)
+        xc = torch.from_numpy(x).to(RNN_DEVICE)
+        oc = card.output(xc, None if xm is None else xm.to(RNN_DEVICE)).cpu()
+        op = cpu.output(torch.from_numpy(x), xm)
+        err = (oc - op).abs().max().item() / op.abs().max().item()
+        dev = [DataSet(xc, torch.from_numpy(y).to(RNN_DEVICE),
+                       features_mask=None if xm is None else xm.to(RNN_DEVICE))
+               for _ in range(2)]
+        card.fit_batch(dev[0])                          # captures
+        cve = _captured_vs_eager(torch, card, dev[1:], name, phase="rnn")
+        out[name] = {"output_rel_err": err, "captured_vs_eager": cve["identical"]}
+        log(f"[rnn] (f) {name}: f32 output() card - cpu {err:.3e} of max p "
+            f"(gate {RNN_OUT_TOL:.0e}); captured step == eager")
+        if err > RNN_OUT_TOL:
+            raise AssertionError(f"{name}: the card's output() differs from the CPU's")
+    res["small"] = out
+
+
+def phase_rnn(torch, np, kernels, timer):
+    """The recurrent slice (ROADMAP A8) on the card; see the module
+    docstring."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(RNN_DIR, ignore_errors=True)
+    os.makedirs(RNN_DIR)
+    res = {}
+    try:
+        ids = _rnn_text_ids(np)
+        res["text_chars"] = len(ids)
+        model, batches = _rnn_train(torch, np, kernels, ids, res)
+        res["phase_a_s"] = time.perf_counter() - t_phase
+        f32 = _rnn_f32(torch, np, ids, res)
+        _rnn_stream(torch, np, kernels, model, f32, ids, res)
+        del f32
+        res["kernel_rows"] = _rnn_quant(torch, np, kernels, model, ids, res, timer)
+        _rnn_ckpt(torch, np, model, batches, res)
+        del model, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        _rnn_small(torch, np, res)
+    finally:
+        shutil.rmtree(RNN_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[rnn] phase {res['phase_s']:.1f}s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5587,6 +6064,10 @@ def main(argv=None) -> int:
     if "tools" in phases:
         report["tools"] = phase_tools(torch, np, kernels, report)
         done("tools")
+    if "rnn" in phases:
+        report["rnn"] = phase_rnn(torch, np, kernels, timer)
+        rows = rows + report["rnn"]["kernel_rows"]
+        done("rnn")
 
     entries = []
     def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):
@@ -5663,6 +6144,11 @@ def main(argv=None) -> int:
         (row("flash_fwd", shape=train_bhtd), "tools/ft"),
         (row("flash_bwd_dq", shape=train_bhtd), "tools/ft"),
         (row("flash_bwd_dkdv", shape=train_bhtd), "tools/ft"),
+        # the recurrent slice: the quantized char-RNN's head over 64 x 200
+        # characters (output()) and over 8 streams a step (rnn_time_step)
+        (row("dequant_matmul", dtype="int8", shape=list(RNN_DM_SHAPES[0])), "rnn/quant"),
+        (row("dequant_matmul", dtype="int8", shape=list(RNN_DM_SHAPES[1])),
+         "rnn/quant_stream"),
     ]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",

@@ -303,30 +303,42 @@ def _clone_state(state):
 
 class _Staged:
     """A step group's inputs on the card: each of the step's arrays
-    (`Model._batch_arrays`) stacked over the group, the nodes' keys
-    (K, nodes, 2) and the updater's step values (K, n), one
-    host-to-device copy each."""
+    (`Model._batch_arrays`) stacked over the group's K batches, and the
+    nodes' keys (n, nodes, 2) and the updater's step values (n, ...) of
+    its n optimizer steps (K, or K x the windows of a truncated-BPTT
+    batch), one host-to-device copy each.  The copies are made from
+    pinned memory without waiting on the card (a pageable copy would
+    wait for every step queued before it); arrays already on the card
+    are stacked there."""
 
-    def __init__(self, model, batches):
+    def __init__(self, model, batches, n_steps: int | None = None):
         dev = model.device
+
+        def upload(t: torch.Tensor) -> torch.Tensor:
+            if dev.type != "cuda":
+                return t.to(dev)
+            return t.pin_memory().to(dev, non_blocking=True)
 
         def stack(arrays):
             if arrays[0] is None:
                 return None
             if isinstance(arrays[0], torch.Tensor):
-                return torch.stack([a.to(dev) for a in arrays])
-            return torch.from_numpy(np.stack([np.asarray(a) for a in arrays])).to(dev)
+                if all(a.device.type == dev.type for a in arrays):
+                    return torch.stack([a.to(dev) for a in arrays])
+                return upload(torch.stack([a.cpu() for a in arrays]))
+            return upload(torch.from_numpy(np.stack([np.asarray(a) for a in arrays])))
 
         self.arrays = [stack(col) for col in zip(*(model._batch_arrays(b)
                                                    for b in batches))]
         keys, vals, state = [], [], model.opt_state
-        for i in range(len(batches)):
+        n = len(batches) if n_steps is None else n_steps
+        for i in range(n):
             keys.append(model._layer_keys(model.iteration + i))
             vals.append(model._tx.values(state))
             state = advance_counts(state)
-        self.keys = torch.tensor(keys, dtype=torch.int64).to(dev)
-        self.vals = torch.from_numpy(np.asarray(vals, np.float32).reshape(
-            len(batches), len(vals[0]))).to(dev)
+        self.keys = upload(torch.tensor(keys, dtype=torch.int64))
+        self.vals = upload(torch.from_numpy(np.asarray(vals, np.float32).reshape(
+            n, len(vals[0]))))
 
     def step(self, i: int) -> tuple:
         """Step i's arrays (None where absent), keys and step values."""
@@ -814,24 +826,28 @@ class Model(nn.Module):
         """A fresh optimizer state over the trainable leaves."""
         return self._tx.init(self._trainable_leaves(self.params))
 
-    def _grad_step(self, params: dict, net_state: dict, *inputs):
+    def _grad_step(self, params: dict, net_state: dict, *inputs, loss=None):
         """Loss, gradients of the trainable leaves (`_trainable_leaves`
         order, zeros for an unused leaf) and the layers' new state on one
         batch (``inputs``: `_batch_arrays`, then the keys): the step's
         forward and backward, and no state changed — the update applies
         them.  A frozen layer's leaves enter the forward detached, so
         nothing before the first trainable layer records a backward.
-        Pure, so the cost analysis can run it again."""
+        ``loss``: the objective (`_step_loss` by default); whatever it
+        returns after the loss and the state (a truncated-BPTT window's
+        new carries, detached) is returned after them.  Pure, so the cost
+        analysis can run it again."""
         plist = self._trainable_leaves(params)
         if self._frozen:
             params = {k: _tree_map(torch.Tensor.detach, v) if k in self._frozen
                       else v for k, v in params.items()}
         with torch.enable_grad():
-            loss, new_state = self._step_loss(params, net_state, *inputs)
-            grads = torch.autograd.grad(loss, plist, allow_unused=True)
-        return (loss, [torch.zeros_like(p) if g is None else g
-                       for p, g in zip(plist, grads)],
-                _tree_map(lambda t: t.detach(), new_state))
+            value, new_state, *extra = (loss or self._step_loss)(
+                params, net_state, *inputs)
+            grads = torch.autograd.grad(value, plist, allow_unused=True)
+        return (value, [torch.zeros_like(p) if g is None else g
+                        for p, g in zip(plist, grads)],
+                _tree_map(lambda t: t.detach(), new_state), *extra)
 
     def _train_step(self, *inputs, grad_step=None):
         """One whole step on the live trees: `_grad_step`, the updater,
@@ -842,7 +858,8 @@ class Model(nn.Module):
         them as Python floats; else a device tensor).  ``grad_step``: the
         forward and backward to run (the registered `_step_program`,
         which counts a dispatch, by default).  Returns the loss and the
-        updater's new state (its counts advanced)."""
+        updater's new state (its counts advanced), then whatever else
+        the grad step returned."""
         *arrays, keys, vals = inputs
         if isinstance(keys, torch.Tensor):
             keys = [(k[0], k[1]) for k in keys]
@@ -850,7 +867,7 @@ class Model(nn.Module):
             vals = [vals[i] for i in range(vals.shape[0])]
         params = self.params
         plist = self._trainable_leaves(params)
-        loss, grads, new_state = (grad_step or self._step_program())(
+        loss, grads, new_state, *extra = (grad_step or self._step_program())(
             params, self.net_state, *arrays, keys)
         # from here the live trees are written in place: a failure
         # leaves them torn until `_updating` clears
@@ -861,7 +878,7 @@ class Model(nn.Module):
                 p.add_(u.to(p.dtype))
             _copy_state(self.net_state, new_state)
         self._updating = False
-        return loss.detach(), opt_state
+        return (loss.detach(), opt_state, *extra)
 
     def fit_batch(self, batch) -> None:
         """One optimizer step on ``batch``."""
@@ -904,26 +921,36 @@ class Model(nn.Module):
             self.last_batch_size = batches[-1].num_examples
             self._finish_steps(losses_k, k)
 
+    @staticmethod
+    def _signature(inputs: tuple) -> tuple:
+        """A step's graph key: the shape and dtype of each input (None
+        where a mask is absent)."""
+        return tuple(None if t is None else (tuple(t.shape), t.dtype)
+                     for t in inputs)
+
+    def _new_graph(self, inputs: tuple, program=None, bare=None):
+        """`_capture` of the step at ``inputs``, kept under its signature.
+        A failed warm-up or capture (a device OOM) leaves no half-built
+        program: the capture stream is drained and its cached blocks go
+        back before the error goes on."""
+        try:
+            prog = self._capture(inputs, program, bare)
+        except BaseException:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+            raise
+        self._captured[self._signature(inputs)] = prog
+        return prog
+
     def _run_steps_cuda(self, batches: list) -> torch.Tensor:
         staged = _Staged(self, batches)
         out = torch.empty(len(batches), dtype=torch.float32, device=self.device)
         first = 0
         if self.capture_steps:
-            sig = tuple(None if t is None else (tuple(t.shape), t.dtype)
-                        for t in staged.step(0))
-            prog = self._captured.get(sig)
+            prog = self._captured.get(self._signature(staged.step(0)))
             if prog is None:
-                try:
-                    prog = self._capture(staged.step(0))
-                except BaseException:
-                    # a failed warm-up or capture (a device OOM): no
-                    # half-built program stays, the capture stream is
-                    # drained and its cached blocks go back before a retry
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
-                        torch.cuda.empty_cache()
-                    raise
-                self._captured[sig] = prog
+                prog = self._new_graph(staged.step(0))
                 first = 1
                 out[0].copy_(prog.inputs[-1])
                 self.opt_state = advance_counts(self.opt_state)
@@ -942,27 +969,33 @@ class Model(nn.Module):
             self.opt_state = advance_counts(self.opt_state)
         return out
 
-    def _capture(self, inputs: tuple):
+    def _capture(self, inputs: tuple, program=None, bare=None):
         """The step program as a CUDA graph over static copies of
         ``inputs`` (a staged step's), in the pool and on the stream of
         the model's other step graphs.  Its warm-up (`CapturedProgram`)
         is that step itself, run eagerly on the capture stream, and
         counts as the step's dispatch; the capture records the step
-        without running it, so it calls the bare `_grad_step`.  Every
-        run's loss lands in the last input, a static slot.  The warm-up's
-        cached activations are released before the capture, so the card
-        does not hold a step's memory twice."""
+        without running it, so it calls the bare grad step (``bare``,
+        `_grad_step` by default, where ``program``, `_step_program` by
+        default, is its registered form).  Every run's loss lands in the
+        last input, a static slot; what else the grad step returns (a
+        window's new carries) is the graph's static outputs.  The
+        warm-up's cached activations are released before the capture, so
+        the card does not hold a step's memory twice."""
         from deeplearning4j_tpu_torch.runtime.graphs import CapturedProgram
 
         def step(*args):
             *step_inputs, slot = args
-            bare = torch.cuda.is_current_stream_capturing()
-            slot.copy_(self._train_step(
-                *step_inputs, grad_step=self._grad_step if bare else None)[0])
-            if not bare:
+            capturing = torch.cuda.is_current_stream_capturing()
+            loss, _, *extra = self._train_step(
+                *step_inputs, grad_step=(bare or self._grad_step) if capturing
+                else program)
+            slot.copy_(loss)
+            if not capturing:
                 # the warm-up's activations are free now: hand their
                 # blocks back, or the graph's own pool holds them again
                 torch.cuda.empty_cache()
+            return tuple(extra)
 
         inputs = tuple(None if t is None else t.clone() for t in inputs)
         slot = torch.empty((), dtype=torch.float32, device=self.device)
@@ -1011,21 +1044,31 @@ class Model(nn.Module):
             # has no on_fit_end
             getattr(lst, "on_fit_end", lambda m: None)(self)
 
-    def _fit_epoch_multi(self, iterator, spe: int) -> None:
-        """JAX ``_fit_epoch_multi``: groups of ``spe`` batches.  A group
-        stages its masks beside its batches; one whose shapes differ, or
-        whose batches differ in having a mask, steps batch by batch (the
-        JAX package steps every masked batch alone: the same steps)."""
+    def _group_runner(self, batches):
+        """The program that runs ``batches`` as one group, or None: step
+        them batch by batch.  A group stages its masks beside its
+        batches; one whose shapes differ, or whose batches differ in
+        having a mask, steps batch by batch (the JAX package steps every
+        masked batch alone: the same steps)."""
         def sig(b):
             return tuple(None if a is None else tuple(np.shape(a))
                          for a in self._batch_arrays(b))
 
+        first = sig(batches[0])
+        if all(sig(b) == first for b in batches):
+            return self._run_steps
+        return None
+
+    def _fit_epoch_multi(self, iterator, spe: int) -> None:
+        """JAX ``_fit_epoch_multi``: groups of ``spe`` batches, each run
+        by `_group_runner`'s program or batch by batch."""
         buf: list = []
         for batch in self._timed_batches(iterator):
             buf.append(self._as_batch(batch))
             if len(buf) == spe:
-                if all(sig(b) == sig(buf[0]) for b in buf):
-                    self._fit_group(buf, self._run_steps)
+                runner = self._group_runner(buf)
+                if runner is not None:
+                    self._fit_group(buf, runner)
                 else:
                     for b in buf:
                         self._fit_one(b)

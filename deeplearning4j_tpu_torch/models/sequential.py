@@ -28,9 +28,23 @@ quantized model), and a quantized site counts its implementation once a
 program signature (`program_run`, `ops/dequant_matmul.py`).
 
 Masks.  A (B, T) features mask (1 on real steps) reaches every layer
-with ``ACCEPTS_MASK`` (attention keys, `GlobalPooling`) until the time
-axis collapses, in ``output``, ``score``, ``evaluate``, ``predict``,
-``feed_forward`` and training, as in the JAX package.
+with ``ACCEPTS_MASK`` (attention keys, `GlobalPooling`, the recurrent
+layers) until the time axis collapses, in ``output``, ``score``,
+``evaluate``, ``predict``, ``feed_forward`` and training, as in the JAX
+package.
+
+Recurrent layers (`nn/conf/recurrent.py`).  A run of two or more
+consecutive recurrent layers steps in one time loop (`_find_rnn_runs`,
+`fused_rnn_scan`), exactly where the JAX package fuses: the fused and
+layer-by-layer forms sum in different orders.  The forward takes
+optional initial carries and returns the final ones, named by layer
+(`_forward`).  Truncated BPTT (``conf.tbptt_length``, `_run_tbptt`)
+splits a batch's time axis into windows, one optimizer step a window,
+the carries flowing from window to window as values; on the card a
+window is one replay of a captured step whose carries are static
+inputs and outputs.  ``fit(..., steps_per_execution=K)`` runs K batches
+as K x W window steps.  `rnn_time_step` streams inference, its carries
+kept across calls; on the card each chunk signature is one graph.
 
 A training step is the JAX step written out: forward, data loss (the
 output layer's own loss, or a loss of `nn/losses.py`), plus the l1 / l2
@@ -55,6 +69,8 @@ level), the order of the optax state's leaves in a checkpoint.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -74,12 +90,19 @@ from deeplearning4j_tpu_torch.models._common import (
 # here too
 from deeplearning4j_tpu_torch.models.model import (  # noqa: F401
     Model,
+    _Staged,
     as_tensor,
     tree_leaves,
 )
 from deeplearning4j_tpu_torch.nn import losses
 from deeplearning4j_tpu_torch.nn.activations import Activation
-from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
+from deeplearning4j_tpu_torch.nn.conf.recurrent import (
+    Bidirectional,
+    RecurrentLayerConfig,
+    fused_rnn_scan,
+)
+from deeplearning4j_tpu_torch.nn.updaters import advance_counts, with_gradient_clipping
+from deeplearning4j_tpu_torch.observe.trace import step_scope
 from deeplearning4j_tpu_torch.runtime import rng
 from deeplearning4j_tpu_torch.runtime.backend import backend, resolve_device
 
@@ -121,6 +144,56 @@ class SequentialModel(Model):
         self.f32_layers = frozenset(l.name for l in conf.layers if l.F32_PARAMS)
         # frozen layers take no update (JAX mask_frozen_tx)
         self._frozen = frozenset(l.name for l in conf.layers if l.frozen)
+        self._rnn_runs = self._find_rnn_runs()
+        # rnn_time_step: the carries between calls, and on the card one
+        # graph a chunk signature over the compute tree they were
+        # captured on
+        self._rnn_stream_state: dict = {}
+        self._rnn_graphs: dict = {}
+        self._rnn_params = None
+
+    def _find_rnn_runs(self) -> dict[int, int]:
+        """Maximal runs (start index -> length) of two or more consecutive
+        recurrent layers that step in one time loop: no dropout on a
+        member after the first (a fused run applies only the first
+        layer's) and no flatten inside (JAX ``_find_rnn_runs``)."""
+        layers = self.conf.layers
+        flat = self._flatten_before or [False] * len(layers)
+        runs, i = {}, 0
+        while i < len(layers):
+            if not isinstance(layers[i], RecurrentLayerConfig):
+                i += 1
+                continue
+            j = i + 1
+            while (j < len(layers) and isinstance(layers[j], RecurrentLayerConfig)
+                   and not layers[j].dropout_rate and not flat[j]):
+                j += 1
+            if j - i >= 2:
+                runs[i] = j - i
+            i = j
+        return runs
+
+    @property
+    def _recurrent(self) -> list:
+        """The recurrent layers, in stack order: whose carries a window
+        or a stream holds."""
+        return [l for l in self.conf.layers if isinstance(l, RecurrentLayerConfig)]
+
+    def _init_carries(self, batch: int) -> dict:
+        """Zero carries of every recurrent layer, in the compute dtype
+        (JAX ``_init_carries``; the TBPTT program's ``cdtype``)."""
+        return {l.name: l.init_carry(batch, self.compute_dtype, self.device)
+                for l in self._recurrent}
+
+    def _flatten_carries(self, carries: dict) -> list:
+        return [t for l in self._recurrent for t in carries[l.name]]
+
+    def _unflatten_carries(self, flat) -> dict:
+        out, i = {}, 0
+        for l in self._recurrent:
+            out[l.name] = tuple(flat[i:i + l.CARRY])
+            i += l.CARRY
+        return out
 
     def _types(self):
         if self._itypes is None:
@@ -150,7 +223,8 @@ class SequentialModel(Model):
         return [rng.fold_in(key, i) for i in range(len(self.conf.layers))]
 
     def _layer_outputs(self, params: dict, net_state: dict, features, *,
-                       training: bool = False, keys=None, fmask=None):
+                       training: bool = False, keys=None, fmask=None,
+                       carries=None, new_carries=None, fuse: bool = True):
         """Run the stack, yielding (layer, output, new state) layer by
         layer.  Inputs take the compute dtype (`entry_cast`); a
         feed-forward layer after convolutional maps sees them flattened.
@@ -158,38 +232,75 @@ class SequentialModel(Model):
         ``ACCEPTS_MASK`` until the time axis collapses (JAX
         ``_forward``).  In training, layer i draws its dropout from
         ``keys[i]`` (`_layer_keys`: two Python ints, or two device
-        scalars)."""
+        scalars).  ``carries``: {layer name: carry}, where recurrent
+        layers start (zeros for a name it lacks); their final carries
+        land in the dict ``new_carries``.  A run of recurrent layers
+        (`_find_rnn_runs`) steps in one time loop, drawing dropout from
+        its first layer's key, and yields once, as its last layer,
+        unless ``fuse`` is False."""
         x = entry_cast(as_tensor(features, self.device), self.compute_dtype)
         mask = None if fmask is None else as_tensor(fmask, self.device)
-        n = len(self.conf.layers)
+        layers = self.conf.layers
+        n = len(layers)
         flatten = self._flatten_before or [False] * n
         itypes = self._itypes or [None] * n
-        for i, layer in enumerate(self.conf.layers):
+        runs = self._rnn_runs if fuse else {}
+
+        def carry_of(layer, x):
+            c = None if carries is None else carries.get(layer.name)
+            return c if c is not None else layer.init_carry(
+                x.shape[0], x.dtype, x.device)
+
+        i = 0
+        while i < n:
+            layer = layers[i]
             if flatten[i]:
                 x = x.reshape(x.shape[0], -1)
-            kw = {"mask": mask} if layer.ACCEPTS_MASK else {}
-            x, ns = layer.apply(params.get(layer.name, {}),
-                                net_state.get(layer.name, {}), x,
-                                training=training,
-                                rng=keys[i] if keys is not None else None, **kw)
+            key = keys[i] if keys is not None else None
+            run = runs.get(i, 0)
+            if run >= 2:
+                lys = layers[i:i + run]
+                x, fins = fused_rnn_scan(
+                    lys, [params.get(l.name, {}) for l in lys], x,
+                    [carry_of(l, x) for l in lys], mask, training=training, rng=key)
+                if carries is not None:
+                    new_carries.update((l.name, f) for l, f in zip(lys, fins))
+                yield lys[-1], x, {}
+                i += run
+                continue
+            lp = params.get(layer.name, {})
+            if carries is not None and isinstance(layer, RecurrentLayerConfig):
+                x, new_carries[layer.name] = layer.apply_with_carry(
+                    lp, x, carry_of(layer, x), mask=mask, training=training, rng=key)
+                ns = {}
+            else:
+                kw = {"mask": mask} if layer.ACCEPTS_MASK else {}
+                x, ns = layer.apply(lp, net_state.get(layer.name, {}), x,
+                                    training=training, rng=key, **kw)
             yield layer, x, ns
             # once the time axis collapses (RNN -> FF), the mask is spent
             it = itypes[i]
             if (mask is not None and it is not None and it.kind == "rnn"
                     and layer.output_type(it).kind != "rnn"):
                 mask = None
+            i += 1
 
     def _forward(self, params: dict, net_state: dict, features, *,
-                 training: bool = False, keys=None, fmask=None):
+                 training: bool = False, keys=None, fmask=None, carries=None):
         """The layer stack on ``params`` (already in the compute dtype)
         and ``net_state``; returns (output, new state of the layers that
-        have one).  See `_layer_outputs`."""
+        have one), and the final carries third when ``carries`` (initial
+        ones, {layer name: carry}) is given.  See `_layer_outputs`."""
         x, new_state = None, {}
+        new_carries = None if carries is None else {}
         for layer, x, ns in self._layer_outputs(params, net_state, features,
                                                 training=training, keys=keys,
-                                                fmask=fmask):
+                                                fmask=fmask, carries=carries,
+                                                new_carries=new_carries):
             if ns:
                 new_state[layer.name] = ns
+        if carries is not None:
+            return x, new_state, new_carries
         return x, new_state
 
     def _out_activation(self) -> Activation:
@@ -251,9 +362,11 @@ class SequentialModel(Model):
     @torch.no_grad()
     def feed_forward(self, features, features_mask=None) -> list:
         """Every layer's activations (reference `feedForward()`), in the
-        compute dtype; an inspection path."""
+        compute dtype, each recurrent layer's on its own; an inspection
+        path."""
         return [x for _, x, _ in self._layer_outputs(
-            self.compute_params(), self.net_state, features, fmask=features_mask)]
+            self.compute_params(), self.net_state, features, fmask=features_mask,
+            fuse=False)]
 
     def _data_loss(self, params: dict, out, labels, lmask):
         last = self.conf.layers[-1]
@@ -332,28 +445,304 @@ class SequentialModel(Model):
                                    [(l.name, l) for l in self.conf.layers])
 
     def _step_loss(self, params: dict, net_state: dict, features, labels,
-                   lmask=None, fmask=None, keys=None):
+                   lmask=None, fmask=None, keys=None, carries=None):
         """The step's objective (JAX ``_step_loss``): data loss + l1 / l2
         penalty + the layers' auxiliary losses, summed in that order
-        (`_step_loss_parts`).  Returns (loss, the layers' new state)."""
-        data, reg, aux, new_state = self._step_loss_parts(
-            params, net_state, features, labels, lmask, fmask, keys)
-        return data + reg + aux, new_state
+        (`_step_loss_parts`).  Returns (loss, the layers' new state), and
+        the final carries third when ``carries`` is given."""
+        data, reg, aux, new_state, *rest = self._step_loss_parts(
+            params, net_state, features, labels, lmask, fmask, keys, carries)
+        return (data + reg + aux, new_state, *rest)
 
     def _step_loss_parts(self, params: dict, net_state: dict, features, labels,
-                         lmask=None, fmask=None, keys=None):
+                         lmask=None, fmask=None, keys=None, carries=None):
         """Forward, then the data loss, the l1 / l2 penalty and the layers'
         auxiliary losses apart, on the f32 master tree ``params``: the
         layers see it cast to the compute dtype inside the graph (but
         ``F32_PARAMS`` layers the masters); the output layer's own loss
         (the chunked head) and the penalty see the masters, as the JAX
         package's do.  Returns (data, penalty, aux, the layers' new state
-        with the aux entries popped)."""
-        out, new_state = self._forward(self.cast_tree(params, detach=False),
-                                       net_state, features, training=True,
-                                       keys=keys, fmask=fmask)
+        with the aux entries popped), and the final carries fifth when
+        ``carries`` is given."""
+        out, new_state, *rest = self._forward(
+            self.cast_tree(params, detach=False), net_state, features,
+            training=True, keys=keys, fmask=fmask, carries=carries)
         data_loss = self._data_loss(params, out, labels, lmask)
         aux, new_state = pop_aux_losses(new_state)
-        return data_loss, self._reg_loss(params), aux, new_state
+        return (data_loss, self._reg_loss(params), aux, new_state, *rest)
 
 
+
+    # -- truncated BPTT ----------------------------------------------------
+    @property
+    def _tbptt(self) -> bool:
+        return self.conf.backprop_type == "tbptt" and self.conf.tbptt_length > 0
+
+    def fit_batch(self, batch) -> None:
+        """One optimizer step on ``batch``; under truncated BPTT one a
+        window of ``conf.tbptt_length`` steps (`_run_tbptt`)."""
+        if self._tbptt:
+            self._run_tbptt([self._as_batch(batch)])
+        else:
+            super().fit_batch(batch)
+
+    def _group_runner(self, batches):
+        """Under truncated BPTT a group runs as K x W window steps
+        (`_run_tbptt`) when its batches share features and labels shapes,
+        carry no mask and split into whole windows; else batch by batch,
+        where the JAX package's ``_fit_epoch_multi`` flushes them too.
+        (The JAX package also keeps a switch, ``_tbptt_scan``, that forces
+        per-window programs around an XLA miscompile of its window scan;
+        the port runs no scan and needs none.)"""
+        if not self._tbptt:
+            return super()._group_runner(batches)
+        f0, l0 = np.shape(batches[0].features), np.shape(batches[0].labels)
+        if any(tuple(np.shape(b.features)) != tuple(f0)
+               or tuple(np.shape(b.labels)) != tuple(l0)
+               or b.features_mask is not None or b.labels_mask is not None
+               for b in batches):
+            return None
+        if f0[1] % self.conf.tbptt_length:
+            return None
+        return self._run_tbptt
+
+    def _check_tbptt(self, batch) -> None:
+        """The JAX package's refusals, with its messages."""
+        t = np.shape(batch.features)[1]
+        if self.conf.output_type().kind != "rnn":
+            raise ValueError(
+                "TBPTT requires a per-timestep output (RnnOutputLayer); this "
+                "network collapses the time axis — use standard backprop")
+        if any(isinstance(l, Bidirectional) for l in self.conf.layers):
+            raise ValueError(
+                "TBPTT is undefined for bidirectional networks (the backward "
+                "direction crosses window boundaries) — use standard backprop")
+        lshape = np.shape(batch.labels)
+        if len(lshape) < 2 or lshape[1] != t:
+            raise ValueError(
+                "TBPTT needs per-timestep labels with a (B, T, ...) time "
+                f"axis matching features; got {tuple(lshape)} for T={t}")
+
+    def _window_loss(self, params: dict, net_state: dict, features, labels,
+                     lmask, fmask, *rest):
+        """The objective of one truncated-BPTT window; ``rest`` is the
+        window's carries, flat in `_flatten_carries` order, then the
+        keys.  Returns (loss, the layers' new state, the new carries flat
+        and detached: the window boundary stops the gradient)."""
+        *flat, keys = rest
+        loss, new_state, new_carries = self._step_loss(
+            params, net_state, features, labels, lmask, fmask, keys,
+            carries=self._unflatten_carries(flat))
+        return loss, new_state, tuple(t.detach() for t in
+                                      self._flatten_carries(new_carries))
+
+    def _window_program(self, key: tuple):
+        """The window step (`_grad_step` over `_window_loss`), registered
+        with the cost registry under the JAX package's key on first use:
+        ``("train_tbptt", has_lmask, has_fmask)`` for a batch,
+        ``("train_tbptt_grouped",)`` for a group."""
+        fn = self._step_fns.get(key)
+        if fn is None:
+            from deeplearning4j_tpu_torch.observe import cost
+
+            fn = self._step_fns[key] = cost.register_step_program(
+                self, key, functools.partial(self._grad_step, loss=self._window_loss))
+        return fn
+
+    def _run_tbptt(self, batches: list) -> None:
+        """Truncated BPTT on ``batches`` (one, or a group of one shape):
+        each batch's time axis in windows of ``tbptt_length`` steps, and
+        a remainder window after them when the length does not divide T.
+        Each window is one optimizer step with its own loss and dropout
+        keys (step ``iteration + i``), its carries the previous window's
+        final ones as values; every batch starts from zero carries.  One
+        program of all the windows (JAX ``_get_step_fn_tbptt`` and its
+        grouped form): the listeners see each window as an iteration,
+        and the step scope counts each window's work."""
+        self._prepare(batches)
+        for b in batches:
+            self._check_tbptt(b)
+        size = self.conf.tbptt_length
+        t = int(np.shape(batches[0].features)[1])
+        w, rem = divmod(t, size)
+        bounds = [(i * size, (i + 1) * size) for i in range(w)] + (
+            [(w * size, t)] if rem else [])
+        n = len(batches) * len(bounds)
+        first = batches[0]
+        key = (("train_tbptt_grouped",) if len(batches) > 1 else
+               ("train_tbptt", first.labels_mask is not None,
+                first.features_mask is not None))
+        program = self._window_program(key)
+        with step_scope(self, n) as scope:
+            if self.device.type == "cuda":
+                losses = self._tbptt_cuda(batches, bounds, program)
+            else:
+                losses = self._tbptt_eager(batches, bounds, program)
+            scope.sync(losses)
+            self._compute = None
+            self.last_batch_size = batches[-1].num_examples
+            self._finish_steps(losses, n)
+
+    def _tbptt_eager(self, batches, bounds, program) -> torch.Tensor:
+        out, s = [], 0
+        for b in batches:
+            flat = self._flatten_carries(self._init_carries(np.shape(b.features)[0]))
+            arrays = self._batch_arrays(b)
+            for t0, t1 in bounds:
+                window = [None if a is None else a[:, t0:t1] for a in arrays]
+                loss, self.opt_state, flat = self._train_step(
+                    *window, *flat, self._layer_keys(self.iteration + s), None,
+                    grad_step=program)
+                out.append(loss)
+                s += 1
+        return torch.stack(out)
+
+    def _tbptt_cuda(self, batches, bounds, program) -> torch.Tensor:
+        """The windows on the card from inputs staged once (the batches,
+        every window's keys and step values).  Each window is a replay of
+        the captured window step of its signature (the remainder window
+        has its own), or with ``capture_steps = False`` the same program
+        eagerly.  A graph's carries are static inputs and its new carries
+        static outputs: between replays the next window's carries are a
+        device-to-device copy of them, and a batch's first window zeros
+        its carry inputs.  Nothing here waits on the card."""
+        staged = _Staged(self, batches, n_steps=len(batches) * len(bounds))
+        out = torch.empty(len(batches) * len(bounds), dtype=torch.float32,
+                          device=self.device)
+        zeros = tuple(self._flatten_carries(
+            self._init_carries(staged.arrays[0].shape[1])))
+        n_arrays, n_carries = len(staged.arrays), len(zeros)
+        bare = functools.partial(self._grad_step, loss=self._window_loss)
+        rec = program._cost_record
+        s = 0
+        for k in range(len(batches)):
+            flat = zeros
+            for w, (t0, t1) in enumerate(bounds):
+                window = tuple(None if a is None else a[k][:, t0:t1]
+                               for a in staged.arrays)
+                inputs = window + tuple(flat) + (staged.keys[s], staged.vals[s])
+                if not self.capture_steps:
+                    # the counts advance below, as after a replay
+                    loss, _, flat = self._train_step(*inputs, grad_step=program)
+                    out[s].copy_(loss)
+                else:
+                    prog = self._captured.get(self._signature(inputs))
+                    if prog is None:
+                        prog = self._new_graph(inputs, program, bare)
+                        (flat,) = prog.warmup_outputs
+                    else:
+                        for i, (dst, src) in enumerate(zip(prog.inputs, inputs)):
+                            if dst is None:
+                                continue
+                            if w == 0 and n_arrays <= i < n_arrays + n_carries:
+                                dst.zero_()
+                            else:
+                                dst.copy_(src)
+                        (flat,) = prog.replay()
+                        self._cost_program = rec
+                        rec.dispatches += 1
+                    out[s].copy_(prog.inputs[-1])
+                self.opt_state = advance_counts(self.opt_state)
+                s += 1
+        return out
+
+    def _reset_carries(self) -> None:
+        """Zero the carry inputs of the captured window steps: a batch
+        that failed between windows (a rollback, an OOM split) leaves no
+        carries a later replay could read.  Every batch zeros them at its
+        first window anyway (JAX recovery resets its TBPTT state there)."""
+        for prog in self._captured.values():
+            if prog.outputs:             # a window step: (its new carries,)
+                n = len(prog.outputs[0])
+                # the inputs: features, labels, two masks, the carries, ...
+                for dst in prog.inputs[4:4 + n]:
+                    dst.zero_()
+
+    # -- streaming inference (rnnTimeStep) ---------------------------------
+    def _rnn_program(self):
+        """`_rnn_step`, registered under the JAX package's key."""
+        fn = self._step_fns.get(("rnn_step",))
+        if fn is None:
+            from deeplearning4j_tpu_torch.observe import cost
+
+            fn = self._step_fns[("rnn_step",)] = cost.register_step_program(
+                self, ("rnn_step",), self._rnn_step)
+        return fn
+
+    def _rnn_step(self, params: dict, net_state: dict, features, *flat):
+        """One streamed chunk: the stack from the carries ``flat``
+        (`_flatten_carries` order) on the compute tree ``params``.
+        Returns (the output activation of the last layer, in f32; the new
+        carries flat).  Pure."""
+        x = as_tensor(features, self.device)
+        with self.program_run("rnn_step", tuple(x.shape), x.dtype):
+            out, _, new = self._forward(params, net_state, x,
+                                        carries=self._unflatten_carries(flat))
+        return self._out_activation()(out.float()), tuple(self._flatten_carries(new))
+
+    @torch.no_grad()
+    def rnn_time_step(self, features) -> torch.Tensor:
+        """Streaming inference (the reference's ``rnnTimeStep``): a chunk
+        (B, T, F) from the carries the previous call left, which it
+        replaces; the output activation applied, in f32.  On the card
+        each chunk signature is one CUDA graph whose carry inputs are the
+        stream's state itself (the graph writes the new carries over
+        them), so char-by-char generation is a replay a character."""
+        if self.params is None:
+            self.init()
+        if any(isinstance(l, Bidirectional) for l in self.conf.layers):
+            raise ValueError(
+                "rnn_time_step is undefined for bidirectional networks (the "
+                "backward pass needs the full future sequence) — use output()")
+        x = as_tensor(features, self.device)
+        if not self._rnn_stream_state:
+            self._rnn_stream_state = self._init_carries(x.shape[0])
+            self._rnn_graphs = {}
+        flat = self._flatten_carries(self._rnn_stream_state)
+        if flat and flat[0].shape[0] != x.shape[0]:
+            raise ValueError(
+                f"rnn_time_step: a chunk of batch {x.shape[0]} against a stream "
+                f"state of batch {flat[0].shape[0]}; call "
+                "rnn_clear_previous_state() first")
+        params, program = self.compute_params(), self._rnn_program()
+        if self.device.type != "cuda" or not self.capture_steps:
+            out, new = program(params, self.net_state, x, *flat)
+            for dst, src in zip(flat, new):
+                dst.copy_(src)
+            return out
+        if params is not self._rnn_params:        # new weights: new graphs
+            self._rnn_graphs, self._rnn_params = {}, params
+        sig = (tuple(x.shape), x.dtype)
+        prog = self._rnn_graphs.get(sig)
+        if prog is None:
+            from deeplearning4j_tpu_torch.runtime.graphs import CapturedProgram
+
+            def step(xin, *state):
+                capturing = torch.cuda.is_current_stream_capturing()
+                out, new = (self._rnn_step if capturing else program)(
+                    params, self.net_state, xin, *state)
+                for dst, src in zip(state, new):
+                    dst.copy_(src)
+                return out
+
+            other = next(iter(self._rnn_graphs.values()), None)
+            prog = self._rnn_graphs[sig] = CapturedProgram(
+                step, (x.clone(), *flat), keep=(params, self.net_state),
+                pool=other and other.graph.pool(), stream=other and other.stream)
+            return prog.warmup_outputs
+        prog.inputs[0].copy_(x)
+        out = prog.replay()
+        rec = program._cost_record
+        self._cost_program = rec
+        rec.dispatches += 1
+        return out.clone()
+
+    def rnn_clear_previous_state(self) -> None:
+        """Forget the stream's carries: the next `rnn_time_step` starts
+        from zeros (and captures its graphs again)."""
+        self._rnn_stream_state = {}
+        self._rnn_graphs = {}
+
+    def _drop_graphs(self) -> None:
+        super()._drop_graphs()
+        self._rnn_graphs = {}

@@ -10,7 +10,7 @@ down the stack (`layer_input_types`), with the implicit CNN -> FF
 flatten where a feed-forward layer follows a convolutional one (the
 InputPreProcessor role, `flatten_flags`).  Fields the port cannot
 honour yet load all the same and raise when a model is built
-(`SequentialModel`): TBPTT (ROADMAP A8).
+(`SequentialModel`, `LayerConfig.check_supported`).
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ class SequentialConfiguration:
     bf16_compute: Optional[bool] = None
     # iterations per epoch, for epoch-based learning-rate schedules
     steps_per_epoch: int = 1
-    # "standard" or "tbptt" (truncated BPTT, ROADMAP A8)
+    # "standard" or "tbptt": truncated BPTT in windows of tbptt_length
+    # steps (`SequentialModel._run_tbptt`)
     backprop_type: str = "standard"
     tbptt_length: int = 0
 
@@ -57,10 +58,6 @@ class SequentialConfiguration:
     def check_supported(self) -> None:
         """Raise `NotImplementedError`, naming the ROADMAP item, for a
         setting this port cannot honour yet."""
-        if self.backprop_type == "tbptt" and self.tbptt_length > 0:
-            raise NotImplementedError(
-                "truncated BPTT is not ported yet (ROADMAP A8: recurrent "
-                "layers and TBPTT)")
         for layer in self.layers:
             layer.check_supported()
 
@@ -177,7 +174,8 @@ class NeuralNetConfiguration:
         return self
 
     def tbptt(self, length: int):
-        """Truncated BPTT windows (a model built from it raises: ROADMAP A8)."""
+        """Truncated BPTT in windows of ``length`` steps (the
+        BackpropType.TruncatedBPTT role)."""
         self._backprop_type = "tbptt"
         self._tbptt_length = int(length)
         return self

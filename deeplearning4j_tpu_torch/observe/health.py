@@ -99,7 +99,8 @@ class HealthListener(TrainingListener):
         self.last_update_norm: Optional[float] = None
         self._prev_params: Optional[torch.Tensor] = None
         # the model's step program count at the last check: a grouped
-        # program dispatches k listener calls after one update
+        # program (steps_per_execution, or a truncated-BPTT batch's
+        # windows) dispatches its k listener calls after all k updates
         self._last_seen_params = None
 
     def iteration_done(self, model, iteration, epoch, score):

@@ -12,7 +12,8 @@ on every call is one `replay`.
   pageable host-to-device copy cannot be captured, so nothing inside
   ``fn`` may copy from the host.
 - `outputs` are the tensors ``fn`` returned at capture; every replay
-  overwrites them in place.
+  overwrites them in place.  `warmup_outputs` are what the eager warm-up
+  returned: that run is a real call, and its results are its caller's.
 - ``keep`` holds what the graph read at capture (parameter tensors,
   kernel scratch): a graph replayed over freed memory reads garbage, so
   the owner re-captures when those objects change, and holds them until
@@ -56,7 +57,8 @@ class CapturedProgram:
         current = torch.cuda.current_stream(device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            fn(*self.inputs)               # warm-up: it runs, and counts
+            # warm-up: it runs, and counts
+            self.warmup_outputs = fn(*self.inputs)
         # capture_begin / capture_end, not the `torch.cuda.graph` context:
         # that one empties the allocator's cache first, and every eager
         # allocation after it (the next prefills) pays cudaMalloc again.

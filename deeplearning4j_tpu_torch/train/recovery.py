@@ -34,7 +34,9 @@ failures into bounded, observable recoveries:
   (``dl4jtpu_quarantined_batches_total``); past the cap the policy fails
   loudly.
 
-Every event is counted under ``dl4jtpu_recovery_events_total{kind}``.
+After a rollback or an OOM a truncated-BPTT model's carries start from
+zeros again (`SequentialModel._reset_carries`).  Every event is counted
+under ``dl4jtpu_recovery_events_total{kind}``.
 Single-process models only; the ZeRO re-wrap and the re-placement of
 restored trees onto a distributed model's shardings wait for ROADMAP
 A11.
@@ -124,6 +126,15 @@ def _checkpoint_params_nonfinite(path: str) -> bool:
     from deeplearning4j_tpu_torch.train.checkpoint import params_nonfinite
 
     return params_nonfinite(path)
+
+
+def _reset_carries(model) -> None:
+    """A truncated-BPTT model's carries start again from zeros (JAX: the
+    policy resets the model's TBPTT state after a rollback or a failed
+    step)."""
+    reset = getattr(model, "_reset_carries", None)
+    if reset is not None:
+        reset()
 
 
 def _release_cached(model) -> None:
@@ -357,6 +368,7 @@ class RecoveryPolicy:
         self._grouped_oom = True
         self._cold_watchdog(model)   # a per-batch program: a new capture
         _release_cached(model)
+        _reset_carries(model)
         if self._buffers_deleted(model) and not self._restore_arrays(model):
             raise RuntimeError("a grouped OOM tore the live trees and no valid "
                                "checkpoint can restore them")
@@ -412,6 +424,7 @@ class RecoveryPolicy:
             log.error("divergence with no finite valid checkpoint to roll back to")
             raise exc
         self._repin(entry["step"])
+        _reset_carries(model)
         self.lr_scale *= self.lr_backoff
         model._tx = tx = _LrScaledTx(self._base_tx, self.lr_scale)
         if tx.recapture:
@@ -534,6 +547,7 @@ class RecoveryPolicy:
             # out of the handler: the failed step's frames (and the device
             # memory they hold) are gone
             _release_cached(model)
+            _reset_carries(model)
             if self._buffers_deleted(model):
                 if not self._restore_arrays(model):
                     raise RuntimeError("an OOM tore the live trees and no valid "

@@ -9,9 +9,9 @@ JAX package's tags (the class names), with its field names, defaults and
 enum values, so one ``configuration.json`` reads and writes in both
 packages.
 
-A tag the JAX package has and the port does not yet (a recurrent layer,
-...) raises `NotImplementedError` naming the ROADMAP item
-that ports it; a tag neither package knows raises `KeyError`.
+A tag the JAX package has and the port does not yet (a long-tail
+layer, ...) raises `NotImplementedError` naming the ROADMAP item that
+ports it; a tag neither package knows raises `KeyError`.
 """
 
 from __future__ import annotations
@@ -24,19 +24,13 @@ from typing import Any
 
 _REGISTRY: dict[str, type] = {}
 
-_RECURRENT = "A8: recurrent layers"
 _LONG_TAIL = "A13: the long tail"
 #: JAX package tags the port has no class for yet, and where each waits
-UNPORTED = {
-    **dict.fromkeys(("LSTM", "GravesLSTM", "GRU", "SimpleRnn", "Bidirectional",
-                     "LastTimeStep", "TimeDistributed", "ConvLSTM2D"),
-                    _RECURRENT),
-    **dict.fromkeys(("LossLayer", "ScaleShift", "SeparableConv2D", "Deconv2D",
-                     "SpaceToDepth", "Upsampling2D",
-                     "LocalResponseNormalization", "CenterLossOutputLayer",
-                     "Yolo2OutputLayer", "AutoEncoder",
-                     "VariationalAutoencoder", "TrainingConfig"), _LONG_TAIL),
-}
+UNPORTED = dict.fromkeys(("LossLayer", "ScaleShift", "SeparableConv2D", "Deconv2D",
+                          "SpaceToDepth", "Upsampling2D",
+                          "LocalResponseNormalization", "CenterLossOutputLayer",
+                          "Yolo2OutputLayer", "AutoEncoder",
+                          "VariationalAutoencoder", "TrainingConfig"), _LONG_TAIL)
 
 
 def register(cls=None, *, name: str | None = None):

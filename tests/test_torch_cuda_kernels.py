@@ -88,7 +88,11 @@ classifier over batches whose masks differ (one capture) against the
 eager step, bit for bit.  The ResNet-50 slice: a narrow ResNet in f32
 on the card against the CPU (``output()`` within 1e-5 of max p, 3 steps'
 losses within 1e-5), a graph step after `load_params`, and side-stream
-staging (pinned memory, an event) bit for bit.
+staging (pinned memory, an event) bit for bit.  The recurrent slice: a
+small GravesLSTM char-RNN under truncated BPTT with
+``steps_per_execution=2``: the captured window steps against the same
+windows run eagerly, bit for bit, with the graph's carry inputs filled
+with NaN between groups (each batch's first window zeros them).
 """
 
 import dataclasses
@@ -1551,3 +1555,48 @@ def test_a_host_snapshot_keeps_its_bytes_after_a_replay(cuda):
         assert not b.is_cuda and torch.equal(a, b) and torch.equal(b, c)
     assert any(not torch.equal(b, now.detach().cpu())
                for b, now in zip(tree_leaves(snap.params), tree_leaves(m.params)))
+
+
+def _tiny_char_rnn(device, bf16=True):
+    from deeplearning4j_tpu_torch.zoo.textgen import TextGenerationLSTM
+
+    conf = TextGenerationLSTM(vocab_size=11, hidden=24, tbptt_length=4).conf()
+    if not bf16:
+        conf = dataclasses.replace(conf, bf16_compute=False)
+    return SequentialModel(conf, device=device).init()
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_tbptt_captured_windows_equal_eager_and_zero_the_carries(cuda, bf16):
+    """T 12 in windows of 4, groups of 2 batches: 6 window steps a group,
+    one graph; the captured run equals the eager one bit for bit (every
+    window loss, parameters, Adam state), also after the graph's carry
+    inputs were poisoned with NaN: a batch's first window zeros them."""
+    eye = torch.eye(11, device=cuda)
+
+    def batch(seed):
+        ids = torch.from_numpy(np.random.default_rng(seed).integers(0, 11, (6, 13)))
+        ids = ids.to(cuda)
+        return DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]])
+
+    batches = [batch(i) for i in range(4)]
+    cap, eag = _tiny_char_rnn(cuda, bf16), _tiny_char_rnn(cuda, bf16)
+    eag.capture_steps = False
+    for group in (batches[:2], batches[2:]):
+        cap.fit(group, steps_per_execution=2)
+        eag.fit(group, steps_per_execution=2)
+        assert torch.equal(cap._last_score, eag._last_score)
+        (prog,) = cap._captured.values()
+        carry_inputs = prog.inputs[4:4 + len(prog.outputs[0])]
+        assert len(carry_inputs) == 4            # (h, c) of two layers
+        for t in carry_inputs:
+            t.fill_(float("nan"))
+    assert cap.iteration == eag.iteration == 12
+    assert bool(torch.isfinite(cap._last_score).all())
+    for a, b in zip(tree_leaves(cap.params), tree_leaves(eag.params)):
+        assert torch.equal(a, b)
+    for a, b in zip(state_leaves(cap.opt_state), state_leaves(eag.opt_state)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    cap._reset_carries()
+    assert all(bool((t == 0).all()) for t in carry_inputs)
+    assert cap.compile_stats()["step_programs"] == 1

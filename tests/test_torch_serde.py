@@ -149,9 +149,9 @@ def test_settings_the_port_cannot_run_load_and_raise_when_built():
     _both_ways(jconf, conf)
     with pytest.raises(NotImplementedError, match="A11"):
         SequentialModel(conf, device="cpu")
+    # truncated BPTT loads and builds since the recurrent slice (ROADMAP A8)
     tb = _stack("port", updaters.Sgd(), tbptt=8)
-    with pytest.raises(NotImplementedError, match="A8"):
-        SequentialModel(tb, device="cpu")
+    assert SequentialModel(tb, device="cpu").conf.tbptt_length == 8
     # a convolutional input type builds since the LeNet slice (ROADMAP A3)
     cnn = (NeuralNetConfiguration.builder().list()
            .layer(layers.Conv2D(n_out=2, kernel=(3, 3)))
@@ -185,9 +185,10 @@ def test_enum_fields_coerce_values_names_and_aliases():
 
 
 @pytest.mark.parametrize("tag,item", [("SeparableConv2D", "A13"), ("LossLayer", "A13"),
-                                      ("ConvLSTM2D", "A8"),
-                                      ("GravesLSTM", "A8"),
-                                      ("LSTM", "A8"), ("Yolo2OutputLayer", "A13")])
+                                      ("Deconv2D", "A13"),
+                                      ("SpaceToDepth", "A13"),
+                                      ("CenterLossOutputLayer", "A13"),
+                                      ("Yolo2OutputLayer", "A13")])
 def test_a_tag_the_port_lacks_names_its_roadmap_item(tag, item):
     jconf = (JaxNNC.builder().list().layer(jax_layers.Dense(n_out=4))
              .layer(jax_layers.OutputLayer(n_out=2))
