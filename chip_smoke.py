@@ -417,7 +417,42 @@ Then the phases:
    small widths in f32: ``output()`` within 1e-5 of max p of the CPU's,
    and a captured step against the eager one, bit for bit.  Writes under
    ``build/rnn/`` and removes it.
-17. report — one ``{"kernels": [...]}`` JSON line, then the last line
+17. dp — data parallelism (ROADMAP A11, first part), each world a set of
+   rank processes the phase spawns (`runtime/distributed.py` `spawn`; a
+   rank that fails fails the phase).  (a) One NCCL rank a visible card:
+   BASELINE config 5's model as bench.py's bench_scaling runs it (the
+   zoo's `ResNet50()`, 1000 classes, bf16, Adam 1e-3, 128 rows a card
+   of 224 x 224 x 3, numpy seed = the rank), through
+   `ParallelWrapper(model).fit(..., steps_per_execution=16)`: 2 captured
+   steps against the undistributed model's from the same seed (a world
+   of one: within 1e-6 of each leaf's largest element and of each
+   loss: every weight of the world of one is an exact 1.0; in a world of
+   more, every rank's parameters and BatchNorm state bit for bit after
+   the timed groups, each rank fed its own rows); then ms a
+   step and samples/s a rank, captured (1 warm-up + 3 timed groups, with
+   any host synchronisation an error) and eager (1 group), beside the
+   undistributed model's in the same call, peak memory of each, the
+   timed groups' compile taxes (no capture, no ``nvcc``), the loss
+   falling; 2 captured steps against 2 eager ones bit for bit; one
+   profiled group (the NCCL kernels' share of device time).  (c) The
+   flagship through `ParallelWrapper`: 2 warm-up and 6 measured steps,
+   exactly 8 launches each of B1, B2 and B3 a step, captured == eager,
+   tokens/s beside the undistributed step's.  (b) Two gloo ranks sharing
+   the card (eager steps: gloo collectives cannot be captured):
+   ResNet-50 in f32 with Nesterovs 1e-6 at 64 rows a rank, 3 steps,
+   against one undistributed model fed the 128-row concatenation (losses,
+   parameters and BatchNorm statistics within rtol 2e-4 / atol 2e-5,
+   every element; the first summed gradient within twice its own floor)
+   and the two ranks' replicas bit for bit; then at Nesterovs 1e-2 a
+   replicated run, ZeRO-1 and ZeRO-2 bit for bit against it, ZeRO-2
+   (grad_accum 2) and int8 compression within 0.05 of its last loss (the
+   JAX compression rule; BatchNorm statistics of microbatches and of a
+   rank's rows differ; their parameters' change against its change is
+   reported), the ZeRO runs holding less optimizer state a rank;
+   `write_model_distributed` of the ZeRO-1 model, restored on the card
+   equal to rank 1's parameters, layer state and gathered optimizer
+   state.  Writes under ``build/dp/`` and removes it.
+18. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -437,7 +472,8 @@ import sys
 import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
-          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "tools", "rnn")
+          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "tools", "rnn",
+          "dp")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -5922,6 +5958,621 @@ def phase_rnn(torch, np, kernels, timer):
     return res
 
 
+# -- data parallelism (ROADMAP A11, first part) ------------------------------------
+
+# (a) BASELINE config 5 through bench_scaling (`bench.py:1133-1240`): the
+# zoo's ResNet-50, 1000 classes, a per-card batch of 128 at 224 x 224 x 3,
+# bf16, Adam 1e-3, `steps_per_execution` 16; 2 batches staged on the card
+DP_BATCH, DP_BATCHES, DP_SPE, DP_GROUPS, DP_EAGER_GROUPS = 128, 2, 16, 3, 1
+DP_HW, DP_CLASSES = 224, 1000
+# (b) two gloo ranks on the one card: ResNet-50 in f32, 64 rows a rank, 3
+# steps.  Nesterovs, not Adam: a conv bias before a BatchNorm has a zero
+# exact gradient, and Adam turns its summation noise into rate-sized
+# steps that differ between any two summation orders (PR 14's finding).
+# Two rates.  The two ranks against the single model step at 1e-6:
+# ResNet-50's f32 gradient at random init is ill-conditioned (BatchNorm's
+# backward subtracts near-equal means): the same model's gradient on the
+# same 128 rows through cuDNN and through PyTorch's native convolutions
+# differs by 2.2% (relative L2), and two ranks' sum against the single
+# model by 1.9% (on an H100 80GB HBM3).  At 1e-2 and 1e-4 that noise moved
+# parameters by 0.059 and 3.7e-4 in 3 steps; at 1e-6 it stays below
+# rounding of the update, so those 3 steps test the forward, the
+# statistics and the update, and the gradient is held against its own
+# floor below.  ZeRO and int8 share the two ranks' summed gradient with
+# the replicated run, so they are held against a replicated run at 1e-2,
+# whose last loss must lie farther than the JAX compression rule's 0.05
+# from the 1e-6 run's (so a run that never updates fails that rule):
+# ZeRO-1 and ZeRO-2 bit for bit, ZeRO-2 with 2 microbatches and int8 by
+# that rule
+DP_GLOO_ROWS, DP_GLOO_STEPS = 64, 3
+DP_GLOO_LR, DP_GLOO_LR_ZERO = 1e-6, 1e-2
+# the first step's summed gradient against the single model's (relative
+# L2 of the flat gradient) may not exceed twice the larger of two floors
+# the same run measures: the single model's gradient through native
+# convolutions against cuDNN's, and on its rows with the two halves
+# swapped (the same function summed in other orders)
+DP_GRAD_FLOOR_X = 2.0
+# the JAX compression rule: within 0.05 of the exact run's score
+DP_COMP_GAP = 0.05
+DP_DIR = os.path.join("build", "dp")      # inside the checkout; removed after
+DP_DEVICE = "cuda"            # "cpu" only in a CPU rehearsal of the phase
+
+
+def _dp_groups(torch, fit, batches, groups, spe):
+    """``groups`` groups of ``spe`` steps over ``batches`` cycled through
+    ``fit(group)``; each group's losses (on the card)."""
+    out = []
+    for g in range(groups):
+        group = [batches[(g * spe + i) % len(batches)] for i in range(spe)]
+        out.append(fit(group))
+    return out
+
+
+def _dp_timed(torch, model, fit, batches, warm, groups, spe, quiet=False):
+    """``warm`` untimed groups, then ``groups`` timed ones (the card
+    synchronised at both ends): (every loss, ms a step, what the timed
+    groups captured and compiled).  ``quiet``: the timed groups run with
+    any host synchronisation an error."""
+    from deeplearning4j_tpu_torch.runtime import compile_stats
+
+    losses = _dp_groups(torch, fit, batches, warm, spe)
+    torch.cuda.synchronize()
+    snap = compile_stats.snapshot()
+    if quiet:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        losses += _dp_groups(torch, fit, batches, groups, spe)
+        if quiet:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    taxes = (compile_stats.snapshot() - snap).as_dict()
+    ls = torch.cat([x.reshape(-1) for x in losses]).float().cpu().numpy()
+    return ls, secs / (groups * spe) * 1e3, taxes
+
+
+def _dp_resnet_batches(torch, np, rows, seed=0):
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+    rng = np.random.default_rng(seed)
+    return [DataSet(torch.from_numpy(rng.normal(0, 1, (rows, DP_HW, DP_HW, 3))
+                                     .astype(np.float32)).to(DP_DEVICE),
+                    torch.from_numpy(np.eye(DP_CLASSES, dtype=np.float32)[
+                        rng.integers(0, DP_CLASSES, rows)]).to(DP_DEVICE))
+            for _ in range(DP_BATCHES)]
+
+
+def _dp_state_gap(torch, a, b) -> float:
+    """Max |a - b| over the parameter and layer-state leaves of two models,
+    relative to each leaf's largest element."""
+    from deeplearning4j_tpu_torch.models.model import tree_leaves
+
+    gap = 0.0
+    for x, y in zip(tree_leaves(a.params) + tree_leaves(a.net_state),
+                    tree_leaves(b.params) + tree_leaves(b.net_state)):
+        d = (x.detach().float() - y.detach().float()).abs().max().item()
+        gap = max(gap, d / max(y.detach().float().abs().max().item(), 1e-30))
+    return gap
+
+
+def _dp_reduce_scatter_probe(torch, rank, n) -> dict:
+    """Whether this torch's NCCL takes ``reduce_scatter_tensor`` without a
+    warning, and whether ``reduce_scatter_single`` (its name from torch
+    2.13 on) exists: the ZeRO step all-reduces instead (`parallel/
+    zero.py`)."""
+    import warnings
+
+    import torch.distributed as dist
+
+    x = torch.arange(4 * n, dtype=torch.float32, device="cuda")
+    out = torch.empty(4, dtype=torch.float32, device="cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dist.reduce_scatter_tensor(out, x)
+    return {"torch": torch.__version__, "warnings": [str(w.message) for w in caught],
+            "right": bool(torch.equal(out, x[rank * 4:(rank + 1) * 4] * n)),
+            "has_reduce_scatter_single": hasattr(dist, "reduce_scatter_single")}
+
+
+def _dp_rank_nccl():
+    """(a) and (c) on one NCCL rank a visible card; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.model import tree_leaves
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.runtime import distributed, kernels
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, n = distributed.process_index(), distributed.process_count()
+    res = {"rank": rank, "world": n, "backend": distributed.backend_name(),
+           "card": torch.cuda.get_device_name(), "device": str(distributed.device()),
+           "reduce_scatter": _dp_reduce_scatter_probe(torch, rank, n)}
+    batches = _dp_resnet_batches(torch, np, DP_BATCH, seed=rank)
+
+    def fit_of(model):
+        def fit(group):
+            model.fit(group, steps_per_execution=len(group))
+            return model._last_score.reshape(-1)
+        return fit
+
+    # the undistributed model and the world's replica from the same seed:
+    # two captured steps each on the same batches
+    base = ResNet50().init_model()
+    dp = ResNet50().init_model()
+    pw = ParallelWrapper(dp)
+    lb, ld = [], []
+    for b in batches:
+        base.fit_batch(b)
+        pw.fit([b])
+        lb.append(base.score_value)
+        ld.append(dp.score_value)
+    gap = _dp_state_gap(torch, dp, base)
+    res["world_of_one"] = {"base_losses": lb, "dp_losses": ld, "state_gap": gap}
+    # each model's memory measured alone: the replica's graph is captured
+    # again in its warm-up group
+    dp._drop_graphs()
+    # the undistributed model: captured, then eager
+    mem0 = _memory_window(torch)
+    b_loss, b_ms, b_tax = _dp_timed(torch, base, fit_of(base), batches, 1, DP_GROUPS,
+                                    DP_SPE)
+    mem = {"base_captured": _memory_window(torch, mem0)}
+    base.capture_steps = False
+    _, b_eager_ms, _ = _dp_timed(torch, base, fit_of(base), batches, 0, DP_EAGER_GROUPS,
+                                 DP_SPE)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the data-parallel model: captured (no host sync in the timed groups),
+    # eager, then 2 captured against 2 eager steps from one snapshot
+    mem0 = _memory_window(torch)
+    def fit_pw(group):
+        pw.fit(group, steps_per_execution=len(group))
+        return dp._last_score.reshape(-1)
+
+    d_loss, d_ms, d_tax = _dp_timed(torch, dp, fit_pw, batches, 1, DP_GROUPS, DP_SPE,
+                                    quiet=True)
+    mem["dp_captured"] = _memory_window(torch, mem0)
+    dp.capture_steps = False
+    _, d_eager_ms, _ = _dp_timed(torch, dp, fit_of(dp), batches, 0, DP_EAGER_GROUPS, DP_SPE)
+    dp.capture_steps = True
+    res["captured_vs_eager"] = _captured_vs_eager(torch, dp, batches, "ResNet-50 DP",
+                                                  phase=f"dp/rank{rank}", host=True)
+
+    def group():
+        fit_of(dp)(batches * (DP_SPE // len(batches)))
+
+    prof = _profiled(torch, f"dp_resnet_rank{rank}", group)
+    nccl = [(ms, c) for k, ms, c in prof["all_device_kernels_ms"] if "nccl" in k.lower()]
+    nccl, prof["nccl_launches"] = sum(m for m, _ in nccl), sum(c for _, c in nccl)
+    prof["nccl_device_ms"] = nccl
+    prof["nccl_share_of_device"] = nccl / max(prof["device_busy_s"] * 1e3, 1e-9)
+    prof.pop("all_device_kernels_ms")
+    # every rank fed its own rows: the replicas stay equal only if each
+    # step applied the same exchanged gradient and global statistics
+    res["digest"] = _dp_digest(torch, tree_leaves(dp.params) + tree_leaves(dp.net_state))
+    res["resnet"] = {
+        "ms_per_step": d_ms, "samples_per_s": DP_BATCH / d_ms * 1e3,
+        "eager_ms_per_step": d_eager_ms, "eager_samples_per_s": DP_BATCH / d_eager_ms * 1e3,
+        "base_ms_per_step": b_ms, "base_samples_per_s": DP_BATCH / b_ms * 1e3,
+        "base_eager_ms_per_step": b_eager_ms, "memory": mem, "timed_taxes": d_tax,
+        "base_timed_taxes": b_tax, "first_group_mean": float(d_loss[:DP_SPE].mean()),
+        "last_group_mean": float(d_loss[-DP_SPE:].mean()),
+        "base_first_group_mean": float(b_loss[:DP_SPE].mean()),
+        "finite": bool(np.isfinite(d_loss).all() and np.isfinite(b_loss).all()),
+        "profile": prof}
+    del dp, pw, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["flagship"] = _dp_flagship(torch, np, kernels)
+    return res
+
+
+def _dp_flagship(torch, np, kernels):
+    """(c) The flagship through `ParallelWrapper` on this rank: B1-B3
+    launches a step, captured against eager, tokens/s beside the
+    undistributed step."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    batch = _train_batch(np)
+    base = _flagship(torch)
+    for _ in range(TRAIN_WARMUP):
+        base.fit_batch(batch)
+    _, base_ms = _timed_steps(torch, base, [batch] * TRAIN_STEPS)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _flagship(torch)
+    pw = ParallelWrapper(model)
+    for _ in range(TRAIN_WARMUP):
+        pw.fit([batch])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        pw.fit([batch])
+        losses.append(model._last_score.detach().clone())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    counts = kernels.launches()
+    cve = _captured_vs_eager(torch, model, [batch, batch], "flagship DP", phase="dp",
+                             host=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "base_ms_per_step": base_ms, "base_tokens_per_s": tokens / base_ms * 1e3,
+           "losses": [float(x) for x in losses], "launches": counts,
+           "steps": TRAIN_STEPS, "captured_vs_eager": cve,
+           "graphs": model.compile_stats()["step_programs"]}
+    del model, pw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class _native_convolutions:
+    """PyTorch's own CUDA convolutions instead of cuDNN's inside the port's
+    convolution windows (`ops/conv.py` `_exact`), for a second summation
+    order of the same function."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import contextlib
+
+        from deeplearning4j_tpu_torch.ops import conv
+
+        torch = self.torch
+        self.conv, self.real = conv, conv._exact
+
+        @contextlib.contextmanager
+        def native(device):
+            with torch.backends.cudnn.flags(enabled=False):
+                yield
+
+        conv._exact = native
+        return self
+
+    def __exit__(self, *exc):
+        self.conv._exact = self.real
+        return False
+
+
+def _dp_digest(torch, tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank_gloo(zip_path):
+    """(b) on one of two gloo ranks sharing the card; see the module
+    docstring."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
+    from deeplearning4j_tpu_torch.models.model import tree_leaves
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs, state_leaves
+    from deeplearning4j_tpu_torch.parallel import ParallelConfig, distribute
+    from deeplearning4j_tpu_torch.parallel.zero import opt_state_bytes_per_replica
+    from deeplearning4j_tpu_torch.runtime import distributed
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, n = distributed.process_index(), distributed.process_count()
+    conf0 = dataclasses.replace(ResNet50().conf(), bf16_compute=False)
+    conf = dataclasses.replace(conf0, updater=Nesterovs(DP_GLOO_LR, 0.9))
+    rng = np.random.default_rng(1)
+    rows = DP_GLOO_ROWS * n
+    host = [(rng.normal(0, 1, (rows, DP_HW, DP_HW, 3)).astype(np.float32),
+             np.eye(DP_CLASSES, dtype=np.float32)[rng.integers(0, DP_CLASSES, rows)])
+            for _ in range(DP_GLOO_STEPS)]
+    mine = [DataSet(torch.from_numpy(x[rank * DP_GLOO_ROWS:(rank + 1) * DP_GLOO_ROWS]).to(DP_DEVICE),
+                    torch.from_numpy(y[rank * DP_GLOO_ROWS:(rank + 1) * DP_GLOO_ROWS]).to(DP_DEVICE))
+            for x, y in host]
+    res = {"rank": rank, "backend": distributed.backend_name()}
+
+    def run(cfg, lr, grads=False):
+        """3 steps of a fresh replica at rate ``lr``: (model, losses, ms of
+        the first step, ms a step after it, the first step's summed
+        gradient)."""
+        m = GraphModel(dataclasses.replace(conf0, updater=Nesterovs(lr, 0.9)),
+                       device=DP_DEVICE).init()
+        distribute(m, ParallelConfig(**cfg))
+        flat = None
+        if grads:
+            # the exchange alone, before any update: the world's summed
+            # gradient of the first batch
+            _, g, *_ = m._dp_grads(m._step_program(), m.params,
+                                   m._batch_arrays(m._as_batch(mine[0])), m._step_keys(0))
+            flat = torch.cat([x.reshape(-1) for x in g])
+        times, losses = [], []
+        for b in mine:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.fit_batch(b)
+            losses.append(m.score_value)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return m, losses, times[0], statistics.mean(times[1:]), flat
+
+    def state(m):
+        return tree_leaves(m.params) + tree_leaves(m.net_state)
+
+    def entry(m, losses, first_ms, ms):
+        return {"losses": losses, "ms_per_step": ms, "first_step_ms": first_ms,
+                "opt_bytes": opt_state_bytes_per_replica(m.opt_state),
+                "digest": _dp_digest(torch, state(m))}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the replicated run at each rate; the 1e-6 one is held against the
+    # single model below, the 1e-2 one against ZeRO and int8
+    rep, losses, first_ms, ms, dp_grad = run({}, DP_GLOO_LR, grads=True)
+    res["replicated"] = entry(rep, losses, first_ms, ms)
+    res["replicated"]["capture"] = rep.capture_steps
+    ref = [t.detach().clone() for t in state(rep)]
+    del rep
+    free()
+    p0 = [t.detach().clone() for t in tree_leaves(
+        GraphModel(conf0, device=DP_DEVICE).init().params)]
+    rep, losses, first_ms, ms, _ = run({}, DP_GLOO_LR_ZERO)
+    res["replicated_lr2"] = entry(rep, losses, first_ms, ms)
+    step_ref = torch.cat([(a.detach() - b).reshape(-1)
+                          for a, b in zip(tree_leaves(rep.params), p0)])
+    del rep
+    free()
+
+    def held(m, ref, rtol=2e-4, atol=2e-5):
+        """Elements of m's parameters and layer state outside rtol / atol of
+        ``ref``, and the largest relative gap."""
+        bad, worst = 0, 0.0
+        for x, y in zip(state(m), ref):
+            d = (x.detach() - y).abs()
+            bad += int((d > atol + rtol * y.abs()).sum().item())
+            worst = max(worst, (d / (y.abs() + atol)).max().item())
+        return bad, worst
+
+    for tag, cfg in (("zero1", dict(zero=1)), ("zero2", dict(zero=2)),
+                     ("zero2_accum2", dict(zero=2, grad_accum=2)),
+                     ("int8", dict(grad_compression="int8"))):
+        m, losses, first_ms, ms, _ = run(cfg, DP_GLOO_LR_ZERO)
+        res[tag] = entry(m, losses, first_ms, ms)
+        step = torch.cat([(a.detach() - b).reshape(-1)
+                          for a, b in zip(tree_leaves(m.params), p0)])
+        # the parameters' change against the replicated run's at 1e-2
+        res[tag]["step_rel_l2"] = ((step - step_ref).norm() / step_ref.norm()).item()
+        del step
+        if tag == "zero1":
+            ModelSerializer.write_model_distributed(m, zip_path)
+            full = m._zero_placement.gather_state(m.opt_state)
+            res[tag]["opt_digest"] = _dp_digest(
+                torch, [t for t in state_leaves(full) if isinstance(t, torch.Tensor)])
+            res[tag]["iteration"] = m.iteration
+        del m
+        free()
+    if rank == 0:
+        # the single model on the concatenation of the ranks' rows: its
+        # first gradient against the ranks' sum, and the gradient's own
+        # rounding floors
+        single = GraphModel(conf, device=DP_DEVICE).init()
+        x0, y0 = (torch.from_numpy(a).to(DP_DEVICE) for a in host[0])
+        h = DP_GLOO_ROWS
+
+        def grad(x, y):
+            b = single._as_batch(DataSet(x, y))
+            _, g, *_ = single._grad_step(single.params, single.net_state,
+                                         *single._batch_arrays(b), single._layer_keys(0))
+            return torch.cat([t.reshape(-1) for t in g])
+
+        def rel(a, b):
+            return ((a - b).norm() / b.norm()).item()
+
+        g = grad(x0, y0)
+        grad_rel = rel(dp_grad, g)
+        swapped = rel(grad(torch.cat([x0[h:], x0[:h]]), torch.cat([y0[h:], y0[:h]])), g)
+        with _native_convolutions(torch):
+            native = rel(grad(x0, y0), g)
+        del g, x0, y0
+        losses = []
+        for x, y in host:
+            single.fit_batch(DataSet(torch.from_numpy(x).to(DP_DEVICE), torch.from_numpy(y).to(DP_DEVICE)))
+            losses.append(single.score_value)
+        bad, worst = held(single, ref)
+        res["single"] = {"losses": losses, "outside_tol": bad, "worst_rel": worst,
+                         "grad_rel_l2": grad_rel, "floor_swapped": swapped,
+                         "floor_native": native,
+                         "max_abs": max((a.detach() - b).abs().max().item() for a, b in zip(
+                             tree_leaves(single.params) + tree_leaves(single.net_state), ref))}
+        del single
+    return res
+
+
+def phase_dp(torch, np, kernels):
+    """Data parallelism (ROADMAP A11, first part) on the card; see the
+    module docstring."""
+    from deeplearning4j_tpu_torch.models.model import tree_leaves
+    from deeplearning4j_tpu_torch.nn.updaters import state_leaves
+    from deeplearning4j_tpu_torch.runtime import distributed
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    zip_path = os.path.join(DP_DIR, "zero1.zip")
+    # nothing of an earlier phase may hold the card's memory meanwhile
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"cards": cards}
+    try:
+        t0 = time.perf_counter()
+        nccl = distributed.spawn(_dp_rank_nccl, cards, timeout=900)
+        res["nccl_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gloo = distributed.spawn(_dp_rank_gloo, 2, zip_path, backend="gloo", timeout=600)
+        res["gloo_s"] = time.perf_counter() - t0
+        restored = ModelSerializer.restore(zip_path, device=DP_DEVICE)
+        res["zip_bytes"] = os.path.getsize(zip_path)
+        res["zip_digest"] = _dp_digest(torch, tree_leaves(restored.params)
+                                       + tree_leaves(restored.net_state))
+        res["zip_opt_digest"] = _dp_digest(torch, [
+            t for t in state_leaves(restored.opt_state) if isinstance(t, torch.Tensor)])
+        res["zip_iteration"] = restored.iteration
+        del restored
+    finally:
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["nccl"], res["gloo"] = nccl, gloo
+    a = nccl[0]
+    rn, fl = a["resnet"], a["flagship"]
+    # the kernels line reads the flagship's counts under "dp/flagship"
+    res["flagship"] = fl
+    log(f"[dp] {cards} card(s) visible: {cards} NCCL rank(s), one a card "
+        f"({a['card']}); the numbers below are rank 0's")
+    log(f"[dp] (a) NCCL reduce_scatter_tensor on torch {a['reduce_scatter']['torch']}: "
+        f"right {a['reduce_scatter']['right']}, warnings "
+        f"{a['reduce_scatter']['warnings']}; reduce_scatter_single exists: "
+        f"{a['reduce_scatter']['has_reduce_scatter_single']}")
+    w1 = a["world_of_one"]
+    if cards == 1:
+        log(f"[dp] (a) world of one against the undistributed ResNet-50: losses "
+            f"{w1['dp_losses']} against {w1['base_losses']}; parameters and BatchNorm "
+            f"state max gap {w1['state_gap']:.3e} of each leaf's largest element")
+    else:
+        log(f"[dp] (a) world of {cards}: rank 0's first losses {w1['dp_losses']}; "
+            f"samples/s of the world {sum(r['resnet']['samples_per_s'] for r in nccl):.1f} "
+            f"(each rank {DP_BATCH} rows a step, its own); the ranks' parameters and "
+            f"BatchNorm state bit-identical after the timed groups: "
+            f"{len({r['digest'] for r in nccl}) == 1}")
+    log(f"[dp] (a) ResNet-50 bf16 at {DP_BATCH} a rank, steps_per_execution {DP_SPE}: "
+        f"DP captured {rn['ms_per_step']:.3f} ms a step = {rn['samples_per_s']:.1f} "
+        f"samples/s a rank, eager {rn['eager_ms_per_step']:.3f} ms; undistributed "
+        f"captured {rn['base_ms_per_step']:.3f} ms = {rn['base_samples_per_s']:.1f} "
+        f"samples/s, eager {rn['base_eager_ms_per_step']:.3f} ms; memory (GiB) "
+        f"{_memory_text(rn['memory'])}; timed groups' compile taxes {rn['timed_taxes']}")
+    log(f"[dp] (a) losses: first group mean {rn['first_group_mean']:.5f}, last "
+        f"{rn['last_group_mean']:.5f}; NCCL kernels {rn['profile']['nccl_device_ms']:.3f} "
+        f"ms in {rn['profile']['nccl_launches']} launches = "
+        f"{rn['profile']['nccl_share_of_device']:.4f} of the profiled group's device "
+        f"time (busy {rn['profile']['device_busy_share']:.3f}"
+        + ("; a world of one's in-place all-reduce launches no kernel)" if cards == 1
+           else ")"))
+    log(f"[dp] (c) flagship DP {fl['ms_per_step']:.2f} ms a step = "
+        f"{fl['tokens_per_s']:.1f} tokens/s against undistributed "
+        f"{fl['base_ms_per_step']:.2f} ms = {fl['base_tokens_per_s']:.1f}; launches "
+        f"in {fl['steps']} steps {fl['launches']}")
+    g0, g1 = gloo
+    log(f"[dp] (b) two gloo ranks on one card, ResNet-50 f32, {DP_GLOO_ROWS} rows a "
+        f"rank: replicated losses {g0['replicated']['losses']} "
+        f"({g0['replicated']['first_step_ms']:.1f} ms the first step, "
+        f"{g0['replicated']['ms_per_step']:.1f} a step after); the first step's summed "
+        f"gradient against the single model's: relative L2 "
+        f"{g0['single']['grad_rel_l2']:.3e} (the single model's own: halves swapped "
+        f"{g0['single']['floor_swapped']:.3e}, native convolutions "
+        f"{g0['single']['floor_native']:.3e}); single model on the "
+        f"{2 * DP_GLOO_ROWS}-row concatenation {g0['single']['losses']}, "
+        f"{g0['single']['outside_tol']} elements outside rtol 2e-4 / atol 2e-5 "
+        f"(max |d| {g0['single']['max_abs']:.3e}); ranks bit-identical: "
+        f"{g0['replicated']['digest'] == g1['replicated']['digest']}")
+    r2 = g0["replicated_lr2"]
+    log(f"[dp] (b) at rate {DP_GLOO_LR_ZERO}: replicated losses {r2['losses']} "
+        f"({r2['ms_per_step']:.1f} ms a step; the last one "
+        f"{r2['losses'][-1] - g0['replicated']['losses'][-1]:+.5f} from the rate "
+        f"{DP_GLOO_LR} run's), ranks bit-identical: "
+        f"{r2['digest'] == g1['replicated_lr2']['digest']}")
+    for tag in ("zero1", "zero2", "zero2_accum2", "int8"):
+        log(f"[dp] (b) {tag}: losses {g0[tag]['losses']}, bit-identical to the "
+            f"replicated run: {g0[tag]['digest'] == r2['digest']}, the parameters' "
+            f"change against the replicated run's: relative L2 "
+            f"{g0[tag]['step_rel_l2']:.3e}, optimizer state {g0[tag]['opt_bytes']} bytes "
+            f"a rank against {r2['opt_bytes']}, {g0[tag]['ms_per_step']:.1f} ms a step")
+    log(f"[dp] (b) write_model_distributed: {res['zip_bytes']} bytes; restored state "
+        f"equals rank 1's: {res['zip_digest'] == g1['zero1']['digest']}, optimizer "
+        f"{res['zip_opt_digest'] == g1['zero1']['opt_digest']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[dp] phase {res['seconds']:.1f}s (NCCL ranks {res['nccl_s']:.1f}s, gloo "
+        f"ranks {res['gloo_s']:.1f}s)")
+
+    # gates
+    for r in nccl:
+        if r["backend"] != "nccl":
+            raise AssertionError(f"dp: rank {r['rank']} runs {r['backend']}, not NCCL")
+        if not r["captured_vs_eager"]["identical"] or not r["flagship"]["captured_vs_eager"]["identical"]:
+            raise AssertionError("dp: a captured DP step is not the eager step")
+        rr = r["resnet"]
+        if not rr["finite"] or not rr["last_group_mean"] < rr["first_group_mean"]:
+            raise AssertionError(f"dp: ResNet-50 losses not finite or not falling: {rr}")
+        taxes = rr["timed_taxes"]
+        if taxes.get("jit_cache_misses", 0) or taxes.get("fresh_backend_compiles", 0):
+            raise AssertionError(f"dp: a capture or an nvcc run in a timed group: {taxes}")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+            got = r["flagship"]["launches"].get(name, 0)
+            if got != LAYERS * TRAIN_STEPS:
+                raise AssertionError(f"dp: {name} launched {got} times in {TRAIN_STEPS} "
+                                     f"DP steps, want {LAYERS * TRAIN_STEPS}")
+    if cards == 1:
+        # every weight of a world of one is an exact 1.0: f32 rounding at most
+        if w1["state_gap"] > 1e-6 or not np.allclose(w1["dp_losses"], w1["base_losses"],
+                                                      rtol=1e-6, atol=0):
+            raise AssertionError(f"dp: the world of one is not the undistributed step: {w1}")
+    elif len({r["digest"] for r in nccl}) != 1:
+        raise AssertionError("dp: the NCCL ranks' replicas differ after the timed groups")
+    for tag in ("replicated", "replicated_lr2"):
+        if g0[tag]["digest"] != g1[tag]["digest"]:
+            raise AssertionError(f"dp: the two gloo ranks' replicas differ ({tag})")
+    if g0["replicated"]["capture"]:
+        raise AssertionError("dp: a gloo world's model would capture its steps")
+    single = g0["single"]
+    floor = max(single["floor_swapped"], single["floor_native"])
+    if not single["grad_rel_l2"] <= DP_GRAD_FLOOR_X * floor:
+        raise AssertionError(f"dp: the two ranks' summed gradient is not the single "
+                             f"model's: {single}")
+    if single["outside_tol"] or not np.allclose(g0["replicated"]["losses"], single["losses"],
+                                                rtol=2e-4, atol=2e-5):
+        raise AssertionError(f"dp: two ranks are not the single model: {single}")
+    r2 = g0["replicated_lr2"]
+    if not abs(r2["losses"][-1] - g0["replicated"]["losses"][-1]) > DP_COMP_GAP:
+        raise AssertionError(f"dp: at rate {DP_GLOO_LR_ZERO} the last loss moved no more "
+                             f"than {DP_COMP_GAP}: the compression rule would not tell a "
+                             f"run that never updates")
+    for tag in ("zero1", "zero2"):
+        if g0[tag]["digest"] != r2["digest"] or g1[tag]["digest"] != r2["digest"]:
+            raise AssertionError(f"dp: {tag} is not the replicated run bit for bit: "
+                                 f"{g0[tag]}")
+    for tag in ("zero1", "zero2", "zero2_accum2"):
+        if not g0[tag]["opt_bytes"] < r2["opt_bytes"]:
+            raise AssertionError(f"dp: {tag} holds no less optimizer state a rank")
+    for tag in ("zero2_accum2", "int8"):
+        if not (np.isfinite(g0[tag]["losses"]).all()
+                and abs(g0[tag]["losses"][-1] - r2["losses"][-1]) < DP_COMP_GAP):
+            raise AssertionError(f"dp: {tag} not within {DP_COMP_GAP} of the exact run's "
+                                 f"last loss: {g0[tag]}")
+    if (res["zip_digest"] != g1["zero1"]["digest"]
+            or res["zip_opt_digest"] != g1["zero1"]["opt_digest"]
+            or res["zip_iteration"] != g1["zero1"]["iteration"]):
+        raise AssertionError("dp: the distributed zip does not restore rank 1's state")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6068,6 +6719,9 @@ def main(argv=None) -> int:
         report["rnn"] = phase_rnn(torch, np, kernels, timer)
         rows = rows + report["rnn"]["kernel_rows"]
         done("rnn")
+    if "dp" in phases:
+        report["dp"] = phase_dp(torch, np, kernels)
+        done("dp")
 
     entries = []
     def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):
@@ -6149,6 +6803,11 @@ def main(argv=None) -> int:
         (row("dequant_matmul", dtype="int8", shape=list(RNN_DM_SHAPES[0])), "rnn/quant"),
         (row("dequant_matmul", dtype="int8", shape=list(RNN_DM_SHAPES[1])),
          "rnn/quant_stream"),
+        # data parallelism: the flagship through ParallelWrapper on each
+        # NCCL rank (rank 0's counts)
+        (row("flash_fwd", shape=train_bhtd), "dp/flagship"),
+        (row("flash_bwd_dq", shape=train_bhtd), "dp/flagship"),
+        (row("flash_bwd_dkdv", shape=train_bhtd), "dp/flagship"),
     ]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",

@@ -57,6 +57,7 @@ from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
+from deeplearning4j_tpu_torch.parallel import context as dp_context
 from deeplearning4j_tpu_torch.runtime import rng
 from deeplearning4j_tpu_torch.runtime.backend import backend, resolve_device
 
@@ -275,7 +276,8 @@ class GraphModel(Model):
     def _step_loss(self, params: dict, net_state: dict, *inputs):
         """The step's objective on the f32 masters ``params`` (the layers
         see them cast to the compute dtype inside the graph): the
-        outputs' losses + l1 / l2 penalty + the layers' auxiliary losses.
+        outputs' losses + l1 / l2 penalty + the layers' auxiliary losses
+        (under data parallelism the rank's share of the last two).
         ``inputs``: `_batch_arrays`, then the keys.  Returns (loss, the
         layers' new state)."""
         *arrays, keys = inputs
@@ -284,7 +286,8 @@ class GraphModel(Model):
                                         net_state, feats, training=True, keys=keys)
         data = self._outputs_loss(params, outs, labels, lmasks)
         aux, new_state = pop_aux_losses(new_state)
-        return data + self._reg_loss(params) + aux, new_state
+        reg, aux = dp_context.replica_share(self._reg_loss(params), aux)
+        return data + reg + aux, new_state
 
     def _fit_batch_fused(self, batch, decode=None) -> None:
         raise NotImplementedError(

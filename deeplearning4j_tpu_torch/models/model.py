@@ -252,14 +252,33 @@ def _tree_map(fn, tree: dict) -> dict:
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a nested dict in ``jax.tree.leaves`` order: keys
-    sorted at every level, a `QuantizedTensor` as its ``q`` then its
-    ``scale``."""
+    """The leaves of nested dicts, lists and tuples in ``jax.tree.leaves``
+    order: dict keys sorted at every level, a `QuantizedTensor` as its
+    ``q`` then its ``scale``."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
     if isinstance(tree, QuantizedTensor):
         return [tree.q, tree.scale]
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """``tree`` with its leaves replaced, in `tree_leaves` order, by
+    ``leaves``."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if isinstance(node, QuantizedTensor):
+            return QuantizedTensor(next(it), next(it))
+        return next(it)
+
+    return walk(tree)
 
 
 def _has_quantized(tree: dict) -> bool:
@@ -292,6 +311,8 @@ def _copy_state(dst: dict, src: dict) -> None:
 
 
 def _clone_state(state):
+    if isinstance(state, dict):
+        return {k: _clone_state(v) for k, v in state.items()}
     if isinstance(state, tuple):
         return tuple(_clone_state(s) for s in state)
     if isinstance(state, list):
@@ -333,7 +354,7 @@ class _Staged:
         keys, vals, state = [], [], model.opt_state
         n = len(batches) if n_steps is None else n_steps
         for i in range(n):
-            keys.append(model._layer_keys(model.iteration + i))
+            keys.append(model._step_keys(model.iteration + i))
             vals.append(model._tx.values(state))
             state = advance_counts(state)
         self.keys = upload(torch.tensor(keys, dtype=torch.int64))
@@ -368,6 +389,15 @@ def _poison_batch(batch):
 class Model(nn.Module):
     """The surface and the step machinery `SequentialModel` and
     `GraphModel` share with the JAX package's model classes."""
+
+    # data parallelism (parallel/data_parallel.py `distribute`): the mesh,
+    # this rank's rows, the ZeRO placement and the compressed exchange's
+    # state; None on an undistributed model
+    _mesh = None
+    _batch_sharding = None
+    _zero_placement = None
+    _grad_compression = None
+    _grad_residual = None
 
     def __init__(self):
         super().__init__()
@@ -631,7 +661,7 @@ class Model(nn.Module):
     def num_params(self) -> int:
         if self.params is None:
             raise RuntimeError("model not initialized; call init()")
-        return sum(int(np.prod(t.shape)) for t in _leaves(self.params))
+        return sum(int(np.prod(t.shape)) for t in tree_leaves(self.params))
 
     def param_table(self) -> dict[str, np.ndarray]:
         """Flattened ``"layer.param"`` -> array view (the reference's
@@ -804,14 +834,54 @@ class Model(nn.Module):
     def _step_program(self):
         """The training step's pure device program, `_grad_step`,
         registered with the cost registry on first use (as the JAX
-        package's ``_get_step_fn`` registers its jitted step)."""
-        fn = self._step_fns.get(("train",))
+        package's ``_get_step_fn`` registers its jitted step), under
+        ``("train",)`` and `_step_key_suffix`."""
+        key = ("train",) + self._step_key_suffix()
+        fn = self._step_fns.get(key)
         if fn is None:
             from deeplearning4j_tpu_torch.observe import cost
 
-            fn = self._step_fns[("train",)] = cost.register_step_program(
-                self, ("train",), self._grad_step)
+            fn = self._step_fns[key] = cost.register_step_program(
+                self, key, self._grad_step)
         return fn
+
+    def _step_key_suffix(self) -> tuple:
+        """Program-key markers of step variants (JAX
+        ``_step_key_suffix``): ``zero1``, or ``zero2x{m}`` for ZeRO-2
+        with m microbatches."""
+        zero = self._zero_placement
+        if zero is None:
+            return ()
+        accum = getattr(zero, "accum", None)
+        return (f"zero2x{accum}",) if accum is not None else ("zero1",)
+
+    def _step_keys(self, step: int) -> list:
+        """The random keys of optimizer step ``step``: the nodes' dropout
+        keys (`_layer_keys`).  Under ZeRO-2 with m microbatches, m sets
+        of them, microbatch i's from ``fold(fold(root, step), i)`` (JAX
+        ``scan_accumulate``'s); under the compressed exchange, this
+        rank's keys from ``fold_in(fold(root, step), rank)`` and the
+        quantizer's key ``fold_in(that, 0x51)`` last (JAX's
+        per-shard keys)."""
+        from deeplearning4j_tpu_torch.runtime import rng
+
+        if self._grad_compression:
+            base = rng.fold_in(rng.SeedStream.fold(self._stream.root, step),
+                               self._batch_sharding.rank)
+            return self._keys_from(base) + [rng.fold_in(base, 0x51)]
+        accum = getattr(self._zero_placement, "accum", 1)
+        if accum > 1:
+            base = rng.SeedStream.fold(self._stream.root, step)
+            return [k for i in range(accum)
+                    for k in self._keys_from(rng.SeedStream.fold(base, i))]
+        return self._layer_keys(step)
+
+    def _keys_from(self, key) -> list:
+        """The nodes' keys derived from one step key: node i's is
+        ``fold_in(key, i)``."""
+        from deeplearning4j_tpu_torch.runtime import rng
+
+        return [rng.fold_in(key, i) for i in range(len(self._layer_keys(0)))]
 
     def _trainable_leaves(self, params: dict) -> list:
         """The leaves the optimizer trains, in ``jax.tree.leaves`` order:
@@ -867,18 +937,111 @@ class Model(nn.Module):
             vals = [vals[i] for i in range(vals.shape[0])]
         params = self.params
         plist = self._trainable_leaves(params)
-        loss, grads, new_state, *extra = (grad_step or self._step_program())(
-            params, self.net_state, *arrays, keys)
+        grad_step = grad_step or self._step_program()
+        accumulated = False
+        if self._mesh is None:
+            loss, grads, new_state, *extra = grad_step(
+                params, self.net_state, *arrays, keys)
+        else:
+            loss, grads, new_state, extra, accumulated = self._dp_grads(
+                grad_step, params, arrays, keys)
         # from here the live trees are written in place: a failure
         # leaves them torn until `_updating` clears
         self._updating = True
-        updates, opt_state = self._tx.update(grads, self.opt_state, plist, vals)
+        opt_state = self._apply_grads(plist, self.opt_state, grads, vals,
+                                      accumulated)
         with torch.no_grad():
-            for p, u in zip(plist, updates):
-                p.add_(u.to(p.dtype))
             _copy_state(self.net_state, new_state)
         self._updating = False
         return (loss.detach(), opt_state, *extra)
+
+    def _apply_grads(self, plist, opt_state, grads, vals=None, accumulated=False):
+        """The update epilogue every step runs (JAX ``_apply_grads``): the
+        updater, and ``plist`` updated in place; under ZeRO the sharded
+        epilogue (`parallel/zero.py`).  Returns the new updater state."""
+        zero = self._zero_placement
+        if zero is not None:
+            return zero.apply(self._tx, plist, opt_state, grads, vals, accumulated)
+        updates, opt_state = self._tx.update(grads, opt_state, plist, vals)
+        with torch.no_grad():
+            for p, u in zip(plist, updates):
+                p.add_(u.to(p.dtype))
+        return opt_state
+
+    # -- data parallelism ---------------------------------------------------------
+    def _dp_grads(self, grad_step, params, arrays, keys):
+        """The data-parallel step's forward, backward and gradient
+        exchange on this rank's rows.  The exact step runs the grad step
+        in a global `parallel.context` (global BatchNorm statistics,
+        the rank's rows of the global dropout masks, the loss normalised
+        by the global count), then sums the gradients and the loss over
+        the ranks in one flat all-reduce; ZeRO-2 with m microbatches
+        does so a microbatch, into its sharded accumulator.  The
+        compressed step keeps the JAX package's per-shard semantics: the
+        int8 exchange of the gradients, the loss and the layers' new
+        state averaged over the ranks.  Returns (loss, grads, new state,
+        extra outputs, accumulated)."""
+        from deeplearning4j_tpu_torch.parallel.context import (
+            DataParallelContext,
+            dp_scope,
+        )
+
+        rank, n = self._batch_sharding.rank, self._batch_sharding.n
+        if self._grad_compression:
+            from deeplearning4j_tpu_torch.parallel.compression import (
+                quantized_allreduce_tree,
+            )
+
+            # no scope: local statistics and masks, per-rank keys
+            *keys, qkey = keys
+            loss, grads, new_state, *extra = grad_step(
+                params, self.net_state, *arrays, keys)
+            grads, res = quantized_allreduce_tree(grads, self._grad_residual, key=qkey)
+            with torch.no_grad():
+                for r, x in zip(self._grad_residual, res):
+                    r.copy_(x)
+            loss, new_state = _mean_over_ranks(loss, new_state, n)
+            return loss, grads, new_state, extra, False
+        ctx = DataParallelContext(rank, n)
+        zp = self._zero_placement
+        accum = getattr(zp, "accum", 1)
+        if accum > 1:
+            from deeplearning4j_tpu_torch.parallel.zero import (
+                split_accum_microbatches,
+            )
+
+            per = len(keys) // accum
+
+            def loss_grad_fn(state, micro, i):
+                with dp_scope(ctx):
+                    loss, grads, new_state = grad_step(
+                        params, state, *micro, keys[i * per:(i + 1) * per])
+                loss, grads = _sum_over_ranks(loss, grads)
+                return loss, {**state, **new_state}, grads
+
+            loss, state = zp.scan_accumulate(
+                loss_grad_fn, self.net_state,
+                split_accum_microbatches(arrays, accum),
+                self.opt_state["grad_accum"])
+            return loss, None, state, [], True
+        with dp_scope(ctx):
+            loss, grads, new_state, *extra = grad_step(
+                params, self.net_state, *arrays, keys)
+        loss, grads = _sum_over_ranks(loss, grads)
+        return loss, grads, new_state, extra, False
+
+    def _setup_grad_compression(self, mesh) -> None:
+        """``distribute(ParallelConfig(grad_compression="int8"))``: the
+        step exchanges gradients as error-feedback int8 from now on, with
+        this rank's residual; a world of one keeps the plain step."""
+        from deeplearning4j_tpu_torch.parallel.compression import zeros_residual
+        from deeplearning4j_tpu_torch.runtime.mesh import DATA_AXIS
+
+        if mesh.shape[DATA_AXIS] < 2:
+            return
+        self._grad_compression = "int8"
+        self._grad_residual = zeros_residual(self._trainable_leaves(self.params))
+        self._step_fns.clear()
 
     def fit_batch(self, batch) -> None:
         """One optimizer step on ``batch``."""
@@ -913,7 +1076,7 @@ class Model(nn.Module):
                 for i, b in enumerate(batches):
                     loss, self.opt_state = self._train_step(
                         *self._batch_arrays(b),
-                        self._layer_keys(self.iteration + i), None)
+                        self._step_keys(self.iteration + i), None)
                     out.append(loss)
                 losses_k = torch.stack(out)
             scope.sync(losses_k)
@@ -1077,15 +1240,24 @@ class Model(nn.Module):
             self._fit_one(b)
 
 
-def _leaves(tree):
-    """Array leaves; a quantized weight as its ``q`` and ``scale``."""
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        elif hasattr(v, "q") and hasattr(v, "scale"):
-            yield from (v.q, v.scale)
-        else:
-            yield v
+def _sum_over_ranks(loss, grads):
+    """The loss and the gradients summed over the world in one all-reduce
+    of a flat f32 bucket (the gradients, then the loss)."""
+    from deeplearning4j_tpu_torch.runtime.distributed import all_reduce_flat
+
+    *sums, total = all_reduce_flat(list(grads) + [loss.detach()])
+    return total.to(loss.dtype), [s.to(g.dtype) for s, g in zip(sums, grads)]
+
+
+def _mean_over_ranks(loss, new_state: dict, n: int):
+    """The loss and the layers' new state averaged over the world (JAX
+    ``pmean``) in one all-reduce of a flat f32 bucket."""
+    from deeplearning4j_tpu_torch.runtime.distributed import all_reduce_flat
+
+    leaves = tree_leaves(new_state)
+    total, *sums = all_reduce_flat([loss.detach()] + leaves)
+    return (total / n).to(loss.dtype), tree_unflatten(
+        new_state, [(s / n).to(t.dtype) for s, t in zip(sums, leaves)])
 
 
 def _tensors(obj, depth: int = 0):

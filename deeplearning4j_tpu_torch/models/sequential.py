@@ -103,6 +103,7 @@ from deeplearning4j_tpu_torch.nn.conf.recurrent import (
 )
 from deeplearning4j_tpu_torch.nn.updaters import advance_counts, with_gradient_clipping
 from deeplearning4j_tpu_torch.observe.trace import step_scope
+from deeplearning4j_tpu_torch.parallel import context as dp_context
 from deeplearning4j_tpu_torch.runtime import rng
 from deeplearning4j_tpu_torch.runtime.backend import backend, resolve_device
 
@@ -448,10 +449,13 @@ class SequentialModel(Model):
                    lmask=None, fmask=None, keys=None, carries=None):
         """The step's objective (JAX ``_step_loss``): data loss + l1 / l2
         penalty + the layers' auxiliary losses, summed in that order
-        (`_step_loss_parts`).  Returns (loss, the layers' new state), and
-        the final carries third when ``carries`` is given."""
+        (`_step_loss_parts`); under data parallelism the rank's share of
+        the penalty and the auxiliary losses (`parallel/context.py`).
+        Returns (loss, the layers' new state), and the final carries
+        third when ``carries`` is given."""
         data, reg, aux, new_state, *rest = self._step_loss_parts(
             params, net_state, features, labels, lmask, fmask, keys, carries)
+        reg, aux = dp_context.replica_share(reg, aux)
         return (data + reg + aux, new_state, *rest)
 
     def _step_loss_parts(self, params: dict, net_state: dict, features, labels,
@@ -540,7 +544,9 @@ class SequentialModel(Model):
         """The window step (`_grad_step` over `_window_loss`), registered
         with the cost registry under the JAX package's key on first use:
         ``("train_tbptt", has_lmask, has_fmask)`` for a batch,
-        ``("train_tbptt_grouped",)`` for a group."""
+        ``("train_tbptt_grouped",)`` for a group, and
+        `_step_key_suffix`."""
+        key = key + self._step_key_suffix()
         fn = self._step_fns.get(key)
         if fn is None:
             from deeplearning4j_tpu_torch.observe import cost
@@ -559,6 +565,11 @@ class SequentialModel(Model):
         program of all the windows (JAX ``_get_step_fn_tbptt`` and its
         grouped form): the listeners see each window as an iteration,
         and the step scope counts each window's work."""
+        if self._grad_compression:
+            raise ValueError(
+                "grad_compression does not compose with TBPTT (per-window "
+                "carries cross the compressed-sync boundary); use standard "
+                "backprop or drop compression")
         self._prepare(batches)
         for b in batches:
             self._check_tbptt(b)
@@ -591,7 +602,7 @@ class SequentialModel(Model):
             for t0, t1 in bounds:
                 window = [None if a is None else a[:, t0:t1] for a in arrays]
                 loss, self.opt_state, flat = self._train_step(
-                    *window, *flat, self._layer_keys(self.iteration + s), None,
+                    *window, *flat, self._step_keys(self.iteration + s), None,
                     grad_step=program)
                 out.append(loss)
                 s += 1

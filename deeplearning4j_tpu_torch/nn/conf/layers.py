@@ -35,6 +35,7 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.losses import Loss
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 from deeplearning4j_tpu_torch.ops import conv as conv_ops
+from deeplearning4j_tpu_torch.parallel import context as dp_context
 from deeplearning4j_tpu_torch.quant import functional as quantf
 from deeplearning4j_tpu_torch.runtime import rng as rng_mod
 from deeplearning4j_tpu_torch.utils import serde
@@ -70,11 +71,13 @@ def _dropout(x: torch.Tensor, rate: float, training: bool, key) -> torch.Tensor:
     where ``bernoulli(key, 1 - rate)``, scaled by a division by the keep
     probability (taken in x's dtype, as jax takes a Python scalar).  The
     key is two 32-bit words, Python ints or device tensors (a captured
-    training step's key is a device input)."""
+    training step's key is a device input).  Under data parallelism a
+    rank draws its rows of the global mask (`parallel/context.py`)."""
     if not training or rate <= 0.0 or key is None:
         return x
     keep = 1.0 - rate
-    mask = rng_mod.bernoulli(key, keep, tuple(x.shape), device=x.device)
+    mask = rng_mod.bernoulli(key, keep, tuple(x.shape), device=x.device,
+                             offset=dp_context.dropout_offset(x))
     # torch.full, not torch.tensor: no host-to-device copy inside a step
     return torch.where(mask, x / torch.full((), keep, dtype=x.dtype, device=x.device),
                        0.0).to(x.dtype)
@@ -442,7 +445,10 @@ class BatchNorm(LayerConfig):
     population variance (``jnp.var``) in f32 and returns the running
     stats as ``decay * old + (1 - decay) * batch``; inference normalises
     with them.  (``F.batch_norm``'s own update uses the unbiased
-    variance and the opposite momentum, so it is not used.)"""
+    variance and the opposite momentum, so it is not used.)  Under data
+    parallelism the batch mean and variance are global means over every
+    rank's rows (`parallel/context.py` `global_mean`, the JAX package's
+    cross-replica reduction), so the running stats agree on every rank."""
 
     epsilon: float = 1e-5
     decay: float = 0.9        # running-stat momentum (reference default 0.9)
@@ -464,8 +470,8 @@ class BatchNorm(LayerConfig):
         dims = tuple(range(x.dim() - 1))
         xf = x.float()
         if training:
-            mean = xf.mean(dim=dims)
-            var = ((xf - mean) ** 2).mean(dim=dims)
+            mean = dp_context.global_mean(xf, dims)
+            var = dp_context.global_mean((xf - mean) ** 2, dims)
             new_state = {
                 "mean": self.decay * state["mean"] + (1 - self.decay) * mean,
                 "var": self.decay * state["var"] + (1 - self.decay) * var,

@@ -14,6 +14,8 @@ import enum
 
 import torch
 
+from deeplearning4j_tpu_torch.parallel import context as dp_context
+
 
 class Loss(str, enum.Enum):
     MCXENT = "mcxent"                    # softmax cross-entropy, int or one-hot labels
@@ -60,11 +62,18 @@ FUSED_ACTIVATION_LOSSES = (Loss.MCXENT, Loss.NEGATIVELOGLIKELIHOOD,
 
 
 def _masked_mean(per_elem: torch.Tensor, mask) -> torch.Tensor:
+    """The mean of the kept entries.  Under data parallelism
+    (`parallel/context.py`) a rank's share of the global mean: its mean
+    over 1 / n, or its masked sum over the global count of kept
+    entries, so the ranks' shares sum to the JAX package's global mean."""
     if mask is None:
-        return per_elem.mean()
+        mean = per_elem.mean()
+        scale = dp_context.loss_scale()
+        return mean if scale is None else mean * scale
     mask = torch.broadcast_to(torch.as_tensor(mask, device=per_elem.device),
                               per_elem.shape).to(per_elem.dtype)
-    return (per_elem * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (per_elem * mask).sum() / torch.clamp(
+        dp_context.global_count(mask.sum()), min=1.0)
 
 
 def _bce(p, labels):

@@ -36,7 +36,9 @@ advance on the host (`advance_counts`), as `update` would advance them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -323,9 +325,34 @@ def clip(max_delta: float) -> Transform:
         [x.clamp(-max_delta, max_delta) for x in g], s))
 
 
+_norm = threading.local()
+
+
+@contextlib.contextmanager
+def global_norm_scope(sq_norm):
+    """While active, `clip_by_global_norm` takes the squared norm from
+    ``sq_norm(grads)``: the ZeRO epilogue's sum over every rank's
+    slices, where a rank's gradient list holds its slices only."""
+    prev = getattr(_norm, "fn", None)
+    _norm.fn = sq_norm
+    try:
+        yield
+    finally:
+        _norm.fn = prev
+
+
+def global_sq_norm(grads) -> torch.Tensor:
+    """The squared L2 norm over every leaf of ``grads`` (over the whole
+    gradient under a `global_norm_scope`)."""
+    fn = getattr(_norm, "fn", None)
+    if fn is not None:
+        return fn(grads)
+    return sum((g.float() * g.float()).sum() for g in grads)
+
+
 def clip_by_global_norm(max_norm: float) -> Transform:
     def update(grads, state, params=None, vals=None):
-        norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+        norm = torch.sqrt(global_sq_norm(grads))
         # a select, as optax does: no host sync on the norm
         keep = norm < max_norm
         return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm)

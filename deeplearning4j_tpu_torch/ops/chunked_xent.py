@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.parallel import context as dp_context
+
 _NEG = -1e30
 
 
@@ -51,7 +53,8 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
             picked = logits.gather(1, idx.clamp(0, chunk - 1)[:, None])[:, 0]
             ly = ly + torch.where(in_c, picked, 0.0)
         w = weights.float()
-        wsum = torch.clamp(w.sum(), min=1.0)
+        # under data parallelism the count of the whole global batch
+        wsum = torch.clamp(dp_context.global_count(w.sum()), min=1.0)
         logz = m + torch.log(s)
         ctx.save_for_backward(h, W, b, labels, logz, w, wsum)
         ctx.chunk = chunk

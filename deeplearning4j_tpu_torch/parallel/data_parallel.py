@@ -1,14 +1,188 @@
-"""`distribute` of `deeplearning4j_tpu/parallel/data_parallel.py`: the
-entry point to data, ZeRO-1/2, pipeline, tensor, expert and
-compressed-gradient parallelism.  None of them is ported yet, so it
-raises instead of training on one device as if it had spread the model.
+"""`distribute` — `deeplearning4j_tpu/parallel/data_parallel.py`.
+
+The JAX package replicates a model's trees over a device mesh, places
+each batch with ``P("data")``, and its jitted step becomes an SPMD
+program with GSPMD's gradient all-reduce.  The port runs one process per
+device (`runtime/distributed.py`): `distribute` attaches the world's
+data axis to a model on each rank, makes its replicas equal (one
+broadcast from rank 0), and from then on each rank's ``fit`` takes its
+rows of every global batch and its step (`models/model.py`) computes the
+global step:
+
+- the loss is normalised by the global count and the gradients are
+  summed across ranks in one flat all-reduce a step (the loss rides in
+  the same bucket), then the updater runs, replicated (``zero=0``) or on
+  the rank's slices (``zero=1/2``, `parallel/zero.py`);
+- BatchNorm's statistics and dropout's masks are the global batch's
+  (`parallel/context.py`);
+- ``grad_compression="int8"`` exchanges the gradients as error-feedback
+  int8 (`parallel/compression.py`) with the JAX compressed step's
+  per-shard semantics; a world of one takes the plain step.
+
+On CUDA the step stays one captured graph a batch signature with its
+NCCL collectives inside (the warm-up runs the communicator's first
+collectives eagerly).  Gloo collectives cannot be captured, so a model
+on the card in a gloo world steps eagerly (``capture_steps`` False).
+
+Works for `SequentialModel` and `GraphModel`::
+
+    distribute(model, ParallelConfig(data=-1))   # every rank
+    model.fit(my_rows)                           # each rank its rows
+
+Tensor, pipeline, sequence and expert parallelism and the planner
+(``auto=True``) raise, naming ROADMAP A11.
 """
 
 from __future__ import annotations
 
+import logging
 
-def distribute(model, config=None, devices=None, **kwargs):
-    raise NotImplementedError(
-        "parallel training (data parallelism, ZeRO-1/2, pipelining, "
-        "compressed gradients, the planner) is not ported yet (ROADMAP "
-        "A11: parallel/)")
+from deeplearning4j_tpu_torch.parallel.strategy import (
+    ParallelConfig,
+    batch_sharding,
+    replicate,
+)
+from deeplearning4j_tpu_torch.runtime.mesh import DATA_AXIS
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP A11: the port's parallelism is "
+        "data parallelism, ZeRO-1/2 and int8 gradient compression)")
+
+
+def distribute(model, config: ParallelConfig | None = None, devices=None,
+               mesh=None, auto: bool = False, batch=None,
+               memory_cap_bytes: int | None = None):
+    """Attach the world's data axis to ``model`` (every rank calls it on
+    its replica) and make its fits data-parallel.  Forms a world of one
+    when none is initialized.  Returns the model."""
+    from deeplearning4j_tpu_torch.parallel import zero as zero_mod
+    from deeplearning4j_tpu_torch.runtime import distributed
+    from deeplearning4j_tpu_torch.runtime.flags import environment
+
+    if model.params is None:
+        model.init()
+    if not auto and config is None:
+        auto = environment().auto_plan
+    if auto:
+        raise _not_ported("the autosharding planner (distribute(auto=True))")
+    config = config or ParallelConfig.data_parallel()
+    for axis in ("model", "pipe", "seq", "expert"):
+        if getattr(config, axis) != 1:
+            raise _not_ported(f"{axis} parallelism ({axis}={getattr(config, axis)})")
+    zero = config.zero
+    if zero is None:
+        zero = environment().zero
+    if zero not in (0, 1, 2):
+        raise ValueError(
+            f"unknown zero stage {zero!r}; options: 0 (replicated update), 1 "
+            "(sharded opt state + update), 2 (ZeRO-1 + persistently sharded "
+            "gradients)")
+    if zero >= 1 and config.grad_compression != "none":
+        raise ValueError(
+            f"zero={zero} composes with pure data parallelism only (the "
+            "weight-update shards ride the data axis); drop the "
+            "model/pipe/seq/expert axes and grad_compression, or the zero stage")
+    if config.grad_accum > 1:
+        if zero != 2:
+            raise ValueError(
+                f"grad_accum={config.grad_accum} is the ZeRO-2 microbatch-"
+                "accumulation knob; set zero=2 (the sharded accumulator is what "
+                "makes accumulation memory-safe)")
+        from deeplearning4j_tpu_torch.nn.conf.recurrent import RecurrentLayerConfig
+
+        conf = model.conf
+        if getattr(conf, "backprop_type", "") == "tbptt" or any(
+                isinstance(l, RecurrentLayerConfig) for l in getattr(conf, "layers", ())):
+            raise NotImplementedError(
+                "grad_accum > 1 applies to the single-batch feed-forward/CNN "
+                "step; TBPTT and recurrent carry-threading fits do not run the "
+                "accumulation scan — drop grad_accum (zero=2 itself still works "
+                "there)")
+    if config.grad_compression not in ("none", "int8"):
+        raise ValueError(
+            f"unknown grad_compression {config.grad_compression!r}; options: "
+            "'none', 'int8'")
+
+    if not distributed.is_initialized():
+        distributed.initialize(distributed.DistributedConfig(
+            platform="cpu" if model.device.type == "cpu" else None))
+    rank_dev = distributed.device()
+    if rank_dev.type != model.device.type:
+        raise ValueError(
+            f"the model lives on {model.device} but this rank's device is "
+            f"{rank_dev}; build the model on the rank's device")
+    mesh = mesh or config.build_mesh(devices)
+    n = mesh.shape[DATA_AXIS]
+    if n != distributed.process_count():
+        raise ValueError(
+            f"the data axis has {n} ranks but the world {distributed.process_count()}: "
+            "the port's data axis spans the whole world")
+
+    # the replicas start equal: every rank takes rank 0's trees
+    leaves = model._trainable_leaves(model.params)
+    replicate([t.data for t in _all_leaves(model.params)])
+    replicate(model.net_state)
+    # a previous distribute(zero>=1) left slices: gather them back first
+    prev = getattr(model, "_zero_placement", None)
+    if model.opt_state is None:
+        model.opt_state = model._init_opt_state()
+    inner, _ = zero_mod.unwrap_opt_state(model.opt_state)
+    if prev is not None:
+        inner = prev.gather_state(inner)
+    else:
+        replicate(inner)
+    rank = distributed.process_index()
+    if zero == 2:
+        placement = zero_mod.Zero2Placement.build(
+            leaves, mesh, rank, accum=max(1, int(config.grad_accum)))
+        model.opt_state = zero_mod.wrap_opt_state(
+            [placement.shard(i, t) for i, t in enumerate(leaves)],
+            placement.shard_state(inner))
+    elif zero == 1:
+        placement = zero_mod.Zero1Placement.build(leaves, mesh, rank)
+        model.opt_state = placement.shard_state(inner)
+    else:
+        placement = None
+        model.opt_state = inner
+    model._zero_placement = placement
+    zero_mod.gauge_opt_state_bytes(
+        model, {0: "replicated", 1: "sharded", 2: "zero2"}[zero])
+
+    # a re-distribution starts without the old compression state
+    model._grad_compression = None
+    model._grad_residual = None
+    model._mesh = mesh
+    model._batch_sharding = batch_sharding(mesh)
+    if config.grad_compression != "none":
+        model._setup_grad_compression(mesh)
+    # step programs and graphs were built for the old layout
+    model._step_fns.clear()
+    model._drop_graphs()
+    model._compute = None
+    if model.device.type == "cuda" and distributed.backend_name() != "nccl":
+        if model.capture_steps:
+            log.info("a %s world's collectives cannot be captured: the model "
+                     "steps eagerly on the card", distributed.backend_name())
+        model.capture_steps = False
+    return model
+
+
+def _all_leaves(tree) -> list:
+    from deeplearning4j_tpu_torch.models.model import tree_leaves
+
+    return [t for t in tree_leaves(tree) if hasattr(t, "data")]
+
+
+def place_batch(model, arr, is_mask: bool = False, is_label: bool = False):
+    """This rank's rows of a batch array on the model's device (``arr``
+    as it is when the model was never distributed): each rank feeds its
+    local rows (`runtime/distributed.py` `put_global`)."""
+    if getattr(model, "_batch_sharding", None) is None or arr is None:
+        return arr
+    from deeplearning4j_tpu_torch.runtime.distributed import put_global
+
+    return put_global(arr, device=model.device)

@@ -17,6 +17,11 @@ watchdog is made), ``watchdog_floor_s`` (``DL4J_TPU_WATCHDOG_FLOOR``,
 30) and ``watchdog_k`` (``DL4J_TPU_WATCHDOG_K``, 10): a step's deadline
 is ``max(floor, k * the EWMA of recent step latency)``.
 
+Data parallelism (`parallel/data_parallel.py`): ``zero``
+(``DL4J_TPU_ZERO``, default 0) is the ZeRO stage `distribute` uses when
+its `ParallelConfig` names none; ``auto_plan`` (``DL4J_TPU_AUTO_PLAN``)
+asks for the planner, which is not ported (ROADMAP A11) and raises.
+
 `environment()` is the
 process's one `Environment`, read from the environment variables on
 first use; tests set its fields directly.
@@ -62,6 +67,10 @@ class Environment:
     watchdog_enabled: bool = True
     watchdog_floor_s: float = 30.0
     watchdog_k: float = 10.0
+    # distribute()'s ZeRO stage when its config names none (0, 1, 2)
+    zero: int = 0
+    # distribute() with no config asks the planner (not ported: raises)
+    auto_plan: bool = False
 
     @staticmethod
     def from_env() -> "Environment":
@@ -69,7 +78,9 @@ class Environment:
             prefetch_depth=int(os.environ.get("DL4J_TPU_PREFETCH_DEPTH", "2")),
             watchdog_enabled=_env_bool("DL4J_TPU_WATCHDOG", True),
             watchdog_floor_s=float(os.environ.get("DL4J_TPU_WATCHDOG_FLOOR", "30")),
-            watchdog_k=float(os.environ.get("DL4J_TPU_WATCHDOG_K", "10")))
+            watchdog_k=float(os.environ.get("DL4J_TPU_WATCHDOG_K", "10")),
+            zero=int(os.environ.get("DL4J_TPU_ZERO", "0")),
+            auto_plan=_env_bool("DL4J_TPU_AUTO_PLAN"))
 
 
 _ENV: Environment | None = None

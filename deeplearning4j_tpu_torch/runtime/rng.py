@@ -95,10 +95,13 @@ def bits_at(k: tuple[int, int], index):
     return x0 ^ x1
 
 
-def random_bits(k: tuple[int, int], shape, device=None) -> torch.Tensor:
+def random_bits(k: tuple[int, int], shape, device=None, offset: int = 0) -> torch.Tensor:
     """32 random bits for each element of ``shape``, as an int64 tensor
-    of values in [0, 2^32)."""
-    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    of values in [0, 2^32).  ``offset``: the flat index of the first
+    element in a larger tensor drawn with ``k`` (a rank's rows of a
+    global shape)."""
+    n = math.prod(shape)
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return bits_at(k, i).reshape(shape)
 
 
@@ -110,10 +113,10 @@ def _uniform(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
 
 
 def uniform(k: tuple[int, int], shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
+            device=None, offset: int = 0) -> torch.Tensor:
     """f32 uniform on [minval, maxval): the top 23 bits as the mantissa of
     a float in [1, 2), minus 1, scaled, and held at minval or above."""
-    return _uniform(random_bits(k, shape, device), minval, maxval)
+    return _uniform(random_bits(k, shape, device, offset), minval, maxval)
 
 
 def _f32(v: float) -> float:
@@ -257,10 +260,11 @@ def normal(k: tuple[int, int], shape, device=None) -> torch.Tensor:
     return _SQRT2 * _erfinv(_uniform(random_bits(k, shape, device), lo, 1.0))
 
 
-def bernoulli(k: tuple[int, int], p: float, shape, device=None) -> torch.Tensor:
+def bernoulli(k: tuple[int, int], p: float, shape, device=None,
+              offset: int = 0) -> torch.Tensor:
     """bool tensor, True where a uniform draw is below ``p`` (taken as
-    f32) — ``jax.random.bernoulli``."""
-    return uniform(k, shape, device=device) < _f32(p)
+    f32) — ``jax.random.bernoulli``; ``offset`` as in `random_bits`."""
+    return uniform(k, shape, device=device, offset=offset) < _f32(p)
 
 
 def _stable_hash(name: str) -> int:

@@ -23,6 +23,13 @@ code, data from the file), on the card unless the caller asks for the
 CPU.  A zip written here restores in the JAX package and the other way
 round.
 
+A data-parallel model (`parallel/data_parallel.py`) writes with
+`write_model_distributed`: every rank takes part (under ZeRO the
+optimizer state's slices are gathered, a collective) and the chief
+writes one zip with the entries of an undistributed model's, the
+optimizer state whole.  `restore_into` a ZeRO model copies each rank's
+slices of the saved state into its live slices.
+
 A failed verify is logged and counted under
 ``dl4jtpu_ckpt_verify_failures_total{reason="corrupt"}``.  The fault
 sites ``checkpoint.write`` (``truncate`` chops the published bytes) and
@@ -57,9 +64,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.models.model import tree_leaves
+from deeplearning4j_tpu_torch.models.model import tree_leaves, tree_unflatten
 from deeplearning4j_tpu_torch.nn import updaters
-from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
 from deeplearning4j_tpu_torch.runtime import faults
 from deeplearning4j_tpu_torch.utils import serde
 
@@ -156,29 +162,27 @@ def _npz_leaves(zf: zipfile.ZipFile, name: str, want: int) -> list:
 def _unflatten_like(tree: dict, leaves: list) -> dict:
     """``tree`` with its leaves replaced, in `tree_leaves` order, by host
     tensors of ``leaves`` cast to each old leaf's dtype."""
-    it = iter(leaves)
-
-    def take(ref):
-        return torch.from_numpy(np.asarray(next(it)).astype(
-            str(ref.dtype).removeprefix("torch."), copy=True))
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, QuantizedTensor):
-            return QuantizedTensor(take(node.q), take(node.scale))
-        return take(node)
-
-    return walk(tree)
+    return tree_unflatten(tree, [
+        torch.from_numpy(np.asarray(x).astype(str(ref.dtype).removeprefix("torch."),
+                                              copy=True))
+        for x, ref in zip(leaves, tree_leaves(tree))])
 
 
 def _updater_state(model):
     """The optimizer state a checkpoint holds: the model's, or the fresh
     state the JAX package's model carries from ``init`` on; none for an
-    int8 model, which takes no updates."""
-    if model._quantized is not None or model.opt_state is not None:
+    int8 model, which takes no updates.  A ZeRO model's inner state,
+    gathered whole from every rank's slices: a collective, so every rank
+    calls it (`write_model_distributed`)."""
+    if model._quantized is not None:
         return model.opt_state
-    return model._init_opt_state()
+    if model.opt_state is None:
+        return model._init_opt_state()
+    from deeplearning4j_tpu_torch.parallel.zero import unwrap_opt_state
+
+    inner, _ = unwrap_opt_state(model.opt_state)
+    zp = getattr(model, "_zero_placement", None)
+    return zp.gather_state(inner) if zp is not None else inner
 
 
 # the configuration class each model class is built from
@@ -195,6 +199,21 @@ def _model_classes() -> dict:
 
 class ModelSerializer:
     @staticmethod
+    def write_model_distributed(model, path: str, save_updater: bool = True) -> None:
+        """Checkpoint a data-parallel model: every rank calls it and takes
+        part in the gathers (a chief-only write would wedge the chief in a
+        ZeRO gather), the chief writes the zip, and every rank returns
+        once it is published."""
+        from deeplearning4j_tpu_torch.runtime import distributed
+
+        if model.params is None:
+            raise RuntimeError("model not initialized")
+        opt = _updater_state(model) if save_updater else None
+        if distributed.is_chief():
+            ModelSerializer._write(model, path, opt)
+        distributed.barrier()
+
+    @staticmethod
     def write_model(model, path: str, save_updater: bool = True) -> None:
         """Write the checkpoint zip atomically: the bytes land in
         ``path + ".tmp"``, are fsynced, and only then renamed over
@@ -206,6 +225,13 @@ class ModelSerializer:
         ``checkpoint.fsync`` between the zip landing and the publish."""
         if model.params is None:
             raise RuntimeError("model not initialized")
+        ModelSerializer._write(model, path,
+                               _updater_state(model) if save_updater else None)
+
+    @staticmethod
+    def _write(model, path: str, opt) -> None:
+        """`write_model` with the optimizer state ``opt`` (whole; None:
+        no ``updater.npz``)."""
         action = faults.maybe_fail("checkpoint.write")
         manifest_entries: dict[str, dict] = {}
         leaf_counts: dict[str, int] = {}
@@ -228,7 +254,6 @@ class ModelSerializer:
                  "conf": serde.to_jsonable(model.conf)}, indent=2).encode())
             put("params.npz", *_npz_bytes(tree_leaves(model.params)))
             put("netstate.npz", *_npz_bytes(tree_leaves(model.net_state or {})))
-            opt = _updater_state(model) if save_updater else None
             if opt is not None:
                 put("updater.npz", *_npz_bytes(updaters.state_leaves(opt)))
             meta = {"format_version": FORMAT_VERSION,
@@ -369,13 +394,35 @@ class ModelSerializer:
             copy_into(tree_leaves(model.params), "params.npz")
             copy_into(tree_leaves(model.net_state or {}), "netstate.npz")
             if "updater.npz" in zf.namelist() and model.opt_state is not None:
-                want = len(updaters.state_leaves(model.opt_state))
-                model.opt_state = updaters.load_state_leaves(
-                    model.opt_state, _npz_leaves(zf, "updater.npz", want))
+                from deeplearning4j_tpu_torch.parallel.zero import unwrap_opt_state
+
+                # a slice has its leaf's place in the state: the same count
+                want = len(updaters.state_leaves(unwrap_opt_state(model.opt_state)[0]))
+                model.opt_state = _load_opt_into(
+                    model, _npz_leaves(zf, "updater.npz", want))
         model.iteration = meta.get("iteration", 0)
         model._compute = None
         model._last_score = None
         return meta
+
+
+def _load_opt_into(model, leaves):
+    """The saved optimizer leaves copied into the model's live state in
+    place (its counts from the file): whole, or under ZeRO this rank's
+    slices (a ZeRO-2 accumulator stays, zeroed)."""
+    from deeplearning4j_tpu_torch.parallel.zero import unwrap_opt_state
+
+    inner, acc = unwrap_opt_state(model.opt_state)
+    zp = getattr(model, "_zero_placement", None)
+    if zp is None:
+        return updaters.load_state_leaves(inner, leaves)
+    full = updaters.load_state_leaves(model._init_opt_state(), leaves)
+    inner = zp.load_state(inner, full)
+    if acc is None:
+        return inner
+    for a in acc:
+        a.zero_()
+    return {"opt": inner, "grad_accum": acc}
 
 
 class CheckpointStore:

@@ -37,9 +37,13 @@ failures into bounded, observable recoveries:
 After a rollback or an OOM a truncated-BPTT model's carries start from
 zeros again (`SequentialModel._reset_carries`).  Every event is counted
 under ``dl4jtpu_recovery_events_total{kind}``.
-Single-process models only; the ZeRO re-wrap and the re-placement of
-restored trees onto a distributed model's shardings wait for ROADMAP
-A11.
+A data-parallel model (`parallel/data_parallel.py`) rolls back on every
+rank together: the global score and the replicated parameters raise the
+same divergence on each, and the restore copies in place (a ZeRO model
+takes its own slices of the saved optimizer state), so each rank's
+captured step is kept.  What one rank alone would do, quarantining its
+batch or splitting it after an OOM, would leave the ranks running
+different steps and raises instead (`_world_local`).
 """
 
 from __future__ import annotations
@@ -126,6 +130,18 @@ def _checkpoint_params_nonfinite(path: str) -> bool:
     from deeplearning4j_tpu_torch.train.checkpoint import params_nonfinite
 
     return params_nonfinite(path)
+
+
+def _world_local(model, what: str) -> None:
+    """Raise when ``model`` steps in a world of several ranks: ``what``
+    would change this rank's steps alone and wedge the others in their
+    next collective."""
+    sharding = getattr(model, "_batch_sharding", None)
+    if sharding is not None and sharding.n > 1:
+        raise RuntimeError(
+            f"{what} on one rank of a data-parallel world of {sharding.n} would "
+            "leave the ranks running different steps; fix the feed or the "
+            "batch size on every rank")
 
 
 def _reset_carries(model) -> None:
@@ -389,6 +405,7 @@ class RecoveryPolicy:
 
     def _absorb(self, model, reason: str, batch=None,
                 error: Optional[BaseException] = None) -> bool:
+        _world_local(model, f"quarantining a poison batch ({reason})")
         if self.quarantined >= self.quarantine_cap:
             return False
         self.quarantined += 1
@@ -534,6 +551,7 @@ class RecoveryPolicy:
             except Exception as exc:
                 if not _is_oom(exc):
                     raise
+                _world_local(model, "splitting a batch after an OOM")
                 nxt = max(2, factor * 2)
                 if nxt > self.max_split or chunk <= 1 or n < 2:
                     log.error("OOM not recoverable by splitting (factor cap %d, "

@@ -1600,3 +1600,40 @@ def test_tbptt_captured_windows_equal_eager_and_zero_the_carries(cuda, bf16):
     cap._reset_carries()
     assert all(bool((t == 0).all()) for t in carry_inputs)
     assert cap.compile_stats()["step_programs"] == 1
+
+
+def test_dp_world_of_one_nccl_captured_against_eager_and_undistributed(cuda):
+    """A world of one NCCL rank (a spawned process): the distributed
+    model's captured steps run their collectives inside the graph and give
+    the undistributed model's losses and parameters (within f32 rounding:
+    every weight of the world of one is an exact 1.0), and two captured
+    steps give the eager steps' bits from one snapshot."""
+    import torch_dp_ranks as ranks
+    from deeplearning4j_tpu_torch.runtime import distributed
+
+    (r,) = distributed.spawn(ranks.cuda_world_of_one, 1, timeout=300)
+    assert r["backend"] == "nccl" and r["graphs"] == 1
+    np.testing.assert_allclose(r["ld"], r["lp"], rtol=1e-6, atol=0)
+    assert r["gap"] <= 1e-6
+    assert r["cap"] == r["eag"] and r["same_state"]
+
+
+def test_dp_two_gloo_ranks_on_one_card_against_the_single_model(cuda):
+    """Two gloo ranks with CUDA tensors on one card (eager steps: gloo
+    collectives cannot be captured), 8 rows each, against the single
+    model fed the 16-row concatenation: losses, parameters and BatchNorm
+    statistics within `tests/test_parallel.py`'s rtol 2e-4 / atol 2e-5,
+    and the ranks equal bit for bit."""
+    import torch_dp_ranks as ranks
+    from deeplearning4j_tpu_torch.runtime import distributed
+
+    res = distributed.spawn(ranks.cuda_gloo_pair, 2, backend="gloo", timeout=300)
+    r0 = res[0]
+    assert r0["backend"] == "gloo" and not r0["capture"]
+    np.testing.assert_allclose(r0["losses"], r0["single_losses"], rtol=2e-4, atol=2e-5)
+    for k, v in r0["single_params"].items():
+        np.testing.assert_allclose(r0["params"][k], v, rtol=2e-4, atol=2e-5, err_msg=k)
+    for k, v in r0["single_state"].items():
+        np.testing.assert_allclose(r0["state"][k], v, rtol=2e-4, atol=2e-5, err_msg=k)
+    for k, v in r0["params"].items():
+        np.testing.assert_array_equal(res[1]["params"][k], v)

@@ -8,8 +8,8 @@
   fleet aggregator, and a quantized ``output()``, writes and restores a
   checkpoint zip of each model, trains a masked MoE step, fine-tunes a
   graph with a frozen prefix under listeners and a recovery policy that
-  rolls a NaN batch back from a checkpoint store, then lists its
-  modules).
+  rolls a NaN batch back from a checkpoint store, takes a ZeRO-1
+  data-parallel step in a world of one, then lists its modules).
 - Entry points default to CUDA and raise when there is none, checkpoint
   restore included; only an explicit ``device="cpu"`` runs on the CPU.
 - A kernel wrapper never answers a CUDA tensor with its plain version:
@@ -77,7 +77,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "train.early_stopping", "train.transfer",
                      "train.recovery", "train.preemption", "data.quarantine",
                      "observe.health", "evaluation.roc",
-                     "evaluation.regression", "evaluation.binary"):
+                     "evaluation.regression", "evaluation.binary",
+                     "runtime.distributed", "runtime.mesh", "parallel.context",
+                     "parallel.strategy", "parallel.data_parallel", "parallel.zero",
+                     "parallel.compression", "parallel.wrapper"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -188,6 +191,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         faults.disarm()
         assert policy.rollbacks == 1 and tl.iteration == 2, policy.events
         assert len(scores.scores) == 3 and np.isfinite(tl.score_value)
+        # data parallelism: a world of one, ZeRO-1, through the wrapper
+        from deeplearning4j_tpu_torch.parallel import ParallelConfig, ParallelWrapper
+        from deeplearning4j_tpu_torch.runtime import distributed
+        dpm = Tiny(num_classes=3, height=8, width=8).init_model(device="cpu")
+        ParallelWrapper(dpm, ParallelConfig(zero=1)).fit([DataSet(xs, ys)])
+        assert dpm.iteration == 1 and dpm._zero_placement is not None
+        distributed.shutdown()
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "optax",
                                             "deeplearning4j_tpu"))

@@ -52,6 +52,7 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
 )
 from deeplearning4j_tpu_torch.ops.chunked_xent import chunked_softmax_xent
 from deeplearning4j_tpu_torch.parallel.data_parallel import distribute
+from deeplearning4j_tpu_torch.parallel.strategy import ParallelConfig
 from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
 # small shapes: one intra-op thread keeps these files from competing with
@@ -305,9 +306,11 @@ def test_what_the_slice_does_not_train_raises():
     all-ones mask gives the unmasked step's loss, through the dense
     attention instead of flash), and frozen layers since the training
     tooling slice (the frozen embedding keeps its bits; its parity with
-    the JAX package is `tests/test_torch_transfer.py`'s); TBPTT and data
-    parallelism still raise, naming their ROADMAP items.  TBPTT loads as
-    configuration data and raises when a model is built from it."""
+    the JAX package is `tests/test_torch_transfer.py`'s), and data
+    parallelism since the data-parallel slice (`tests/test_torch_parallel.py`
+    holds it against the JAX mesh); tensor parallelism still raises, naming
+    its ROADMAP item.  TBPTT loads as configuration data and builds since
+    the recurrent slice."""
     ids, y = _batches(one_hot=False, n=1)[0]
     batch = DataSet(ids, y)
     model = _zoo(TransformerEncoder).init_model(device="cpu")
@@ -334,5 +337,5 @@ def test_what_the_slice_does_not_train_raises():
     # it builds since the recurrent slice (ROADMAP A8)
     assert SequentialModel(tbptt, device="cpu")._tbptt
     with pytest.raises(NotImplementedError, match="A11"):
-        distribute(model)
+        distribute(model, ParallelConfig(model=2))
     assert model.iteration == 0
