@@ -257,7 +257,8 @@ Then the phases:
    when ``DL4JTPU_QUANT_KERNEL`` is set to anything but auto: on the
    card the quantized products run B5, and a plain name there raises.
 10. ckpt — the checkpoint zip (`train/checkpoint.py`) on the card.  The
-   full-width flagship with its softmax head trains 3 steps (bf16, Adam)
+   flagship's widths at 2 of its 8 blocks (``CKPT_LAYERS``; the depth
+   cut for the script's time) with its softmax head trains 3 steps (bf16, Adam)
    on the train batch; `ModelSerializer.write_model` (with the updater),
    `verify` and `restore` (built on the card) are timed and the zip's
    bytes printed.  Held bit for bit: every parameter, the Adam state
@@ -266,12 +267,12 @@ Then the phases:
    the parity phase's prompts from an engine over each.  Then 3 more
    steps of the live model, twice from one state (their largest loss
    difference is the spread), and of the restored model, whose losses
-   must stay within that spread of the live run's, with exactly 8
+   must stay within that spread of the live run's, with exactly 2
    launches a step of each of B1, B2 and B3.  Then the live model is
    `quantize`d, saved, verified and restored (through
    `requantize_structure`): its int8 and scale leaves and the quantized
    ``output()`` of the quant phase's 2 x 2048 ids bit for bit, with
-   exactly 49 B5 and 8 B1 launches in the restored model's call.  The
+   exactly 13 B5 and 2 B1 launches in the restored model's call.  The
    zips go to ``build/ckpt/`` and are removed after.
 11. paged (only when asked for, and part of kernels) — B4's timed rows
    and the Timer's floor alone.  stages (only when asked for) — B4 built
@@ -452,7 +453,47 @@ Then the phases:
    `write_model_distributed` of the ZeRO-1 model, restored on the card
    equal to rank 1's parameters, layer state and gathered optimizer
    state.  Writes under ``build/dp/`` and removes it.
-18. report — one ``{"kernels": [...]}`` JSON line, then the last line
+18. mp — model parallelism inside the step (ROADMAP A11 items 1, 3 and
+   4) in one world the phase spawns: two gloo ranks sharing the card
+   when one is visible (eager steps), else one NCCL rank a card, 4 when
+   4 or more are visible and 2 otherwise (captured steps).  (a) TP: the
+   flagship with ``model=n`` (the embedding split by columns, the
+   chunked head by vocabulary); (b) SP: the flagship with ``seq=n`` at
+   the training batch's 4 x 2048 ids, Ulysses (B1-B3 on B x H / n
+   heads of the whole sequence) and ring attention (no flash kernel);
+   (c) EP: the attn phase's MoE flagship (8 experts, top-2) with
+   ``expert=n``.  Each: 2 f32 steps with Sgd (``MP_LR``; the MoE
+   flagship's ``MP_MOE_LR``) from the
+   undistributed model's weights against that model (rank 0): every
+   loss within rtol 2e-4, the parameters' change within ``MP_STEP_REL``
+   relative L2 of its change; the replicated leaves bit-identical
+   across ranks; ``output()`` of 2 x 2048 ids within ``MP_OUT_REL`` of
+   max |undistributed|; then the bf16 model (Adam) timed, 1 warm-up and
+   3 steps: ms a step, tokens/s and peak reserved memory a rank beside
+   the undistributed step's (printed, not gated; on NCCL the timed
+   steps run with any host synchronisation an error, and no capture or
+   ``nvcc`` run among them), and exactly 8 launches a step of B1, B2
+   and B3 (TP, EP, Ulysses) or none (ring).  (a) also writes the TP
+   model (`write_model`, every rank) and restores it undistributed on
+   the card: equal to the gathered parameters.  B1-B3 at Ulysses' shape
+   (BH 4 x 8 / n, T 2048, D 128, causal) against their plain versions.
+   (d) ResNet-50 with ``model=n`` (every convolution's output channels
+   split, BatchNorm whole), f32, Nesterovs 1e-6, 8 rows of 224 x 224 x 3,
+   2 steps against the undistributed model: losses within rtol 2e-4,
+   replicas bit-identical, the change within ``MP_FLOOR_X`` times the
+   larger of the undistributed model's own floors (its rows' halves
+   swapped; native convolutions) or ``MP_STEP_REL``.  (e) C27: the MoE
+   flagship with ``data=n``, each rank its rows, against the
+   undistributed model on the concatenated rows (f32, Sgd
+   ``MP_MOE_LR``, one step: ``MP_C27_STEPS`` says why): the loss as in
+   (a); the change within ``MP_C27_BOUND`` and within ``MP_FLOOR_X``
+   times the larger of its own floors (cuBLASLt at the same chunking;
+   chunks of 4096) or ``MP_STEP_REL``; before the step, the forward of
+   the step's scopes (each rank its rows, routed in the global batch)
+   within ``MP_STEP_REL`` relative L2 of the undistributed one's, at most
+   ``MP_C27_ROUTES`` of each MoE layer's (token, choice) pairs routed
+   otherwise, and every MoE layer's dropped share equal.  Writes under ``build/mp/`` and removes it.
+19. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -473,7 +514,7 @@ import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
           "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "tools", "rnn",
-          "dp")
+          "dp", "mp")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -789,9 +830,10 @@ def split_backward(fa) -> bool:
     return "parts" in inspect.signature(fa.launch_bwd_dq).parameters
 
 
-def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
+def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS,
+                    bh=TRAIN_BATCH * HEADS):
     """Rows for kernels B2 (dQ) and B3 (dK/dV) at BH 32 (the training
-    batch's heads): each against `flash_bwd_plain` on the same inputs,
+    batch's heads) by default: each against `flash_bwd_plain` on the same inputs,
     and a second launch of each against the first, bit for bit; plain
     and library times cover both kernels together (the plain version and
     the sdpa backward compute dq, dk and dv in one call).  In f32 a
@@ -809,7 +851,6 @@ def flash_bwd_cases(torch, timer, t, dtype, causal=True, d=D_MODEL // HEADS):
     )
     import torch.nn.functional as F
 
-    bh = TRAIN_BATCH * HEADS
     gen = torch.Generator(device="cuda").manual_seed(t + d + 1)
     q, k, v, g = (torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
                   for _ in range(4))
@@ -1316,11 +1357,11 @@ def _check_streams(np, prompts, outs, max_new):
             raise AssertionError(f"out-of-vocab token in {gen}")
 
 
-def _flagship(torch, bf16=None, chunked=True):
+def _flagship(torch, bf16=None, chunked=True, layers=LAYERS):
     from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
     model = TransformerEncoder(
-        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=LAYERS,
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=layers,
         causal=True, chunked_vocab_loss=chunked, vocab_chunk=8192, seed=123,
         bf16_compute=bf16,
     ).init_model(device="cuda")
@@ -3900,6 +3941,10 @@ def phase_qserve(torch, np, kernels, report, timer):
 # -- ckpt phase -------------------------------------------------------------------
 
 CKPT_STEPS = 3                             # steps before the save, and resumed after
+# the flagship's depth in this phase: 2 of its 8 blocks (8 until PR 20,
+# whose mp phase needed the script's time: the 1.66 GB zip's deflate alone
+# took 95 s); every other width is the flagship's
+CKPT_LAYERS = 2
 CKPT_DIR = os.path.join("build", "ckpt")   # inside the checkout; removed after
 
 
@@ -3992,11 +4037,11 @@ def phase_ckpt(torch, np, kernels):
 
     smi = nvidia_smi()
     os.makedirs(CKPT_DIR, exist_ok=True)
-    res = {"card": smi, "steps": CKPT_STEPS, "layers": LAYERS}
+    res = {"card": smi, "steps": CKPT_STEPS, "layers": CKPT_LAYERS}
     try:
         # the softmax head (the JAX zoo's default, as in the quant phase):
         # its quantized output() runs the head's product through B5 too
-        model = _flagship(torch, chunked=False)
+        model = _flagship(torch, chunked=False, layers=CKPT_LAYERS)
         batch = _train_batch(np)
         res["losses_before_save"] = _steps(model, batch, CKPT_STEPS)
         restored, res["trained_zip"] = _zip_times(
@@ -4052,7 +4097,7 @@ def phase_ckpt(torch, np, kernels):
             f"{dev}); launches {counts}")
         if dev > spread:
             raise AssertionError("the resumed run left the live model's spread")
-        want = LAYERS * CKPT_STEPS
+        want = CKPT_LAYERS * CKPT_STEPS
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
             if counts.get(name, 0) != want:
                 raise AssertionError(f"{name} launched {counts.get(name, 0)} "
@@ -4075,7 +4120,7 @@ def phase_ckpt(torch, np, kernels):
         counts = kernels.launches()
         same_p = torch.equal(p_live, p_rest)
         res["quantized_launches"] = counts
-        want = {"dequant_matmul": 6 * LAYERS + 1, "flash_fwd": LAYERS}
+        want = {"dequant_matmul": 6 * CKPT_LAYERS + 1, "flash_fwd": CKPT_LAYERS}
         log(f"[ckpt] quantized zip: {res['quantized_zip']}; restored leaves "
             f"differ at {bad or 'no leaf'}; output() of {QUANT_BATCH}x{QUANT_SEQ} "
             f"ids bit-identical: {same_p}; launches {counts} (want {want})")
@@ -4631,12 +4676,13 @@ def phase_attn(torch, np, kernels, timer):
 
 # bench.py bench_resnet50: 224 x 224 x 3 images, 1000 classes, batch 256, 4
 # batches cycled, steps_per_execution 16, 3 x 16 warm-up steps; bench.py
-# times 15 x 16 steps, 12 x 16 here keep the phase near 150 s
+# times 15 x 16 steps, 4 x 16 here (12 until PR 20, whose mp phase needed
+# the script's time: the phase ran 136-145 s)
 RESNET_BATCH, RESNET_HW, RESNET_CLASSES, RESNET_BATCHES = 256, 224, 1000, 4
-RESNET_SPE, RESNET_WARMUP_GROUPS, RESNET_GROUPS = 16, 3, 12
+RESNET_SPE, RESNET_WARMUP_GROUPS, RESNET_GROUPS = 16, 3, 4
 # the eager run beside the captured one, and the prefetch-fed run: groups
 # of RESNET_SPE steps (one of warm-up each)
-RESNET_EAGER_GROUPS, RESNET_PREFETCH_GROUPS = 3, 4
+RESNET_EAGER_GROUPS, RESNET_PREFETCH_GROUPS = 2, 3
 # the quantized head's B5 shape: (batch, the pooled width, classes)
 RESNET_DM_SHAPE = (RESNET_BATCH, 2048, RESNET_CLASSES)
 # the AttentionVertex graph: BERT-base attention widths, unmasked, non-causal
@@ -6572,6 +6618,497 @@ def phase_dp(torch, np, kernels):
         raise AssertionError("dp: the distributed zip does not restore rank 1's state")
     return res
 
+# -- model parallelism inside the step (ROADMAP A11 items 1, 3 and 4) -----------------
+
+# the f32 parity steps: Sgd, not Adam (Adam turns the summation noise of a
+# near-zero gradient element into a rate-sized step), at a rate that moves
+# the parameters well past their rounding in 2 steps
+MP_LR, MP_PARITY_STEPS = 1e-2, 2
+# the MoE flagship's (EP, C27): at 1e-2 one f32 Sgd step lifts its loss
+# from 29.3 to 86.9, out of the linear regime, where a GEMM's summation
+# order (C27's ranks run 2 of the 4 rows) moves the next step's routing
+# and with it the change (4.8 relative L2 on the card at 1e-2)
+MP_MOE_LR = 1e-4
+# C27 (data=n) steps once: with 43% of its choices dropped, a slot's
+# position counts every earlier choice of its expert, so one choice
+# flipped by a GEMM's summation order in the second step's forward
+# shifts every later slot (0.70 relative L2 after 2 steps at 1e-4 on the
+# card; 1e-4 on the CPU at 8 layers, 2.5e-6 after one step)
+MP_C27_STEPS = 1
+# C27's and ResNet-50's f32 gradients are ill-conditioned, so their
+# change is held to MP_FLOOR_X times the larger of the undistributed
+# model's own floors (PR 19's rule, `DP_GRAD_FLOOR_X`), or to
+# MP_STEP_REL when that is larger.  A floor is the undistributed model's
+# change against the same model's with one summation order of the same
+# function changed: for the MoE flagship cuBLASLt's GEMMs at the same
+# vocabulary chunking, or chunks of 4096 with cuBLAS (its residual
+# stream grows ~1.5-2x a MoE layer, PR 15, so its f32 gradient carries
+# far more rounding than the plain flagship's); for ResNet-50 its rows'
+# halves swapped, or PyTorch's native convolutions (PR 19's floors).
+# C27's change is also held to MP_C27_BOUND, whatever its floors: a
+# gradient counted twice reads 1.0, one missing a rank's share 0.5 or
+# more at n = 2
+MP_FLOOR_X = 2.0
+MP_C27_BOUND = 0.1
+# the parameters' change (after - before, flattened) against the
+# undistributed model's change: relative L2.  The distributed step sums
+# the same products in other orders (a vocabulary shard's chunks, the
+# ring's online softmax, a time block's GEMMs): f32 noise of ~1e-6 of a
+# gradient, far below this; a gradient counted twice or missing a
+# rank's share reads ~0.3 or more
+MP_STEP_REL = 1e-3
+# output() against the undistributed model's, relative to its max
+MP_OUT_REL = 1e-4
+# C27's forward inside the step's scopes (each rank its rows, routed in
+# the global batch) against the undistributed one: a near-tie of two
+# experts' probabilities can flip a choice between two summation orders
+# of the router's input, and that token's output moves (on one card in
+# PR 20: 2 differences among the last MoE layer's 16,384 (token,
+# choice) pairs, none in the others; a difference is an expert id or a
+# keep flag that differs); routing the rank's rows alone moves a large
+# share (30 and 48 of 128 on the CPU).  So a layer may differ in at most
+# MP_C27_ROUTES of its pairs, and the forward is held to MP_STEP_REL
+# relative L2 (a flipped token moves its max gap, not this)
+MP_C27_ROUTES = 1e-3
+# (d) ResNet-50 over the model axis: 8 rows (gloo carries each
+# convolution's channel gather through the host), 2 steps, Nesterovs at
+# PR 19's 1e-6
+MP_RESNET_ROWS, MP_RESNET_STEPS, MP_RESNET_LR = 8, 2, 1e-6
+# the bf16 runs: warm-up and timed steps (the eager gloo steps take 1-2 s)
+MP_WARMUP, MP_STEPS = 1, 3
+MP_DIR = os.path.join("build", "mp")      # inside the checkout; removed after
+
+
+def _mp_flat(torch, leaves):
+    return torch.cat([t.detach().float().reshape(-1) for t in leaves])
+
+
+class _blas_library:
+    """cuBLAS's library ``name`` ("cublaslt") for the GEMMs inside, for a
+    second summation order of the same function; cuBLAS after."""
+
+    def __init__(self, torch, name):
+        self.torch, self.name = torch, name
+
+    def __enter__(self):
+        self.torch.backends.cuda.preferred_blas_library(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.backends.cuda.preferred_blas_library("cublas")
+        return False
+
+
+def _moe_routes(torch, model, ids):
+    """Each MoE layer's routing of ``ids`` (within a step's global batch
+    under a data-parallel scope): (expert ids (N, k), kept (N * k,)),
+    its input from `feed_forward` routed again; and the last layer's
+    activation in f32 (`output()`'s, for the chunked head)."""
+    from deeplearning4j_tpu_torch.parallel.expert import global_route, router_probs
+
+    acts = model.feed_forward(ids)
+    out = []
+    with torch.no_grad():
+        for i, layer in enumerate(model.conf.layers):
+            if type(layer).__name__ == "MoELayer":
+                x = acts[i - 1]
+                probs = router_probs(x.reshape(-1, x.shape[-1]).float(),
+                                     model.params[layer.name]["router"])
+                _, _, idx, _, kept = global_route(probs, layer._cfg())
+                out.append((idx, kept))
+    last = acts[-1].float()
+    del acts
+    return out, last
+
+
+def _mp_conf(bf16, seq_parallel="none", moe=0, sgd=None):
+    """The flagship's (or the MoE flagship's) configuration: bf16 with
+    its Adam, or f32 with Sgd ``sgd``."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
+
+    conf = TransformerEncoder(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=LAYERS,
+        causal=True, chunked_vocab_loss=True, vocab_chunk=8192, seed=123,
+        seq_parallel=seq_parallel, moe_experts=moe, moe_top_k=MOE_TOP_K,
+        bf16_compute=bf16).conf()
+    return conf if sgd is None else dataclasses.replace(conf, updater=Sgd(sgd))
+
+
+def _mp_rank(zip_path):
+    """Every mode of the mp phase on this rank; see the module docstring."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
+    from deeplearning4j_tpu_torch.models.model import tree_leaves
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.parallel import ParallelConfig, collectives, distribute
+    from deeplearning4j_tpu_torch.parallel.context import DataParallelContext, dp_scope
+    from deeplearning4j_tpu_torch.parallel.data_parallel import local_rows
+    from deeplearning4j_tpu_torch.runtime import compile_stats, distributed, kernels
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, n = distributed.process_index(), distributed.process_count()
+    nccl = distributed.backend_name() == "nccl"
+    res = {"rank": rank, "world": n, "backend": distributed.backend_name(),
+           "card": torch.cuda.get_device_name()}
+    ids = _train_batch(np)
+    batch = DataSet(torch.from_numpy(ids.features).to("cuda"),
+                    torch.from_numpy(ids.labels).to("cuda"))
+    probe = batch.features[:QUANT_BATCH]
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rows(m, b):
+        return DataSet(local_rows(m, b.features), local_rows(m, b.labels))
+
+    def replicated_digest(m):
+        sp = m._shard_placement
+        leaves = tree_leaves(m.params)
+        keep = [t for i, t in enumerate(leaves) if sp is None or sp.splits[i] is None]
+        return _dp_digest(torch, keep + tree_leaves(m.net_state))
+
+    def build(conf, graph=False):
+        return (GraphModel if graph else SequentialModel)(conf, device="cuda").init()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def parity(conf, cfg, steps=MP_PARITY_STEPS, graph=False, batches=None, floors=(),
+               moe=False):
+        """``steps`` steps of the undistributed model (rank 0) and of the
+        distributed one from the same weights: losses, the change's
+        relative L2, output() and the replicas' digest.  ``floors``:
+        (name, configuration or None, batches or None, context) of each
+        of the undistributed model's own floors of the change
+        (`MP_FLOOR_X`).  ``moe``: before the steps, each MoE layer's
+        routing and the forward's output on the first batch's rows, the
+        distributed model's inside its step's scopes (global routing),
+        in place of output()."""
+        batches = batches or [batch] * steps
+        out = {}
+        if rank == 0:
+            m0 = build(conf, graph)
+            p0 = _mp_flat(torch, tree_leaves(m0.params))
+            if moe:
+                routes0, o0 = _moe_routes(torch, m0, batches[0].features)
+            ref_losses = []
+            for b in batches:
+                m0.fit_batch(b)
+                ref_losses.append(m0.score_value)
+            d0 = _mp_flat(torch, tree_leaves(m0.params)) - p0
+            if not moe:
+                o0 = None if graph else m0.output(probe).float()
+            del m0
+            free()
+            out["floors"] = {}
+            for name, fconf, fbatches, ctx in floors:
+                with ctx():
+                    m1 = build(fconf or conf, graph)
+                    for b in fbatches or batches:
+                        m1.fit_batch(b)
+                    d1 = _mp_flat(torch, tree_leaves(m1.params)) - p0
+                out["floors"][name] = rel(d1, d0)
+                del m1, d1
+                free()
+            out["floor_rel_l2"] = max(out["floors"].values(), default=0.0)
+            del p0
+            free()
+        distributed.barrier()
+        m = build(conf, graph)
+        distribute(m, ParallelConfig(**cfg))
+        p = _mp_flat(torch, tree_leaves(m.full_params()))
+        if moe:
+            bs = m._batch_sharding
+            with m.mesh_scope(), dp_scope(DataParallelContext(bs.rank, bs.n)):
+                routes, o = _moe_routes(torch, m, local_rows(m, batches[0].features))
+                # the ranks' rows in global order
+                routes = [tuple(collectives.gather(t, 0, "data") for t in r) for r in routes]
+                o = collectives.gather(o, 0, "data")
+        losses = []
+        for b in batches:
+            if graph:
+                m.fit_batch(MultiDataSet((local_rows(m, b.features),),
+                                         (local_rows(m, b.labels),)))
+            else:
+                m.fit_batch(rows(m, b))
+            losses.append(m.score_value)
+        d = _mp_flat(torch, tree_leaves(m.full_params())) - p
+        if not moe:
+            o = None if graph else m.output(probe).float()
+        out.update(losses=losses, digest=replicated_digest(m))
+        if rank == 0:
+            out["ref_losses"] = ref_losses
+            out["step_rel_l2"] = rel(d, d0)
+            if o is not None:
+                out["out_rel"] = ((o - o0).abs().max() / o0.abs().max()).item()
+            if moe:
+                out["out_rel_l2"] = rel(o, o0)
+                out["pairs"] = routes0[0][1].numel()
+                # each MoE layer's dropped share, and the (token, choice)
+                # pairs routed to another expert or kept otherwise
+                out["drop"] = [1.0 - k.float().mean().item() for _, k in routes]
+                out["drop_ref"] = [1.0 - k.float().mean().item() for _, k in routes0]
+                out["route_diffs"] = [int((g != g0).sum() + (k != k0).sum())
+                                      for (g, k), (g0, k0) in zip(routes, routes0)]
+                del routes0
+            del d0, o0
+        del p, d, o
+        return m, out
+
+    def speed(conf, cfg, base=None):
+        """bf16 steps of the distributed model (or of the undistributed
+        one, ``cfg`` None, on rank 0 alone): ms a step, tokens/s, peak
+        memory, launches, the timed steps' compile taxes."""
+        mem0 = _memory_window(torch)
+        m = build(conf)
+        if cfg is not None:
+            distribute(m, ParallelConfig(**cfg))
+        b = rows(m, batch) if cfg is not None else batch
+        for _ in range(MP_WARMUP):
+            m.fit_batch(b)
+        torch.cuda.synchronize()
+        snap = compile_stats.snapshot()
+        kernels.reset_launches()
+        quiet = nccl and cfg is not None
+        if quiet:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses, ms = _timed_steps(torch, m, [b] * MP_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counts = kernels.launches()
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        out = {"ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+               "launches": counts, "steps": MP_STEPS,
+               "losses": [float(x) for x in losses],
+               "taxes": (compile_stats.snapshot() - snap).as_dict(),
+               "capture": m.capture_steps}
+        del m, b
+        out["memory"] = _memory_window(torch, mem0)
+        free()
+        return out
+
+    def baseline(conf):
+        out = speed(conf, None) if rank == 0 else None
+        distributed.barrier()
+        return out
+
+    t0 = time.perf_counter()
+    # (a) TP: the flagship with model=n, and its zip
+    f32 = _mp_conf(False, sgd=MP_LR)
+    m, res["tp"] = parity(f32, dict(data=1, model=n))
+    ModelSerializer.write_model(m, zip_path)
+    if rank == 0:
+        full = _mp_flat(torch, tree_leaves(m.full_params()))
+        back = ModelSerializer.restore(zip_path, device="cuda")
+        res["tp"]["zip_identical"] = bool(torch.equal(
+            _mp_flat(torch, tree_leaves(back.params)), full))
+        del back, full
+    else:
+        m.full_params()                 # the gather is a collective
+    del m
+    free()
+    bf16 = _mp_conf(None)
+    res["flagship_base"] = baseline(bf16)
+    res["tp"]["speed"] = speed(bf16, dict(data=1, model=n))
+    res["tp"]["seconds"] = time.perf_counter() - t0
+    # (b) SP: Ulysses and ring at 4 x 2048 ids
+    for mode in ("ulysses", "ring"):
+        t0 = time.perf_counter()
+        m, res[mode] = parity(_mp_conf(False, mode, sgd=MP_LR), dict(data=1, seq=n))
+        del m
+        free()
+        res[mode]["speed"] = speed(_mp_conf(None, mode), dict(data=1, seq=n))
+        res[mode]["seconds"] = time.perf_counter() - t0
+    # (c) EP: the MoE flagship with expert=n
+    t0 = time.perf_counter()
+    m, res["ep"] = parity(_mp_conf(False, moe=MOE_EXPERTS, sgd=MP_MOE_LR),
+                          dict(data=1, expert=n))
+    del m
+    free()
+    moe16 = _mp_conf(None, moe=MOE_EXPERTS)
+    res["moe_base"] = baseline(moe16)
+    res["ep"]["speed"] = speed(moe16, dict(data=1, expert=n))
+    res["ep"]["seconds"] = time.perf_counter() - t0
+    # (d) ResNet-50 with model=n, f32
+    t0 = time.perf_counter()
+    rconf = dataclasses.replace(ResNet50().conf(), bf16_compute=False,
+                                updater=Nesterovs(MP_RESNET_LR, 0.9))
+    rng = np.random.default_rng(5)
+    rb = [DataSet(torch.from_numpy(rng.normal(0, 1, (MP_RESNET_ROWS, DP_HW, DP_HW, 3))
+                                   .astype(np.float32)).to("cuda"),
+                  torch.from_numpy(np.eye(DP_CLASSES, dtype=np.float32)[
+                      rng.integers(0, DP_CLASSES, MP_RESNET_ROWS)]).to("cuda"))
+          for _ in range(MP_RESNET_STEPS)]
+    h = MP_RESNET_ROWS // 2
+    swapped = [DataSet(torch.cat([b.features[h:], b.features[:h]]),
+                       torch.cat([b.labels[h:], b.labels[:h]])) for b in rb]
+    m, res["resnet"] = parity(rconf, dict(data=1, model=n), graph=True, batches=rb, floors=(
+        ("halves swapped", None, swapped, contextlib.nullcontext),
+        ("native convolutions", None, None, lambda: _native_convolutions(torch))))
+    res["resnet"]["splits"] = sum(s is not None for s in m._shard_placement.splits)
+    del m, rb, swapped
+    free()
+    res["resnet"]["seconds"] = time.perf_counter() - t0
+    # (e) C27: the MoE flagship with data=n against the concatenated rows
+    t0 = time.perf_counter()
+    c27 = _mp_conf(False, moe=MOE_EXPERTS, sgd=MP_MOE_LR)
+    chunk4096 = dataclasses.replace(c27, layers=tuple(
+        dataclasses.replace(l, chunk=4096)
+        if type(l).__name__ == "ChunkedSoftmaxOutputLayer" else l for l in c27.layers))
+    m, res["c27"] = parity(c27, dict(data=n), steps=MP_C27_STEPS, moe=True, floors=(
+        ("cuBLASLt", None, None, lambda: _blas_library(torch, "cublaslt")),
+        ("chunks of 4096", chunk4096, None, contextlib.nullcontext)))
+    del m
+    free()
+    res["c27"]["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def phase_mp(torch, np, kernels, timer):
+    """Model parallelism inside the step (ROADMAP A11 items 1, 3 and 4) on
+    the card; see the module docstring."""
+    t_phase = time.perf_counter()
+    from deeplearning4j_tpu_torch.runtime import distributed
+
+    cards = torch.cuda.device_count()
+    n = 2 if cards < 4 else 4
+    backend = "gloo" if cards == 1 else None
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    os.makedirs(MP_DIR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        world = distributed.spawn(_mp_rank, n, os.path.join(MP_DIR, "tp.zip"),
+                                  backend=backend, timeout=900)
+    finally:
+        shutil.rmtree(MP_DIR, ignore_errors=True)
+    r0 = world[0]
+    res = {"cards": cards, "n": n, "backend": r0["backend"], "world": world}
+    # each mode's launches a rank, for the kernels line (rank 0's)
+    for mode in ("tp", "ulysses", "ring", "ep"):
+        res[mode] = {"launches": r0[mode]["speed"]["launches"]}
+    # B1-B3 at Ulysses' shape against their plain versions
+    bh = TRAIN_BATCH * HEADS // n
+    rows = [flash_case(torch, timer, TRAIN_SEQ, torch.bfloat16, bh=bh)]
+    rows += flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, bh=bh)
+    res["kernel_rows"] = check_rows("mp", rows)
+    smi = nvidia_smi()
+    base, mbase = r0["flagship_base"], r0["moe_base"]
+    log(f"[mp] {n} ranks ({r0['backend']}, {cards} card(s) visible) on {smi}")
+    for mode, what, b in (("tp", f"TP model={n}", base), ("ulysses", f"SP seq={n} Ulysses", base),
+                          ("ring", f"SP seq={n} ring", base), ("ep", f"EP expert={n}", mbase)):
+        e, sp = r0[mode], r0[mode]["speed"]
+        lr = MP_MOE_LR if mode == "ep" else MP_LR
+        log(f"[mp] ({mode}) {what}: f32 Sgd {lr} losses {e['losses']} against "
+            f"{e['ref_losses']}; change relative L2 {e['step_rel_l2']:.3e}; output() "
+            f"max gap {e['out_rel']:.3e} of max |p|; replicated leaves bit-identical "
+            f"across ranks: {len({w[mode]['digest'] for w in world}) == 1}")
+        log(f"[mp] ({mode}) bf16 {sp['ms_per_step']:.2f} ms a step = "
+            f"{sp['tokens_per_s']:.1f} tokens/s a rank against undistributed "
+            f"{b['ms_per_step']:.2f} ms = {b['tokens_per_s']:.1f} tokens/s; peak "
+            f"reserved {sp['memory']['peak_gib']:.3f} GiB a rank against "
+            f"{b['memory']['peak_gib']:.3f}; launches in {sp['steps']} steps "
+            f"{sp['launches']}; timed steps' taxes {sp['taxes']}; captured "
+            f"{sp['capture']}; {e['seconds']:.1f}s ({smi})")
+    tp = r0["tp"]
+    log(f"[mp] (a) write_model of the TP model restored undistributed on the card "
+        f"equals the gathered parameters: {tp['zip_identical']}")
+    def floors(e):
+        return {k: float("%.3e" % v) for k, v in e["floors"].items()}
+
+    def limit(e):
+        return max(MP_STEP_REL, MP_FLOOR_X * e.get("floor_rel_l2", 0.0))
+
+    rn = r0["resnet"]
+    log(f"[mp] (d) ResNet-50 model={n} f32 ({rn['splits']} leaves split): losses "
+        f"{rn['losses']} against {rn['ref_losses']}; change relative L2 "
+        f"{rn['step_rel_l2']:.3e} (the undistributed model's own floors {floors(rn)}; "
+        f"limit {limit(rn):.3e}, headroom {1 - rn['step_rel_l2'] / limit(rn):.1%}); "
+        f"replicas bit-identical {len({w['resnet']['digest'] for w in world}) == 1}; "
+        f"{rn['seconds']:.1f}s")
+    c = r0["c27"]
+    log(f"[mp] (e) C27 MoE data={n}: losses {c['losses']} against {c['ref_losses']} on "
+        f"the concatenated rows; change relative L2 {c['step_rel_l2']:.3e} (the "
+        f"undistributed model's own floors {floors(c)}; limit {limit(c):.3e}, headroom "
+        f"{1 - c['step_rel_l2'] / limit(c):.1%}; bound {MP_C27_BOUND}); the step's "
+        f"forward (global routing) {c['out_rel_l2']:.3e} relative L2 (max gap "
+        f"{c['out_rel']:.3e} of max |p|) from the undistributed one's; (token, choice) "
+        f"pairs routed otherwise by layer {c['route_diffs']} of {c['pairs']}; dropped share by layer {['%.5f' % x for x in c['drop']]} "
+        f"against {['%.5f' % x for x in c['drop_ref']]}; {c['seconds']:.1f}s")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[mp] phase {res['seconds']:.1f}s")
+
+    # gates
+    for mode in ("tp", "ulysses", "ring", "ep", "c27"):
+        e = r0[mode]
+        if not np.allclose(e["losses"], e["ref_losses"], rtol=2e-4, atol=0):
+            raise AssertionError(f"mp ({mode}): f32 losses {e['losses']} are not the "
+                                 f"undistributed model's {e['ref_losses']}")
+        if not e["step_rel_l2"] <= limit(e):
+            raise AssertionError(f"mp ({mode}): the parameters' change is "
+                                 f"{e['step_rel_l2']:.3e} from the undistributed one's "
+                                 f"(limit {limit(e):.3e})")
+        if mode != "c27" and not e["out_rel"] <= MP_OUT_REL:
+            raise AssertionError(f"mp ({mode}): output() {e['out_rel']:.3e} from the "
+                                 "undistributed model's")
+        if len({w[mode]["digest"] for w in world}) != 1:
+            raise AssertionError(f"mp ({mode}): replicated leaves differ across ranks")
+    for mode in ("tp", "ulysses", "ring", "ep"):
+        sp = r0[mode]["speed"]
+        want = 0 if mode == "ring" else LAYERS * MP_STEPS
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+            for w in world:
+                got = w[mode]["speed"]["launches"].get(name, 0)
+                if got != want:
+                    raise AssertionError(f"mp ({mode}): rank {w['rank']} launched {name} "
+                                         f"{got} times in {MP_STEPS} steps, want {want}")
+        if not np.isfinite(sp["losses"]).all():
+            raise AssertionError(f"mp ({mode}): bf16 losses not finite: {sp['losses']}")
+        if r0["backend"] == "nccl":
+            taxes = sp["taxes"]
+            if not sp["capture"] or taxes.get("jit_cache_misses", 0) or \
+                    taxes.get("fresh_backend_compiles", 0):
+                raise AssertionError(f"mp ({mode}): a capture or nvcc run in the timed "
+                                     f"NCCL steps, or no capture: {sp}")
+    if not tp["zip_identical"]:
+        raise AssertionError("mp (a): the TP zip does not restore the gathered parameters")
+    if not (np.isfinite(rn["losses"]).all()
+            and np.allclose(rn["losses"], rn["ref_losses"], rtol=2e-4, atol=0)):
+        raise AssertionError(f"mp (d): ResNet-50 losses {rn['losses']} are not the "
+                             f"undistributed model's {rn['ref_losses']}")
+    if len({w["resnet"]["digest"] for w in world}) != 1:
+        raise AssertionError("mp (d): ResNet-50's replicated leaves differ across ranks")
+    if not rn["step_rel_l2"] <= limit(rn):
+        raise AssertionError(f"mp (d): ResNet-50's change is {rn['step_rel_l2']:.3e} from "
+                             f"the undistributed one's (limit {limit(rn):.3e})")
+    if not c["step_rel_l2"] <= MP_C27_BOUND:
+        raise AssertionError(f"mp (e): the change is {c['step_rel_l2']:.3e} from the "
+                             f"undistributed one's (bound {MP_C27_BOUND})")
+    if not (c["out_rel_l2"] <= MP_STEP_REL
+            and max(c["route_diffs"]) <= MP_C27_ROUTES * c["pairs"]):
+        raise AssertionError(f"mp (e): the step's forward is {c['out_rel_l2']:.3e} from the "
+                             f"undistributed one's, pairs routed otherwise by layer "
+                             f"{c['route_diffs']} of {c['pairs']}")
+    if not np.allclose(c["drop"], c["drop_ref"], rtol=0, atol=1e-3):
+        raise AssertionError(f"mp (e): dropped shares {c['drop']} are not the "
+                             f"undistributed model's {c['drop_ref']}")
+    return res
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6722,6 +7259,10 @@ def main(argv=None) -> int:
     if "dp" in phases:
         report["dp"] = phase_dp(torch, np, kernels)
         done("dp")
+    if "mp" in phases:
+        report["mp"] = phase_mp(torch, np, kernels, timer)
+        rows = rows + report["mp"]["kernel_rows"]
+        done("mp")
 
     entries = []
     def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):
@@ -6808,7 +7349,19 @@ def main(argv=None) -> int:
         (row("flash_fwd", shape=train_bhtd), "dp/flagship"),
         (row("flash_bwd_dq", shape=train_bhtd), "dp/flagship"),
         (row("flash_bwd_dkdv", shape=train_bhtd), "dp/flagship"),
-    ]
+        # model parallelism: the flagship's blocks under model=n and the MoE
+        # flagship's under expert=n (whole heads, the training shape), and
+        # Ulysses' local attention on B x H / n heads of the whole sequence
+        # (rank 0's counts; ring attention launches none)
+        (row("flash_fwd", shape=train_bhtd), "mp/tp"),
+        (row("flash_bwd_dq", shape=train_bhtd), "mp/tp"),
+        (row("flash_bwd_dkdv", shape=train_bhtd), "mp/tp"),
+        (row("flash_fwd", shape=train_bhtd), "mp/ep"),
+        (row("flash_bwd_dq", shape=train_bhtd), "mp/ep"),
+        (row("flash_bwd_dkdv", shape=train_bhtd), "mp/ep"),
+    ] + [(row(name, shape=[TRAIN_BATCH * HEADS // report.get("mp", {}).get("n", 2),
+                           TRAIN_SEQ, dh]), "mp/ulysses")
+         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),

@@ -4,6 +4,8 @@ penalty."""
 
 from __future__ import annotations
 
+import torch
+
 from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf.recurrent import CANONICAL_ACTIVATION
 from deeplearning4j_tpu_torch.nn.losses import FUSED_ACTIVATION_LOSSES
@@ -43,19 +45,29 @@ def pop_aux_losses(new_state: dict):
     return total, cleaned
 
 
-def regularization_loss(params: dict, named_layers):
+def regularization_loss(params: dict, named_layers, split_axes=None):
     """Sum of per-layer l1 * |W| + 0.5 * l2 * W^2 penalties over the
     regularized parameters, in f32: a 0-dim tensor, or 0.0 when no layer
-    has a penalty.  named_layers: iterable of (name, LayerConfig)."""
+    has a penalty.  named_layers: iterable of (name, LayerConfig).
+    ``split_axes``: {id of a leaf: the mesh axis that splits it}; such a
+    leaf's terms are summed over that axis (its gradient stays the
+    rank's slice's)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
     reg = 0.0
     for name, layer in named_layers:
         lp = params.get(name)
         if not lp:
             continue
         for l1, l2, w in layer.regularization_terms(lp):
+            axis = (split_axes or {}).get(id(w))
             w = w.float()
+            term = 0.0
             if l1:
-                reg = reg + l1 * w.abs().sum()
+                term = term + l1 * w.abs().sum()
             if l2:
-                reg = reg + 0.5 * l2 * (w * w).sum()
+                term = term + 0.5 * l2 * (w * w).sum()
+            if axis is not None and isinstance(term, torch.Tensor):
+                term = collectives.reduce_from(term, axis)
+            reg = reg + term
     return reg

@@ -164,6 +164,10 @@ class GraphModel(Model):
         ``net_state``; ``features`` one array a network input.  Returns
         (the outputs in declared order, the new state of the layers that
         have one: a shared layer's last call wins)."""
+        with self.mesh_scope(params):
+            return self._run_nodes(params, net_state, features, training, keys)
+
+    def _run_nodes(self, params, net_state, features, training, keys):
         acts = {name: entry_cast(as_tensor(x, self.device), self.compute_dtype)
                 for name, x in zip(self.conf.network_inputs, features)}
         new_state = {}
@@ -215,7 +219,7 @@ class GraphModel(Model):
                 named.append((n.pkey, n.layer))
             elif n.vertex.HAS_PARAMS:
                 named.append((n.pkey, n.vertex))
-        return regularization_loss(params, named)
+        return regularization_loss(params, named, self._split_axes(params))
 
     # -- the batch ---------------------------------------------------------
     def _as_mds(self, batch) -> MultiDataSet:
@@ -284,7 +288,8 @@ class GraphModel(Model):
         feats, labels, lmasks = self._split(arrays)
         outs, new_state = self._forward(self.cast_tree(params, detach=False),
                                         net_state, feats, training=True, keys=keys)
-        data = self._outputs_loss(params, outs, labels, lmasks)
+        with self.mesh_scope(params):
+            data = self._outputs_loss(params, outs, labels, lmasks)
         aux, new_state = pop_aux_losses(new_state)
         reg, aux = dp_context.replica_share(self._reg_loss(params), aux)
         return data + reg + aux, new_state
@@ -356,8 +361,10 @@ class GraphModel(Model):
             out = self.output(*mds.features)
             arr = out[output_index] if isinstance(out, tuple) else out
             if out_layer is not None and hasattr(out_layer, "evaluation_output"):
-                arr = out_layer.evaluation_output(
-                    self.compute_params().get(out_layer.name, {}), arr)
+                params = self.compute_params()
+                with self.mesh_scope(params):
+                    arr = out_layer.evaluation_output(
+                        params.get(out_layer.name, {}), arr)
             mask = None if mds.labels_masks is None else mds.labels_masks[output_index]
             ev.eval(np.asarray(mds.labels[output_index]), arr.float().cpu().numpy(),
                     mask=mask)
@@ -370,7 +377,9 @@ class GraphModel(Model):
         if self.params is None:
             self.init()
         mds = self._as_mds(batch)
-        outs, _ = self._forward(self.compute_params(), self.net_state, mds.features)
-        masks = mds.labels_masks or (None,) * len(mds.labels)
-        loss = self._outputs_loss(self.params, outs, mds.labels, masks)
-        return float(loss + self._reg_loss(self.params))
+        with self.mesh_scope(self.params):
+            outs, _ = self._forward(self.compute_params(), self.net_state,
+                                    mds.features)
+            masks = mds.labels_masks or (None,) * len(mds.labels)
+            loss = self._outputs_loss(self.params, outs, mds.labels, masks)
+            return float(loss + self._reg_loss(self.params))

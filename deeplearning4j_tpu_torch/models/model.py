@@ -396,6 +396,7 @@ class Model(nn.Module):
     _mesh = None
     _batch_sharding = None
     _zero_placement = None
+    _shard_placement = None
     _grad_compression = None
     _grad_residual = None
 
@@ -911,7 +912,7 @@ class Model(nn.Module):
         if self._frozen:
             params = {k: _tree_map(torch.Tensor.detach, v) if k in self._frozen
                       else v for k, v in params.items()}
-        with torch.enable_grad():
+        with torch.enable_grad(), self.mesh_scope():
             value, new_state, *extra = (loss or self._step_loss)(
                 params, net_state, *inputs)
             grads = torch.autograd.grad(value, plist, allow_unused=True)
@@ -969,6 +970,36 @@ class Model(nn.Module):
         return opt_state
 
     # -- data parallelism ---------------------------------------------------------
+    def mesh_scope(self, *trees):
+        """The model's mesh as the active one (`runtime/mesh.py`): the
+        layers' collectives run over its axes' groups, and a layer reads
+        which axis splits a leaf of ``trees`` (parameter trees: the
+        masters, or a compute copy of them) with `leaf_axis`."""
+        from deeplearning4j_tpu_torch.runtime.mesh import active_mesh_scope
+
+        splits = {}
+        for tree in trees:
+            splits.update(self._split_axes(tree) or {})
+        return active_mesh_scope(self._mesh, splits)
+
+    def _split_axes(self, params) -> dict | None:
+        """{id of a leaf of ``params``: the axis that splits it} under
+        tensor or expert parallelism, else None."""
+        sp = self._shard_placement
+        if sp is None:
+            return None
+        return {id(t): s[0] for t, s in zip(tree_leaves(params), sp.splits)
+                if s is not None}
+
+    def full_params(self) -> dict:
+        """The parameter tree whole: a model-parallel model's slices
+        gathered over their axes (a collective: every rank calls it),
+        else `params` itself."""
+        if self._shard_placement is None:
+            return self.params
+        with torch.no_grad():
+            return self._shard_placement.gather_tree(self.params)
+
     def _dp_grads(self, grad_step, params, arrays, keys):
         """The data-parallel step's forward, backward and gradient
         exchange on this rank's rows.  The exact step runs the grad step
@@ -981,12 +1012,15 @@ class Model(nn.Module):
         int8 exchange of the gradients, the loss and the layers' new
         state averaged over the ranks.  Returns (loss, grads, new state,
         extra outputs, accumulated)."""
+        from deeplearning4j_tpu_torch.parallel.context import ROWS as dp_rows
         from deeplearning4j_tpu_torch.parallel.context import (
             DataParallelContext,
             dp_scope,
         )
 
-        rank, n = self._batch_sharding.rank, self._batch_sharding.n
+        bs = self._batch_sharding
+        rank, n = bs.rank, bs.n
+        rows = self._mesh.axes_group(dp_rows)
         if self._grad_compression:
             from deeplearning4j_tpu_torch.parallel.compression import (
                 quantized_allreduce_tree,
@@ -1002,7 +1036,7 @@ class Model(nn.Module):
                     r.copy_(x)
             loss, new_state = _mean_over_ranks(loss, new_state, n)
             return loss, grads, new_state, extra, False
-        ctx = DataParallelContext(rank, n)
+        ctx = DataParallelContext(rank, n, bs.seq_rank, bs.seq)
         zp = self._zero_placement
         accum = getattr(zp, "accum", 1)
         if accum > 1:
@@ -1016,7 +1050,7 @@ class Model(nn.Module):
                 with dp_scope(ctx):
                     loss, grads, new_state = grad_step(
                         params, state, *micro, keys[i * per:(i + 1) * per])
-                loss, grads = _sum_over_ranks(loss, grads)
+                loss, grads = _sum_over_ranks(loss, grads, rows)
                 return loss, {**state, **new_state}, grads
 
             loss, state = zp.scan_accumulate(
@@ -1027,7 +1061,7 @@ class Model(nn.Module):
         with dp_scope(ctx):
             loss, grads, new_state, *extra = grad_step(
                 params, self.net_state, *arrays, keys)
-        loss, grads = _sum_over_ranks(loss, grads)
+        loss, grads = _sum_over_ranks(loss, grads, rows)
         return loss, grads, new_state, extra, False
 
     def _setup_grad_compression(self, mesh) -> None:
@@ -1240,12 +1274,16 @@ class Model(nn.Module):
             self._fit_one(b)
 
 
-def _sum_over_ranks(loss, grads):
-    """The loss and the gradients summed over the world in one all-reduce
-    of a flat f32 bucket (the gradients, then the loss)."""
+def _sum_over_ranks(loss, grads, group):
+    """The loss and the gradients summed over ``group`` (the ranks that
+    see different rows of the same slices: the data and seq axes) in
+    one all-reduce of a flat f32 bucket (the gradients, then the loss);
+    as they are when the group is None (one rank)."""
     from deeplearning4j_tpu_torch.runtime.distributed import all_reduce_flat
 
-    *sums, total = all_reduce_flat(list(grads) + [loss.detach()])
+    if group is None:
+        return loss, list(grads)
+    *sums, total = all_reduce_flat(list(grads) + [loss.detach()], group=group)
     return total.to(loss.dtype), [s.to(g.dtype) for s, g in zip(sums, grads)]
 
 

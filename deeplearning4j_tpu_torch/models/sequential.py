@@ -108,6 +108,71 @@ from deeplearning4j_tpu_torch.runtime import rng
 from deeplearning4j_tpu_torch.runtime.backend import backend, resolve_device
 
 
+def _time_block(t):
+    """The rank's time block (dim 1) of ``t`` (None stays None)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    return None if t is None else collectives.block(t, 1, "seq")
+
+
+def _gather_time(t):
+    """Every seq rank's time block of ``t`` concatenated (dim 1)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    return collectives.gather(t, 1, "seq", grad="sum")
+
+
+class _SeqBlocks:
+    """The time axis of a forward under a seq axis larger than 1
+    (`parallel/context.py`): the stack runs on the rank's time block of a
+    sequence input, a layer that needs the whole sequence
+    (``SEQ_LOCAL`` False: recurrent layers, pooling over time, Conv1D, a
+    MoE layer's capacity count) on the sequence gathered (its backward
+    sums the seq ranks' gradients), and a time-distributed layer after
+    it on the block again.  Outside a seq mesh nothing changes."""
+
+    def __init__(self, model, x, mask):
+        from deeplearning4j_tpu_torch.parallel import collectives
+
+        self.s = collectives.axis_size("seq")
+        self.rank = collectives.axis_rank("seq")
+        it = (model._itypes or [None])[0]
+        seqin = it.kind == "rnn" if it is not None else x.dim() >= 3
+        self.active = self.s > 1 and seqin and x.dim() >= 2
+        self.t = x.shape[1] if self.active else 0
+        if self.active and self.t % self.s:
+            raise ValueError(f"sequence length {self.t} not divisible by seq "
+                             f"axis size {self.s}")
+        self.mask = mask                  # the whole features mask
+        self.blocked = False
+
+    def _is_seq(self, x, itype) -> bool:
+        if not self.active or x.dim() < 2 or x.shape[1] != self.t:
+            return False
+        return itype.kind == "rnn" if itype is not None else x.dim() >= 3
+
+    def enter(self, layer, x, mask, itype):
+        """``x`` and the mask as ``layer`` takes them (``itype``: its
+        input type, or None)."""
+        if self.blocked and not layer.SEQ_LOCAL:
+            self.blocked = False
+            return _gather_time(x), self.mask
+        if not self.blocked and layer.SEQ_LOCAL and self._is_seq(x, itype):
+            self.blocked = True
+            return _time_block(x), _time_block(self.mask)
+        return x, mask
+
+    def scope(self):
+        from deeplearning4j_tpu_torch.parallel import context
+
+        return context.time_sharded(self.rank, self.s if self.blocked else 1)
+
+    def collapse(self) -> None:
+        """The time axis is gone: nothing is a sequence from here on."""
+        self.mask = None
+        self.active = False
+
+
 def _as_iterator(data, batch_size: int | None) -> DataSetIterator:
     if isinstance(data, DataSetIterator):
         return data
@@ -226,8 +291,9 @@ class SequentialModel(Model):
     def _layer_outputs(self, params: dict, net_state: dict, features, *,
                        training: bool = False, keys=None, fmask=None,
                        carries=None, new_carries=None, fuse: bool = True):
-        """Run the stack, yielding (layer, output, new state) layer by
-        layer.  Inputs take the compute dtype (`entry_cast`); a
+        """Run the stack, yielding (layer, output, new state, whether the
+        output is the rank's time block (`_SeqBlocks`)) layer by layer.
+        Inputs take the compute dtype (`entry_cast`); a
         feed-forward layer after convolutional maps sees them flattened.
         The (B, T) features mask ``fmask`` reaches every layer with
         ``ACCEPTS_MASK`` until the time axis collapses (JAX
@@ -246,6 +312,7 @@ class SequentialModel(Model):
         flatten = self._flatten_before or [False] * n
         itypes = self._itypes or [None] * n
         runs = self._rnn_runs if fuse else {}
+        seq = _SeqBlocks(self, x, mask)
 
         def carry_of(layer, x):
             c = None if carries is None else carries.get(layer.name)
@@ -259,47 +326,68 @@ class SequentialModel(Model):
                 x = x.reshape(x.shape[0], -1)
             key = keys[i] if keys is not None else None
             run = runs.get(i, 0)
-            if run >= 2:
-                lys = layers[i:i + run]
-                x, fins = fused_rnn_scan(
-                    lys, [params.get(l.name, {}) for l in lys], x,
-                    [carry_of(l, x) for l in lys], mask, training=training, rng=key)
-                if carries is not None:
-                    new_carries.update((l.name, f) for l, f in zip(lys, fins))
-                yield lys[-1], x, {}
-                i += run
-                continue
-            lp = params.get(layer.name, {})
-            if carries is not None and isinstance(layer, RecurrentLayerConfig):
-                x, new_carries[layer.name] = layer.apply_with_carry(
-                    lp, x, carry_of(layer, x), mask=mask, training=training, rng=key)
-                ns = {}
-            else:
-                kw = {"mask": mask} if layer.ACCEPTS_MASK else {}
-                x, ns = layer.apply(lp, net_state.get(layer.name, {}), x,
-                                    training=training, rng=key, **kw)
-            yield layer, x, ns
+            # under a seq axis: the rank's time block into a per-step
+            # layer, the whole sequence into any other
+            x, mask = seq.enter(layer, x, mask, itypes[i])
+            with seq.scope():
+                if run >= 2:
+                    lys = layers[i:i + run]
+                    x, fins = fused_rnn_scan(
+                        lys, [params.get(l.name, {}) for l in lys], x,
+                        [carry_of(l, x) for l in lys], mask, training=training,
+                        rng=key)
+                    if carries is not None:
+                        new_carries.update((l.name, f) for l, f in zip(lys, fins))
+                    yield lys[-1], x, {}, seq.blocked
+                    i += run
+                    continue
+                lp = params.get(layer.name, {})
+                if carries is not None and isinstance(layer, RecurrentLayerConfig):
+                    x, new_carries[layer.name] = layer.apply_with_carry(
+                        lp, x, carry_of(layer, x), mask=mask, training=training,
+                        rng=key)
+                    ns = {}
+                else:
+                    kw = {"mask": mask} if layer.ACCEPTS_MASK else {}
+                    x, ns = layer.apply(lp, net_state.get(layer.name, {}), x,
+                                        training=training, rng=key, **kw)
+            yield layer, x, ns, seq.blocked
             # once the time axis collapses (RNN -> FF), the mask is spent
             it = itypes[i]
-            if (mask is not None and it is not None and it.kind == "rnn"
+            if (it is not None and it.kind == "rnn"
                     and layer.output_type(it).kind != "rnn"):
                 mask = None
+                seq.collapse()
             i += 1
+
+    def _stack(self, params: dict, net_state: dict, features, *,
+               training: bool = False, keys=None, fmask=None, carries=None):
+        """The layer stack on ``params`` (already in the compute dtype)
+        and ``net_state``, inside the mesh scope: (output, new state of the
+        layers that have one, final carries or None when ``carries``
+        (initial ones, {layer name: carry}) is None, whether the output is
+        the rank's time block).  See `_layer_outputs`."""
+        x, new_state, blocked = None, {}, False
+        new_carries = None if carries is None else {}
+        with self.mesh_scope(params):
+            for layer, x, ns, blocked in self._layer_outputs(
+                    params, net_state, features, training=training, keys=keys,
+                    fmask=fmask, carries=carries, new_carries=new_carries):
+                if ns:
+                    new_state[layer.name] = ns
+        return x, new_state, new_carries, blocked
 
     def _forward(self, params: dict, net_state: dict, features, *,
                  training: bool = False, keys=None, fmask=None, carries=None):
-        """The layer stack on ``params`` (already in the compute dtype)
-        and ``net_state``; returns (output, new state of the layers that
-        have one), and the final carries third when ``carries`` (initial
-        ones, {layer name: carry}) is given.  See `_layer_outputs`."""
-        x, new_state = None, {}
-        new_carries = None if carries is None else {}
-        for layer, x, ns in self._layer_outputs(params, net_state, features,
-                                                training=training, keys=keys,
-                                                fmask=fmask, carries=carries,
-                                                new_carries=new_carries):
-            if ns:
-                new_state[layer.name] = ns
+        """`_stack`'s output for the whole sequence (a time block
+        gathered) and new state, and the final carries third when
+        ``carries`` is given."""
+        x, new_state, new_carries, blocked = self._stack(
+            params, net_state, features, training=training, keys=keys,
+            fmask=fmask, carries=carries)
+        if blocked:
+            with self.mesh_scope():
+                x = _gather_time(x)
         if carries is not None:
             return x, new_state, new_carries
         return x, new_state
@@ -364,16 +452,24 @@ class SequentialModel(Model):
     def feed_forward(self, features, features_mask=None) -> list:
         """Every layer's activations (reference `feedForward()`), in the
         compute dtype, each recurrent layer's on its own; an inspection
-        path."""
-        return [x for _, x, _ in self._layer_outputs(
-            self.compute_params(), self.net_state, features, fmask=features_mask,
-            fuse=False)]
+        path; each for the whole sequence (a time block gathered)."""
+        params = self.compute_params()
+        with self.mesh_scope(params):
+            return [_gather_time(x) if blocked else x
+                    for _, x, _, blocked in self._layer_outputs(
+                        params, self.net_state, features, fmask=features_mask,
+                        fuse=False)]
 
-    def _data_loss(self, params: dict, out, labels, lmask):
+    def _data_loss(self, params: dict, out, labels, lmask, blocked: bool = False):
+        """The output layer's loss of ``out``; ``blocked``: ``out`` is the
+        rank's time block (`_stack`), and so are the per-step labels and
+        mask it is held against."""
         last = self.conf.layers[-1]
         labels = as_tensor(labels, self.device)
         if lmask is not None:
             lmask = as_tensor(lmask, self.device)
+        if blocked:
+            labels, lmask = (_time_block(t) for t in (labels, lmask))
         if hasattr(last, "compute_loss_with_params"):
             return last.compute_loss_with_params(params.get(last.name, {}), out,
                                                  labels, lmask)
@@ -388,10 +484,11 @@ class SequentialModel(Model):
         updated."""
         if self.params is None:
             self.init()
-        out, _ = self._forward(self.compute_params(), self.net_state, ds.features,
-                               fmask=ds.features_mask)
-        loss = self._data_loss(self.params, out, ds.labels, ds.labels_mask)
-        return float(loss + self._reg_loss(self.params))
+        with self.mesh_scope(self.params):
+            out, _ = self._forward(self.compute_params(), self.net_state,
+                                   ds.features, fmask=ds.features_mask)
+            loss = self._data_loss(self.params, out, ds.labels, ds.labels_mask)
+            return float(loss + self._reg_loss(self.params))
 
     def evaluate(self, data, batch_size: int | None = None):
         """`Evaluation` of ``output()`` over ``data`` (reference
@@ -406,8 +503,9 @@ class SequentialModel(Model):
             probs = self.output(batch.features, batch.features_mask)
             if hasattr(last, "evaluation_output"):
                 # a head that owns its projection: its logits, not apply()'s
-                probs = last.evaluation_output(
-                    self.compute_params().get(last.name, {}), probs)
+                params = self.compute_params()
+                with self.mesh_scope(params):
+                    probs = last.evaluation_output(params.get(last.name, {}), probs)
             parr = probs.float().cpu().numpy()
             labels = np.asarray(batch.labels)
             n_out = parr.shape[-1]
@@ -443,7 +541,8 @@ class SequentialModel(Model):
 
     def _reg_loss(self, params: dict):
         return regularization_loss(params,
-                                   [(l.name, l) for l in self.conf.layers])
+                                   [(l.name, l) for l in self.conf.layers],
+                                   self._split_axes(params))
 
     def _step_loss(self, params: dict, net_state: dict, features, labels,
                    lmask=None, fmask=None, keys=None, carries=None):
@@ -468,11 +567,13 @@ class SequentialModel(Model):
         package's do.  Returns (data, penalty, aux, the layers' new state
         with the aux entries popped), and the final carries fifth when
         ``carries`` is given."""
-        out, new_state, *rest = self._forward(
+        out, new_state, new_carries, blocked = self._stack(
             self.cast_tree(params, detach=False), net_state, features,
             training=True, keys=keys, fmask=fmask, carries=carries)
-        data_loss = self._data_loss(params, out, labels, lmask)
+        with self.mesh_scope(params):
+            data_loss = self._data_loss(params, out, labels, lmask, blocked)
         aux, new_state = pop_aux_losses(new_state)
+        rest = () if carries is None else (new_carries,)
         return (data_loss, self._reg_loss(params), aux, new_state, *rest)
 
 

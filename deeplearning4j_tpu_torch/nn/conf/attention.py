@@ -2,13 +2,16 @@
 `SelfAttentionLayer`, `LearnedSelfAttentionLayer`, `PositionalEncoding`
 and the pre-LN `TransformerEncoderBlock`.
 
-Sequence parallelism (``seq_parallel`` "ring" / "ulysses") waits for the
-parallelism slice (ROADMAP A11): a layer that asks for it loads from a
-configuration and raises when a model is built.  Every layer here
-attends on one device through `ops.attention.mha`, which sends unmasked
-self-attention to the flash-forward kernel on CUDA; a key mask (the
-model's features mask, ``ACCEPTS_MASK``) keeps the dense route, as the
-JAX package's ``flash_eligible`` refuses any mask.
+Every layer here attends through `_attend`: on one device (or a mesh
+without a seq axis larger than 1) `ops.attention.mha`, which sends
+unmasked self-attention to the flash-forward kernel on CUDA, a key mask
+(the model's features mask, ``ACCEPTS_MASK``) keeping the dense route
+as the JAX package's ``flash_eligible`` refuses any mask.  Under a seq
+axis a layer with ``seq_parallel`` "ring" or "ulysses" runs on the
+rank's time block (``SEQ_LOCAL``) and attends with
+`ops.attention.ring_attention` or `ulysses_attention`; one with "none"
+runs on the gathered sequence (`models/sequential.py`), densely, as the
+JAX layer attends over the global arrays.
 """
 
 from __future__ import annotations
@@ -52,16 +55,30 @@ def sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
 _SEQ_MODES = ("none", "ring", "ulysses")
 
 
-def _check_seq_parallel(layer) -> None:
-    """Raise for a sequence-parallel mode (ROADMAP A11) when a model is
-    built; an unknown mode is a ValueError, as in the JAX package."""
-    if layer.seq_parallel not in _SEQ_MODES:
+def _check_seq_parallel(mode: str) -> None:
+    """An unknown sequence-parallel mode is a ValueError when a model is
+    built, as in the JAX package."""
+    if mode not in _SEQ_MODES:
+        raise ValueError(f"seq_parallel={mode!r}; options: {_SEQ_MODES}")
+
+
+def _attend(q, k, v, *, causal: bool, mask, seq_parallel: str):
+    """The attention core of q, k, v (B, T, H, Dh) with a (B, T) key
+    mask or None: ring or Ulysses attention on the rank's time block
+    when the active mesh has a seq axis larger than 1 and the layer
+    asks for one (the caller then holds a block), `mha` otherwise."""
+    from deeplearning4j_tpu_torch.ops.attention import ring_attention, ulysses_attention
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    _check_seq_parallel(seq_parallel)
+    n = collectives.axis_size("seq")
+    if seq_parallel == "none" or n == 1:
+        return mha(q, k, v, causal=causal, mask=mask)
+    if seq_parallel == "ulysses" and q.shape[2] % n:
         raise ValueError(
-            f"seq_parallel={layer.seq_parallel!r}; options: {_SEQ_MODES}")
-    if layer.seq_parallel != "none":
-        raise NotImplementedError(
-            f"layer {layer.name!r}: seq_parallel={layer.seq_parallel!r} is "
-            "not ported yet (ROADMAP A11: ring and Ulysses attention)")
+            f"ulysses needs heads ({q.shape[2]}) divisible by seq axis ({n})")
+    core = ring_attention if seq_parallel == "ring" else ulysses_attention
+    return core(q, k, v, axis="seq", causal=causal, mask=mask)
 
 
 def resolve_head_size(n_out: int, n_heads: int, head_size) -> int:
@@ -88,13 +105,13 @@ def init_qkv_params(key, wi: WeightInit, n_in_q: int, n_in_k: int,
 
 
 def apply_qkv_attention(params, xq, xk, xv, *, n_heads: int, head_size: int,
-                        project_input: bool, causal: bool, mask):
+                        project_input: bool, causal: bool, mask,
+                        seq_parallel: str = "none"):
     """Project (when project_input), attend, merge heads, project out.
     xq / xk / xv: (B, T*, F), one tensor three times for self-attention;
     mask: a (B, Tk) keep-mask over keys or None.  The projections go
-    through `quantf.matmul` (B5 for an int8 weight); the core is `mha` on
-    one device (a sequence-parallel layer raised when its model was
-    built, `_check_seq_parallel`)."""
+    through `quantf.matmul` (B5 for an int8 weight); the core is
+    `_attend` (ring or Ulysses under a seq axis, `mha` otherwise)."""
     b, tq = xq.shape[0], xq.shape[1]
     h, dh = n_heads, head_size
     if project_input:
@@ -105,7 +122,8 @@ def apply_qkv_attention(params, xq, xk, xv, *, n_heads: int, head_size: int,
         q = xq.reshape(b, tq, h, dh)
         k = xk.reshape(b, xk.shape[1], h, dh)
         v = xv.reshape(b, xv.shape[1], h, dh)
-    out = mha(q, k, v, causal=causal, mask=mask).reshape(b, tq, h * dh)
+    out = _attend(q, k, v, causal=causal, mask=mask,
+                  seq_parallel=seq_parallel).reshape(b, tq, h * dh)
     if project_input:
         out = quantf.matmul(out, params["Wo"])
     return out
@@ -124,14 +142,18 @@ class SelfAttentionLayer(LayerConfig):
     head_size: Optional[int] = None       # default: n_out // n_heads
     project_input: bool = True
     causal: bool = False
-    seq_parallel: str = "none"            # none | ring | ulysses (A11)
+    seq_parallel: str = "none"            # none | ring | ulysses
 
     EXPECTS = "rnn"
     ACCEPTS_MASK = True
     REGULARIZED = ("Wq", "Wk", "Wv", "Wo")
 
     def check_supported(self):
-        _check_seq_parallel(self)
+        _check_seq_parallel(self.seq_parallel)
+
+    @property
+    def SEQ_LOCAL(self):  # type: ignore[override]
+        return self.seq_parallel != "none"
 
     def _head_size(self) -> int:
         return resolve_head_size(self.n_out, self.n_heads, self.head_size)
@@ -158,7 +180,8 @@ class SelfAttentionLayer(LayerConfig):
         x = _dropout(x, self.dropout_rate or 0.0, training, rng)
         out = apply_qkv_attention(
             params, x, x, x, n_heads=self.n_heads, head_size=self._head_size(),
-            project_input=self.project_input, causal=self.causal, mask=mask)
+            project_input=self.project_input, causal=self.causal, mask=mask,
+            seq_parallel=self.seq_parallel)
         return self._act()(out), state
 
 
@@ -221,6 +244,7 @@ class PositionalEncoding(LayerConfig):
     learned: bool = False
     max_length: int = 0
     REGULARIZED = ()
+    SEQ_LOCAL = True
 
     @property
     def HAS_PARAMS(self):  # type: ignore[override]
@@ -237,13 +261,17 @@ class PositionalEncoding(LayerConfig):
                              fan_out=d, device=device)}, {}
 
     def apply(self, params, state, x, *, training=False, rng=None):
+        from deeplearning4j_tpu_torch.parallel import context
+
         t, d = x.shape[1], x.shape[2]
+        # a time block's rows are those of its global positions
+        t0, t_all = context.time_offset(t)
         if self.learned:
-            if t > self.max_length:
+            if t_all > self.max_length:
                 raise ValueError(
-                    f"sequence length {t} exceeds max_length {self.max_length}")
-            return x + params["P"][:t].to(x.dtype), state
-        pos = torch.arange(t, device=x.device)
+                    f"sequence length {t_all} exceeds max_length {self.max_length}")
+            return x + params["P"][t0:t0 + t].to(x.dtype), state
+        pos = torch.arange(t0, t0 + t, device=x.device)
         return x + sinusoid_rows(pos, d).to(x.dtype), state
 
 
@@ -275,7 +303,11 @@ class TransformerEncoderBlock(LayerConfig):
                 f"d_model {self.d_model} not divisible by n_heads {self.n_heads}")
 
     def check_supported(self):
-        _check_seq_parallel(self)
+        _check_seq_parallel(self.seq_parallel)
+
+    @property
+    def SEQ_LOCAL(self):  # type: ignore[override]
+        return self.seq_parallel != "none"
 
     def _dff(self) -> int:
         return self.d_ff if self.d_ff > 0 else 4 * self.d_model
@@ -316,7 +348,7 @@ class TransformerEncoderBlock(LayerConfig):
         x = x + apply_qkv_attention(
             params["attn"], h, h, h, n_heads=self.n_heads,
             head_size=self.d_model // self.n_heads, project_input=True,
-            causal=self.causal, mask=mask)
+            causal=self.causal, mask=mask, seq_parallel=self.seq_parallel)
         h = layer_norm(params["ln2"], x)
         if training and rng is not None and self.dropout_rate:
             # the JAX block splits its key for the attention sub-layer

@@ -10,8 +10,8 @@ their input tensors (`MergeVertex` concatenates on the last axis,
 maximum — ResNet's skip connections are its ADD — and so on);
 `AttentionVertex` has parameters and runs `apply_qkv_attention`, so an
 unmasked self-attention vertex reaches the flash-forward kernel (B1) on
-the card.  ``seq_parallel`` other than "none" raises when a model is
-built (ROADMAP A11).
+the card.  Its ``seq_parallel`` knob builds; a graph runs it densely
+(distributing a graph over a seq axis raises, ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -287,15 +287,9 @@ class AttentionVertex(VertexConfig):
     REGULARIZED = ("Wq", "Wk", "Wv", "Wo")
 
     def check_supported(self) -> None:
-        from deeplearning4j_tpu_torch.nn.conf.attention import _SEQ_MODES
+        from deeplearning4j_tpu_torch.nn.conf.attention import _check_seq_parallel
 
-        if self.seq_parallel not in _SEQ_MODES:
-            raise ValueError(
-                f"seq_parallel={self.seq_parallel!r}; options: {_SEQ_MODES}")
-        if self.seq_parallel != "none":
-            raise NotImplementedError(
-                f"AttentionVertex: seq_parallel={self.seq_parallel!r} is not "
-                "ported yet (ROADMAP A11: ring and Ulysses attention)")
+        _check_seq_parallel(self.seq_parallel)
 
     def _head_size(self) -> int:
         from deeplearning4j_tpu_torch.nn.conf.attention import resolve_head_size

@@ -38,6 +38,7 @@ from deeplearning4j_tpu_torch.ops import conv as conv_ops
 from deeplearning4j_tpu_torch.parallel import context as dp_context
 from deeplearning4j_tpu_torch.quant import functional as quantf
 from deeplearning4j_tpu_torch.runtime import rng as rng_mod
+from deeplearning4j_tpu_torch.runtime.mesh import leaf_axis
 from deeplearning4j_tpu_torch.utils import serde
 
 
@@ -109,6 +110,10 @@ class LayerConfig:
     # the layer computes in f32 from f32 weights whatever the compute
     # dtype (the model leaves its tree out of the bf16 cast)
     F32_PARAMS = False
+    # each time step's output depends on that step alone (or the layer
+    # runs sequence-parallel itself): under a seq axis it runs on the
+    # rank's time block, every other layer on the gathered sequence
+    SEQ_LOCAL = False
 
     def __post_init__(self):
         # strings are accepted wherever the enum is, and padding is
@@ -166,13 +171,30 @@ class LayerConfig:
 # Feed-forward layers
 # ---------------------------------------------------------------------------
 
+def split_region(layer, params, x, fn):
+    """``fn(x)`` on this rank's output-feature slice of the layer's
+    weights, made the whole function under the model axis: the input
+    enters by `collectives.copy_to` (its gradient summed over the
+    axis) and the output slices are gathered on the last dim (NHWC's
+    channels, a dense layer's features)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    if leaf_axis(params["W"]) != "model":
+        return fn(x)
+    y = fn(collectives.copy_to(x, "model"))
+    return collectives.gather(y, -1, "model")
+
+
 def _dense(layer, params, x):
-    # quantf.matmul: ``x @ W`` for f32 weights, B5 (int8 weights, f32
-    # accumulation) after quantize()
-    y = quantf.matmul(x, params["W"])
-    if layer.has_bias:
-        y = y + params["b"].to(x.dtype)
-    return y
+    def fn(x):
+        # quantf.matmul: ``x @ W`` for f32 weights, B5 (int8 weights,
+        # f32 accumulation) after quantize()
+        y = quantf.matmul(x, params["W"])
+        if layer.has_bias:
+            y = y + params["b"].to(x.dtype)
+        return y
+
+    return split_region(layer, params, x, fn)
 
 
 def _dense_init(layer, key, n_in, device):
@@ -187,6 +209,8 @@ def _dense_init(layer, key, n_in, device):
 @dataclasses.dataclass(frozen=True)
 class Dense(LayerConfig):
     """Fully connected layer (DenseLayer role); n_in is inferred."""
+
+    SEQ_LOCAL = True
 
     n_out: int = 0
     has_bias: bool = True
@@ -222,6 +246,7 @@ class OutputLayer(Dense):
 @dataclasses.dataclass(frozen=True)
 class ActivationLayer(LayerConfig):
     HAS_PARAMS = False
+    SEQ_LOCAL = True
     REGULARIZED = ()
     # slope / scale of the parameterised activations (Keras' LeakyReLU
     # alpha 0.3 against the enum's 0.01; ELU's scale); None keeps the
@@ -244,6 +269,8 @@ class ActivationLayer(LayerConfig):
 class Dropout(LayerConfig):
     """Standalone dropout layer (DropoutLayer role)."""
 
+    SEQ_LOCAL = True
+
     rate: float = 0.5
     HAS_PARAMS = False
     REGULARIZED = ()
@@ -256,6 +283,8 @@ class Dropout(LayerConfig):
 @dataclasses.dataclass(frozen=True)
 class Embedding(LayerConfig):
     """Token ids (B,) -> (B, n_out) or (B, T) -> (B, T, n_out)."""
+
+    SEQ_LOCAL = True
 
     n_in: int = 0
     n_out: int = 0
@@ -273,8 +302,13 @@ class Embedding(LayerConfig):
                                         device=device)}, {}
 
     def apply(self, params, state, x, *, training=False, rng=None):
+        from deeplearning4j_tpu_torch.parallel import collectives
+
         # a quantized table gathers int8 rows and returns them in f32
-        return self._act()(quantf.embedding_lookup(params["W"], x.long())), state
+        y = quantf.embedding_lookup(params["W"], x.long())
+        if leaf_axis(params["W"]) == "model":
+            y = collectives.gather(y, -1, "model")      # columns of each row
+        return self._act()(y), state
 
 
 # ---------------------------------------------------------------------------
@@ -327,13 +361,24 @@ class Conv2D(LayerConfig):
 
     def apply(self, params, state, x, *, training=False, rng=None):
         x = _dropout(x, self.dropout_rate or 0.0, training, rng)
-        # conv_weight: a dtype cast, or the int8 kernel dequantized
-        w = quantf.conv_weight(params["W"], x.dtype)
-        y = conv_ops.conv2d_nhwc(x, w, stride=self.stride, padding=self.padding,
-                                 dilation=self.dilation, groups=self.groups)
-        if self.has_bias:
-            y = y + params["b"].to(x.dtype)
-        return self._act()(y), state
+
+        def fn(x):
+            groups = self.groups
+            if groups > 1 and leaf_axis(params["W"]) == "model":
+                # a grouped kernel's output slice reads its groups' inputs
+                from deeplearning4j_tpu_torch.parallel import collectives
+
+                x = collectives.block(x, -1, "model")
+                groups //= collectives.axis_size("model")
+            # conv_weight: a dtype cast, or the int8 kernel dequantized
+            w = quantf.conv_weight(params["W"], x.dtype)
+            y = conv_ops.conv2d_nhwc(x, w, stride=self.stride, padding=self.padding,
+                                     dilation=self.dilation, groups=groups)
+            if self.has_bias:
+                y = y + params["b"].to(x.dtype)
+            return y
+
+        return self._act()(split_region(self, params, x, fn)), state
 
 
 @serde.register
@@ -450,6 +495,8 @@ class BatchNorm(LayerConfig):
     rank's rows (`parallel/context.py` `global_mean`, the JAX package's
     cross-replica reduction), so the running stats agree on every rank."""
 
+    SEQ_LOCAL = True
+
     epsilon: float = 1e-5
     decay: float = 0.9        # running-stat momentum (reference default 0.9)
     lock_gamma_beta: bool = False
@@ -503,6 +550,8 @@ def layer_norm(params: dict, x: torch.Tensor, epsilon: float = 1e-5) -> torch.Te
 class LayerNorm(LayerConfig):
     """Layer normalization over the last dim, computed in f32."""
 
+    SEQ_LOCAL = True
+
     epsilon: float = 1e-5
     REGULARIZED = ()
 
@@ -523,6 +572,8 @@ class ChunkedSoftmaxOutputLayer(LayerConfig):
     ``apply`` passes hidden states through (dropped out in training) and
     the loss owns the projection; for inference ``logits`` projects them
     densely."""
+
+    SEQ_LOCAL = True
 
     n_out: int = 0
     chunk: int = 8192
@@ -561,7 +612,10 @@ class ChunkedSoftmaxOutputLayer(LayerConfig):
         ids = labels.reshape(-1).long()
         w = (mask.reshape(-1).float() if mask is not None
              else torch.ones((n,), dtype=torch.float32, device=h.device))
+        W = lp["W"]
         b = lp.get("b")
         if b is None:
-            b = torch.zeros((self.n_out,), dtype=torch.float32, device=h.device)
-        return chunked_softmax_xent(h, lp["W"], b, ids, w, self.chunk)
+            b = torch.zeros((W.shape[1],), dtype=torch.float32, device=h.device)
+        # under the model axis: W / b hold this rank's vocabulary shard
+        axis = leaf_axis(W)
+        return chunked_softmax_xent(h, W, b, ids, w, self.chunk, vocab_axis=axis)

@@ -18,7 +18,11 @@ import dataclasses
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import LayerConfig, PoolingType
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    LayerConfig,
+    PoolingType,
+    split_region,
+)
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 from deeplearning4j_tpu_torch.ops import conv as conv_ops
 from deeplearning4j_tpu_torch.quant import functional as quantf
@@ -55,11 +59,15 @@ def _conv_params(layer, key, kernel: tuple, c_in: int, device) -> dict:
 
 
 def _conv_apply(layer, params, x, **kw):
-    y = conv_ops.conv_channels_last(x, quantf.conv_weight(params["W"], x.dtype),
-                                    padding=layer.padding, **kw)
-    if layer.has_bias:
-        y = y + params["b"].to(x.dtype)
-    return layer._act()(y)
+    def fn(x):
+        y = conv_ops.conv_channels_last(x, quantf.conv_weight(params["W"], x.dtype),
+                                        padding=layer.padding, **kw)
+        if layer.has_bias:
+            y = y + params["b"].to(x.dtype)
+        return y
+
+    # under the model axis: the rank's output channels, gathered
+    return layer._act()(split_region(layer, params, x, fn))
 
 
 @serde.register

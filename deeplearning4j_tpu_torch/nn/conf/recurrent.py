@@ -431,6 +431,8 @@ class RnnOutputLayer(LayerConfig):
     activation the loss implies (softmax for ``mcxent``), and the loss
     masks padded steps through the labels mask."""
 
+    SEQ_LOCAL = True
+
     n_out: int = 0
     loss: Loss = Loss.MCXENT
     has_bias: bool = True

@@ -11,11 +11,19 @@ kernel; here they are Python loops over ``torch.matmul`` of f32 operands
 (``h32 @ Wc``, as there).  A vocab the chunk does not divide is padded
 with zero columns whose bias is -1e30, so they add exactly 0 to the
 softmax.
+
+Under the model axis the head's ``W`` / ``b`` are split by vocabulary
+and the loss is vocabulary-parallel: each rank streams its shard
+(padded on its own), the row max and the sum of exponentials are
+reduced over the model group, the label's logit comes from the rank
+whose shard holds it, and in the backward ``dh`` is all-reduced while
+``dW`` / ``db`` stay the rank's.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.parallel import context as dp_context
@@ -34,11 +42,17 @@ def _pad_vocab(W, b, chunk):
 class _ChunkedSoftmaxXent(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, h, W, b, labels, weights, chunk):
+    def forward(ctx, h, W, b, labels, weights, chunk, group=None):
         h32 = h.float()
         Wp, bp = _pad_vocab(W.float(), b.float(), chunk)
         n = h32.shape[0]
         labels = labels.long()
+        if group is not None:
+            # ids of this rank's vocabulary shard count from its start;
+            # any other id is -1, so it matches no column, not even one
+            # of the shard's padding
+            labels = labels - dist.get_rank(group) * W.shape[1]
+            labels = torch.where((labels >= 0) & (labels < W.shape[1]), labels, -1)
         m = torch.full((n,), _NEG, dtype=torch.float32, device=h.device)
         s = torch.zeros((n,), dtype=torch.float32, device=h.device)
         ly = torch.zeros((n,), dtype=torch.float32, device=h.device)
@@ -52,12 +66,19 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
             in_c = (idx >= 0) & (idx < chunk)
             picked = logits.gather(1, idx.clamp(0, chunk - 1)[:, None])[:, 0]
             ly = ly + torch.where(in_c, picked, 0.0)
+        if group is not None:
+            mg = m.clone()
+            dist.all_reduce(mg, op=dist.ReduceOp.MAX, group=group)
+            s = s * torch.exp(m - mg)
+            m = mg
+            dist.all_reduce(s, group=group)
+            dist.all_reduce(ly, group=group)
         w = weights.float()
         # under data parallelism the count of the whole global batch
         wsum = torch.clamp(dp_context.global_count(w.sum()), min=1.0)
         logz = m + torch.log(s)
         ctx.save_for_backward(h, W, b, labels, logz, w, wsum)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.group = chunk, group
         return (w * (logz - ly)).sum() / wsum
 
     @staticmethod
@@ -80,15 +101,23 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
             dh += d @ Wc.T
             dW[:, c:c + chunk] = h32.T @ d
             db[c:c + chunk] = d.sum(dim=0)
+        if ctx.group is not None:
+            dist.all_reduce(dh, group=ctx.group)     # every shard's share
         return (dh.to(h.dtype), dW[:, :v].to(W.dtype), db[:v].to(b.dtype),
-                None, None, None)
+                None, None, None, None)
 
 
-def chunked_softmax_xent(h, W, b, labels, weights, chunk: int = 8192):
+def chunked_softmax_xent(h, W, b, labels, weights, chunk: int = 8192,
+                         vocab_axis: str | None = None):
     """Weighted mean token cross-entropy of softmax(h @ W + b).
 
     h: (N, D) f32 or bf16 hidden states; W: (D, V); b: (V,); labels: (N,)
     int class ids; weights: (N,) per-token weights (ones for a plain mean,
     zeros mask tokens out).  Returns the scalar weighted-mean loss,
-    differentiable in h, W and b."""
-    return _ChunkedSoftmaxXent.apply(h, W, b, labels, weights, int(chunk))
+    differentiable in h, W and b.  ``vocab_axis``: the mesh axis whose
+    ranks hold consecutive vocabulary shards of ``W`` / ``b`` (rank r
+    the columns from r * V_shard), h and the labels whole on each."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    group = collectives.group_of(vocab_axis) if vocab_axis else None
+    return _ChunkedSoftmaxXent.apply(h, W, b, labels, weights, int(chunk), group)

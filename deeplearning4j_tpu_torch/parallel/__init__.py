@@ -1,7 +1,9 @@
 """Parallelism over the port's process world — `deeplearning4j_tpu/parallel/`:
 data parallelism (`distribute`, `ParallelWrapper`), ZeRO-1/2 and int8
-compressed gradients.  Names resolve on first use, so the layers'
-`parallel.context` imports nothing of the models."""
+compressed gradients, and the model, seq and expert axes inside the
+step (`collectives`, `strategy`'s partition rules, `expert`).  Names
+resolve on first use, so the layers' `parallel.context` imports nothing
+of the models."""
 
 __all__ = ["distribute", "place_batch", "ParallelConfig", "ParallelWrapper",
            "ParallelInference"]

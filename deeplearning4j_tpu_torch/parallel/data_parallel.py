@@ -19,8 +19,28 @@ global step:
   int8 (`parallel/compression.py`) with the JAX compressed step's
   per-shard semantics; a world of one takes the plain step.
 
+The other axes of `ParallelConfig` split the model inside the step:
+
+- ``model=m``: the parameters the JAX partition rules split
+  (`parallel/strategy.py` `param_specs`) become the rank's slices;
+  Dense, Embedding and the convolutions compute their output-feature
+  slice and all-gather it, and the chunked vocabulary head computes a
+  vocabulary-parallel loss (`ops/chunked_xent.py`);
+- ``expert=x``: a MoE layer's experts are split over the expert axis,
+  each rank runs its experts' slots and the partial outputs are summed
+  (`parallel/expert.py`);
+- ``seq=s``: the step runs on the rank's time block, attention runs as
+  ring or Ulysses attention (the layers' ``seq_parallel``), and a layer
+  that needs the whole sequence runs on it gathered
+  (`models/sequential.py`).
+
+Every rank of a model, expert or seq line feeds the same rows (whole in
+time); a gradient is summed over the ranks that hold the same slice and
+see different rows (the data and seq axes), BatchNorm's statistics and
+a masked loss's count likewise.
+
 On CUDA the step stays one captured graph a batch signature with its
-NCCL collectives inside (the warm-up runs the communicator's first
+NCCL collectives inside (the warm-up runs each communicator's first
 collectives eagerly).  Gloo collectives cannot be captured, so a model
 on the card in a gloo world steps eagerly (``capture_steps`` False).
 
@@ -29,8 +49,8 @@ Works for `SequentialModel` and `GraphModel`::
     distribute(model, ParallelConfig(data=-1))   # every rank
     model.fit(my_rows)                           # each rank its rows
 
-Tensor, pipeline, sequence and expert parallelism and the planner
-(``auto=True``) raise, naming ROADMAP A11.
+Pipeline parallelism and the planner (``auto=True``) raise, naming
+ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -39,10 +59,19 @@ import logging
 
 from deeplearning4j_tpu_torch.parallel.strategy import (
     ParallelConfig,
+    ShardPlacement,
     batch_sharding,
+    param_specs,
     replicate,
+    shard_params,
 )
-from deeplearning4j_tpu_torch.runtime.mesh import DATA_AXIS
+from deeplearning4j_tpu_torch.runtime.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+)
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -50,7 +79,42 @@ log = logging.getLogger("deeplearning4j_tpu_torch")
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP A11: the port's parallelism is "
-        "data parallelism, ZeRO-1/2 and int8 gradient compression)")
+        "data, tensor, sequence and expert parallelism, ZeRO-1/2 and int8 "
+        "gradient compression)")
+
+
+# layer types whose forward computes the whole function from slices
+# split by the model axis (`nn/conf/layers.py`, `nn/conf/layers_nd.py`)
+_TP_LAYERS = {"Dense", "Embedding", "Conv2D", "Conv1D", "Conv3D",
+              "ChunkedSoftmaxOutputLayer", "MoELayer"}
+
+
+def _check_model_parallel(model, specs, sp: bool) -> None:
+    """Raise for what the split step cannot run: a split leaf of a layer
+    whose forward does not gather it (recurrent layers under the model
+    axis, ROADMAP A11), or a graph under the seq axis."""
+    from deeplearning4j_tpu_torch.nn.conf.recurrent import RecurrentLayerConfig
+    from deeplearning4j_tpu_torch.parallel.strategy import (
+        layer_types,
+        spec_dim,
+        spec_leaves,
+    )
+
+    types = layer_types(model.conf)
+    layers = {l.name: l for l in getattr(model.conf, "layers", ())}
+    for lname, spec in specs.items():
+        if all(spec_dim(s) is None for s in spec_leaves(spec)):
+            continue
+        if isinstance(layers.get(lname), RecurrentLayerConfig) or \
+                types.get(lname) == "Bidirectional":
+            raise _not_ported(
+                f"tensor parallelism of recurrent layer {lname!r} (per-step "
+                "gate gathers inside the captured window steps)")
+        if types.get(lname) not in _TP_LAYERS:
+            raise _not_ported(
+                f"tensor parallelism of {types.get(lname)} layer {lname!r}")
+    if sp and not hasattr(model.conf, "layers"):
+        raise _not_ported("sequence parallelism of a computation graph")
 
 
 def distribute(model, config: ParallelConfig | None = None, devices=None,
@@ -70,9 +134,9 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
     if auto:
         raise _not_ported("the autosharding planner (distribute(auto=True))")
     config = config or ParallelConfig.data_parallel()
-    for axis in ("model", "pipe", "seq", "expert"):
-        if getattr(config, axis) != 1:
-            raise _not_ported(f"{axis} parallelism ({axis}={getattr(config, axis)})")
+    if config.pipe != 1:
+        raise _not_ported(f"pipeline parallelism (pipe={config.pipe})")
+    split = any(getattr(config, a) != 1 for a in ("model", "seq", "expert"))
     zero = config.zero
     if zero is None:
         zero = environment().zero
@@ -81,7 +145,7 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
             f"unknown zero stage {zero!r}; options: 0 (replicated update), 1 "
             "(sharded opt state + update), 2 (ZeRO-1 + persistently sharded "
             "gradients)")
-    if zero >= 1 and config.grad_compression != "none":
+    if zero >= 1 and (split or config.grad_compression != "none"):
         raise ValueError(
             f"zero={zero} composes with pure data parallelism only (the "
             "weight-update shards ride the data axis); drop the "
@@ -106,6 +170,11 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
         raise ValueError(
             f"unknown grad_compression {config.grad_compression!r}; options: "
             "'none', 'int8'")
+    if config.grad_compression != "none" and split:
+        raise ValueError(
+            "grad_compression composes with pure data parallelism only "
+            "(the reference's compression was DP-only too); drop the "
+            "model/pipe/seq/expert axes or the compression")
 
     if not distributed.is_initialized():
         distributed.initialize(distributed.DistributedConfig(
@@ -115,26 +184,41 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
         raise ValueError(
             f"the model lives on {model.device} but this rank's device is "
             f"{rank_dev}; build the model on the rank's device")
+    # a previous distribution's slices come back whole first (every rank)
+    _undistribute(model)
     mesh = mesh or config.build_mesh(devices)
-    n = mesh.shape[DATA_AXIS]
-    if n != distributed.process_count():
+    if mesh.size != distributed.process_count():
         raise ValueError(
-            f"the data axis has {n} ranks but the world {distributed.process_count()}: "
-            "the port's data axis spans the whole world")
+            f"the mesh has {mesh.size} ranks but the world "
+            f"{distributed.process_count()}: the port's mesh spans the whole world")
+    if PIPE_AXIS in mesh.shape and mesh.shape[PIPE_AXIS] > 1:
+        raise _not_ported(f"pipeline parallelism (pipe={mesh.shape[PIPE_AXIS]})")
+    tp = mesh.shape.get(MODEL_AXIS, 1) > 1
+    ep = mesh.shape.get(EXPERT_AXIS, 1) > 1
+    sp = mesh.shape.get(SEQ_AXIS, 1) > 1
+    specs = None
+    if tp or ep:
+        specs = param_specs(model.params, model.conf,
+                            model_axis=MODEL_AXIS if tp else None,
+                            expert_axis=EXPERT_AXIS if ep else None,
+                            warn_unsharded=tp)
+    _check_model_parallel(model, specs or {}, sp)
 
     # the replicas start equal: every rank takes rank 0's trees
-    leaves = model._trainable_leaves(model.params)
     replicate([t.data for t in _all_leaves(model.params)])
     replicate(model.net_state)
-    # a previous distribute(zero>=1) left slices: gather them back first
-    prev = getattr(model, "_zero_placement", None)
     if model.opt_state is None:
         model.opt_state = model._init_opt_state()
     inner, _ = zero_mod.unwrap_opt_state(model.opt_state)
-    if prev is not None:
-        inner = prev.gather_state(inner)
-    else:
-        replicate(inner)
+    replicate(inner)
+    model._shard_placement = None
+    if specs is not None:
+        placement = ShardPlacement.build(model.params, specs, mesh)
+        index = _trainable_index(model)
+        model._install(shard_params(model.params, mesh, specs))
+        inner = placement.shard_state(inner, index)
+        model._shard_placement = placement
+    leaves = model._trainable_leaves(model.params)
     rank = distributed.process_index()
     if zero == 2:
         placement = zero_mod.Zero2Placement.build(
@@ -156,7 +240,7 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
     model._grad_compression = None
     model._grad_residual = None
     model._mesh = mesh
-    model._batch_sharding = batch_sharding(mesh)
+    model._batch_sharding = batch_sharding(mesh, seq_axis=SEQ_AXIS)
     if config.grad_compression != "none":
         model._setup_grad_compression(mesh)
     # step programs and graphs were built for the old layout
@@ -177,6 +261,36 @@ def _all_leaves(tree) -> list:
     return [t for t in tree_leaves(tree) if hasattr(t, "data")]
 
 
+def _trainable_index(model) -> list:
+    """The positions, among all the parameter tree's leaves, of the
+    trainable ones (`_trainable_leaves` order)."""
+    from deeplearning4j_tpu_torch.models.model import tree_leaves
+
+    ids = {id(t): i for i, t in enumerate(tree_leaves(model.params))}
+    return [ids[id(t)] for t in model._trainable_leaves(model.params)]
+
+
+def _undistribute(model) -> None:
+    """A distributed model's trees whole again, on every rank: ZeRO's
+    sliced updater state gathered, split parameters and their updater
+    state gathered and installed (a collective of the old mesh)."""
+    from deeplearning4j_tpu_torch.parallel import zero as zero_mod
+
+    prev = getattr(model, "_zero_placement", None)
+    if prev is not None and model.opt_state is not None:
+        inner, _ = zero_mod.unwrap_opt_state(model.opt_state)
+        model.opt_state = prev.gather_state(inner)
+    model._zero_placement = None
+    sp = getattr(model, "_shard_placement", None)
+    if sp is not None:
+        index = _trainable_index(model)
+        opt = model.opt_state
+        opt = None if opt is None else sp.gather_state(opt, index)
+        model._install(sp.gather_tree(model.params))
+        model.opt_state = opt
+        model._shard_placement = None
+
+
 def place_batch(model, arr, is_mask: bool = False, is_label: bool = False):
     """This rank's rows of a batch array on the model's device (``arr``
     as it is when the model was never distributed): each rank feeds its
@@ -186,3 +300,16 @@ def place_batch(model, arr, is_mask: bool = False, is_label: bool = False):
     from deeplearning4j_tpu_torch.runtime.distributed import put_global
 
     return put_global(arr, device=model.device)
+
+
+def local_rows(model, arr):
+    """This rank's rows of a global batch array (every rank passes the
+    same one): its block along the data axis, whole in time, on the
+    model's device; ``arr`` itself when the model is not distributed."""
+    bs = getattr(model, "_batch_sharding", None)
+    if bs is None or arr is None:
+        return arr
+    from deeplearning4j_tpu_torch.runtime.distributed import put_global
+
+    return put_global(arr, full_value=True, device=model.device,
+                      block=(bs.rank, bs.n))

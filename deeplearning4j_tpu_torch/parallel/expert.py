@@ -34,8 +34,22 @@ The JAX function's order is kept:
 
 The dispatch's backward gathers each token's gradient from its slots and
 sums its ``top_k`` rows in choice order, so the step's bits do not depend
-on the order of atomic adds.  Sharding the experts over a mesh axis waits
-for the parallelism slice (ROADMAP A11).
+on the order of atomic adds.
+
+Under a mesh the layer computes the JAX function of the global batch:
+
+- **the data axis** (a training step's `parallel/context.py` scope):
+  the capacity comes from the global token count, and a (token, choice)'s
+  slot position adds the earlier data ranks' per-expert counts (one
+  all-gather of E counts a layer), so slots fill in global (b, t) order;
+  the auxiliary loss's means are over the global batch.  The sequence
+  reaches the layer gathered over the seq axis (`models/sequential.py`);
+- **the expert axis**: ``Wi`` / ``Wo`` hold experts ``r E / x`` to
+  ``(r + 1) E / x - 1``; every rank routes the same tokens, runs its
+  experts' slots of the (E * C + 1)-row buffer, and the partial outputs
+  are summed over the expert group (`collectives.reduce_from`), the
+  tokens and gate weights entering by `collectives.copy_to` so the
+  router and the input get the whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -46,6 +60,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.runtime import rng
+from deeplearning4j_tpu_torch.runtime.mesh import leaf_axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,41 +149,110 @@ class _Dispatch(torch.autograd.Function):
         return dx, None, None, None
 
 
+def _data_ranks() -> int:
+    """The data-axis ranks whose tokens one routing spans: those of a
+    training step's scope, else 1 (inference routes what it is given)."""
+    from deeplearning4j_tpu_torch.parallel import collectives, context
+
+    return 1 if context.current() is None else collectives.axis_size("data")
+
+
+def _earlier_counts(choice: torch.Tensor) -> torch.Tensor:
+    """(E,) choices of each expert made by the data ranks before this
+    one (their tokens come first in global order)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    counts = choice.sum(0)
+    every = collectives.gather(counts[None], 0, "data").detach()    # (n, E)
+    r = collectives.axis_rank("data")
+    return every[:r].sum(0)
+
+
+def global_route(probs: torch.Tensor, cfg: MoEConfig):
+    """`route` of this rank's tokens within the global batch of the data
+    ranks (`_data_ranks`): the global capacity, and slot positions
+    counted after the earlier ranks' choices.  Returns (capacity, gate
+    values, expert ids, slots, kept)."""
+    n, e, k = probs.shape[0], cfg.n_experts, cfg.top_k
+    nd = _data_ranks()
+    cap = capacity(cfg, n * nd)
+    if nd == 1:
+        return (cap, *route(probs, cfg, cap))
+    gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+    gate_vals = probs.gather(1, gate_idx)
+    choice = _one_hot(gate_idx.reshape(n * k), e)
+    counts = torch.cumsum(choice.t().contiguous(), dim=1).t() + _earlier_counts(choice)
+    pos = (counts * choice).sum(-1) - 1
+    kept = pos < cap
+    slot = torch.where(kept, gate_idx.reshape(n * k) * cap + pos,
+                       torch.full_like(pos, e * cap))
+    return cap, gate_vals, gate_idx, slot, kept
+
+
+def _global_mean(t: torch.Tensor, nd: int) -> torch.Tensor:
+    """The mean over the rows of ``t`` and of every data rank's
+    (differentiable: its backward sums the ranks' gradients)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    if nd == 1:
+        return t.mean(0)
+    return collectives.all_reduce_sum(t.sum(0), "data") / (t.shape[0] * nd)
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig):
     """x: (B, T, d_model) -> (y in x's dtype, f32 aux loss)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
     b, t, d = x.shape
     n, e, k = b * t, cfg.n_experts, cfg.top_k
-    cap = capacity(cfg, n)
     xf = x.reshape(n, d).float()
     probs = router_probs(xf, params["router"])                   # (N, E)
-    gate_vals, gate_idx, slot, kept = route(probs, cfg, cap)
+    cap, gate_vals, gate_idx, slot, kept = global_route(probs, cfg)
+    w = kept.view(n, k).float() * gate_vals                      # (N, k)
 
+    split = leaf_axis(params["Wi"]) == "expert"
+    el = params["Wi"].shape[0]                 # this rank's experts
+    if split:
+        # the expert axis: this rank's experts' slots, the trash row for
+        # every other choice; tokens and gates enter the split region
+        lo = collectives.axis_rank("expert") * el * cap
+        mine = (slot >= lo) & (slot < lo + el * cap)
+        slot = torch.where(mine, slot - lo, torch.full_like(slot, el * cap))
+        xf_in = collectives.copy_to(xf, "expert")
+        w = collectives.copy_to(w, "expert")
+    else:
+        xf_in = xf
     # slot -> token (N: empty); a dropped choice lands on the trash row
     tok = torch.arange(n * k, device=x.device) // k
-    src = torch.full((e * cap + 1,), n, dtype=torch.long, device=x.device)
-    src = src.scatter(0, slot, tok)[: e * cap]
-    expert_in = _Dispatch.apply(xf, src, slot, k).view(e, cap, d)
+    src = torch.full((el * cap + 1,), n, dtype=torch.long, device=x.device)
+    src = src.scatter(0, slot, tok)[: el * cap]
+    expert_in = _Dispatch.apply(xf_in, src, slot, k).view(el, cap, d)
     h = torch.relu(torch.bmm(expert_in, params["Wi"].float()))
-    expert_out = torch.bmm(h, params["Wo"].float()).reshape(e * cap, d)
+    expert_out = torch.bmm(h, params["Wo"].float()).reshape(el * cap, d)
     out_pad = torch.cat([expert_out, expert_out.new_zeros((1, d))])
-    w = kept.view(n, k).float() * gate_vals                      # (N, k)
     picked = out_pad.index_select(0, slot).view(n, k, d) * w[..., None]
     y = picked[:, 0]
     for j in range(1, k):
         y = y + picked[:, j]
+    if split:
+        y = collectives.reduce_from(y, "expert")
 
-    # Switch-style load-balancing loss
-    frac_tokens = _one_hot(gate_idx[:, 0], e).float().mean(0)
-    frac_probs = probs.mean(0)
+    # Switch-style load-balancing loss over the global batch
+    nd = _data_ranks()
+    frac_tokens = _global_mean(_one_hot(gate_idx[:, 0], e).float(), nd).detach()
+    frac_probs = _global_mean(probs, nd)
     aux = e * torch.sum(frac_tokens * frac_probs)
     return y.reshape(b, t, d).to(x.dtype), aux
 
 
 def dropped_share(params: dict, x: torch.Tensor, cfg: MoEConfig) -> float:
     """The share of (token, choice) pairs ``moe_apply`` would drop for
-    want of capacity on input ``x`` (B, T, d_model); a host read."""
+    want of capacity on input ``x`` (B, T, d_model), routed as the layer
+    routes it (within a step's global batch under a data-parallel
+    scope); a host read."""
     n = x.shape[0] * x.shape[1]
     with torch.no_grad():
         probs = router_probs(x.reshape(n, -1), params["router"])
-        kept = route(probs, cfg, capacity(cfg, n))[3]
-    return float(1.0 - kept.float().mean())
+        kept = global_route(probs, cfg)[4].float()
+        dropped = _global_mean(1.0 - kept[:, None], _data_ranks())
+    return float(dropped[0])

@@ -141,6 +141,9 @@ def initialize(config: DistributedConfig | None = None) -> None:
 
 def shutdown() -> None:
     global _initialized, _device
+    from deeplearning4j_tpu_torch.runtime import mesh
+
+    mesh._GROUPS.clear()
     if _initialized and dist.is_initialized():
         try:
             dist.destroy_process_group()
@@ -188,18 +191,23 @@ def barrier(name: str = "dl4jtpu") -> None:
             dist.barrier()
 
 
-def put_global(arr, *, full_value: bool = False, device=None):
+def put_global(arr, *, full_value: bool = False, device=None, block=None):
     """This rank's rows as a tensor on its device.  ``full_value=False``:
     ``arr`` is already the rank's local rows (each rank feeds disjoint
     data, JAX ``make_array_from_process_local_data``).  ``full_value=
     True``: every rank passes the same global batch and takes its own
-    rows of it; a global batch the world does not divide raises."""
+    rows of it; a global batch the world does not divide raises.
+    ``block``: (index, count) of the rows to take instead of (this
+    rank, the world size): a rank's coordinate on the data axis of a
+    mesh with other axes (a model's ``_batch_sharding``)."""
     if arr is None:
         return None
     dev = device if device is not None else (_device or torch.device("cpu"))
     t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.array(arr))
     if full_value:
         n, r = process_count(), process_index()
+        if block is not None:
+            r, n = block
         rows = t.shape[0] if t.dim() else 0
         if t.dim() == 0 or rows % n:
             raise ValueError(
@@ -240,11 +248,12 @@ def _unpack(flat: torch.Tensor, like) -> list:
     return out
 
 
-def all_reduce_flat(tensors, dtype=torch.float32) -> list:
-    """Each tensor summed over the world, in one all-reduce of a flat
-    ``dtype`` bucket: views of the bucket in the tensors' shapes."""
+def all_reduce_flat(tensors, dtype=torch.float32, group=None) -> list:
+    """Each tensor summed over the world (or ``group``), in one
+    all-reduce of a flat ``dtype`` bucket: views of the bucket in the
+    tensors' shapes."""
     flat = _pack(tensors, dtype)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     return _unpack(flat, tensors)
 
 

@@ -4,11 +4,16 @@ The JAX package lays its devices out as a `jax.sharding.Mesh` with named
 axes ("data", "model", "pipe", "seq", "expert") and shards over them.
 A port mesh is the same named layout over the ranks of the
 `torch.distributed` world (`runtime/distributed.py`, one process a
-device): `make_mesh` resolves a `MeshSpec` against the world size and
-records which ranks lie along each axis.  Only the data axis may be
-larger than 1 here; tensor, pipeline, sequence and expert axes raise
-(ROADMAP A11).  ``shard_map`` is JAX mechanics and has no counterpart:
-a rank's code is already its shard's body.
+device): `make_mesh` resolves a `MeshSpec` against the world size and lays
+the ranks out row-major over the axes, as JAX reshapes its device list:
+rank r's coordinate on each axis is its digit in that mixed radix
+(`axis_index`).  Every line of ranks along an axis larger than 1 gets a
+`torch.distributed` process group (`axis_group`), and so does every
+line along several axes at once (`axes_group`: the data and seq axes of
+a gradient sum); every rank creates every group, in one order, as
+``new_group`` requires.  A mesh on a world of one has every axis of
+size 1 and no group.  ``shard_map`` is JAX mechanics and has no
+counterpart: a rank's code is already its shard's body.
 """
 
 from __future__ import annotations
@@ -76,24 +81,91 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    def coords(self, rank: int) -> dict:
+        """World rank ``rank``'s coordinate on each axis."""
+        i = self.devices.index(rank)
+        out = {}
+        for name, size in reversed(list(zip(self.axis_names, self.sizes))):
+            out[name] = i % size
+            i //= size
+        return {name: out[name] for name in self.axis_names}
+
+    def axis_index(self, name: str) -> int:
+        """This process's coordinate on axis ``name`` (0 on an absent
+        axis), JAX ``lax.axis_index``."""
+        from deeplearning4j_tpu_torch.runtime import distributed
+
+        if name not in self.axis_names:
+            return 0
+        return self.coords(distributed.process_index())[name]
+
+    def line(self, rank: int, names) -> tuple[int, ...]:
+        """The ranks that share ``rank``'s coordinates on every axis but
+        ``names``, in row-major order of those axes."""
+        c = self.coords(rank)
+        return tuple(r for r in self.devices
+                     if all(v == c[a] for a, v in self.coords(r).items()
+                            if a not in names))
+
+    def axis_group(self, name: str):
+        """The process group of this rank's line along axis ``name``
+        (None: the axis has size 1, a collective over it is the
+        identity)."""
+        return self.axes_group((name,))
+
+    def axes_group(self, names):
+        """The process group of this rank's line along the axes ``names``
+        together (None when they span one rank)."""
+        from deeplearning4j_tpu_torch.runtime import distributed
+
+        names = tuple(n for n in self.axis_names
+                      if n in names and self.shape[n] > 1)
+        if not names:
+            return None
+        return _GROUPS[(self, names)][self.line(distributed.process_index(), names)]
+
+
+# (mesh, axes) -> {line of ranks: process group}
+_GROUPS: dict = {}
+
+
+def _make_groups(mesh: Mesh, names: tuple) -> None:
+    """Every line's process group along ``names``, created on every rank
+    in one order (``new_group`` is a collective of the whole world)."""
+    import torch.distributed as dist
+
+    key = (mesh, names)
+    if key in _GROUPS:
+        return
+    lines: dict = {}
+    for r in mesh.devices:
+        line = mesh.line(r, names)
+        if line not in lines:
+            lines[line] = (dist.group.WORLD if len(line) == dist.get_world_size()
+                           else dist.new_group(list(line)))
+    _GROUPS[key] = lines
+
 
 def make_mesh(spec: MeshSpec | None = None, devices=None) -> Mesh:
     """A mesh of ``spec`` over ``devices`` (world ranks; default: every
-    rank of the world, or one rank when no world is formed).  Only the
-    data axis may be larger than 1 in this port."""
+    rank of the world, or one rank when no world is formed), with the
+    process groups of its axes: every rank of the world must call it
+    with the same arguments, in the same order."""
     from deeplearning4j_tpu_torch.runtime import distributed
 
     spec = spec or MeshSpec.data_parallel()
     ranks = (tuple(int(d) for d in devices) if devices is not None
              else tuple(range(distributed.process_count())))
     resolved = spec.resolve(len(ranks))
-    wide = [name for name, size in resolved if name != DATA_AXIS and size > 1]
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide} larger than 1: tensor, pipeline, sequence and "
-            "expert parallelism are not ported yet (ROADMAP A11); the port's "
-            "mesh spreads the data axis only")
-    return Mesh(tuple(n for n, _ in resolved), tuple(s for _, s in resolved), ranks)
+    mesh = Mesh(tuple(n for n, _ in resolved), tuple(s for _, s in resolved), ranks)
+    if distributed.is_initialized() and mesh.size > 1:
+        import itertools
+
+        wide = tuple(n for n, s in resolved if s > 1)
+        for k in range(1, len(wide) + 1):
+            for names in itertools.combinations(wide, k):
+                _make_groups(mesh, names)
+    return mesh
 
 
 def axis_size(name: str, mesh: Mesh | None = None) -> int:
@@ -116,27 +188,40 @@ def single_device_mesh(axis: str = DATA_AXIS) -> Mesh:
 # -- the active mesh ----------------------------------------------------------------
 
 _ACTIVE_MESH: Mesh | None = None
+_ACTIVE_SPLITS: dict = {}
 
 
 class active_mesh_scope:
     """Install ``mesh`` as the active mesh (reentrant; None is a valid,
-    no-mesh value)."""
+    no-mesh value) with ``splits``: {id of a parameter leaf: the mesh
+    axis that splits it}, what `parallel/strategy.py` decided for the
+    trees the scope's layers run on (`leaf_axis`).  Within the same mesh
+    they add to the enclosing scope's."""
 
-    def __init__(self, mesh: Mesh | None):
+    def __init__(self, mesh: Mesh | None, splits: dict | None = None):
         self._mesh = mesh
-        self._prev: Mesh | None = None
+        self._splits = splits or {}
+        self._prev = None
 
     def __enter__(self):
-        global _ACTIVE_MESH
-        self._prev = _ACTIVE_MESH
+        global _ACTIVE_MESH, _ACTIVE_SPLITS
+        self._prev = (_ACTIVE_MESH, _ACTIVE_SPLITS)
+        outer = _ACTIVE_SPLITS if self._mesh is not None and self._mesh is _ACTIVE_MESH else {}
         _ACTIVE_MESH = self._mesh
+        _ACTIVE_SPLITS = {**outer, **self._splits} if self._splits else outer
         return self._mesh
 
     def __exit__(self, *exc):
-        global _ACTIVE_MESH
-        _ACTIVE_MESH = self._prev
+        global _ACTIVE_MESH, _ACTIVE_SPLITS
+        _ACTIVE_MESH, _ACTIVE_SPLITS = self._prev
         return False
 
 
 def active_mesh() -> Mesh | None:
     return _ACTIVE_MESH
+
+
+def leaf_axis(t) -> str | None:
+    """The axis of the active mesh that splits parameter leaf ``t`` (the
+    layer holds this rank's slice of it), or None: ``t`` is whole."""
+    return _ACTIVE_SPLITS.get(id(t))

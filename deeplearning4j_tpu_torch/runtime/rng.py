@@ -99,7 +99,10 @@ def random_bits(k: tuple[int, int], shape, device=None, offset: int = 0) -> torc
     """32 random bits for each element of ``shape``, as an int64 tensor
     of values in [0, 2^32).  ``offset``: the flat index of the first
     element in a larger tensor drawn with ``k`` (a rank's rows of a
-    global shape)."""
+    global shape), or an int64 tensor of ``shape`` holding each
+    element's flat index there (a rank's time block)."""
+    if isinstance(offset, torch.Tensor):
+        return bits_at(k, offset.reshape(-1)).reshape(shape)
     n = math.prod(shape)
     i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return bits_at(k, i).reshape(shape)

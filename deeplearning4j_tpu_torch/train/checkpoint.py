@@ -182,7 +182,14 @@ def _updater_state(model):
 
     inner, _ = unwrap_opt_state(model.opt_state)
     zp = getattr(model, "_zero_placement", None)
-    return zp.gather_state(inner) if zp is not None else inner
+    if zp is not None:
+        return zp.gather_state(inner)
+    sp = getattr(model, "_shard_placement", None)
+    if sp is not None:
+        from deeplearning4j_tpu_torch.parallel.data_parallel import _trainable_index
+
+        return sp.gather_state(inner, _trainable_index(model))
+    return inner
 
 
 # the configuration class each model class is built from
@@ -200,17 +207,19 @@ def _model_classes() -> dict:
 class ModelSerializer:
     @staticmethod
     def write_model_distributed(model, path: str, save_updater: bool = True) -> None:
-        """Checkpoint a data-parallel model: every rank calls it and takes
+        """Checkpoint a distributed model: every rank calls it and takes
         part in the gathers (a chief-only write would wedge the chief in a
-        ZeRO gather), the chief writes the zip, and every rank returns
-        once it is published."""
+        ZeRO gather, or in the gather of a tensor-, expert-split tree),
+        the chief writes the zip an undistributed model writes, and every
+        rank returns once it is published."""
         from deeplearning4j_tpu_torch.runtime import distributed
 
         if model.params is None:
             raise RuntimeError("model not initialized")
         opt = _updater_state(model) if save_updater else None
+        params = getattr(model, "full_params", lambda: model.params)()
         if distributed.is_chief():
-            ModelSerializer._write(model, path, opt)
+            ModelSerializer._write(model, path, opt, params)
         distributed.barrier()
 
     @staticmethod
@@ -225,13 +234,17 @@ class ModelSerializer:
         ``checkpoint.fsync`` between the zip landing and the publish."""
         if model.params is None:
             raise RuntimeError("model not initialized")
+        if getattr(model, "_shard_placement", None) is not None:
+            # split parameters: a collective of every rank
+            return ModelSerializer.write_model_distributed(model, path, save_updater)
         ModelSerializer._write(model, path,
                                _updater_state(model) if save_updater else None)
 
     @staticmethod
-    def _write(model, path: str, opt) -> None:
+    def _write(model, path: str, opt, params=None) -> None:
         """`write_model` with the optimizer state ``opt`` (whole; None:
-        no ``updater.npz``)."""
+        no ``updater.npz``) and the parameter tree ``params`` (whole; the
+        model's by default)."""
         action = faults.maybe_fail("checkpoint.write")
         manifest_entries: dict[str, dict] = {}
         leaf_counts: dict[str, int] = {}
@@ -252,7 +265,8 @@ class ModelSerializer:
                 {"model_class": getattr(model, "_serialize_class_name",
                                         type(model).__name__),
                  "conf": serde.to_jsonable(model.conf)}, indent=2).encode())
-            put("params.npz", *_npz_bytes(tree_leaves(model.params)))
+            put("params.npz", *_npz_bytes(tree_leaves(
+                model.params if params is None else params)))
             put("netstate.npz", *_npz_bytes(tree_leaves(model.net_state or {})))
             if opt is not None:
                 put("updater.npz", *_npz_bytes(updaters.state_leaves(opt)))

@@ -56,8 +56,12 @@ def test_mesh_over_the_world_and_the_active_scope():
     m = mesh.make_mesh(mesh.MeshSpec.of(data=-1, model=1), devices=range(4))
     assert m.shape == {"data": 4, "model": 1} and m.devices == (0, 1, 2, 3)
     assert mesh.make_mesh().shape == {"data": 1}          # no world: one rank
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        mesh.make_mesh(mesh.MeshSpec.of(data=2, model=2), devices=range(4))
+    # several axes larger than 1 lie row-major over the ranks (JAX's layout)
+    m2 = mesh.make_mesh(mesh.MeshSpec.of(data=2, model=2), devices=range(4))
+    assert m2.shape == {"data": 2, "model": 2}
+    assert [tuple(m2.coords(r).values()) for r in range(4)] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    assert m2.line(3, ("data",)) == (1, 3) and m2.line(3, ("model",)) == (2, 3)
     with pytest.raises(ValueError, match="not divisible"):
         mesh.make_mesh(mesh.MeshSpec.of(data=-1, pipe=3), devices=range(4))
     assert mesh.axis_size("data") == 1 and mesh.active_mesh() is None

@@ -14,6 +14,7 @@ package's, on the CPU.
   graph, is the JAX package's, and each package reads the other's.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -185,6 +186,10 @@ def test_attention_vertex_matches_the_jax_vertex(case):
 
 
 def test_attention_vertex_sequence_parallel_raises_naming_a11():
+    """An AttentionVertex with ``seq_parallel=\"ring\"`` builds (ROADMAP A11's
+    ring attention is ported) and runs the dense core on one device: the
+    \"none\" vertex's output; distributing a graph over a seq axis still
+    names A11, refused before any world forms."""
     from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
 
     conf = (pg.GraphBuilder().add_inputs("in")
@@ -194,8 +199,18 @@ def test_attention_vertex_sequence_parallel_raises_naming_a11():
             .add_layer("pool", layers.GlobalPooling(), "att")
             .add_layer("out", layers.OutputLayer(n_out=2), "pool")
             .set_outputs("out").build())
+    ring = GraphModel(conf, device="cpu").init()
+    none = GraphModel(dataclasses.replace(conf, nodes=tuple(
+        dataclasses.replace(n, vertex=dataclasses.replace(n.vertex, seq_parallel="none"))
+        if n.vertex is not None else n for n in conf.nodes)), device="cpu").init()
+    x = np.random.default_rng(0).normal(size=(2, 4, 8)).astype(np.float32)
+    torch.testing.assert_close(ring.output(x), none.output(x), rtol=0, atol=0)
+    from deeplearning4j_tpu_torch.parallel.data_parallel import _check_model_parallel
+    from deeplearning4j_tpu_torch.runtime import distributed
+
     with pytest.raises(NotImplementedError, match="A11"):
-        GraphModel(conf, device="cpu")
+        _check_model_parallel(ring, {}, True)
+    assert not distributed.is_initialized()
 
 
 @pytest.mark.parametrize("case", sorted(VERTICES) + sorted(ATTENTION))

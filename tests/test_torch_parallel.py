@@ -346,8 +346,22 @@ def _port_mlp():
 
 @pytest.mark.parametrize("cfg", [dict(model=2), dict(pipe=2), dict(seq=2), dict(expert=2)])
 def test_other_axes_name_roadmap_a11(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tdistribute(_port_mlp(), TParallelConfig(**cfg))
+    """Pipeline parallelism still raises, naming ROADMAP A11; the model,
+    seq and expert axes are ported (`tests/test_torch_tensor_parallel.py`,
+    `test_torch_seq_parallel.py`, `test_torch_expert_parallel.py`): their
+    mesh lays two ranks out on the axis, and ZeRO refuses them with the
+    JAX message, before any world forms."""
+    if "pipe" in cfg:
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            tdistribute(_port_mlp(), TParallelConfig(**cfg))
+        return
+    (axis,) = cfg
+    mesh = TParallelConfig(data=1, **cfg).build_mesh(devices=[0, 1])
+    assert mesh.shape == {"data": 1, axis: 2}
+    assert [mesh.coords(r)[axis] for r in (0, 1)] == [0, 1]
+    with pytest.raises(ValueError, match="pure data parallelism"):
+        tdistribute(_port_mlp(), TParallelConfig(zero=1, **cfg))
+    assert not distributed.is_initialized()
 
 
 def test_planner_and_parallel_inference_name_roadmap_a11(monkeypatch):

@@ -147,8 +147,12 @@ def test_settings_the_port_cannot_run_load_and_raise_when_built():
     conf = TransformerEncoder(**SMALL, seq_parallel="ring").conf()
     jconf = JaxTE(**SMALL, seq_parallel="ring").conf()
     _both_ways(jconf, conf)
-    with pytest.raises(NotImplementedError, match="A11"):
-        SequentialModel(conf, device="cpu")
+    # ring attention builds since the model-parallel slice (ROADMAP A11):
+    # on one device its blocks attend densely, as the "none" model's do
+    ring = SequentialModel(conf, device="cpu").init()
+    plain = SequentialModel(TransformerEncoder(**SMALL).conf(), device="cpu").init()
+    ids = torch.arange(8, dtype=torch.float32).reshape(1, 8)
+    torch.testing.assert_close(ring.output(ids), plain.output(ids), rtol=0, atol=0)
     # truncated BPTT loads and builds since the recurrent slice (ROADMAP A8)
     tb = _stack("port", updaters.Sgd(), tbptt=8)
     assert SequentialModel(tb, device="cpu").conf.tbptt_length == 8

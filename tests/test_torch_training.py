@@ -308,9 +308,11 @@ def test_what_the_slice_does_not_train_raises():
     tooling slice (the frozen embedding keeps its bits; its parity with
     the JAX package is `tests/test_torch_transfer.py`'s), and data
     parallelism since the data-parallel slice (`tests/test_torch_parallel.py`
-    holds it against the JAX mesh); tensor parallelism still raises, naming
-    its ROADMAP item.  TBPTT loads as configuration data and builds since
-    the recurrent slice."""
+    holds it against the JAX mesh), and tensor parallelism since the
+    model-parallel slice (the flagship's embedding split by columns and
+    its head by vocabulary, the blocks whole); pipeline parallelism still
+    raises, naming its ROADMAP item.  TBPTT loads as configuration data
+    and builds since the recurrent slice."""
     ids, y = _batches(one_hot=False, n=1)[0]
     batch = DataSet(ids, y)
     model = _zoo(TransformerEncoder).init_model(device="cpu")
@@ -336,6 +338,12 @@ def test_what_the_slice_does_not_train_raises():
     assert (tbptt.backprop_type, tbptt.tbptt_length) == ("tbptt", 16)
     # it builds since the recurrent slice (ROADMAP A8)
     assert SequentialModel(tbptt, device="cpu")._tbptt
+    from deeplearning4j_tpu_torch.parallel.strategy import param_specs
+
+    specs = param_specs(model.params, model.conf)
+    assert specs["layer0"] == {"W": (None, "model")}
+    assert all(s == () for blk in ("layer2", "layer3")
+               for s in jax.tree.leaves(specs[blk], is_leaf=lambda x: isinstance(x, tuple)))
     with pytest.raises(NotImplementedError, match="A11"):
-        distribute(model, ParallelConfig(model=2))
+        distribute(model, ParallelConfig(pipe=2))
     assert model.iteration == 0

@@ -196,7 +196,7 @@ def test_a_frozen_prefix_records_no_backward():
     # frozen block's output has no grad_fn, the next block's has
     params = {k: _tree_map(torch.Tensor.detach, v) if k in pt._frozen else v
               for k, v in pt.params.items()}
-    outs = [x for _, x, _ in pt._layer_outputs(
+    outs = [x for _, x, _, _ in pt._layer_outputs(
         pt.cast_tree(params, detach=False), pt.net_state, ids, training=True,
         keys=pt._layer_keys(0))]
     assert outs[2].grad_fn is None and outs[3].grad_fn is not None
