@@ -430,7 +430,7 @@ Then the phases:
    loss: every weight of the world of one is an exact 1.0; in a world of
    more, every rank's parameters and BatchNorm state bit for bit after
    the timed groups, each rank fed its own rows); then ms a
-   step and samples/s a rank, captured (1 warm-up + 3 timed groups, with
+   step and samples/s a rank, captured (1 warm-up + 2 timed groups, with
    any host synchronisation an error) and eager (1 group), beside the
    undistributed model's in the same call, peak memory of each, the
    timed groups' compile taxes (no capture, no ``nvcc``), the loss
@@ -461,19 +461,19 @@ Then the phases:
    chunked head by vocabulary); (b) SP: the flagship with ``seq=n`` at
    the training batch's 4 x 2048 ids, Ulysses (B1-B3 on B x H / n
    heads of the whole sequence) and ring attention (no flash kernel);
-   (c) EP: the attn phase's MoE flagship (8 experts, top-2) with
-   ``expert=n``.  Each: 2 f32 steps with Sgd (``MP_LR``; the MoE
+   (c) EP: the attn phase's MoE flagship (8 experts, top-2; 4 of its 8
+   blocks, ``MP_EP_LAYERS``) with ``expert=n``.  Each: 2 f32 steps with Sgd (``MP_LR``; the MoE
    flagship's ``MP_MOE_LR``) from the
    undistributed model's weights against that model (rank 0): every
    loss within rtol 2e-4, the parameters' change within ``MP_STEP_REL``
    relative L2 of its change; the replicated leaves bit-identical
    across ranks; ``output()`` of 2 x 2048 ids within ``MP_OUT_REL`` of
    max |undistributed|; then the bf16 model (Adam) timed, 1 warm-up and
-   3 steps: ms a step, tokens/s and peak reserved memory a rank beside
+   2 steps: ms a step, tokens/s and peak reserved memory a rank beside
    the undistributed step's (printed, not gated; on NCCL the timed
    steps run with any host synchronisation an error, and no capture or
    ``nvcc`` run among them), and exactly 8 launches a step of B1, B2
-   and B3 (TP, EP, Ulysses) or none (ring).  (a) also writes the TP
+   and B3 (TP, Ulysses; 4 for EP) or none (ring).  (a) also writes the TP
    model (`write_model`, every rank) and restores it undistributed on
    the card: equal to the gathered parameters.  B1-B3 at Ulysses' shape
    (BH 4 x 8 / n, T 2048, D 128, causal) against their plain versions.
@@ -492,7 +492,22 @@ Then the phases:
    the step's scopes (each rank its rows, routed in the global batch)
    within ``MP_STEP_REL`` relative L2 of the undistributed one's, at most
    ``MP_C27_ROUTES`` of each MoE layer's (token, choice) pairs routed
-   otherwise, and every MoE layer's dropped share equal.  Writes under ``build/mp/`` and removes it.
+   otherwise, and every MoE layer's dropped share equal.  (f) PP: the
+   flagship's 8 blocks over ``pipe=n`` in ``MP_PP_MICRO`` microbatches,
+   GPipe and 1F1B, each held as (a) (reusing (a)'s undistributed run)
+   and timed as (a), with exactly 2 m M launches of B1 and m M of B2 and
+   B3 a step a rank (m = 8 / n blocks a stage, M microbatches: each
+   stage's forward, its recompute in the backward, and the backward);
+   1F1B against GPipe (losses within rtol 2e-4, change within
+   ``MP_STEP_REL``); B1-B3 at the microbatch's shape (BH 8, T 2048, D
+   128) against their plain versions.  (g) `plan()` of the bf16
+   flagship over the world at 4 x 2048 ids on every rank: no kernel
+   launched, no library requested, no capture, the model unchanged; its
+   summary, pick and each candidate's predicted step beside the measured
+   one (pipe=n, the undistributed step), and the per-hop seconds the
+   pipe=n step implies; then ``distribute(auto=True)`` in the world,
+   which installs a pick as wide as the world or raises C28's
+   `PlanError`.  Writes under ``build/mp/`` and removes it.
 19. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -6009,7 +6024,7 @@ def phase_rnn(torch, np, kernels, timer):
 # (a) BASELINE config 5 through bench_scaling (`bench.py:1133-1240`): the
 # zoo's ResNet-50, 1000 classes, a per-card batch of 128 at 224 x 224 x 3,
 # bf16, Adam 1e-3, `steps_per_execution` 16; 2 batches staged on the card
-DP_BATCH, DP_BATCHES, DP_SPE, DP_GROUPS, DP_EAGER_GROUPS = 128, 2, 16, 3, 1
+DP_BATCH, DP_BATCHES, DP_SPE, DP_GROUPS, DP_EAGER_GROUPS = 128, 2, 16, 2, 1
 DP_HW, DP_CLASSES = 224, 1000
 # (b) two gloo ranks on the one card: ResNet-50 in f32, 64 rows a rank, 3
 # steps.  Nesterovs, not Adam: a conv bias before a BatchNorm has a zero
@@ -6675,8 +6690,15 @@ MP_C27_ROUTES = 1e-3
 # PR 19's 1e-6
 MP_RESNET_ROWS, MP_RESNET_STEPS, MP_RESNET_LR = 8, 2, 1e-6
 # the bf16 runs: warm-up and timed steps (the eager gloo steps take 1-2 s)
-MP_WARMUP, MP_STEPS = 1, 3
+MP_WARMUP, MP_STEPS = 1, 2
+# (c) EP's MoE flagship: 4 of its 8 blocks (at 8, its 537M expert
+# parameters broadcast through gloo at distribute took most of (c)'s
+# 57 s on two ranks sharing one H100 80GB HBM3); C27 keeps all 8
+MP_EP_LAYERS = 4
 MP_DIR = os.path.join("build", "mp")      # inside the checkout; removed after
+# (f) the pipeline's microbatches a batch: 4 x 2048 ids in 4 microbatches
+# of one row, so each stage runs B1-B3 at BH 8, T 2048
+MP_PP_MICRO = 4
 
 
 def _mp_flat(torch, leaves):
@@ -6721,16 +6743,16 @@ def _moe_routes(torch, model, ids):
     return out, last
 
 
-def _mp_conf(bf16, seq_parallel="none", moe=0, sgd=None):
+def _mp_conf(bf16, seq_parallel="none", moe=0, sgd=None, layers=LAYERS):
     """The flagship's (or the MoE flagship's) configuration: bf16 with
-    its Adam, or f32 with Sgd ``sgd``."""
+    its Adam, or f32 with Sgd ``sgd``; ``layers`` blocks."""
     import dataclasses
 
     from deeplearning4j_tpu_torch.nn.updaters import Sgd
     from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
     conf = TransformerEncoder(
-        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=LAYERS,
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=layers,
         causal=True, chunked_vocab_loss=True, vocab_chunk=8192, seed=123,
         seq_parallel=seq_parallel, moe_experts=moe, moe_top_k=MOE_TOP_K,
         bf16_compute=bf16).conf()
@@ -6787,6 +6809,8 @@ def _mp_rank(zip_path):
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
+    refs = {}
+
     def parity(conf, cfg, steps=MP_PARITY_STEPS, graph=False, batches=None, floors=(),
                moe=False):
         """``steps`` steps of the undistributed model (rank 0) and of the
@@ -6797,10 +6821,16 @@ def _mp_rank(zip_path):
         (`MP_FLOOR_X`).  ``moe``: before the steps, each MoE layer's
         routing and the forward's output on the first batch's rows, the
         distributed model's inside its step's scopes (global routing),
-        in place of output()."""
+        in place of output().  A configuration's undistributed run (no
+        floors, the default batches) is made once and kept for the
+        next call with the same configuration object."""
         batches = batches or [batch] * steps
         out = {}
-        if rank == 0:
+        cached = refs.get(id(conf)) if not (floors or moe or graph) else None
+        if rank == 0 and cached is not None:
+            ref_losses, d0, o0 = cached
+            out["floors"], out["floor_rel_l2"] = {}, 0.0
+        elif rank == 0:
             m0 = build(conf, graph)
             p0 = _mp_flat(torch, tree_leaves(m0.params))
             if moe:
@@ -6827,6 +6857,8 @@ def _mp_rank(zip_path):
             out["floor_rel_l2"] = max(out["floors"].values(), default=0.0)
             del p0
             free()
+            if not (floors or moe or graph) and steps == MP_PARITY_STEPS:
+                refs[id(conf)] = (ref_losses, d0, o0)
         distributed.barrier()
         m = build(conf, graph)
         distribute(m, ParallelConfig(**cfg))
@@ -6847,9 +6879,14 @@ def _mp_rank(zip_path):
                 m.fit_batch(rows(m, b))
             losses.append(m.score_value)
         d = _mp_flat(torch, tree_leaves(m.full_params())) - p
-        if not moe:
+        if not moe and cfg.get("pipe", 1) > 1:
+            # the pipeline splits the batch into microbatches: the probe's
+            # rows of the whole batch's output()
+            o = m.output(batch.features)[:QUANT_BATCH].float()
+        elif not moe:
             o = None if graph else m.output(probe).float()
         out.update(losses=losses, digest=replicated_digest(m))
+        out["change"] = d if cfg.get("pipe", 1) > 1 else None
         if rank == 0:
             out["ref_losses"] = ref_losses
             out["step_rel_l2"] = rel(d, d0)
@@ -6868,6 +6905,55 @@ def _mp_rank(zip_path):
             del d0, o0
         del p, d, o
         return m, out
+
+    def pp_parts():
+        """(f) the flagship's blocks over pipe=n, GPipe and 1F1B, and (g)
+        the planner; see the module docstring."""
+        t0 = time.perf_counter()
+        pcfg = dict(data=1, pipe=n, microbatches=MP_PP_MICRO)
+        for sched in ("gpipe", "1f1b"):
+            m, res[sched] = parity(f32, dict(pcfg, schedule=sched))
+            del m
+            free()
+        gp, ob = res["gpipe"].pop("change"), res["1f1b"].pop("change")
+        res["1f1b"]["vs_gpipe_rel_l2"] = rel(ob, gp)
+        del gp, ob
+        free()
+        for sched in ("gpipe", "1f1b"):
+            res[sched]["speed"] = speed(bf16, dict(pcfg, schedule=sched))
+        res["gpipe"]["seconds"] = time.perf_counter() - t0
+        # (g) the planner on the card: priced without a launch, then auto
+        t0 = time.perf_counter()
+        from deeplearning4j_tpu_torch.parallel import PlanError, plan
+
+        pm = build(bf16)
+        digest0, it0 = _dp_digest(torch, tree_leaves(pm.params)), pm.iteration
+        before, snap = kernels.launches(), compile_stats.snapshot()
+        torch.cuda.synchronize()
+        report = plan(pm, n_devices=n, batch=(ids.features, ids.labels))
+        torch.cuda.synchronize()
+        out = {"launched": {k: v - before.get(k, 0) for k, v in kernels.launches().items()
+                            if v != before.get(k, 0)},
+               "taxes": (compile_stats.snapshot() - snap).as_dict(),
+               "unchanged": (_dp_digest(torch, tree_leaves(pm.params)) == digest0
+                             and pm.iteration == it0 and pm.opt_state is None),
+               "summary": report.summary(), "pick": report.pick_candidate().label(),
+               "pick_width": report.pick_candidate().devices_used,
+               "flops": report.base["flops"], "bytes": report.base["bytes_accessed"],
+               "plan_seconds": report.plan_seconds,
+               "candidates": [c.as_dict() for c in report.candidates]}
+        del pm
+        free()
+        am = build(bf16)
+        try:
+            distribute(am, auto=True, batch=(ids.features, ids.labels))
+            out["auto"] = {"installed": dict(am._mesh.shape)}
+        except PlanError as e:
+            out["auto"] = {"raised": str(e)}
+        del am
+        free()
+        out["seconds"] = time.perf_counter() - t0
+        res["plan"] = out
 
     def speed(conf, cfg, base=None):
         """bf16 steps of the distributed model (or of the undistributed
@@ -6936,11 +7022,12 @@ def _mp_rank(zip_path):
         res[mode]["seconds"] = time.perf_counter() - t0
     # (c) EP: the MoE flagship with expert=n
     t0 = time.perf_counter()
-    m, res["ep"] = parity(_mp_conf(False, moe=MOE_EXPERTS, sgd=MP_MOE_LR),
+    m, res["ep"] = parity(_mp_conf(False, moe=MOE_EXPERTS, sgd=MP_MOE_LR,
+                                   layers=MP_EP_LAYERS),
                           dict(data=1, expert=n))
     del m
     free()
-    moe16 = _mp_conf(None, moe=MOE_EXPERTS)
+    moe16 = _mp_conf(None, moe=MOE_EXPERTS, layers=MP_EP_LAYERS)
     res["moe_base"] = baseline(moe16)
     res["ep"]["speed"] = speed(moe16, dict(data=1, expert=n))
     res["ep"]["seconds"] = time.perf_counter() - t0
@@ -6976,6 +7063,7 @@ def _mp_rank(zip_path):
     del m
     free()
     res["c27"]["seconds"] = time.perf_counter() - t0
+    pp_parts()
     return res
 
 
@@ -7002,10 +7090,14 @@ def phase_mp(torch, np, kernels, timer):
     # each mode's launches a rank, for the kernels line (rank 0's)
     for mode in ("tp", "ulysses", "ring", "ep"):
         res[mode] = {"launches": r0[mode]["speed"]["launches"]}
-    # B1-B3 at Ulysses' shape against their plain versions
-    bh = TRAIN_BATCH * HEADS // n
-    rows = [flash_case(torch, timer, TRAIN_SEQ, torch.bfloat16, bh=bh)]
-    rows += flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, bh=bh)
+    for mode in ("gpipe", "1f1b"):
+        res[mode] = {"launches": r0[mode]["speed"]["launches"]}
+    # B1-B3 at Ulysses' shape and at the pipeline's microbatch shape
+    # against their plain versions
+    rows = []
+    for bh in sorted({TRAIN_BATCH * HEADS // n, TRAIN_BATCH * HEADS // MP_PP_MICRO}):
+        rows += [flash_case(torch, timer, TRAIN_SEQ, torch.bfloat16, bh=bh)]
+        rows += flash_bwd_cases(torch, timer, TRAIN_SEQ, torch.bfloat16, bh=bh)
     res["kernel_rows"] = check_rows("mp", rows)
     smi = nvidia_smi()
     base, mbase = r0["flagship_base"], r0["moe_base"]
@@ -7050,6 +7142,52 @@ def phase_mp(torch, np, kernels, timer):
         f"{c['out_rel']:.3e} of max |p|) from the undistributed one's; (token, choice) "
         f"pairs routed otherwise by layer {c['route_diffs']} of {c['pairs']}; dropped share by layer {['%.5f' % x for x in c['drop']]} "
         f"against {['%.5f' % x for x in c['drop_ref']]}; {c['seconds']:.1f}s")
+    m_stage = LAYERS // n
+    pp_want = {"flash_fwd": 2 * m_stage * MP_PP_MICRO * MP_STEPS,
+               "flash_bwd_dq": m_stage * MP_PP_MICRO * MP_STEPS,
+               "flash_bwd_dkdv": m_stage * MP_PP_MICRO * MP_STEPS}
+    for mode in ("gpipe", "1f1b"):
+        e, sp = r0[mode], r0[mode]["speed"]
+        log(f"[mp] (f) PP pipe={n} {mode}, {MP_PP_MICRO} microbatches: f32 Sgd {MP_LR} "
+            f"losses {e['losses']} against {e['ref_losses']}; change relative L2 "
+            f"{e['step_rel_l2']:.3e}; output() max gap {e['out_rel']:.3e} of max |p|; "
+            f"leaves bit-identical across ranks: "
+            f"{len({w[mode]['digest'] for w in world}) == 1}")
+        log(f"[mp] (f) {mode} bf16 {sp['ms_per_step']:.2f} ms a step = "
+            f"{sp['tokens_per_s']:.1f} tokens/s a rank against undistributed "
+            f"{base['ms_per_step']:.2f} ms = {base['tokens_per_s']:.1f} tokens/s; peak "
+            f"reserved {sp['memory']['peak_gib']:.3f} GiB a rank against "
+            f"{base['memory']['peak_gib']:.3f}; launches in {sp['steps']} steps "
+            f"{sp['launches']} (want {pp_want}); timed steps' taxes {sp['taxes']}; "
+            f"captured {sp['capture']} ({smi})")
+    ob = r0["1f1b"]
+    log(f"[mp] (f) 1F1B against GPipe: losses {ob['losses']} against "
+        f"{r0['gpipe']['losses']}; parameters' change relative L2 "
+        f"{ob['vs_gpipe_rel_l2']:.3e}; (f) {r0['gpipe']['seconds']:.1f}s")
+    pl = r0["plan"]
+    measured = {f"data=1 pipe={n} zero=0": r0["gpipe"]["speed"]["ms_per_step"],
+                "data=1 zero=0": base["ms_per_step"]}
+    log(f"[mp] (g) plan() of the bf16 flagship over {n} ranks at {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} ids in {pl['plan_seconds'] * 1e3:.1f} ms: {pl['flops']:.4e} FLOPs, "
+        f"{pl['bytes']:.4e} bytes a step; launched {pl['launched']}; taxes "
+        f"{pl['taxes']}; model unchanged {pl['unchanged']}; pick {pl['pick']} "
+        f"({pl['pick_width']} ranks)")
+    for line in pl["summary"].splitlines():
+        log(f"[mp] (g) {line}")
+    hop = None
+    for cand in pl["candidates"]:
+        if cand["label"] in measured and cand["predicted_step_seconds"] is not None:
+            pred = cand["predicted_step_seconds"]
+            log(f"[mp] (g) {cand['label']}: predicted {pred * 1e3:.3f} ms, measured "
+                f"{measured[cand['label']]:.3f} ms (bf16 gpipe for pipe={n})")
+            if cand["pipe"] > 1:
+                priced = pred - cand["terms"]["hop_penalty_seconds"]
+                hop = (measured[cand["label"]] / 1e3 - priced) / (cand["devices_used"] - 1)
+    log(f"[mp] (g) per-hop seconds measured on this world (pipe={n} step over its "
+        f"priced terms, per extra rank): {hop} ({smi})")
+    log(f"[mp] (g) distribute(auto=True) in the world of {n}: {pl['auto']}; "
+        f"{pl['seconds']:.1f}s")
+    res["pp"] = {"hop_seconds": hop, "pp_want": pp_want}
     res["seconds"] = time.perf_counter() - t_phase
     log(f"[mp] phase {res['seconds']:.1f}s")
 
@@ -7070,7 +7208,7 @@ def phase_mp(torch, np, kernels, timer):
             raise AssertionError(f"mp ({mode}): replicated leaves differ across ranks")
     for mode in ("tp", "ulysses", "ring", "ep"):
         sp = r0[mode]["speed"]
-        want = 0 if mode == "ring" else LAYERS * MP_STEPS
+        want = (0 if mode == "ring" else MP_EP_LAYERS if mode == "ep" else LAYERS) * MP_STEPS
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
             for w in world:
                 got = w[mode]["speed"]["launches"].get(name, 0)
@@ -7107,6 +7245,46 @@ def phase_mp(torch, np, kernels, timer):
     if not np.allclose(c["drop"], c["drop_ref"], rtol=0, atol=1e-3):
         raise AssertionError(f"mp (e): dropped shares {c['drop']} are not the "
                              f"undistributed model's {c['drop_ref']}")
+    for mode in ("gpipe", "1f1b"):
+        e, sp = r0[mode], r0[mode]["speed"]
+        if not np.allclose(e["losses"], e["ref_losses"], rtol=2e-4, atol=0):
+            raise AssertionError(f"mp (f) {mode}: f32 losses {e['losses']} are not the "
+                                 f"undistributed model's {e['ref_losses']}")
+        if not (e["step_rel_l2"] <= MP_STEP_REL and e["out_rel"] <= MP_OUT_REL):
+            raise AssertionError(f"mp (f) {mode}: change {e['step_rel_l2']:.3e}, output() "
+                                 f"{e['out_rel']:.3e} from the undistributed model's")
+        if len({w[mode]["digest"] for w in world}) != 1:
+            raise AssertionError(f"mp (f) {mode}: the leaves differ across ranks")
+        for w in world:
+            got = {k: w[mode]["speed"]["launches"].get(k, 0) for k in pp_want}
+            if got != pp_want:
+                raise AssertionError(f"mp (f) {mode}: rank {w['rank']} launched {got} in "
+                                     f"{MP_STEPS} steps, want {pp_want}")
+        if not np.isfinite(sp["losses"]).all():
+            raise AssertionError(f"mp (f) {mode}: bf16 losses not finite: {sp['losses']}")
+        if r0["backend"] == "nccl":
+            taxes = sp["taxes"]
+            if not sp["capture"] or taxes.get("jit_cache_misses", 0) or \
+                    taxes.get("fresh_backend_compiles", 0):
+                raise AssertionError(f"mp (f) {mode}: a capture or nvcc run in the timed "
+                                     f"NCCL steps, or no capture: {sp}")
+    if not (np.allclose(ob["losses"], r0["gpipe"]["losses"], rtol=2e-4, atol=0)
+            and ob["vs_gpipe_rel_l2"] <= MP_STEP_REL):
+        raise AssertionError(f"mp (f): 1F1B is not GPipe: losses {ob['losses']} against "
+                             f"{r0['gpipe']['losses']}, change {ob['vs_gpipe_rel_l2']:.3e}")
+    for w in world:
+        p = w["plan"]
+        if p["launched"] or p["taxes"].get("backend_compiles", 0) or \
+                p["taxes"].get("jit_cache_misses", 0) or not p["unchanged"]:
+            raise AssertionError(f"mp (g): rank {w['rank']}'s plan() launched {p['launched']}"
+                                 f", taxes {p['taxes']}, model unchanged {p['unchanged']}")
+        if p["pick_width"] == n:
+            if "installed" not in p["auto"]:
+                raise AssertionError(f"mp (g): the pick spans the world but "
+                                     f"distribute(auto=True) did not install it: {p['auto']}")
+        elif "ROADMAP C28" not in p["auto"].get("raised", ""):
+            raise AssertionError(f"mp (g): a pick of {p['pick_width']} ranks in a world of "
+                                 f"{n} must raise C28's PlanError: {p['auto']}")
     return res
 
 
@@ -7361,7 +7539,12 @@ def main(argv=None) -> int:
         (row("flash_bwd_dkdv", shape=train_bhtd), "mp/ep"),
     ] + [(row(name, shape=[TRAIN_BATCH * HEADS // report.get("mp", {}).get("n", 2),
                            TRAIN_SEQ, dh]), "mp/ulysses")
-         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")]
+         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")] + [
+        # pipeline parallelism: each stage's blocks a microbatch at a time
+        # (rank 0's counts)
+        (row(name, shape=[TRAIN_BATCH * HEADS // MP_PP_MICRO, TRAIN_SEQ, dh]), path)
+        for path in ("mp/gpipe", "mp/1f1b")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),

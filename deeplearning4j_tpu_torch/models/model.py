@@ -399,6 +399,11 @@ class Model(nn.Module):
     _shard_placement = None
     _grad_compression = None
     _grad_residual = None
+    # pipeline parallelism (parallel/pipeline.py): the plan of the
+    # pipelined segment and the schedule; None on a model without a pipe
+    # axis
+    _pipeline_plan = None
+    _pipeline_schedule = "gpipe"
 
     def __init__(self):
         super().__init__()
@@ -991,6 +996,30 @@ class Model(nn.Module):
         return {id(t): s[0] for t, s in zip(tree_leaves(params), sp.splits)
                 if s is not None}
 
+    def undistributed(self):
+        """A scope in which the model runs as one process would: no mesh,
+        no rows, no pipeline plan (the planner counts the undistributed
+        step); everything is as it was after it."""
+        import contextlib
+
+        names = ("_mesh", "_batch_sharding", "_pipeline_plan")
+
+        @contextlib.contextmanager
+        def scope():
+            saved = {k: self.__dict__[k] for k in names if k in self.__dict__}
+            for k in names:
+                setattr(self, k, None)
+            try:
+                yield self
+            finally:
+                for k in names:
+                    if k in saved:
+                        setattr(self, k, saved[k])
+                    else:
+                        self.__dict__.pop(k, None)
+
+        return scope()
+
     def full_params(self) -> dict:
         """The parameter tree whole: a model-parallel model's slices
         gathered over their axes (a collective: every rank calls it),
@@ -1020,7 +1049,10 @@ class Model(nn.Module):
 
         bs = self._batch_sharding
         rank, n = bs.rank, bs.n
-        rows = self._mesh.axes_group(dp_rows)
+        pipe = self._pipe_stage()
+        # under a pipe axis the sum runs over the pipe line too: each
+        # stage's blocks have their gradients on its rank
+        rows = self._mesh.axes_group(dp_rows + (("pipe",) if pipe else ()))
         if self._grad_compression:
             from deeplearning4j_tpu_torch.parallel.compression import (
                 quantized_allreduce_tree,
@@ -1036,7 +1068,8 @@ class Model(nn.Module):
                     r.copy_(x)
             loss, new_state = _mean_over_ranks(loss, new_state, n)
             return loss, grads, new_state, extra, False
-        ctx = DataParallelContext(rank, n, bs.seq_rank, bs.seq)
+        ctx = DataParallelContext(rank, n, bs.seq_rank, bs.seq,
+                                  pipe_last=pipe is None or pipe[0] == pipe[1] - 1)
         zp = self._zero_placement
         accum = getattr(zp, "accum", 1)
         if accum > 1:
@@ -1061,8 +1094,37 @@ class Model(nn.Module):
         with dp_scope(ctx):
             loss, grads, new_state, *extra = grad_step(
                 params, self.net_state, *arrays, keys)
+        if pipe is not None and not ctx.pipe_last:
+            loss, grads = self._pipe_share(loss, grads)
         loss, grads = _sum_over_ranks(loss, grads, rows)
         return loss, grads, new_state, extra, False
+
+    def _pipe_stage(self):
+        """(this rank's stage, the stage count) under pipeline
+        parallelism, else None."""
+        plan = self._pipeline_plan
+        if plan is None or self._mesh is None or self._mesh.shape.get("pipe", 1) < 2:
+            return None
+        return self._mesh.axis_index("pipe"), plan.k
+
+    def _pipe_share(self, loss, grads):
+        """What a pipe rank off the last stage adds to the step's sum:
+        its gradients of the pipelined blocks (its own stage's; zeros for
+        the others') and nothing of the loss or the other layers'
+        gradients, which every rank of the line computed alike (the last
+        stage's count)."""
+        blocks = self._block_leaf_index()
+        return torch.zeros_like(loss), [
+            g if i in blocks else torch.zeros_like(g) for i, g in enumerate(grads)]
+
+    def _block_leaf_index(self) -> frozenset:
+        """The positions, among the trainable leaves, of the pipelined
+        blocks' leaves."""
+        names = set(self._pipeline_plan.block_names)
+        tree = self.params
+        flags = tree_leaves({k: _tree_map(lambda t, b=(k in names): b, v)
+                             for k, v in tree.items() if k not in self._frozen})
+        return frozenset(i for i, b in enumerate(flags) if b)
 
     def _setup_grad_compression(self, mesh) -> None:
         """``distribute(ParallelConfig(grad_compression="int8"))``: the

@@ -173,6 +173,12 @@ class _SeqBlocks:
         self.active = False
 
 
+def check_schedule(schedule: str) -> None:
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pipeline schedule {schedule!r}; options: "
+                         "'gpipe', '1f1b'")
+
+
 def _as_iterator(data, batch_size: int | None) -> DataSetIterator:
     if isinstance(data, DataSetIterator):
         return data
@@ -290,9 +296,11 @@ class SequentialModel(Model):
 
     def _layer_outputs(self, params: dict, net_state: dict, features, *,
                        training: bool = False, keys=None, fmask=None,
-                       carries=None, new_carries=None, fuse: bool = True):
+                       carries=None, new_carries=None, fuse: bool = True,
+                       lo: int = 0, hi: int | None = None):
         """Run the stack, yielding (layer, output, new state, whether the
-        output is the rank's time block (`_SeqBlocks`)) layer by layer.
+        output is the rank's time block (`_SeqBlocks`)) layer by layer;
+        layers [lo, hi) only when given.
         Inputs take the compute dtype (`entry_cast`); a
         feed-forward layer after convolutional maps sees them flattened.
         The (B, T) features mask ``fmask`` reaches every layer with
@@ -308,22 +316,42 @@ class SequentialModel(Model):
         x = entry_cast(as_tensor(features, self.device), self.compute_dtype)
         mask = None if fmask is None else as_tensor(fmask, self.device)
         layers = self.conf.layers
-        n = len(layers)
-        flatten = self._flatten_before or [False] * n
-        itypes = self._itypes or [None] * n
+        n = len(layers) if hi is None else hi
+        flatten = self._flatten_before or [False] * len(layers)
+        itypes = self._itypes or [None] * len(layers)
         runs = self._rnn_runs if fuse else {}
         seq = _SeqBlocks(self, x, mask)
+        plan = self._active_pipeline_plan()
+        if plan is not None and carries is not None:
+            raise ValueError(
+                "recurrent carries (truncated BPTT, rnn_time_step) are not "
+                "supported through a pipelined segment; drop the pipe axis")
 
         def carry_of(layer, x):
             c = None if carries is None else carries.get(layer.name)
             return c if c is not None else layer.init_carry(
                 x.shape[0], x.dtype, x.device)
 
-        i = 0
+        i = lo
         while i < n:
             layer = layers[i]
             if flatten[i]:
                 x = x.reshape(x.shape[0], -1)
+            if plan is not None and i == plan.start:
+                # the pipelined segment: this rank's stage of its blocks,
+                # GPipe over the pipe axis (JAX `_forward`)
+                from deeplearning4j_tpu_torch.parallel.pipeline import (
+                    run_pipelined_segment,
+                )
+
+                if mask is not None:
+                    raise ValueError(
+                        "sequence masks are not supported through a pipelined "
+                        "segment yet; drop the pipe axis or the mask")
+                x = run_pipelined_segment(plan, params, x, training=training)
+                yield layers[plan.end - 1], x, {}, False
+                i = plan.end
+                continue
             key = keys[i] if keys is not None else None
             run = runs.get(i, 0)
             # under a seq axis: the rank's time block into a per-step
@@ -577,6 +605,159 @@ class SequentialModel(Model):
         return (data_loss, self._reg_loss(params), aux, new_state, *rest)
 
 
+    def _forward_range(self, params: dict, net_state: dict, x, lo: int, hi: int, *,
+                       training: bool, keys=None):
+        """Layers [lo, hi) alone on ``params`` (compute dtype), one by
+        one: the pieces before and after the pipelined segment of the
+        1F1B step (JAX ``_forward_range``; no masks or carries, which the
+        pipelined path refuses).  Returns (output, the layers' new
+        state)."""
+        new_state = {}
+        for layer, x, ns, _ in self._layer_outputs(
+                params, net_state, x, training=training, keys=keys, fuse=False,
+                lo=lo, hi=hi):
+            if ns:
+                new_state[layer.name] = ns
+        return x, new_state
+
+    # -- pipeline parallelism ----------------------------------------------
+    def _setup_pipeline(self, mesh, n_micro: int = 0, schedule: str = "gpipe") -> None:
+        """`distribute` with a pipe axis: plan which run of blocks
+        pipelines over it (raises with the reason when the stack has no
+        such run).  ``schedule`` "gpipe" runs the segment inside the
+        ordinary step's forward (`_layer_outputs`); "1f1b" trains through
+        its own step (`_grad_step_1f1b`), its backward interleaved into
+        the pipeline."""
+        from deeplearning4j_tpu_torch.parallel.pipeline import plan_sequential_pipeline
+        from deeplearning4j_tpu_torch.runtime.mesh import PIPE_AXIS
+
+        check_schedule(schedule)
+        self._pipeline_plan = plan_sequential_pipeline(
+            self.conf.layers, self.params, self._types(), mesh.shape[PIPE_AXIS],
+            n_micro, net_state=self.net_state)
+        self._pipeline_schedule = schedule
+        self._step_fns.clear()
+
+    def _active_pipeline_plan(self):
+        """The plan, while the active mesh's pipe axis is wider than 1."""
+        from deeplearning4j_tpu_torch.runtime.mesh import PIPE_AXIS, active_mesh
+
+        plan = self._pipeline_plan
+        mesh = active_mesh()
+        if plan is None or mesh is None or mesh.shape.get(PIPE_AXIS, 1) < 2:
+            return None
+        return plan
+
+    @property
+    def _1f1b(self) -> bool:
+        return (self._pipeline_plan is not None and self._mesh is not None
+                and self._pipeline_schedule == "1f1b")
+
+    def _step_program(self):
+        """Under the 1F1B schedule the step is its own program, under
+        the JAX package's key ``("train_1f1b",)``."""
+        if not self._1f1b:
+            return super()._step_program()
+        fn = self._step_fns.get(("train_1f1b",))
+        if fn is None:
+            from deeplearning4j_tpu_torch.observe import cost
+
+            fn = self._step_fns[("train_1f1b",)] = cost.register_step_program(
+                self, ("train_1f1b",), self._grad_step)
+        return fn
+
+    def _grad_step(self, params: dict, net_state: dict, *inputs, loss=None):
+        if loss is None and self._1f1b:
+            return self._grad_step_1f1b(params, net_state, *inputs)
+        return super()._grad_step(params, net_state, *inputs, loss=loss)
+
+    def _grad_step_1f1b(self, params: dict, net_state: dict, features, labels,
+                        lmask=None, fmask=None, keys=None):
+        """The 1F1B training step (JAX ``_get_step_fn_1f1b``): the layers
+        before the segment forward with their graph kept, the segment
+        through `pipeline_train_1f1b` with the head's loss and gradients
+        on the last stage a microbatch at a time, the layers before the
+        segment pulled back from the microbatches' dx, and the l1 / l2
+        penalty's gradient added.  Same returns as `_grad_step`: the
+        loss, the trainable leaves' gradients (this rank's stage's for
+        the blocks, zeros for the other stages'), the new state of the
+        layers before the segment.  The state and auxiliary losses the
+        layers after the segment emit are dropped, as in the JAX step."""
+        from deeplearning4j_tpu_torch.models.model import _tree_map, tree_unflatten
+        from deeplearning4j_tpu_torch.parallel import collectives
+        from deeplearning4j_tpu_torch.parallel import pipeline as pp
+
+        if lmask is not None or fmask is not None:
+            raise ValueError(
+                "masks are not supported through the 1f1b pipeline schedule; drop "
+                "the masks or use schedule='gpipe' without masks")
+        plan = self._pipeline_plan
+        layers = self.conf.layers
+        n_layers = len(layers)
+        pre = [l.name for l in layers[:plan.start] if l.name in params]
+        post = [l.name for l in layers[plan.end:] if l.name in params]
+        # a frozen layer's leaves enter detached (`_grad_step`)
+        src = {k: _tree_map(torch.Tensor.detach, v) if k in self._frozen else v
+               for k, v in params.items()}
+        with torch.enable_grad():
+            # the whole compute tree, so the mesh scope knows every split leaf
+            cp = self.cast_tree(src, detach=False)
+            scope = self.mesh_scope(cp, params)
+            scope.__enter__()
+            try:
+                stage = collectives.axis_rank("pipe")
+                x1, st_pre = self._forward_range(cp, net_state, features, 0, plan.start,
+                                                 training=True, keys=keys)
+                x_micro = pp.split_microbatches(x1.detach(), plan.n_micro)
+                labels_micro = pp.split_microbatches(as_tensor(labels, self.device),
+                                                     plan.n_micro)
+
+                def loss_grad(y, m):
+                    yy = y.detach().requires_grad_()
+                    pt = {n: _tree_map(lambda t: t.detach().requires_grad_(), src[n])
+                          for n in post}
+                    full = {**src, **pt}
+                    cfull = {**cp, **self.cast_tree(pt, detach=False)}
+                    with self.mesh_scope(cfull, full):
+                        out, _ = self._forward_range(cfull, net_state, yy, plan.end,
+                                                     n_layers, training=True, keys=keys)
+                        loss_m = self._data_loss(full, out, labels_micro[m], None)
+                    pl = tree_leaves(pt)
+                    g = torch.autograd.grad(loss_m, pl + [yy], allow_unused=True)
+                    return loss_m.detach(), g[-1], tree_unflatten(pt, [
+                        torch.zeros_like(t) if d is None else d for t, d in zip(pl, g[:-1])])
+
+                loss, seg, dx_micro, dpost = pp.pipeline_train_1f1b(
+                    pp._stage_fn(plan.block_config, True, self.compute_dtype),
+                    pp.stage_blocks(plan, src, stage), x_micro, loss_grad, axis="pipe",
+                    extra={n: _tree_map(torch.zeros_like, params[n]) for n in post})
+                grads = {name: _tree_map(torch.zeros_like, params[name])
+                         for name in params}
+                grads.update(dpost)
+                m = len(plan.block_names) // plan.k
+                for name, g in zip(plan.block_names[stage * m:(stage + 1) * m], seg):
+                    grads[name] = g
+                pre_leaves = [t for n in pre for t in tree_leaves(src[n]) if t.requires_grad]
+                if pre_leaves and x1.requires_grad:
+                    back = torch.autograd.grad(x1, pre_leaves, pp.merge_microbatches(
+                        dx_micro).to(x1.dtype), allow_unused=True)
+                    got = {id(t): g for t, g in zip(pre_leaves, back) if g is not None}
+                    for n in pre:
+                        grads[n] = tree_unflatten(src[n], [
+                            got.get(id(t), torch.zeros_like(t)) for t in tree_leaves(src[n])])
+                # the penalty is local to each leaf: its gradient adds directly
+                (reg,) = dp_context.replica_share(self._reg_loss(params))
+                if isinstance(reg, torch.Tensor) and reg.requires_grad:
+                    rg = torch.autograd.grad(reg, tree_leaves(params), allow_unused=True)
+                    grads = tree_unflatten(grads, [
+                        g if r is None else g + r.to(g.dtype)
+                        for g, r in zip(tree_leaves(grads), rg)])
+                    loss = loss + reg.detach()
+            finally:
+                scope.__exit__(None, None, None)
+        _, st_pre = pop_aux_losses(st_pre)
+        return (loss, self._trainable_leaves(grads),
+                _tree_map(lambda t: t.detach(), st_pre))
 
     # -- truncated BPTT ----------------------------------------------------
     @property

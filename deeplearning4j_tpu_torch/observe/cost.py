@@ -27,6 +27,9 @@ Three pieces, as in the JAX package:
   ``memory=True`` adds the run's argument, output and peak bytes (the
   caching allocator's peak on the card).  A failure is recorded as a
   reason, never raised into training.
+- **dispatch-free analysis** (`analyze_signature`): the planner's
+  pricing of a step program before anything ran, from an abstract
+  signature, on fake tensors (no device work, no kernel launch);
 - **MFU / roofline accounting**: once a program's FLOPs are known, every
   `StepScope` exit derives achieved FLOP/s, MFU against the peak table
   below (``DL4J_TPU_PEAK_FLOPS`` / ``DL4J_TPU_PEAK_MEMBW`` override),
@@ -590,6 +593,81 @@ def register_step_program(model, key: Any, fn):
     wrapped = registry().register(model, str(kind), key, fn, live)
     holder["fn"] = weakref.ref(wrapped)
     return wrapped
+
+
+class SignatureAnalysis:
+    """The result of `analyze_signature`: FLOPs and bytes, or the
+    reason it could not price the program (the planner records a reason
+    as "do not price this", never as zero cost)."""
+
+    __slots__ = ("flops", "bytes_accessed", "ok", "reason")
+
+    def __init__(self, flops=None, bytes_accessed=None, reason=None):
+        self.flops = flops
+        self.bytes_accessed = bytes_accessed
+        self.ok = flops is not None
+        self.reason = reason
+
+    def as_dict(self) -> dict:
+        return {"flops": self.flops, "bytes_accessed": self.bytes_accessed,
+                "ok": self.ok, "reason": self.reason}
+
+
+def _fake_args(mode, args):
+    """``args`` with every tensor made a fake tensor of ``mode`` (shape,
+    dtype, device and requires_grad kept; no data) and every
+    `_TensorSpec` one made from it."""
+    import torch
+
+    from deeplearning4j_tpu_torch.quant.qtensor import QuantizedTensor
+
+    if isinstance(args, _TensorSpec):
+        with mode:
+            t = torch.empty(args.shape, dtype=args.dtype, device=args.device)
+        return t.requires_grad_() if args.requires_grad else t
+    if isinstance(args, torch.Tensor):
+        return mode.from_tensor(args)
+    if isinstance(args, QuantizedTensor):
+        return QuantizedTensor(_fake_args(mode, args.q), _fake_args(mode, args.scale))
+    if isinstance(args, dict):
+        return {k: _fake_args(mode, v) for k, v in args.items()}
+    if isinstance(args, (list, tuple)):
+        return type(args)(_fake_args(mode, a) for a in args)
+    return args
+
+
+def analyze_signature(fn, sig) -> SignatureAnalysis:
+    """Dispatch-free cost analysis (JAX ``analyze_signature``): run
+    ``fn`` once on ``sig`` (the positional arguments: tensors, whose
+    values are never read, or `_TensorSpec` placeholders) made fake
+    tensors, under a ``FakeTensorMode`` and the op counter.  The fake
+    tensors hold no data, so nothing runs on a device; every torch op is
+    counted by its FLOP formula and bytes, and every hand-written kernel
+    by its ``*_work`` function while its wrapper computes shapes through
+    its plain version (`runtime/kernels.py` `route`): no launch, no
+    ``nvcc``.  ``fn`` may be a registry wrapper (its ``__wrapped__``
+    inner runs, so no dispatch is counted).  The program must be pure
+    (the registered step programs are): the real arguments are left as
+    they were.  A failure comes back as the result's reason."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    inner = getattr(fn, "__wrapped__", fn)
+    if not callable(inner):
+        return SignatureAnalysis(
+            reason=f"not lowerable: {type(inner).__name__} is not callable")
+    mode = FakeTensorMode(allow_non_fake_inputs=False)
+    try:
+        args = _fake_args(mode, tuple(sig))
+    except Exception as e:
+        return SignatureAnalysis(reason=f"fake arguments failed ({type(e).__name__}: {e})")
+    counter = _OpCounter()
+    try:
+        with mode:
+            counter.run(inner, args)
+    except Exception as e:
+        return SignatureAnalysis(reason=f"lower failed ({type(e).__name__}: {e})")
+    return SignatureAnalysis(flops=float(counter.flops),
+                             bytes_accessed=float(counter.bytes))
 
 
 def analyze_model(model, memory: bool = False) -> list[ProgramRecord]:

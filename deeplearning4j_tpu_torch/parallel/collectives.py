@@ -27,6 +27,9 @@ Two conventions meet here, and each collective says which it serves:
   send and receive posted together) and `all_to_all` (Ulysses) are
   their own transposes' mirror images and serve both.
 
+`exchange` posts one round of point-to-point transfers, the pipeline's
+stage handoffs (`parallel/pipeline.py`), whose schedule places them.
+
 Gloo carries CUDA tensors for all-reduce and all-gather; point-to-point
 and all-to-all go through pinned host memory on a gloo world (and only
 there), so a card shared by gloo ranks runs the same code as NCCL.
@@ -173,16 +176,36 @@ def _rotate(t: torch.Tensor, shift: int, group) -> torch.Tensor:
     and the receive posted together."""
     n = dist.get_world_size(group)
     i = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (i + shift) % n)
-    src = dist.get_global_rank(group, (i - shift) % n)
-    staged = _gloo(group) and t.is_cuda
-    send = (t.detach().to("cpu").pin_memory() if staged else t.detach()).contiguous()
-    recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, dst, group),
-           dist.P2POp(dist.irecv, recv, src, group)]
+    return exchange([(t, (i + shift) % n)],
+                    [(t.shape, t.dtype, t.device, (i - shift) % n)], group)[0]
+
+
+def exchange(sends, recvs, group) -> list:
+    """One round of point-to-point transfers on ``group``, all posted
+    together (one ``batch_isend_irecv``): ``sends`` a list of (tensor,
+    destination rank of the group), ``recvs`` a list of (shape, dtype,
+    device, source rank of the group).  Returns the received tensors in
+    ``recvs`` order.  A pipeline's stage handoff (`parallel/pipeline.py`);
+    a rank with nothing to send or receive in a round posts nothing."""
+    if not sends and not recvs:
+        return []
+    devices = [t.device for t, _ in sends] + [torch.device(r[2]) for r in recvs]
+    staged = _gloo(group) and any(d.type == "cuda" for d in devices)
+    ops, out = [], []
+    for t, dst in sends:
+        t = t.detach().contiguous()
+        if staged:
+            t = t.to("cpu").pin_memory()
+        ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(group, dst), group))
+    for shape, dtype, device, src in recvs:
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else device)
+        if staged:
+            buf = buf.pin_memory()
+        out.append((buf, device))
+        ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, src), group))
     for w in dist.batch_isend_irecv(ops):
         w.wait()
-    return recv.to(t.device, non_blocking=True) if staged else recv
+    return [buf.to(device, non_blocking=True) if staged else buf for buf, device in out]
 
 
 class _Permute(torch.autograd.Function):

@@ -23,6 +23,12 @@ the model's step enters `dp_scope` with a `DataParallelContext` and:
   a masked mean divides by the global count;
 - the compressed step enters no scope: it keeps the JAX package's
   per-shard semantics (local statistics and masks, per-rank keys).
+- under pipeline parallelism every rank of a pipe line runs the layers
+  around the pipelined segment on the same rows, and the step sums the
+  gradients over the pipe axis too (each stage's blocks have theirs on
+  one rank): the replicated terms count on the last stage only
+  (``pipe_last``), and the step keeps that stage's gradients of the
+  layers outside the segment (`models/model.py` `_dp_grads`).
 
 The rows of a global batch are split over the data axis and, under
 sequence parallelism, its time steps over the seq axis: a rank holds a
@@ -59,6 +65,9 @@ class DataParallelContext:
     n: int
     seq_rank: int = 0
     seq: int = 1
+    # False on a pipe rank that is not the last stage: its share of the
+    # replicated terms is 0 (the last stage's counts for the line)
+    pipe_last: bool = True
 
     @property
     def scale(self) -> float:
@@ -115,11 +124,13 @@ def loss_scale() -> Optional[float]:
 
 def replica_share(*terms):
     """Each replicated term of the objective (the l1 / l2 penalty, the
-    layers' auxiliary losses) times 1 / n under a context, so the
-    ranks' summed gradients count it once; as they are outside one."""
-    scale = loss_scale()
-    if scale is None:
+    layers' auxiliary losses) times 1 / n under a context (0 off the
+    last pipe stage), so the ranks' summed gradients count it once; as
+    they are outside one."""
+    ctx = current()
+    if ctx is None:
         return terms
+    scale = ctx.scale if ctx.pipe_last else 0.0
     return tuple(t * scale for t in terms)
 
 

@@ -44,13 +44,26 @@ NCCL collectives inside (the warm-up runs each communicator's first
 collectives eagerly).  Gloo collectives cannot be captured, so a model
 on the card in a gloo world steps eagerly (``capture_steps`` False).
 
-Works for `SequentialModel` and `GraphModel`::
+``pipe=k`` pipelines a `SequentialModel`'s run of identical blocks
+over the pipe axis (`parallel/pipeline.py`): each rank runs its stage's
+blocks on microbatches, GPipe inside the ordinary step or the 1F1B step
+(``schedule``).  The blocks' parameters stay whole on every rank, as in
+the JAX package, and every rank of a pipe line feeds the same rows; the
+step sums the gradients over the data and pipe axes together, each
+stage's blocks' from their rank and the other layers' from the last
+stage.  It composes with the data, model and expert axes; beside the
+seq axis it raises, as the JAX package's step fails there (ROADMAP C29).
+
+``auto=True`` (or ``DL4J_TPU_AUTO_PLAN`` with no config) prices the
+placements with the planner (`parallel/planner.py`) and installs its
+pick.  The port's mesh spans the whole world, so a pick narrower than
+the running world raises a `PlanError` that names it (ROADMAP C28).
+
+Works for `SequentialModel` and `GraphModel` (pipelining for the first
+only)::
 
     distribute(model, ParallelConfig(data=-1))   # every rank
     model.fit(my_rows)                           # each rank its rows
-
-Pipeline parallelism and the planner (``auto=True``) raise, naming
-ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -79,8 +92,8 @@ log = logging.getLogger("deeplearning4j_tpu_torch")
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP A11: the port's parallelism is "
-        "data, tensor, sequence and expert parallelism, ZeRO-1/2 and int8 "
-        "gradient compression)")
+        "data, tensor, sequence, expert and pipeline parallelism, the "
+        "planner, ZeRO-1/2 and int8 gradient compression)")
 
 
 # layer types whose forward computes the whole function from slices
@@ -132,11 +145,10 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
     if not auto and config is None:
         auto = environment().auto_plan
     if auto:
-        raise _not_ported("the autosharding planner (distribute(auto=True))")
+        config = _planned_config(model, config, mesh, devices, batch,
+                                 memory_cap_bytes)
     config = config or ParallelConfig.data_parallel()
-    if config.pipe != 1:
-        raise _not_ported(f"pipeline parallelism (pipe={config.pipe})")
-    split = any(getattr(config, a) != 1 for a in ("model", "seq", "expert"))
+    split = any(getattr(config, a) != 1 for a in ("model", "seq", "expert", "pipe"))
     zero = config.zero
     if zero is None:
         zero = environment().zero
@@ -176,6 +188,8 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
             "(the reference's compression was DP-only too); drop the "
             "model/pipe/seq/expert axes or the compression")
 
+    if config.pipe != 1:
+        _check_pipeline(model, config)
     if not distributed.is_initialized():
         distributed.initialize(distributed.DistributedConfig(
             platform="cpu" if model.device.type == "cpu" else None))
@@ -191,8 +205,7 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
         raise ValueError(
             f"the mesh has {mesh.size} ranks but the world "
             f"{distributed.process_count()}: the port's mesh spans the whole world")
-    if PIPE_AXIS in mesh.shape and mesh.shape[PIPE_AXIS] > 1:
-        raise _not_ported(f"pipeline parallelism (pipe={mesh.shape[PIPE_AXIS]})")
+    pp = mesh.shape.get(PIPE_AXIS, 1) > 1
     tp = mesh.shape.get(MODEL_AXIS, 1) > 1
     ep = mesh.shape.get(EXPERT_AXIS, 1) > 1
     sp = mesh.shape.get(SEQ_AXIS, 1) > 1
@@ -236,6 +249,10 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
     zero_mod.gauge_opt_state_bytes(
         model, {0: "replicated", 1: "sharded", 2: "zero2"}[zero])
 
+    model._pipeline_plan = None
+    if pp:
+        model._setup_pipeline(mesh, config.microbatches, config.schedule)
+        _warm_pipe_group(model, mesh)
     # a re-distribution starts without the old compression state
     model._grad_compression = None
     model._grad_residual = None
@@ -253,6 +270,74 @@ def distribute(model, config: ParallelConfig | None = None, devices=None,
                      "steps eagerly on the card", distributed.backend_name())
         model.capture_steps = False
     return model
+
+
+def _check_pipeline(model, config: ParallelConfig) -> None:
+    """The refusals of a pipe axis, before any world forms: a model
+    without a pipelineable stack (a graph, or a stack with no run of
+    ``pipe`` identical blocks: `plan_sequential_pipeline`'s reasons), an
+    unknown schedule, and the seq axis beside it (ROADMAP C29)."""
+    if not hasattr(model, "_setup_pipeline"):
+        raise NotImplementedError(
+            f"{type(model).__name__} does not support pipeline parallelism; GPipe "
+            "runs over a SequentialModel's repeated-block segment")
+    from deeplearning4j_tpu_torch.models.sequential import check_schedule
+    from deeplearning4j_tpu_torch.parallel.pipeline import plan_sequential_pipeline
+
+    check_schedule(config.schedule)
+    if config.pipe > 1:
+        plan_sequential_pipeline(model.conf.layers, model.params, model._types(),
+                                 config.pipe, config.microbatches,
+                                 net_state=model.net_state)
+    if config.seq != 1:
+        # the JAX package takes this configuration but its step fails (a
+        # shard_map nested in the pipe's manual region, ROADMAP C29)
+        raise NotImplementedError(
+            "pipeline parallelism beside the seq axis: the JAX package's step "
+            "cannot run it either (ROADMAP C29); drop the pipe or the seq axis")
+
+
+def _warm_pipe_group(model, mesh) -> None:
+    """One all-reduce on the pipe line's group, so that its
+    communicator exists before a tick's point-to-point transfers, in
+    which only some of its ranks take part."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.zeros(1, device=model.device)
+    dist.all_reduce(t, group=mesh.axis_group(PIPE_AXIS))
+
+
+def _planned_config(model, config, mesh, devices, batch, memory_cap_bytes):
+    """``distribute(auto=True)``: the planner's pick for the running
+    world (JAX ``data_parallel.py:59-90``), kept on ``model._plan_report``.
+    A pick narrower than the world raises: the port's mesh spans the
+    whole world (ROADMAP C28)."""
+    from deeplearning4j_tpu_torch.parallel import planner
+    from deeplearning4j_tpu_torch.runtime import distributed
+
+    if config is not None:
+        raise ValueError(
+            "distribute(auto=True) derives the ParallelConfig — pass one or the "
+            "other, not both")
+    if mesh is not None:
+        raise ValueError(
+            "distribute(auto=True) sizes the mesh to the planned pick — an explicit "
+            "mesh= would silently override the priced placement; pass devices= to "
+            "bound the search instead")
+    n = len(devices) if devices is not None else (
+        distributed.process_count() if distributed.is_initialized() else 1)
+    report = planner.plan(model, n_devices=n, batch=batch,
+                          memory_cap_bytes=memory_cap_bytes)
+    model._plan_report = report
+    used = report.pick_candidate().devices_used
+    if used != n:
+        raise planner.PlanError(
+            f"the plan's pick {report.pick_candidate().label()} uses {used} of the "
+            f"{n} ranks, but the port's mesh spans the whole world (ROADMAP C28): "
+            f"run a world of {used} ranks and distribute(auto=True) there, or pass "
+            "the pick as the config", report=report)
+    return report.pick
 
 
 def _all_leaves(tree) -> list:

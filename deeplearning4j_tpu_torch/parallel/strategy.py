@@ -49,12 +49,13 @@ from deeplearning4j_tpu_torch.runtime.mesh import (
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """Axis sizes (-1: fill with the remaining ranks, at most one) and
-    the data-parallel options, the JAX package's fields.  ``data``,
+    the data-parallel options, the JAX package's fields: ``data``,
     ``model`` (tensor-sharded parameters), ``seq`` (ring or Ulysses
-    attention over time blocks) and ``expert`` (MoE experts) are ported;
-    ``pipe`` > 1 raises (ROADMAP A11).
+    attention over time blocks), ``expert`` (MoE experts) and ``pipe``
+    (stages of a run of identical blocks, `parallel/pipeline.py`).
 
-    ``microbatches`` / ``schedule``: pipeline options (not ported yet).
+    ``microbatches`` / ``schedule``: the pipeline's microbatches a batch
+    (0: twice the stages) and its schedule, "gpipe" or "1f1b".
     ``grad_compression``: "none" (the exact all-reduce) or "int8" (the
     error-feedback quantized exchange, `parallel/compression.py`).
     ``zero``: 0 replicated update, 1 sharded optimizer state and update,

@@ -20,7 +20,8 @@ is ``max(floor, k * the EWMA of recent step latency)``.
 Data parallelism (`parallel/data_parallel.py`): ``zero``
 (``DL4J_TPU_ZERO``, default 0) is the ZeRO stage `distribute` uses when
 its `ParallelConfig` names none; ``auto_plan`` (``DL4J_TPU_AUTO_PLAN``)
-asks for the planner, which is not ported (ROADMAP A11) and raises.
+makes a `distribute` without a config ask the planner
+(`parallel/planner.py`) for one.
 
 `environment()` is the
 process's one `Environment`, read from the environment variables on
@@ -69,7 +70,7 @@ class Environment:
     watchdog_k: float = 10.0
     # distribute()'s ZeRO stage when its config names none (0, 1, 2)
     zero: int = 0
-    # distribute() with no config asks the planner (not ported: raises)
+    # distribute() with no config asks the planner for one
     auto_plan: bool = False
 
     @staticmethod

@@ -215,12 +215,23 @@ def library(stem: str) -> ctypes.CDLL:
 def route(device: torch.device) -> str:
     """``"plain"`` for a CPU tensor, ``"kernel"`` for a CUDA one; any
     other device is an error.  The wrappers' only choice between a
-    kernel and its plain version."""
-    if device.type == "cpu":
+    kernel and its plain version.  Under a `FakeTensorMode` (an abstract
+    run: `observe/cost.py` `analyze_signature`, the pipeline planner's
+    probe) the tensors hold no data and nothing launches: the plain
+    version computes their shapes."""
+    if device.type == "cpu" or _abstract():
         return "plain"
     if device.type == "cuda":
         return "kernel"
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def _abstract() -> bool:
+    """A `FakeTensorMode` is on this thread's dispatch mode stack."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    return any(isinstance(m, FakeTensorMode) for m in _get_current_dispatch_mode_stack())
 
 
 def current_stream(device: torch.device) -> int:

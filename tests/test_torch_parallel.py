@@ -346,15 +346,16 @@ def _port_mlp():
 
 @pytest.mark.parametrize("cfg", [dict(model=2), dict(pipe=2), dict(seq=2), dict(expert=2)])
 def test_other_axes_name_roadmap_a11(cfg):
-    """Pipeline parallelism still raises, naming ROADMAP A11; the model,
-    seq and expert axes are ported (`tests/test_torch_tensor_parallel.py`,
-    `test_torch_seq_parallel.py`, `test_torch_expert_parallel.py`): their
+    """The model, seq, expert and pipe axes are ported
+    (`tests/test_torch_tensor_parallel.py`, `test_torch_seq_parallel.py`,
+    `test_torch_expert_parallel.py`, `test_torch_pipeline_fit.py`): their
     mesh lays two ranks out on the axis, and ZeRO refuses them with the
-    JAX message, before any world forms."""
+    JAX message, before any world forms; an MLP has no run of identical
+    blocks to pipeline, which the JAX package's message says, before
+    any world forms too."""
     if "pipe" in cfg:
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        with pytest.raises(ValueError, match="identical shape-preserving"):
             tdistribute(_port_mlp(), TParallelConfig(**cfg))
-        return
     (axis,) = cfg
     mesh = TParallelConfig(data=1, **cfg).build_mesh(devices=[0, 1])
     assert mesh.shape == {"data": 1, axis: 2}
@@ -365,14 +366,21 @@ def test_other_axes_name_roadmap_a11(cfg):
 
 
 def test_planner_and_parallel_inference_name_roadmap_a11(monkeypatch):
+    """The planner is ported (`tests/test_torch_planner.py`): the env knob
+    sends a distribute without a config to it, which installs its pick
+    in this process's world of one; `ParallelInference` still raises,
+    naming ROADMAP A11."""
     from deeplearning4j_tpu_torch.parallel import ParallelInference
     from deeplearning4j_tpu_torch.runtime.flags import environment
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tdistribute(_port_mlp(), auto=True)
     monkeypatch.setattr(environment(), "auto_plan", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tdistribute(_port_mlp())
+    model = _port_mlp()
+    try:
+        tdistribute(model)
+        assert model._plan_report.pick_candidate().label() == "data=1 zero=0"
+        assert model._mesh.shape == {"data": 1}
+    finally:
+        distributed.shutdown()
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         ParallelInference(_port_mlp())
 

@@ -80,7 +80,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "evaluation.regression", "evaluation.binary",
                      "runtime.distributed", "runtime.mesh", "parallel.context",
                      "parallel.strategy", "parallel.data_parallel", "parallel.zero",
-                     "parallel.compression", "parallel.wrapper"):
+                     "parallel.compression", "parallel.wrapper",
+                     "parallel.collectives", "parallel.pipeline", "parallel.planner"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax

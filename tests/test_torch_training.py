@@ -51,8 +51,6 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
     NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.ops.chunked_xent import chunked_softmax_xent
-from deeplearning4j_tpu_torch.parallel.data_parallel import distribute
-from deeplearning4j_tpu_torch.parallel.strategy import ParallelConfig
 from deeplearning4j_tpu_torch.zoo.transformer import TransformerEncoder
 
 # small shapes: one intra-op thread keeps these files from competing with
@@ -310,9 +308,10 @@ def test_what_the_slice_does_not_train_raises():
     parallelism since the data-parallel slice (`tests/test_torch_parallel.py`
     holds it against the JAX mesh), and tensor parallelism since the
     model-parallel slice (the flagship's embedding split by columns and
-    its head by vocabulary, the blocks whole); pipeline parallelism still
-    raises, naming its ROADMAP item.  TBPTT loads as configuration data
-    and builds since the recurrent slice."""
+    its head by vocabulary, the blocks whole), and pipeline parallelism
+    since the pipeline slice (`tests/test_torch_pipeline_fit.py`);
+    `ParallelInference` still raises, naming its ROADMAP item.  TBPTT
+    loads as configuration data and builds since the recurrent slice."""
     ids, y = _batches(one_hot=False, n=1)[0]
     batch = DataSet(ids, y)
     model = _zoo(TransformerEncoder).init_model(device="cpu")
@@ -344,6 +343,8 @@ def test_what_the_slice_does_not_train_raises():
     assert specs["layer0"] == {"W": (None, "model")}
     assert all(s == () for blk in ("layer2", "layer3")
                for s in jax.tree.leaves(specs[blk], is_leaf=lambda x: isinstance(x, tuple)))
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
     with pytest.raises(NotImplementedError, match="A11"):
-        distribute(model, ParallelConfig(pipe=2))
+        ParallelInference(model)
     assert model.iteration == 0
