@@ -257,7 +257,7 @@ Then the phases:
    when ``DL4JTPU_QUANT_KERNEL`` is set to anything but auto: on the
    card the quantized products run B5, and a plain name there raises.
 10. ckpt — the checkpoint zip (`train/checkpoint.py`) on the card.  The
-   flagship's widths at 2 of its 8 blocks (``CKPT_LAYERS``; the depth
+   flagship's widths at 1 of its 8 blocks (``CKPT_LAYERS``; the depth
    cut for the script's time) with its softmax head trains 3 steps (bf16, Adam)
    on the train batch; `ModelSerializer.write_model` (with the updater),
    `verify` and `restore` (built on the card) are timed and the zip's
@@ -320,10 +320,10 @@ Then the phases:
    `ResNet50()` (`GraphModel`, seed 123, Adam 1e-3, bf16) trained as
    bench.py's bench_resnet50 runs it: batch 256 of 224 x 224 x 3 images
    (numpy seed 0, normal(0, 1)) and one-hot labels, 4 batches staged on
-   the card and cycled, ``fit(steps_per_execution=16)``; first 3 groups
-   run eagerly (``capture_steps = False``, 2 timed), then `observe.cost`
+   the card and cycled, ``fit(steps_per_execution=16)``; first 2 groups
+   run eagerly (``capture_steps = False``, 1 timed), then `observe.cost`
    analyses the step (FLOPs within 1% of `_resnet_flops_by_hand`), then
-   3 warm-up and 15 timed groups replay the captured step: samples/s, ms
+   1 warm-up and 2 timed groups replay the captured step: samples/s, ms
    a step captured and eager, MFU against 989 TFLOP/s, peak memory of
    each run; gates on finite losses and the last group's mean below the
    first's; one profiled group (device busy share, top kernels); 2
@@ -440,7 +440,7 @@ Then the phases:
    exactly 8 launches each of B1, B2 and B3 a step, captured == eager,
    tokens/s beside the undistributed step's.  (b) Two gloo ranks sharing
    the card (eager steps: gloo collectives cannot be captured):
-   ResNet-50 in f32 with Nesterovs 1e-6 at 64 rows a rank, 3 steps,
+   ResNet-50 in f32 with Nesterovs 1e-6 at 64 rows a rank, 2 steps,
    against one undistributed model fed the 128-row concatenation (losses,
    parameters and BatchNorm statistics within rtol 2e-4 / atol 2e-5,
    every element; the first summed gradient within twice its own floor)
@@ -456,7 +456,9 @@ Then the phases:
 18. mp — model parallelism inside the step (ROADMAP A11 items 1, 3 and
    4) in one world the phase spawns: two gloo ranks sharing the card
    when one is visible (eager steps), else one NCCL rank a card, 4 when
-   4 or more are visible and 2 otherwise (captured steps).  (a) TP: the
+   4 or more are visible and 2 otherwise (captured steps).  The
+   flagship runs 4 of its 8 blocks here (``MP_LAYERS``; the depth cut
+   for the script's time).  (a) TP: the
    flagship with ``model=n`` (the embedding split by columns, the
    chunked head by vocabulary); (b) SP: the flagship with ``seq=n`` at
    the training batch's 4 x 2048 ids, Ulysses (B1-B3 on B x H / n
@@ -493,10 +495,10 @@ Then the phases:
    within ``MP_STEP_REL`` relative L2 of the undistributed one's, at most
    ``MP_C27_ROUTES`` of each MoE layer's (token, choice) pairs routed
    otherwise, and every MoE layer's dropped share equal.  (f) PP: the
-   flagship's 8 blocks over ``pipe=n`` in ``MP_PP_MICRO`` microbatches,
+   flagship's ``MP_LAYERS`` blocks over ``pipe=n`` in ``MP_PP_MICRO`` microbatches,
    GPipe and 1F1B, each held as (a) (reusing (a)'s undistributed run)
    and timed as (a), with exactly 2 m M launches of B1 and m M of B2 and
-   B3 a step a rank (m = 8 / n blocks a stage, M microbatches: each
+   B3 a step a rank (m = 4 / n blocks a stage, M microbatches: each
    stage's forward, its recompute in the backward, and the backward);
    1F1B against GPipe (losses within rtol 2e-4, change within
    ``MP_STEP_REL``); B1-B3 at the microbatch's shape (BH 8, T 2048, D
@@ -508,7 +510,44 @@ Then the phases:
    pipe=n step implies; then ``distribute(auto=True)`` in the world,
    which installs a pick as wide as the world or raises C28's
    `PlanError`.  Writes under ``build/mp/`` and removes it.
-19. report — one ``{"kernels": [...]}`` JSON line, then the last line
+19. samediff — SameDiff and the TF importer (ROADMAP A13, first part).
+   (a) BASELINE config 4: bench.py bench_bert's frozen BERT-base
+   classifier (vocab 30522, d 768, 12 heads, 12 layers, 32 x 128, seed 4)
+   written by the port's writer, parsed by its wire codec and imported
+   with ``trainable=True`` on the card (MB and seconds of each); f32
+   rows 0-1 of its logits (TF32 off) against the port's CPU output() of
+   the batch-2 graph of the same seed (1e-4 of max |logit|; their loss
+   1e-4 relative); then Adam 2e-5 with ``bf16_compute`` on
+   BertIterator batches of bench_bert's word list: 2 captured steps
+   equal 2 eager steps from one state bit for bit (losses, trainables,
+   Adam state) and send no q, k, v to B1-B3, 6 captured steps timed
+   and 2 eager: ms a step,
+   samples/s, FLOPs a step (3 x bench.py's forward count x the batch),
+   MFU against the bf16 peak, peak memory; finite losses; exactly no
+   B1-B5 launch (the imported graph has no attention op).  (b) A BERT
+   built in code at the same widths, each of 12 blocks
+   `multi_head_dot_product_attention` over (32, 128, 12, 64), trained on
+   whether the first token's id is even, bf16 then f32: output() launches
+   exactly 12 B1; 2 captured steps equal 2 eager, and in the eager
+   ones B1 and B2/B3 take q, k, v 12 times a step each, all bf16 in the
+   bf16 run (the wgmma kernels) and all f32 in the f32 run (the split
+   kernels); 8 captured steps launch exactly 12 B1, 12 B2 and 12 B3 a
+   step; the loss falls; B1-B3
+   at BH 384, T 128, D 64, non-causal, bf16 and f32, against their
+   plain versions.  (c) Zips: the imported graph with 2 layers at
+   BERT-base widths and the code-built BERT cut to 2 blocks, both with
+   no control flow and so plain zips (ops and values): the step after
+   load equals the never-saved run's bit for bit (Adam state and RNG
+   position restored); bytes and seconds of each; the two saves run
+   side by side in two threads; written under ``build/samediff/`` and
+   removed.  (d) examples/finetune_imported.py's V1 loop graph imported
+   with ``trainable=True``: the loop's ``max_trip`` 4 and
+   ``exact_trip``, 6 captured Adam steps whose losses match the port's
+   CPU run within 1e-5 relative, the in-loop weight moved; its control
+   flow makes its zip source-backed (the graph's bytes, re-imported on
+   load), and the step after load equals the never-saved run's bit for
+   bit.
+20. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -518,6 +557,7 @@ Details also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -529,7 +569,7 @@ import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
           "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "tools", "rnn",
-          "dp", "mp")
+          "dp", "mp", "samediff")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -3956,10 +3996,10 @@ def phase_qserve(torch, np, kernels, report, timer):
 # -- ckpt phase -------------------------------------------------------------------
 
 CKPT_STEPS = 3                             # steps before the save, and resumed after
-# the flagship's depth in this phase: 2 of its 8 blocks (8 until PR 20,
-# whose mp phase needed the script's time: the 1.66 GB zip's deflate alone
-# took 95 s); every other width is the flagship's
-CKPT_LAYERS = 2
+# the flagship's depth in this phase: 1 of its 8 blocks, cut for the
+# script's time limit (at 8 blocks the 1.66 GB zip's deflate alone took
+# 95 s, at 2 its write 59.9 s); every other width is the flagship's
+CKPT_LAYERS = 1
 CKPT_DIR = os.path.join("build", "ckpt")   # inside the checkout; removed after
 
 
@@ -4691,13 +4731,15 @@ def phase_attn(torch, np, kernels, timer):
 
 # bench.py bench_resnet50: 224 x 224 x 3 images, 1000 classes, batch 256, 4
 # batches cycled, steps_per_execution 16, 3 x 16 warm-up steps; bench.py
-# times 15 x 16 steps, 4 x 16 here (12 until PR 20, whose mp phase needed
-# the script's time: the phase ran 136-145 s)
+# times 15 x 16 steps: here 1 x 16 warm-up and 2 x 16 timed, cut for the
+# script's time limit (with 12 timed groups the phase ran 136-145 s, with
+# 3 warm-up and 4 timed 106.5 s)
 RESNET_BATCH, RESNET_HW, RESNET_CLASSES, RESNET_BATCHES = 256, 224, 1000, 4
-RESNET_SPE, RESNET_WARMUP_GROUPS, RESNET_GROUPS = 16, 3, 4
+RESNET_SPE, RESNET_WARMUP_GROUPS, RESNET_GROUPS = 16, 1, 2
 # the eager run beside the captured one, and the prefetch-fed run: groups
 # of RESNET_SPE steps (one of warm-up each)
-RESNET_EAGER_GROUPS, RESNET_PREFETCH_GROUPS = 2, 3
+# (the prefetch run: 2 groups for the script's time limit, 3 before)
+RESNET_EAGER_GROUPS, RESNET_PREFETCH_GROUPS = 2, 2
 # the quantized head's B5 shape: (batch, the pooled width, classes)
 RESNET_DM_SHAPE = (RESNET_BATCH, 2048, RESNET_CLASSES)
 # the AttentionVertex graph: BERT-base attention widths, unmasked, non-causal
@@ -5587,7 +5629,6 @@ RNN_F32_BATCH = 64            # BASELINE round 3's batch, for the f32 run
 RNN_PROMPTS, RNN_GEN = 8, 200  # greedy streams, characters a stream
 RNN_TEXT = "SURVEY.md"        # the characters the char-RNN trains on
 RNN_DIR = os.path.join("build", "rnn")   # inside the checkout; removed after
-RNN_DEVICE = "cuda"           # "cpu" only in a CPU rehearsal of the phase
 RNN_DM_SHAPES = [(RNN_F32_BATCH * RNN_SEQ, RNN_HIDDEN, RNN_VOCAB),
                  (RNN_PROMPTS, RNN_HIDDEN, RNN_VOCAB)]
 # f32 card against f32 CPU (`tests/test_torch_recurrent.py`'s rules): losses
@@ -5627,7 +5668,7 @@ def _rnn_batches(torch, np, ids, n, batch, seed, device=None):
     from deeplearning4j_tpu_torch.data.dataset import DataSet
 
     rng = np.random.default_rng(seed)
-    eye = torch.eye(RNN_VOCAB, device=device or RNN_DEVICE)
+    eye = torch.eye(RNN_VOCAB, device=device or "cuda")
     out = []
     for _ in range(n):
         starts = rng.integers(0, len(ids) - RNN_SEQ - 1, batch)
@@ -5646,7 +5687,7 @@ def _rnn_model(torch, bf16, device=None):
                               tbptt_length=RNN_TBPTT).conf()
     if not bf16:
         conf = dataclasses.replace(conf, bf16_compute=False)
-    return SequentialModel(conf, device=device or RNN_DEVICE).init()
+    return SequentialModel(conf, device=device or "cuda").init()
 
 
 def _rnn_train(torch, np, kernels, ids, res):
@@ -5746,11 +5787,11 @@ def _rnn_f32(torch, np, ids, res):
     host.append(DataSet(x3, host[1].labels, features_mask=mask, labels_mask=mask))
     losses = {"card": [], "cpu": []}
     for b in host:
-        dev = DataSet(b.features.to(RNN_DEVICE), b.labels.to(RNN_DEVICE),
+        dev = DataSet(b.features.to("cuda"), b.labels.to("cuda"),
                       labels_mask=None if b.labels_mask is None else
-                      torch.from_numpy(b.labels_mask).to(RNN_DEVICE),
+                      torch.from_numpy(b.labels_mask).to("cuda"),
                       features_mask=None if b.features_mask is None else
-                      torch.from_numpy(b.features_mask).to(RNN_DEVICE))
+                      torch.from_numpy(b.features_mask).to("cuda"))
         card.fit_batch(dev)
         cpu.fit_batch(b)
         losses["card"].extend(card._last_score.float().cpu().numpy().tolist())
@@ -5764,10 +5805,10 @@ def _rnn_f32(torch, np, ids, res):
     # output() of the masked batch on both, and the recurrent layers'
     # zeros at its masked steps
     xm = torch.from_numpy(mask)
-    out_card = card.output(x3.to(RNN_DEVICE), xm.to(RNN_DEVICE)).cpu()
+    out_card = card.output(x3.to("cuda"), xm.to("cuda")).cpu()
     out_cpu = cpu.output(x3, xm)
     out_err = (out_card - out_cpu).abs().max().item() / out_cpu.abs().max().item()
-    acts = card.feed_forward(x3.to(RNN_DEVICE), xm.to(RNN_DEVICE))
+    acts = card.feed_forward(x3.to("cuda"), xm.to("cuda"))
     masked = xm == 0
     zeros = all(bool((h.cpu()[masked] == 0).all()) for h in acts[:2])
     head_b = card.params["layer2"]["b"].detach().float()
@@ -5794,9 +5835,9 @@ def _rnn_f32(torch, np, ids, res):
 def _rnn_stream(torch, np, kernels, model, f32_model, ids, res):
     """(c) Greedy char-by-char generation through `rnn_time_step`, and
     streamed outputs against ``output()`` of the whole sequence."""
-    eye = torch.eye(RNN_VOCAB, device=RNN_DEVICE)
+    eye = torch.eye(RNN_VOCAB, device="cuda")
     rng = np.random.default_rng(2)
-    prompts = torch.from_numpy(ids[rng.integers(0, len(ids), RNN_PROMPTS)]).to(RNN_DEVICE)
+    prompts = torch.from_numpy(ids[rng.integers(0, len(ids), RNN_PROMPTS)]).to("cuda")
 
     def generate(m):
         m.rnn_clear_previous_state()
@@ -5814,7 +5855,7 @@ def _rnn_stream(torch, np, kernels, model, f32_model, ids, res):
     torch.cuda.synchronize()
     ms_char = (time.perf_counter() - t0) / RNN_GEN * 1e3
     # streamed against whole: the f32 model, one step a call
-    x = eye[torch.from_numpy(ids[:RNN_SEQ]).to(RNN_DEVICE)][None].repeat(2, 1, 1)
+    x = eye[torch.from_numpy(ids[:RNN_SEQ]).to("cuda")][None].repeat(2, 1, 1)
     whole = f32_model.output(x)
     f32_model.rnn_clear_previous_state()
     streamed = torch.cat([f32_model.rnn_time_step(x[:, t:t + 1])
@@ -5847,7 +5888,7 @@ def _rnn_quant(torch, np, kernels, model, ids, res, timer):
 
     q = quantize(model)
     ref = SequentialModel(dataclasses.replace(model.conf, bf16_compute=False),
-                          device=RNN_DEVICE).load_params(dequantize_tree(q.params))
+                          device="cuda").load_params(dequantize_tree(q.params))
     x = _rnn_batches(torch, np, ids, 1, RNN_F32_BATCH, 3)[0].features
     q.output(x)                                       # first use
     torch.cuda.synchronize()
@@ -5859,8 +5900,8 @@ def _rnn_quant(torch, np, kernels, model, ids, res, timer):
     out_counts = dict(kernels.launches())
     p_ref = ref.output(x)
     dp = (p_q - p_ref).abs().max().item() / p_ref.abs().max().item()
-    eye = torch.eye(RNN_VOCAB, device=RNN_DEVICE)
-    tok = torch.from_numpy(ids[:RNN_PROMPTS]).to(RNN_DEVICE)
+    eye = torch.eye(RNN_VOCAB, device="cuda")
+    tok = torch.from_numpy(ids[:RNN_PROMPTS]).to("cuda")
     q.rnn_clear_previous_state()
     ref.rnn_clear_previous_state()
     q.rnn_time_step(eye[tok][:, None])                # captures
@@ -5969,15 +6010,15 @@ def _rnn_small(torch, np, res):
         if name in ("LSTM", "Bidirectional"):
             mask = (np.arange(24)[None, :] < rng.integers(6, 25, 16)[:, None]
                     ).astype(np.float32)
-        card = SequentialModel(conf, device=RNN_DEVICE).init()
+        card = SequentialModel(conf, device="cuda").init()
         cpu = SequentialModel(conf, device="cpu").init()
         xm = None if mask is None else torch.from_numpy(mask)
-        xc = torch.from_numpy(x).to(RNN_DEVICE)
-        oc = card.output(xc, None if xm is None else xm.to(RNN_DEVICE)).cpu()
+        xc = torch.from_numpy(x).to("cuda")
+        oc = card.output(xc, None if xm is None else xm.to("cuda")).cpu()
         op = cpu.output(torch.from_numpy(x), xm)
         err = (oc - op).abs().max().item() / op.abs().max().item()
-        dev = [DataSet(xc, torch.from_numpy(y).to(RNN_DEVICE),
-                       features_mask=None if xm is None else xm.to(RNN_DEVICE))
+        dev = [DataSet(xc, torch.from_numpy(y).to("cuda"),
+                       features_mask=None if xm is None else xm.to("cuda"))
                for _ in range(2)]
         card.fit_batch(dev[0])                          # captures
         cve = _captured_vs_eager(torch, card, dev[1:], name, phase="rnn")
@@ -6045,7 +6086,9 @@ DP_HW, DP_CLASSES = 224, 1000
 # from the 1e-6 run's (so a run that never updates fails that rule):
 # ZeRO-1 and ZeRO-2 bit for bit, ZeRO-2 with 2 microbatches and int8 by
 # that rule
-DP_GLOO_ROWS, DP_GLOO_STEPS = 64, 3
+# 2 steps a run, cut for the script's time limit (at 3 steps dp ran
+# 137.6-156.8 s, its gloo ranks 63.3-67.9 s)
+DP_GLOO_ROWS, DP_GLOO_STEPS = 64, 2
 DP_GLOO_LR, DP_GLOO_LR_ZERO = 1e-6, 1e-2
 # the first step's summed gradient against the single model's (relative
 # L2 of the flat gradient) may not exceed twice the larger of two floors
@@ -6056,7 +6099,6 @@ DP_GRAD_FLOOR_X = 2.0
 # the JAX compression rule: within 0.05 of the exact run's score
 DP_COMP_GAP = 0.05
 DP_DIR = os.path.join("build", "dp")      # inside the checkout; removed after
-DP_DEVICE = "cuda"            # "cpu" only in a CPU rehearsal of the phase
 
 
 def _dp_groups(torch, fit, batches, groups, spe):
@@ -6100,9 +6142,9 @@ def _dp_resnet_batches(torch, np, rows, seed=0):
 
     rng = np.random.default_rng(seed)
     return [DataSet(torch.from_numpy(rng.normal(0, 1, (rows, DP_HW, DP_HW, 3))
-                                     .astype(np.float32)).to(DP_DEVICE),
+                                     .astype(np.float32)).to("cuda"),
                     torch.from_numpy(np.eye(DP_CLASSES, dtype=np.float32)[
-                        rng.integers(0, DP_CLASSES, rows)]).to(DP_DEVICE))
+                        rng.integers(0, DP_CLASSES, rows)]).to("cuda"))
             for _ in range(DP_BATCHES)]
 
 
@@ -6344,8 +6386,8 @@ def _dp_rank_gloo(zip_path):
     host = [(rng.normal(0, 1, (rows, DP_HW, DP_HW, 3)).astype(np.float32),
              np.eye(DP_CLASSES, dtype=np.float32)[rng.integers(0, DP_CLASSES, rows)])
             for _ in range(DP_GLOO_STEPS)]
-    mine = [DataSet(torch.from_numpy(x[rank * DP_GLOO_ROWS:(rank + 1) * DP_GLOO_ROWS]).to(DP_DEVICE),
-                    torch.from_numpy(y[rank * DP_GLOO_ROWS:(rank + 1) * DP_GLOO_ROWS]).to(DP_DEVICE))
+    mine = [DataSet(torch.from_numpy(x[rank * DP_GLOO_ROWS:(rank + 1) * DP_GLOO_ROWS]).to("cuda"),
+                    torch.from_numpy(y[rank * DP_GLOO_ROWS:(rank + 1) * DP_GLOO_ROWS]).to("cuda"))
             for x, y in host]
     res = {"rank": rank, "backend": distributed.backend_name()}
 
@@ -6354,7 +6396,7 @@ def _dp_rank_gloo(zip_path):
         the first step, ms a step after it, the first step's summed
         gradient)."""
         m = GraphModel(dataclasses.replace(conf0, updater=Nesterovs(lr, 0.9)),
-                       device=DP_DEVICE).init()
+                       device="cuda").init()
         distribute(m, ParallelConfig(**cfg))
         flat = None
         if grads:
@@ -6393,7 +6435,7 @@ def _dp_rank_gloo(zip_path):
     del rep
     free()
     p0 = [t.detach().clone() for t in tree_leaves(
-        GraphModel(conf0, device=DP_DEVICE).init().params)]
+        GraphModel(conf0, device="cuda").init().params)]
     rep, losses, first_ms, ms, _ = run({}, DP_GLOO_LR_ZERO)
     res["replicated_lr2"] = entry(rep, losses, first_ms, ms)
     step_ref = torch.cat([(a.detach() - b).reshape(-1)
@@ -6433,8 +6475,8 @@ def _dp_rank_gloo(zip_path):
         # the single model on the concatenation of the ranks' rows: its
         # first gradient against the ranks' sum, and the gradient's own
         # rounding floors
-        single = GraphModel(conf, device=DP_DEVICE).init()
-        x0, y0 = (torch.from_numpy(a).to(DP_DEVICE) for a in host[0])
+        single = GraphModel(conf, device="cuda").init()
+        x0, y0 = (torch.from_numpy(a).to("cuda") for a in host[0])
         h = DP_GLOO_ROWS
 
         def grad(x, y):
@@ -6454,7 +6496,7 @@ def _dp_rank_gloo(zip_path):
         del g, x0, y0
         losses = []
         for x, y in host:
-            single.fit_batch(DataSet(torch.from_numpy(x).to(DP_DEVICE), torch.from_numpy(y).to(DP_DEVICE)))
+            single.fit_batch(DataSet(torch.from_numpy(x).to("cuda"), torch.from_numpy(y).to("cuda")))
             losses.append(single.score_value)
         bad, worst = held(single, ref)
         res["single"] = {"losses": losses, "outside_tol": bad, "worst_rel": worst,
@@ -6490,7 +6532,7 @@ def phase_dp(torch, np, kernels):
         t0 = time.perf_counter()
         gloo = distributed.spawn(_dp_rank_gloo, 2, zip_path, backend="gloo", timeout=600)
         res["gloo_s"] = time.perf_counter() - t0
-        restored = ModelSerializer.restore(zip_path, device=DP_DEVICE)
+        restored = ModelSerializer.restore(zip_path, device="cuda")
         res["zip_bytes"] = os.path.getsize(zip_path)
         res["zip_digest"] = _dp_digest(torch, tree_leaves(restored.params)
                                        + tree_leaves(restored.net_state))
@@ -6691,6 +6733,10 @@ MP_C27_ROUTES = 1e-3
 MP_RESNET_ROWS, MP_RESNET_STEPS, MP_RESNET_LR = 8, 2, 1e-6
 # the bf16 runs: warm-up and timed steps (the eager gloo steps take 1-2 s)
 MP_WARMUP, MP_STEPS = 1, 2
+# (a), (b), (f) and (g): the flagship at 4 of its 8 blocks, cut for the
+# script's time limit (at 8 blocks mp ran 254.6-305.4 s and the whole
+# command 1,199.8 s; C27 keeps 8)
+MP_LAYERS = 4
 # (c) EP's MoE flagship: 4 of its 8 blocks (at 8, its 537M expert
 # parameters broadcast through gloo at distribute took most of (c)'s
 # 57 s on two ranks sharing one H100 80GB HBM3); C27 keeps all 8
@@ -6743,7 +6789,7 @@ def _moe_routes(torch, model, ids):
     return out, last
 
 
-def _mp_conf(bf16, seq_parallel="none", moe=0, sgd=None, layers=LAYERS):
+def _mp_conf(bf16, seq_parallel="none", moe=0, sgd=None, layers=MP_LAYERS):
     """The flagship's (or the MoE flagship's) configuration: bf16 with
     its Adam, or f32 with Sgd ``sgd``; ``layers`` blocks."""
     import dataclasses
@@ -6828,7 +6874,7 @@ def _mp_rank(zip_path):
         out = {}
         cached = refs.get(id(conf)) if not (floors or moe or graph) else None
         if rank == 0 and cached is not None:
-            ref_losses, d0, o0 = cached
+            _, ref_losses, d0, o0 = cached
             out["floors"], out["floor_rel_l2"] = {}, 0.0
         elif rank == 0:
             m0 = build(conf, graph)
@@ -6858,7 +6904,9 @@ def _mp_rank(zip_path):
             del p0
             free()
             if not (floors or moe or graph) and steps == MP_PARITY_STEPS:
-                refs[id(conf)] = (ref_losses, d0, o0)
+                # the entry keeps conf alive: no later configuration
+                # can take its id and find this run
+                refs[id(conf)] = (conf, ref_losses, d0, o0)
         distributed.barrier()
         m = build(conf, graph)
         distribute(m, ParallelConfig(**cfg))
@@ -7053,7 +7101,7 @@ def _mp_rank(zip_path):
     res["resnet"]["seconds"] = time.perf_counter() - t0
     # (e) C27: the MoE flagship with data=n against the concatenated rows
     t0 = time.perf_counter()
-    c27 = _mp_conf(False, moe=MOE_EXPERTS, sgd=MP_MOE_LR)
+    c27 = _mp_conf(False, moe=MOE_EXPERTS, sgd=MP_MOE_LR, layers=LAYERS)
     chunk4096 = dataclasses.replace(c27, layers=tuple(
         dataclasses.replace(l, chunk=4096)
         if type(l).__name__ == "ChunkedSoftmaxOutputLayer" else l for l in c27.layers))
@@ -7142,7 +7190,7 @@ def phase_mp(torch, np, kernels, timer):
         f"{c['out_rel']:.3e} of max |p|) from the undistributed one's; (token, choice) "
         f"pairs routed otherwise by layer {c['route_diffs']} of {c['pairs']}; dropped share by layer {['%.5f' % x for x in c['drop']]} "
         f"against {['%.5f' % x for x in c['drop_ref']]}; {c['seconds']:.1f}s")
-    m_stage = LAYERS // n
+    m_stage = MP_LAYERS // n
     pp_want = {"flash_fwd": 2 * m_stage * MP_PP_MICRO * MP_STEPS,
                "flash_bwd_dq": m_stage * MP_PP_MICRO * MP_STEPS,
                "flash_bwd_dkdv": m_stage * MP_PP_MICRO * MP_STEPS}
@@ -7208,7 +7256,7 @@ def phase_mp(torch, np, kernels, timer):
             raise AssertionError(f"mp ({mode}): replicated leaves differ across ranks")
     for mode in ("tp", "ulysses", "ring", "ep"):
         sp = r0[mode]["speed"]
-        want = (0 if mode == "ring" else MP_EP_LAYERS if mode == "ep" else LAYERS) * MP_STEPS
+        want = (0 if mode == "ring" else MP_EP_LAYERS if mode == "ep" else MP_LAYERS) * MP_STEPS
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
             for w in world:
                 got = w[mode]["speed"]["launches"].get(name, 0)
@@ -7285,6 +7333,537 @@ def phase_mp(torch, np, kernels, timer):
         elif "ROADMAP C28" not in p["auto"].get("raised", ""):
             raise AssertionError(f"mp (g): a pick of {p['pick_width']} ranks in a world of "
                                  f"{n} must raise C28's PlanError: {p['auto']}")
+    return res
+
+
+# -- SameDiff and the TF importer (ROADMAP A13, first part) ---------------------
+
+# BASELINE config 4: bench.py bench_bert's frozen BERT-base classifier
+SD_VOCAB, SD_D, SD_HEADS, SD_LAYERS = 30522, 768, 12, 12
+SD_SEQ, SD_BATCH, SD_CLASSES, SD_SEED = 128, 32, 2, 4
+SD_LR = 2e-5
+# captured steps timed after the parity check, and eager steps beside them
+SD_STEPS, SD_EAGER = 6, 2
+# (b) the code-built BERT: Adam rate, steps a compute, and its task's ids
+SD_CODE_LR, SD_CODE_STEPS, SD_CODE_IDS = 1e-4, 8, 16
+# (c) the zips: BERT-base widths with 2 of the 12 layers (deflate is
+# single-threaded zlib: ~17 MB/s on the card's host)
+SD_CKPT_LAYERS = 2
+SD_DIR = os.path.join("build", "samediff")   # inside the checkout; removed after
+# (d) examples/finetune_imported.py's loop graph
+SD_LOOP_B, SD_LOOP_D, SD_LOOP_K, SD_LOOP_TRIPS, SD_LOOP_STEPS = 16, 8, 3, 4, 6
+SD_ROW_TOL = 1e-4          # card f32 logits against the CPU, of max |logit|
+SD_LOSS_TOL = 1e-4         # the same rows' loss, relative
+SD_LOOP_TOL = 1e-5         # (d)'s losses against the CPU, relative
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+
+
+def _bert_words():
+    """bench.py bench_bert's SST-2-style word list and its WordPiece vocab."""
+    words = ["the", "movie", "was", "great", "terrible", "plot", "acting",
+             "boring", "brilliant", "slow", "fun", "a", "it", "felt",
+             "script", "ending"]
+    vocab = {"[PAD]": 0, "[UNK]": 1, "[CLS]": 2, "[SEP]": 3, "[MASK]": 4,
+             **{t: i + 5 for i, t in enumerate(words)}}
+    return words, vocab
+
+
+def _bert_feeds(np, batch, seq, n_batches):
+    """bench_bert's batches: sentences of its word list through the
+    port's BertWordPieceTokenizer and BertIterator."""
+    from deeplearning4j_tpu_torch.nlp import BertIterator, BertWordPieceTokenizer
+
+    words, vocab = _bert_words()
+    tok = BertWordPieceTokenizer(vocab)
+    rng = np.random.default_rng(2)
+    n_sent = batch * n_batches
+    sentences = [" ".join(rng.choice(words, rng.integers(6, seq // 2)))
+                 for _ in range(n_sent)]
+    it = BertIterator(tok, sentences, rng.integers(0, SD_CLASSES, n_sent),
+                      num_classes=SD_CLASSES, batch_size=batch, max_len=seq)
+    return [{"ids": b.features.astype(np.int32), "labels": b.labels} for b in it]
+
+
+def _sd_attach_loss(sd, lr, bf16):
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    labels = sd.placeholder("labels")
+    sd.set_loss(sd.loss.softmax_cross_entropy(sd["logits"], labels, name="loss"))
+    sd.set_training_config(TrainingConfig(updater=Adam(lr), bf16_compute=bf16))
+
+
+def _sd_snapshot(torch, sd):
+    from deeplearning4j_tpu_torch.nn.updaters import state_leaves
+
+    return {"values": {n: sd._values[n].clone() for n in sd._trainable},
+            "opt": [x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in state_leaves(sd._opt_state)],
+            "stream": sd._stream.state_dict()}
+
+
+def _sd_restore(sd, snap):
+    """``snap`` written into the live tensors in place (the step graphs
+    stay valid)."""
+    from deeplearning4j_tpu_torch.nn.updaters import load_state_leaves
+
+    for n, t in snap["values"].items():
+        sd._values[n].copy_(t)
+    sd._opt_state = load_state_leaves(sd._opt_state, snap["opt"])
+    sd._stream.load_state_dict(snap["stream"])
+
+
+def _sd_differing(torch, a: dict, b: dict) -> list:
+    bad = [n for n in a["values"] if not torch.equal(a["values"][n], b["values"][n])]
+    bad += [f"opt[{i}]" for i, (x, y) in enumerate(zip(a["opt"], b["opt"]))
+            if not (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)]
+    return bad
+
+
+@contextlib.contextmanager
+def _flash_routes():
+    """Counts, by kernel and dtype, the q, k, v that reach B1 and B2/B3
+    inside the block: bf16 ones run the wgmma kernels, f32 ones the split
+    kernels, and the launch counters do not tell the two apart."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    seen: dict = {}
+    fwd, bwd = fa._flash_fwd_kernel, fa._flash_bwd_kernel
+
+    def note(name, *xs):
+        key = f"{name}/" + ",".join(str(x.dtype).removeprefix("torch.") for x in xs)
+        seen[key] = seen.get(key, 0) + 1
+
+    def fwd_seen(q, k, v, causal):
+        note("flash_fwd", q, k, v)
+        return fwd(q, k, v, causal)
+
+    def bwd_seen(q, k, v, out, lse, g, causal):
+        note("flash_bwd", q, k, v)
+        return bwd(q, k, v, out, lse, g, causal)
+
+    fa._flash_fwd_kernel, fa._flash_bwd_kernel = fwd_seen, bwd_seen
+    try:
+        yield seen
+    finally:
+        fa._flash_fwd_kernel, fa._flash_bwd_kernel = fwd, bwd
+
+
+def _sd_captured_vs_eager(torch, sd, feeds, n, tag, routes=None):
+    """From one state (after a first, capturing, step): ``n`` captured
+    steps, then the same ``n`` steps eagerly from the restored state;
+    losses, trainables and Adam state must agree bit for bit.  In the
+    eager steps the q, k, v that reach B1-B3 must be ``routes``
+    (`_flash_routes`' counts; none when it is None)."""
+    sd.capture_steps = True
+    sd.fit_batch(feeds[0])
+    snap = _sd_snapshot(torch, sd)
+    captured = [sd.fit_batch(feeds[i % len(feeds)]) for i in range(1, n + 1)]
+    after_captured = _sd_snapshot(torch, sd)
+    graphs = len(sd._captured)
+    _sd_restore(sd, snap)
+    sd.capture_steps = False
+    with _flash_routes() as seen:
+        eager = [sd.fit_batch(feeds[i % len(feeds)]) for i in range(1, n + 1)]
+        torch.cuda.synchronize()
+    sd.capture_steps = True
+    diff = _sd_differing(torch, after_captured, _sd_snapshot(torch, sd))
+    if captured != eager or diff or graphs != 1 or seen != (routes or {}):
+        raise AssertionError(f"[samediff] {tag}: captured {captured} against eager "
+                             f"{eager}; differing {diff[:8]}; {graphs} step graphs; "
+                             f"B1-B3 inputs {seen}, want {routes or {}}")
+    log(f"[samediff] {tag}: {n} captured steps == {n} eager steps bit for bit "
+        f"(losses {captured}, trainables and Adam state); 1 step graph; the eager "
+        f"steps' B1-B3 inputs by dtype {seen}")
+    return captured
+
+
+def _sd_timed(torch, sd, feeds, n, start=0):
+    """ms a step over ``n`` steps queued back to back, and their losses."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [sd.fit_batch(feeds[(start + i) % len(feeds)], sync=False) for i in range(n)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    return ms, [float(x) for x in out]
+
+
+def _bert_flops(layers, seq, d, classes, batch):
+    """bench.py bench_bert's forward count, times three (forward and
+    backward), times the batch: one training step's FLOPs."""
+    return 3.0 * float(layers * (24 * seq * d * d + 4 * seq * seq * d)
+                       + 2 * d * classes) * batch
+
+
+def _sd_config4(torch, np, kernels):
+    """(a) BASELINE config 4 at full width through the port's writer,
+    codec, importer and SameDiff, bf16 compute."""
+    from deeplearning4j_tpu_torch.autodiff.ops_registry import get_op
+    from deeplearning4j_tpu_torch.modelimport._tf import wire
+    from deeplearning4j_tpu_torch.modelimport._tf.synthetic import (
+        build_bert_classifier_graphdef,
+    )
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import import_graph
+
+    res = {}
+    kw = dict(vocab=SD_VOCAB, d_model=SD_D, n_layers=SD_LAYERS, n_heads=SD_HEADS,
+              seq_len=SD_SEQ, n_classes=SD_CLASSES, seed=SD_SEED)
+    start = _memory_window(torch)
+    t0 = time.perf_counter()
+    raw = build_bert_classifier_graphdef(batch=SD_BATCH, **kw)
+    res["write_s"] = time.perf_counter() - t0
+    res["graph_mb"] = len(raw) / 1e6
+    t0 = time.perf_counter()
+    wire.GraphDef().ParseFromString(raw)
+    res["parse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = import_graph(raw, trainable=True, device="cuda")
+    torch.cuda.synchronize()
+    res["import_s"] = time.perf_counter() - t0
+    n_params = sum(sd._values[n].numel() for n in sd._trainable)
+    log(f"[samediff] config 4: graph {res['graph_mb']:.1f} MB written in "
+        f"{res['write_s']:.2f}s, parsed in {res['parse_s']:.2f}s, imported (parse "
+        f"included) in {res['import_s']:.2f}s; {len(sd._trainable)} trainables, "
+        f"{n_params} parameters on the card")
+    feeds = _bert_feeds(np, SD_BATCH, SD_SEQ, 4)
+
+    # f32 rows 0-1 of the untrained graph on the card (TF32 off) against
+    # the port's CPU output() of the batch-2 graph of the same seed
+    ids, labels = feeds[0]["ids"], feeds[0]["labels"]
+    card = sd.output({"ids": ids}, "logits")[:2]
+    card_loss = float(get_op("softmax_cross_entropy")(
+        card, torch.as_tensor(labels[:2], device="cuda")))
+    raw2 = build_bert_classifier_graphdef(batch=2, **kw)
+    cpu = import_graph(raw2, trainable=True, device="cpu")
+    del raw2
+    _sd_attach_loss(cpu, SD_LR, False)
+    cpu_logits, cpu_loss = cpu.output({"ids": ids[:2], "labels": labels[:2]},
+                                      "logits", "loss")
+    del cpu
+    err = (card.cpu() - cpu_logits).abs().max().item() / cpu_logits.abs().max().item()
+    loss_err = abs(card_loss - float(cpu_loss)) / abs(float(cpu_loss))
+    res["cpu_rows"] = {"logit_rel_err": err, "loss_rel_err": loss_err,
+                       "card_loss": card_loss, "cpu_loss": float(cpu_loss)}
+    log(f"[samediff] config 4 f32 rows 0-1 on the card against the CPU's batch-2 "
+        f"graph: logits {err:.3e} of max |logit| (tol {SD_ROW_TOL:.0e}), loss "
+        f"{card_loss:.7f} vs {float(cpu_loss):.7f} ({loss_err:.3e} relative, tol "
+        f"{SD_LOSS_TOL:.0e})")
+    if not (err <= SD_ROW_TOL and loss_err <= SD_LOSS_TOL):
+        raise AssertionError(f"[samediff] config 4 rows disagree with the CPU: {res['cpu_rows']}")
+
+    _sd_attach_loss(sd, SD_LR, True)
+    kernels.reset_launches()
+    parity = _sd_captured_vs_eager(torch, sd, feeds, 2, "config 4 (bf16)")
+    ms, losses = _sd_timed(torch, sd, feeds, SD_STEPS, start=3)
+    sd.capture_steps = False
+    eager_ms, eager_losses = _sd_timed(torch, sd, feeds, SD_EAGER, start=3 + SD_STEPS)
+    sd.capture_steps = True
+    res["launches"] = launches = kernels.launches()
+    res["memory"] = {"train": _memory_window(torch, start)}
+    flops = _bert_flops(SD_LAYERS, SD_SEQ, SD_D, SD_CLASSES, SD_BATCH)
+    res.update(ms=ms, eager_ms=eager_ms, samples_per_s=SD_BATCH / ms * 1e3,
+               flops_per_step=flops, mfu=flops / (ms / 1e3) / PEAK_OPS["bf16"],
+               losses=parity + losses + eager_losses, graphs=len(sd._captured))
+    log(f"[samediff] config 4: {ms:.2f} ms a captured step, {eager_ms:.2f} ms eager; "
+        f"{res['samples_per_s']:.1f} samples/s; {flops:.4e} FLOPs a step "
+        f"(3 x bench.py's forward count x {SD_BATCH}); MFU {res['mfu']:.4f} of the "
+        f"bf16 peak; losses {res['losses']}; {_memory_text(res['memory'])}; "
+        f"launches {launches}")
+    if not all(np.isfinite(res["losses"])):
+        raise AssertionError(f"[samediff] config 4: non-finite loss {res['losses']}")
+    if any(launches.get(n, 0) for n in FLASH_NAMES + (
+            "paged_attention_fwd", "paged_attention_fwd_int8", "dequant_matmul")):
+        raise AssertionError(f"[samediff] config 4 has no attention op, yet kernels "
+                             f"launched: {launches}")
+    del sd
+    return res
+
+
+def _code_bert(np, device, layers, vocab, bf16, seed=7):
+    """A BERT classifier built in code at config 4's widths: each block
+    `multi_head_dot_product_attention` over (B, T, H, D / H), layer norm,
+    gelu MLP; the [CLS] position's vector to the head."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    rng = np.random.default_rng(seed)
+    b, t, d, h = SD_BATCH, SD_SEQ, SD_D, SD_HEADS
+    sd = SameDiff(seed=seed, device=device)
+
+    def w(name, *shape):
+        return sd.var(name, rng.normal(0, 0.02, shape).astype(np.float32))
+
+    def zeros(name, *shape):
+        return sd.var(name, np.zeros(shape, np.float32))
+
+    def ones(name, *shape):
+        return sd.var(name, np.ones(shape, np.float32))
+
+    ids = sd.placeholder("ids")
+    x = sd.math.gather(w("emb", vocab, d), ids, axis=0) + w("pos", 1, t, d)
+    for i in range(layers):
+        p = f"l{i}"
+        x2 = x.reshape((b * t, d))
+        q, k, v = ((x2 @ w(f"{p}/w{n}", d, d) + zeros(f"{p}/b{n}", d)).reshape(
+            (b, t, h, d // h)) for n in "qkv")
+        a = sd.nn.multi_head_dot_product_attention(q, k, v, causal=False)
+        a = a.reshape((b * t, d)) @ w(f"{p}/wo", d, d) + zeros(f"{p}/bo", d)
+        x = sd.nn.layer_norm(x + a.reshape((b, t, d)), ones(f"{p}/g1", d),
+                             zeros(f"{p}/e1", d), epsilon=1e-12)
+        up = sd.nn.gelu(x.reshape((b * t, d)) @ w(f"{p}/w1", d, 4 * d)
+                        + zeros(f"{p}/b1", 4 * d))
+        down = up @ w(f"{p}/w2", 4 * d, d) + zeros(f"{p}/b2", d)
+        x = sd.nn.layer_norm(x + down.reshape((b, t, d)), ones(f"{p}/g2", d),
+                             zeros(f"{p}/e2", d), epsilon=1e-12)
+    cls = sd.math.gather(x, sd.constant("cls_index", np.int32(0)), axis=1)
+    sd.apply("identity", cls @ w("wc", d, SD_CLASSES) + zeros("bc", SD_CLASSES),
+             name="logits")
+    _sd_attach_loss(sd, SD_CODE_LR, bf16)
+    return sd
+
+
+def _code_feeds(np, n):
+    """The code-built BERT's task: token ids out of a few, the label
+    whether the first token's id is even."""
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, SD_CODE_IDS, (SD_BATCH, SD_SEQ)).astype(np.int32)
+        out.append({"ids": ids, "labels": np.eye(SD_CLASSES, dtype=np.float32)[ids[:, 0] % 2]})
+    return out
+
+
+def _sd_code(torch, np, kernels, timer):
+    """(b) the code-built BERT through B1-B3, bf16 then f32."""
+    res = {"kernel_rows": []}
+    feeds = _code_feeds(np, 2)
+    for kind, bf16 in (("bf16", True), ("f32", False)):
+        start = _memory_window(torch)
+        sd = _code_bert(np, "cuda", SD_LAYERS, SD_VOCAB, bf16)
+        kernels.reset_launches()
+        out = sd.output({"ids": feeds[0]["ids"]}, "logits")
+        torch.cuda.synchronize()
+        out_launches = kernels.launches()
+        if (out_launches.get("flash_fwd", 0) != SD_LAYERS
+                or out_launches.get("flash_bwd_dq", 0) or out_launches.get("flash_bwd_dkdv", 0)
+                or not torch.isfinite(out).all()):
+            raise AssertionError(f"[samediff] code-built {kind} output(): launches "
+                                 f"{out_launches} (want {SD_LAYERS} flash_fwd and no backward)")
+        dt = "bfloat16" if bf16 else "float32"
+        parity = _sd_captured_vs_eager(
+            torch, sd, feeds, 2, f"code-built BERT ({kind})",
+            routes={f"{n}/{dt},{dt},{dt}": 2 * SD_LAYERS for n in ("flash_fwd", "flash_bwd")})
+        kernels.reset_launches()
+        ms, losses = _sd_timed(torch, sd, feeds, SD_CODE_STEPS, start=3)
+        launches = kernels.launches()
+        memory = _memory_window(torch, start)
+        losses = parity + losses
+        want = {n: SD_LAYERS * SD_CODE_STEPS for n in FLASH_NAMES}
+        got = {n: launches.get(n, 0) for n in FLASH_NAMES}
+        # 4-step windows: both alternating batches in each
+        first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+        res[kind] = {"ms": ms, "losses": losses, "launches": launches,
+                     "output_launches": out_launches, "memory": memory,
+                     "samples_per_s": SD_BATCH / ms * 1e3}
+        log(f"[samediff] code-built BERT {kind}: {ms:.2f} ms a captured step, "
+            f"{res[kind]['samples_per_s']:.1f} samples/s; losses {losses}; launches "
+            f"over {SD_CODE_STEPS} steps {got}; output() {out_launches}; "
+            f"{_memory_text({'train': memory})}")
+        if got != want:
+            raise AssertionError(f"[samediff] code-built {kind}: launches {got}, want {want}")
+        if not (all(np.isfinite(losses)) and last < first):
+            raise AssertionError(f"[samediff] code-built {kind}: the loss did not fall: {losses}")
+        del sd, out
+    for dtype in (torch.bfloat16, torch.float32):
+        res["kernel_rows"].append(flash_case(torch, timer, SD_SEQ, dtype, causal=False,
+                                             bh=SD_BATCH * SD_HEADS, d=SD_D // SD_HEADS))
+        res["kernel_rows"] += flash_bwd_cases(torch, timer, SD_SEQ, dtype, causal=False,
+                                              d=SD_D // SD_HEADS, bh=SD_BATCH * SD_HEADS)
+    check_rows("samediff", res["kernel_rows"])
+    return res
+
+
+def _sd_resumed(torch, sd, path, feed, tag, kind):
+    """``sd``, saved to ``path`` as a ``kind`` zip, steps on; the zip,
+    loaded on the card, must be of that kind and give the same next
+    step's loss, trainables and Adam state bit for bit.  Returns the
+    load's seconds and the step's loss."""
+    import zipfile
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    with zipfile.ZipFile(path) as zf:
+        names = set(zf.namelist())
+    entry = {"plain": "graph.json", "source-backed": "import_manifest.json"}[kind]
+    if entry not in names:
+        raise AssertionError(f"[samediff] zip {tag}: not a {kind} zip: {sorted(names)}")
+    want = sd.fit_batch(feed)
+    want_state = _sd_snapshot(torch, sd)
+    t0 = time.perf_counter()
+    back = SameDiff.load(path, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = back.fit_batch(feed)
+    diff = _sd_differing(torch, want_state, _sd_snapshot(torch, back))
+    log(f"[samediff] zip {tag} ({kind}): {os.path.getsize(path)} bytes, loaded in "
+        f"{load_s:.2f}s; the next step {got!r} vs never saved {want!r}; differing {diff[:8]}")
+    if got != want or diff:
+        raise AssertionError(f"[samediff] zip {tag}: the resumed step differs")
+    return load_s, got
+
+
+def _sd_zips(torch, np):
+    """(c) save and load on the card: the imported graph at BERT-base
+    widths with 2 layers and the code-built BERT cut to 2 blocks, neither
+    with control flow, so both plain zips, as the JAX package writes
+    them.  Each steps, is saved, steps on (`_sd_resumed`).  The two saves
+    run in two threads: their deflate is single-threaded zlib, which
+    releases the interpreter lock."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deeplearning4j_tpu_torch.modelimport._tf.synthetic import (
+        build_bert_classifier_graphdef,
+    )
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import import_graph
+
+    os.makedirs(SD_DIR, exist_ok=True)
+    try:
+        raw = build_bert_classifier_graphdef(
+            vocab=SD_VOCAB, d_model=SD_D, n_layers=SD_CKPT_LAYERS, n_heads=SD_HEADS,
+            seq_len=SD_SEQ, batch=SD_BATCH, n_classes=SD_CLASSES, seed=SD_SEED)
+        imported = import_graph(raw, trainable=True, device="cuda")
+        _sd_attach_loss(imported, SD_LR, True)
+        cases = [
+            ("imported", f"imported BERT-base widths, {SD_CKPT_LAYERS} layers", imported,
+             _bert_feeds(np, SD_BATCH, SD_SEQ, 2)),
+            ("code", f"code-built BERT, {SD_CKPT_LAYERS} blocks",
+             _code_bert(np, "cuda", SD_CKPT_LAYERS, SD_VOCAB, True), _code_feeds(np, 2))]
+        for _, _, sd, feeds in cases:
+            sd.fit_batch(feeds[0])
+        torch.cuda.synchronize()
+
+        def save(key, sd):
+            path = os.path.join(SD_DIR, f"{key}.zip")
+            t0 = time.perf_counter()
+            sd.save(path)
+            return path, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(cases)) as pool:
+            futures = [pool.submit(save, key, sd) for key, _, sd, _ in cases]
+            saved = [f.result() for f in futures]
+        res = {"saves_wall_s": time.perf_counter() - t0}
+        for (key, tag, sd, feeds), (path, save_s) in zip(cases, saved):
+            size = os.path.getsize(path)
+            log(f"[samediff] zip {tag}: {size} bytes saved in {save_s:.2f}s (both zips' "
+                f"saves side by side: {res['saves_wall_s']:.2f}s)")
+            load_s, got = _sd_resumed(torch, sd, path, feeds[1], tag, "plain")
+            res[key] = {"bytes": size, "save_s": save_s, "load_s": load_s, "loss": got}
+        del cases, imported
+    finally:
+        shutil.rmtree(SD_DIR, ignore_errors=True)
+    return res
+
+
+def _loop_graph(np, seed=0) -> bytes:
+    """examples/finetune_imported.py's frozen graph, written by the port's
+    writer: x -> [V1 while frame: h = tanh(h @ W_loop), 4 trips] ->
+    logits = h @ W_head."""
+    from deeplearning4j_tpu_torch.modelimport._tf.synthetic import FrozenGraphWriter
+
+    rng = np.random.default_rng(seed)
+    w = FrozenGraphWriter()
+    INT, FLT = {"T": 3}, {"T": 1}
+    x = w.placeholder("x", np.float32, [None, SD_LOOP_D])
+    w_loop = w.const("W_loop", (rng.normal(size=(SD_LOOP_D, SD_LOOP_D)) * 0.4)
+                     .astype(np.float32))
+    w_head = w.const("W_head", (rng.normal(size=(SD_LOOP_D, SD_LOOP_K)) * 0.4)
+                     .astype(np.float32))
+    i0 = w.const("i0", np.asarray(0, np.int32))
+    n = w.const("n_trips", np.asarray(SD_LOOP_TRIPS, np.int32))
+    one = w.const("one", np.asarray(1, np.int32))
+    ei = w.node("Enter", "rec/enter_i", [i0], types=INT, frame_name="rec", is_constant=False)
+    eh = w.node("Enter", "rec/enter_h", [x], types=FLT, frame_name="rec", is_constant=False)
+    ew = w.node("Enter", "rec/enter_W", [w_loop], types=FLT, frame_name="rec",
+                is_constant=True)
+    en = w.node("Enter", "rec/enter_n", [n], types=INT, frame_name="rec", is_constant=True)
+    e1 = w.node("Enter", "rec/enter_one", [one], types=INT, frame_name="rec",
+                is_constant=True)
+    mi = w.node("Merge", "rec/merge_i", [ei, "rec/next_i"], types=INT, N=2)
+    mh = w.node("Merge", "rec/merge_h", [eh, "rec/next_h"], types=FLT, N=2)
+    less = w.node("Less", "rec/less", [mi, en], types=INT)
+    lc = w.node("LoopCond", "rec/cond", [less])
+    si = w.node("Switch", "rec/switch_i", [mi, lc], types=INT)
+    sh = w.node("Switch", "rec/switch_h", [mh, lc], types=FLT)
+    inc = w.node("AddV2", "rec/inc", [f"{si}:1", e1], types=INT)
+    mm = w.node("MatMul", "rec/matmul", [f"{sh}:1", ew], types=FLT,
+                transpose_a=False, transpose_b=False)
+    th = w.node("Tanh", "rec/tanh", [mm], types=FLT)
+    w.node("NextIteration", "rec/next_i", [inc], types=INT)
+    w.node("NextIteration", "rec/next_h", [th], types=FLT)
+    w.node("Exit", "rec/exit_h", [sh], types=FLT)
+    w.matmul("rec/exit_h", w_head, name="head")
+    w.node("Identity", "logits", ["head"], types=FLT)
+    return w.serialize()
+
+
+def _sd_loop(torch, np):
+    """(d) the imported V1 loop fine-tuned on the card against the same
+    steps on the CPU; then its source-backed zip, which its control flow
+    calls for, resumed on the card."""
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import import_graph
+
+    raw = _loop_graph(np)
+    rng = np.random.default_rng(1)
+    y_idx = rng.integers(0, SD_LOOP_K, SD_LOOP_B)
+    x = (rng.normal(0, 1, (SD_LOOP_B, SD_LOOP_D)) + 1.2 * y_idx[:, None]).astype(np.float32)
+    feed = {"x": x, "labels": np.eye(SD_LOOP_K, dtype=np.float32)[y_idx]}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        sd = import_graph(raw, trainable=True, device=device)
+        (wnode,) = [op for op in sd._ops if op.op == "_while"]
+        if not (wnode.attrs["max_trip"] == SD_LOOP_TRIPS and wnode.attrs["exact_trip"]
+                and "W_loop" in sd._trainable):
+            raise AssertionError(f"[samediff] loop import on {device}: {wnode.attrs}, "
+                                 f"trainables {sorted(sd._trainable)}")
+        _sd_attach_loss(sd, 5e-2, False)
+        w0 = sd.get_value("W_loop")
+        losses = [sd.fit_batch(feed) for _ in range(SD_LOOP_STEPS)]
+        runs[device] = {"losses": losses,
+                        "moved": float(np.abs(sd.get_value("W_loop") - w0).max()),
+                        "graphs": len(sd._captured)}
+        if device == "cuda":
+            card_sd = sd
+    os.makedirs(SD_DIR, exist_ok=True)
+    try:
+        path = os.path.join(SD_DIR, "loop.zip")
+        t0 = time.perf_counter()
+        card_sd.save(path)
+        zip_res = {"bytes": os.path.getsize(path), "save_s": time.perf_counter() - t0}
+        zip_res["load_s"], zip_res["loss"] = _sd_resumed(
+            torch, card_sd, path, feed, "imported V1 loop", "source-backed")
+    finally:
+        shutil.rmtree(SD_DIR, ignore_errors=True)
+    card, cpu = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    log(f"[samediff] imported V1 loop (max_trip {SD_LOOP_TRIPS}, exact): card losses "
+        f"{card['losses']} ({card['graphs']} step graph), CPU {cpu['losses']}; "
+        f"{rel:.3e} relative (tol {SD_LOOP_TOL:.0e}); the in-loop weight moved "
+        f"{card['moved']:.4f}")
+    if not (rel <= SD_LOOP_TOL and card["moved"] > 1e-4 and card["graphs"] == 1
+            and card["losses"][-1] < card["losses"][0]):
+        raise AssertionError(f"[samediff] imported loop: {runs}")
+    return {"runs": runs, "rel_err": rel, "zip": zip_res}
+
+
+def phase_samediff(torch, np, kernels, timer):
+    """SameDiff and the TF importer (ROADMAP A13, first part): (a)
+    config 4, (b) the code-built BERT through B1-B3, (c) the zips, (d)
+    the imported loop."""
+    res = {"config4": _sd_config4(torch, np, kernels)}
+    res["code"] = _sd_code(torch, np, kernels, timer)
+    res["kernel_rows"] = res["code"].pop("kernel_rows")
+    res["zips"] = _sd_zips(torch, np)
+    res["loop"] = _sd_loop(torch, np)
     return res
 
 
@@ -7441,10 +8020,16 @@ def main(argv=None) -> int:
         report["mp"] = phase_mp(torch, np, kernels, timer)
         rows = rows + report["mp"]["kernel_rows"]
         done("mp")
+    if "samediff" in phases:
+        report["samediff"] = phase_samediff(torch, np, kernels, timer)
+        rows = rows + report["samediff"]["kernel_rows"]
+        done("samediff")
 
     entries = []
-    def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None):
-        return next((r for r in rows if r["name"] == name and r["dtype"] == dtype
+    def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None, among=None):
+        """The first of ``among`` (every phase's rows by default) that matches."""
+        return next((r for r in (rows if among is None else among)
+                     if r["name"] == name and r["dtype"] == dtype
                      and (t is None or r["shape"][1] == t)
                      and (shape is None or r["shape"] == shape)
                      and r.get("causal", True) == causal
@@ -7544,7 +8129,14 @@ def main(argv=None) -> int:
         # (rank 0's counts)
         (row(name, shape=[TRAIN_BATCH * HEADS // MP_PP_MICRO, TRAIN_SEQ, dh]), path)
         for path in ("mp/gpipe", "mp/1f1b")
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")]
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")] + [
+        # SameDiff: the code-built BERT's multi_head_dot_product_attention
+        # ops, B1 forward and B2 / B3 backward, in bf16 and f32 steps, with
+        # the samediff phase's own rows (attn and resnet time the same shape)
+        (row(name, dtype=kind, causal=False,
+             shape=[SD_BATCH * SD_HEADS, SD_SEQ, SD_D // SD_HEADS],
+             among=report.get("samediff", {}).get("kernel_rows", [])), f"samediff/code/{kind}")
+        for kind in ("bf16", "f32") for name in FLASH_NAMES]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),

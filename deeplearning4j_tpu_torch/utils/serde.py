@@ -30,7 +30,7 @@ UNPORTED = dict.fromkeys(("LossLayer", "ScaleShift", "SeparableConv2D", "Deconv2
                           "SpaceToDepth", "Upsampling2D",
                           "LocalResponseNormalization", "CenterLossOutputLayer",
                           "Yolo2OutputLayer", "AutoEncoder",
-                          "VariationalAutoencoder", "TrainingConfig"), _LONG_TAIL)
+                          "VariationalAutoencoder"), _LONG_TAIL)
 
 
 def register(cls=None, *, name: str | None = None):
@@ -51,7 +51,7 @@ def register(cls=None, *, name: str | None = None):
 _CONFIG_MODULES = ("nn.conf.layers", "nn.conf.layers_nd", "nn.conf.attention",
                    "nn.conf.moe", "nn.conf.recurrent", "nn.conf.graph_conf", "nn.conf.input_type",
                    "nn.conf.neural_net_configuration", "nn.updaters",
-                   "nn.schedules")
+                   "nn.schedules", "autodiff.samediff")
 
 
 def registered(tag: str) -> type:

@@ -1637,3 +1637,48 @@ def test_dp_two_gloo_ranks_on_one_card_against_the_single_model(cuda):
         np.testing.assert_allclose(r0["state"][k], v, rtol=2e-4, atol=2e-5, err_msg=k)
     for k, v in r0["params"].items():
         np.testing.assert_array_equal(res[1]["params"][k], v)
+
+
+def test_samediff_captured_attention_step_equals_eager_and_launches_b1_b3(cuda):
+    """A SameDiff graph whose attention is `multi_head_dot_product_attention`
+    (bf16 compute): from one state, 2 captured steps and 2 eager steps give
+    the same losses, trainables and Adam state bit for bit, and each step
+    launches B1, B2 and B3 once (one attention op)."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, load_state_leaves, state_leaves
+
+    rng = np.random.default_rng(0)
+    sd = SameDiff(seed=1, device="cuda")
+    x = sd.placeholder("x")
+    w = {n: sd.var(n, 0.1 * rng.normal(size=(64, 64)).astype(np.float32)) for n in "qkvo"}
+    heads = [(x.reshape((256, 64)) @ w[n]).reshape((2, 128, 4, 16)) for n in "qkv"]
+    a = sd.nn.multi_head_dot_product_attention(*heads, causal=False)
+    out = a.reshape((256, 64)) @ w["o"]
+    sd.set_loss(sd.loss.mse_loss(out, sd.placeholder("y"), name="loss"))
+    sd.set_training_config(TrainingConfig(updater=Adam(1e-3), bf16_compute=True))
+    feed = {"x": rng.normal(size=(2, 128, 64)).astype(np.float32),
+            "y": rng.normal(size=(256, 64)).astype(np.float32)}
+    sd.fit_batch(feed)
+    snap = ({n: t.clone() for n, t in sd._values.items()},
+            [s.clone() if isinstance(s, torch.Tensor) else s for s in state_leaves(sd._opt_state)],
+            sd._stream.state_dict())
+
+    def state():
+        return [t.clone() for t in sd._values.values()] + [
+            s.clone() for s in state_leaves(sd._opt_state) if isinstance(s, torch.Tensor)]
+
+    kernels.reset_launches()
+    captured = [sd.fit_batch(feed) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    after = state()
+    for n, t in snap[0].items():
+        sd._values[n].copy_(t)
+    sd._opt_state = load_state_leaves(sd._opt_state, snap[1])
+    sd._stream.load_state_dict(snap[2])
+    sd.capture_steps = False
+    eager = [sd.fit_batch(feed) for _ in range(2)]
+    assert len(sd._captured) == 1 and captured == eager
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(after, state()))
+    assert {k: launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")} == {
+        "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkdv": 2}

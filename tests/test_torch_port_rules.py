@@ -1,6 +1,6 @@
 """Rules the port keeps, checked without a GPU.
 
-- The port never imports jax, optax or the JAX package (a fresh
+- The port never imports jax, optax, google.protobuf or the JAX package (a fresh
   interpreter imports every module of it, `utils/`, `train/`,
   `observe/` and the serving plane and fleet included, takes a training
   step and analyses its cost, runs the CPU engine, the server with an
@@ -9,7 +9,9 @@
   checkpoint zip of each model, trains a masked MoE step, fine-tunes a
   graph with a frozen prefix under listeners and a recovery policy that
   rolls a NaN batch back from a checkpoint store, takes a ZeRO-1
-  data-parallel step in a world of one, then lists its modules).
+  data-parallel step in a world of one, imports a TF GraphDef through
+  its own wire codec and fine-tunes it with SameDiff, then lists its
+  modules).
 - Entry points default to CUDA and raise when there is none, checkpoint
   restore included; only an explicit ``device="cpu"`` runs on the CPU.
 - A kernel wrapper never answers a CUDA tensor with its plain version:
@@ -81,7 +83,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "runtime.distributed", "runtime.mesh", "parallel.context",
                      "parallel.strategy", "parallel.data_parallel", "parallel.zero",
                      "parallel.compression", "parallel.wrapper",
-                     "parallel.collectives", "parallel.pipeline", "parallel.planner"):
+                     "parallel.collectives", "parallel.pipeline", "parallel.planner",
+                     "autodiff.samediff", "autodiff.ops_registry", "autodiff.validation",
+                     "modelimport.tensorflow", "modelimport._tf.wire",
+                     "modelimport._tf.synthetic", "nlp.wordpiece", "utils.pytree"):
             assert "deeplearning4j_tpu_torch." + need in mods, mods
         from deeplearning4j_tpu_torch.quant import quantize
         from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -199,9 +204,23 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         ParallelWrapper(dpm, ParallelConfig(zero=1)).fit([DataSet(xs, ys)])
         assert dpm.iteration == 1 and dpm._zero_placement is not None
         distributed.shutdown()
+        # SameDiff over an imported TF graph: the port's codec, no protobuf
+        from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+        from deeplearning4j_tpu_torch.modelimport._tf.synthetic import (
+            build_bert_classifier_graphdef)
+        from deeplearning4j_tpu_torch.modelimport.tensorflow import import_graph
+        from deeplearning4j_tpu_torch.nn.updaters import Adam
+        sd = import_graph(build_bert_classifier_graphdef(
+            vocab=16, d_model=8, n_layers=1, n_heads=2, seq_len=4, batch=2),
+            trainable=True, device="cpu")
+        sd.loss.softmax_cross_entropy(sd["logits"], sd.placeholder("y"), name="loss")
+        sd.set_training_config(TrainingConfig(updater=Adam(1e-3), loss_variable="loss"))
+        assert np.isfinite(sd.fit_batch({"ids": np.ones((2, 4), np.int32),
+                                         "y": np.eye(2, dtype=np.float32)}))
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "optax",
-                                            "deeplearning4j_tpu"))
+                                            "deeplearning4j_tpu")
+                     or n == "google.protobuf" or n.startswith("google.protobuf."))
         print("FORBIDDEN", bad)
     """)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
