@@ -162,7 +162,7 @@ Then the phases:
    before the batchers start (one batch of 8 on each): rows bit-identical
    to ``output()`` of the row in a batch of 8, exactly 8 B1 launches a
    batch, ``dl4jtpu_router_requests_total`` 8 on each replica.  Chaos:
-   16 closed-loop clients for 2 s, r1 killed once it holds queued
+   32 closed-loop clients for 2 s, r1 killed once it holds queued
    requests: every request completes, at least one retry, exactly one
    ``dead`` ejection; after `revive_replica` (re-sync included) one
    probe re-admits r1.  Deploy: a perturbed tree rolled out on the
@@ -342,6 +342,45 @@ Then the phases:
    B1, B2 and B3 in a captured step, the f32 output within 1e-4 of the
    same graph on the CPU; B1 at (384, 128, 64) non-causal, both types,
    against its plain version.
+14b. etl — the data pipeline slice (ROADMAP A12): DataVec, the native
+   IO runtime (`runtime/native.py`, required: built with g++ into
+   ``build/native/``; whether it has JPEG is printed), the batch cache,
+   and the decode chain inside the captured step.  (a) BASELINE config
+   2 fed from files as bench.py's bench_resnet50_etl feeds it: 1,024
+   images of 4 classes written from numpy seed 0 by bench.py's
+   ``_etl_corpus`` rule (500 x 375 JPEG q85 where PIL writes and the
+   native library decodes JPEG, else 256 x 256 x 3 uint8 ``.npy``; the
+   corpus used and why on its own line) under ``build/etl/``, removed
+   after; `ImageRecordReader(256, 256, 3, shuffle_seed=0,
+   dtype="uint8")` -> `RecordReaderDataSetIterator` (batch 256) ->
+   `DeviceTransformIterator` (`RandomCrop(224, 224)`, `RandomFlip(0.5)`,
+   `Scale(1 / 127.5, -1.0)`) -> the zoo's `ResNet50(num_classes=4)`
+   (bf16, Adam 1e-3, ``steps_per_execution`` 1).  ETL images/s with no
+   card in the loop; then (1) a live-decode fused epoch (the first epoch
+   captures, the second is timed), (2) the same batches host-decoded
+   (`DeviceDecode.host`) through `PrefetchIterator`, unfused, and (3)
+   `CachedDataSetIterator`: a populate epoch, then a replayed fused
+   epoch: samples/s and ms a step of each, host-to-device MB a step raw
+   against decoded, the decode's calibrated ms.  Gates: every step of a
+   fused run counted on ``dl4jtpu_device_decode_batches_total``, no
+   fallback, one fused step graph whose staged features are uint8, the
+   raw bytes equal to the batches'; `DeviceDecode.fn` on the card
+   against `DeviceDecode.host` at four step indices (crop windows and
+   flip coins identical, values within 1e-6); 4 fused steps replaying
+   the captured step (augmentation indices 1-4) against the same steps
+   eagerly, bit for bit; 3 fused steps against 3 host-decoded ones from
+   one state within twice the floor that the host-decoded steps with
+   each batch's halves of rows swapped set (loss and parameter change);
+   the cached epoch's batches byte-identical to the populated ones, one
+   decode epoch, replay pull time on ``source="cache"``.  (b) LeNet (the
+   lenet phase's model, f32 and bf16) fed from MNIST-format IDX files of
+   10,000 images written from numpy seed 0 and read by the native
+   ``idx_read_u8``, through `NormalizingIterator(ImagePreProcessingScaler)`
+   (its chain fuses) at batch 512: single steps and
+   ``steps_per_execution=16``, ms a step and samples/s, every step fused
+   with uint8 inputs and the raw bytes; in f32 3 fused steps against 3
+   host-decoded ones within 1e-5 relative, and captured against eager
+   bit for bit, single (4 steps) and grouped (2 groups of 3).
 15. tools — the training tooling slice (ROADMAP A9).  (a) The flagship
    trained 4 steps (numpy seed 0 ids, 4 x 2048; the last 3 timed: the
    full step), then `TransferLearning.Builder` with Adam 1e-4 and
@@ -568,7 +607,7 @@ import sys
 import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
-          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "tools", "rnn",
+          "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "etl", "tools", "rnn",
           "dp", "mp", "samediff")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
@@ -2411,8 +2450,12 @@ def phase_server(torch, np, kernels):
 
 # the chaos window: closed-loop infer clients, and the kill that lands once
 # the doomed replica holds queued requests (they fail `shutdown` there and
-# retry on the survivor)
-CHAOS_CLIENTS, CHAOS_WINDOW_S = 16, 2.0
+# retry on the survivor).  Four clients a batch slot: with picks alternating
+# r0, r1, each replica has about 16 requests outstanding against batches of
+# 8, so a queue stands behind every dispatch (with 2 a slot it formed only
+# when the two replicas' batches fell out of step, and a run could end the
+# kill's search with none queued)
+CHAOS_CLIENTS, CHAOS_WINDOW_S = 32, 2.0
 FLEET_PROBATION_S = 0.5
 
 
@@ -2662,10 +2705,10 @@ def phase_fleet(torch, np, kernels, report):
             # dispatch (its EWMA: ~10 ms of host work for 8 x 256 ids) with
             # requests queued behind it: its batcher stops after that
             # batch, so the queued ones fail `shutdown` and are retried;
-            # at the latest 1.4 s into the 2 s of load
+            # at the latest 0.3 s before the load ends
             srv = fb.replicas[1]
             time.sleep(0.5)
-            t_end = time.monotonic() + 0.9
+            t_end = time.monotonic() + CHAOS_WINDOW_S - 0.8
             while time.monotonic() < t_end:
                 inflight, ewma = srv._inflight, srv._batch_ewma or 0.01
                 if (inflight is not None and srv.queue.depth >= 1
@@ -5052,6 +5095,558 @@ def phase_resnet(torch, np, kernels, timer):
     res["kernel_rows"] = res["ckpt"].pop("kernel_rows") + res["attn"].pop("kernel_rows")
     res["seconds"] = time.perf_counter() - t_phase
     log(f"[resnet] phase seconds {res['seconds']:.1f}")
+    return res
+
+
+# -- the data pipeline slice (ROADMAP A12) -------------------------------------------
+
+# (a) BASELINE config 2 fed from files as bench.py bench_resnet50_etl feeds
+# it: 1,024 images of 4 classes written from numpy seed 0 by the rule of
+# bench.py _etl_corpus (500 x 375 JPEG q85 where the host can write and
+# decode JPEG, else 256 x 256 x 3 uint8 .npy), read at 256 x 256 x 3 uint8
+# in batches of 256, randomly cropped to 224 and flipped on the card
+ETL_IMAGES, ETL_CLASSES, ETL_BATCH, ETL_SIDE, ETL_CROP = 1024, 4, 256, 256, 224
+ETL_SRC_H, ETL_SRC_W = 375, 500
+# fused against host-decoded training from one state: 3 steps; the gap may
+# not exceed ETL_FLOOR_X times the same host-decoded steps' own floor, the
+# gap to the same steps with each batch's two halves of rows swapped (the
+# same function, its batch sums in another order)
+ETL_PARITY_STEPS, ETL_FLOOR_X = 3, 2.0
+# DeviceDecode.fn on the card against DeviceDecode.host: the reference's
+# own host / device bound
+ETL_DECODE_TOL = 1e-6
+# (b) LeNet fed from IDX bytes: MNIST-format files of 10,000 images from
+# numpy seed 0, batches of 512 (19 whole ones), grouped fits of 16 steps
+LENET_IDX_IMAGES, LENET_IDX_BATCH, LENET_IDX_SPE = 10000, 512, 16
+ETL_LENET_LOSS_REL = 1e-5
+ETL_DIR = os.path.join("build", "etl")     # inside the checkout; removed after
+
+
+def _etl_counters():
+    from deeplearning4j_tpu_torch.observe.metrics import registry
+
+    reg = registry()
+    return {"decode_batches": reg.counter("dl4jtpu_device_decode_batches_total").sum_series(),
+            "decode_s": reg.counter("dl4jtpu_device_decode_seconds_total").sum_series(),
+            "fallbacks": reg.counter("dl4jtpu_device_decode_fallbacks_total").sum_series(),
+            "raw": reg.counter("dl4jtpu_h2d_bytes_total").value(feed="raw"),
+            "decoded": reg.counter("dl4jtpu_h2d_bytes_total").value(feed="decoded"),
+            "cache_wait": reg.counter("dl4jtpu_etl_wait_seconds_total").value(source="cache")}
+
+
+def _etl_delta(c0):
+    c1 = _etl_counters()
+    return {k: c1[k] - c0[k] for k in c0}
+
+
+def _etl_corpus(np, root, jpeg):
+    """bench.py _etl_corpus's images (numpy seed 0: a class-shifted
+    gradient, a jittered gradient, noise), as JPEG q85 at 500 x 375 or as
+    256 x 256 x 3 uint8 .npy; the encodes run on 8 threads in order of
+    the draws.  Returns the seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    h, w = (ETL_SRC_H, ETL_SRC_W) if jpeg else (ETL_SIDE, ETL_SIDE)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    gx = np.linspace(0, 255, w)[None, :] * np.ones((h, 1))
+    gy = np.linspace(0, 255, h)[:, None] * np.ones((1, w))
+    for cls in range(ETL_CLASSES):
+        os.makedirs(os.path.join(root, f"c{cls}"), exist_ok=True)
+
+    def save(img, path):
+        if jpeg:
+            from PIL import Image
+
+            Image.fromarray(img).save(path, quality=85)
+        else:
+            np.save(path, img)
+
+    with ThreadPoolExecutor(8) as pool:
+        pending = []
+        for i in range(ETL_IMAGES):
+            cls = i % ETL_CLASSES
+            img = np.stack([(gx + 40 * cls) % 256, (gy * 0.7 + rng.integers(0, 64)) % 256,
+                            rng.integers(0, 255, (h, w))], -1).astype(np.uint8)
+            name = f"img_{i:05d}." + ("jpg" if jpeg else "npy")
+            pending.append(pool.submit(save, img, os.path.join(root, f"c{cls}", name)))
+            if len(pending) >= 32:
+                pending.pop(0).result()
+        for f in pending:
+            f.result()
+    return time.perf_counter() - t0
+
+
+class _EtlHashing:
+    """A base iterator whose batches' bytes are hashed as they pass (the
+    cache tier's populate pass)."""
+
+    def __init__(self, base):
+        self._base = base
+        self.hashes = []
+
+    @property
+    def batch_size(self):
+        return self._base.batch_size
+
+    def reset(self):
+        self._base.reset()
+
+    def __iter__(self):
+        for b in self._base:
+            self.hashes.append(_etl_hash(b))
+            yield b
+
+
+def _etl_hash(batch):
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (batch.features, batch.labels):
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.data)
+    return h.hexdigest()
+
+
+class _EtlHostDecoded:
+    """The same raw batches decoded on the host (`DeviceDecode.host`, one
+    augmentation index a batch): the unfused feed."""
+
+    def __init__(self, base, decode):
+        self._base, self._decode, self._step = base, decode, 0
+
+    @property
+    def batch_size(self):
+        return self._base.batch_size
+
+    def reset(self):
+        self._base.reset()
+
+    def __iter__(self):
+        for b in self._base:
+            self._step += 1
+            yield self._decode.host(self._step - 1, b)
+
+
+class _EtlLosses:
+    def __init__(self):
+        self.values = []
+
+    def iteration_done(self, model, iteration, epoch, score):
+        self.values.append(float(score))
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        pass
+
+
+def _etl_fit(torch, model, feed, **kw):
+    """``model.fit(feed)``; (seconds to the card's end, the steps' losses)."""
+    lst = _EtlLosses()
+    model.set_listeners(lst)
+    t0 = time.perf_counter()
+    try:
+        model.fit(feed, **kw)
+        torch.cuda.synchronize()
+    finally:
+        model.set_listeners()
+    return time.perf_counter() - t0, lst.values
+
+
+def _etl_raw_feed(dv, batches, chain, start=0):
+    """A `DeviceTransformIterator` over in-memory raw ``batches`` whose
+    augmentation counter starts at ``start``."""
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+
+    it = dv.DeviceTransformIterator(ExistingDataSetIterator(list(batches)), chain)
+    for _ in range(start):
+        it.next_decode_step()
+    return it
+
+
+def _etl_change_gap(a, b, s0):
+    """Relative L2 between two runs' parameter changes from the state
+    ``s0`` (host copies), over every parameter leaf."""
+    num = den = 0.0
+    for x, y, z in zip(a["params"], b["params"], s0["params"]):
+        z = z.double()
+        dx, dy = x.double() - z, y.double() - z
+        num += float(((dx - dy) ** 2).sum())
+        den += float((dy ** 2).sum())
+    return (num / den) ** 0.5 if den else 0.0
+
+
+def _etl_loss_gap(a, b):
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def _etl_captured_vs_eager(torch, model, make_feed, tag, spe=1, host=False):
+    """From one state, the fused fit over ``make_feed()`` replaying the
+    model's captured step, then the same fit eagerly (``capture_steps =
+    False``): losses, parameters, optimizer and layer state bit for bit,
+    and no step graph captured during the replays."""
+    where = "cpu" if host else None
+    snap = _full_state(torch, model)
+    graphs0 = dict(model._captured)
+    _, cap = _etl_fit(torch, model, make_feed(), steps_per_execution=spe)
+    recaptures = sum(model._captured.get(k) is not g for k, g in graphs0.items()) + len(
+        set(model._captured) - set(graphs0))
+    after_cap = _full_state(torch, model, where)
+    _restore_state(torch, model, snap)
+    model.capture_steps = False
+    try:
+        _, eag = _etl_fit(torch, model, make_feed(), steps_per_execution=spe)
+    finally:
+        model.capture_steps = True
+    after_eager = _full_state(torch, model, where)
+    del snap
+    bad = _differing(torch, after_cap, after_eager)
+    log(f"[etl] {tag}: {len(cap)} fused steps replaying the captured step against "
+        f"eager from one state: losses {cap} identical: {cap == eag}; state differs "
+        f"at {bad or 'no leaf'}; step graphs captured during the replays {recaptures}")
+    if cap != eag or bad or recaptures or len(cap) < 3:
+        raise AssertionError(f"etl: {tag}: the captured fused step is not the eager step")
+    return {"losses": cap, "identical": True}
+
+
+def _etl_resnet(torch, np, card, root):
+    """(a) ResNet-50 fed from files; see the module docstring."""
+    from deeplearning4j_tpu_torch.data.cached import CachedDataSetIterator
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.prefetch import PrefetchIterator
+    from deeplearning4j_tpu_torch.datavec import (
+        ImageRecordReader,
+        RecordReaderDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datavec import device as dv
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    def base():
+        reader = ImageRecordReader(ETL_SIDE, ETL_SIDE, 3, shuffle_seed=0,
+                                   dtype="uint8").initialize(root)
+        return RecordReaderDataSetIterator(reader, ETL_BATCH, label_index=1,
+                                           num_classes=ETL_CLASSES, drop_last=True)
+
+    chain = dv.TransformChain(features=(dv.RandomCrop(ETL_CROP, ETL_CROP), dv.RandomFlip(0.5),
+                                        dv.Scale(1 / 127.5, -1.0)), seed=0)
+    decode = dv.try_lower(chain)[0]
+    steps = ETL_IMAGES // ETL_BATCH
+    out = {}
+    # ETL alone: the reader's decode and batching, no card in the loop
+    t0 = time.perf_counter()
+    held = []
+    n = 0
+    for b in base():
+        n += b.num_examples
+        if len(held) < ETL_PARITY_STEPS + 1:
+            held.append(b)
+    etl_s = time.perf_counter() - t0
+    out["etl_images_per_s"] = n / etl_s
+    raw_bytes = held[0].features.nbytes + held[0].labels.nbytes
+    dec_bytes = ETL_BATCH * ETL_CROP * ETL_CROP * 3 * 4 + held[0].labels.nbytes
+    log(f"[etl] (a) ETL without the card: {n} images read, decoded and batched in "
+        f"{etl_s:.3f} s = {out['etl_images_per_s']:.1f} images/s ({os.cpu_count()} host "
+        f"cores; {card}); a raw batch {held[0].features.dtype} "
+        f"{tuple(held[0].features.shape)}")
+
+    model = ResNet50(num_classes=ETL_CLASSES).init_model()
+    out["compute"] = str(model.compute_dtype)
+    # 1. live decode, fused: epoch 1 captures the fused step, epoch 2 timed
+    c0 = _etl_counters()
+    dti = dv.DeviceTransformIterator(base(), chain)
+    warm_s, warm = _etl_fit(torch, model, dti)
+    timed_s, fused_losses = _etl_fit(torch, model, dti)
+    d = _etl_delta(c0)
+    fused_keys = [k for k in model._captured if k[-1][0] == "fused"]
+    out["fused"] = {"s": timed_s, "ms_per_step": timed_s / steps * 1e3,
+                    "samples_per_s": ETL_IMAGES / timed_s, "warm_s": warm_s,
+                    "losses": warm + fused_losses, "counters": d,
+                    "h2d_mb_per_step": d["raw"] / (2 * steps) / 1e6,
+                    "staged": [str(s) for s in (fused_keys[0][:2] if fused_keys else ())]}
+    log(f"[etl] (a1) live decode, fused (ResNet-50 {out['compute']}, batch {ETL_BATCH}, "
+        f"steps_per_execution 1): {out['fused']['ms_per_step']:.3f} ms a step = "
+        f"{out['fused']['samples_per_s']:.1f} samples/s over the timed epoch (the first, "
+        f"which captures, {warm_s:.3f} s); host-to-device {out['fused']['h2d_mb_per_step']:.3f} "
+        f"MB a step raw; decoded batches {d['decode_batches']}, fallbacks {d['fallbacks']}; "
+        f"staged inputs {out['fused']['staged']}; losses {out['fused']['losses']} ({card})")
+    if d["decode_batches"] != 2 * steps or d["fallbacks"] != 0:
+        raise AssertionError(f"etl: the fused route did not run every step: {d}")
+    if d["raw"] != 2 * steps * raw_bytes or d["decoded"] != 0:
+        raise AssertionError(f"etl: raw host-to-device bytes {d['raw']} are not the "
+                             f"batches' {2 * steps * raw_bytes}")
+    if len(fused_keys) != 1 or fused_keys[0][0][1] != torch.uint8:
+        raise AssertionError(f"etl: want one fused step graph with uint8 inputs, got {fused_keys}")
+    if not np.isfinite(out["fused"]["losses"]).all():
+        raise AssertionError("etl: a non-finite loss")
+    # the measurement the fused steps charged (cached for this signature)
+    out["decode_ms"] = decode.calibrated_seconds(*(torch.from_numpy(a).cuda() for a in (
+        held[0].features, held[0].labels))) * 1e3
+    log(f"[etl] (a1) the decode's calibrated ms (the standalone decode as its own "
+        f"CUDA graph, CUDA events): {out['decode_ms']:.4f} ({card})")
+
+    # 2. the same batches host-decoded through PrefetchIterator, unfused
+    c0 = _etl_counters()
+    feed = PrefetchIterator(_EtlHostDecoded(base(), decode), depth=2)
+    warm_s, _ = _etl_fit(torch, model, feed)
+    timed_s, host_losses = _etl_fit(torch, model, feed)
+    d = _etl_delta(c0)
+    out["host_decoded"] = {"s": timed_s, "ms_per_step": timed_s / steps * 1e3,
+                           "samples_per_s": ETL_IMAGES / timed_s, "warm_s": warm_s,
+                           "losses": host_losses, "counters": d,
+                           "h2d_mb_per_step": d["decoded"] / (2 * steps) / 1e6}
+    log(f"[etl] (a2) host-decoded (DeviceDecode.host through PrefetchIterator), unfused: "
+        f"{out['host_decoded']['ms_per_step']:.3f} ms a step = "
+        f"{out['host_decoded']['samples_per_s']:.1f} samples/s (first epoch {warm_s:.3f} s); "
+        f"host-to-device {out['host_decoded']['h2d_mb_per_step']:.3f} MB a step decoded "
+        f"against {out['fused']['h2d_mb_per_step']:.3f} raw = "
+        f"{out['host_decoded']['h2d_mb_per_step'] / out['fused']['h2d_mb_per_step']:.3f}x ({card})")
+    if d["decode_batches"] != 0 or d["decoded"] != 2 * steps * dec_bytes:
+        raise AssertionError(f"etl: the host-decoded run is not unfused: {d}")
+
+    # the decode inside the step equals the host decode
+    crop_flip = dv.DeviceDecode(dv.TransformChain(chain.features[:2], seed=chain.seed))
+    f_dev = torch.from_numpy(held[0].features).cuda()
+    l_dev = torch.from_numpy(held[0].labels).cuda()
+    worst = 0.0
+    for step in (0, 1, 5, 1000):
+        host = decode.host(step, held[0])
+        keys = torch.from_numpy(decode.keys(step)).cuda()
+        f, _, _, _ = decode.fn(step, f_dev, l_dev, keys=keys)
+        worst = max(worst, float((f.cpu() - torch.from_numpy(host.features)).abs().max()))
+        pixels = crop_flip.fn(step, f_dev, l_dev)[0].cpu().numpy()
+        if not np.array_equal(pixels, crop_flip.host(step, held[0]).features):
+            raise AssertionError(f"etl: the card's crop window or flip coins differ at step {step}")
+    out["decode_max_abs_err"] = worst
+    log(f"[etl] (a) DeviceDecode.fn on the card against DeviceDecode.host (numpy), steps "
+        f"0, 1, 5, 1000: crop windows and flip coins identical (uint8 pixels equal), "
+        f"values max |diff| {worst:.3e} (tol {ETL_DECODE_TOL})")
+    if worst > ETL_DECODE_TOL:
+        raise AssertionError("etl: the decode inside the step differs from the host decode")
+    del f_dev, l_dev
+
+    # captured against eager: 4 fused steps after the capture, their own keys
+    out["captured_vs_eager"] = _etl_captured_vs_eager(
+        torch, model, lambda: _etl_raw_feed(dv, held, chain, start=1),
+        "ResNet-50 (augmentation indices 1-4)", host=True)
+
+    # fused against host-decoded training from one state, and the floor
+    snap = _full_state(torch, model)
+    s0 = _full_state(torch, model, "cpu")
+    parity = held[:ETL_PARITY_STEPS]
+    decoded = [decode.host(i, b) for i, b in enumerate(parity)]
+    half = ETL_BATCH // 2
+
+    def swapped(b):
+        from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+        return DataSet(*(np.concatenate([a[half:], a[:half]]) for a in (b.features, b.labels)))
+
+    runs = {}
+    for name, feed in (("fused", lambda: _etl_raw_feed(dv, parity, chain)),
+                       ("host", lambda: ExistingDataSetIterator(decoded)),
+                       ("swapped", lambda: ExistingDataSetIterator([swapped(b) for b in decoded]))):
+        _restore_state(torch, model, snap)
+        _, losses = _etl_fit(torch, model, feed())
+        runs[name] = (losses, _full_state(torch, model, "cpu"))
+    _restore_state(torch, model, snap)
+    del snap
+    floor = {"loss": _etl_loss_gap(runs["swapped"][0], runs["host"][0]),
+             "change": _etl_change_gap(runs["swapped"][1], runs["host"][1], s0)}
+    gap = {"loss": _etl_loss_gap(runs["fused"][0], runs["host"][0]),
+           "change": _etl_change_gap(runs["fused"][1], runs["host"][1], s0)}
+    out["parity"] = {"floor": floor, "gap": gap, "losses": {k: v[0] for k, v in runs.items()}}
+    log(f"[etl] (a) fused against host-decoded training, {ETL_PARITY_STEPS} steps from one "
+        f"state: losses fused {runs['fused'][0]}, host {runs['host'][0]}; gap: loss "
+        f"{gap['loss']:.3e} relative, parameter change {gap['change']:.3e} relative L2; the "
+        f"floor (the host-decoded steps with each batch's halves of rows swapped): loss "
+        f"{floor['loss']:.3e}, change {floor['change']:.3e}; gate {ETL_FLOOR_X}x the floor")
+    for k in ("loss", "change"):
+        if gap[k] > ETL_FLOOR_X * floor[k]:
+            raise AssertionError(f"etl: fused training differs from host-decoded training "
+                                 f"beyond its floor ({k}: {gap[k]} > {ETL_FLOOR_X} x {floor[k]})")
+    del runs, s0, decoded
+
+    # 3. the cache tier: populate, then a replayed fused epoch
+    cache_dir = os.path.join(ETL_DIR, "cache")
+    hashing = _EtlHashing(base())
+    cached = CachedDataSetIterator(hashing, cache_dir)
+    cdti = dv.DeviceTransformIterator(cached, chain)
+    c0 = _etl_counters()
+    pop_s, _ = _etl_fit(torch, model, cdti)
+    c1 = _etl_counters()
+    replay_s, replay_losses = _etl_fit(torch, model, cdti)
+    d_replay = _etl_delta(c1)
+    replayed = [_etl_hash(b) for b in cached]
+    cache_mb = sum(os.path.getsize(os.path.join(cache_dir, f)) for f in os.listdir(cache_dir)) / 1e6
+    out["cached"] = {"populate_s": pop_s, "s": replay_s, "ms_per_step": replay_s / steps * 1e3,
+                     "samples_per_s": ETL_IMAGES / replay_s, "losses": replay_losses,
+                     "decode_epochs": cached.decode_epochs, "cache_hits": cached.cache_hits,
+                     "cache_mb": cache_mb, "counters": _etl_delta(c0),
+                     "cache_wait_s": d_replay["cache_wait"]}
+    log(f"[etl] (a3) CachedDataSetIterator: populate epoch (decode, write, fused steps) "
+        f"{pop_s:.3f} s; replayed fused epoch {out['cached']['ms_per_step']:.3f} ms a step = "
+        f"{out['cached']['samples_per_s']:.1f} samples/s; {cache_mb:.1f} MB on disk; decode "
+        f"epochs {cached.decode_epochs}, cache hits {cached.cache_hits}; replay pull seconds "
+        f"on source=\"cache\" {d_replay['cache_wait']:.4f}; replayed batches byte-identical: "
+        f"{replayed == hashing.hashes} ({card})")
+    if replayed != hashing.hashes or len(replayed) != steps or cached.decode_epochs != 1:
+        raise AssertionError("etl: the cached epoch does not replay the populated batches")
+    if d_replay["decode_batches"] != steps or d_replay["fallbacks"] != 0 or not d_replay[
+            "cache_wait"] > 0:
+        raise AssertionError(f"etl: the replayed epoch did not run fused: {d_replay}")
+    del model, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _etl_lenet(torch, np, card):
+    """(b) LeNet fed from IDX bytes; see the module docstring."""
+    import struct
+
+    from deeplearning4j_tpu_torch import bench_lenet as bl
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.normalizers import (
+        ImagePreProcessingScaler,
+        NormalizingIterator,
+    )
+    from deeplearning4j_tpu_torch.runtime import native
+    from deeplearning4j_tpu_torch.runtime.flags import environment
+
+    root = os.path.join(ETL_DIR, "mnist")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (LENET_IDX_IMAGES, 28, 28)).astype(np.uint8)
+    labels = rng.integers(0, 10, LENET_IDX_IMAGES).astype(np.uint8)
+    paths = {}
+    for name, arr in (("train-images-idx3-ubyte", images), ("train-labels-idx1-ubyte", labels)):
+        paths[name] = os.path.join(root, name)
+        with open(paths[name], "wb") as f:
+            f.write(struct.pack(">BBBB", 0, 0, 8, arr.ndim))
+            f.write(struct.pack(f">{arr.ndim}I", *arr.shape))
+            f.write(arr.tobytes())
+    t0 = time.perf_counter()
+    x = native.idx_read_u8(paths["train-images-idx3-ubyte"])
+    y = native.idx_read_u8(paths["train-labels-idx1-ubyte"])
+    read_s = time.perf_counter() - t0
+    if not (np.array_equal(x, images) and np.array_equal(y, labels)):
+        raise AssertionError("etl: idx_read_u8 did not read the written IDX bytes")
+    n = LENET_IDX_IMAGES // LENET_IDX_BATCH
+    onehot = np.eye(10, dtype=np.float32)[y]
+    batches = [DataSet(x[i * LENET_IDX_BATCH:(i + 1) * LENET_IDX_BATCH, :, :, None],
+                       onehot[i * LENET_IDX_BATCH:(i + 1) * LENET_IDX_BATCH]) for i in range(n)]
+    scaler = ImagePreProcessingScaler(0.0, 1.0)
+
+    def feed(bs):
+        return NormalizingIterator(ExistingDataSetIterator(list(bs)), scaler)
+
+    out = {"idx_read_s": read_s, "batches": n}
+    raw_bytes = batches[0].features.nbytes + batches[0].labels.nbytes
+    for kind in ("f32", "bf16"):
+        model = bl.lenet(device="cuda", f32=kind == "f32")
+        c0 = _etl_counters()
+        warm_s, _ = _etl_fit(torch, model, feed(batches))
+        single_s, single = _etl_fit(torch, model, feed(batches))
+        grouped_s, grouped = _etl_fit(torch, model, feed(batches),
+                                      steps_per_execution=LENET_IDX_SPE)
+        d = _etl_delta(c0)
+        fused_keys = [k for k in model._captured if k[-1][0] == "fused"]
+        r = out[kind] = {"single_ms_per_step": single_s / n * 1e3,
+                         "single_samples_per_s": n * LENET_IDX_BATCH / single_s,
+                         "grouped_ms_per_step": grouped_s / n * 1e3,
+                         "grouped_samples_per_s": n * LENET_IDX_BATCH / grouped_s,
+                         "warm_s": warm_s, "counters": d,
+                         "h2d_mb_per_step": d["raw"] / (3 * n) / 1e6,
+                         "losses_first_last": [single[0], grouped[-1]]}
+        log(f"[etl] (b) LeNet {kind} fed from IDX bytes ({LENET_IDX_IMAGES} images read by "
+            f"idx_read_u8 in {read_s * 1e3:.3f} ms) through NormalizingIterator("
+            f"ImagePreProcessingScaler), batch {LENET_IDX_BATCH}: single steps "
+            f"{r['single_ms_per_step']:.4f} ms a step = {r['single_samples_per_s']:.1f} "
+            f"samples/s; steps_per_execution {LENET_IDX_SPE}: {r['grouped_ms_per_step']:.4f} ms "
+            f"a step = {r['grouped_samples_per_s']:.1f} samples/s; first epoch (captures) "
+            f"{warm_s:.3f} s; host-to-device {r['h2d_mb_per_step']:.4f} MB a step raw; "
+            f"decoded batches {d['decode_batches']}, fallbacks {d['fallbacks']} ({card})")
+        if d["decode_batches"] != 3 * n or d["fallbacks"] != 0 or d["decoded"] != 0:
+            raise AssertionError(f"etl: LeNet {kind}: the fused route did not run every step: {d}")
+        if d["raw"] != 3 * n * raw_bytes:
+            raise AssertionError(f"etl: LeNet {kind}: raw bytes {d['raw']} are not the batches' "
+                                 f"{3 * n * raw_bytes}")
+        if len(fused_keys) != 1 or fused_keys[0][0][1] != torch.uint8:
+            raise AssertionError(f"etl: LeNet {kind}: want one fused graph of uint8 inputs")
+        if kind == "bf16":
+            del model
+            continue
+        # fused against host-decoded (the native scaler, unfused), f32
+        snap = _full_state(torch, model)
+        _, fused = _etl_fit(torch, model, feed(batches[:3]))
+        _restore_state(torch, model, snap)
+        env = environment()
+        env.device_decode = False
+        try:
+            _, host = _etl_fit(torch, model, feed(batches[:3]))
+        finally:
+            env.device_decode = True
+        _restore_state(torch, model, snap)
+        del snap
+        gap = _etl_loss_gap(fused, host)
+        r["parity"] = {"fused": fused, "host": host, "loss_rel": gap}
+        log(f"[etl] (b) LeNet f32 fused against host-decoded, 3 steps from one state: "
+            f"losses {fused} against {host}, max relative gap {gap:.3e} "
+            f"(tol {ETL_LENET_LOSS_REL})")
+        if gap > ETL_LENET_LOSS_REL:
+            raise AssertionError("etl: LeNet fused training differs from host-decoded training")
+        r["captured_vs_eager"] = {
+            "single": _etl_captured_vs_eager(torch, model, lambda: feed(batches[3:7]),
+                                             "LeNet f32, single steps"),
+            "grouped": _etl_captured_vs_eager(torch, model, lambda: feed(batches[3:9]),
+                                              "LeNet f32, steps_per_execution 3", spe=3)}
+        del model
+    return out
+
+
+def phase_etl(torch, np, kernels, card):
+    """The data pipeline slice (ROADMAP A12) on the card; see the module
+    docstring."""
+    import importlib.util
+
+    from deeplearning4j_tpu_torch.runtime import native
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("etl: the native IO library did not build or load")
+    pil = importlib.util.find_spec("PIL") is not None
+    jpeg = pil and native.has_jpeg()
+    res = {"native": native.version(), "has_jpeg": native.has_jpeg(), "pil": pil,
+           "corpus": "jpeg" if jpeg else "npy"}
+    log(f"[etl] native IO library {res['native']}: JPEG decode "
+        f"{'compiled in' if res['has_jpeg'] else 'absent (no jpeglib.h)'}; PIL "
+        f"{'present' if pil else 'absent'}")
+    why = ("PIL writes and the native library decodes JPEG" if jpeg else
+           "no JPEG path on this host (" + ", ".join(
+               w for w, ok in (("PIL absent", pil), ("no libjpeg in the native library",
+                                                     res["has_jpeg"])) if not ok) + ")")
+    shutil.rmtree(ETL_DIR, ignore_errors=True)
+    root = os.path.join(ETL_DIR, "corpus")
+    try:
+        secs = _etl_corpus(np, root, jpeg)
+        log(f"[etl] corpus: {ETL_IMAGES} images of {ETL_CLASSES} classes from numpy seed 0 as "
+            + (f"{ETL_SRC_W} x {ETL_SRC_H} JPEG q85" if jpeg else
+               f"{ETL_SIDE} x {ETL_SIDE} x 3 uint8 .npy") + f", written in {secs:.3f} s: {why}")
+        res["corpus_s"] = secs
+        kernels.reset_launches()
+        res["resnet"] = _etl_resnet(torch, np, card, root)
+        res["lenet"] = _etl_lenet(torch, np, card)
+        res["launches"] = kernels.launches()
+    finally:
+        shutil.rmtree(ETL_DIR, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[etl] phase seconds {res['seconds']:.1f}")
     return res
 
 
@@ -8006,6 +8601,9 @@ def main(argv=None) -> int:
         report["resnet"] = phase_resnet(torch, np, kernels, timer)
         rows = rows + report["resnet"]["kernel_rows"]
         done("resnet")
+    if "etl" in phases:
+        report["etl"] = phase_etl(torch, np, kernels, smi)
+        done("etl")
     if "tools" in phases:
         report["tools"] = phase_tools(torch, np, kernels, report)
         done("tools")

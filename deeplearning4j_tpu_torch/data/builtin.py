@@ -9,8 +9,9 @@ for byte the JAX package's: digit glyphs from a 5x7 font with random
 scale, erosion, shift, intensity and noise; CIFAR-shaped class-
 conditional gradients and patches.  The JAX package also searches
 ``~/.dl4j_tpu``; the port reads nothing outside the paths it is given.
-IDX files are read in numpy (the JAX package's native decoder and uint8
-scaler wait for ROADMAP A12).
+IDX files decode, and uint8 images scale, through the native IO runtime
+(`runtime/native.py`) where it is built, else in numpy: the same
+values either way.
 """
 
 from __future__ import annotations
@@ -49,6 +50,15 @@ def _data_dirs() -> list[Path]:
 
 
 def _read_idx(path: Path) -> np.ndarray:
+    if path.suffix != ".gz":
+        # the native decoder when built; ungzipped files only
+        from deeplearning4j_tpu_torch.runtime import native
+
+        if native.available():
+            try:
+                return native.idx_read_u8(str(path))
+            except (IOError, RuntimeError):
+                pass                      # the numpy path below
     opener = gzip.open if path.suffix == ".gz" else open
     with opener(path, "rb") as f:
         magic = struct.unpack(">I", f.read(4))[0]
@@ -59,7 +69,14 @@ def _read_idx(path: Path) -> np.ndarray:
 
 def _u8_scale(x: np.ndarray, scale: float = 1.0 / 255.0,
               shift: float = 0.0) -> np.ndarray:
-    """uint8 -> float32 * scale + shift."""
+    """uint8 -> float32 * scale + shift, natively when built."""
+    from deeplearning4j_tpu_torch.runtime import native
+
+    if x.dtype == np.uint8 and native.available():
+        try:
+            return native.u8_to_f32_scaled(x, scale, shift)
+        except (IOError, RuntimeError):
+            pass
     return x.astype(np.float32) * scale + shift
 
 

@@ -15,6 +15,25 @@ import dataclasses
 
 import numpy as np
 
+# Routing and attribution tags a batch object carries beside its arrays
+# (the JAX package's): the cache tier's ``_etl_source``, the device
+# decode's raw-feed tag and its augmentation index.  Structural copies
+# (split, map, prefetch staging) carry them forward, so a raw batch
+# split by recovery's OOM microbatching keeps its decode keys.
+BATCH_TAGS = ("_etl_source", "_raw_for_device_decode", "_decode_step")
+
+
+def copy_tags(src, dst):
+    """The known batch tags of ``src`` set on ``dst`` (returned)."""
+    for tag in BATCH_TAGS:
+        v = getattr(src, tag, None)
+        if v is not None:
+            try:
+                setattr(dst, tag, v)
+            except AttributeError:
+                pass              # slotted or foreign batch types
+    return dst
+
 
 @dataclasses.dataclass
 class DataSet:
@@ -32,12 +51,12 @@ class DataSet:
         n = self.num_examples
         for i in range(0, n, batch_size):
             sl = slice(i, min(i + batch_size, n))
-            out.append(DataSet(
+            out.append(copy_tags(self, DataSet(
                 self.features[sl],
                 self.labels[sl],
                 None if self.features_mask is None else self.features_mask[sl],
                 None if self.labels_mask is None else self.labels_mask[sl],
-            ))
+            )))
         return out
 
     def shuffle(self, rng: np.random.Generator) -> "DataSet":
@@ -81,9 +100,9 @@ class MultiDataSet:
                     return None
                 return tuple(None if a is None else a[sl] for a in arrays)
 
-            out.append(MultiDataSet(cut(self.features), cut(self.labels),
-                                    cut(self.features_masks),
-                                    cut(self.labels_masks)))
+            out.append(copy_tags(self, MultiDataSet(
+                cut(self.features), cut(self.labels), cut(self.features_masks),
+                cut(self.labels_masks))))
         return out
 
 
@@ -104,18 +123,20 @@ def map_batch(batch, fn, *, masks: bool = True):
         return None if a is None else fn(a)
 
     if isinstance(batch, DataSet):
-        return DataSet(ap(batch.features), ap(batch.labels),
-                       ap(batch.features_mask) if masks else batch.features_mask,
-                       ap(batch.labels_mask) if masks else batch.labels_mask)
+        return copy_tags(batch, DataSet(
+            ap(batch.features), ap(batch.labels),
+            ap(batch.features_mask) if masks else batch.features_mask,
+            ap(batch.labels_mask) if masks else batch.labels_mask))
     if isinstance(batch, MultiDataSet):
         def apt(arrays, mask_group=False):
             if arrays is None or (mask_group and not masks):
                 return arrays
             return tuple(ap(a) for a in arrays)
 
-        return MultiDataSet(apt(batch.features), apt(batch.labels),
-                            apt(batch.features_masks, mask_group=True),
-                            apt(batch.labels_masks, mask_group=True))
+        return copy_tags(batch, MultiDataSet(
+            apt(batch.features), apt(batch.labels),
+            apt(batch.features_masks, mask_group=True),
+            apt(batch.labels_masks, mask_group=True)))
     return batch
 
 

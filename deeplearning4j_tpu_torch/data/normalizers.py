@@ -3,9 +3,12 @@
 
 fit(iterator) accumulates statistics; transform applies them;
 save/restore persists them as the JAX package's JSON, so a file written
-by either package restores in the other.  The device lowering of a
-normalizer (``device_spec``, ``NormalizingIterator.device_chain``: the
-transform fused into the step program) is ROADMAP A12's.
+by either package restores in the other.  ``device_spec`` is the
+normalizer's lowering to a `datavec.device` transform (its statistics as
+constants of the step), which `NormalizingIterator.device_chain`
+advertises, so ``fit`` runs the normalization inside the captured step
+on raw batches.  `ImagePreProcessingScaler` scales uint8 natively where
+the native IO runtime is built.
 """
 
 from __future__ import annotations
@@ -40,6 +43,14 @@ class Normalizer:
         Path(path).write_text(
             json.dumps({"type": type(self).__name__, **self.state_dict()})
         )
+
+    def device_spec(self):
+        """The datavec/device.py transform spec this normalizer lowers
+        to (stats baked in as program constants), or None when the
+        normalizer has no device lowering — NormalizingIterator
+        advertises it so fit() can fuse the normalization into the
+        step program."""
+        return None
 
     @staticmethod
     def restore(path: str) -> "Normalizer":
@@ -83,6 +94,12 @@ class NormalizerStandardize(Normalizer):
     def revert_features(self, features):
         return features * self.std + self.mean
 
+    def device_spec(self):
+        if self.mean is None:
+            return None                   # not fitted yet
+        from deeplearning4j_tpu_torch.datavec.device import Standardize
+
+        return Standardize(self.mean, self.std)
 
     def state_dict(self):
         return {"mean": self.mean.tolist(), "std": self.std.tolist()}
@@ -121,6 +138,12 @@ class NormalizerMinMaxScaler(Normalizer):
         rng = np.maximum(self.max - self.min, 1e-12)
         return (features - self.lo) / (self.hi - self.lo) * rng + self.min
 
+    def device_spec(self):
+        if self.min is None:
+            return None                   # not fitted yet
+        from deeplearning4j_tpu_torch.datavec.device import MinMaxScale
+
+        return MinMaxScale(self.min, self.max, self.lo, self.hi)
 
     def state_dict(self):
         return {"lo": self.lo, "hi": self.hi,
@@ -144,11 +167,24 @@ class ImagePreProcessingScaler(Normalizer):
     def transform(self, ds: DataSet) -> DataSet:
         scale = (self.hi - self.lo) / 255.0
         x = np.asarray(ds.features)
-        # the JAX package's native uint8 scaler waits for ROADMAP A12;
-        # this is its numpy path
+        if x.dtype == np.uint8:
+            # native hot path (runtime/native.py) when built
+            from deeplearning4j_tpu_torch.runtime import native
+
+            if native.available():
+                try:
+                    f = native.u8_to_f32_scaled(x, scale, self.lo)
+                    return DataSet(f, ds.labels, ds.features_mask,
+                                   ds.labels_mask)
+                except (IOError, RuntimeError):
+                    pass
         f = x.astype(np.float32) * scale + self.lo
         return DataSet(f, ds.labels, ds.features_mask, ds.labels_mask)
 
+    def device_spec(self):
+        from deeplearning4j_tpu_torch.datavec.device import Scale
+
+        return Scale((self.hi - self.lo) / 255.0, self.lo)
 
     def revert_features(self, features):
         return (features - self.lo) / (self.hi - self.lo) * 255.0
@@ -162,7 +198,12 @@ class ImagePreProcessingScaler(Normalizer):
 
 class NormalizingIterator(DataSetIterator):
     """Wrap an iterator so every batch passes through a fitted normalizer
-    (the reference's ``iterator.setPreProcessor(normalizer)``)."""
+    (the reference's iterator.setPreProcessor(normalizer) pattern).
+
+    Advertises the normalizer's device lowering (``device_chain`` /
+    ``raw()``): fit() fuses the normalization into the step program and
+    pulls the base iterator's undecoded batches instead, when the
+    lowering exists."""
 
     def __init__(self, base, normalizer: Normalizer):
         self._base = base
@@ -171,6 +212,26 @@ class NormalizingIterator(DataSetIterator):
     @property
     def batch_size(self):
         return self._base.batch_size
+
+    @property
+    def device_chain(self):
+        spec = self._norm.device_spec()
+        if spec is None:
+            return None
+        from deeplearning4j_tpu_torch.datavec.device import TransformChain
+
+        # memoized per spec fingerprint: a fresh chain every access
+        # would defeat try_lower's on-chain lowering cache (each fit
+        # would re-pay the standalone decode calibration), while a
+        # refitted normalizer changes the fingerprint and invalidates
+        fp = spec.fingerprint()
+        cached = getattr(self, "_chain_cache", None)
+        if cached is None or cached[0] != fp:
+            self._chain_cache = (fp, TransformChain(features=(spec,)))
+        return self._chain_cache[1]
+
+    def raw(self):
+        return self._base
 
     def reset(self):
         self._base.reset()

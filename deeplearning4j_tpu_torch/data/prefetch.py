@@ -46,7 +46,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet, copy_tags
 from deeplearning4j_tpu_torch.data.iterator import DataSetIterator
 from deeplearning4j_tpu_torch.runtime.backend import resolve_device
 
@@ -66,8 +66,8 @@ def _side_stream(device: torch.device):
 
 
 def _map_arrays(batch, fn):
-    """``batch`` with ``fn`` applied to every array (None passes); a batch
-    of another type comes back as it is."""
+    """``batch`` with ``fn`` applied to every array (None passes), its tags
+    carried over; a batch of another type comes back as it is."""
     def ap(a):
         return None if a is None else fn(a)
 
@@ -75,11 +75,12 @@ def _map_arrays(batch, fn):
         return None if arrays is None else tuple(ap(a) for a in arrays)
 
     if isinstance(batch, MultiDataSet):
-        return MultiDataSet(apt(batch.features), apt(batch.labels),
-                            apt(batch.features_masks), apt(batch.labels_masks))
+        return copy_tags(batch, MultiDataSet(
+            apt(batch.features), apt(batch.labels), apt(batch.features_masks),
+            apt(batch.labels_masks)))
     if isinstance(batch, DataSet):
-        return DataSet(ap(batch.features), ap(batch.labels),
-                       ap(batch.features_mask), ap(batch.labels_mask))
+        return copy_tags(batch, DataSet(ap(batch.features), ap(batch.labels),
+                                        ap(batch.features_mask), ap(batch.labels_mask)))
     return batch
 
 
@@ -102,12 +103,19 @@ def stage_to_device(batch, device=None):
     stream = _side_stream(dev)
 
     def put(a):
-        if isinstance(a, torch.Tensor) and a.is_cuda:
-            return a
-        host = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(a))
+        if isinstance(a, torch.Tensor):
+            if a.is_cuda:
+                return a
+            host = a.pin_memory()
+        else:
+            # numpy (a cache replay's read-only memmap too) copied straight
+            # into pinned memory: one copy, and no tensor over read-only bytes
+            a = np.asarray(a)
+            host = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                               pin_memory=True)
+            host.numpy()[...] = a
         # the host allocator keeps the pinned block until the copy is done
-        return host.pin_memory().to(dev, non_blocking=True)
+        return host.to(dev, non_blocking=True)
 
     with torch.cuda.stream(stream):
         staged = _map_arrays(batch, put)

@@ -35,8 +35,16 @@ Frozen layer nodes (`train/transfer.py` ``GraphBuilder``) train as in
 the model base: only the trainable leaves are differentiated and
 updated.
 
-Not ported yet, each raising where it is asked for: layerwise
-pretraining (A13), the fused device-decode step (A12).
+The device data pipeline (`datavec/device.py`) fuses into the
+single-input, single-output graph's per-batch step, as in the JAX
+package: a raw `DataSet` runs the chain as the step's first stage
+(`_fit_batch_fused`; the decode's labels mask feeds the output's loss,
+its features mask is dropped: a graph step takes none).  A grouped fit
+(``steps_per_execution`` > 1) and a graph of several inputs or outputs
+keep host transforms, the reason logged and counted.
+
+Not ported yet, raising where it is asked for: layerwise pretraining
+(A13).
 """
 
 from __future__ import annotations
@@ -245,8 +253,6 @@ class GraphModel(Model):
                 "outputs (one mask per output, use None entries for unmasked)")
 
     def _as_batch(self, batch) -> MultiDataSet:
-        if getattr(batch, "_raw_for_device_decode", False):
-            self._fit_batch_fused(batch)
         mds = self._as_mds(batch)
         self._check_mds(mds)
         return mds
@@ -254,6 +260,19 @@ class GraphModel(Model):
     def _batch_arrays(self, mds: MultiDataSet) -> tuple:
         masks = mds.labels_masks or (None,) * len(mds.labels)
         return tuple(mds.features) + tuple(mds.labels) + tuple(masks)
+
+    @staticmethod
+    def _decoded_arrays(feats, labs, fmask, lmask) -> tuple:
+        return (feats, labs, lmask)
+
+    def _fused_decode_reason(self, steps_per_execution: int = 1) -> str | None:
+        """JAX ``GraphModel.fit``'s refusals: the grouped fit and a graph
+        of several inputs or outputs keep host transforms."""
+        if steps_per_execution > 1 and self._batch_sharding is None:
+            return "graph grouped (steps_per_execution) fit path"
+        if len(self.conf.network_inputs) != 1 or len(self.conf.network_outputs) != 1:
+            return "multi-input/output graph"
+        return None
 
     def _split(self, arrays) -> tuple:
         n_in, n_out = len(self.conf.network_inputs), len(self.conf.network_outputs)
@@ -293,11 +312,6 @@ class GraphModel(Model):
         aux, new_state = pop_aux_losses(new_state)
         reg, aux = dp_context.replica_share(self._reg_loss(params), aux)
         return data + reg + aux, new_state
-
-    def _fit_batch_fused(self, batch, decode=None) -> None:
-        raise NotImplementedError(
-            "the fused device-decode graph step is not ported yet (ROADMAP "
-            "A12: the device data pipeline)")
 
     def pretrain(self, data, epochs: int = 1) -> None:
         raise NotImplementedError(

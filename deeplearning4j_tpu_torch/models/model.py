@@ -10,7 +10,11 @@ package does: ``data.next_batch`` before each ``next()``, and
 arrays, a decoder emitting garbage; ``raise`` fails the pull).  Without
 a recovery policy (`train/recovery.py`) a failed pull ends the fit, as in the
 JAX package.  The seconds ``fit`` waits on its iterator land on
-``etl_wait_s`` and on ``dl4jtpu_etl_wait_seconds_total``.  A batch a
+``etl_wait_s`` and on ``dl4jtpu_etl_wait_seconds_total`` (a batch the
+cache tier replays, tagged ``_etl_source``, on that source's series
+instead, and not on ``etl_wait_s``); its bytes on
+``dl4jtpu_h2d_bytes_total``, by ``feed`` ("raw" for the fused decode's
+undecoded batches, "decoded" otherwise).  A batch a
 `data.prefetch.PrefetchIterator` staged carries the producer's seconds
 for it; what of them the consumer did not wait for is the overlap the
 pipeline bought (``overlap_s``,
@@ -41,6 +45,21 @@ step's objective (`_step_loss`), the per-node dropout keys
   state tensors, so whatever installs new ones (`init`, `load_params`,
   `load_net_state`, a fresh optimizer state) drops them (`_drop_graphs`);
   copying values into the live tensors in place keeps them.
+
+The device data pipeline (`datavec/device.py`, JAX
+``_device_decode_feed``).  When ``fit``'s iterator advertises a
+transform chain that lowers (and ``environment().device_decode`` is on),
+the fit pulls its raw batches instead and each step runs the chain as
+its first stage: the step's inputs are the raw features and labels and
+the decode keys of the batch's augmentation index, and on the card the
+chain is captured into the step's graph, one graph a raw-batch
+signature.  A fit variant that cannot fuse (`_fused_decode_reason`) or a
+chain that does not lower logs the reason, counts it on
+``dl4jtpu_device_decode_fallbacks_total`` and trains on the iterator's
+own host-decoded batches; a raw batch that carries masks is decoded on
+the host.  A fused dispatch counts its batches on
+``dl4jtpu_device_decode_batches_total`` and the standalone decode's
+calibrated seconds on ``dl4jtpu_device_decode_seconds_total``.
 
 ``fit(..., steps_per_execution=K)`` groups K batches of one signature
 (JAX ``_fit_epoch_multi``): each step keeps its own loss; a group whose
@@ -80,6 +99,7 @@ step scope arms around each program.
 
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 import time
@@ -302,6 +322,26 @@ def _as_quantized(leaf, path: str) -> QuantizedTensor:
     return QuantizedTensor(q.contiguous(), scale.contiguous())
 
 
+def _batch_nbytes(batch) -> int:
+    """The array bytes of a `DataSet` / `MultiDataSet` (a metadata read
+    of numpy arrays and tensors alike: nothing is copied or synced)."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+
+    def nb(a):
+        return int(getattr(a, "nbytes", 0) or 0) if a is not None else 0
+
+    if isinstance(batch, DataSet):
+        return (nb(batch.features) + nb(batch.labels)
+                + nb(batch.features_mask) + nb(batch.labels_mask))
+    if isinstance(batch, MultiDataSet):
+        total = sum(nb(a) for a in batch.features) + sum(nb(a) for a in batch.labels)
+        for group in (batch.features_masks, batch.labels_masks):
+            if group is not None:
+                total += sum(nb(a) for a in group)
+        return total
+    return 0
+
+
 def _copy_state(dst: dict, src: dict) -> None:
     """Write the layers' new state ``src`` over ``dst`` in place (the
     tensors a captured step reads stay the same objects)."""
@@ -330,9 +370,11 @@ class _Staged:
     batch), one host-to-device copy each.  The copies are made from
     pinned memory without waiting on the card (a pageable copy would
     wait for every step queued before it); arrays already on the card
-    are stacked there."""
+    are stacked there.  With a lowered ``decode`` (the fused step) a
+    batch's arrays are its raw features and labels and its decode keys
+    (`Model._step_arrays`)."""
 
-    def __init__(self, model, batches, n_steps: int | None = None):
+    def __init__(self, model, batches, n_steps: int | None = None, decode=None):
         dev = model.device
 
         def upload(t: torch.Tensor) -> torch.Tensor:
@@ -349,8 +391,9 @@ class _Staged:
                 return upload(torch.stack([a.cpu() for a in arrays]))
             return upload(torch.from_numpy(np.stack([np.asarray(a) for a in arrays])))
 
-        self.arrays = [stack(col) for col in zip(*(model._batch_arrays(b)
-                                                   for b in batches))]
+        self.arrays = [stack(col) for col in zip(*(
+            model._step_arrays(b, decode, model.iteration + i)
+            for i, b in enumerate(batches)))]
         keys, vals, state = [], [], model.opt_state
         n = len(batches) if n_steps is None else n_steps
         for i in range(n):
@@ -456,6 +499,8 @@ class Model(nn.Module):
         # True while the updater writes the live trees in place: a
         # failure then leaves them torn (RecoveryPolicy restores them)
         self._updating = False
+        # the lowered transform chain of the running fit's raw feed
+        self._device_decode = None
 
     # -- listeners ------------------------------------------------------------
     def set_listeners(self, *listeners) -> None:
@@ -539,6 +584,7 @@ class Model(nn.Module):
         reg = registry()
         wait_total = reg.counter("dl4jtpu_etl_wait_seconds_total")
         batches_total = reg.counter("dl4jtpu_etl_batches_total")
+        h2d_total = reg.counter("dl4jtpu_h2d_bytes_total")
         overlap_total = reg.counter("dl4jtpu_prefetch_overlap_seconds_total")
         it = iter(iterator)
         absorbed_pull_failure = False
@@ -574,10 +620,21 @@ class Model(nn.Module):
                     continue
                 raise
             wait = time.perf_counter() - t0
-            self.last_etl_wait_s = wait
-            self.etl_wait_s += wait
-            wait_total.inc(wait)
             batches_total.inc()
+            source = getattr(batch, "_etl_source", None)
+            if source is not None:
+                # a cache replay's pull is page-cache time, not a starved
+                # pipeline: its own series, not the ETL wait
+                self.last_etl_wait_s = 0.0
+                wait_total.inc(wait, source=source)
+            else:
+                self.last_etl_wait_s = wait
+                self.etl_wait_s += wait
+                wait_total.inc(wait)
+            nbytes = _batch_nbytes(batch)
+            if nbytes:
+                h2d_total.inc(nbytes, feed="raw" if getattr(
+                    batch, "_raw_for_device_decode", False) else "decoded")
             stage_s = getattr(batch, "_prefetch_stage_s", None)
             if stage_s is not None:
                 # producer work not paid again as consumer wait
@@ -626,6 +683,94 @@ class Model(nn.Module):
                     floor_s=env.watchdog_floor_s, k=env.watchdog_k,
                     name=type(self).__name__)
         return self._watchdog
+
+    # -- the device data pipeline -------------------------------------------------
+    def _fused_decode_reason(self, steps_per_execution: int = 1) -> str | None:
+        """Why this model's fit cannot run a transform chain inside its
+        step, or None (the model classes name their variants)."""
+        return None
+
+    def _device_decode_feed(self, iterator, unsupported_reason=None):
+        """``(feed, decode)`` at fit entry: the raw feed and the lowered
+        `DeviceDecode` when ``iterator`` advertises a chain that lowers
+        and the fit can fuse it; else ``(iterator, None)``, whose own
+        iteration applies the chain on the host.  Flag off is silent;
+        every other fallback logs its reason and counts it."""
+        from deeplearning4j_tpu_torch.datavec import device as dv
+        from deeplearning4j_tpu_torch.runtime.flags import environment
+
+        if not environment().device_decode:
+            return iterator, None
+        chain = dv.chain_of(iterator)
+        if chain is None:
+            return iterator, None
+        reason, decode = unsupported_reason, None
+        if reason is None:
+            decode, reason = dv.try_lower(chain)
+        if decode is None:
+            from deeplearning4j_tpu_torch.observe.metrics import registry
+
+            log.info("device decode fallback (transforms stay on the host): %s", reason)
+            registry().counter("dl4jtpu_device_decode_fallbacks_total").inc(reason=reason)
+            return iterator, None
+        return dv.raw_feed(iterator, decode), decode
+
+    def _count_device_decode(self, decode, feats, labs, k: int = 1) -> None:
+        """A fused dispatch's accounting: k batches, and k times the
+        standalone decode's calibrated seconds for this signature (a
+        calibration that fails is logged, never raised: it is
+        attribution)."""
+        from deeplearning4j_tpu_torch.observe.metrics import registry
+
+        reg = registry()
+        reg.counter("dl4jtpu_device_decode_batches_total").inc(k)
+        try:
+            secs = decode.calibrated_seconds(feats, labs)
+        except Exception as e:
+            log.debug("device-decode calibration skipped: %s", e)
+            return
+        reg.counter("dl4jtpu_device_decode_seconds_total").inc(secs * k)
+
+    def _route(self, batch):
+        """``(batch, decode)`` for a step: a raw-tagged batch of the fused
+        fit as it is, with the lowered decode; a raw batch that carries
+        masks decoded on the host (the fused step stages features and
+        labels only); any other through `_as_batch`, with None."""
+        from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+        decode = self._device_decode
+        if decode is not None and getattr(batch, "_raw_for_device_decode", False):
+            if not isinstance(batch, DataSet):
+                raise TypeError("raw device-decode batch must be a DataSet, got "
+                                f"{type(batch).__name__}")
+            if batch.features_mask is None and batch.labels_mask is None:
+                return batch, decode
+            batch = decode.host(getattr(batch, "_decode_step", self.iteration), batch)
+        return self._as_batch(batch), None
+
+    def _step_arrays(self, batch, decode, step: int) -> tuple:
+        """A step's array inputs: `_batch_arrays`, or for the fused step
+        the raw features and labels and the decode keys of the batch's
+        augmentation index (``step`` where it has none)."""
+        if decode is None:
+            return self._batch_arrays(batch)
+        return (batch.features, batch.labels,
+                decode.keys(getattr(batch, "_decode_step", step)))
+
+    def _decoded_arrays(self, feats, labs, fmask, lmask) -> tuple:
+        """`_batch_arrays` of a decoded batch (the model classes)."""
+        raise NotImplementedError
+
+    def _decode_inputs(self, decode, arrays) -> tuple:
+        """The fused step's first stage: the raw features and labels and
+        the staged decode keys in, the step's decoded arrays out.  A
+        data-parallel rank decodes its block of the global batch (its
+        first global row: the flip coins' offset)."""
+        raw_f, raw_l, dkeys = (as_tensor(a, self.device) for a in arrays)
+        bs = self._batch_sharding
+        offset = 0 if bs is None else bs.rank * raw_f.shape[0]
+        return self._decoded_arrays(*decode.fn(None, raw_f, raw_l, keys=dkeys,
+                                               row_offset=offset))
 
     def _prefetch_feed(self, iterator):
         """``iterator`` wrapped in a `PrefetchIterator` staging onto this
@@ -837,12 +982,15 @@ class Model(nn.Module):
         return m
 
     # -- training -------------------------------------------------------------
-    def _step_program(self):
+    def _step_program(self, decode=None):
         """The training step's pure device program, `_grad_step`,
         registered with the cost registry on first use (as the JAX
         package's ``_get_step_fn`` registers its jitted step), under
-        ``("train",)`` and `_step_key_suffix`."""
-        key = ("train",) + self._step_key_suffix()
+        ``("train",)`` and `_step_key_suffix`; a fused fit's under
+        ``("train_fused", the chain's fingerprint)`` (its decode stage
+        is the ``"decode"`` program, `DeviceDecode.program`)."""
+        key = (("train",) if decode is None
+               else ("train_fused", decode.fingerprint)) + self._step_key_suffix()
         fn = self._step_fns.get(key)
         if fn is None:
             from deeplearning4j_tpu_torch.observe import cost
@@ -925,25 +1073,28 @@ class Model(nn.Module):
                         for p, g in zip(plist, grads)],
                 _tree_map(lambda t: t.detach(), new_state), *extra)
 
-    def _train_step(self, *inputs, grad_step=None):
+    def _train_step(self, *inputs, grad_step=None, decode=None):
         """One whole step on the live trees: `_grad_step`, the updater,
         the parameters and the layer state updated in place.
-        ``inputs``: the batch's arrays (`_batch_arrays`), the nodes'
+        ``inputs``: the batch's arrays (`_step_arrays`), the nodes'
         dropout keys (`_layer_keys`, or their (nodes, 2) int64 device
         tensor) and the updater's step values (None: the updater computes
-        them as Python floats; else a device tensor).  ``grad_step``: the
-        forward and backward to run (the registered `_step_program`,
-        which counts a dispatch, by default).  Returns the loss and the
-        updater's new state (its counts advanced), then whatever else
-        the grad step returned."""
+        them as Python floats; else a device tensor).  ``decode``: the
+        fused step's lowered chain, run first on the raw arrays
+        (`_decode_inputs`).  ``grad_step``: the forward and backward to
+        run (the registered `_step_program`, which counts a dispatch, by
+        default).  Returns the loss and the updater's new state (its
+        counts advanced), then whatever else the grad step returned."""
         *arrays, keys, vals = inputs
+        if decode is not None:
+            arrays = self._decode_inputs(decode, arrays)
         if isinstance(keys, torch.Tensor):
             keys = [(k[0], k[1]) for k in keys]
         if vals is not None:
             vals = [vals[i] for i in range(vals.shape[0])]
         params = self.params
         plist = self._trainable_leaves(params)
-        grad_step = grad_step or self._step_program()
+        grad_step = grad_step or self._step_program(decode)
         accumulated = False
         if self._mesh is None:
             loss, grads, new_state, *extra = grad_step(
@@ -1140,8 +1291,19 @@ class Model(nn.Module):
         self._step_fns.clear()
 
     def fit_batch(self, batch) -> None:
-        """One optimizer step on ``batch``."""
-        self._run_steps([self._as_batch(batch)])
+        """One optimizer step on ``batch`` (`_route`: the fused step for a
+        raw batch of a fused fit)."""
+        batch, decode = self._route(batch)
+        if decode is not None:
+            self._fit_batch_fused(batch, decode)
+        else:
+            self._run_steps([batch])
+
+    def _fit_batch_fused(self, batch, decode) -> None:
+        """One fused step (JAX ``_run_step_fused`` / graph
+        ``_fit_batch_fused``): the raw batch staged, the chain the step's
+        first stage."""
+        self._run_steps([batch], decode)
 
     def _check_trainable(self) -> None:
         """A model class's checks before its first step (none here)."""
@@ -1158,26 +1320,33 @@ class Model(nn.Module):
             self.opt_state = self._init_opt_state()
             self._drop_graphs()
 
-    def _run_steps(self, batches: list) -> None:
+    def _run_steps(self, batches: list, decode=None) -> None:
         """len(batches) optimizer steps in order, one loss each: on the
         card from staged inputs (graph replays, or the same program
-        eagerly), on the CPU eagerly."""
+        eagerly), on the CPU eagerly.  With ``decode``, fused steps on
+        raw batches (the ``data.device_decode`` fault site is their host
+        boundary)."""
         self._prepare(batches)
         k = len(batches)
         with step_scope(self, k) as scope:
+            if decode is not None:
+                faults.maybe_fail("data.device_decode")
             if self.device.type == "cuda":
-                losses_k = self._run_steps_cuda(batches)
+                losses_k, raw = self._run_steps_cuda(batches, decode)
             else:
                 out = []
                 for i, b in enumerate(batches):
                     loss, self.opt_state = self._train_step(
-                        *self._batch_arrays(b),
-                        self._step_keys(self.iteration + i), None)
+                        *self._step_arrays(b, decode, self.iteration + i),
+                        self._step_keys(self.iteration + i), None, decode=decode)
                     out.append(loss)
                 losses_k = torch.stack(out)
+                raw = (batches[0].features, batches[0].labels)
             scope.sync(losses_k)
             self._compute = None       # output() and the engine read new weights
             self.last_batch_size = batches[-1].num_examples
+            if decode is not None:
+                self._count_device_decode(decode, *raw, k=k)
             self._finish_steps(losses_k, k)
 
     @staticmethod
@@ -1187,36 +1356,43 @@ class Model(nn.Module):
         return tuple(None if t is None else (tuple(t.shape), t.dtype)
                      for t in inputs)
 
-    def _new_graph(self, inputs: tuple, program=None, bare=None):
-        """`_capture` of the step at ``inputs``, kept under its signature.
-        A failed warm-up or capture (a device OOM) leaves no half-built
-        program: the capture stream is drained and its cached blocks go
-        back before the error goes on."""
+    def _new_graph(self, inputs: tuple, program=None, bare=None, decode=None, key=None):
+        """`_capture` of the step at ``inputs``, kept under ``key`` (its
+        signature by default).  A failed warm-up or capture (a device
+        OOM) leaves no half-built program: the capture stream is drained
+        and its cached blocks go back before the error goes on."""
         try:
-            prog = self._capture(inputs, program, bare)
+            prog = self._capture(inputs, program, bare, decode)
         except BaseException:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
                 torch.cuda.empty_cache()
             raise
-        self._captured[self._signature(inputs)] = prog
+        self._captured[self._signature(inputs) if key is None else key] = prog
         return prog
 
-    def _run_steps_cuda(self, batches: list) -> torch.Tensor:
-        staged = _Staged(self, batches)
+    def _run_steps_cuda(self, batches: list, decode=None):
+        """The steps on the card; returns their (k,) losses and the first
+        step's staged raw features and labels (for the decode's
+        calibration)."""
+        staged = _Staged(self, batches, decode=decode)
         out = torch.empty(len(batches), dtype=torch.float32, device=self.device)
         first = 0
         if self.capture_steps:
-            prog = self._captured.get(self._signature(staged.step(0)))
+            # a fused step's graph: one a raw-batch signature and chain
+            key = self._signature(staged.step(0)) + (
+                () if decode is None else (("fused", decode.fingerprint),))
+            prog = self._captured.get(key)
             if prog is None:
-                prog = self._new_graph(staged.step(0))
+                prog = self._new_graph(staged.step(0), self._step_program(decode),
+                                       decode=decode, key=key)
                 first = 1
                 out[0].copy_(prog.inputs[-1])
                 self.opt_state = advance_counts(self.opt_state)
-            rec = self._step_program()._cost_record
+            rec = self._step_program(decode)._cost_record
         for i in range(first, len(batches)):
             if not self.capture_steps:
-                out[i].copy_(self._train_step(*staged.step(i))[0])
+                out[i].copy_(self._train_step(*staged.step(i), decode=decode)[0])
             else:
                 for dst, src in zip(prog.inputs, staged.step(i)):
                     if dst is not None:
@@ -1226,9 +1402,9 @@ class Model(nn.Module):
                 self._cost_program = rec
                 rec.dispatches += 1
             self.opt_state = advance_counts(self.opt_state)
-        return out
+        return out, [a[0] for a in staged.arrays[:2]]
 
-    def _capture(self, inputs: tuple, program=None, bare=None):
+    def _capture(self, inputs: tuple, program=None, bare=None, decode=None):
         """The step program as a CUDA graph over static copies of
         ``inputs`` (a staged step's), in the pool and on the stream of
         the model's other step graphs.  Its warm-up (`CapturedProgram`)
@@ -1236,7 +1412,9 @@ class Model(nn.Module):
         counts as the step's dispatch; the capture records the step
         without running it, so it calls the bare grad step (``bare``,
         `_grad_step` by default, where ``program``, `_step_program` by
-        default, is its registered form).  Every run's loss lands in the
+        default, is its registered form).  ``decode``: the fused step's
+        chain, captured as the graph's first stage (its keys are the
+        staged inputs, so every replay draws its own step's).  Every run's loss lands in the
         last input, a static slot; what else the grad step returns (a
         window's new carries) is the graph's static outputs.  The
         warm-up's cached activations are released before the capture, so
@@ -1248,7 +1426,7 @@ class Model(nn.Module):
             capturing = torch.cuda.is_current_stream_capturing()
             loss, _, *extra = self._train_step(
                 *step_inputs, grad_step=(bare or self._grad_step) if capturing
-                else program)
+                else program, decode=decode)
             slot.copy_(loss)
             if not capturing:
                 # the warm-up's activations are free now: hand their
@@ -1271,7 +1449,9 @@ class Model(nn.Module):
         one staged run of K steps (graph replays on the card), each step
         with its own loss; a group of mixed signatures, and a short tail,
         step batch by batch.  A lazily produced feed is prefetched
-        (`_prefetch_feed`)."""
+        (`_prefetch_feed`).  An iterator that advertises a transform
+        chain feeds raw batches to fused steps where the fit can fuse
+        (`_device_decode_feed`)."""
         if steps_per_execution < 1:
             raise ValueError(f"steps_per_execution must be >= 1, got "
                              f"{steps_per_execution}")
@@ -1280,7 +1460,9 @@ class Model(nn.Module):
         iterator = self._as_iterator(data, batch_size)
         self._donation_checked = False     # re-arm the one-time alias check
         self._ensure_watchdog()
-        feed = self._prefetch_feed(iterator)
+        feed_src, self._device_decode = self._device_decode_feed(
+            iterator, self._fused_decode_reason(steps_per_execution))
+        feed = self._prefetch_feed(feed_src)
         try:
             for _ in range(epochs):
                 for lst in self.listeners:
@@ -1296,43 +1478,51 @@ class Model(nn.Module):
                 if hasattr(iterator, "reset"):
                     iterator.reset()
         finally:
-            if feed is not iterator:
+            self._device_decode = None
+            if feed is not feed_src:
                 feed.close()
         for lst in self.listeners:
             # a duck-typed listener written against the first three hooks
             # has no on_fit_end
             getattr(lst, "on_fit_end", lambda m: None)(self)
 
-    def _group_runner(self, batches):
+    def _group_runner(self, batches, decode=None):
         """The program that runs ``batches`` as one group, or None: step
         them batch by batch.  A group stages its masks beside its
         batches; one whose shapes differ, or whose batches differ in
         having a mask, steps batch by batch (the JAX package steps every
-        masked batch alone: the same steps)."""
+        masked batch alone: the same steps).  ``decode``: a group of raw
+        batches, run as fused steps (JAX's fused grouped step)."""
         def sig(b):
             return tuple(None if a is None else tuple(np.shape(a))
-                         for a in self._batch_arrays(b))
+                         for a in self._step_arrays(b, decode, 0))
 
         first = sig(batches[0])
         if all(sig(b) == first for b in batches):
-            return self._run_steps
+            return (self._run_steps if decode is None
+                    else functools.partial(self._run_steps, decode=decode))
         return None
 
     def _fit_epoch_multi(self, iterator, spe: int) -> None:
         """JAX ``_fit_epoch_multi``: groups of ``spe`` batches, each run
-        by `_group_runner`'s program or batch by batch."""
+        by `_group_runner`'s program or batch by batch.  A group mixing
+        raw and decoded batches steps batch by batch (JAX ``group_ok``):
+        each is routed again there."""
         buf: list = []
         for batch in self._timed_batches(iterator):
-            buf.append(self._as_batch(batch))
+            buf.append(self._route(batch))
             if len(buf) == spe:
-                runner = self._group_runner(buf)
+                batches = [b for b, _ in buf]
+                decodes = {id(d) for _, d in buf}
+                runner = (self._group_runner(batches, buf[0][1])
+                          if len(decodes) == 1 else None)
                 if runner is not None:
-                    self._fit_group(buf, runner)
+                    self._fit_group(batches, runner)
                 else:
-                    for b in buf:
+                    for b in batches:
                         self._fit_one(b)
                 buf = []
-        for b in buf:                       # ragged tail group
+        for b, _ in buf:                    # ragged tail group
             self._fit_one(b)
 
 

@@ -567,6 +567,21 @@ class SequentialModel(Model):
         return (batch.features, batch.labels, batch.labels_mask,
                 batch.features_mask)
 
+    @staticmethod
+    def _decoded_arrays(feats, labs, fmask, lmask) -> tuple:
+        return (feats, labs, lmask, fmask)
+
+    def _fused_decode_reason(self, steps_per_execution: int = 1) -> str | None:
+        """JAX ``_fused_decode_reason``: the fit variants whose steps
+        were not built to take a decode stage keep host transforms."""
+        if self._grad_compression:
+            return "grad-compression fit path"
+        if self._pipeline_schedule == "1f1b" and self._pipeline_plan is not None:
+            return "1F1B pipeline fit path"
+        if self._tbptt:
+            return "TBPTT fit path"
+        return None
+
     def _reg_loss(self, params: dict):
         return regularization_loss(params,
                                    [(l.name, l) for l in self.conf.layers],
@@ -653,11 +668,12 @@ class SequentialModel(Model):
         return (self._pipeline_plan is not None and self._mesh is not None
                 and self._pipeline_schedule == "1f1b")
 
-    def _step_program(self):
+    def _step_program(self, decode=None):
         """Under the 1F1B schedule the step is its own program, under
-        the JAX package's key ``("train_1f1b",)``."""
+        the JAX package's key ``("train_1f1b",)`` (a 1F1B fit never
+        fuses a decode: `_fused_decode_reason`)."""
         if not self._1f1b:
-            return super()._step_program()
+            return super()._step_program(decode)
         fn = self._step_fns.get(("train_1f1b",))
         if fn is None:
             from deeplearning4j_tpu_torch.observe import cost
@@ -772,7 +788,7 @@ class SequentialModel(Model):
         else:
             super().fit_batch(batch)
 
-    def _group_runner(self, batches):
+    def _group_runner(self, batches, decode=None):
         """Under truncated BPTT a group runs as K x W window steps
         (`_run_tbptt`) when its batches share features and labels shapes,
         carry no mask and split into whole windows; else batch by batch,
@@ -781,7 +797,7 @@ class SequentialModel(Model):
         per-window programs around an XLA miscompile of its window scan;
         the port runs no scan and needs none.)"""
         if not self._tbptt:
-            return super()._group_runner(batches)
+            return super()._group_runner(batches, decode)
         f0, l0 = np.shape(batches[0].features), np.shape(batches[0].labels)
         if any(tuple(np.shape(b.features)) != tuple(f0)
                or tuple(np.shape(b.labels)) != tuple(l0)

@@ -595,6 +595,26 @@ def register_step_program(model, key: Any, fn):
     return wrapped
 
 
+def register_attr_program(owner, attr: str, kind: str, key: Any, fn):
+    """Register a program an object caches in an attribute
+    (`datavec.device.DeviceDecode`'s standalone decode): live while the
+    attribute still holds the wrapper."""
+    holder: dict = {}
+    owner_ref = weakref.ref(owner)
+
+    def live():
+        o = owner_ref()
+        wr = holder.get("fn")
+        if o is None or wr is None:
+            return False
+        w = wr()
+        return w is not None and getattr(o, attr, None) is w
+
+    wrapped = registry().register(owner, kind, key, fn, live)
+    holder["fn"] = weakref.ref(wrapped)
+    return wrapped
+
+
 class SignatureAnalysis:
     """The result of `analyze_signature`: FLOPs and bytes, or the
     reason it could not price the program (the planner records a reason

@@ -17,6 +17,11 @@ watchdog is made), ``watchdog_floor_s`` (``DL4J_TPU_WATCHDOG_FLOOR``,
 30) and ``watchdog_k`` (``DL4J_TPU_WATCHDOG_K``, 10): a step's deadline
 is ``max(floor, k * the EWMA of recent step latency)``.
 
+The device data pipeline (`datavec/device.py`): ``device_decode``
+(``DL4J_TPU_DEVICE_DECODE``, default on) lets ``fit`` run an advertised
+transform chain inside the training step on raw batches; off, the
+chain runs on the host, with no log line and no fallback count.
+
 Data parallelism (`parallel/data_parallel.py`): ``zero``
 (``DL4J_TPU_ZERO``, default 0) is the ZeRO stage `distribute` uses when
 its `ParallelConfig` names none; ``auto_plan`` (``DL4J_TPU_AUTO_PLAN``)
@@ -64,6 +69,8 @@ class Environment:
 
     # batches the fit loops stage ahead of the running step; 0: none
     prefetch_depth: int = 2
+    # fit runs an iterator's transform chain inside the step (raw feed)
+    device_decode: bool = True
     # the fit's step watchdog: made at fit entry when enabled
     watchdog_enabled: bool = True
     watchdog_floor_s: float = 30.0
@@ -77,6 +84,7 @@ class Environment:
     def from_env() -> "Environment":
         return Environment(
             prefetch_depth=int(os.environ.get("DL4J_TPU_PREFETCH_DEPTH", "2")),
+            device_decode=_env_bool("DL4J_TPU_DEVICE_DECODE", True),
             watchdog_enabled=_env_bool("DL4J_TPU_WATCHDOG", True),
             watchdog_floor_s=float(os.environ.get("DL4J_TPU_WATCHDOG_FLOOR", "30")),
             watchdog_k=float(os.environ.get("DL4J_TPU_WATCHDOG_K", "10")),

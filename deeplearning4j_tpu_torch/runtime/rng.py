@@ -27,6 +27,9 @@ jax.
 - `normal(key, shape)`: f32 ``jax.random.normal``, sqrt(2) erfinv(u) of
   a uniform u on (nextafter(-1, 0), 1), with XLA's erfinv (below).
 - `bernoulli(key, p, shape)`: ``uniform < p``.
+- `randint(key, shape, minval, maxval)`: int32 ``jax.random.randint``:
+  32 bits from each of the key's two split halves, folded into the span
+  through ``2^32 mod span``.
 - `SeedStream`: named (``init/<layer>``) and sequential subkeys of one
   root seed, and the per-step fold that dropout draws from.
 
@@ -268,6 +271,25 @@ def bernoulli(k: tuple[int, int], p: float, shape, device=None,
     """bool tensor, True where a uniform draw is below ``p`` (taken as
     f32) — ``jax.random.bernoulli``; ``offset`` as in `random_bits`."""
     return uniform(k, shape, device=device, offset=offset) < _f32(p)
+
+
+def randint(k, shape, minval: int, maxval: int, device=None) -> torch.Tensor:
+    """int32 integers in [minval, maxval) — ``jax.random.randint`` with
+    its default dtype, bit for bit: higher and lower 32 bits drawn with
+    the two halves of ``split(k)``, offset ``((hi % span) * m + lo % span)
+    % span`` with m = (2^16 mod span)^2 mod span (2^32 mod span), every
+    product and sum wrapping at 32 bits as jax's uint32 arithmetic does.
+    ``maxval <= minval`` returns minval.  ``k``'s words may be 0-dim
+    int64 tensors (a key staged on the card): then nothing here reads
+    the device from the host."""
+    k1, k2 = split(k)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    span = max(int(maxval) - int(minval), 1)
+    mult = ((((2 ** 16) % span) ** 2) & _M32) % span
+    offset = (((hi % span) * mult) & _M32) + (lo % span)
+    offset = (offset & _M32) % span
+    return (offset + int(minval)).to(torch.int32)
 
 
 def _stable_hash(name: str) -> int:

@@ -1682,3 +1682,159 @@ def test_samediff_captured_attention_step_equals_eager_and_launches_b1_b3(cuda):
     assert all(torch.equal(a_, b_) for a_, b_ in zip(after, state()))
     assert {k: launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")} == {
         "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkdv": 2}
+
+
+# -- the device data pipeline (ROADMAP A12) ---------------------------------------
+
+
+def test_staging_a_read_only_replay_gives_its_bytes_without_a_warning(cuda, tmp_path):
+    """A cache replay's batches are read-only memmaps: `stage_to_device`
+    copies them into pinned memory and onto the card with their bytes,
+    tags kept, and no warning (no tensor is made over read-only bytes)."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.data.prefetch import stage_to_device, wait_staged
+
+    r = np.random.default_rng(5)
+    np.save(tmp_path / "f.npy", r.integers(0, 256, (16, 8, 8, 3)).astype(np.uint8))
+    np.save(tmp_path / "y.npy", r.random((16, 4)).astype(np.float32))
+    batch = DataSet(np.load(tmp_path / "f.npy", mmap_mode="r"),
+                    np.load(tmp_path / "y.npy", mmap_mode="r"))
+    batch._etl_source = "cache"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        staged = stage_to_device(batch, cuda)
+    wait_staged(staged)
+    assert staged._etl_source == "cache" and staged.features.dtype == torch.uint8
+    np.testing.assert_array_equal(staged.features.cpu().numpy(), batch.features)
+    np.testing.assert_array_equal(staged.labels.cpu().numpy(), batch.labels)
+
+
+def _decode_chain(seed=3):
+    from deeplearning4j_tpu_torch.datavec import device as dv
+
+    return dv.TransformChain((dv.RandomCrop(12, 12), dv.RandomFlip(0.5),
+                              dv.Scale(1 / 127.5, -1.0)), (dv.OneHot(4),), seed=seed)
+
+
+def _decode_raw(n, seed=0, b=8):
+    r = np.random.default_rng(seed)
+    return [DataSet(r.integers(0, 256, (b, 16, 16, 3)).astype(np.uint8),
+                    r.integers(0, 4, b)) for _ in range(n)]
+
+
+def test_fused_decode_on_the_card_equals_the_host_decode(cuda):
+    """`DeviceDecode.fn` on the card (keys computed on the host, and keys
+    staged as a device tensor) against `DeviceDecode.host` in numpy on the
+    same raw batch and step index: the crop window and the flip coins
+    exactly (the uint8 pixels before the scale are equal), the scaled
+    values within 1e-6."""
+    from deeplearning4j_tpu_torch.datavec import device as dv
+
+    chain = _decode_chain()
+    decode = dv.try_lower(chain)[0]
+    crop_flip = dv.DeviceDecode(dv.TransformChain(chain.features[:2], (), seed=3))
+    batch = _decode_raw(1)[0]
+    feats, labs = torch.from_numpy(batch.features).to(cuda), torch.from_numpy(batch.labels).to(cuda)
+    for step in (0, 1, 2, 7, 100, 2**32 - 1):
+        host = decode.host(step, batch)
+        staged = torch.from_numpy(decode.keys(step)).to(cuda)
+        for keys in (None, staged):
+            f, y, fm, lm = decode.fn(step, feats, labs, keys=keys)
+            assert fm is None and lm is None and f.dtype == torch.float32
+            assert (f.cpu().numpy() - host.features).__abs__().max() <= 1e-6
+            assert np.array_equal(y.cpu().numpy(), host.labels)
+        pixels = crop_flip.fn(step, feats, labs)[0]
+        assert pixels.dtype == torch.uint8
+        assert np.array_equal(pixels.cpu().numpy(), crop_flip.host(step, batch).features)
+
+
+def _fused_models(cuda, kind):
+    from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
+    from deeplearning4j_tpu_torch.nn.conf import graph_conf as g
+    from deeplearning4j_tpu_torch.nn.conf import layers as lay
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+        NeuralNetConfiguration,
+    )
+
+    if kind == "graph":
+        conf = (g.GraphBuilder().seed(4).updater(Adam(1e-3)).bf16_compute(False)
+                .add_inputs("in").set_input_types(InputType.convolutional(12, 12, 3))
+                .add_layer("c", lay.Conv2D(n_out=8, kernel=(3, 3), activation="relu"), "in")
+                .add_layer("d", lay.Dense(n_out=16, activation="relu"), "c")
+                .add_layer("out", lay.OutputLayer(n_out=4, activation="softmax"), "d")
+                .set_outputs("out").build())
+        return GraphModel(conf, device=cuda).init()
+    conf = (NeuralNetConfiguration.builder().seed(4).updater(Adam(1e-3))
+            .bf16_compute(False).list()
+            .layer(lay.Conv2D(n_out=8, kernel=(3, 3), activation="relu"))
+            .layer(lay.Dense(n_out=16, activation="relu"))
+            .layer(lay.OutputLayer(n_out=4, activation="softmax"))
+            .set_input_type(InputType.convolutional(12, 12, 3)).build())
+    return SequentialModel(conf, device=cuda).init()
+
+
+def _model_state(model):
+    return ([t.detach().clone() for t in tree_leaves(model.params)],
+            [s.clone() if isinstance(s, torch.Tensor) else s
+             for s in state_leaves(model.opt_state)],
+            [t.clone() for t in tree_leaves(model.net_state)], model.iteration)
+
+
+@pytest.mark.parametrize("kind,spe", [("sequential", 1), ("sequential", 2), ("graph", 1)])
+def test_fused_captured_steps_equal_eager_over_replays(cuda, kind, spe):
+    """A fused fit on the card: the first step of the raw-batch signature
+    runs eagerly and is captured, the next replay the graph with their own
+    staged decode keys (augmentation index 1, 2, ...).  From one state, the
+    captured run and the same fit with ``capture_steps = False`` give the
+    same losses, parameters and Adam state bit for bit over 4 replays (a
+    replay reusing the capture step's keys would crop and flip otherwise);
+    one graph, its staged inputs uint8."""
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.datavec import device as dv
+    from deeplearning4j_tpu_torch.nn.updaters import load_state_leaves
+
+    model = _fused_models(cuda, kind)
+    raws = _decode_raw(6 if spe > 1 else 5, seed=1)
+    model.fit_batch(dv.DeviceDecode(_decode_chain()).host(0, raws[0]))   # optimizer state
+    snap = _model_state(model)
+
+    class Losses:
+        def __init__(self):
+            self.v = []
+
+        def iteration_done(self, m, it, ep, score):
+            self.v.append(float(score))
+
+        def on_epoch_start(self, m, ep):
+            pass
+
+        def on_epoch_end(self, m, ep):
+            pass
+
+    runs = []
+    for captured in (True, False):
+        if not captured:
+            params, opt, state, it = snap
+            with torch.no_grad():
+                for dst, src in zip(tree_leaves(model.params), params):
+                    dst.copy_(src)
+                for dst, src in zip(tree_leaves(model.net_state), state):
+                    dst.copy_(src)
+            model.opt_state = load_state_leaves(model.opt_state, opt)
+            model.iteration = it
+        model.capture_steps = captured
+        lst = Losses()
+        model.set_listeners(lst)
+        model.fit(dv.DeviceTransformIterator(ExistingDataSetIterator(raws), _decode_chain()),
+                  steps_per_execution=spe)
+        torch.cuda.synchronize()
+        runs.append((lst.v, _model_state(model)))
+    model.capture_steps = True
+    fused = [k for k in model._captured if k[-1][0] == "fused"]
+    assert len(fused) == 1 and fused[0][0][1] == torch.uint8
+    assert runs[0][0] == runs[1][0] and len(runs[0][0]) == len(raws)
+    for a, b in zip(runs[0][1][:3], runs[1][1][:3]):
+        assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                   for x, y in zip(a, b))
