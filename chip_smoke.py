@@ -496,13 +496,13 @@ Then the phases:
    4) in one world the phase spawns: two gloo ranks sharing the card
    when one is visible (eager steps), else one NCCL rank a card, 4 when
    4 or more are visible and 2 otherwise (captured steps).  The
-   flagship runs 4 of its 8 blocks here (``MP_LAYERS``; the depth cut
-   for the script's time).  (a) TP: the
+   flagship runs 2 of its 8 blocks here, at least one a stage of pipe=n
+   (``MP_LAYERS``; the depth cut for the script's time).  (a) TP: the
    flagship with ``model=n`` (the embedding split by columns, the
    chunked head by vocabulary); (b) SP: the flagship with ``seq=n`` at
    the training batch's 4 x 2048 ids, Ulysses (B1-B3 on B x H / n
    heads of the whole sequence) and ring attention (no flash kernel);
-   (c) EP: the attn phase's MoE flagship (8 experts, top-2; 4 of its 8
+   (c) EP: the attn phase's MoE flagship (8 experts, top-2; 2 of its 8
    blocks, ``MP_EP_LAYERS``) with ``expert=n``.  Each: 2 f32 steps with Sgd (``MP_LR``; the MoE
    flagship's ``MP_MOE_LR``) from the
    undistributed model's weights against that model (rank 0): every
@@ -573,8 +573,8 @@ Then the phases:
    kernels); 8 captured steps launch exactly 12 B1, 12 B2 and 12 B3 a
    step; the loss falls; B1-B3
    at BH 384, T 128, D 64, non-causal, bf16 and f32, against their
-   plain versions.  (c) Zips: the imported graph with 2 layers at
-   BERT-base widths and the code-built BERT cut to 2 blocks, both with
+   plain versions.  (c) Zips: the imported graph with 1 layer at
+   BERT-base widths and the code-built BERT cut to 1 block, both with
    no control flow and so plain zips (ops and values): the step after
    load equals the never-saved run's bit for bit (Adam state and RNG
    position restored); bytes and seconds of each; the two saves run
@@ -586,7 +586,30 @@ Then the phases:
    flow makes its zip source-backed (the graph's bytes, re-imported on
    load), and the step after load equals the never-saved run's bit for
    bit.
-20. report — one ``{"kernels": [...]}`` JSON line, then the last line
+20. zoo — the zoo and the long tail's layers (ROADMAP A13, second part).
+   (a) YOLO2 as the reference ships it (416 x 416 x 3, 20 classes, the 5
+   VOC anchors, a 13 x 13 x 125 head), f32, batch 16, targets from
+   `build_targets` over 1-4 seeded boxes an image: the captured step
+   equals the eager step from one state bit for bit, then 8 captured
+   steps on the batch (finite, falling losses), ms a step, samples/s
+   and MFU against the f32 peak (FLOPs counted from the convolutions'
+   shapes); `get_predicted_objects` of output() gives 16 lists, best
+   first, no two boxes of one class past IoU 0.45.  (b) AlexNet 224,
+   Darknet19 224, SqueezeNet 224, VGG16 224, Xception 299,
+   InceptionResNetV1 160, NASNet 224, FaceNetNN4Small2 96, UNet 128 and
+   TinyYOLO 416 at their default widths and compute (bf16), batch 8:
+   captured step == eager step bit for bit, finite losses, output() in
+   the configured shape, a timing line each.  (c) `quantize` of VGG16:
+   output() of 32 images launches B5 exactly 3 times a call, argmax
+   agreement >= 0.99 with the f32 model of the dequantized weights; B5 at
+   (32, 25088, 4096), (32, 4096, 4096), (32, 4096, 1000) against its
+   plain version and cuBLAS.  (d) TinyYOLO's zip registered
+   (`zoo/pretrained.py`): `init_pretrained` gives the same output()
+   bits, and a copy with one byte flipped raises ChecksumMismatchError.
+   (e) `pretrain_layer` of a VAE 784 -> 256 -> 32 on seeded MNIST-shaped
+   rows: finite, falling negative ELBO.  Writes under ``build/zoo/`` and
+   removes it.
+21. report — one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises; nothing is caught on the way to exit 0.
@@ -597,8 +620,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -608,7 +633,7 @@ import time
 
 PHASES = ("kernels", "train", "train_f32", "lenet", "serve", "server", "fleet", "spec",
           "parity", "int8", "quant", "qserve", "ckpt", "attn", "resnet", "etl", "tools", "rnn",
-          "dp", "mp", "samediff")
+          "dp", "mp", "samediff", "zoo")
 EXTRA_PHASES = ("profile", "paged", "stages")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -7326,16 +7351,19 @@ MP_C27_ROUTES = 1e-3
 # convolution's channel gather through the host), 2 steps, Nesterovs at
 # PR 19's 1e-6
 MP_RESNET_ROWS, MP_RESNET_STEPS, MP_RESNET_LR = 8, 2, 1e-6
-# the bf16 runs: warm-up and timed steps (the eager gloo steps take 1-2 s)
-MP_WARMUP, MP_STEPS = 1, 2
-# (a), (b), (f) and (g): the flagship at 4 of its 8 blocks, cut for the
-# script's time limit (at 8 blocks mp ran 254.6-305.4 s and the whole
-# command 1,199.8 s; C27 keeps 8)
-MP_LAYERS = 4
-# (c) EP's MoE flagship: 4 of its 8 blocks (at 8, its 537M expert
+# the bf16 runs: warm-up and timed steps (the eager gloo steps take 1-2 s;
+# 1 timed step, cut for the script's time limit: 2 before)
+MP_WARMUP, MP_STEPS = 1, 1
+# (a), (b), (f) and (g): the flagship at 2 of its 8 blocks (at least one
+# a stage of pipe=n), cut for the script's time limit (at 8 blocks mp ran
+# 254.6-305.4 s and the whole command 1,199.8 s; at 4 the command
+# 1,066.2 s with the zoo phase, on an H100 80GB HBM3; C27 keeps 8)
+MP_LAYERS = 2
+# (c) EP's MoE flagship: 2 of its 8 blocks (at 8, its 537M expert
 # parameters broadcast through gloo at distribute took most of (c)'s
-# 57 s on two ranks sharing one H100 80GB HBM3); C27 keeps all 8
-MP_EP_LAYERS = 4
+# 57 s on two ranks sharing one H100 80GB HBM3; at 4 (c) took 28.1 s);
+# C27 keeps all 8
+MP_EP_LAYERS = 2
 MP_DIR = os.path.join("build", "mp")      # inside the checkout; removed after
 # (f) the pipeline's microbatches a batch: 4 x 2048 ids in 4 microbatches
 # of one row, so each stage runs B1-B3 at BH 8, T 2048
@@ -7382,6 +7410,12 @@ def _moe_routes(torch, model, ids):
     last = acts[-1].float()
     del acts
     return out, last
+
+
+def _mp_layers(n: int) -> int:
+    """The flagship's blocks in a world of n: ``MP_LAYERS``, and at least
+    one a stage of pipe=n."""
+    return max(MP_LAYERS, n)
 
 
 def _mp_conf(bf16, seq_parallel="none", moe=0, sgd=None, layers=MP_LAYERS):
@@ -7637,8 +7671,9 @@ def _mp_rank(zip_path):
         return out
 
     t0 = time.perf_counter()
+    layers = _mp_layers(n)
     # (a) TP: the flagship with model=n, and its zip
-    f32 = _mp_conf(False, sgd=MP_LR)
+    f32 = _mp_conf(False, sgd=MP_LR, layers=layers)
     m, res["tp"] = parity(f32, dict(data=1, model=n))
     ModelSerializer.write_model(m, zip_path)
     if rank == 0:
@@ -7651,17 +7686,18 @@ def _mp_rank(zip_path):
         m.full_params()                 # the gather is a collective
     del m
     free()
-    bf16 = _mp_conf(None)
+    bf16 = _mp_conf(None, layers=layers)
     res["flagship_base"] = baseline(bf16)
     res["tp"]["speed"] = speed(bf16, dict(data=1, model=n))
     res["tp"]["seconds"] = time.perf_counter() - t0
     # (b) SP: Ulysses and ring at 4 x 2048 ids
     for mode in ("ulysses", "ring"):
         t0 = time.perf_counter()
-        m, res[mode] = parity(_mp_conf(False, mode, sgd=MP_LR), dict(data=1, seq=n))
+        m, res[mode] = parity(_mp_conf(False, mode, sgd=MP_LR, layers=layers),
+                              dict(data=1, seq=n))
         del m
         free()
-        res[mode]["speed"] = speed(_mp_conf(None, mode), dict(data=1, seq=n))
+        res[mode]["speed"] = speed(_mp_conf(None, mode, layers=layers), dict(data=1, seq=n))
         res[mode]["seconds"] = time.perf_counter() - t0
     # (c) EP: the MoE flagship with expert=n
     t0 = time.perf_counter()
@@ -7785,7 +7821,7 @@ def phase_mp(torch, np, kernels, timer):
         f"{c['out_rel']:.3e} of max |p|) from the undistributed one's; (token, choice) "
         f"pairs routed otherwise by layer {c['route_diffs']} of {c['pairs']}; dropped share by layer {['%.5f' % x for x in c['drop']]} "
         f"against {['%.5f' % x for x in c['drop_ref']]}; {c['seconds']:.1f}s")
-    m_stage = MP_LAYERS // n
+    m_stage = _mp_layers(n) // n
     pp_want = {"flash_fwd": 2 * m_stage * MP_PP_MICRO * MP_STEPS,
                "flash_bwd_dq": m_stage * MP_PP_MICRO * MP_STEPS,
                "flash_bwd_dkdv": m_stage * MP_PP_MICRO * MP_STEPS}
@@ -7851,7 +7887,8 @@ def phase_mp(torch, np, kernels, timer):
             raise AssertionError(f"mp ({mode}): replicated leaves differ across ranks")
     for mode in ("tp", "ulysses", "ring", "ep"):
         sp = r0[mode]["speed"]
-        want = (0 if mode == "ring" else MP_EP_LAYERS if mode == "ep" else MP_LAYERS) * MP_STEPS
+        want = (0 if mode == "ring" else MP_EP_LAYERS if mode == "ep"
+                else _mp_layers(n)) * MP_STEPS
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
             for w in world:
                 got = w[mode]["speed"]["launches"].get(name, 0)
@@ -7941,9 +7978,10 @@ SD_LR = 2e-5
 SD_STEPS, SD_EAGER = 6, 2
 # (b) the code-built BERT: Adam rate, steps a compute, and its task's ids
 SD_CODE_LR, SD_CODE_STEPS, SD_CODE_IDS = 1e-4, 8, 16
-# (c) the zips: BERT-base widths with 2 of the 12 layers (deflate is
-# single-threaded zlib: ~17 MB/s on the card's host)
-SD_CKPT_LAYERS = 2
+# (c) the zips: BERT-base widths with 1 of the 12 layers (deflate is
+# single-threaded zlib: ~17 MB/s on the card's host; 2 layers before, cut
+# for the script's time limit: the two saves side by side took 27.7 s)
+SD_CKPT_LAYERS = 1
 SD_DIR = os.path.join("build", "samediff")   # inside the checkout; removed after
 # (d) examples/finetune_imported.py's loop graph
 SD_LOOP_B, SD_LOOP_D, SD_LOOP_K, SD_LOOP_TRIPS, SD_LOOP_STEPS = 16, 8, 3, 4, 6
@@ -8308,7 +8346,7 @@ def _sd_resumed(torch, sd, path, feed, tag, kind):
 
 def _sd_zips(torch, np):
     """(c) save and load on the card: the imported graph at BERT-base
-    widths with 2 layers and the code-built BERT cut to 2 blocks, neither
+    widths with 1 layer and the code-built BERT cut to 1 block, neither
     with control flow, so both plain zips, as the JAX package writes
     them.  Each steps, is saved, steps on (`_sd_resumed`).  The two saves
     run in two threads: their deflate is single-threaded zlib, which
@@ -8459,6 +8497,386 @@ def phase_samediff(torch, np, kernels, timer):
     res["kernel_rows"] = res["code"].pop("kernel_rows")
     res["zips"] = _sd_zips(torch, np)
     res["loop"] = _sd_loop(torch, np)
+    return res
+
+
+# -- the zoo (ROADMAP A13, second part) ------------------------------------------
+
+ZOO_DIR = os.path.join("build", "zoo")      # inside the checkout; removed after
+# (a) YOLO2 as the reference ships it: 416 x 416 x 3, 20 VOC classes, 5
+# anchors, a 13 x 13 x 125 head, f32, batch 16
+YOLO_BATCH, YOLO_STEPS, YOLO_GRID = 16, 8, 13
+# (b) every other architecture at its constructor's default input, one
+# batch of 8; (module, class, input side)
+ZOO_BATCH = 8
+ZOO_ARCHS = (("alexnet", "AlexNet", 224), ("darknet", "Darknet19", 224),
+             ("squeezenet", "SqueezeNet", 224), ("vgg", "VGG16", 224),
+             ("xception", "Xception", 299), ("inception_resnet", "InceptionResNetV1", 160),
+             ("nasnet", "NASNet", 224), ("facenet", "FaceNetNN4Small2", 96),
+             ("unet", "UNet", 128), ("yolo", "TinyYOLO", 416))
+ZOO_TIMED = 3                               # captured steps timed a model
+# (c) quantized VGG16's head: output() of 32 images, B5 at its three
+# products (batch, n_in, n_out)
+VGG_Q_BATCH, VGG_Q_CALLS = 32, 2
+VGG_DM_SHAPES = [(VGG_Q_BATCH, 25088, 4096), (VGG_Q_BATCH, 4096, 4096),
+                 (VGG_Q_BATCH, 4096, 1000)]
+# B5 against its plain version, relative to max |plain|: f32 sums of K
+# products in another order, the error growing as sqrt(K) from
+# "dequant_matmul/K4096"'s 2e-5: 2e-5 x sqrt(25088 / 4096) ~ 5e-5
+VGG_DM_TOL = {25088: 5e-5, 4096: TOL["dequant_matmul/K4096"]}
+# (e) a VAE on MNIST-shaped rows: 784 -> 256 -> 32, Bernoulli
+# reconstruction, PRETRAIN_STEPS steps of PRETRAIN_BATCH rows
+PRETRAIN_BATCH, PRETRAIN_STEPS = 128, 20
+
+
+def _zoo_conv_flops(model, batch: int) -> float:
+    """FLOPs of one training step of a graph or sequential model, counted
+    from its convolutions' shapes alone: 2 H_out W_out k_h k_w C_in /
+    groups C_out an image forward, the same for the weight gradient and
+    again for the input gradient, except where the input is the
+    network's (no gradient).  Normalisation, activations, pooling and
+    the loss are not counted."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import Conv2D, Deconv2D, SeparableConv2D
+
+    def convs():
+        if hasattr(model.conf, "layers"):
+            itypes = model._types()
+            for i, (layer, it) in enumerate(zip(model.conf.layers, itypes)):
+                yield layer, it, layer.output_type(it), i == 0
+        else:
+            for node in model._topo:
+                if node.layer is not None:
+                    yield (node.layer, model._layer_itype(node), model._types[node.name],
+                           node.inputs[0] in model.conf.network_inputs)
+
+    total = 0.0
+    for layer, it, ot, first in convs():
+        if not isinstance(layer, (Conv2D, SeparableConv2D, Deconv2D)):
+            continue
+        ho, wo, c_out = ot.shape
+        if isinstance(layer, Conv2D):
+            kh, kw = layer.kernel
+            macs = ho * wo * kh * kw * (it.channels // layer.groups) * c_out
+        elif isinstance(layer, SeparableConv2D):
+            kh, kw = layer.kernel
+            mid = it.channels * layer.depth_multiplier
+            macs = ho * wo * (kh * kw * mid + mid * c_out)
+        elif isinstance(layer, Deconv2D):
+            kh, kw = layer.kernel
+            h, w, c_in = it.shape
+            macs = h * w * kh * kw * c_in * c_out     # each input pixel's window
+        total += 2.0 * macs * (2 if first else 3)
+    return batch * total
+
+
+def _zoo_batch(np, torch, arch, conf, seed, batch):
+    """A seeded batch for an architecture, on the card: images, and
+    one-hot classes, a per-pixel mask (UNet) or `build_targets` grids
+    over 1-4 boxes an image (the YOLO heads)."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.objdetect import build_targets
+
+    r = np.random.default_rng(seed)
+    h, w, c = (conf.input_type if hasattr(conf, "layers") else conf.input_types[0]).shape
+    x = r.random((batch, h, w, c), dtype=np.float32)
+    if arch.NAME == "unet":
+        y = (x[..., :1] > 0.5).astype(np.float32)
+    elif arch.NAME in ("tiny_yolo", "yolo2"):
+        g = h // 32
+        boxes = [[(int(r.integers(0, arch.num_classes)), float(r.uniform(0, g)),
+                   float(r.uniform(0, g)), float(r.uniform(0.5, 6)),
+                   float(r.uniform(0.5, 6))) for _ in range(int(r.integers(1, 5)))]
+                 for _ in range(batch)]
+        y = build_targets(boxes, g, g, arch.anchors, arch.num_classes)
+    else:
+        y = np.eye(arch.num_classes, dtype=np.float32)[r.integers(0, arch.num_classes, batch)]
+    return DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+
+
+def _zoo_out_shape(model):
+    """The output shape the configuration's output type gives."""
+    if hasattr(model.conf, "layers"):
+        last = model.conf.layers[-1]
+        return tuple(last.output_type(model._types()[-1]).shape)
+    return tuple(model._types[model.conf.network_outputs[0]].shape)
+
+
+def _zoo_steps(torch, model, batch, n):
+    """``n`` captured steps on ``batch``: (their losses, ms a step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(n):
+        model.fit_batch(batch)
+        losses.append(model._last_score.clone())
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], (time.perf_counter() - t0) * 1e3 / n
+
+
+def _zoo_yolo2(torch, np):
+    """(a) YOLO2 at 416 x 416, f32, batch 16: captured step == eager
+    step, 8 captured steps on one batch, detections of output()."""
+    from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
+    from deeplearning4j_tpu_torch.nn.conf.objdetect import get_predicted_objects
+    from deeplearning4j_tpu_torch.zoo.yolo import YOLO2
+
+    arch = YOLO2()
+    conf = dataclasses.replace(arch.conf(), bf16_compute=False)
+    model = GraphModel(conf, device="cuda").init()
+    head = model._by_name["yolo"].layer
+    out_shape = _zoo_out_shape(model)
+    want = (YOLO_GRID, YOLO_GRID, len(arch.anchors) * (5 + arch.num_classes))
+    if out_shape != want or arch.num_classes != 20 or len(arch.anchors) != 5:
+        raise AssertionError(f"[zoo] YOLO2 head {out_shape}, want {want}")
+    batch = _zoo_batch(np, torch, arch, conf, 25, YOLO_BATCH)
+    res = {"objects": int(batch.labels[..., 0].sum().item())}
+    # detections of the initialised model (its boxes are still of the
+    # grid's size; a few Adam steps at 1e-3 blow exp(tw) up first)
+    raw = model.output(batch.features)
+    dets = get_predicted_objects(head, raw)
+    model.fit_batch(batch)                          # the step graph captures
+    res["first_loss"] = float(model._last_score)
+    res["compare"] = _captured_vs_eager(torch, model, [batch], "YOLO2 416 f32", phase="zoo")
+    losses, ms = _zoo_steps(torch, model, batch, YOLO_STEPS)
+    flops = _zoo_conv_flops(model, YOLO_BATCH)
+    res.update(losses=losses, step_ms=ms, samples_s=YOLO_BATCH * 1e3 / ms,
+               conv_flops=flops, achieved_flops=flops / (ms / 1e3),
+               mfu=flops / (ms / 1e3) / PEAK_OPS["f32"])
+    res["detections"] = [len(d) for d in dets]
+    res["detection_classes"] = [len({o.class_index for o in d}) for d in dets]
+    log(f"[zoo] (a) YOLO2 416x416x3 f32, batch {YOLO_BATCH}, {res['objects']} boxes "
+        f"through build_targets: {YOLO_STEPS} captured steps on one batch, losses "
+        f"{['%.4f' % v for v in losses]}; {ms:.2f} ms a step, "
+        f"{res['samples_s']:.1f} samples/s; {flops / 1e12:.3f} TFLOP a step counted "
+        f"from the convolutions' shapes, {res['achieved_flops'] / 1e12:.2f} TFLOP/s, "
+        f"MFU {res['mfu']:.4f} of the f32 peak {PEAK_OPS['f32'] / 1e12:.0f} TFLOP/s; "
+        f"detections of the initialised model's output() {tuple(raw.shape)}, an "
+        f"image: {res['detections']}, of {res['detection_classes']} classes")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[zoo] YOLO2: the loss is not finite and falling: {losses}")
+    if tuple(raw.shape) != (YOLO_BATCH,) + want or len(dets) != YOLO_BATCH:
+        raise AssertionError(f"[zoo] YOLO2 output() {tuple(raw.shape)}, {len(dets)} lists")
+    for d in dets:
+        if any(b.confidence > a.confidence for a, b in zip(d, d[1:])):
+            raise AssertionError(f"[zoo] YOLO2 detections not best first: {d}")
+        for i, a in enumerate(d):
+            for b in d[i + 1:]:
+                if a.class_index == b.class_index and _box_iou(a, b) > 0.45:
+                    raise AssertionError(f"[zoo] YOLO2 detections not NMS'd per class: {a}, {b}")
+    del model, raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _box_iou(a, b) -> float:
+    (ax1, ay1), (ax2, ay2) = a.top_left(), a.bottom_right()
+    (bx1, by1), (bx2, by2) = b.top_left(), b.bottom_right()
+    iw = max(min(ax2, bx2) - max(ax1, bx1), 0.0)
+    ih = max(min(ay2, by2) - max(ay1, by1), 0.0)
+    union = a.width * a.height + b.width * b.height - iw * ih
+    return iw * ih / max(union, 1e-9)
+
+
+def _zoo_arch(torch, np, mod, cls, side, seed):
+    """(b) One architecture at its default input: output() of the
+    initialised model in the configured shape, finite; captured step ==
+    eager step from one state, its loss finite; then ``ZOO_TIMED``
+    captured steps timed (their losses logged: the reference's learning
+    rates on random images may diverge within a few steps).  Returns
+    (result, model, zoo entry, batch)."""
+    import importlib
+
+    arch = getattr(importlib.import_module(f"deeplearning4j_tpu_torch.zoo.{mod}"), cls)()
+    if (arch.height, arch.width) != (side, side):
+        raise AssertionError(f"[zoo] {cls}'s default input is {arch.height}, not {side}")
+    model = arch.init_model()
+    batch = _zoo_batch(np, torch, arch, model.conf, seed, ZOO_BATCH)
+    out = model.output(batch.features)
+    want = (ZOO_BATCH,) + _zoo_out_shape(model)
+    model.fit_batch(batch)
+    compare = _captured_vs_eager(torch, model, [batch], f"{cls} {side}", phase="zoo")
+    loss = compare["losses"][0]
+    losses, ms = _zoo_steps(torch, model, batch, ZOO_TIMED)
+    flops = _zoo_conv_flops(model, ZOO_BATCH)
+    res = {"side": side, "params": model.num_params(), "compared_loss": loss,
+           "timed_losses": losses, "identical": compare["identical"], "step_ms": ms,
+           "samples_s": ZOO_BATCH * 1e3 / ms, "conv_flops": flops,
+           "mfu_bf16": flops / (ms / 1e3) / PEAK_OPS["bf16"],
+           "output_shape": list(out.shape), "compute": str(model.compute_dtype)}
+    log(f"[zoo] (b) {cls} {side}x{side}, batch {ZOO_BATCH}, {model.num_params()} "
+        f"parameters, {res['compute']}: {ms:.2f} ms a captured step, "
+        f"{res['samples_s']:.1f} samples/s, {flops / 1e9:.1f} GFLOP a step of "
+        f"convolutions ({res['mfu_bf16']:.4f} of the bf16 peak); the compared "
+        f"step's loss {loss:.4f}, the timed steps' {['%.4g' % v for v in losses]}; "
+        f"output() {tuple(out.shape)}")
+    if not math.isfinite(loss) or tuple(out.shape) != want \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[zoo] {cls}: loss {loss}, output() {tuple(out.shape)} "
+                             f"(want {want}, finite {bool(torch.isfinite(out).all())})")
+    return res, model, arch, batch
+
+
+def _zoo_vgg_quant(torch, np, kernels, timer, model):
+    """(c) `quantize` of VGG16 (``model``, its seeded initial weights,
+    converted in place): output() of 32 images with exactly 3 B5
+    launches a call, argmax agreement with the f32 model of the
+    dequantized weights; B5 at the head's three shapes."""
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.quant import dequantize_tree, quantize
+
+    q = quantize(model, copy=False)
+    twin = SequentialModel(dataclasses.replace(model.conf, bf16_compute=False),
+                           device="cuda").load_params(dequantize_tree(q.params))
+    r = np.random.default_rng(32)
+    x = torch.from_numpy(r.random((VGG_Q_BATCH, 224, 224, 3), dtype=np.float32)).cuda()
+    q.output(x)                                     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ms = []
+    for _ in range(VGG_Q_CALLS):
+        t0 = time.perf_counter()
+        out = q.output(x)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launches()
+    ref = twin.output(x)
+    agree = _argmax_agreement(out, ref)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    want = {"dequant_matmul": 3 * VGG_Q_CALLS}
+    log(f"[zoo] (c) quantized VGG16: output() of {VGG_Q_BATCH} images "
+        f"{['%.2f' % t for t in ms]} ms a call; launches {counts} (want {want}); argmax "
+        f"agreement with the dequantized f32 twin {agree:.5f} (gate {QUANT_AGREEMENT}), "
+        f"max |dp| / max p {rel:.3e}")
+    if counts != want:
+        raise AssertionError(f"[zoo] quantized VGG16 launched {counts}, want {want}")
+    if agree < QUANT_AGREEMENT or not bool(torch.isfinite(out).all()):
+        raise AssertionError("[zoo] quantized VGG16 disagrees with its dequantized twin")
+    res = {"launches": counts, "output_ms": ms, "agreement": agree, "max_dp_rel": rel}
+    del q, twin, out, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = [dm_case(torch, timer, m, k, n) for m, k, n in VGG_DM_SHAPES]
+    for row in rows:
+        row["tol"] = VGG_DM_TOL[row["shape"][1]]
+    res["kernel_rows"] = check_rows("zoo", rows)
+    return res
+
+
+def _zoo_registry(torch, model, arch, batch):
+    """(d) TinyYOLO's zip registered: init_pretrained gives equal
+    outputs; a copy with one byte flipped raises ChecksumMismatchError."""
+    from deeplearning4j_tpu_torch.train.checkpoint import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo.pretrained import (
+        ENV_PRETRAINED_DIR,
+        ChecksumMismatchError,
+        PretrainedRegistry,
+    )
+
+    root = os.path.join(ZOO_DIR, "registry")
+    path = os.path.join(ZOO_DIR, "tiny_yolo.zip")
+    os.makedirs(ZOO_DIR, exist_ok=True)
+    before = os.environ.get(ENV_PRETRAINED_DIR)
+    os.environ[ENV_PRETRAINED_DIR] = root
+    try:
+        t0 = time.perf_counter()
+        ModelSerializer.write_model(model, path, save_updater=False)
+        save_s = time.perf_counter() - t0
+        entry = PretrainedRegistry().register(arch.NAME, "voc", path)
+        t0 = time.perf_counter()
+        back = arch.init_pretrained("voc")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        # bit for bit, NaN included: compare the f32 words
+        same = bool(torch.equal(back.output(batch.features).view(torch.int32),
+                                model.output(batch.features).view(torch.int32)))
+        target = os.path.join(root, entry["file"])
+        data = bytearray(open(target, "rb").read())
+        data[len(data) // 2] ^= 0xFF
+        with open(target, "wb") as f:
+            f.write(bytes(data))
+        try:
+            arch.init_pretrained("voc")
+            rejected = False
+        except ChecksumMismatchError:
+            rejected = True
+    finally:
+        if before is None:
+            os.environ.pop(ENV_PRETRAINED_DIR, None)
+        else:
+            os.environ[ENV_PRETRAINED_DIR] = before
+        shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    res = {"zip_bytes": len(data), "save_s": save_s, "load_s": load_s,
+           "equal_outputs": same, "corrupt_rejected": rejected}
+    log(f"[zoo] (d) registry: TinyYOLO's zip ({len(data)} bytes, saved in {save_s:.2f}s) "
+        f"registered as ({arch.NAME}, voc), sha256 {entry['sha256'][:12]}...; "
+        f"init_pretrained in {load_s:.2f}s, output() equal bit for bit: {same}; a copy "
+        f"with one byte flipped raises ChecksumMismatchError: {rejected}")
+    if not same or not rejected:
+        raise AssertionError(f"[zoo] registry: {res}")
+    return res
+
+
+def _zoo_pretrain(torch, np):
+    """(e) `pretrain_layer` of a VAE 784 -> 256 -> 32 on seeded
+    MNIST-shaped binary rows: the loss is finite and falls."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.sequential import SequentialModel
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.pretrain import VariationalAutoencoder
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(7).updater(Adam(1e-3)).list()
+            .layer(VariationalAutoencoder(n_out=32, encoder_layer_sizes=(256,),
+                                          decoder_layer_sizes=(256,),
+                                          reconstruction_distribution="bernoulli"))
+            .layer(OutputLayer(n_out=10))
+            .set_input_type(InputType.feed_forward(784)).build())
+    model = SequentialModel(conf, device="cuda").init()
+    r = np.random.default_rng(784)
+    protos = r.random((10, 784)) < 0.2               # ten digit-like prototypes
+    rows = protos[r.integers(0, 10, PRETRAIN_BATCH * PRETRAIN_STEPS)]
+    rows = (rows ^ (r.random(rows.shape) < 0.05)).astype(np.float32)
+    labels = np.zeros((len(rows), 10), np.float32)
+    batches = [DataSet(torch.from_numpy(rows[i:i + PRETRAIN_BATCH]).cuda(),
+                       torch.from_numpy(labels[i:i + PRETRAIN_BATCH]).cuda())
+               for i in range(0, len(rows), PRETRAIN_BATCH)]
+    t0 = time.perf_counter()
+    first = model.pretrain_layer(0, batches[:1])
+    last = model.pretrain_layer(0, batches)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    log(f"[zoo] (e) VAE 784 -> 256 -> 32 pretrain_layer on {PRETRAIN_STEPS} batches of "
+        f"{PRETRAIN_BATCH} MNIST-shaped rows: negative ELBO {first:.3f} at the first "
+        f"step, {last:.3f} at the last ({s:.2f}s)")
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        raise AssertionError(f"[zoo] VAE pretraining: {first} then {last}")
+    return {"first": first, "last": last, "seconds": s}
+
+
+def phase_zoo(torch, np, kernels, timer):
+    """The zoo (ROADMAP A13, second part): (a) YOLO2 trained at full
+    width, (b) every other architecture at its default input, (c)
+    quantized VGG16's head through B5, (d) the pretrained registry, (e)
+    VAE pretraining."""
+    res = {"yolo2": _zoo_yolo2(torch, np), "archs": {}}
+    for seed, (mod, cls, side) in enumerate(ZOO_ARCHS):
+        out, model, arch, batch = _zoo_arch(torch, np, mod, cls, side, seed)
+        res["archs"][cls] = out
+        if cls == "TinyYOLO":
+            res["registry"] = _zoo_registry(torch, model, arch, batch)
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cls == "VGG16":
+            res["vgg16_quant"] = _zoo_vgg_quant(torch, np, kernels, timer,
+                                                arch.init_model())
+            res["kernel_rows"] = res["vgg16_quant"].pop("kernel_rows")
+    res["pretrain"] = _zoo_pretrain(torch, np)
     return res
 
 
@@ -8622,6 +9040,10 @@ def main(argv=None) -> int:
         report["samediff"] = phase_samediff(torch, np, kernels, timer)
         rows = rows + report["samediff"]["kernel_rows"]
         done("samediff")
+    if "zoo" in phases:
+        report["zoo"] = phase_zoo(torch, np, kernels, timer)
+        rows = rows + report["zoo"]["kernel_rows"]
+        done("zoo")
 
     entries = []
     def row(name, dtype="bf16", t=None, shape=None, causal=True, mix=None, among=None):
@@ -8734,7 +9156,10 @@ def main(argv=None) -> int:
         (row(name, dtype=kind, causal=False,
              shape=[SD_BATCH * SD_HEADS, SD_SEQ, SD_D // SD_HEADS],
              among=report.get("samediff", {}).get("kernel_rows", [])), f"samediff/code/{kind}")
-        for kind in ("bf16", "f32") for name in FLASH_NAMES]
+        for kind in ("bf16", "f32") for name in FLASH_NAMES] + [
+        # the zoo: quantized VGG16's three head products over 32 images
+        (row("dequant_matmul", dtype="int8", shape=[m, k, n]), "zoo/vgg16_quant")
+        for m, k, n in VGG_DM_SHAPES]
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/flash_attention.py:35"),

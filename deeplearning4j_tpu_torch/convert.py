@@ -14,7 +14,17 @@ The JAX model's parameters are a nested dict keyed by layer name::
 
 (a `SelfAttentionLayer` holds ``Wq``, ``Wk``, ``Wv``, ``Wo`` at its top
 level, none without ``project_input``; a `LearnedSelfAttentionLayer`
-``Q``, ``Wk``, ``Wv``, ``Wo``; `GlobalPooling` nothing).  A `GraphModel`'s
+``Q``, ``Wk``, ``Wv``, ``Wo``; `GlobalPooling` nothing).  The long
+tail's layers keep the JAX trees too: `SeparableConv2D` ``{"depthW"
+(kh, kw, 1, C m), "pointW" (1, 1, C m, n_out), "b"}``, `Deconv2D` ``{"W"
+(kh, kw, C, n_out), "b"}`` (HWIO, unflipped), `CenterLossOutputLayer`
+``{"W", "b", "centers" (classes, n_in)}``, `AutoEncoder` ``{"W", "b",
+"vb"}`` and `VariationalAutoencoder` ``{"enc": {"W0", "b0", ...},
+"W_mu", "b_mu", "W_lv", "b_lv", "dec": {...}, "W_out", "b_out"}`` (with
+``W_out_lv``, ``b_out_lv`` for a Gaussian reconstruction); the
+parameterless ones (`LossLayer`, `ScaleShift`, `SpaceToDepth`,
+`Upsampling2D`, `LocalResponseNormalization`, `Yolo2OutputLayer`) hold
+nothing.  A `GraphModel`'s
 tree is keyed by each node's ``param_key`` (its name unless shared), an
 `AttentionVertex` holding ``Wq``, ``Wk``, ``Wv``, ``Wo``; its BatchNorm
 state under the same keys.

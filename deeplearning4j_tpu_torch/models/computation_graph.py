@@ -43,8 +43,11 @@ its features mask is dropped: a graph step takes none).  A grouped fit
 (``steps_per_execution`` > 1) and a graph of several inputs or outputs
 keep host transforms, the reason logged and counted.
 
-Not ported yet, raising where it is asked for: layerwise pretraining
-(A13).
+Layerwise pretraining (`pretrain`, `pretrain_layer`) trains an
+`AutoEncoder` or `VariationalAutoencoder` node on its ancestors'
+inference-mode output (`Model._pretrain_steps`).  A head with its own
+parameterless loss (`Yolo2OutputLayer.compute_loss`) is an output like
+any other; ``output()`` returns its raw grid.
 """
 
 from __future__ import annotations
@@ -110,15 +113,20 @@ class GraphModel(Model):
     # -- construction ------------------------------------------------------
     def _resolve_outputs(self) -> list:
         """(loss, activation, fused, custom) for each network output, in
-        declared order; ``custom`` is a head's own loss
-        (``compute_loss_with_params``), which takes its node's
-        parameters."""
+        declared order; ``custom`` is a head's own loss, called with its
+        node's parameters (``compute_loss_with_params``, or
+        ``compute_loss``, which ignores them)."""
         specs = []
         for out in self.conf.network_outputs:
             layer = self._by_name[out].layer
             if layer is not None and hasattr(layer, "compute_loss_with_params"):
                 specs.append((None, Activation.IDENTITY, False,
                               layer.compute_loss_with_params))
+                continue
+            if layer is not None and hasattr(layer, "compute_loss"):
+                # a parameterless head's own loss (Yolo2OutputLayer)
+                specs.append((None, Activation.IDENTITY, False,
+                              lambda lp, out, lab, m, fn=layer.compute_loss: fn(out, lab, m)))
                 continue
             if layer is None or not hasattr(layer, "loss"):
                 raise ValueError(f"network output {out!r} must be an OutputLayer/"
@@ -134,7 +142,7 @@ class GraphModel(Model):
         return t
 
     @torch.no_grad()
-    def init(self) -> "GraphModel":
+    def _initial_trees(self) -> tuple[dict, dict]:
         """Random weights from ``conf.seed`` on the model's device (the
         JAX package's, bit for bit), and the layers' initial state; a
         shared ``param_key`` initialises once."""
@@ -155,9 +163,7 @@ class GraphModel(Model):
                 params[node.pkey] = p
             if s:
                 state[node.pkey] = s
-        self._install(params)
-        self.net_state = state
-        return self
+        return params, state
 
     # -- the forward -------------------------------------------------------
     def _layer_keys(self, step: int) -> list:
@@ -175,11 +181,13 @@ class GraphModel(Model):
         with self.mesh_scope(params):
             return self._run_nodes(params, net_state, features, training, keys)
 
-    def _run_nodes(self, params, net_state, features, training, keys):
+    def _run_nodes(self, params, net_state, features, training, keys, stop=None):
+        """The walk of `_forward`.  With ``stop``, it ends before node
+        ``stop`` of the order and returns the activations still live."""
         acts = {name: entry_cast(as_tensor(x, self.device), self.compute_dtype)
                 for name, x in zip(self.conf.network_inputs, features)}
         new_state = {}
-        for i, node in enumerate(self._topo):
+        for i, node in enumerate(self._topo[:stop]):
             xs = [acts[n] for n in node.inputs]
             key = keys[i] if keys is not None else None
             if node.layer is not None:
@@ -199,6 +207,8 @@ class GraphModel(Model):
             acts[node.name] = y
             for name in self._free_after[i]:
                 del acts[name]
+        if stop is not None:
+            return acts
         return [acts[o] for o in self.conf.network_outputs], new_state
 
     def _outputs_loss(self, params: dict, outs, labels, lmasks):
@@ -313,15 +323,46 @@ class GraphModel(Model):
         reg, aux = dp_context.replica_share(self._reg_loss(params), aux)
         return data + reg + aux, new_state
 
+    # -- layerwise unsupervised pretraining --------------------------------
     def pretrain(self, data, epochs: int = 1) -> None:
-        raise NotImplementedError(
-            "layerwise pretraining is not ported yet (ROADMAP A13: "
-            "AutoEncoder / VariationalAutoencoder)")
+        """Greedy layerwise pretraining in topological order
+        (ComputationGraph.pretrain)."""
+        for node in self._topo:
+            if node.layer is not None and getattr(node.layer, "PRETRAINABLE", False):
+                self.pretrain_layer(node.name, data, epochs=epochs)
 
     def pretrain_layer(self, name: str, data, epochs: int = 1) -> float:
-        raise NotImplementedError(
-            "layerwise pretraining is not ported yet (ROADMAP A13: "
-            "AutoEncoder / VariationalAutoencoder)")
+        """Pretrain the layer node ``name`` (ComputationGraph.pretrainLayer):
+        its ancestors in inference mode, then its ``pretrain_loss`` on its
+        own parameters (`Model._pretrain_steps`).  Returns the last
+        loss."""
+        if self.params is None:
+            self.init()
+        if name not in self._by_name:
+            raise KeyError(f"no layer node named {name!r}")
+        node = self._by_name[name]
+        layer = node.layer
+        if layer is None or not getattr(layer, "PRETRAINABLE", False):
+            raise ValueError(
+                f"node {name!r} is not pretrainable; only AutoEncoder/"
+                "VariationalAutoencoder layers support unsupervised "
+                "pretraining")
+        stop = next(i for i, n in enumerate(self._topo) if n.name == name)
+
+        def prefix(batch):
+            """The topological walk up to ``name``'s input, inference mode."""
+            params = self.compute_params()
+            with self.mesh_scope(params):
+                acts = self._run_nodes(params, self.net_state,
+                                       self._as_mds(batch).features, False, None,
+                                       stop=stop)
+            x = acts[node.inputs[0]]
+            return x.reshape(x.shape[0], -1) if self._flatten[name] else x
+
+        batches = self._as_iterator(data)
+        if epochs > 1 and not hasattr(batches, "reset"):
+            batches = list(batches)       # a generator would end after one epoch
+        return self._pretrain_steps(node.pkey, layer, prefix, batches, epochs)
 
     # -- inference ---------------------------------------------------------
     @torch.no_grad()

@@ -855,6 +855,15 @@ class Model(nn.Module):
             return torch.bfloat16
         return torch.float32
 
+    @torch.no_grad()
+    def init(self):
+        """Random weights from ``conf.seed`` and the layers' initial state
+        (`_initial_trees`)."""
+        params, state = self._initial_trees()
+        self._install(params)
+        self.net_state = state
+        return self
+
     @property
     def params(self):
         """The parameter tree: f32 tensors, and `QuantizedTensor` leaves
@@ -869,10 +878,21 @@ class Model(nn.Module):
         and shape for shape against what `init` would create.  A leaf
         with ``.q`` and ``.scale`` arrays (a `QuantizedTensor`, or the
         JAX package's after ``jax.tree.map(np.asarray, ...)``) is
-        installed bit for bit as an int8 weight and its f32 scales."""
-        if self.params is None:
-            self.init()
-        self._install(self._checked(self.params, tree, quantized_ok=True))
+        installed bit for bit as an int8 weight and its f32 scales.  A
+        model not yet initialised draws no random weights first: its
+        parameters' names and shapes come from `_initial_trees` under
+        `nn/weights.py` `skip_draws`, and it takes the initial layer
+        state only once ``tree`` has passed the check."""
+        if self.params is not None:
+            self._install(self._checked(self.params, tree, quantized_ok=True))
+            return self
+        from deeplearning4j_tpu_torch.nn.weights import skip_draws
+
+        with skip_draws():
+            shapes, state = self._initial_trees()
+        tree = self._checked(shapes, tree, quantized_ok=True)
+        self.net_state = state
+        self._install(tree)
         return self
 
     @torch.no_grad()
@@ -1124,6 +1144,48 @@ class Model(nn.Module):
             for p, u in zip(plist, updates):
                 p.add_(u.to(p.dtype))
         return opt_state
+
+    # -- layerwise unsupervised pretraining ----------------------------------------
+    def _pretrain_steps(self, name: str, layer, prefix, batches, epochs: int) -> float:
+        """Pretrain layer ``layer`` (parameters ``self.params[name]``) on
+        ``batches`` (restarted each epoch where it has ``reset``): the
+        prefix runs in inference mode (``prefix(batch) -> its input``,
+        from the batch's features), the layer's ``pretrain_loss``
+        is differentiated for its own leaves alone, and a fresh updater
+        of the configuration's kind steps them in place; nothing else
+        moves.  Step i's key is ``fold(root, i)``, i counted from 0 in
+        each call, as the JAX package's `pretrain_layer` counts.  Returns
+        the last loss."""
+        from deeplearning4j_tpu_torch.nn.updaters import with_gradient_clipping
+        from deeplearning4j_tpu_torch.runtime import rng
+
+        conf = self.conf
+        tx = with_gradient_clipping(conf.updater.to_tx(conf.steps_per_epoch),
+                                    conf.gradient_clip_value, conf.gradient_clip_norm)
+        lp = self.params[name]
+        plist = tree_leaves(lp)
+        opt_state = tx.init(plist)
+        loss, step = float("nan"), 0
+        for _ in range(epochs):
+            for batch in batches:
+                with torch.no_grad():
+                    x = prefix(batch).float()
+                key = rng.SeedStream.fold(self._stream.root, step)
+                with torch.enable_grad():
+                    value = layer.pretrain_loss(lp, x, key)
+                    grads = torch.autograd.grad(value, plist, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(plist, grads)]
+                updates, opt_state = tx.update(grads, opt_state, plist)
+                with torch.no_grad():
+                    for p, u in zip(plist, updates):
+                        p.add_(u.to(p.dtype))
+                loss = value.detach()
+                step += 1
+            if hasattr(batches, "reset"):
+                batches.reset()
+        self._compute = None       # output() reads the new weights
+        return float(loss)
 
     # -- data parallelism ---------------------------------------------------------
     def mesh_scope(self, *trees):

@@ -179,6 +179,13 @@ def check_schedule(schedule: str) -> None:
                          "'gpipe', '1f1b'")
 
 
+def _owns_loss(layer) -> bool:
+    """A head that computes its own loss (`CenterLossOutputLayer`'s
+    ``compute_loss_with_params``, `Yolo2OutputLayer`'s ``compute_loss``):
+    it has no ``loss`` enum, and ``output()`` applies no activation."""
+    return hasattr(layer, "compute_loss_with_params") or hasattr(layer, "compute_loss")
+
+
 def _as_iterator(data, batch_size: int | None) -> DataSetIterator:
     if isinstance(data, DataSetIterator):
         return data
@@ -273,7 +280,7 @@ class SequentialModel(Model):
         return self._itypes
 
     @torch.no_grad()
-    def init(self) -> "SequentialModel":
+    def _initial_trees(self) -> tuple[dict, dict]:
         """Random weights from ``conf.seed``, drawn on the model's device
         (the JAX package's, bit for bit), and the layers' initial state."""
         tree, state = {}, {}
@@ -284,9 +291,7 @@ class SequentialModel(Model):
                 tree[layer.name] = p
             if s:
                 state[layer.name] = s
-        self._install(tree)
-        self.net_state = state
-        return self
+        return tree, state
 
     def _layer_keys(self, step: int) -> list:
         """The dropout keys of step ``step``: layer i's is
@@ -425,7 +430,7 @@ class SequentialModel(Model):
         output layer's activation (its loss's canonical one by default);
         nothing for a head that owns its loss."""
         last = self.conf.layers[-1]
-        if hasattr(last, "compute_loss_with_params") or not hasattr(last, "loss"):
+        if _owns_loss(last) or not hasattr(last, "loss"):
             return Activation.IDENTITY
         return resolve_output_spec(last)[1]
 
@@ -501,6 +506,8 @@ class SequentialModel(Model):
         if hasattr(last, "compute_loss_with_params"):
             return last.compute_loss_with_params(params.get(last.name, {}), out,
                                                  labels, lmask)
+        if hasattr(last, "compute_loss"):
+            return last.compute_loss(out, labels, lmask)
         loss, act, fused = resolve_output_spec(last)
         if not fused:
             out = act(out.float())
@@ -549,8 +556,45 @@ class SequentialModel(Model):
 
     def _check_trainable(self) -> None:
         last = self.conf.layers[-1]
-        if not hasattr(last, "compute_loss_with_params"):
+        if not _owns_loss(last):
             resolve_output_spec(last)
+
+    # -- layerwise unsupervised pretraining --------------------------------
+    def pretrain(self, data, epochs: int = 1, batch_size: int | None = None) -> None:
+        """Greedy layerwise pretraining (MultiLayerNetwork.pretrain): each
+        ``PRETRAINABLE`` layer (`nn/conf/pretrain.py`) in stack order, on
+        the features alone."""
+        for i, layer in enumerate(self.conf.layers):
+            if getattr(layer, "PRETRAINABLE", False):
+                self.pretrain_layer(i, data, epochs=epochs, batch_size=batch_size)
+
+    def pretrain_layer(self, index: int, data, epochs: int = 1,
+                       batch_size: int | None = None) -> float:
+        """Pretrain layer ``index`` (MultiLayerNetwork.pretrainLayer): the
+        layers before it in inference mode, then its ``pretrain_loss`` on
+        its own parameters (`Model._pretrain_steps`).  Returns the last
+        loss."""
+        if self.params is None:
+            self.init()
+        layer = self.conf.layers[index]
+        if not getattr(layer, "PRETRAINABLE", False):
+            raise ValueError(
+                f"layer {index} ({type(layer).__name__}) is not pretrainable; "
+                "only AutoEncoder/VariationalAutoencoder layers support "
+                "unsupervised pretraining")
+        flatten = self._flatten_before or [False] * (index + 1)
+
+        def prefix(batch):
+            x = entry_cast(as_tensor(batch.features, self.device), self.compute_dtype)
+            params = self.compute_params()
+            with self.mesh_scope(params):
+                for _, x, _, _ in self._layer_outputs(params, self.net_state, x,
+                                                      fuse=False, hi=index):
+                    pass
+            return x.reshape(x.shape[0], -1) if flatten[index] else x
+
+        return self._pretrain_steps(layer.name, layer, prefix,
+                                    _as_iterator(data, batch_size), epochs)
 
     @staticmethod
     def _as_iterator(data, batch_size: int | None) -> DataSetIterator:

@@ -171,15 +171,15 @@ class LayerConfig:
 # Feed-forward layers
 # ---------------------------------------------------------------------------
 
-def split_region(layer, params, x, fn):
+def split_region(layer, params, x, fn, leaf: str = "W"):
     """``fn(x)`` on this rank's output-feature slice of the layer's
-    weights, made the whole function under the model axis: the input
-    enters by `collectives.copy_to` (its gradient summed over the
-    axis) and the output slices are gathered on the last dim (NHWC's
-    channels, a dense layer's features)."""
+    weights (``params[leaf]``), made the whole function under the model
+    axis: the input enters by `collectives.copy_to` (its gradient summed
+    over the axis) and the output slices are gathered on the last dim
+    (NHWC's channels, a dense layer's features)."""
     from deeplearning4j_tpu_torch.parallel import collectives
 
-    if leaf_axis(params["W"]) != "model":
+    if leaf_axis(params[leaf]) != "model":
         return fn(x)
     y = fn(collectives.copy_to(x, "model"))
     return collectives.gather(y, -1, "model")
@@ -244,6 +244,19 @@ class OutputLayer(Dense):
 
 @serde.register
 @dataclasses.dataclass(frozen=True)
+class LossLayer(LayerConfig):
+    """Parameterless output: a loss attached to whatever precedes it."""
+
+    loss: Loss = Loss.MCXENT
+    HAS_PARAMS = False
+    REGULARIZED = ()
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        return x, state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
 class ActivationLayer(LayerConfig):
     HAS_PARAMS = False
     SEQ_LOCAL = True
@@ -262,6 +275,31 @@ class ActivationLayer(LayerConfig):
                 return torch.where(x > 0, x, a * torch.expm1(
                     torch.where(x > 0, 0.0, x))), state
         return self._act()(x), state
+
+
+def _scalar(v: float, x: torch.Tensor) -> torch.Tensor:
+    """``jnp.asarray(v, x.dtype)`` on x's device, made there (no
+    host-to-device copy inside a captured step)."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class ScaleShift(LayerConfig):
+    """Fixed elementwise ``x * scale + shift`` (the ScaleVertex role as a
+    sequential layer), the constants taken in x's dtype as the JAX
+    package takes them."""
+
+    SEQ_LOCAL = True
+
+    scale: float = 1.0
+    shift: float = 0.0
+    HAS_PARAMS = False
+    REGULARIZED = ()
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        y = x * _scalar(self.scale, x) + _scalar(self.shift, x)
+        return self._act()(y), state
 
 
 @serde.register
@@ -383,6 +421,106 @@ class Conv2D(LayerConfig):
 
 @serde.register
 @dataclasses.dataclass(frozen=True)
+class SeparableConv2D(LayerConfig):
+    """Depthwise then pointwise convolution (SeparableConvolution2D
+    role): a convolution of ``C_in`` groups over ``depthW`` (kh, kw, 1,
+    C_in m), whose output channel o belongs to input channel o // m,
+    then a 1 x 1 convolution over ``pointW`` (1, 1, C_in m, n_out)."""
+
+    n_out: int = 0
+    kernel: tuple[int, int] = (3, 3)
+    stride: tuple[int, int] = (1, 1)
+    padding: str = "valid"
+    depth_multiplier: int = 1
+    has_bias: bool = True
+
+    EXPECTS = "cnn"
+    REGULARIZED = ("depthW", "pointW")
+
+    def output_type(self, itype):
+        h, w, _ = itype.shape
+        oh, ow = Conv2D(n_out=self.n_out, kernel=self.kernel, stride=self.stride,
+                        padding=self.padding)._out_hw(h, w)
+        return InputType.convolutional(oh, ow, self.n_out)
+
+    def init(self, key, itype, device):
+        c_in, m = itype.channels, self.depth_multiplier
+        kh, kw = conv_ops.pair(self.kernel)
+        k1, k2 = rng_mod.split(key)
+        wi = self._winit(WeightInit.RELU)
+        p = {"depthW": wi.init(k1, (kh, kw, 1, c_in * m), fan_in=kh * kw, fan_out=m,
+                               device=device),
+             "pointW": wi.init(k2, (1, 1, c_in * m, self.n_out), fan_in=c_in * m,
+                               fan_out=self.n_out, device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros(self.n_out, device=device)
+        return p, {}
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        x = _dropout(x, self.dropout_rate or 0.0, training, rng)
+        y = conv_ops.conv2d_nhwc(x, quantf.conv_weight(params["depthW"], x.dtype),
+                                 stride=self.stride, padding=self.padding,
+                                 groups=x.shape[-1])
+
+        def fn(y):
+            y = conv_ops.conv2d_nhwc(y, quantf.conv_weight(params["pointW"], x.dtype))
+            if self.has_bias:
+                y = y + params["b"].to(x.dtype)
+            return y
+
+        return self._act()(split_region(self, params, y, fn, "pointW")), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class Deconv2D(LayerConfig):
+    """Transposed convolution (Deconvolution2D role): JAX's
+    ``lax.conv_transpose`` (`ops/conv.py` `conv_transpose2d_nhwc`)."""
+
+    n_out: int = 0
+    kernel: tuple[int, int] = (2, 2)
+    stride: tuple[int, int] = (2, 2)
+    padding: str = "valid"
+    has_bias: bool = True
+
+    EXPECTS = "cnn"
+
+    def output_type(self, itype):
+        h, w, _ = itype.shape
+        kh, kw = conv_ops.pair(self.kernel)
+        sh, sw = conv_ops.pair(self.stride)
+        if self.padding == "same":
+            oh, ow = h * sh, w * sw
+        else:
+            oh, ow = h * sh + max(kh - sh, 0), w * sw + max(kw - sw, 0)
+        return InputType.convolutional(oh, ow, self.n_out)
+
+    def init(self, key, itype, device):
+        c_in = itype.channels
+        kh, kw = conv_ops.pair(self.kernel)
+        p = {"W": self._winit(WeightInit.RELU).init(
+            key, (kh, kw, c_in, self.n_out), fan_in=kh * kw * c_in,
+            fan_out=kh * kw * self.n_out, device=device)}
+        if self.has_bias:
+            p["b"] = torch.zeros(self.n_out, device=device)
+        return p, {}
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        x = _dropout(x, self.dropout_rate or 0.0, training, rng)
+
+        def fn(x):
+            y = conv_ops.conv_transpose2d_nhwc(
+                x, quantf.conv_weight(params["W"], x.dtype), stride=self.stride,
+                padding=self.padding)
+            if self.has_bias:
+                y = y + params["b"].to(x.dtype)
+            return y
+
+        return self._act()(split_region(self, params, x, fn)), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
 class Subsampling(LayerConfig):
     """Pooling layer (SubsamplingLayer role)."""
 
@@ -414,6 +552,32 @@ class Subsampling(LayerConfig):
 
 @serde.register
 @dataclasses.dataclass(frozen=True)
+class SpaceToDepth(LayerConfig):
+    """Space to depth (SpaceToDepthLayer role; YOLO2's passthrough): (B,
+    H, W, C) -> (B, H / b, W / b, C b^2), channels in the JAX package's
+    (bi, bj, c) order (not `F.pixel_unshuffle`'s (c, bi, bj))."""
+
+    block: int = 2
+    EXPECTS = "cnn"
+    HAS_PARAMS = False
+    REGULARIZED = ()
+
+    def output_type(self, itype):
+        h, w, c = itype.shape
+        b = self.block
+        if h % b or w % b:
+            raise ValueError(f"spatial dims ({h},{w}) not divisible by block {b}")
+        return InputType.convolutional(h // b, w // b, c * b * b)
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        n, h, w, c = x.shape
+        b = self.block
+        y = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+        return y.reshape(n, h // b, w // b, c * b * b), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
 class ZeroPadding2D(LayerConfig):
     """Zeros around (B, H, W, C) maps: (top, bottom, left, right)."""
 
@@ -430,6 +594,26 @@ class ZeroPadding2D(LayerConfig):
     def apply(self, params, state, x, *, training=False, rng=None):
         t, b, l, r = self.padding
         return torch.nn.functional.pad(x, (0, 0, l, r, t, b)), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class Upsampling2D(LayerConfig):
+    """Nearest-neighbour upsampling: each row repeated ``size[0]`` times,
+    then each column ``size[1]`` times."""
+
+    size: tuple[int, int] = (2, 2)
+    EXPECTS = "cnn"
+    HAS_PARAMS = False
+    REGULARIZED = ()
+
+    def output_type(self, itype):
+        h, w, c = itype.shape
+        return InputType.convolutional(h * self.size[0], w * self.size[1], c)
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        y = x.repeat_interleave(self.size[0], dim=1)
+        return y.repeat_interleave(self.size[1], dim=2), state
 
 
 @serde.register
@@ -562,6 +746,88 @@ class LayerNorm(LayerConfig):
 
     def apply(self, params, state, x, *, training=False, rng=None):
         return self._act()(layer_norm(params, x, self.epsilon)), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class LocalResponseNormalization(LayerConfig):
+    """LRN role (AlexNet's): ``x / (k + alpha sum x^2)^beta``, the sum over
+    a window of ``n`` channels zero-padded by ``n // 2`` each side, in
+    f32.  (`F.local_response_norm` divides alpha by n: another
+    function.)"""
+
+    SEQ_LOCAL = True
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+    EXPECTS = "cnn"
+    HAS_PARAMS = False
+    REGULARIZED = ()
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        xf = x.float()
+        c, half = x.shape[-1], self.n // 2
+        padded = torch.nn.functional.pad(xf * xf, (half, half))
+        s = 0
+        for i in range(self.n):
+            s = s + padded[..., i:i + c]
+        y = xf / (self.k + self.alpha * s) ** self.beta
+        return y.to(x.dtype), state
+
+
+@serde.register
+@dataclasses.dataclass(frozen=True)
+class CenterLossOutputLayer(LayerConfig):
+    """Softmax and center loss output (CenterLossOutputLayer role, the
+    FaceNetNN4Small2 head): the cross-entropy separates the classes while
+    a center term pulls each embedding toward its class center.  The
+    centers are trained parameters; ``alpha`` scales only the gradient
+    that reaches them.  ``apply`` returns ``concat([logits, x])``
+    (`split_output` separates the halves)."""
+
+    n_out: int = 0            # number of classes
+    alpha: float = 0.1        # the centers' learning-rate multiplier
+    lambda_coeff: float = 2e-4  # weight of the center term
+    has_bias: bool = True
+
+    EXPECTS = "ff"
+
+    def output_type(self, itype):
+        return InputType.feed_forward(self.n_out + itype.size)
+
+    def init(self, key, itype, device):
+        n_in = itype.size
+        p = _dense_init(self, key, n_in, device)
+        p["centers"] = torch.zeros((self.n_out, n_in), device=device)
+        return p, {}
+
+    def apply(self, params, state, x, *, training=False, rng=None):
+        x = _dropout(x, self.dropout_rate or 0.0, training, rng)
+        return torch.cat([_dense(self, params, x), x], dim=-1), state
+
+    def split_output(self, out):
+        """(logits, embedding) halves of ``apply``'s output."""
+        return out[..., :self.n_out], out[..., self.n_out:]
+
+    def evaluation_output(self, lp, out):
+        """Class probabilities for `Evaluation` (an argmax over the whole
+        output would land in the embedding half)."""
+        return torch.softmax(self.split_output(out)[0].float(), dim=-1)
+
+    def compute_loss_with_params(self, lp, preds, labels, mask=None):
+        logits, emb = self.split_output(preds.float())
+        labels = labels.float()
+        per = -(labels * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
+        centers = lp["centers"]
+        centers = centers * self.alpha + centers.detach() * (1 - self.alpha)
+        c = labels @ centers.float()
+        per = per + self.lambda_coeff * (0.5 * ((emb - c) ** 2).sum(dim=-1))
+        if mask is not None:
+            m = mask.float()
+            return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+        return per.mean()
 
 
 @serde.register

@@ -6,17 +6,38 @@ bit for bit, on the CPU and on the card.  The one exception is
 ORTHOGONAL, whose QR factorisation (LAPACK on one side, PyTorch's on
 the other) is not reproducible across libraries; it agrees to rounding.
 Fan-in and fan-out come from the shape as `_fans` derives them.
+
+Inside `skip_draws` (a thread's own setting) every scheme returns an
+uninitialised tensor of its shape: a model that is about to be loaded
+whole (`Model.load_params`) needs its tree's names and shapes, not its
+random weights.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import math
+import threading
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.runtime import rng
+
+
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def skip_draws():
+    """`WeightInit.init` draws nothing in this thread while open."""
+    before = getattr(_LOCAL, "skip", False)
+    _LOCAL.skip = True
+    try:
+        yield
+    finally:
+        _LOCAL.skip = before
 
 
 class WeightInit(str, enum.Enum):
@@ -40,6 +61,8 @@ class WeightInit(str, enum.Enum):
         """f32 weights of ``shape`` drawn with ``key`` (a 2-word threefry
         key) on ``device``."""
         shape = tuple(int(s) for s in shape)
+        if getattr(_LOCAL, "skip", False):
+            return torch.empty(shape, dtype=torch.float32, device=device)
         if fan_in is None or fan_out is None:
             fi, fo = _fans(shape)
             fan_in = fan_in if fan_in is not None else fi

@@ -35,6 +35,16 @@ restores, and each restores the flags it found.  A thread that sets
 the flags itself, or runs a convolution of its own, while a window is
 open is not covered: it sees the window's flags meanwhile.
 
+Transposed convolution.  ``lax.conv_transpose`` (``transpose_kernel``
+False, the JAX package's `Deconv2D`) correlates the stride-dilated map,
+padded by its own (before, after) pads, with the HWIO kernel as it is.
+That is PyTorch's transposed convolution with the kernel flipped in both
+spatial axes, laid out (I, O, kh, kw), and then a window of the full
+``(h - 1) s + k`` result: it starts ``k - 1 - before`` in, and where the
+JAX output runs past the full result's end (a kernel smaller than its
+stride) the rows past it carry nothing but the bias, which
+``output_padding`` adds.
+
 Ties.  The gradient of a max window goes to its first largest element
 in row-major window order: XLA's ``select_and_scatter`` with ``ge``
 keeps the earlier element on a tie, and PyTorch's max pooling keeps the
@@ -103,27 +113,35 @@ _LAST = {2: torch.channels_last, 3: torch.channels_last_3d}
 
 
 class ConvChannelsLast(torch.autograd.Function):
-    """``F.conv{1,2,3}d`` on channels-first views of channels-last memory,
-    with its forward and backward each under `_exact`."""
+    """``F.conv{1,2,3}d`` (or, with ``output_padding``, the transposed
+    convolution) on channels-first views of channels-last memory, with
+    its forward and backward each under `_exact`."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, groups):
+    def forward(ctx, x, w, stride, padding, dilation, groups, output_padding=None):
         with _exact(x.device):
-            y = _CONV[x.dim() - 2](x, w, None, stride, padding, dilation, groups)
+            if output_padding is None:
+                y = _CONV[x.dim() - 2](x, w, None, stride, padding, dilation, groups)
+            else:
+                y = torch.ops.aten.convolution(x, w, None, list(stride), list(padding),
+                                               list(dilation), True,
+                                               list(output_padding), groups)
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, padding, dilation, groups)
+        ctx.conf = (stride, padding, dilation, groups, output_padding)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        stride, padding, dilation, groups = ctx.conf
+        stride, padding, dilation, groups, output_padding = ctx.conf
+        transposed = output_padding is not None
         mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
         with _exact(x.device):
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 g, x, w, None, list(stride), list(padding), list(dilation),
-                False, [0] * len(stride), groups, mask)
-        return gx, gw, None, None, None, None
+                transposed, list(output_padding) if transposed else [0] * len(stride),
+                groups, mask)
+        return gx, gw, None, None, None, None, None
 
 
 def _tuple(v, n: int) -> tuple:
@@ -167,6 +185,45 @@ def conv2d_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, *, stride=(1, 1),
     n_out) maps in x's dtype."""
     return conv_channels_last(x, w_hwio, stride=pair(stride), padding=padding,
                               dilation=pair(dilation), groups=groups)
+
+
+def transpose_pads(k: int, s: int, padding: str) -> tuple[int, int]:
+    """``lax.conv_transpose``'s (before, after) padding of the dilated
+    input in one spatial dim (``_conv_transpose_padding``)."""
+    if padding == "same":
+        total = k + s - 2
+        before = k - 1 if s > k - 1 else -(-total // 2)
+    elif padding == "valid":
+        total = k + s - 2 + max(k - s, 0)
+        before = k - 1
+    else:
+        raise ValueError(f"padding must be 'same' or 'valid', got {padding!r}")
+    return before, total - before
+
+
+def conv_transpose2d_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, *, stride=(2, 2),
+                          padding: str = "valid") -> torch.Tensor:
+    """``lax.conv_transpose(x, w, stride, padding, ("NHWC", "HWIO",
+    "NHWC"))``: (B, H, W, C) maps and a (kh, kw, C, n_out) kernel ->
+    (B, H', W', n_out) in x's dtype (the module docstring's mapping)."""
+    kernel, stride = tuple(w_hwio.shape[:2]), pair(stride)
+    crops, extra = [], []
+    for i, (k, s) in enumerate(zip(kernel, stride)):
+        before, after = transpose_pads(k, s, padding)
+        n = x.shape[1 + i]
+        out = (n - 1) * s + 1 + before + after - k + 1     # JAX's length
+        start = k - 1 - before
+        extra.append(max(start + out - ((n - 1) * s + k), 0))
+        crops.append((start, out))
+    if any(e >= s for e, s in zip(extra, stride)):
+        raise ValueError(f"transposed convolution at kernel {kernel}, stride {stride}: "
+                         "no output padding reaches JAX's output")
+    xc = x.movedim(-1, 1).contiguous(memory_format=torch.channels_last)
+    wc = w_hwio.flip(0, 1).permute(2, 3, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    y = ConvChannelsLast.apply(xc, wc, stride, (0, 0), (1, 1), 1, tuple(extra))
+    (sh, lh), (sw, lw) = crops
+    return y[:, :, sh:sh + lh, sw:sw + lw].movedim(1, -1)
 
 
 _MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}

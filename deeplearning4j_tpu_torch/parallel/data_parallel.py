@@ -98,8 +98,9 @@ def _not_ported(what: str) -> NotImplementedError:
 
 # layer types whose forward computes the whole function from slices
 # split by the model axis (`nn/conf/layers.py`, `nn/conf/layers_nd.py`)
-_TP_LAYERS = {"Dense", "Embedding", "Conv2D", "Conv1D", "Conv3D",
-              "ChunkedSoftmaxOutputLayer", "MoELayer"}
+_TP_LAYERS = {"Dense", "Embedding", "Conv2D", "Conv1D", "Conv3D", "SeparableConv2D",
+              "Deconv2D", "CenterLossOutputLayer", "ChunkedSoftmaxOutputLayer",
+              "MoELayer"}
 
 
 def _check_model_parallel(model, specs, sp: bool) -> None:

@@ -56,7 +56,9 @@ def _quantizable_types():
 
     qkv = ("Wq", "Wk", "Wv", "Wo")
     return (
+        (L.SeparableConv2D, {"": ("depthW", "pointW")}),
         (L.Conv2D, {"": ("W",)}),
+        (L.Deconv2D, {"": ("W",)}),
         (L.Dense, {"": ("W",)}),             # OutputLayer subclasses Dense
         (L.Embedding, {"": ("W",)}),
         (L.ChunkedSoftmaxOutputLayer, {"": ("W",)}),

@@ -9,8 +9,8 @@ JAX package's tags (the class names), with its field names, defaults and
 enum values, so one ``configuration.json`` reads and writes in both
 packages.
 
-A tag the JAX package has and the port does not yet (a long-tail
-layer, ...) raises `NotImplementedError` naming the ROADMAP item that
+A tag listed in `UNPORTED` (one the JAX package has and the port does
+not yet) raises `NotImplementedError` naming the ROADMAP item that
 ports it; a tag neither package knows raises `KeyError`.
 """
 
@@ -24,13 +24,10 @@ from typing import Any
 
 _REGISTRY: dict[str, type] = {}
 
-_LONG_TAIL = "A13: the long tail"
-#: JAX package tags the port has no class for yet, and where each waits
-UNPORTED = dict.fromkeys(("LossLayer", "ScaleShift", "SeparableConv2D", "Deconv2D",
-                          "SpaceToDepth", "Upsampling2D",
-                          "LocalResponseNormalization", "CenterLossOutputLayer",
-                          "Yolo2OutputLayer", "AutoEncoder",
-                          "VariationalAutoencoder"), _LONG_TAIL)
+#: JAX package tags the port has no class for yet, and the ROADMAP item
+#: each waits in (none: every tag of the JAX package's config modules is
+#: registered)
+UNPORTED: dict[str, str] = {}
 
 
 def register(cls=None, *, name: str | None = None):
@@ -49,7 +46,8 @@ def register(cls=None, *, name: str | None = None):
 
 # the modules whose config classes register themselves on import
 _CONFIG_MODULES = ("nn.conf.layers", "nn.conf.layers_nd", "nn.conf.attention",
-                   "nn.conf.moe", "nn.conf.recurrent", "nn.conf.graph_conf", "nn.conf.input_type",
+                   "nn.conf.moe", "nn.conf.recurrent", "nn.conf.objdetect",
+                   "nn.conf.pretrain", "nn.conf.graph_conf", "nn.conf.input_type",
                    "nn.conf.neural_net_configuration", "nn.updaters",
                    "nn.schedules", "autodiff.samediff")
 

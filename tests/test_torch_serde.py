@@ -193,12 +193,19 @@ def test_enum_fields_coerce_values_names_and_aliases():
                                       ("SpaceToDepth", "A13"),
                                       ("CenterLossOutputLayer", "A13"),
                                       ("Yolo2OutputLayer", "A13")])
-def test_a_tag_the_port_lacks_names_its_roadmap_item(tag, item):
+def test_a_tag_the_port_lacks_names_its_roadmap_item(tag, item, monkeypatch):
+    """Each of these tags waited in ROADMAP ``item`` and is ported now:
+    it reads to the port's class of that name.  A tag still listed in
+    `serde.UNPORTED` raises naming its item."""
     jconf = (JaxNNC.builder().list().layer(jax_layers.Dense(n_out=4))
              .layer(jax_layers.OutputLayer(n_out=2))
              .set_input_type(JaxInputType.feed_forward(3)).build())
     data = json.loads(jconf.to_json())
-    data["layers"][0]["@type"] = tag
+    data["layers"][0] = {"@type": tag, "name": "layer0"}
+    assert type(serde.from_jsonable(data).layers[0]).__name__ == tag
+    assert tag not in serde.UNPORTED
+    monkeypatch.setitem(serde.UNPORTED, "FutureLayer", item)
+    data["layers"][0]["@type"] = "FutureLayer"
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         serde.from_jsonable(data)
     data["layers"][0]["@type"] = "NoSuchLayer"

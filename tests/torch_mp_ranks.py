@@ -317,3 +317,27 @@ def ep_world(case: dict) -> dict:
         out[name] = full_table(m)
         out[f"{name}_out"] = _np(m.output(probe))
     return out
+
+
+# -- tests/test_torch_zoo_parallel.py ----------------------------------------------
+
+def zoo_tp_world(case: dict) -> dict:
+    """Each zoo graph of ``case`` (configuration JSON, weights, layer
+    state, the batch) under ``model=n``: ``output()`` of the batch, then
+    one step and the whole tree after it, and the split each leaf
+    took."""
+    from deeplearning4j_tpu_torch.models.computation_graph import GraphModel
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphConfiguration
+
+    out = {}
+    for name, (conf, params, state, x, y) in case.items():
+        m = GraphModel(GraphConfiguration.from_json(conf), device="cpu")
+        m.load_params(params).load_net_state(state)
+        distribute(m, model=distributed.process_count())
+        out[f"{name}_splits"] = [None if s is None else tuple(s)
+                                 for s in m._shard_placement.splits]
+        out[f"{name}_out"] = _np(m.output(x))
+        m.fit_batch(MultiDataSet((rows(m, x),), (rows(m, y),)))
+        out[f"{name}_loss"] = m.score_value
+        out[name] = full_table(m)
+    return out
